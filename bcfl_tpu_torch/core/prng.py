@@ -1,0 +1,57 @@
+"""Seeded generators: port of ``bcfl_tpu/core/prng.py``.
+
+JAX folds one root key per ``(round, client)`` (``client_round_keys``) for
+dropout, and per ``(round, leaf index)`` for the codec's stochastic-rounding
+uniforms (``codecs.codec_key`` then ``fold_in(key, i)``). Here each such
+stream is an explicit ``torch.Generator`` seeded from the same coordinates,
+so every draw is deterministic and independent across clients, rounds and
+leaves. The streams are PyTorch's Philox/MT draws, not threefry: they do not
+reproduce the JAX numbers, which is why the parity tests hand both packages
+the same inputs and noise instead.
+"""
+
+from __future__ import annotations
+
+import hashlib
+from typing import Callable, Tuple
+
+import torch
+
+# lanes separating the streams derived from one seed (the JAX package folds
+# 4 for the training keys and 0x51F7 for the codec lane)
+TRAIN_LANE = 4
+CODEC_LANE = 0x51F7
+
+
+def stream_seed(*coords: int) -> int:
+    """A 63-bit seed from integer coordinates (stable across processes)."""
+    h = hashlib.blake2b(b",".join(str(int(c)).encode() for c in coords),
+                        digest_size=8)
+    return int.from_bytes(h.digest(), "little") >> 1
+
+
+def generator(device, *coords: int) -> torch.Generator:
+    g = torch.Generator(device=torch.device(device))
+    g.manual_seed(stream_seed(*coords))
+    return g
+
+
+def client_round_generators(seed: int, num_clients: int, round_idx: int,
+                            device) -> list:
+    """One dropout generator per client for round ``round_idx``."""
+    return [generator(device, seed, TRAIN_LANE, round_idx, c)
+            for c in range(num_clients)]
+
+
+def codec_uniforms(seed: int, round_idx: int
+                   ) -> Callable[[int, Tuple[int, ...], torch.device],
+                                 torch.Tensor]:
+    """The codec's uniforms source for one round: leaf ``i`` draws
+    U[0, 1) of its grid shape from its own generator."""
+
+    def draw(i: int, shape, device) -> torch.Tensor:
+        g = generator(device, seed, CODEC_LANE, round_idx, i)
+        return torch.rand(shape, generator=g, device=device,
+                          dtype=torch.float32)
+
+    return draw

@@ -1,0 +1,263 @@
+"""PyTorch port (``bcfl_tpu_torch``): the slice end to end on the CPU, its
+config gate, the host-side data modules against the JAX package, and the
+import boundary.
+
+(f) ``run(..., device="cpu")`` for 2 rounds; every config value the slice
+does not run raises "not ported yet"; ``run()`` without a device and
+without a GPU raises instead of dropping to the CPU; an AST scan finds no
+``jax``/``flax``/``optax``/``bcfl_tpu`` import in the port or in
+``chip_smoke.py``. The tokenizer, the datasets (``synthetic``, ``csv:`` on
+a CSV this test writes, ``medical_transcriptions``) and the contiguous
+partitions are equal to the JAX package's.
+"""
+
+import ast
+import math
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from bcfl_tpu.config import PartitionConfig as JPart
+from bcfl_tpu.data import datasets as jds
+from bcfl_tpu.data import partition as jpart
+from bcfl_tpu.data.tokenizer import HashTokenizer as JHash
+from bcfl_tpu_torch.compression import CompressionConfig, payload_nbytes
+from bcfl_tpu_torch.config import FedConfig, PartitionConfig
+from bcfl_tpu_torch.data import datasets as tds
+from bcfl_tpu_torch.data import partition as tpart
+from bcfl_tpu_torch.data.tokenizer import HashTokenizer
+from bcfl_tpu_torch.entrypoints import run
+from bcfl_tpu_torch.entrypoints.__main__ import main as cli_main
+from bcfl_tpu_torch.ops import registry
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs in parallel workers; at these tiny shapes torch's
+    intra-op threads only oversubscribe the cores (a 3 s run took 30 s)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _tiny(**kw):
+    base = dict(dataset="synthetic", model="tiny-bert", num_clients=3,
+                num_rounds=2, seq_len=16, batch_size=4, max_local_batches=2,
+                vocab_size=512, max_eval_batches=2,
+                partition=PartitionConfig(kind="iid", iid_samples=8),
+                compression=CompressionConfig(kind="int8+topk"))
+    base.update(kw)
+    return FedConfig(**base)
+
+
+def test_cpu_run_end_to_end():
+    cfg = _tiny()
+    registry.reset_launches()
+    res = run(cfg, device="cpu", verbose=False)
+    rounds = res.metrics.rounds
+    assert [r.round for r in rounds] == [0, 1]
+    want = payload_nbytes(cfg.compression, res.trainable) * cfg.num_clients
+    for r in rounds:
+        assert math.isfinite(r.train_loss) and math.isfinite(r.global_loss)
+        assert 0.0 <= r.global_acc <= 1.0 and len(r.local_acc) == 3
+        assert r.bytes_on_wire == want and r.bytes_raw > 8 * want
+        assert r.wall_s > 0 and not r.degraded
+    assert all(bool(torch.isfinite(t).all()) for t in res.trainable.values())
+    # the CPU path runs the plain versions: no kernel launch counted
+    assert registry.launch_counts() == {"int8_quantize": 0, "topk_select": 0}
+    assert res.metrics.comms["compression_ratio"] > 8
+
+
+def test_run_is_deterministic_and_eval_cadence():
+    cfg = _tiny(num_rounds=3, eval_every=2,
+                compression=CompressionConfig(kind="none"))
+    a = run(cfg, device="cpu", verbose=False)
+    b = run(cfg, device="cpu", verbose=False)
+    for p, x in a.trainable.items():
+        assert torch.equal(x, b.trainable[p]), p
+    # evaluated at round 2 (every 2nd) and at the last round
+    assert [r.global_acc is not None for r in a.metrics.rounds] == [
+        False, True, True]
+    assert a.metrics.rounds[0].compression_ratio == 1.0
+
+
+NOT_PORTED = [
+    ("mode", {"mode": "serverless"}),
+    ("sync", {"sync": "async"}),
+    ("runtime", {"runtime": "dist"}),
+    ("lora_rank", {"lora_rank": 4}),
+    ("tp", {"tp": 2}),
+    ("sp", {"sp": 2}),
+    ("aggregator", {"aggregator": "trimmed_mean"}),
+    ("use_flash", {"use_flash": True}),
+    ("faults", {"faults": object()}),
+    ("ledger.enabled", {"ledger": __import__(
+        "bcfl_tpu_torch.config", fromlist=["LedgerConfig"]).LedgerConfig(
+            enabled=True)}),
+    ("task", {"task": "causal_lm"}),
+    ("remat", {"remat": True}),
+    ("rounds_per_dispatch", {"rounds_per_dispatch": 2}),
+    ("checkpoint_dir", {"checkpoint_dir": "ck"}),
+]
+
+
+@pytest.mark.parametrize("field,kw", NOT_PORTED, ids=[f for f, _ in NOT_PORTED])
+def test_unsupported_config_raises_not_ported(field, kw):
+    with pytest.raises(ValueError, match=f"{field}=.*not ported yet"):
+        _tiny(**kw)
+
+
+def test_run_without_device_raises_without_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run(_tiny(), verbose=False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run(_tiny(), device="cuda", verbose=False)
+
+
+def test_cli_runs_smoke_on_cpu_and_rejects_other_flags(capsys):
+    assert cli_main(["--preset", "smoke", "--device", "cpu", "--rounds", "1",
+                     "--seq-len", "16", "--max-local-batches", "1",
+                     "--compress", "int8+topk"]) == 0
+    out = capsys.readouterr().out
+    assert "round   0:" in out and "compress=int8+topk" in out
+    for flags in (["--mode", "serverless"], ["--ledger"], ["--tp", "2"]):
+        with pytest.raises(SystemExit) as e:
+            cli_main(["--device", "cpu"] + flags)
+        assert e.value.code == 2
+    assert "not ported yet" in capsys.readouterr().err
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "id", "") == "__import__"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+def test_port_imports_nothing_of_jax_or_the_jax_package():
+    files = sorted((ROOT / "bcfl_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    banned = ("jax", "jaxlib", "flax", "optax", "bcfl_tpu")
+    for f in files:
+        for name in _imports(f):
+            top = name.split(".")[0]
+            assert top not in banned, f"{f.relative_to(ROOT)} imports {name}"
+
+
+# ------------------------------------------------- host-side data parity
+
+
+def test_tokenizer_matches_jax():
+    texts = ["Hello, world! It's 42.", "", "  spaces\tand\nnewlines  ",
+             "ünïcödé wörds and CAPS", "a " * 40]
+    for vocab in (512, 30522):
+        for seq in (1, 2, 16):
+            ti, tm = HashTokenizer(vocab).encode_batch(texts, seq)
+            ji, jm = JHash(vocab).encode_batch(texts, seq)
+            np.testing.assert_array_equal(ti, ji)
+            np.testing.assert_array_equal(tm, jm)
+
+
+def test_synthetic_and_medical_standin_match_jax(tmp_path):
+    for name, kw in (("synthetic", {"num_labels": 3, "n_train": 64,
+                                    "n_test": 16}),
+                     ("medical_transcriptions",
+                      {"data_dir": str(tmp_path / "absent")})):
+        t, j = tds.load_dataset(name, **kw), jds.load_dataset(name, **kw)
+        assert t.train_texts == j.train_texts and t.test_texts == j.test_texts
+        np.testing.assert_array_equal(t.train_labels, j.train_labels)
+        assert t.num_labels == j.num_labels and t.name == j.name
+
+
+def test_csv_loaders_match_jax(tmp_path):
+    rows = [("a note, with a comma", "cardio"), ("2nd", "neuro"),
+            ("third \"quoted\" text", "cardio"), ("fourth", "derm"),
+            ("fifth", "neuro")]
+    for split in ("train_file_mt.csv", "test_file_mt.csv", "one.csv"):
+        with open(tmp_path / split, "w", newline="") as f:
+            import csv
+
+            w = csv.writer(f)
+            w.writerow(["description", "medical_specialty", "text", "label"])
+            for i, (text, lab) in enumerate(rows):
+                w.writerow([text, lab, text, str(i % 3)])
+    specs = [("medical_transcriptions", {"data_dir": str(tmp_path)}),
+             (f"csv:{tmp_path / 'one.csv'}", {"test_frac": 0.4}),
+             (f"csv:{tmp_path / 'one.csv'}::{tmp_path / 'one.csv'}",
+              {"label_col": "label"})]
+    for name, kw in specs:
+        t, j = tds.load_dataset(name, **kw), jds.load_dataset(name, **kw)
+        assert t.train_texts == j.train_texts and t.test_texts == j.test_texts
+        np.testing.assert_array_equal(t.train_labels, j.train_labels)
+        np.testing.assert_array_equal(t.test_labels, j.test_labels)
+        assert t.num_labels == j.num_labels
+
+
+@pytest.mark.parametrize("mode", ["trailing", "fixed"])
+def test_contiguous_partitions_match_jax_and_iid_is_seeded(mode):
+    import jax
+
+    kw = dict(kind="contiguous", stride=50, train_span=30, test_span=20,
+              test_mode=mode)
+    tp = tpart.Partitioner(PartitionConfig(**kw), 120, 90, seed=0)
+    jp = jpart.Partitioner(JPart(**kw), 120, 90, jax.random.key(0))
+    for client in range(5):  # clients 3-4 wrap past the end
+        for a, b in zip(tp.train_test_indices(client, 0),
+                        jp.train_test_indices(client, 0)):
+            np.testing.assert_array_equal(a, b)
+    iid = tpart.Partitioner(PartitionConfig(kind="iid", iid_samples=10),
+                            100, 40, seed=3)
+    tr, te = iid.train_test_indices(1, 0)
+    assert len(set(tr.tolist())) == 10 and len(te) == 10
+    np.testing.assert_array_equal(tr, iid.train_test_indices(1, 5)[0])
+    assert not np.array_equal(tr, iid.train_test_indices(2, 0)[0])
+
+
+def _chip_smoke():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_records_only_what_it_measured(monkeypatch, capsys):
+    smoke = _chip_smoke()
+    for op in registry.kernel_ops():
+        rec = smoke.KernelStats(op).record()
+        assert rec["source"] == f"bcfl_tpu_torch/csrc/{op.name}.cu"
+        assert rec["replaces"].startswith("bcfl_tpu/ops/pallas_codec.py:")
+        # nothing measured yet: every measured field is null, never 0
+        for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms"):
+            assert rec[key] is None, key
+    # no card: a non-zero exit and no result on stdout
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert smoke.main([]) != 0
+    assert capsys.readouterr().out == ""
+    with pytest.raises(SystemExit):
+        smoke.main(["--phases", "build"])  # no subset knob
+
+
+def test_resolve_device_leaves_float32_policy_alone(monkeypatch):
+    from bcfl_tpu_torch.core import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    assert resolve_device().type == "cuda"
+    assert torch.backends.cuda.matmul.allow_tf32 is True
