@@ -72,7 +72,6 @@ _NOT_PORTED = (
     ("tokenizer", lambda c: c.tokenizer != "hash"),
     ("hf_checkpoint", lambda c: c.hf_checkpoint is not None),
     ("lora_rank", lambda c: c.lora_rank > 0),
-    ("use_flash", lambda c: bool(c.use_flash)),
     ("remat", lambda c: c.remat),
     ("tp", lambda c: c.tp > 1),
     ("sp", lambda c: c.sp > 1),
@@ -113,6 +112,8 @@ class FedConfig:
     lora_rank: int = 0
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    # None = the model family's default (encoders: dense attention); True
+    # forces flash attention at every length, False dense
     use_flash: Optional[bool] = None
     remat: bool = False
     tp: int = 1

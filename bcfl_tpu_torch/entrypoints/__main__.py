@@ -2,6 +2,8 @@
 flags the ported slice supports.
 
     python -m bcfl_tpu_torch.entrypoints --preset smoke --device cpu
+    python -m bcfl_tpu_torch.entrypoints --preset smoke --device cpu \\
+        --use-flash on --seq-len 64
     python -m bcfl_tpu_torch.entrypoints --preset server_iid_medical \\
         --model bert-base --compress int8+topk --device cuda
 
@@ -52,6 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--compute-dtype", default=None,
                     choices=["float32", "bfloat16"])
+    ap.add_argument("--use-flash", choices=["on", "off"], default=None,
+                    help="force flash attention on or off (default: the "
+                         "model family's choice; encoders stay dense)")
     ap.add_argument("--compress", default=None, choices=list(COMPRESS_KINDS),
                     help="compress the update exchange (int8, topk, "
                          "int8+topk), with error feedback")
@@ -70,6 +75,8 @@ def build_config(args):
     cfg = get_preset(args.preset)
     overrides = {field: getattr(args, flag) for flag, field in _FIELD_FLAGS
                  if getattr(args, flag) is not None}
+    if args.use_flash is not None:
+        overrides["use_flash"] = args.use_flash == "on"
     if (args.compress is not None or args.compress_topk is not None
             or args.compress_chunk is not None or args.no_compress_ef):
         kind = (args.compress if args.compress is not None

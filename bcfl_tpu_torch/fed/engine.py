@@ -81,11 +81,19 @@ class FedEngine:
         self.partitioner = Partitioner(cfg.partition, self.dataset.n_train,
                                        self.dataset.n_test, cfg.seed)
         # --- model: built on the device, fresh init from the seed ---
+        overrides = {}
+        if cfg.use_flash is not None:
+            overrides["use_flash"] = cfg.use_flash
+            if cfg.use_flash:
+                # an explicit "on" forces flash attention at every length
+                # (the family otherwise gates on flash_min_seq)
+                overrides["flash_min_seq"] = 0
         with torch.device(dev):
             self.model = build(cfg.model, num_labels=self.num_labels,
                                vocab_size=self.tokenizer.vocab_size,
                                dtype=DTYPES[cfg.compute_dtype],
-                               param_dtype=DTYPES[cfg.param_dtype])
+                               param_dtype=DTYPES[cfg.param_dtype],
+                               **overrides)
         init_params(self.model, prng.generator(dev, cfg.seed, INIT_LANE))
         self.trainable0 = trainable_tree(self.model)
         loss_fn = make_loss_fn(self.model, cfg.task)

@@ -15,8 +15,10 @@ Weights are PyTorch-layout ``nn.Linear``/``nn.Embedding``/``nn.LayerNorm``
 parameters whose module names are the flax names, so
 :mod:`bcfl_tpu_torch.models.convert` maps between the two trees by path.
 Dropout draws from an explicit ``torch.Generator`` passed to ``forward``
-(the flax ``rngs={"dropout": key}``). Flash attention (``use_flash``) is
-not ported yet.
+(the flax ``rngs={"dropout": key}``). With ``use_flash`` a sequence of at
+least ``flash_min_seq`` tokens takes the flash-attention path
+(:func:`bcfl_tpu_torch.ops.flash.flash_attention`, hand-written kernels on
+the card) with the same ``[B, 1, 1, S]`` padding bias as dense attention.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from bcfl_tpu_torch.ops.attention import (
     attention_bias_from_mask,
     dot_product_attention,
 )
+from bcfl_tpu_torch.ops.flash import flash_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,14 +52,10 @@ class EncoderConfig:
     layer_norm_eps: float = 1e-12
     share_layers: bool = False
     embedding_size: Optional[int] = None
-    use_flash: bool = False
+    use_flash: bool = False  # flash attention for long sequences
+    flash_min_seq: int = 512  # below this, dense attention is faster
     dtype: torch.dtype = torch.bfloat16  # compute dtype
     param_dtype: torch.dtype = torch.float32
-
-    def __post_init__(self):
-        if self.use_flash:
-            raise ValueError("use_flash=True is not ported yet (flash "
-                             "attention kernels K1-K3)")
 
     @property
     def head_dim(self) -> int:
@@ -106,8 +105,11 @@ class SelfAttention(nn.Module):
             return dense(x, layer, c.dtype).view(
                 B, S, c.num_heads, c.head_dim).transpose(1, 2)
 
-        out = dot_product_attention(heads(self.query), heads(self.key),
-                                    heads(self.value), bias)
+        q, k, v = heads(self.query), heads(self.key), heads(self.value)
+        if c.use_flash and S >= c.flash_min_seq:
+            out = flash_attention(q, k, v, bias)
+        else:
+            out = dot_product_attention(q, k, v, bias)
         out = out.transpose(1, 2).reshape(B, S, c.num_heads * c.head_dim)
         out = dense(out, self.out, c.dtype)
         return dropout(out, c.dropout_rate, deterministic, generator)

@@ -3,8 +3,7 @@
 Shapes keep the JAX layout ``[batch, heads, seq, head_dim]`` with an
 additive bias (0 keep, -1e9 drop). The two products are plain large matrix
 products and go to ``torch.matmul``; the softmax is taken in float32 as in
-the reference. (Flash attention, the ``use_flash`` path, is not ported
-yet.)
+the reference. The ``use_flash`` path is :mod:`bcfl_tpu_torch.ops.flash`.
 """
 
 from __future__ import annotations

@@ -63,7 +63,7 @@ def _int8_cuda(g: torch.Tensor, u: Optional[torch.Tensor], *,
     C, M, chunk = g.shape
     q = torch.empty(g.shape, dtype=torch.int8, device=g.device)
     scale = torch.empty((C, M), dtype=torch.float32, device=g.device)
-    lib = cuda_build.load("int8_quantize")
+    lib = cuda_build.load(INT8_QUANTIZE.source)
     fn = lib.bcfl_int8_quantize
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
@@ -118,7 +118,7 @@ def _topk_cuda(x: torch.Tensor, *, k: int
     state[:, 1] = k
     tiecnt = torch.empty((R, nblk), dtype=torch.int32, device=dev)
     buf = torch.full((R, kpad), -1, dtype=torch.int64, device=dev)
-    lib = cuda_build.load("topk_select")
+    lib = cuda_build.load(TOPK_SELECT.source)
     fn = lib.bcfl_topk_select
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
@@ -170,7 +170,8 @@ INT8_QUANTIZE = registry.register_op(registry.KernelOp(
         {"label": "lora-r4-3072", "C": 8, "N": 3072, "chunk": 256},
         {"label": "lora-r8-6144", "C": 8, "N": 6144, "chunk": 256},
     ),
-    replaces="bcfl_tpu/ops/pallas_codec.py:75 (_int8_kernel)"))
+    replaces="bcfl_tpu/ops/pallas_codec.py:75 (_int8_kernel)",
+    source="int8_quantize"))
 
 TOPK_SELECT = registry.register_op(registry.KernelOp(
     name="topk_select", torch=topk_select_ref, cuda=_topk_cuda,
@@ -181,13 +182,11 @@ TOPK_SELECT = registry.register_op(registry.KernelOp(
         {"label": "lora-r4-3072", "R": 96, "N": 3072},
         {"label": "lora-r8-6144", "R": 96, "N": 6144},
     ),
-    replaces="bcfl_tpu/ops/pallas_codec.py:136 (_topk_kernel)"))
+    replaces="bcfl_tpu/ops/pallas_codec.py:136 (_topk_kernel)",
+    source="topk_select"))
 
 INT8_DEQUANT = registry.register_op(registry.KernelOp(
     name="int8_dequant", torch=int8_dequant))
 
 TOPK_SCATTER = registry.register_op(registry.KernelOp(
     name="topk_scatter", torch=topk_scatter))
-
-#: the kernel sources under csrc/ (cuda_build.build_all)
-KERNEL_SOURCES = ("int8_quantize", "topk_select")

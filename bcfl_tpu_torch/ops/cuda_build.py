@@ -4,13 +4,15 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes``. The build
 runs at first use, from the sources in the checkout only, into
 ``build/bcfl_tpu_torch/`` beside the package (a directory git ignores);
-the library name carries a hash of its source, so an edited kernel is
-rebuilt and a stale one is never loaded. :func:`build_all` starts one
-``nvcc`` per source at once and waits for all of them.
+the library name carries a hash of its source and of every shared header
+``csrc/*.cuh``, so an edited kernel or header is rebuilt and a stale one is
+never loaded. :func:`build_all` starts one ``nvcc`` per source at once and
+waits for all of them.
 
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3``, and deliberately NO
 ``--use_fast_math``: the int8 codec's bit-identity with its plain version
-rests on IEEE division and ``rintf``/``floorf``.
+rests on IEEE division and ``rintf``/``floorf``, and the flash kernels use
+the accurate ``expf``/``logf``.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, Iterable, Optional
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -53,8 +55,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
@@ -84,9 +89,15 @@ def _finish(name: str, out: Path, job, t0: float) -> None:
     os.replace(tmp, out)
 
 
-def build_all(names: List[str]) -> Dict[str, float]:
-    """Compile every named kernel source in parallel (one nvcc each) and
-    load them; returns the nvcc seconds per source (0 when cached)."""
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
+    """Compile every named kernel source (default: the sources of every
+    registered kernel op) in parallel, one nvcc each, and load them;
+    returns the nvcc seconds per source (0 when cached)."""
+    if names is None:
+        from bcfl_tpu_torch.ops import registry
+
+        names = registry.kernel_sources()
+    names = list(names)
     with _LOCK:
         jobs = {n: _start(n) for n in names if n not in _LIBS}
         err = None

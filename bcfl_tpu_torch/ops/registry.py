@@ -12,12 +12,14 @@ flag:
 Every op carries ``launches``, a plain int that its CUDA wrapper
 increments once per kernel launch and nowhere else, so a run can show that
 its main path went through the kernel (:func:`reset_launches`,
-:func:`launch_counts`).
+:func:`launch_counts`). ``parity`` says how a kernel is held to its plain
+version, and :func:`parity_check` turns it into the check.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -28,13 +30,15 @@ class KernelOp:
     name: str
     torch: Callable
     cuda: Optional[Callable] = None
-    #: how the kernel is held to its plain version; chip_smoke.py checks
-    #: "bit-identical", the only contract a kernel of the port has so far
+    #: how the kernel is held to its plain version: "bit-identical" or
+    #: "allclose:atol=<x>,rtol=<y>" (:func:`parity_check`)
     parity: str = "bit-identical"
     #: the shapes the op is paid at (op-specific dicts, read by chip_smoke)
     bench_shapes: Tuple = ()
     #: the TPU kernel this op's CUDA kernel replaces (file:function)
     replaces: str = ""
+    #: stem of the kernel's source, ``bcfl_tpu_torch/csrc/<source>.cu``
+    source: str = ""
     launches: int = 0
 
     def __call__(self, *args, **kwargs):
@@ -45,6 +49,46 @@ class KernelOp:
             return self.cuda(*args, **kwargs)
         raise ValueError(f"op {self.name!r}: no implementation for device "
                          f"{dev}")
+
+
+_ALLCLOSE = re.compile(r"allclose:atol=([0-9.eE+-]+),rtol=([0-9.eE+-]+)$")
+
+
+def parity_check(parity: str) -> Callable[[torch.Tensor, torch.Tensor],
+                                          Tuple[bool, float]]:
+    """``check(got, want) -> (ok, max_abs_err)`` for a ``parity`` string:
+    ``"bit-identical"`` (same bits, so -0.0 and NaN payloads count) or
+    ``"allclose:atol=<x>,rtol=<y>"`` (``|got - want| <= atol + rtol *
+    |want|`` everywhere, in float64)."""
+    def err(a, b):
+        return (float((a.double() - b.double()).abs().max())
+                if a.numel() else 0.0)
+
+    if parity == "bit-identical":
+        def bits(a, b):
+            if a.shape != b.shape or a.dtype != b.dtype:
+                return False, float("inf")
+            if a.is_floating_point():
+                view = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+                same = torch.equal(a.view(view[a.element_size()]),
+                                   b.view(view[b.element_size()]))
+            else:
+                same = torch.equal(a, b)
+            return same, err(a, b)
+        return bits
+    m = _ALLCLOSE.match(parity)
+    if m is None:
+        raise ValueError(f"unknown parity {parity!r}: 'bit-identical' or "
+                         "'allclose:atol=<x>,rtol=<y>'")
+    atol, rtol = float(m.group(1)), float(m.group(2))
+
+    def close(a, b):
+        if a.shape != b.shape:
+            return False, float("inf")
+        d = (a.double() - b.double()).abs()
+        ok = bool((d <= atol + rtol * b.double().abs()).all())
+        return ok, err(a, b)
+    return close
 
 
 def _device_of(args) -> torch.device:
@@ -82,3 +126,8 @@ def reset_launches() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return {op.name: op.launches for op in kernel_ops()}
+
+
+def kernel_sources() -> Tuple[str, ...]:
+    """The ``csrc`` stems of every registered kernel op."""
+    return tuple(sorted({op.source for op in kernel_ops()}))

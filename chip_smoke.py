@@ -6,29 +6,44 @@
 
 Phases, each of which raises (and the script exits non-zero) on failure:
 
-1. ``build``: compile every hand-written CUDA kernel of the main path from
+1. ``build``: compile every hand-written CUDA kernel from
    ``bcfl_tpu_torch/csrc`` (one ``nvcc`` per source, all at once).
-2. ``kernels``: hold each kernel to its plain PyTorch version on the card,
-   bit for bit: ``int8_quantize`` on its registered ``bench_shapes`` grids
-   (stochastic and deterministic), ``topk_select`` on its ``bench_shapes``
-   rows, one row for each leaf width of bert-base (the
-   23,440,896-wide word embeddings included), a row of ties and a row with
-   -0.0. One line per kernel and shape: kernel ms, plain ms, bound ms and,
-   for top-k, ``torch.topk`` ms as a yardstick the port never calls.
-3. ``main``: two rounds of 4-client bert-base FedAvg with the ``int8+topk``
-   codec through ``bcfl_tpu_torch.entrypoints.run`` at full width (random
-   weights from the seed, 2 local steps of 32 x 128 tokens). Checks finite
-   losses and parameters, that both kernels launched, and that the bytes
-   on the wire equal ``payload_nbytes``; prints per-round wall, samples/s,
-   compression ratio and peak memory.
-4. ``reference``: on a small input, a tiny-bert server round on the card
+2. ``kernels``: hold each kernel to its plain PyTorch version on the card
+   at its op's ``parity``. The codec kernels bit for bit:
+   ``int8_quantize`` on its registered ``bench_shapes`` grids (stochastic
+   and deterministic), ``topk_select`` on its ``bench_shapes`` rows, one
+   row for each leaf width of bert-base (the 23,440,896-wide word
+   embeddings included), a row of ties and a row with -0.0. The flash
+   kernels (forward; backward dK/dV/d-bias; backward dQ) within a
+   tolerance, bf16 at 2e-2 and float32 at 1e-4: the JAX bench rows
+   (bert-base-B4-S512 with ragged padding, llama-decode-B1-S2048 causal),
+   the seq-512 path's own [32, 12, 512, 64] call with its padding, a
+   ragged S=300, a suffix-causal Sq=128 / Sk=512, a row whose keys are all
+   padded, and head dims 32 and 128. One line per kernel and shape:
+   kernel ms, plain ms, bound ms and a PyTorch yardstick the port never
+   calls (``torch.topk``; ``scaled_dot_product_attention`` forward for the
+   flash forward, its backward for the two flash backward kernels).
+3. ``main``: two paths through ``bcfl_tpu_torch.entrypoints.run`` at
+   bert-base's full width (random weights from the seed), each with the
+   launch counts set to 0 just before it and read just after:
+   (a) two rounds of 4-client FedAvg with the ``int8+topk`` codec, 2 local
+   steps of 32 x 128 tokens, dense attention; (b) the same at 32 x 512
+   tokens with ``use_flash=True``, on a ``csv:`` corpus of long documents
+   that the script writes under ``build/``. Checks finite losses and
+   parameters, that every kernel of the path launched (path (b): exactly
+   rounds x clients x steps x layers launches of each flash backward
+   kernel), and that the bytes on the wire equal ``payload_nbytes``;
+   prints per-round wall, samples/s, compression ratio and peak memory.
+   Then times each kernel at the calls one round of path (b) makes.
+4. ``reference``: on small inputs, a tiny-bert server round on the card
    against the same round on the CPU (float32, dropout off, at the
-   tolerance of ``tests/test_torch_round.py``), and the codec tree encode
-   on the card against the CPU, payload bit for bit.
-5. ``profile`` (only with ``--profile``): one warm main-path round
-   split into its stages (local training, codec, FedAvg mean) on the host
-   clock, and under ``torch.profiler``: the device's busy share and the
-   kernels by device time.
+   tolerance of ``tests/test_torch_round.py``), with dense attention at
+   S=16 and with flash attention at S=64, and the codec tree encode on the
+   card against the CPU, payload bit for bit.
+5. ``profile`` (only with ``--profile``): one warm round of each main
+   path split into its stages (local training, codec, FedAvg mean) on the
+   host clock, and under ``torch.profiler``: the device's busy share and
+   the kernels by device time.
 
 The script prints the card's name and power limit first, and as its last
 three lines the kernels' JSON record, the card line again and the result
@@ -40,17 +55,21 @@ from __future__ import annotations
 
 import argparse
 import copy
+import csv
 import json
 import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bf16 dense tensor-core rate
 TOPK_FRAC = 0.05  # the codec's default topk_frac
+BUILD_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 # leaf widths of bert-base's trainable tree (vocab 30522)
 BERT_BASE_WIDTHS = (23440896, 2359296, 589824, 393216, 3072, 1536, 768, 2)
@@ -79,20 +98,24 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple:
+def bound_ms(nbytes: float, ops: float,
+             ops_per_s: float = F32_OPS_PER_S) -> tuple:
+    """The least time for moving ``nbytes`` and doing ``ops`` operations
+    at the card's peak rates (``ops_per_s``: the rate of the operations'
+    type), and which of the two bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
-    if a.dtype == torch.float32:
-        return torch.equal(a.view(torch.int32), b.view(torch.int32))
-    return torch.equal(a, b)
+def held(parity: str, pairs) -> tuple:
+    """Hold every ``(got, want)`` pair to a ``parity`` contract
+    (``registry.parity_check``): ``(all held, max |diff|)``."""
+    from bcfl_tpu_torch.ops import registry
 
-
-def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
-    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+    check = registry.parity_check(parity)
+    results = [check(a, b) for a, b in pairs]
+    return all(ok for ok, _ in results), max(err for _, err in results)
 
 
 # ---------------------------------------------------------------- kernels
@@ -104,7 +127,7 @@ class KernelStats:
 
     def __init__(self, op):
         self.name = op.name
-        self.source = f"bcfl_tpu_torch/csrc/{op.name}.cu"
+        self.source = f"bcfl_tpu_torch/csrc/{op.source}.cu"
         self.replaces = op.replaces.split()[0]
         self.max_abs_err = self.launches = None
         # per-round totals over the main path's calls
@@ -114,12 +137,12 @@ class KernelStats:
     def compared(self, err: float):
         self.max_abs_err = max(self.max_abs_err or 0.0, err)
 
-    def add_times(self, ms, plain, bnd, by, lib=None):
-        self.ms = (self.ms or 0.0) + ms
-        self.plain_ms = (self.plain_ms or 0.0) + plain
-        self.bound_ms = (self.bound_ms or 0.0) + bnd
+    def add_times(self, ms, plain, bnd, by, lib=None, calls=1):
+        self.ms = (self.ms or 0.0) + ms * calls
+        self.plain_ms = (self.plain_ms or 0.0) + plain * calls
+        self.bound_ms = (self.bound_ms or 0.0) + bnd * calls
         if lib is not None:
-            self.library_ms = (self.library_ms or 0.0) + lib
+            self.library_ms = (self.library_ms or 0.0) + lib * calls
         self.bound_by = by
 
     def record(self):
@@ -137,8 +160,8 @@ def int8_case(ck, st, gen, C, M, chunk, stochastic, label, iters):
     q, s = ck.INT8_QUANTIZE(g, u, stochastic=stochastic)
     q_ref, s_ref = ck.int8_quantize_ref(g, u, stochastic=stochastic)
     torch.cuda.synchronize()
-    same = bits_equal(q, q_ref) and bits_equal(s, s_ref)
-    st.compared(max(max_abs(q, q_ref), max_abs(s, s_ref)))
+    same, err = held(ck.INT8_QUANTIZE.parity, ((q, q_ref), (s, s_ref)))
+    st.compared(err)
     ms = time_ms(lambda: ck.INT8_QUANTIZE(g, u, stochastic=stochastic), iters)
     plain = time_ms(lambda: ck.int8_quantize_ref(g, u, stochastic=stochastic),
                     iters)
@@ -159,8 +182,8 @@ def topk_case(ck, st, x, k, label, iters):
     val, idx = ck.TOPK_SELECT(x, k=k)
     val_ref, idx_ref = ck.topk_select_ref(x, k=k)
     torch.cuda.synchronize()
-    same = bits_equal(val, val_ref) and torch.equal(idx, idx_ref)
-    st.compared(max_abs(val, val_ref))
+    same, err = held(ck.TOPK_SELECT.parity, ((val, val_ref), (idx, idx_ref)))
+    st.compared(err)
     ms = time_ms(lambda: ck.TOPK_SELECT(x, k=k), iters)
     plain = time_ms(lambda: ck.topk_select_ref(x, k=k), iters)
     a = x.abs()
@@ -180,14 +203,150 @@ def leaf_k(n: int) -> int:
     return max(1, int(math.ceil(TOPK_FRAC * n)))
 
 
-def phase_kernels(ck, stats):
+# ------------------------------------------------------- flash attention
+
+FLASH_OPS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+
+
+def flash_inputs(gen, B, H, Sq, Sk, D, dtype, lens):
+    """q, k, v, dO in the model's layout (``view(B, S, H, D)
+    .transpose(1, 2)``, not contiguous) and the ``[B, Sk]`` padding bias
+    (-1e9 past each row's length in ``lens``; none when ``lens`` is
+    None)."""
+    def draw(S):
+        return torch.randn((B, S, H, D), generator=gen, device="cuda").to(
+            dtype).transpose(1, 2)
+
+    q, k, v, do = draw(Sq), draw(Sk), draw(Sk), draw(Sq)
+    bias = torch.zeros((B, Sk), device="cuda")
+    if lens is not None:
+        keep = (torch.arange(Sk, device="cuda")[None, :]
+                < torch.tensor(lens, device="cuda")[:, None])
+        bias = torch.where(keep, 0.0, -1e9)
+    return q, k, v, do, bias
+
+
+def flash_cost(B, H, Sq, Sk, D, elt, causal):
+    """Per kernel: (bytes each input read once and each output written
+    once, matmul FLOPs: 4, 8 and 6 B H Sq Sk D, halved for causal)."""
+    nq, nk = B * H * Sq * D * elt, B * H * Sk * D * elt
+    bias, lse, db = B * Sk * 4, B * H * Sq * 4, B * H * Sk * 4
+    flops = B * H * Sq * Sk * D * (0.5 if causal else 1.0)
+    return {"flash_fwd": (2 * nq + 2 * nk + bias + lse, 4 * flops),
+            "flash_bwd_dkv": (3 * nq + 4 * nk + bias + lse + db, 8 * flops),
+            "flash_bwd_dq": (4 * nq + 2 * nk + bias + lse, 6 * flops)}
+
+
+def sdpa_ms(q, k, v, do, bias, causal, iters):
+    """``scaled_dot_product_attention`` with the same float mask: forward
+    ms, and backward ms as forward+backward minus forward. A yardstick
+    only; the port never calls it."""
+    import torch.nn.functional as F
+
+    Sq, Sk = q.shape[2], k.shape[2]
+    mask = bias[:, None, None, :].to(q.dtype)
+    if causal:
+        dead = (torch.arange(Sk, device="cuda")[None, :]
+                > torch.arange(Sq, device="cuda")[:, None] + (Sk - Sq))
+        mask = torch.where(dead, float("-inf"), mask)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def both():
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+        torch.autograd.grad(out, (qg, kg, vg), do)
+
+    fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask), iters)
+    return fwd, time_ms(both, iters) - fwd
+
+
+def flash_case(fk, stats, gen, label, B, H, Sq, Sk, D, dtype, causal, lens,
+               iters):
+    """Hold the three flash kernels to their plain versions (out and lse;
+    dk, dv and db_h; dq) at the op's bf16 ``parity`` or at ``F32_PARITY``,
+    and time them. Returns ``{op: (ms, plain, bound, bound_by, sdpa)}``."""
+    q, k, v, do, bias = flash_inputs(gen, B, H, Sq, Sk, D, dtype, lens)
+    parity = (fk.FLASH_FWD.parity if dtype == torch.bfloat16
+              else fk.F32_PARITY)
+    ref = fk.flash_fwd_ref(q, k, v, bias, causal)
+    bwd = (q, k, v, bias, ref[0], do, ref[1], causal)
+    calls = {
+        "flash_fwd": (lambda: fk.FLASH_FWD(q, k, v, bias, causal),
+                      lambda: fk.flash_fwd_ref(q, k, v, bias, causal)),
+        "flash_bwd_dkv": (lambda: fk.FLASH_BWD_DKV(*bwd),
+                          lambda: fk.flash_bwd_dkv_ref(*bwd)),
+        "flash_bwd_dq": (lambda: (fk.FLASH_BWD_DQ(*bwd),),
+                         lambda: (fk.flash_bwd_dq_ref(*bwd),)),
+    }
+    lib_fwd, lib_bwd = sdpa_ms(q, k, v, do, bias, causal, iters)
+    cost = flash_cost(B, H, Sq, Sk, D, q.element_size(), causal)
+    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    out, bad = {}, []
+    for name, (kernel, plain) in calls.items():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        ok, err = held(parity, zip(got, want))
+        stats[name].compared(err)
+        ms = time_ms(kernel, iters)
+        plain_ms = time_ms(plain, max(1, iters // 2))
+        bnd, by = bound_ms(*cost[name], rate)
+        lib = lib_fwd if name == "flash_fwd" else lib_bwd
+        print(f"{name} {label} [{B},{H},{Sq},{Sk},{D}] "
+              f"{str(dtype).split('.')[-1]} causal={int(causal)}: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bnd:.4f} ms "
+              f"({by}), sdpa {'fwd' if name == 'flash_fwd' else 'bwd'} "
+              f"{lib:.4f} ms, max |diff| {err:.3e} "
+              f"{'within' if ok else 'PAST'} {parity}", flush=True)
+        if not ok:
+            bad.append(name)
+        out[name] = (ms, plain_ms, bnd, by, lib)
+    if bad:
+        raise RuntimeError(f"{bad} differ from their plain versions past "
+                           f"{parity} at {label}")
+    return out
+
+
+def phase_flash_kernels(fk, stats, main_lens):
+    """Every flash case; returns the times of the seq-512 path's call."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = {sh["label"]: sh for sh in fk.FLASH_FWD.bench_shapes}
+    bert4, llama, main = (rows["bert-base-B4-S512"],
+                          rows["llama-decode-B1-S2048"],
+                          rows["bert-base-B32-S512"])
+    cases = [
+        # (label, B, H, Sq, Sk, D, dtype, causal, padded lengths)
+        ("bert-base-B4-S512", *(bert4[x] for x in "BHSSD"), bf16, False,
+         (512, 377, 200, 65)),
+        ("bert-base-B4-S512", *(bert4[x] for x in "BHSSD"), f32, False,
+         (512, 377, 200, 65)),
+        ("llama-decode-B1-S2048", *(llama[x] for x in "BHSSD"), bf16, True,
+         None),
+        ("seq-512-path", *(main[x] for x in "BHSSD"), bf16, False,
+         main_lens),
+        ("ragged-S300", 2, 12, 300, 300, 64, bf16, False, (300, 157)),
+        ("ragged-S300", 2, 12, 300, 300, 64, f32, False, (300, 157)),
+        ("suffix-causal", 2, 12, 128, 512, 64, bf16, True, None),
+        ("suffix-causal", 2, 12, 128, 512, 64, f32, True, None),
+        ("all-keys-padded", 2, 12, 256, 256, 64, bf16, False, (256, 0)),
+        ("all-keys-padded", 2, 12, 256, 256, 64, f32, False, (256, 0)),
+        ("head-dim-32", 2, 4, 200, 200, 32, bf16, True, (200, 120)),
+        ("head-dim-128", 2, 4, 200, 200, 128, f32, False, (200, 120)),
+    ]
+    for label, B, H, Sq, Sk, D, dtype, causal, lens in cases:
+        per = flash_case(fk, stats, gen, label, B, H, Sq, Sk, D, dtype,
+                         causal, lens, 5)
+        if label == "seq-512-path":
+            main_per = per
+    return main_per
+
+
+def phase_kernels(ck, fk, stats, main_lens):
+    """Returns the flash kernels' times at the seq-512 path's call."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     s4, s5 = stats["int8_quantize"], stats["topk_select"]
-    for op in (ck.INT8_QUANTIZE, ck.TOPK_SELECT):
-        if op.parity != "bit-identical":
-            raise RuntimeError(f"{op.name}: no check for parity "
-                               f"{op.parity!r}")
     for sh in ck.INT8_QUANTIZE.bench_shapes:
         M = -(-sh["N"] // sh["chunk"])
         for stochastic in (True, False):
@@ -213,6 +372,7 @@ def phase_kernels(ck, stats):
     x[0, 4000] = 1.0
     for k in (1, 3, 4099):
         topk_case(ck, s5, x, k, f"negzero-k{k}", 5)
+    return phase_flash_kernels(fk, stats, main_lens)
 
 
 def main_path_calls(template, comp, C):
@@ -236,8 +396,9 @@ def main_path_calls(template, comp, C):
 
 
 def time_main_path_shapes(ck, stats, template, comp, C):
-    """Per-round kernel, plain, bound and library times summed over the
-    main path's own calls (random inputs of those shapes)."""
+    """Per-round kernel, plain, bound and library times of the codec
+    kernels summed over one round's own calls (random inputs of those
+    shapes; both main paths make the same calls)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(99)
     topk, int8 = main_path_calls(template, comp, C)
@@ -250,7 +411,17 @@ def time_main_path_shapes(ck, stats, template, comp, C):
     for C_, M, c in int8:
         s4.add_times(*int8_case(ck, s4, gen, C_, M, c, comp.stochastic,
                                 "main-path", 20))
-    return topk, int8
+
+
+def add_main_path_flash(stats, per, cfg, model_cfg):
+    """Per-round kernel, plain, bound and library times of the three flash
+    kernels: their times at the seq-512 path's call (``per``, from the
+    kernel phase: its [B, H, S, D], bf16, its padding) times the calls one
+    round's training makes of each, clients x local steps x layers."""
+    calls = cfg.num_clients * cfg.max_local_batches * model_cfg.num_layers
+    for name, (ms, plain, bnd, by, lib) in per.items():
+        stats[name].add_times(ms, plain, bnd, by, lib, calls=calls)
+    return calls
 
 
 # ------------------------------------------------------------ main path
@@ -271,13 +442,62 @@ def main_config(**kw):
     return FedConfig(**base)
 
 
-def phase_main(stats, smi):
+def flash_config(dataset: str, **kw):
+    """The seq-512 path: ``main_config`` at 32 x 512 tokens of long
+    documents, flash attention on, 4 evaluation batches."""
+    base = dict(name="chip-smoke-bert-base-s512-flash", seq_len=512,
+                use_flash=True, dataset=dataset, max_eval_batches=4)
+    base.update(kw)
+    return main_config(**base)
+
+
+def write_long_docs(seed: int = 0, n_train: int = 2048, n_test: int = 256,
+                    min_words: int = 600) -> str:
+    """A ``csv:`` corpus of long documents under ``build/chip_smoke/``:
+    ``n_train`` + ``n_test`` rows of ``min_words`` to ``min_words + 99``
+    words from a 200-word vocabulary, 2 labels, each label drawing 60% of
+    its words from its own half of the vocabulary. Every document fills
+    512 positions. Returns the dataset spec ``csv:<train>::<test>``."""
+    import numpy as np
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    vocab = np.array([f"term{i}" for i in range(200)])
+    paths = []
+    for split, n in (("train", n_train), ("test", n_test)):
+        labels = rng.integers(0, 2, n)
+        path = BUILD_DIR / f"long_docs_{split}.csv"
+        with open(path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["text", "labels"])
+            for y in labels:
+                L = int(rng.integers(min_words, min_words + 100))
+                own = rng.random(L) < 0.6
+                idx = rng.integers(0, 100, L) + 100 * (own == bool(y))
+                w.writerow([" ".join(vocab[idx]), int(y)])
+        paths.append(str(path))
+    return "csv:" + "::".join(paths)
+
+
+def main_padding(dataset: str, cfg) -> tuple:
+    """Key lengths of the seq-512 path's first batch of documents."""
+    from bcfl_tpu_torch.data import get_tokenizer, load_dataset
+
+    ds = load_dataset(dataset, num_labels=cfg.num_labels,
+                      text_col=cfg.text_col, label_col=cfg.label_col)
+    _, mask = get_tokenizer(cfg.tokenizer, cfg.vocab_size).encode_batch(
+        ds.train_texts[:cfg.batch_size], cfg.seq_len)
+    return tuple(int(n) for n in mask.sum(1))
+
+
+def drive(cfg, smi, label):
+    """One main path through ``run`` with the launch counts set to 0 just
+    before it and read just after; checks its losses, parameters and
+    bytes on the wire. Returns ``(result, launches)``."""
     from bcfl_tpu_torch.compression import payload_nbytes
     from bcfl_tpu_torch.entrypoints import run
-    from bcfl_tpu_torch.ops import codec_kernels as ck
     from bcfl_tpu_torch.ops import registry
 
-    cfg = main_config()
     print(smi, flush=True)
     torch.cuda.reset_peak_memory_stats()
     registry.reset_launches()
@@ -287,42 +507,67 @@ def phase_main(stats, smi):
     launches = registry.launch_counts()
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for name, n in launches.items():
-        stats[name].launches = n
-    print(f"main path: {wall:.2f} s incl. set-up, launches {launches}, "
+    print(f"{label}: {wall:.2f} s incl. set-up, launches {launches}, "
           f"peak memory {peak_gb:.2f} GB", flush=True)
-    for name, n in launches.items():
-        if n <= 0:
-            raise RuntimeError(f"kernel {name} never launched on the main "
-                               f"path")
     want = payload_nbytes(cfg.compression, result.trainable) * cfg.num_clients
     samples = cfg.num_clients * cfg.max_local_batches * cfg.batch_size
     for r in result.metrics.rounds:
-        print(f"round {r.round}: wall {r.wall_s:.3f} s, "
+        print(f"{label} round {r.round}: wall {r.wall_s:.3f} s, "
               f"{samples / r.wall_s:.1f} samples/s, compression ratio "
               f"{r.compression_ratio:.3f}, train_loss {r.train_loss:.5f}, "
               f"global_loss {r.global_loss}", flush=True)
         if not (math.isfinite(r.train_loss) and r.global_loss is not None
                 and math.isfinite(r.global_loss)):
-            raise RuntimeError(f"round {r.round}: non-finite loss")
+            raise RuntimeError(f"{label} round {r.round}: non-finite loss")
         if r.bytes_on_wire != want:
-            raise RuntimeError(f"round {r.round}: bytes_on_wire "
+            raise RuntimeError(f"{label} round {r.round}: bytes_on_wire "
                                f"{r.bytes_on_wire} != payload_nbytes {want}")
     for p, t in result.trainable.items():
         if not bool(torch.isfinite(t).all()):
-            raise RuntimeError(f"non-finite parameter {p}")
-    return time_main_path_shapes(ck, stats, result.trainable, cfg.compression,
-                                 cfg.num_clients)
+            raise RuntimeError(f"{label}: non-finite parameter {p}")
+    return result, launches
+
+
+def phase_main(ck, stats, smi, dataset, flash_per):
+    """Path (a), seq 128 with dense attention, then path (b), seq 512
+    with flash attention; then each kernel's per-round time at path (b)'s
+    calls."""
+    cfg = main_config()
+    _, launches = drive(cfg, smi, "seq-128 path")
+    for name, n in launches.items():
+        ran = n > 0
+        if ran != (name not in FLASH_OPS):
+            raise RuntimeError(f"seq-128 path: kernel {name} launched {n} "
+                               "times")
+    cfg = flash_config(dataset)
+    result, launches = drive(cfg, smi, "seq-512 flash path")
+    for name, n in launches.items():
+        stats[name].launches = n
+        if n <= 0:
+            raise RuntimeError(f"kernel {name} never launched on the seq-512 "
+                               "path")
+    layers = result.model.cfg.num_layers
+    want = cfg.num_rounds * cfg.num_clients * cfg.max_local_batches * layers
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        if launches[name] != want:
+            raise RuntimeError(f"{name} launched {launches[name]} times on "
+                               f"the seq-512 path, not rounds x clients x "
+                               f"steps x layers = {want}")
+    time_main_path_shapes(ck, stats, result.trainable, cfg.compression,
+                          cfg.num_clients)
+    calls = add_main_path_flash(stats, flash_per, cfg, result.model.cfg)
+    print(f"per-round kernel times: the codec's calls, and {calls} calls of "
+          f"each flash kernel", flush=True)
 
 
 # -------------------------------------------------------------- profile
 
 
-def phase_profile():
-    """Where one warm main-path round spends its time: the round's three
-    stages timed on the host clock with a synchronize after each, then the
-    same round under ``torch.profiler`` for the device's busy time and the
-    kernels by device time."""
+def phase_profile(cfg, label):
+    """Where one warm round of a main path spends its time: the round's
+    three stages timed on the host clock with a synchronize after each,
+    then the same round under ``torch.profiler`` for the device's busy time
+    and the kernels by device time."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -332,7 +577,7 @@ def phase_profile():
     from bcfl_tpu_torch.fed.engine import FedEngine
     from bcfl_tpu_torch.parallel import masked_weighted_mean
 
-    cfg = main_config(num_rounds=1, eval_every=0)
+    cfg = cfg.replace(num_rounds=1, eval_every=0)
     eng = FedEngine(cfg, device="cuda")
     C, g = cfg.num_clients, eng.trainable0
     batches, n_ex = eng._round_batches(0)
@@ -360,7 +605,8 @@ def phase_profile():
     one_round()  # warm
     t = one_round()
     total = sum(t.values())
-    print("round stages (host clock, synchronized, warm): " + ", ".join(
+    print(f"{label} round stages (host clock, synchronized, warm): "
+          + ", ".join(
         f"{k} {v * 1e3:.1f} ms ({v / total:.1%})" for k, v in t.items())
         + f", total {total * 1e3:.1f} ms", flush=True)
     with profile(activities=[ProfilerActivity.CPU,
@@ -378,7 +624,7 @@ def phase_profile():
     kernels = [e for e in avg if e.device_type == DeviceType.CUDA
                and e.key not in host_keys]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3  # ms
-    print(f"profiled round: device busy {busy:.1f} ms = "
+    print(f"{label} profiled round: device busy {busy:.1f} ms = "
           f"{busy / (total * 1e3):.1%} of the unprofiled warm round "
           f"({total * 1e3:.1f} ms; the profiled one took "
           f"{wall * 1e3:.1f} ms)", flush=True)
@@ -397,22 +643,22 @@ def phase_profile():
 # ------------------------------------------------------------ reference
 
 
-def phase_reference():
-    """The main path's functions on a small input: the card against the
-    CPU (plain versions), as the CPU tests hold the CPU against JAX."""
+def reference_round(use_flash: bool, S: int):
+    """A tiny-bert server round (float32, dropout off, int8+topk at
+    topk_frac 1, ragged masks) on the card and on the CPU, held to the
+    tolerance of ``tests/test_torch_round.py``; returns the CPU round."""
     import numpy as np
 
-    from bcfl_tpu_torch.compression import CompressionConfig, encode_tree
+    from bcfl_tpu_torch.compression import CompressionConfig
     from bcfl_tpu_torch.core import prng
     from bcfl_tpu_torch.fed.client_step import (
         make_local_train, make_loss_fn, server_round)
-    from bcfl_tpu_torch.models import build, full_float32_matmuls
+    from bcfl_tpu_torch.models import build
     from bcfl_tpu_torch.models.bert import init_params
     from bcfl_tpu_torch.models.convert import trainable_tree
 
-    full_float32_matmuls()
-    rng = np.random.default_rng(0)
-    C, steps, B, S = 2, 2, 4, 16
+    rng = np.random.default_rng(S)
+    C, steps, B = 2, 2, 4
     batches_np = {
         "ids": rng.integers(4, 512, (C, steps, B, S)).astype(np.int32),
         "mask": (np.arange(S)[None, None, None, :]
@@ -422,7 +668,8 @@ def phase_reference():
     comp = CompressionConfig(kind="int8+topk", topk_frac=1.0,
                              stochastic=False)
     base = build("tiny-bert", num_labels=2, vocab_size=512,
-                 dtype=torch.float32, dropout_rate=0.0)
+                 dtype=torch.float32, dropout_rate=0.0, use_flash=use_flash,
+                 flash_min_seq=0)
     init_params(base, prng.generator("cpu", 7))
     out = {}
     for dev in ("cpu", "cuda"):
@@ -441,27 +688,49 @@ def phase_reference():
     # its float32 noise, so every coordinate is held to 2 * lr * steps plus
     # one quantization step, and all but 1e-4 of them (the key biases,
     # whose exact gradient is zero, left out) to 2e-6 plus one step
+    attn = "flash" if use_flash else "dense"
     lr, far, total, worst = 5e-5, 0, 0, 0.0
     for p, x in out["cpu"].global_t.items():
         step = float(out["cpu"].payload[p]["s"].max())
         err = (out["cuda"].global_t[p].cpu() - x).abs()
         worst = max(worst, float(err.max()))
         if float(err.max()) > 2 * lr * steps * 1.01 + step:
-            raise RuntimeError(f"reference round: {p} differs by "
+            raise RuntimeError(f"reference round ({attn}): {p} differs by "
                                f"{float(err.max())}")
         if not p.endswith("/key/bias"):
             far += int((err > 2e-6 + step).sum())
             total += err.numel()
     if far > total * 1e-4:
-        raise RuntimeError(f"reference round: {far} of {total} coordinates "
-                           "past 2e-6 plus one quantization step")
-    print(f"reference round (tiny-bert, f32, card vs CPU): max |diff| "
-          f"{worst:.3e}, {far} of {total} coordinates past 2e-6 + one "
-          "quantization step", flush=True)
+        raise RuntimeError(f"reference round ({attn}): {far} of {total} "
+                           "coordinates past 2e-6 plus one quantization step")
+    print(f"reference round (tiny-bert, f32, {attn} attention, S={S}, card "
+          f"vs CPU): max |diff| {worst:.3e}, {far} of {total} coordinates "
+          "past 2e-6 + one quantization step", flush=True)
+    return out["cpu"]
+
+
+def phase_reference():
+    """The main paths' functions on small inputs: the card against the
+    CPU (plain versions), as the CPU tests hold the CPU against JAX."""
+    import numpy as np
+
+    from bcfl_tpu_torch.compression import CompressionConfig, encode_tree
+    from bcfl_tpu_torch.core import prng
+    from bcfl_tpu_torch.models import full_float32_matmuls
+    from bcfl_tpu_torch.ops import registry
+
+    full_float32_matmuls()
+    cpu_round = reference_round(False, 16)
+    registry.reset_launches()
+    reference_round(True, 64)
+    if min(registry.launch_counts()[n] for n in FLASH_OPS) <= 0:
+        raise RuntimeError("the flash reference round launched no flash "
+                           "kernel on the card")
+    rng = np.random.default_rng(0)
     # the codec alone: card vs CPU on one delta, payload bit for bit
     tree = {p: torch.from_numpy(rng.standard_normal((3,) + tuple(x.shape))
                                 .astype(np.float32))
-            for p, x in out["cpu"].global_t.items()}
+            for p, x in cpu_round.global_t.items()}
     comp = CompressionConfig(kind="int8+topk", topk_frac=0.05)
     draw = prng.codec_uniforms(5, 0)
 
@@ -473,7 +742,7 @@ def phase_reference():
                           uniforms)
     for p, parts in pay_cpu.items():
         for name, t in parts.items():
-            if not bits_equal(pay_gpu[p][name].cpu(), t):
+            if not held("bit-identical", [(pay_gpu[p][name].cpu(), t)])[0]:
                 raise RuntimeError(f"codec payload {p}/{name}: card and CPU "
                                    "differ")
     print(f"codec payload (int8+topk, {len(tree)} leaves, 3 clients): card "
@@ -487,7 +756,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="after the four phases, a stage and kernel "
-                         "breakdown of one warm main-path round")
+                         "breakdown of one warm round of each main path")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -495,6 +764,7 @@ def main(argv=None) -> int:
         return 2
     from bcfl_tpu_torch.ops import codec_kernels as ck
     from bcfl_tpu_torch.ops import cuda_build, registry
+    from bcfl_tpu_torch.ops import flash_kernels as fk
 
     smi = nvidia_smi_line()
     print(smi, flush=True)
@@ -502,15 +772,18 @@ def main(argv=None) -> int:
           f"device {torch.cuda.get_device_name(0)}", flush=True)
     stats = {op.name: KernelStats(op) for op in registry.kernel_ops()}
     t0 = time.perf_counter()
-    secs = cuda_build.build_all(list(ck.KERNEL_SOURCES))
+    secs = cuda_build.build_all()  # every registered kernel op's source
     print(f"build: {time.perf_counter() - t0:.2f} s wall, nvcc seconds "
           f"{json.dumps({k: round(v, 2) for k, v in secs.items()})}",
           flush=True)
-    phase_kernels(ck, stats)
-    phase_main(stats, smi)
+    dataset = write_long_docs()
+    main_lens = main_padding(dataset, flash_config(dataset))
+    flash_per = phase_kernels(ck, fk, stats, main_lens)
+    phase_main(ck, stats, smi, dataset, flash_per)
     phase_reference()
     if args.profile:
-        phase_profile()
+        phase_profile(main_config(), "seq-128 path")
+        phase_profile(flash_config(dataset), "seq-512 flash path")
     print(json.dumps({"kernels": [s.record() for s in stats.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,7 @@ from bcfl_tpu.models import build as jbuild
 from bcfl_tpu.ops import pallas_codec
 from bcfl_tpu_torch.compression import codecs as tcc
 from bcfl_tpu_torch.ops import codec_kernels as ck
+from bcfl_tpu_torch.ops import flash_kernels  # noqa: F401  (registers K1-K3)
 from bcfl_tpu_torch.ops import registry
 
 
@@ -100,11 +101,13 @@ def test_registry_takes_plain_version_on_cpu():
     assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
     ck.TOPK_SELECT(torch.randn(3, 10), k=2)
     # CPU calls never count as kernel launches
-    assert registry.launch_counts() == {"int8_quantize": 0, "topk_select": 0}
-    assert {op.name for op in registry.kernel_ops()} == {"int8_quantize",
-                                                         "topk_select"}
-    assert set(registry.list_ops()) == {"int8_quantize", "topk_select",
-                                        "int8_dequant", "topk_scatter"}
+    kernels = {"int8_quantize", "topk_select", "flash_fwd", "flash_bwd_dkv",
+               "flash_bwd_dq"}
+    assert registry.launch_counts() == dict.fromkeys(kernels, 0)
+    assert {op.name for op in registry.kernel_ops()} == kernels
+    assert set(registry.list_ops()) == kernels | {"int8_dequant",
+                                                  "topk_scatter"}
+    assert set(registry.kernel_sources()) == kernels
 
 
 # ---------------------------------------------------------- (b) the trees

@@ -69,7 +69,9 @@ def test_cpu_run_end_to_end():
         assert r.wall_s > 0 and not r.degraded
     assert all(bool(torch.isfinite(t).all()) for t in res.trainable.values())
     # the CPU path runs the plain versions: no kernel launch counted
-    assert registry.launch_counts() == {"int8_quantize": 0, "topk_select": 0}
+    assert registry.launch_counts() == dict.fromkeys(
+        ("flash_bwd_dkv", "flash_bwd_dq", "flash_fwd", "int8_quantize",
+         "topk_select"), 0)
     assert res.metrics.comms["compression_ratio"] > 8
 
 
@@ -94,7 +96,7 @@ NOT_PORTED = [
     ("tp", {"tp": 2}),
     ("sp", {"sp": 2}),
     ("aggregator", {"aggregator": "trimmed_mean"}),
-    ("use_flash", {"use_flash": True}),
+    ("max_grad_norm", {"max_grad_norm": 1.0}),
     ("faults", {"faults": object()}),
     ("ledger.enabled", {"ledger": __import__(
         "bcfl_tpu_torch.config", fromlist=["LedgerConfig"]).LedgerConfig(
@@ -240,8 +242,10 @@ def test_chip_smoke_records_only_what_it_measured(monkeypatch, capsys):
     smoke = _chip_smoke()
     for op in registry.kernel_ops():
         rec = smoke.KernelStats(op).record()
-        assert rec["source"] == f"bcfl_tpu_torch/csrc/{op.name}.cu"
-        assert rec["replaces"].startswith("bcfl_tpu/ops/pallas_codec.py:")
+        assert rec["source"] == f"bcfl_tpu_torch/csrc/{op.source}.cu"
+        assert (ROOT / rec["source"]).is_file()
+        assert rec["replaces"].split(":")[0] in (
+            "bcfl_tpu/ops/pallas_codec.py", "bcfl_tpu/ops/pallas_flash.py")
         # nothing measured yet: every measured field is null, never 0
         for key in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms"):

@@ -144,5 +144,5 @@ def test_registry_and_not_ported_models():
         list_models())
     with pytest.raises(ValueError, match="not ported yet"):
         tbuild("llama2-7b")
-    with pytest.raises(ValueError, match="not ported yet"):
-        tbuild("tiny-bert", use_flash=True)
+    flash = tbuild("tiny-bert", use_flash=True)
+    assert flash.cfg.use_flash and flash.cfg.flash_min_seq == 512
