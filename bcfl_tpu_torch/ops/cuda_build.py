@@ -12,7 +12,10 @@ waits for all of them.
 Flags: ``-gencode arch=compute_90a,code=sm_90a -O3``, and deliberately NO
 ``--use_fast_math``: the int8 codec's bit-identity with its plain version
 rests on IEEE division and ``rintf``/``floorf``, and the flash kernels use
-the accurate ``expf``/``logf``.
+the accurate ``expf``/``logf``. ``-Xptxas -v`` makes ptxas report each
+kernel's registers and spills; :data:`BUILD_LOGS` keeps the compiler's
+output of every source built by this process (``chip_smoke.py`` prints the
+flash kernels' lines, and any ``wgmma`` serialization notice).
 """
 
 from __future__ import annotations
@@ -31,12 +34,14 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "bcfl_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 #: seconds spent in nvcc by this process, per kernel source
 BUILD_SECONDS: Dict[str, float] = {}
+#: nvcc's output (with ptxas's register and spill report) per source built
+BUILD_LOGS: Dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -82,6 +87,7 @@ def _finish(name: str, out: Path, job, t0: float) -> None:
     proc, tmp, cmd = job
     log, _ = proc.communicate()
     BUILD_SECONDS[name] = time.perf_counter() - t0
+    BUILD_LOGS[name] = log
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(exit {proc.returncode}):\n{' '.join(cmd)}\n"

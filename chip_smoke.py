@@ -7,19 +7,24 @@
 Phases, each of which raises (and the script exits non-zero) on failure:
 
 1. ``build``: compile every hand-written CUDA kernel from
-   ``bcfl_tpu_torch/csrc`` (one ``nvcc`` per source, all at once).
+   ``bcfl_tpu_torch/csrc`` (one ``nvcc`` per source, all at once), and
+   print ptxas's registers and spills of each flash kernel instance and
+   any ``wgmma`` serialization notice.
 2. ``kernels``: hold each kernel to its plain PyTorch version on the card
    at its op's ``parity``. The codec kernels bit for bit:
    ``int8_quantize`` on its registered ``bench_shapes`` grids (stochastic
    and deterministic), ``topk_select`` on its ``bench_shapes`` rows, one
    row for each leaf width of bert-base (the 23,440,896-wide word
    embeddings included), a row of ties and a row with -0.0. The flash
-   kernels (forward; backward dK/dV/d-bias; backward dQ) within a
-   tolerance, bf16 at 2e-2 and float32 at 1e-4: the JAX bench rows
-   (bert-base-B4-S512 with ragged padding, llama-decode-B1-S2048 causal),
-   the seq-512 path's own [32, 12, 512, 64] call with its padding, a
-   ragged S=300, a suffix-causal Sq=128 / Sk=512, a row whose keys are all
-   padded, and head dims 32 and 128. One line per kernel and shape:
+   kernels (forward; backward dK/dV/d-bias; backward dQ): first their
+   routes (under ``torch.profiler``, a bf16 call of the forward and of
+   dK/dV runs the ``wgmma`` instance, a float32 call the FMA one), then
+   within a tolerance, bf16 at 2e-2 and float32 at 1e-4: the JAX bench
+   rows (bert-base-B4-S512 with ragged padding, llama-decode-B1-S2048
+   causal), the seq-512 path's own [32, 12, 512, 64] call with its
+   padding, a ragged S=300, a suffix-causal Sq=128 / Sk=512, a row whose
+   keys are all padded, and head dims 32 and 128 in both dtypes. One line
+   per kernel and shape:
    kernel ms, plain ms, bound ms and a PyTorch yardstick the port never
    calls (``torch.topk``; ``scaled_dot_product_attention`` forward for the
    flash forward, its backward for the two flash backward kernels).
@@ -58,6 +63,7 @@ import copy
 import csv
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -106,6 +112,40 @@ def bound_ms(nbytes: float, ops: float,
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def ptxas_notes(logs) -> list:
+    """One line per flash kernel instance from ptxas's ``-v`` report in
+    the build logs (``{source: nvcc output}``): registers and spilled
+    bytes; and every line that says ``wgmma`` was serialized (ptxas does
+    that silently when the accumulators are touched between issue and
+    wait), which costs speed, not correctness."""
+    notes = []
+    for src in sorted(logs):
+        label = None
+        for ln in logs[src].splitlines():
+            entry = re.search(r"Compiling entry function '(\S+)'", ln)
+            if entry:
+                # the kernels are templates: <name>I<template args>E...
+                m = re.search(r"(flash_[a-z_]+?(?:kernel|wgmma))I(\w+)",
+                              entry.group(1))
+                label = None
+                if m:
+                    d = re.search(r"Li(\d+)E", m.group(2))
+                    dtype = "f32" if m.group(2).startswith("f") else "bf16"
+                    label = (f"{m.group(1)}<{dtype}, "
+                             f"{d.group(1) if d else '?'}>")
+                    spill = 0
+            elif label and "spill stores" in ln:
+                spill = int(ln.split("bytes spill stores")[0].split(",")[-1])
+            elif label and "Used" in ln and "registers" in ln:
+                regs = re.search(r"Used (\d+) registers", ln).group(1)
+                notes.append(f"ptxas {label}: {regs} registers, "
+                             f"{spill} bytes spilled")
+                label = None
+            if "serializ" in ln.lower():
+                notes.append(f"ptxas WARNING ({src}): {ln.strip()}")
+    return notes
 
 
 def held(parity: str, pairs) -> tuple:
@@ -306,6 +346,35 @@ def flash_case(fk, stats, gen, label, B, H, Sq, Sk, D, dtype, causal, lens,
     return out
 
 
+def flash_routes(fk):
+    """Hold the C entries' routes by dtype: under ``torch.profiler``, a
+    bf16 call of K1 and K2 must launch their ``wgmma`` instances and a
+    float32 call their float32 FMA instances, and nothing else."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    for dtype, route, other in ((torch.bfloat16, "wgmma", "kernel"),
+                                (torch.float32, "kernel", "wgmma")):
+        q, k, v, do, bias = flash_inputs(gen, 1, 2, 128, 128, 64, dtype, None)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out, lse = fk.FLASH_FWD(q, k, v, bias, False)
+            fk.FLASH_BWD_DKV(q, k, v, bias, out, do, lse, False)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA]
+        for op in ("flash_fwd", "flash_bwd_dkv"):
+            ran = [n for n in names if f"{op}_{route}<" in n]
+            wrong = [n for n in names if f"{op}_{other}<" in n]
+            if not ran or wrong:
+                raise RuntimeError(f"{op} {dtype}: launched {wrong or names}, "
+                                   f"not its {route} instance")
+            print(f"route {op} {str(dtype).split('.')[-1]}: {ran[0][:90]}",
+                  flush=True)
+
+
 def phase_flash_kernels(fk, stats, main_lens):
     """Every flash case; returns the times of the seq-512 path's call."""
     gen = torch.Generator(device="cuda")
@@ -332,12 +401,16 @@ def phase_flash_kernels(fk, stats, main_lens):
         ("all-keys-padded", 2, 12, 256, 256, 64, bf16, False, (256, 0)),
         ("all-keys-padded", 2, 12, 256, 256, 64, f32, False, (256, 0)),
         ("head-dim-32", 2, 4, 200, 200, 32, bf16, True, (200, 120)),
+        ("head-dim-32", 2, 4, 200, 200, 32, f32, True, (200, 120)),
+        ("head-dim-128", 2, 4, 200, 200, 128, bf16, False, (200, 120)),
         ("head-dim-128", 2, 4, 200, 200, 128, f32, False, (200, 120)),
     ]
+    flash_routes(fk)
     for label, B, H, Sq, Sk, D, dtype, causal, lens in cases:
+        main = label == "seq-512-path"
         per = flash_case(fk, stats, gen, label, B, H, Sq, Sk, D, dtype,
-                         causal, lens, 5)
-        if label == "seq-512-path":
+                         causal, lens, 20 if main else 5)
+        if main:
             main_per = per
     return main_per
 
@@ -776,6 +849,8 @@ def main(argv=None) -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s wall, nvcc seconds "
           f"{json.dumps({k: round(v, 2) for k, v in secs.items()})}",
           flush=True)
+    for line in ptxas_notes(cuda_build.BUILD_LOGS):
+        print(line, flush=True)
     dataset = write_long_docs()
     main_lens = main_padding(dataset, flash_config(dataset))
     flash_per = phase_kernels(ck, fk, stats, main_lens)

@@ -265,3 +265,32 @@ def test_resolve_device_leaves_float32_policy_alone(monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     assert resolve_device().type == "cuda"
     assert torch.backends.cuda.matmul.allow_tf32 is True
+
+
+def test_chip_smoke_reads_the_ptxas_report():
+    smoke = _chip_smoke()
+    entry = ("ptxas info    : Compiling entry function '_ZN5flash49_GLOBAL__N"
+             "__3402fc56_16_flash_bwd_dkv_cu_584b2df1{}' for 'sm_90a'")
+    log = "\n".join([
+        entry.format("19flash_bwd_dkv_wgmmaILi64EEEvNS_6ParamsI13__nv_bfloat"
+                     "16EE"),
+        "ptxas info    : Function properties for x",
+        "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers",
+        entry.format("20flash_bwd_dkv_kernelIfLi128EEEvNS_6ParamsIT_EE"),
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        "ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async "
+        "instructions are serialized due to insufficient register resources",
+        "ptxas info    : Compiling entry function '_Z13int8_kernelPKf' for "
+        "'sm_90a'",
+        "ptxas info    : Used 30 registers, used 1 barriers",
+    ])
+    notes = smoke.ptxas_notes({"flash_bwd_dkv": log, "int8_quantize": ""})
+    assert notes == [
+        "ptxas flash_bwd_dkv_wgmma<bf16, 64>: 255 registers, 8 bytes spilled",
+        "ptxas flash_bwd_dkv_kernel<f32, 128>: 168 registers, 0 bytes "
+        "spilled",
+        "ptxas WARNING (flash_bwd_dkv): ptxas info    : (C7512) Potential "
+        "Performance Loss: wgmma.mma_async instructions are serialized due "
+        "to insufficient register resources"]

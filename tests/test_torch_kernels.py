@@ -78,6 +78,14 @@ FLASH_CASES = [
     (2, 3, 300, 300, 64, False, (300, 211)),
     (1, 2, 128, 512, 32, True, None),
     (2, 2, 96, 96, 128, True, (96, 0)),  # row 1: every key padded
+    # the edges of the bf16 wgmma kernels' zero-filled tiles: a single
+    # query against 77 keys (not a multiple of 16 or 64), one row past a
+    # tile on both sides, and D = 128 (two 128-byte swizzle atoms per row)
+    (1, 2, 1, 77, 64, True, None),
+    (2, 2, 513, 513, 64, False, (513, 65)),
+    (2, 2, 128, 128, 128, False, (128, 50)),
+    # causal with more queries than keys: the first 80 queries see no key
+    (2, 2, 150, 70, 64, True, None),
 ]
 
 
@@ -124,3 +132,82 @@ def test_flash_kernels_match_plain_versions_on_card(cuda_device, dtype,
     counts = registry.launch_counts()
     assert [counts[n] for n in ("flash_fwd", "flash_bwd_dkv",
                                 "flash_bwd_dq")] == [2, 2, 2]
+
+
+@pytest.mark.gpu
+def test_flash_route_follows_the_dtype_on_card(cuda_device):
+    """bf16 calls of the forward and of dK/dV launch their wgmma (tensor
+    core) instances, float32 calls their float32 FMA instances: the check
+    ``chip_smoke.py`` runs, which raises otherwise."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke.flash_routes(fk)
+
+
+@pytest.fixture(scope="module")
+def sm90_check(tmp_path_factory):
+    """``tests/cuda/sm90_check.cu`` built with the kernels' nvcc flags."""
+    import ctypes
+    import subprocess
+    from pathlib import Path
+
+    from bcfl_tpu_torch.ops import cuda_build
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels build and run "
+                    "only on the card)")
+    src = Path(__file__).resolve().parent / "cuda" / "sm90_check.cu"
+    out = tmp_path_factory.mktemp("sm90") / "libsm90_check.so"
+    proc = subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS,
+                           "-o", str(out), str(src)],
+                          capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    fn = ctypes.CDLL(str(out)).bcfl_sm90_check
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [
+        ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("live", [64, 37])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_sm90_primitives_match_matmul_on_card(sm90_check, D, live):
+    """``flash_sm90.cuh`` on one product of each form: the swizzled tile
+    layout and its K-major and MN-major descriptors, the accumulator
+    fragment packed to bf16 as a register A operand, and the zero-fill of
+    the rows at or past ``live`` (the output starts as NaN, so a product
+    that reads a stale row or skips an element fails)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(D + live)
+    check = registry.parity_check(fk.F32_PARITY)
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+
+    def zero_past_live(t):
+        t = t.float().clone()
+        t[live:] = 0.0
+        return t
+
+    a, b = bf16(64, D), bf16(64, D)
+    c = torch.full((64, 64), float("nan"), device="cuda")
+    assert sm90_check(0, D, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                      live) == 0
+    torch.cuda.synchronize()
+    ok, err = check(c, a.float() @ zero_past_live(b).T)
+    assert ok, f"S = Q K^T form: max |diff| {err}"
+
+    p = torch.randn((64, 64), generator=gen, device="cuda")
+    v = bf16(64, D)
+    c = torch.full((64, D), float("nan"), device="cuda")
+    assert sm90_check(1, D, p.data_ptr(), v.data_ptr(), c.data_ptr(),
+                      live) == 0
+    torch.cuda.synchronize()
+    ok, err = check(c, p.bfloat16().float() @ zero_past_live(v))
+    assert ok, f"O += P V form: max |diff| {err}"
