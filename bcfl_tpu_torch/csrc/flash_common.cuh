@@ -1,4 +1,6 @@
-// flash_common.cuh: what the three flash-attention kernels share.
+// flash_common.cuh: what the three flash-attention kernels share (their
+// parameters and C-entry dispatch), and the float32 FMA design of their
+// float32 instances; the bf16 instances are built from flash_sm90.cuh.
 //
 // The kernels (flash_fwd.cu, flash_bwd_dkv.cu, flash_bwd_dq.cu) replace the
 // Pallas kernels of bcfl_tpu/ops/pallas_flash.py. Each block owns one

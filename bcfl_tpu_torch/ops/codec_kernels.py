@@ -93,12 +93,18 @@ def topk_select_ref(x: torch.Tensor, *, k: int
     return torch.gather(x, 1, idx), idx.to(torch.int32)
 
 
-#: elements of one row handled by one block of the select/compact passes
-TOPK_SEG = 4096
-
-
 def _topk_cuda(x: torch.Tensor, *, k: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``csrc/topk_select.cu``: a radix select that reads each row twice
+    (a histogram of the key's leading 12 bits, then a filter that keeps
+    the keys above the threshold bin and collects the bin's candidates in
+    index order), refined over the candidates only, then a stable LSD radix
+    sort of the k survivors; a memset and 20 kernels per call. The scratch
+    is one ``torch.empty`` buffer of ``bcfl_topk_scratch_words`` 32-bit
+    words (histograms, per-row state and look-back flags, which the C entry
+    zeroes; a candidate buffer of N entries per row, so a row whose keys
+    all share one bin fits; two key/index sort buffers of k per row; the
+    sort's per-tile digit counts)."""
     if x.dim() != 2 or x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError(f"topk_select: x must be a contiguous float32 "
                          f"[R, N] tensor, got {x.dtype} {tuple(x.shape)}")
@@ -109,28 +115,23 @@ def _topk_cuda(x: torch.Tensor, *, k: int
         raise ValueError(f"topk_select: rows {R} (< 65536) or width {N} "
                          f"(< 2**31) out of range")
     dev = x.device
-    kpad = max(2, 1 << (k - 1).bit_length())
-    nblk = -(-N // TOPK_SEG)
+    lib = cuda_build.load(TOPK_SELECT.source)
+    words_fn = lib.bcfl_topk_scratch_words
+    words_fn.argtypes = [ctypes.c_longlong] * 3
+    words_fn.restype = ctypes.c_longlong
+    words = words_fn(R, N, k)
     val = torch.empty((R, k), dtype=torch.float32, device=dev)
     idx = torch.empty((R, k), dtype=torch.int32, device=dev)
-    hist = torch.zeros((R, 256), dtype=torch.int32, device=dev)
-    state = torch.zeros((R, 4), dtype=torch.int32, device=dev)
-    state[:, 1] = k
-    tiecnt = torch.empty((R, nblk), dtype=torch.int32, device=dev)
-    buf = torch.full((R, kpad), -1, dtype=torch.int64, device=dev)
-    lib = cuda_build.load(TOPK_SELECT.source)
+    work = torch.empty((words,), dtype=torch.int32, device=dev)
     fn = lib.bcfl_topk_select
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(x.data_ptr(), val.data_ptr(), idx.data_ptr(), R, N, k,
-                 TOPK_SEG, hist.data_ptr(), state.data_ptr(),
-                 tiecnt.data_ptr(), buf.data_ptr(), kpad, stream)
+                 work.data_ptr(), words, stream)
     cuda_build.check(err, "topk_select launch")
     TOPK_SELECT.launches += 1
     return val, idx

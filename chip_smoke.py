@@ -17,8 +17,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    row for each leaf width of bert-base (the 23,440,896-wide word
    embeddings included), a row of ties and a row with -0.0. The flash
    kernels (forward; backward dK/dV/d-bias; backward dQ): first their
-   routes (under ``torch.profiler``, a bf16 call of the forward and of
-   dK/dV runs the ``wgmma`` instance, a float32 call the FMA one), then
+   routes (under ``torch.profiler``, a bf16 call of each runs its
+   ``wgmma`` instance, a float32 call its FMA one), then
    within a tolerance, bf16 at 2e-2 and float32 at 1e-4: the JAX bench
    rows (bert-base-B4-S512 with ragged padding, llama-decode-B1-S2048
    causal), the seq-512 path's own [32, 12, 512, 64] call with its
@@ -39,7 +39,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    rounds x clients x steps x layers launches of each flash backward
    kernel), and that the bytes on the wire equal ``payload_nbytes``;
    prints per-round wall, samples/s, compression ratio and peak memory.
-   Then times each kernel at the calls one round of path (b) makes.
+   Then times each kernel at the calls one round of path (b) makes, and
+   ``topk_select`` also on the stacked deltas of one real round (4 clients
+   after 2 local AdamW steps of path (a)), held bit for bit and printed
+   beside the Gaussian rows.
 4. ``reference``: on small inputs, a tiny-bert server round on the card
    against the same round on the CPU (float32, dropout off, at the
    tolerance of ``tests/test_torch_round.py``), with dense attention at
@@ -348,7 +351,7 @@ def flash_case(fk, stats, gen, label, B, H, Sq, Sk, D, dtype, causal, lens,
 
 def flash_routes(fk):
     """Hold the C entries' routes by dtype: under ``torch.profiler``, a
-    bf16 call of K1 and K2 must launch their ``wgmma`` instances and a
+    bf16 call of K1, K2 and K3 must launch their ``wgmma`` instances and a
     float32 call their float32 FMA instances, and nothing else."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -362,10 +365,11 @@ def flash_routes(fk):
                                  ProfilerActivity.CUDA]) as prof:
             out, lse = fk.FLASH_FWD(q, k, v, bias, False)
             fk.FLASH_BWD_DKV(q, k, v, bias, out, do, lse, False)
+            fk.FLASH_BWD_DQ(q, k, v, bias, out, do, lse, False)
             torch.cuda.synchronize()
         names = [e.key for e in prof.key_averages()
                  if e.device_type == DeviceType.CUDA]
-        for op in ("flash_fwd", "flash_bwd_dkv"):
+        for op in FLASH_OPS:
             ran = [n for n in names if f"{op}_{route}<" in n]
             wrong = [n for n in names if f"{op}_{other}<" in n]
             if not ran or wrong:
@@ -476,14 +480,59 @@ def time_main_path_shapes(ck, stats, template, comp, C):
     gen.manual_seed(99)
     topk, int8 = main_path_calls(template, comp, C)
     s4, s5 = stats["int8_quantize"], stats["topk_select"]
+    total = lib_total = 0.0
     for R, N, k in topk:
         x = torch.randn((R, N), generator=gen, device="cuda")
-        s5.add_times(*topk_case(ck, s5, x, k, "main-path",
-                                3 if R * N > 1 << 24 else 10))
+        ms, plain, bnd, by, lib = topk_case(ck, s5, x, k, "main-path",
+                                            3 if R * N > 1 << 24 else 10)
+        s5.add_times(ms, plain, bnd, by, lib)
+        total, lib_total = total + ms, lib_total + lib
         del x
+    print(f"topk_select per round on Gaussian rows of the same shapes: "
+          f"kernel {total:.4f} ms, torch.topk {lib_total:.4f} ms", flush=True)
     for C_, M, c in int8:
         s4.add_times(*int8_case(ck, s4, gen, C_, M, c, comp.stochastic,
                                 "main-path", 20))
+
+
+def real_delta_topk(ck, stats, cfg):
+    """``topk_select`` at one round's own calls on that round's deltas:
+    the clients train from the global as ``phase_profile``'s round does,
+    ``new_t - g`` as ``compress_stage`` forms it (the residual is zero in
+    round 0), stacked by leaf width as ``encode_tree`` groups it. After
+    two AdamW steps most coordinates with a gradient have moved by about
+    lr to 2 lr, and the embeddings of unused tokens only by weight decay,
+    so the threshold bins hold other shares of a row than on Gaussian
+    rows. Held bit for bit; returns the per-round kernel and ``torch.topk``
+    ms."""
+    from bcfl_tpu_torch.compression import codecs as cc
+    from bcfl_tpu_torch.core import prng
+    from bcfl_tpu_torch.fed import client_step as cs
+    from bcfl_tpu_torch.fed.engine import FedEngine
+
+    eng = FedEngine(cfg.replace(num_rounds=1, eval_every=0), device="cuda")
+    g = eng.trainable0
+    batches, _ = eng._round_batches(0)
+    gens = prng.client_round_generators(cfg.seed, cfg.num_clients, 0,
+                                        eng.device)
+    new_t, _ = cs.train_clients(eng.local_train, g, batches, gens)
+    ys = [y for _, y in cc._flat({p: new_t[p].float() - g[p].float()
+                                   for p in new_t})]
+    del eng, batches, new_t
+    by_n = {}
+    for y in ys:
+        by_n.setdefault(y.shape[1], []).append(y)
+    total = lib_total = 0.0
+    for n, group in sorted(by_n.items()):
+        x = torch.cat(group, dim=0)
+        ms, _, _, _, lib = topk_case(ck, stats["topk_select"], x,
+                                     leaf_k(n), "real-delta",
+                                     3 if x.numel() > 1 << 24 else 10)
+        total, lib_total = total + ms, lib_total + lib
+        del x
+    print(f"topk_select per round on one real round's deltas: kernel "
+          f"{total:.4f} ms, torch.topk {lib_total:.4f} ms", flush=True)
+    return total, lib_total
 
 
 def add_main_path_flash(stats, per, cfg, model_cfg):
@@ -628,6 +677,7 @@ def phase_main(ck, stats, smi, dataset, flash_per):
                                f"steps x layers = {want}")
     time_main_path_shapes(ck, stats, result.trainable, cfg.compression,
                           cfg.num_clients)
+    real_delta_topk(ck, stats, main_config())
     calls = add_main_path_flash(stats, flash_per, cfg, result.model.cfg)
     print(f"per-round kernel times: the codec's calls, and {calls} calls of "
           f"each flash kernel", flush=True)

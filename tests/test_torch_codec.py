@@ -4,8 +4,10 @@ package, bit for bit.
 (a) the codec ops: ``int8_quantize_ref`` against eager
 ``pallas_codec._int8_quantize_xla`` on shared uniforms, and
 ``topk_select_ref`` against ``pallas_codec._topk_select_xla`` (ties,
--0.0, k=1, k=N); the CPU dispatch of the registry. (The CUDA kernels
-against their plain versions: ``tests/test_torch_kernels.py``.)
+-0.0, k=1, k=N), and on rows shaped like AdamW deltas against it and the
+interpret-mode ``_topk_select_pallas``; the CPU dispatch of the
+registry. (The CUDA kernels against their plain versions:
+``tests/test_torch_kernels.py``.)
 
 (b) the codec trees: ``encode_tree`` / ``decode_tree`` / ``roundtrip``
 against the JAX codec on a tiny-bert-shaped delta tree (payload leaves bit
@@ -91,6 +93,38 @@ def test_topk_select_ref_matches_lax_top_k(k):
     v_t, i_t = ck.topk_select_ref(torch.from_numpy(x), k=k)
     _assert_bits(v_t, v_j, "values (sign bit included)")
     _assert_bits(i_t, i_j, "indices")
+
+
+def _adamw_delta_rows():
+    """Rows shaped like a client's delta after two AdamW steps (lr 5e-5,
+    weight decay 0.01): coordinates with a gradient moved by lr to 2 lr, on
+    a grid of 8 magnitudes, so the band holds exact repeats of both signs;
+    coordinates without one (unused embedding rows) moved by weight decay
+    alone, lr * wd * w for weights w ~ N(0, 0.02), with exact zeros."""
+    rng = np.random.default_rng(11)
+    lr, wd, N = 5e-5, 0.01, 1024
+    band = (lr * (1 + rng.integers(0, 8, (4, N)) / 8)).astype(np.float32)
+    band *= rng.choice(np.array([-1.0, 1.0], np.float32), (4, N))
+    tail = (lr * wd * rng.normal(0.0, 0.02, (4, N))).astype(np.float32)
+    rows = np.where(np.arange(N)[None, :] < [[700], [200], [N], [0]],
+                    band, tail).astype(np.float32)
+    rows[0, 700::37] = 0.0  # zeros in the tail
+    rows[3, ::5] = -0.0
+    return rows
+
+
+@pytest.mark.parametrize("k", [1, 150, 600, 750, 1024])
+def test_topk_select_ref_matches_jax_on_adamw_deltas(k):
+    """k below, inside and past the band of row 0 (700 entries) and past
+    row 1's (200): the threshold falls on a repeated band magnitude or in
+    the weight-decay tail; bit for bit against both JAX top-k versions."""
+    x = _adamw_delta_rows()
+    v_t, i_t = ck.topk_select_ref(torch.from_numpy(x), k=k)
+    for impl in (pallas_codec._topk_select_xla,
+                 pallas_codec._topk_select_pallas):
+        v_j, i_j = impl(jnp.asarray(x), k=k)
+        _assert_bits(v_t, v_j, f"{impl.__name__} values")
+        _assert_bits(i_t, i_j, f"{impl.__name__} indices")
 
 
 def test_registry_takes_plain_version_on_cpu():

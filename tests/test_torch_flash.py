@@ -10,7 +10,11 @@ The JAX Pallas kernels run in interpret mode on the CPU, as
     test's).
 (b) ``FlashAttentionFn`` on the CPU (the plain K1-K3): dq, dk, dv and the
     bias gradient against ``jax.grad`` of the interpret-mode Pallas flash,
-    causal with ragged padding; atol 3e-5 (the JAX backward tests').
+    causal with ragged padding; atol 3e-5 (the JAX backward tests'). The
+    plain K3 (``flash_bwd_dq_ref``) alone against the dq of the
+    interpret-mode ``_flash_bwd_pallas`` at the same atol: two key blocks
+    at D = 64 with a row whose keys are all padded, suffix-causal
+    ``Sq < Sk``, and causal ``Sq > Sk`` (the first queries see no key).
 (c) bf16 forward at 2e-2 (the JAX contract).
 (d) ``flash_attention_blockwise`` against ``flash_attention_xla``, the
     dense-bias branch included; atol 2e-5.
@@ -43,7 +47,7 @@ from bcfl_tpu.fed.client_step import build_programs
 from bcfl_tpu.models import build as jbuild
 from bcfl_tpu.ops.attention import attention_bias_from_mask as jbias_from_mask
 from bcfl_tpu.ops.flash import flash_attention_xla
-from bcfl_tpu.ops.pallas_flash import _flash_fwd_pallas
+from bcfl_tpu.ops.pallas_flash import _flash_bwd_pallas, _flash_fwd_pallas
 from bcfl_tpu.ops.pallas_flash import _normalize_bias as j_normalize_bias
 from bcfl_tpu.ops.pallas_flash import flash_attention as flash_pl
 from bcfl_tpu_torch.fed.client_step import (
@@ -136,6 +140,44 @@ def test_flash_fn_grads_match_pallas_vjp(bias_rank):
         assert t.grad.shape == t.shape
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(g),
                                    atol=BWD_ATOL, err_msg=name)
+
+
+DQ_CASES = {
+    # name: (B, H, Sq, Sk, D, causal, padding lengths or None, block)
+    "D64-two-key-blocks-ragged-all-padded-row":
+        (2, 2, 64, 64, 64, False, (41, 0), 32),
+    "suffix-causal-Sq32-Sk96": (1, 2, 32, 96, 32, True, (96,), 32),
+    "causal-Sq96-Sk40-first-queries-see-no-key":
+        (1, 2, 96, 40, 32, True, None, 32),
+}
+
+
+@pytest.mark.parametrize("name", list(DQ_CASES))
+def test_plain_dq_matches_pallas_bwd_dq_kernel(name):
+    """The forward's out and lse come from the interpret-mode Pallas
+    forward and feed both backward sides; float32."""
+    B, H, Sq, Sk, D, causal, lens, block = DQ_CASES[name]
+    q, do = _draw((B, H, Sq, D), 21), _draw((B, H, Sq, D), 22)
+    k, v = _draw((B, H, Sk, D), 23), _draw((B, H, Sk, D), 24)
+    bias4 = None if lens is None else jbias_from_mask(
+        jnp.asarray(_ragged_mask(B, Sk, lens)))
+    key_bias_j = j_normalize_bias(bias4, B, Sk)
+    out_j, lse_j = _flash_fwd_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), key_bias_j, causal,
+        block, block)
+    dq_j = _flash_bwd_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), key_bias_j, out_j,
+        jnp.asarray(do), lse_j, causal, block, block)[0]
+    dq_t = fk.flash_bwd_dq_ref(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(np.array(key_bias_j)),
+        torch.from_numpy(np.array(out_j)), torch.from_numpy(do),
+        torch.from_numpy(np.array(lse_j)[..., 0]), causal)
+    if causal and Sq > Sk:  # queries before the first key see none
+        assert not np.asarray(dq_j)[:, :, :Sq - Sk].any()
+        assert not dq_t[:, :, :Sq - Sk].any()
+    np.testing.assert_allclose(dq_t.numpy(), np.asarray(dq_j),
+                               atol=BWD_ATOL)
 
 
 def test_flash_fn_returns_no_bias_grad_for_a_mask_bias():

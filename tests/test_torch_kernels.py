@@ -59,6 +59,55 @@ def test_kernels_match_plain_versions_on_card(cuda_device, N, k):
     assert set(counts.values()) == {0}
 
 
+def _topk_rows(kind, R, N, gen):
+    """[R, N] rows for the top-k kernel: ``one-bin`` holds one magnitude of
+    both signs (every key in the leading-digit bin, so the candidate
+    buffer takes the whole row); ``adamw`` is shaped like a delta after two
+    AdamW steps (a dense band of magnitudes in [lr, 2 lr) with exact
+    repeats, then a weight-decay-only tail); ``randn`` is Gaussian."""
+    dev = gen.device
+    if kind == "one-bin":
+        x = torch.full((R, N), 0.75, device=dev)
+        x[:, ::2] = -0.75
+        return x
+    if kind == "adamw":
+        lr = 5e-5
+        band = torch.randint(0, 16, (R, N), generator=gen, device=dev)
+        x = lr * (1 + band.float() / 16)
+        tail = N * 3 // 4
+        x[:, tail:] = lr * 0.01 * 0.02 * torch.randn(
+            (R, N - tail), generator=gen, device=dev)
+        sign = torch.rand((R, N), generator=gen, device=dev) < 0.5
+        return torch.where(sign, -x, x)
+    return torch.randn((R, N), generator=gen, device=dev)
+
+
+TOPK_CASES = [
+    # (rows, R, N, k)
+    ("one-bin", 2, 100000, 50001),
+    ("one-bin", 2, 100000, 100000),  # k = N
+    ("randn", 3, 4099, 4099),  # k = N past one 4096-element tile
+    ("randn", 3, 300000, 65537),  # k just above a power of two
+    ("adamw", 4, 200000, 150001),  # k crosses the band into the tail
+    ("randn", 96, 2359296, 117965),  # bert-base's MLP leaves, 4 clients
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", TOPK_CASES)
+def test_topk_select_matches_plain_version_on_card(cuda_device, case):
+    kind, R, N, k = case
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(R + N + k)
+    x = _topk_rows(kind, R, N, gen)
+    registry.reset_launches()
+    v, i = ck.TOPK_SELECT(x, k=k)
+    v_ref, i_ref = ck.topk_select_ref(x, k=k)
+    assert torch.equal(i, i_ref)
+    assert torch.equal(v.view(torch.int32), v_ref.view(torch.int32))
+    assert registry.launch_counts()["topk_select"] == 1
+
+
 def test_parity_check_reads_the_op_contract():
     same = registry.parity_check("bit-identical")
     assert same(torch.tensor([0.0]), torch.tensor([0.0]))[0]
@@ -136,7 +185,7 @@ def test_flash_kernels_match_plain_versions_on_card(cuda_device, dtype,
 
 @pytest.mark.gpu
 def test_flash_route_follows_the_dtype_on_card(cuda_device):
-    """bf16 calls of the forward and of dK/dV launch their wgmma (tensor
+    """bf16 calls of the forward, dK/dV and dQ launch their wgmma (tensor
     core) instances, float32 calls their float32 FMA instances: the check
     ``chip_smoke.py`` runs, which raises otherwise."""
     import importlib.util
