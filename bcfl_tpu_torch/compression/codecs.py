@@ -90,8 +90,8 @@ def _draw(uniforms: Optional[Uniforms], i: int, shape, device) -> torch.Tensor:
 def _int8_parts(y, chunk, i, uniforms, stochastic):
     """Per-leaf reference: [C, N] f32 -> (q int8 [C, M, chunk], s [C, M])."""
     g = _pad_grid(y, chunk)
-    u = _draw(uniforms, i, g.shape, g.device) if stochastic else None
-    return ck.INT8_QUANTIZE(g, u, stochastic=stochastic)
+    u = [_draw(uniforms, i, g.shape, g.device)] if stochastic else None
+    return ck.INT8_QUANTIZE([g], u, stochastic=stochastic)[0]
 
 
 def _encode_leaf(comp, y, i, uniforms) -> dict:
@@ -137,23 +137,35 @@ def encode_tree_unfused(comp: CompressionConfig, delta: Tree,
             for i, (p, y) in enumerate(_flat(delta))}
 
 
-def _int8_parts_batched(ys, idxs, chunk, stochastic, uniforms):
-    """Fused int8 quantize of several [C, N_i] leaves sharing one chunk:
-    per-leaf padded grids concatenated on the chunk axis, uniforms drawn
-    per leaf (under the leaf's own index) and concatenated alike, ONE
-    ``int8_quantize`` launch, split back (``_int8_parts_batched``)."""
-    grids = [_pad_grid(y, chunk) for y in ys]
-    g = torch.cat(grids, dim=1)
-    u = None
-    if stochastic:
-        u = torch.cat([_draw(uniforms, i, gr.shape, gr.device)
-                       for i, gr in zip(idxs, grids)], dim=1)
-    q, scale = ck.INT8_QUANTIZE(g, u, stochastic=stochastic)
-    out, off = [], 0
-    for gr in grids:
-        M = gr.shape[1]
-        out.append((q[:, off:off + M], scale[:, off:off + M]))
-        off += M
+def _int8_parts_batched(groups, stochastic, uniforms):
+    """Fused int8 quantize of every group of [C, N_i] leaves sharing one
+    chunk (``groups``: ``(ys, leaf indices, chunk)`` each): per-leaf padded
+    grids concatenated on the chunk axis, uniforms drawn per leaf (under
+    the leaf's own index) and concatenated alike (``_int8_parts_batched``),
+    then ONE ``int8_quantize`` call over the groups' grids (the JAX package
+    launches once per group; rows are independent, so the codes are the
+    same); split back per leaf, per group."""
+    grids, gs, us = [], [], []
+    for ys, idxs, chunk in groups:
+        leaf_grids = [_pad_grid(y, chunk) for y in ys]
+        grids.append(leaf_grids)
+        gs.append(torch.cat(leaf_grids, dim=1))
+        if stochastic:
+            us.append(torch.cat([_draw(uniforms, i, gr.shape, gr.device)
+                                 for i, gr in zip(idxs, leaf_grids)], dim=1))
+    parts = []
+    for a in range(0, len(gs), ck.INT8_MAX_GRIDS):  # the launch's table
+        b = a + ck.INT8_MAX_GRIDS
+        parts += ck.INT8_QUANTIZE(gs[a:b], us[a:b] if stochastic else None,
+                                  stochastic=stochastic)
+    out = []
+    for leaf_grids, (q, scale) in zip(grids, parts):
+        group, off = [], 0
+        for gr in leaf_grids:
+            M = gr.shape[1]
+            group.append((q[:, off:off + M], scale[:, off:off + M]))
+            off += M
+        out.append(group)
     return out
 
 
@@ -170,8 +182,9 @@ def encode_tree(comp: CompressionConfig, delta: Tree,
                 uniforms: Optional[Uniforms] = None) -> dict:
     """Stacked [C, ...] delta tree -> payload ``{path: parts}``, grouped as
     ``codecs.encode_tree`` groups: one top-k launch per distinct leaf width
-    and one int8 launch per distinct ``min(chunk, k)``, groups in SORTED
-    order. Bit-identical to :func:`encode_tree_unfused`."""
+    and one int8 grid per distinct ``min(chunk, k)``, groups in SORTED
+    order, all the grids quantized in one ``int8_quantize`` call.
+    Bit-identical to :func:`encode_tree_unfused`."""
     flat = _flat(delta)
     paths = [p for p, _ in flat]
     ys = [y for _, y in flat]
@@ -194,15 +207,17 @@ def encode_tree(comp: CompressionConfig, delta: Tree,
         by_ck: dict = {}
         for i, v in enumerate(vals):
             by_ck.setdefault(min(comp.chunk, v.shape[1]), []).append(i)
-        for c, group in sorted(by_ck.items()):
-            parts = _int8_parts_batched([vals[i] for i in group], group, c,
-                                        comp.stochastic, uniforms)
-            for i, (q, s) in zip(group, parts):
+        groups = sorted(by_ck.items())
+        parts = _int8_parts_batched(
+            [([vals[i] for i in group], group, c) for c, group in groups],
+            comp.stochastic, uniforms)
+        for (_, group), group_parts in zip(groups, parts):
+            for i, (q, s) in zip(group, group_parts):
                 out[paths[i]] = {"q": q, "s": s, "i": idxs[i]}
         return {p: out[p] for p in paths}
     if comp.kind == "int8":
-        parts = _int8_parts_batched(ys, list(range(len(ys))), comp.chunk,
-                                    comp.stochastic, uniforms)
+        parts = _int8_parts_batched([(ys, list(range(len(ys))), comp.chunk)],
+                                    comp.stochastic, uniforms)[0]
         return {p: {"q": q, "s": s} for p, (q, s) in zip(paths, parts)}
     raise ValueError(f"unknown compression kind {comp.kind!r}")
 
@@ -222,10 +237,22 @@ def roundtrip(comp: CompressionConfig, delta: Tree, resid: Tree,
         comp_in = {p: d.float() + resid[p] for p, d in delta.items()}
     else:
         comp_in = {p: d.float() for p, d in delta.items()}
+    return exchange(comp, comp_in, resid, uniforms, owned=comp.error_feedback)
+
+
+def exchange(comp: CompressionConfig, comp_in: Tree, resid: Tree,
+             uniforms: Optional[Uniforms] = None, owned: bool = False
+             ) -> Tuple[dict, Tree, Tree]:
+    """The encode/decode half of :func:`roundtrip`, from the codec's input
+    ``comp_in`` (the delta with the residual already added when
+    ``error_feedback`` is on). ``owned=True`` hands ``comp_in``'s tensors
+    over: the new residual is computed in their memory (the same bits as
+    ``comp_in - decoded``), so the round keeps one tree fewer alive."""
     payload = encode_tree(comp, comp_in, uniforms)
     decoded = decode_tree(comp, payload, comp_in)
     if comp.error_feedback:
-        resid = {p: comp_in[p] - decoded[p] for p in comp_in}
+        resid = {p: (x.sub_(decoded[p]) if owned else x - decoded[p])
+                 for p, x in comp_in.items()}
     else:
         resid = {p: torch.zeros_like(r) for p, r in resid.items()}
     return payload, decoded, resid

@@ -1,6 +1,6 @@
 """Configuration: port of ``bcfl_tpu/config.py`` (``PartitionConfig``,
-``FedConfig``; the codec config lives in
-:mod:`bcfl_tpu_torch.compression.codecs` as in JAX).
+``TopologyConfig``, ``LedgerConfig``, ``FedConfig``; the codec config
+lives in :mod:`bcfl_tpu_torch.compression.codecs` as in JAX).
 
 ``FedConfig`` holds the fields the ported slice runs, with the JAX
 package's names and defaults, plus the switches of features the port does
@@ -57,17 +57,41 @@ class PartitionConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TopologyConfig:
+    """P2P network model and anomaly gating (the JAX ``TopologyConfig``:
+    same fields and defaults)."""
+
+    anomaly_filter: Optional[str] = None  # None|"pagerank"|"dbscan"|"zscore"|"community"
+    # bandwidth matrix source: "reference" = the notebooks' fixed 10-node
+    # graph (10 clients only), "random" = sampled in [bw_low, bw_high] mbps
+    bandwidth: str = "reference"
+    bw_low: float = 88.0
+    bw_high: float = 496.0
+    # gossip mixing coefficient for ring gossip (serverless mode)
+    gossip_alpha: float = 0.5
+    gossip_steps: int = 1  # ring-gossip rounds per federated round
+
+
+@dataclasses.dataclass(frozen=True)
 class LedgerConfig:
-    """The hash-chained ledger switch (the ledger is not ported yet)."""
+    """The hash-chained weight ledger (the JAX ``LedgerConfig``: same
+    fields and defaults). ``use_native`` selects the JAX package's C++
+    SHA-256 core; the port hashes with ``hashlib`` (identical digests) and
+    its native core is ROADMAP.md's tokenizer-and-native item, so the field
+    has no effect yet."""
 
     enabled: bool = False
+    use_native: bool = True
+    # ledger-entry payload size (bytes) for communication accounting: the
+    # reference models the blockchain payload as 0.043 GB vs the 0.4036 GB
+    # full model (MT notebook cell 27 vs 23)
+    entry_payload_bytes: int = 46_170_898
 
 
 #: (field, is-unsupported predicate) — each raises "not ported yet"
 _NOT_PORTED = (
     ("runtime", lambda c: c.runtime != "local"),
-    ("mode", lambda c: c.mode != "server"),
-    ("sync", lambda c: c.sync != "sync"),
+    ("faithful", lambda c: c.faithful),
     ("task", lambda c: c.task != "classification"),
     ("tokenizer", lambda c: c.tokenizer != "hash"),
     ("hf_checkpoint", lambda c: c.hf_checkpoint is not None),
@@ -80,8 +104,9 @@ _NOT_PORTED = (
     ("max_grad_norm", lambda c: c.max_grad_norm > 0),
     ("local_epochs", lambda c: c.local_epochs != 1),
     ("rounds_per_dispatch", lambda c: c.rounds_per_dispatch > 1),
-    ("ledger.enabled", lambda c: c.ledger.enabled),
+    ("registry_size", lambda c: c.registry_size > 0),
     ("faults", lambda c: c.faults is not None),
+    ("reputation", lambda c: c.reputation is not None),
     ("checkpoint_dir", lambda c: c.checkpoint_dir is not None),
     ("param_dtype", lambda c: c.param_dtype != "float32"),
     ("compute_dtype", lambda c: c.compute_dtype not in ("float32",
@@ -125,23 +150,38 @@ class FedConfig:
     sync: str = "sync"
     num_clients: int = 4
     num_rounds: int = 2
+    # cohort sampling (the JAX package's registry of clients); 0 = off
+    registry_size: int = 0
     local_epochs: int = 1
     max_local_batches: Optional[int] = None
     rounds_per_dispatch: int = 1
     weighted_agg: bool = True  # example-weighted FedAvg
     aggregator: str = "mean"
+    # the reference's sequential shared-model serverless quirk
+    faithful: bool = False
 
     # --- optimizer (fresh AdamW lr=5e-5 each round) ---
     learning_rate: float = 5e-5
     optimizer: str = "adamw"
     max_grad_norm: float = 0.0
 
+    # --- async scheduling ---
+    async_buffer: int = 0  # aggregate when this many clients arrived (0 = num_clients)
+    staleness_decay: float = 0.5  # weight = decay ** staleness
+    # server step size along the staleness-weighted mean client delta
+    # (FedBuff-style buffered aggregation)
+    async_server_lr: float = 1.0
+
     # --- sub-configs ---
     partition: PartitionConfig = dataclasses.field(
         default_factory=PartitionConfig)
+    topology: TopologyConfig = dataclasses.field(
+        default_factory=TopologyConfig)
     ledger: LedgerConfig = dataclasses.field(default_factory=LedgerConfig)
     #: fault-injection plan; None injects nothing (faults are not ported)
     faults: Optional[Any] = None
+    #: peer-lifecycle reputation; None is off (reputation is not ported)
+    reputation: Optional[Any] = None
     compression: CompressionConfig = dataclasses.field(
         default_factory=CompressionConfig)
 
@@ -175,6 +215,15 @@ class FedConfig:
             raise ValueError(f"eval_every must be >= 0, got {self.eval_every}")
         if self.tp < 1 or self.sp < 1:
             raise ValueError(f"tp/sp must be >= 1, got {self.tp}/{self.sp}")
+        if self.async_buffer < 0:
+            raise ValueError(
+                f"async_buffer must be >= 0, got {self.async_buffer}")
+        if self.async_buffer > self.num_clients:
+            # an oversized buffer can never fill
+            raise ValueError(
+                f"async_buffer {self.async_buffer} > num_clients "
+                f"{self.num_clients}: the buffer could never fill (use 0 "
+                "for 'aggregate when everyone arrived')")
         for field, unsupported in _NOT_PORTED:
             if unsupported(self):
                 value = self
@@ -182,8 +231,9 @@ class FedConfig:
                     value = getattr(value, part)
                 raise ValueError(
                     f"{field}={value!r} is not ported yet: bcfl_tpu_torch "
-                    "runs server-mode synchronous FedAvg only (see "
-                    "ROADMAP.md for the port's queue)")
+                    "runs server FedAvg, serverless ring gossip and "
+                    "buffered async with the anomaly filter and the ledger "
+                    "(see ROADMAP.md for the port's queue)")
 
     def replace(self, **kw) -> "FedConfig":
         return dataclasses.replace(self, **kw)

@@ -4,6 +4,8 @@ flags the ported slice supports.
     python -m bcfl_tpu_torch.entrypoints --preset smoke --device cpu
     python -m bcfl_tpu_torch.entrypoints --preset smoke --device cpu \\
         --use-flash on --seq-len 64
+    python -m bcfl_tpu_torch.entrypoints --preset bcfl_async_pagerank \\
+        --device cpu --model tiny-albert --dataset synthetic --rounds 2
     python -m bcfl_tpu_torch.entrypoints --preset server_iid_medical \\
         --model bert-base --compress int8+topk --device cuda
 
@@ -29,7 +31,7 @@ _FIELD_FLAGS = (
     ("batch_size", "batch_size"), ("lr", "learning_rate"),
     ("max_local_batches", "max_local_batches"),
     ("eval_every", "eval_every"), ("seed", "seed"),
-    ("compute_dtype", "compute_dtype"),
+    ("compute_dtype", "compute_dtype"), ("mode", "mode"), ("sync", "sync"),
 )
 
 
@@ -44,6 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--rounds", type=int, default=None)
     ap.add_argument("--model", default=None)
     ap.add_argument("--dataset", default=None)
+    ap.add_argument("--mode", choices=["server", "serverless"], default=None)
+    ap.add_argument("--sync", choices=["sync", "async"], default=None)
     ap.add_argument("--seq-len", type=int, default=None)
     ap.add_argument("--batch-size", type=int, default=None)
     ap.add_argument("--lr", type=float, default=None)
@@ -68,6 +72,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="elements per int8 quantization chunk (default 256)")
     ap.add_argument("--no-compress-ef", action="store_true",
                     help="disable the error-feedback residual")
+    ap.add_argument("--anomaly-filter",
+                    choices=["pagerank", "dbscan", "zscore", "community",
+                             "none"], default=None)
+    ap.add_argument("--gossip-steps", type=int, default=None,
+                    help="ring-gossip diffusion steps per serverless round "
+                         "(0 = exact mask-weighted mean)")
+    ap.add_argument("--ledger", action="store_true",
+                    help="enable the hash-chained weight ledger (BC-FL)")
     return ap
 
 
@@ -94,6 +106,16 @@ def build_config(args):
             comp_kw["error_feedback"] = False
         overrides["compression"] = dataclasses.replace(cfg.compression,
                                                        **comp_kw)
+    if args.anomaly_filter is not None or args.gossip_steps is not None:
+        topo_kw = {}
+        if args.anomaly_filter is not None:
+            topo_kw["anomaly_filter"] = (None if args.anomaly_filter == "none"
+                                         else args.anomaly_filter)
+        if args.gossip_steps is not None:
+            topo_kw["gossip_steps"] = args.gossip_steps
+        overrides["topology"] = dataclasses.replace(cfg.topology, **topo_kw)
+    if args.ledger:
+        overrides["ledger"] = dataclasses.replace(cfg.ledger, enabled=True)
     return cfg.replace(**overrides)
 
 

@@ -1,17 +1,23 @@
-"""One federated server round: port of ``bcfl_tpu/fed/client_step.py``
-(``make_optimizer``, ``make_loss_fn``, ``make_local_train``,
-``train_clients``, ``server_body``/``server_body_comp``, ``_compress_stage``
-and ``_recon`` of the GSPMD builder).
+"""The federated round bodies: port of ``bcfl_tpu/fed/client_step.py``
+(``make_optimizer``, ``make_loss_fn``, ``make_local_train``, and of the
+GSPMD builder ``train_clients``, ``local_updates_body``,
+``server_body``/``server_body_comp``, ``gossip_body``/``gossip_body_comp``,
+``_mix_g``/``_mix_g_recv``, ``_compress_stage``, ``_recon``, the
+split-phase codec programs ``encode_deltas``/``encode_deltas_local``/
+``encode_deltas_async``/``decode_delta``, and
+``broadcast``, ``adopt``, ``collapse``).
 
 The JAX package compiles every client's local round plus the aggregation
 into one XLA program over a stacked ``[C, ...]`` client axis. Here the
 clients run one after another on the one device through a single scratch
-``nn.Module``: each loads the round's global tree, trains with a fresh
-AdamW, and its post-train tree lands in row ``c`` of the stacked ``[C,
-...]`` tree that the codec and the FedAvg mean consume, as the JAX stacked
-axis does. Trees are ``{flax leaf path: tensor}`` dicts in the JAX leaf
-order and layout (:func:`bcfl_tpu_torch.models.convert.trainable_tree`),
-so codec payloads match the JAX package's.
+``nn.Module``: each loads its starting tree (the round's global in server
+mode, its own row of the stacked tree in serverless and async mode),
+trains with a fresh AdamW, and its post-train tree lands in row ``c`` of
+the stacked ``[C, ...]`` tree that the codec, the FedAvg mean and the ring
+gossip consume, as the JAX stacked axis does. Trees are ``{flax leaf
+path: tensor}`` dicts in the JAX leaf order and layout
+(:func:`bcfl_tpu_torch.models.convert.trainable_tree`), so codec payloads
+match the JAX package's.
 """
 
 from __future__ import annotations
@@ -25,7 +31,9 @@ from torch import nn
 
 from bcfl_tpu_torch.compression import codecs as cc
 from bcfl_tpu_torch.models.convert import load_trainable, trainable_tree
-from bcfl_tpu_torch.parallel import masked_weighted_mean
+from bcfl_tpu_torch.parallel import (gossip_mix, gossip_mix_recv,
+                                     masked_weighted_mean)
+from bcfl_tpu_torch.parallel.collectives import _col
 
 Tree = Dict[str, torch.Tensor]
 
@@ -104,16 +112,14 @@ def make_eval_one(model: nn.Module, loss_fn: Callable) -> Callable:
     return eval_one
 
 
-def train_clients(local_train: Callable, global_t: Tree, batches: Tree,
-                  generators: List[Optional[torch.Generator]]):
-    """Every client trains from ``global_t`` on its own ``batches[c]``:
-    ``-> (stacked [C, ...] trees, stats [C, 3])``."""
+def _train_each(local_train: Callable, start_of: Callable, batches: Tree,
+                generators: List[Optional[torch.Generator]], like: Tree):
     C = batches["ids"].shape[0]
     new_t = {p: torch.empty((C,) + tuple(x.shape), dtype=x.dtype,
-                            device=x.device) for p, x in global_t.items()}
+                            device=x.device) for p, x in like.items()}
     stats = []
     for c in range(C):
-        t, s = local_train(global_t, {k: v[c] for k, v in batches.items()},
+        t, s = local_train(start_of(c), {k: v[c] for k, v in batches.items()},
                            generators[c])
         for p, x in t.items():
             new_t[p][c] = x
@@ -121,24 +127,129 @@ def train_clients(local_train: Callable, global_t: Tree, batches: Tree,
     return new_t, torch.stack(stats)
 
 
+def train_clients(local_train: Callable, global_t: Tree, batches: Tree,
+                  generators: List[Optional[torch.Generator]]):
+    """Every client trains from ``global_t`` on its own ``batches[c]``:
+    ``-> (stacked [C, ...] trees, stats [C, 3])``."""
+    return _train_each(local_train, lambda c: global_t, batches, generators,
+                       global_t)
+
+
+def local_updates(local_train: Callable, client_t: Tree, batches: Tree,
+                  generators: List[Optional[torch.Generator]]):
+    """Every client trains from its OWN row of the stacked ``client_t``
+    (``local_updates_body``): ``-> (stacked [C, ...] trees, stats [C, 3])``."""
+    like = {p: x[0] for p, x in client_t.items()}
+    return _train_each(local_train,
+                       lambda c: {p: x[c] for p, x in client_t.items()},
+                       batches, generators, like)
+
+
 def compress_stage(comp: cc.CompressionConfig, new_t: Tree, ref_t: Tree,
                    resid: Tree, uniforms: Optional[cc.Uniforms]):
     """Sender side of one wire exchange: ``(payload, decoded, resid')`` for
     ``delta = new_t - ref_t`` plus the carried error-feedback residual
-    (``_compress_stage``)."""
-    delta = {p: new_t[p].float() - ref_t[p].float() for p in new_t}
-    return cc.roundtrip(comp, delta, resid, uniforms)
+    (``_compress_stage``). ``ref_t`` is the global (server mode, it
+    broadcasts) or the stacked round-start tree (serverless, async)."""
+    comp_in = {}
+    for p in new_t:
+        d = new_t[p].float() - ref_t[p].float()
+        comp_in[p] = d.add_(resid[p]) if comp.error_feedback else d
+    return cc.exchange(comp, comp_in, resid, uniforms, owned=True)
 
 
 def recon(ref_t: Tree, dec: Tree, like_t: Tree) -> Tree:
     """Receiver-side reconstruction ``ref + decoded delta`` in the param
-    dtype (``_recon``): what the aggregator consumes."""
-    return {p: (ref_t[p].float() + dec[p]).to(like_t[p].dtype) for p in dec}
+    dtype (``_recon``): what the aggregator consumes. Computed in
+    ``dec``'s memory (``dec`` is spent afterwards); the sum is the same
+    bits either way round."""
+    return {p: dec[p].add_(ref_t[p].float()).to(like_t[p].dtype)
+            for p in dec}
+
+
+def decode_delta(comp: cc.CompressionConfig, payload: dict,
+                 like_t: Tree) -> Tree:
+    """The decoded stacked deltas in the param dtype (``decode_delta``):
+    what the async merge averages."""
+    return {p: d.to(like_t[p].dtype)
+            for p, d in cc.decode_tree(comp, payload, like_t).items()}
+
+
+def encode_deltas(comp: cc.CompressionConfig, new_t: Tree, ref_t: Tree,
+                  resid: Tree, uniforms: Optional[cc.Uniforms]):
+    """``(payload, recon, resid')``: the codec stage plus the receiver's
+    reconstruction against ``ref_t`` (``encode_deltas`` for a global
+    ``ref_t``, ``encode_deltas_local`` for the stacked round-start
+    tree)."""
+    payload, dec, resid = compress_stage(comp, new_t, ref_t, resid, uniforms)
+    return payload, recon(ref_t, dec, new_t), resid
+
+
+def encode_deltas_async(comp: cc.CompressionConfig, new_t: Tree, ref_t: Tree,
+                        resid: Tree, uniforms: Optional[cc.Uniforms]):
+    """``(payload, resid')``, recon-free (``encode_deltas_async``): the
+    async merge decodes the deltas itself."""
+    payload, _, resid = compress_stage(comp, new_t, ref_t, resid, uniforms)
+    return payload, resid
+
+
+# --------------------------------------------------- client-axis programs
+
+
+def broadcast(global_t: Tree, num_clients: int) -> Tree:
+    """global tree -> stacked ``[C, ...]`` per-client tree."""
+    return {p: x.unsqueeze(0).expand((num_clients,) + tuple(x.shape)).clone()
+            for p, x in global_t.items()}
+
+
+def adopt(client_t: Tree, global_t: Tree, pull: torch.Tensor) -> Tree:
+    """Pull-masked clients adopt ``global_t``, everyone else keeps their
+    stacked row (``_adopt_pull``)."""
+    return {p: torch.where(_col(pull, x) > 0,
+                           global_t[p].to(x.dtype).expand_as(x), x)
+            for p, x in client_t.items()}
+
+
+def collapse(stacked: Tree, weights: torch.Tensor, fallback: Tree) -> Tree:
+    """The aggregation rule over the client axis (``collapse``; the port
+    has the mean only)."""
+    return masked_weighted_mean(stacked, weights, fallback)
+
+
+def exact_mean_spread(avg: Tree, new_t: Tree, mask: torch.Tensor) -> Tree:
+    """Serverless exact-mean aggregation: every unmasked client adopts the
+    (mask-weighted) average, masked clients keep their own state
+    (``_exact_mean_spread``)."""
+    return {p: torch.where(_col(mask, x) > 0, avg[p].expand_as(x), x)
+            for p, x in new_t.items()}
+
+
+def mix(new_t: Tree, mask: torch.Tensor, fallback: Tree, alpha: float,
+        steps: int) -> Tree:
+    """The serverless mix (``_mix_g``): ``steps == 0`` spreads the exact
+    masked mean, otherwise ``steps`` rounds of ring gossip."""
+    if steps == 0:
+        return exact_mean_spread(collapse(new_t, mask, fallback), new_t, mask)
+    return gossip_mix(new_t, mask, alpha, steps=steps)
+
+
+def mix_recv(self_t: Tree, recv_t: Tree, mask: torch.Tensor, fallback: Tree,
+             alpha: float, steps: int) -> Tree:
+    """The transport-aware mix (``_mix_g_recv``): neighbour and aggregate
+    terms from ``recv_t`` (what arrived), each sender's self-term (and a
+    masked client's kept state) from its own ``self_t``."""
+    if steps == 0:
+        return exact_mean_spread(collapse(recv_t, mask, fallback), self_t,
+                                 mask)
+    return gossip_mix_recv(self_t, recv_t, mask, alpha, steps=steps)
+
+
+# ------------------------------------------------------------ round bodies
 
 
 @dataclasses.dataclass
 class RoundOut:
-    global_t: Tree  # the new global tree
+    global_t: Tree  # the new global tree (serverless: the mixed stack)
     stats: torch.Tensor  # [C, 3] per-client [loss*n, correct, n]
     resid: Optional[Tree] = None  # error-feedback state (codec on)
     payload: Optional[dict] = None  # what crossed the wire (codec on)
@@ -153,11 +264,35 @@ def server_round(local_train: Callable, comp: Optional[cc.CompressionConfig],
     client trains from the global; with a codec, each client's delta goes
     through ``roundtrip`` with its carried residual and the server averages
     the reconstructions ``global + decoded``, never the full-precision
-    updates. An all-masked round keeps ``global_t``."""
+    updates. An all-masked round keeps ``global_t``. ``FedEngine`` runs
+    the same steps split around its ledger seam."""
     new_t, stats = train_clients(local_train, global_t, batches, generators)
     if comp is None or not comp.enabled:
         return RoundOut(masked_weighted_mean(new_t, weights, global_t), stats)
-    payload, dec, resid = compress_stage(comp, new_t, global_t, resid,
-                                         uniforms)
-    avg = masked_weighted_mean(recon(global_t, dec, new_t), weights, global_t)
+    payload, rec, resid = encode_deltas(comp, new_t, global_t, resid,
+                                        uniforms)
+    del new_t
+    avg = masked_weighted_mean(rec, weights, global_t)
     return RoundOut(avg, stats, resid, payload)
+
+
+def gossip_round(local_train: Callable, comp: Optional[cc.CompressionConfig],
+                 client_t: Tree, batches: Tree, mask: torch.Tensor,
+                 generators: List[Optional[torch.Generator]],
+                 resid: Optional[Tree] = None,
+                 uniforms: Optional[cc.Uniforms] = None,
+                 alpha: float = 0.5, steps: int = 1) -> RoundOut:
+    """One serverless round (``gossip_body`` / ``gossip_body_comp``): every
+    client trains from its own stacked row and the peers mix. With a codec,
+    each peer ships its delta against its own round-start params; the
+    neighbour terms come from the lossy reconstruction, each sender's
+    self-term stays its honest post-train tree. ``global_t`` of the result
+    is the mixed ``[C, ...]`` stack. ``FedEngine`` runs the same steps
+    split around its ledger seam."""
+    new_t, stats = local_updates(local_train, client_t, batches, generators)
+    if comp is None or not comp.enabled:
+        return RoundOut(mix(new_t, mask, client_t, alpha, steps), stats)
+    payload, rec, resid = encode_deltas(comp, new_t, client_t, resid,
+                                        uniforms)
+    mixed = mix_recv(new_t, rec, mask, client_t, alpha, steps)
+    return RoundOut(mixed, stats, resid, payload)

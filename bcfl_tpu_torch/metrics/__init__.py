@@ -3,5 +3,6 @@
 from bcfl_tpu_torch.metrics.metrics import (  # noqa: F401
     RoundRecord,
     RunMetrics,
+    StepClock,
     model_size_gb,
 )

@@ -2,8 +2,11 @@
 
 Four ops, registered with :mod:`bcfl_tpu_torch.ops.registry`:
 
-- ``int8_quantize`` — plain version :func:`int8_quantize_ref`, CUDA kernel
-  ``csrc/int8_quantize.cu`` (replaces ``pallas_codec.py::_int8_kernel``);
+- ``int8_quantize`` — a sequence of grids in one call (the codec's round
+  passes one grid per distinct chunk width): plain version
+  :func:`int8_quantize_grids_ref` (:func:`int8_quantize_ref` per grid),
+  CUDA kernel ``csrc/int8_quantize.cu``, one launch for all the grids
+  (replaces ``pallas_codec.py::_int8_kernel``);
 - ``topk_select`` — plain version :func:`topk_select_ref`, CUDA kernel
   ``csrc/topk_select.cu`` (replaces ``pallas_codec.py::_topk_kernel``);
 - ``int8_dequant`` / ``topk_scatter`` — plain PyTorch on every device
@@ -22,7 +25,7 @@ only inside a wrapper call, never at import.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -48,35 +51,91 @@ def int8_quantize_ref(g: torch.Tensor, u: Optional[torch.Tensor], *,
     return q, scale
 
 
-def _int8_cuda(g: torch.Tensor, u: Optional[torch.Tensor], *,
-               stochastic: bool) -> Tuple[torch.Tensor, torch.Tensor]:
-    if g.dim() != 3 or g.dtype != torch.float32 or not g.is_contiguous():
-        raise ValueError(f"int8_quantize: g must be a contiguous float32 "
-                         f"[C, M, chunk] tensor, got {g.dtype} "
-                         f"{tuple(g.shape)}")
-    if stochastic:
-        if (u is None or u.shape != g.shape or u.dtype != torch.float32
-                or u.device != g.device or not u.is_contiguous()):
+Grid = Tuple[torch.Tensor, torch.Tensor]
+
+
+def int8_quantize_grids_ref(gs: Sequence[torch.Tensor],
+                            us: Optional[Sequence[torch.Tensor]], *,
+                            stochastic: bool) -> List[Grid]:
+    """The ``int8_quantize`` op's plain version: :func:`int8_quantize_ref`
+    on each grid (``us`` the matching uniforms, None when not
+    stochastic)."""
+    return [int8_quantize_ref(g, us[k] if stochastic else None,
+                              stochastic=stochastic)
+            for k, g in enumerate(gs)]
+
+
+#: the most grids one launch takes (the C entry's table)
+INT8_MAX_GRIDS = 16
+_INT8_FN = []
+
+
+def _int8_entry():
+    """``bcfl_int8_quantize`` with its argument types set once."""
+    if not _INT8_FN:
+        fn = cuda_build.load(INT8_QUANTIZE.source).bcfl_int8_quantize
+        ptrs = ctypes.POINTER(ctypes.c_void_p)
+        fn.argtypes = [ptrs, ptrs, ptrs, ptrs,
+                       ctypes.POINTER(ctypes.c_longlong),
+                       ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _INT8_FN.append(fn)
+    return _INT8_FN[0]
+
+
+def _int8_cuda(gs: Sequence[torch.Tensor],
+               us: Optional[Sequence[torch.Tensor]], *,
+               stochastic: bool) -> List[Grid]:
+    n = len(gs)
+    if not 1 <= n <= INT8_MAX_GRIDS:
+        raise ValueError(f"int8_quantize: 1 to {INT8_MAX_GRIDS} grids per "
+                         f"call, got {n}")
+    dev = gs[0].device
+    for k, g in enumerate(gs):
+        if (g.dim() != 3 or g.dtype != torch.float32
+                or not g.is_contiguous() or g.device != dev):
+            raise ValueError(f"int8_quantize: grid {k} must be a contiguous "
+                             f"float32 [C, M, chunk] tensor on {dev}, got "
+                             f"{g.dtype} {tuple(g.shape)} on {g.device}")
+        if stochastic and (us is None or len(us) != n
+                           or us[k].shape != g.shape
+                           or us[k].dtype != torch.float32
+                           or us[k].device != dev
+                           or not us[k].is_contiguous()):
             raise ValueError("int8_quantize: stochastic rounding needs "
-                             "contiguous float32 uniforms shaped like g on "
-                             "g's device")
-    C, M, chunk = g.shape
-    q = torch.empty(g.shape, dtype=torch.int8, device=g.device)
-    scale = torch.empty((C, M), dtype=torch.float32, device=g.device)
-    lib = cuda_build.load(INT8_QUANTIZE.source)
-    fn = lib.bcfl_int8_quantize
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = fn(g.data_ptr(), u.data_ptr() if stochastic else None,
-                 q.data_ptr(), scale.data_ptr(), C * M, chunk,
-                 int(stochastic), stream)
+                             "contiguous float32 uniforms shaped like each "
+                             "grid on its device")
+    # two allocations for every grid's codes and scales; each grid's codes
+    # start 16-byte aligned (the 256-wide rows are stored 8 bytes at a time)
+    starts = []
+    nq = 0
+    for g in gs:
+        starts.append(nq)
+        nq += -(-g.numel() // 16) * 16
+    codes = torch.empty(nq, dtype=torch.int8, device=dev)
+    scales = torch.empty(sum(g.shape[0] * g.shape[1] for g in gs),
+                         dtype=torch.float32, device=dev)
+    out, cs = [], 0
+    for g, cq in zip(gs, starts):
+        ns = g.shape[0] * g.shape[1]
+        out.append((codes[cq:cq + g.numel()].view(g.shape),
+                    scales[cs:cs + ns].view(g.shape[:2])))
+        cs += ns
+    vp = ctypes.c_void_p * n
+    args = (vp(*(g.data_ptr() for g in gs)),
+            vp(*(u.data_ptr() for u in us)) if stochastic else None,
+            vp(*(q.data_ptr() for q, _ in out)),
+            vp(*(s.data_ptr() for _, s in out)),
+            (ctypes.c_longlong * n)(*(g.shape[0] * g.shape[1] for g in gs)),
+            (ctypes.c_int * n)(*(g.shape[2] for g in gs)))
+    fn = _int8_entry()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*args, n, int(stochastic), stream)
     cuda_build.check(err, "int8_quantize launch")
     INT8_QUANTIZE.launches += 1
-    return q, scale
+    return out
 
 
 # -------------------------------------------------------- top-k magnitude
@@ -162,7 +221,7 @@ def topk_scatter(val: torch.Tensor, idx: torch.Tensor, *, n: int
 # LoRA rank-2/4/8 adapter widths, C=8 clients per row
 
 INT8_QUANTIZE = registry.register_op(registry.KernelOp(
-    name="int8_quantize", torch=int8_quantize_ref, cuda=_int8_cuda,
+    name="int8_quantize", torch=int8_quantize_grids_ref, cuda=_int8_cuda,
     bench_shapes=(
         {"label": "bert-attn-768x768", "C": 8, "N": 589824, "chunk": 256},
         {"label": "bert-mlp-768x3072", "C": 8, "N": 2359296, "chunk": 256},

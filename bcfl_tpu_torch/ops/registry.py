@@ -93,6 +93,8 @@ def parity_check(parity: str) -> Callable[[torch.Tensor, torch.Tensor],
 
 def _device_of(args) -> torch.device:
     for a in args:
+        if isinstance(a, (list, tuple)) and a:
+            a = a[0]  # an op over a sequence of tensors
         if isinstance(a, torch.Tensor):
             return a.device
     raise TypeError("kernel op called without a tensor argument")

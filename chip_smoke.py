@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``bcfl_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # phases 1-4
+    python3 chip_smoke.py              # phases 1-4, paths (a)-(d)
     python3 chip_smoke.py --profile    # phases 1-4, then 5
 
 Phases, each of which raises (and the script exits non-zero) on failure:
@@ -15,7 +15,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``int8_quantize`` on its registered ``bench_shapes`` grids (stochastic
    and deterministic), ``topk_select`` on its ``bench_shapes`` rows, one
    row for each leaf width of bert-base (the 23,440,896-wide word
-   embeddings included), a row of ties and a row with -0.0. The flash
+   embeddings included), a row of ties, a row with -0.0, and both on rows
+   holding NaN, -NaN, +inf and -inf (``int8_quantize`` at chunk widths 1
+   to 300, both roundings). The flash
    kernels (forward; backward dK/dV/d-bias; backward dQ): first their
    routes (under ``torch.profiler``, a bf16 call of each runs its
    ``wgmma`` instance, a float32 call its FMA one), then
@@ -42,21 +44,39 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    Then times each kernel at the calls one round of path (b) makes, and
    ``topk_select`` also on the stacked deltas of one real round (4 clients
    after 2 local AdamW steps of path (a)), held bit for bit and printed
-   beside the Gaussian rows.
+   beside the Gaussian rows. Then the peer-to-peer paths, each with the
+   counts set to 0 just before it and read just after: (c) serverless ring
+   gossip, the ``serverless_noniid_medical`` preset at biobert-base's
+   width (10 clients, 40 labels, 2 rounds of 2 local steps of 32 x 128
+   tokens, ``int8+topk``, the ledger on) on a ``csv:`` corpus the script
+   writes under ``build/``, with its ledger and the fingerprint's
+   determinism on its payload; (d) BC-FL async, the
+   ``bcfl_async_pagerank`` preset at albert-base's width (10 clients,
+   buffer 4, PageRank gating, the ledger, 3 rounds, ``int8+topk``), its
+   anomalies held to the JAX package's and a stale client required by the
+   last round. Both check ``chain_ok`` and that every unmasked client
+   authenticated, and print the ledger's time per round; after each, K5
+   and K4 are held bit for bit to their plain versions at that path's own
+   calls (its 10-client stacks and grids) and timed.
 4. ``reference``: on small inputs, a tiny-bert server round on the card
    against the same round on the CPU (float32, dropout off, at the
    tolerance of ``tests/test_torch_round.py``), with dense attention at
    S=16 and with flash attention at S=64, and the codec tree encode on the
    card against the CPU, payload bit for bit.
-5. ``profile`` (only with ``--profile``): one warm round of each main
-   path split into its stages (local training, codec, FedAvg mean) on the
-   host clock, and under ``torch.profiler``: the device's busy share and
-   the kernels by device time.
+5. ``profile`` (only with ``--profile``): one warm round of paths (a),
+   (b) and (c) split into its stages (local training, codec, FedAvg mean;
+   for (c) training, codec, ledger and gossip mix) on the host clock, and
+   under ``torch.profiler``: the device's busy share and the kernels by
+   device time.
 
 The script prints the card's name and power limit first, and as its last
 three lines the kernels' JSON record, the card line again and the result
 ``{"ok": true, "device": {...}}``. Times are CUDA-event means over
-repeated launches after a warm-up; the caches are warm.
+repeated launches after a warm-up; the caches are warm. A call whose host
+wrapper takes longer than its kernel reads the wrapper's rate that way,
+so K4's round calls also print their kernel's device time under
+``torch.profiler``, back to back and with the L2 cache flushed before
+each call.
 """
 
 from __future__ import annotations
@@ -64,6 +84,7 @@ from __future__ import annotations
 import argparse
 import copy
 import csv
+import functools
 import json
 import math
 import re
@@ -105,6 +126,35 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, kernel: str, flush: bool = False) -> float:
+    """Mean device time per call of ``fn`` in the kernels whose name holds
+    ``kernel``, under ``torch.profiler`` (after one warm-up call): the
+    kernel's own time, where ``time_ms`` of a call whose host wrapper
+    takes longer than its kernel reads the wrapper's rate. With ``flush``,
+    a buffer four times the L2 cache is written before every call, so no
+    call reads what the one before left in L2 (the fill is not counted)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 0)
+    scrub = (torch.empty(4 * (l2 or 50 << 20), dtype=torch.uint8,
+                         device="cuda") if flush else None)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            if scrub is not None:
+                scrub.zero_()
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key)
+    if total <= 0:
+        raise RuntimeError(f"the profiler saw no device time of {kernel}")
+    return total / 1e3 / iters
 
 
 def bound_ms(nbytes: float, ops: float,
@@ -196,29 +246,89 @@ class KernelStats:
                 "bound_by": self.bound_by, "library_ms": self.library_ms}
 
 
-def int8_case(ck, st, gen, C, M, chunk, stochastic, label, iters):
-    g = torch.randn((C, M, chunk), generator=gen, device="cuda") * 1e-3
-    u = (torch.rand((C, M, chunk), generator=gen, device="cuda")
-         if stochastic else None)
-    q, s = ck.INT8_QUANTIZE(g, u, stochastic=stochastic)
-    q_ref, s_ref = ck.int8_quantize_ref(g, u, stochastic=stochastic)
+def int8_case(ck, st, gen, shapes, stochastic, label, iters, device=False):
+    """One ``int8_quantize`` call over the grids ``shapes`` ([C, M, chunk]
+    each; a round's calls pass all of its grids at once), held bit for bit
+    and timed against the plain version; with ``device``, also the
+    kernel's device time under the profiler."""
+    gs = [torch.randn(sh, generator=gen, device="cuda") * 1e-3
+          for sh in shapes]
+    us = ([torch.rand(sh, generator=gen, device="cuda") for sh in shapes]
+          if stochastic else None)
+    got = ck.INT8_QUANTIZE(gs, us, stochastic=stochastic)
+    want = ck.int8_quantize_grids_ref(gs, us, stochastic=stochastic)
     torch.cuda.synchronize()
-    same, err = held(ck.INT8_QUANTIZE.parity, ((q, q_ref), (s, s_ref)))
+    same, err = held(ck.INT8_QUANTIZE.parity,
+                     [(a, b) for pa, pb in zip(got, want)
+                      for a, b in zip(pa, pb)])
     st.compared(err)
-    ms = time_ms(lambda: ck.INT8_QUANTIZE(g, u, stochastic=stochastic), iters)
-    plain = time_ms(lambda: ck.int8_quantize_ref(g, u, stochastic=stochastic),
-                    iters)
-    n = C * M * chunk
-    nbytes = n * (4 + (4 if stochastic else 0) + 1) + C * M * 4
+    ms = time_ms(lambda: ck.INT8_QUANTIZE(gs, us, stochastic=stochastic),
+                 iters)
+    plain = time_ms(lambda: ck.int8_quantize_grids_ref(
+        gs, us, stochastic=stochastic), iters)
+    n = sum(C * M * c for C, M, c in shapes)
+    rows = sum(C * M for C, M, _ in shapes)
+    nbytes = n * (4 + (4 if stochastic else 0) + 1) + rows * 4
     bnd, by = bound_ms(nbytes, 6 * n)
-    print(f"int8_quantize {label} [{C},{M},{chunk}] "
-          f"stochastic={int(stochastic)}: kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, bound {bnd:.4f} ms ({by}), "
-          f"{'identical' if same else 'DIFFERS'}", flush=True)
+    grids = " + ".join(f"[{C},{M},{c}]" for C, M, c in shapes)
+    dev = ""
+    if device:
+        call = functools.partial(ck.INT8_QUANTIZE, gs, us,
+                                 stochastic=stochastic)
+        t = device_ms(call, iters, "int8_quantize_kernel")
+        cold = device_ms(call, iters, "int8_quantize_kernel", flush=True)
+        dev = (f", device time {t:.4f} ms back to back, {cold:.4f} ms with "
+               f"L2 flushed before each call ({bnd / cold:.1%} of the bound)")
+    print(f"int8_quantize {label} {grids} stochastic={int(stochastic)}: "
+          f"kernel {ms:.4f} ms{dev}, plain {plain:.4f} ms, bound {bnd:.4f} "
+          f"ms ({by}), {'identical' if same else 'DIFFERS'}", flush=True)
     if not same:
         raise RuntimeError(f"int8_quantize differs from its plain version "
                            f"at {label} stochastic={stochastic}")
     return ms, plain, bnd, by
+
+
+def nonfinite_rows(ck, gen):
+    """K4 and K5 on rows holding NaN, -NaN, +inf and -inf, bit for bit
+    against their plain versions: a NaN anywhere in a chunk makes its
+    scale NaN and its codes 0, an inf makes the scale inf (the plain
+    version's ``amax`` and ``clamp`` keep a NaN); top-k ranks NaN first,
+    then inf, values gathered with their sign bits."""
+    specials = (float("nan"), -float("nan"), float("inf"), -float("inf"))
+    for chunk in (1, 2, 39, 64, 255, 256, 300):
+        g = torch.randn((3, 7, chunk), generator=gen, device="cuda") * 1e-3
+        flat = g.view(-1, chunk)
+        for r, v in enumerate(specials):
+            flat[r, (5 * r) % chunk] = v
+        if chunk > 1:
+            flat[4, 0], flat[4, -1] = float("inf"), -float("inf")
+        u = torch.rand(g.shape, generator=gen, device="cuda")
+        for stochastic in (True, False):
+            uu = u if stochastic else None
+            [got] = ck.INT8_QUANTIZE([g], None if uu is None else [uu],
+                                     stochastic=stochastic)
+            want = ck.int8_quantize_ref(g, uu, stochastic=stochastic)
+            torch.cuda.synchronize()
+            same, _ = held(ck.INT8_QUANTIZE.parity, zip(got, want))
+            if not same:
+                raise RuntimeError(f"int8_quantize differs from its plain "
+                                   f"version on non-finite rows, chunk "
+                                   f"{chunk} stochastic={stochastic}")
+    x = torch.randn((3, 4099), generator=gen, device="cuda")
+    x[0, 17], x[0, 4000], x[0, 5] = specials[0], specials[1], specials[2]
+    x[1, 9], x[1, 3] = specials[3], specials[2]
+    x[2, ::2] = specials[0]
+    for k in (1, 3, 6, 4099):
+        got = ck.TOPK_SELECT(x, k=k)
+        want = ck.topk_select_ref(x, k=k)
+        torch.cuda.synchronize()
+        same, _ = held(ck.TOPK_SELECT.parity, zip(got, want))
+        if not same:
+            raise RuntimeError(f"topk_select differs from its plain version "
+                               f"on non-finite rows, k={k}")
+    print("int8_quantize (chunks 1-300, both roundings) and topk_select "
+          "(k = 1, 3, 6, N) on NaN, -NaN, +inf, -inf rows: identical",
+          flush=True)
 
 
 def topk_case(ck, st, x, k, label, iters):
@@ -427,7 +537,7 @@ def phase_kernels(ck, fk, stats, main_lens):
     for sh in ck.INT8_QUANTIZE.bench_shapes:
         M = -(-sh["N"] // sh["chunk"])
         for stochastic in (True, False):
-            int8_case(ck, s4, gen, sh["C"], M, sh["chunk"], stochastic,
+            int8_case(ck, s4, gen, [(sh["C"], M, sh["chunk"])], stochastic,
                       sh["label"], 20)
     rows = [(sh["label"], sh["R"], sh["N"])
             for sh in ck.TOPK_SELECT.bench_shapes]
@@ -449,14 +559,15 @@ def phase_kernels(ck, fk, stats, main_lens):
     x[0, 4000] = 1.0
     for k in (1, 3, 4099):
         topk_case(ck, s5, x, k, f"negzero-k{k}", 5)
+    nonfinite_rows(ck, gen)
     return phase_flash_kernels(fk, stats, main_lens)
 
 
 def main_path_calls(template, comp, C):
     """The kernel calls ``encode_tree`` makes in one round, from the
     template's leaf widths: top-k once per distinct width over the
-    ``[L*C, N]`` stack, int8 once per distinct ``min(chunk, k)`` over the
-    concatenated value grids."""
+    ``[L*C, N]`` stack; int8 once over the grids, one per distinct
+    ``min(chunk, k)`` of the concatenated values."""
     from bcfl_tpu_torch.compression.codecs import _leaf_k
 
     widths = {}
@@ -472,27 +583,41 @@ def main_path_calls(template, comp, C):
     return topk, int8
 
 
-def time_main_path_shapes(ck, stats, template, comp, C):
-    """Per-round kernel, plain, bound and library times of the codec
-    kernels summed over one round's own calls (random inputs of those
-    shapes; both main paths make the same calls)."""
+def codec_calls(ck, stats, template, comp, C, label, device=False):
+    """K5 and K4 at one path's own calls (random inputs of those shapes),
+    each held bit for bit to its plain version and timed. Returns the
+    ``topk_case`` times of each top-k call, the ``int8_case`` times of the
+    round's one int8 call, and that call's grids."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(99)
     topk, int8 = main_path_calls(template, comp, C)
     s4, s5 = stats["int8_quantize"], stats["topk_select"]
-    total = lib_total = 0.0
+    times = []
     for R, N, k in topk:
         x = torch.randn((R, N), generator=gen, device="cuda")
-        ms, plain, bnd, by, lib = topk_case(ck, s5, x, k, "main-path",
-                                            3 if R * N > 1 << 24 else 10)
-        s5.add_times(ms, plain, bnd, by, lib)
-        total, lib_total = total + ms, lib_total + lib
+        times.append(topk_case(ck, s5, x, k, label,
+                               3 if R * N > 1 << 24 else 10))
         del x
-    print(f"topk_select per round on Gaussian rows of the same shapes: "
-          f"kernel {total:.4f} ms, torch.topk {lib_total:.4f} ms", flush=True)
-    for C_, M, c in int8:
-        s4.add_times(*int8_case(ck, s4, gen, C_, M, c, comp.stochastic,
-                                "main-path", 20))
+    print(f"topk_select per round at {label}'s calls on Gaussian rows: "
+          f"kernel {sum(t[0] for t in times):.4f} ms, torch.topk "
+          f"{sum(t[4] for t in times):.4f} ms", flush=True)
+    return times, int8_case(ck, s4, gen, int8, comp.stochastic, label, 20,
+                            device=device), int8
+
+
+def time_main_path_shapes(ck, stats, template, comp, C):
+    """Per-round kernel, plain, bound and library times of the codec
+    kernels summed over one round's own calls (both server paths make the
+    same calls)."""
+    topk, int8, grids = codec_calls(ck, stats, template, comp, C,
+                                    "main-path", device=True)
+    for t in topk:
+        stats["topk_select"].add_times(*t)
+    stats["int8_quantize"].add_times(*int8)
+    # the large grid alone: its share of the bound
+    int8_case(ck, stats["int8_quantize"], torch.Generator(device="cuda"),
+              [max(grids, key=lambda sh: sh[1] * sh[2])], comp.stochastic,
+              "main-path-large-grid", 20, device=True)
 
 
 def real_delta_topk(ck, stats, cfg):
@@ -650,6 +775,13 @@ def drive(cfg, smi, label):
     return result, launches
 
 
+def count_launches(stats, launches):
+    """Add one path's launch counts to the record's ``launches``: the
+    record sums the main paths' counts."""
+    for name, n in launches.items():
+        stats[name].launches = (stats[name].launches or 0) + n
+
+
 def phase_main(ck, stats, smi, dataset, flash_per):
     """Path (a), seq 128 with dense attention, then path (b), seq 512
     with flash attention; then each kernel's per-round time at path (b)'s
@@ -661,10 +793,11 @@ def phase_main(ck, stats, smi, dataset, flash_per):
         if ran != (name not in FLASH_OPS):
             raise RuntimeError(f"seq-128 path: kernel {name} launched {n} "
                                "times")
+    count_launches(stats, launches)
     cfg = flash_config(dataset)
     result, launches = drive(cfg, smi, "seq-512 flash path")
+    count_launches(stats, launches)
     for name, n in launches.items():
-        stats[name].launches = n
         if n <= 0:
             raise RuntimeError(f"kernel {name} never launched on the seq-512 "
                                "path")
@@ -683,6 +816,170 @@ def phase_main(ck, stats, smi, dataset, flash_per):
           f"each flash kernel", flush=True)
 
 
+# --------------------------------------------------- peer-to-peer paths
+
+#: PageRank's anomalies on the reference 10-node latency graph, the JAX
+#: package's value (``tests/test_torch_topology.py`` pins it on the CPU)
+PAGERANK_ANOMALIES = [0, 4, 7, 9]
+
+
+def write_medical_docs(seed: int = 1, n_train: int = 5000, n_test: int = 400,
+                       labels: int = 40) -> str:
+    """A ``csv:`` corpus shaped like the medical-transcriptions split
+    (which is not in the repository) under ``build/chip_smoke/``:
+    ``n_train`` + ``n_test`` notes of 60-159 words from a 2,000-word
+    vocabulary over ``labels`` specialties, each specialty drawing half its
+    words from its own 50-word slice. Returns ``csv:<train>::<test>``."""
+    import numpy as np
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    vocab = np.array([f"w{i}" for i in range(2000)])
+    paths = []
+    for split, n in (("train", n_train), ("test", n_test)):
+        path = BUILD_DIR / f"medical_{split}.csv"
+        with open(path, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["text", "labels"])
+            for y in rng.integers(0, labels, n):
+                L = int(rng.integers(60, 160))
+                own = rng.random(L) < 0.5
+                idx = np.where(own, 50 * y + rng.integers(0, 50, L),
+                               rng.integers(0, 2000, L))
+                w.writerow([" ".join(vocab[idx]), int(y)])
+        paths.append(str(path))
+    return "csv:" + "::".join(paths)
+
+
+def gossip_config(dataset: str, **kw):
+    """Path (c): the ``serverless_noniid_medical`` preset at its published
+    shape (biobert-base widths, vocab 28,996, 10 clients, 40 labels,
+    unweighted mean, ring gossip of one step at alpha 0.5, contiguous
+    partition of stride 500, train 400, fixed test 400) with the
+    ``int8+topk`` codec at its defaults and the ledger on; cut to 2 rounds
+    of 2 local steps of 32 x 128 tokens, 4 evaluation batches."""
+    from bcfl_tpu_torch.compression import CompressionConfig
+    from bcfl_tpu_torch.config import LedgerConfig
+    from bcfl_tpu_torch.entrypoints.presets import get_preset
+
+    base = dict(name="chip-smoke-serverless-noniid-medical", dataset=dataset,
+                vocab_size=28996, num_rounds=2, max_local_batches=2,
+                max_eval_batches=4,
+                compression=CompressionConfig(kind="int8+topk"),
+                ledger=LedgerConfig(enabled=True))
+    base.update(kw)
+    return get_preset("serverless_noniid_medical").replace(**base)
+
+
+def async_config(**kw):
+    """Path (d): the ``bcfl_async_pagerank`` preset as it stands
+    (albert-base widths, vocab 30,000, 10 clients on the reference graph,
+    buffer 4, staleness decay 0.5, PageRank gating, the ledger, IID 100
+    resampled each round) with the ``int8+topk`` codec, on the synthetic
+    corpus (imdb needs the hub); cut to 3 rounds of 2 local steps of 32 x
+    128 tokens, 4 evaluation batches."""
+    from bcfl_tpu_torch.compression import CompressionConfig
+    from bcfl_tpu_torch.entrypoints.presets import get_preset
+
+    base = dict(name="chip-smoke-bcfl-async-pagerank", dataset="synthetic",
+                vocab_size=30000, num_rounds=3, max_local_batches=2,
+                max_eval_batches=4,
+                compression=CompressionConfig(kind="int8+topk"))
+    base.update(kw)
+    return get_preset("bcfl_async_pagerank").replace(**base)
+
+
+def check_ledger(result, label):
+    """``chain_ok`` 1, every unmasked client authenticated in every round;
+    prints the ledger's host time per round."""
+    m = result.metrics
+    if m.ledger.get("chain_ok") != 1.0:
+        raise RuntimeError(f"{label}: ledger chain_ok {m.ledger}")
+    for r in m.rounds:
+        bad = [c for c, (a, k) in enumerate(zip(r.auth, r.mask))
+               if k > 0 and a != 1.0]
+        if bad:
+            raise RuntimeError(f"{label} round {r.round}: clients {bad} "
+                               "failed authentication in a clean round")
+    ph = m.phases["ledger"]
+    print(f"{label}: ledger {ph['total_s'] / len(m.rounds) * 1e3:.1f} ms per "
+          f"round (fingerprint of the payload, commit and auth; "
+          f"{ph['count']} calls), {len(result.ledger)} entries, "
+          f"chain_ok {m.ledger['chain_ok']}", flush=True)
+
+
+def fingerprint_determinism(result, cfg):
+    """The ledger authenticates by recomputing fingerprint bits: the same
+    payload (path (c)'s shapes, 10 clients) fingerprints to the same bits
+    twice on the card, the second time from a copy."""
+    from bcfl_tpu_torch.compression import encode_tree
+    from bcfl_tpu_torch.core import prng
+    from bcfl_tpu_torch.ledger import client_fingerprint
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    delta = {p: torch.randn((cfg.num_clients,) + tuple(x.shape),
+                            generator=gen, device="cuda") * 1e-3
+             for p, x in result.trainable.items()}
+    payload = encode_tree(cfg.compression, delta,
+                          prng.codec_uniforms(cfg.seed, 0))
+    del delta
+    a = client_fingerprint(payload)
+    b = client_fingerprint({p: {k: v.clone() for k, v in parts.items()}
+                            for p, parts in payload.items()})
+    if not held("bit-identical", [(a, b)])[0]:
+        raise RuntimeError("the fingerprint of path (c)'s payload differs "
+                           "between two computations on the card")
+    print(f"fingerprint of a path-(c)-shaped payload ({len(payload)} leaves, "
+          f"{cfg.num_clients} clients): the same bits twice", flush=True)
+
+
+def phase_p2p(ck, stats, smi, dataset):
+    """Path (c), serverless ring gossip, and path (d), BC-FL async, each
+    with the launch counts set to 0 just before it and read just after;
+    after each, K5 and K4 held to their plain versions at its calls."""
+    cfg = gossip_config(dataset)
+    result, launches = drive(cfg, smi, "serverless gossip path")
+    count_launches(stats, launches)
+    for name in ("int8_quantize", "topk_select"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"{name} never launched on the serverless "
+                               "gossip path")
+    check_ledger(result, "serverless gossip path")
+    fingerprint_determinism(result, cfg)
+    template = result.trainable
+    del result
+    torch.cuda.empty_cache()
+    codec_calls(ck, stats, template, cfg.compression, cfg.num_clients,
+                "serverless-path", device=True)
+    del template
+    torch.cuda.empty_cache()
+    cfg = async_config()
+    result, launches = drive(cfg, smi, "bcfl async path")
+    count_launches(stats, launches)
+    for name in ("int8_quantize", "topk_select"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"{name} never launched on the bcfl async "
+                               "path")
+    check_ledger(result, "bcfl async path")
+    for r in result.metrics.rounds:
+        print(f"bcfl async path round {r.round}: anomalies {r.anomalies}, "
+              f"staleness {r.staleness}, alpha {r.async_alpha}, info "
+              f"passing sync {r.info_passing_sync_s:.4f} s async "
+              f"{r.info_passing_async_s:.4f} s", flush=True)
+        if r.anomalies != PAGERANK_ANOMALIES:
+            raise RuntimeError(f"bcfl async path: anomalies {r.anomalies}, "
+                               f"the JAX package's {PAGERANK_ANOMALIES}")
+    if max(result.metrics.rounds[-1].staleness) <= 0:
+        raise RuntimeError("bcfl async path: no stale client by the last "
+                           "round")
+    template = result.trainable
+    del result
+    torch.cuda.empty_cache()
+    codec_calls(ck, stats, template, cfg.compression, cfg.num_clients,
+                "bcfl-async-path")
+
+
 # -------------------------------------------------------------- profile
 
 
@@ -692,7 +989,6 @@ def phase_profile(cfg, label):
     then the same round under ``torch.profiler`` for the device's busy time
     and the kernels by device time."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from bcfl_tpu_torch.compression import codecs as cc
     from bcfl_tpu_torch.core import prng
@@ -724,6 +1020,61 @@ def phase_profile(cfg, label):
         torch.cuda.synchronize()
         t["mean"] = time.perf_counter() - t0
         return t
+
+    profile_round(one_round, label)
+
+
+def phase_profile_gossip(cfg, label):
+    """``phase_profile`` for a serverless round with the ledger on: local
+    training from each client's row, the codec against the round-start
+    stack, the ledger's fingerprint, commit and auth, and the ring-gossip
+    mix of what arrived."""
+    import numpy as np
+
+    from bcfl_tpu_torch.core import prng
+    from bcfl_tpu_torch.fed import client_step as cs
+    from bcfl_tpu_torch.fed.engine import FedEngine
+
+    cfg = cfg.replace(num_rounds=1, eval_every=0)
+    eng = FedEngine(cfg, device="cuda")
+    C = cfg.num_clients
+    start = cs.broadcast(eng.trainable0, C)
+    eng._ef = {p: torch.zeros_like(x) for p, x in start.items()}
+    batches, _ = eng._round_batches(0)
+    m = eng._mask_tensor(np.ones((C,), np.float32))
+    rnd = [0]
+
+    def one_round():
+        t = {}
+        t0 = time.perf_counter()
+        gens = prng.client_round_generators(cfg.seed, C, 0, eng.device)
+        new_t, _ = cs.local_updates(eng.local_train, start, batches, gens)
+        torch.cuda.synchronize()
+        t["train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        payload, rec, eng._ef = cs.encode_deltas(
+            eng._comp, new_t, start, eng._ef, prng.codec_uniforms(cfg.seed, 0))
+        torch.cuda.synchronize()
+        t["codec"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng._ledger_verify(rnd[0], payload, kind="payload")
+        rnd[0] += 1
+        t["ledger"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cs.mix_recv(new_t, rec, m, start, cfg.topology.gossip_alpha,
+                    cfg.topology.gossip_steps)
+        torch.cuda.synchronize()
+        t["mix"] = time.perf_counter() - t0
+        return t
+
+    profile_round(one_round, label)
+
+
+def profile_round(one_round, label):
+    """Time ``one_round`` (stage name -> host seconds) warm, then once
+    under ``torch.profiler``: the device's busy share, the kernels by
+    device time and the host ops by the device time they launched."""
+    from torch.profiler import ProfilerActivity, profile
 
     one_round()  # warm
     t = one_round()
@@ -832,6 +1183,85 @@ def reference_round(use_flash: bool, S: int):
     return out["cpu"]
 
 
+def reference_gossip_round():
+    """A tiny-bert serverless round (ring gossip, int8+topk at topk_frac 1,
+    float32, dropout off, S=16, each client from its own row, client 2
+    masked) on the card and on the CPU, held to the tolerance of
+    ``tests/test_torch_round.py``; then the fingerprint of its payload on
+    the card against the CPU, at the tolerance of
+    ``tests/test_torch_ledger.py`` (rtol 1e-5 plus 1e-6 of the largest
+    magnitude)."""
+    import numpy as np
+
+    from bcfl_tpu_torch.compression import CompressionConfig
+    from bcfl_tpu_torch.core import prng
+    from bcfl_tpu_torch.fed import client_step as cs
+    from bcfl_tpu_torch.ledger import client_fingerprint
+    from bcfl_tpu_torch.models import build
+    from bcfl_tpu_torch.models.bert import init_params
+    from bcfl_tpu_torch.models.convert import trainable_tree
+
+    rng = np.random.default_rng(3)
+    C, steps, B, S = 4, 2, 4, 16
+    batches_np = {
+        "ids": rng.integers(4, 512, (C, steps, B, S)).astype(np.int32),
+        "mask": (np.arange(S)[None, None, None, :]
+                 < rng.integers(4, S + 1, (C, steps, B, 1))).astype(np.int32),
+        "labels": rng.integers(0, 2, (C, steps, B)).astype(np.int32),
+        "example_mask": np.ones((C, steps, B), np.float32)}
+    comp = CompressionConfig(kind="int8+topk", topk_frac=1.0,
+                             stochastic=False)
+    base = build("tiny-bert", num_labels=2, vocab_size=512,
+                 dtype=torch.float32, dropout_rate=0.0)
+    init_params(base, prng.generator("cpu", 11))
+    g0 = trainable_tree(base)
+    start_np = {p: (x.numpy()[None] + 1e-3 * rng.standard_normal(
+        (C,) + tuple(x.shape))).astype(np.float32) for p, x in g0.items()}
+    mask = np.asarray([1, 1, 0, 1], np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = copy.deepcopy(base).to(dev)
+        start = {p: torch.from_numpy(x).to(dev) for p, x in start_np.items()}
+        resid = {p: torch.zeros_like(x) for p, x in start.items()}
+        local = cs.make_local_train(model, cs.make_loss_fn(model))
+        out[dev] = cs.gossip_round(
+            local, comp, start,
+            {k: torch.from_numpy(v).to(dev) for k, v in batches_np.items()},
+            torch.from_numpy(mask).to(dev), [None] * C, resid, None,
+            alpha=0.5, steps=1)
+    lr, far, total, worst = 5e-5, 0, 0, 0.0
+    for p, x in out["cpu"].global_t.items():
+        step = float(out["cpu"].payload[p]["s"].max())
+        err = (out["cuda"].global_t[p].cpu() - x).abs()
+        worst = max(worst, float(err.max()))
+        if float(err.max()) > 2 * lr * steps * 1.01 + step:
+            raise RuntimeError(f"reference gossip round: {p} differs by "
+                               f"{float(err.max())}")
+        if not p.endswith("/key/bias"):
+            far += int((err > 2e-6 + step).sum())
+            total += err.numel()
+    if far > total * 1e-4:
+        raise RuntimeError(f"reference gossip round: {far} of {total} "
+                           "coordinates past 2e-6 plus one quantization step")
+    print(f"reference gossip round (tiny-bert, f32, int8+topk, ring gossip, "
+          f"S={S}, card vs CPU): max |diff| {worst:.3e}, {far} of {total} "
+          "coordinates past 2e-6 + one quantization step", flush=True)
+    # one payload, fingerprinted on the card and on the CPU
+    pay = out["cpu"].payload
+    fp_cpu = client_fingerprint(pay)
+    fp_gpu = client_fingerprint({p: {k: v.cuda() for k, v in parts.items()}
+                                 for p, parts in pay.items()}).cpu()
+    scale = float(fp_cpu.abs().max())
+    err = float((fp_gpu - fp_cpu).abs().max())
+    ok = bool(((fp_gpu - fp_cpu).abs()
+               <= 1e-5 * fp_cpu.abs() + 1e-6 * scale).all())
+    print(f"payload fingerprint card vs CPU: max |diff| {err:.3e} of "
+          f"magnitude {scale:.3e}", flush=True)
+    if not ok:
+        raise RuntimeError("the payload fingerprint differs between the "
+                           "card and the CPU past rtol 1e-5 + 1e-6 max")
+
+
 def phase_reference():
     """The main paths' functions on small inputs: the card against the
     CPU (plain versions), as the CPU tests hold the CPU against JAX."""
@@ -870,6 +1300,7 @@ def phase_reference():
                                    "differ")
     print(f"codec payload (int8+topk, {len(tree)} leaves, 3 clients): card "
           "and CPU bit-identical", flush=True)
+    reference_gossip_round()
 
 
 # ------------------------------------------------------------------ main
@@ -905,10 +1336,13 @@ def main(argv=None) -> int:
     main_lens = main_padding(dataset, flash_config(dataset))
     flash_per = phase_kernels(ck, fk, stats, main_lens)
     phase_main(ck, stats, smi, dataset, flash_per)
+    medical = write_medical_docs()
+    phase_p2p(ck, stats, smi, medical)
     phase_reference()
     if args.profile:
         phase_profile(main_config(), "seq-128 path")
         phase_profile(flash_config(dataset), "seq-512 flash path")
+        phase_profile_gossip(gossip_config(medical), "serverless gossip path")
     print(json.dumps({"kernels": [s.record() for s in stats.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

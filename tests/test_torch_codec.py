@@ -74,6 +74,51 @@ def test_int8_quantize_ref_matches_eager_jax(shape, stochastic):
     _assert_bits(s_t, s_j, "scales")
 
 
+def _nonfinite_grid():
+    """Rows with one NaN, one -NaN, one +inf, one -inf, both infinities,
+    and a finite row, as [1, 6, 8]."""
+    rng = np.random.default_rng(12)
+    g = (rng.standard_normal((1, 6, 8)) * 1e-2).astype(np.float32)
+    for r, v in enumerate((np.nan, -np.nan, np.inf, -np.inf)):
+        g[0, r, 2 * r] = v
+    g[0, 4, 0], g[0, 4, 7] = np.inf, -np.inf
+    return g
+
+
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_int8_quantize_ref_matches_eager_jax_on_nonfinite_rows(stochastic):
+    """A NaN makes its row's scale NaN and every code 0; an inf makes the
+    scale inf, the finite elements' codes 0 and its own NaN code 0 — in
+    both packages, bit for bit (the CUDA kernel is held to this on the
+    card)."""
+    g = _nonfinite_grid()
+    u = (np.random.default_rng(1).random(g.shape, dtype=np.float32)
+         if stochastic else None)
+    q_j, s_j = pallas_codec._int8_quantize_xla(
+        jnp.asarray(g), None if u is None else jnp.asarray(u),
+        stochastic=stochastic)
+    q_t, s_t = ck.int8_quantize_ref(
+        torch.from_numpy(g), None if u is None else torch.from_numpy(u),
+        stochastic=stochastic)
+    _assert_bits(q_t, q_j, "codes")
+    _assert_bits(s_t, s_j, "scales")
+    s = s_t.numpy()[0]
+    assert np.isnan(s[:2]).all() and np.isinf(s[2:5]).all()
+    assert np.isfinite(s[5]) and (q_t.numpy()[0, :5] == 0).all()
+
+
+@pytest.mark.parametrize("k", [1, 3, 6, 16])
+def test_topk_select_ref_matches_lax_top_k_on_nonfinite_rows(k):
+    x = np.random.default_rng(13).standard_normal((3, 16)).astype(np.float32)
+    x[0, 5], x[0, 11], x[0, 2] = np.nan, -np.nan, np.inf
+    x[1, 9], x[1, 3] = -np.inf, np.inf
+    x[2, ::2] = np.nan
+    v_j, i_j = pallas_codec._topk_select_xla(jnp.asarray(x), k=k)
+    v_t, i_t = ck.topk_select_ref(torch.from_numpy(x), k=k)
+    _assert_bits(v_t, v_j, "values (sign bit included)")
+    _assert_bits(i_t, i_j, "indices")
+
+
 def _topk_inputs():
     rng = np.random.default_rng(3)
     rows = rng.standard_normal((5, 97)).astype(np.float32)
@@ -130,7 +175,7 @@ def test_topk_select_ref_matches_jax_on_adamw_deltas(k):
 def test_registry_takes_plain_version_on_cpu():
     registry.reset_launches()
     g = torch.randn(2, 3, 8)
-    q, s = ck.INT8_QUANTIZE(g, None, stochastic=False)
+    [(q, s)] = ck.INT8_QUANTIZE([g], None, stochastic=False)
     q_ref, s_ref = ck.int8_quantize_ref(g, None, stochastic=False)
     assert torch.equal(q, q_ref) and torch.equal(s, s_ref)
     ck.TOPK_SELECT(torch.randn(3, 10), k=2)

@@ -89,8 +89,8 @@ def test_run_is_deterministic_and_eval_cadence():
 
 
 NOT_PORTED = [
-    ("mode", {"mode": "serverless"}),
-    ("sync", {"sync": "async"}),
+    ("faithful", {"mode": "serverless", "faithful": True}),
+    ("registry_size", {"registry_size": 8}),
     ("runtime", {"runtime": "dist"}),
     ("lora_rank", {"lora_rank": 4}),
     ("tp", {"tp": 2}),
@@ -98,9 +98,7 @@ NOT_PORTED = [
     ("aggregator", {"aggregator": "trimmed_mean"}),
     ("max_grad_norm", {"max_grad_norm": 1.0}),
     ("faults", {"faults": object()}),
-    ("ledger.enabled", {"ledger": __import__(
-        "bcfl_tpu_torch.config", fromlist=["LedgerConfig"]).LedgerConfig(
-            enabled=True)}),
+    ("reputation", {"reputation": object()}),
     ("task", {"task": "causal_lm"}),
     ("remat", {"remat": True}),
     ("rounds_per_dispatch", {"rounds_per_dispatch": 2}),
@@ -112,6 +110,40 @@ NOT_PORTED = [
 def test_unsupported_config_raises_not_ported(field, kw):
     with pytest.raises(ValueError, match=f"{field}=.*not ported yet"):
         _tiny(**kw)
+
+
+PORTED = [
+    ("mode", {"mode": "serverless"}),
+    ("sync", {"sync": "async", "async_buffer": 2}),
+    ("ledger.enabled", {"ledger": __import__(
+        "bcfl_tpu_torch.config", fromlist=["LedgerConfig"]).LedgerConfig(
+            enabled=True)}),
+]
+
+
+@pytest.mark.parametrize("field,kw", PORTED, ids=[f for f, _ in PORTED])
+def test_ported_config_values_construct(field, kw):
+    cfg = _tiny(**kw)
+    value = cfg
+    for part in field.split("."):
+        value = getattr(value, part)
+    assert value == (kw[field.split(".")[0]] if "." not in field else True)
+
+
+@pytest.mark.parametrize("buffer", [-1, 0, 3, 4])
+def test_async_buffer_checks_match_jax(buffer):
+    from bcfl_tpu.config import FedConfig as JCfg
+
+    def outcome(make):
+        try:
+            make(num_clients=3, sync="async", async_buffer=buffer)
+        except ValueError as e:
+            return str(e)
+        return None
+
+    want = outcome(JCfg)
+    got = outcome(FedConfig)
+    assert got == want
 
 
 def test_run_without_device_raises_without_gpu(monkeypatch):
@@ -128,7 +160,7 @@ def test_cli_runs_smoke_on_cpu_and_rejects_other_flags(capsys):
                      "--compress", "int8+topk"]) == 0
     out = capsys.readouterr().out
     assert "round   0:" in out and "compress=int8+topk" in out
-    for flags in (["--mode", "serverless"], ["--ledger"], ["--tp", "2"]):
+    for flags in (["--faithful"], ["--aggregator", "median"], ["--tp", "2"]):
         with pytest.raises(SystemExit) as e:
             cli_main(["--device", "cpu"] + flags)
         assert e.value.code == 2
@@ -152,6 +184,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     files = sorted((ROOT / "bcfl_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    for sub in ("topology", "ledger", "parallel", "fed"):
+        assert any(f.parent.name == sub for f in files), sub
     banned = ("jax", "jaxlib", "flax", "optax", "bcfl_tpu")
     for f in files:
         for name in _imports(f):
@@ -256,6 +290,13 @@ def test_chip_smoke_records_only_what_it_measured(monkeypatch, capsys):
     assert capsys.readouterr().out == ""
     with pytest.raises(SystemExit):
         smoke.main(["--phases", "build"])  # no subset knob
+
+
+def test_chip_smoke_pins_the_jax_pagerank_anomalies():
+    from bcfl_tpu.topology import anomaly_filter, reference_graph
+
+    want = anomaly_filter("pagerank", reference_graph(), protect=(1,))
+    assert _chip_smoke().PAGERANK_ANOMALIES == want["anomalies"]
 
 
 def test_resolve_device_leaves_float32_policy_alone(monkeypatch):

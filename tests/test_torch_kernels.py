@@ -20,10 +20,12 @@ from bcfl_tpu_torch.ops import registry
 
 def test_cuda_wrappers_reject_bad_inputs_before_building():
     with pytest.raises(ValueError, match="float32"):
-        ck._int8_cuda(torch.zeros(2, 3, 4, dtype=torch.float64), None,
+        ck._int8_cuda([torch.zeros(2, 3, 4, dtype=torch.float64)], None,
                       stochastic=False)
     with pytest.raises(ValueError, match="uniforms"):
-        ck._int8_cuda(torch.zeros(2, 3, 4), None, stochastic=True)
+        ck._int8_cuda([torch.zeros(2, 3, 4)], None, stochastic=True)
+    with pytest.raises(ValueError, match="grids per call"):
+        ck._int8_cuda([torch.zeros(2, 3, 4)] * 17, None, stochastic=False)
     with pytest.raises(ValueError, match="k <= N"):
         ck._topk_cuda(torch.zeros(2, 3), k=4)
 
@@ -50,13 +52,120 @@ def test_kernels_match_plain_versions_on_card(cuda_device, N, k):
     g = x[:, : (N // 4) * 4 or 1].reshape(6, -1, (N // 4) or 1).contiguous()
     u = torch.rand(g.shape, generator=gen, device=cuda_device)
     for stochastic in (False, True):
-        q, s = ck.INT8_QUANTIZE(g, u, stochastic=stochastic)
+        [(q, s)] = ck.INT8_QUANTIZE([g], [u], stochastic=stochastic)
         q_ref, s_ref = ck.int8_quantize_ref(g, u, stochastic=stochastic)
         assert torch.equal(q, q_ref)
         assert torch.equal(s.view(torch.int32), s_ref.view(torch.int32))
     counts = registry.launch_counts()
     assert (counts.pop("int8_quantize"), counts.pop("topk_select")) == (2, 1)
     assert set(counts.values()) == {0}
+
+
+def _nonfinite_grid(C, M, chunk, gen):
+    """A [C, M, chunk] grid whose first rows hold NaN, -NaN, +inf, -inf
+    (each one element of an otherwise Gaussian row) and a row of both
+    infinities; the rest are Gaussian."""
+    g = torch.randn((C, M, chunk), generator=gen, device=gen.device) * 1e-3
+    flat = g.view(-1, chunk)
+    specials = (float("nan"), -float("nan"), float("inf"), -float("inf"))
+    for r, v in enumerate(specials[:flat.shape[0]]):
+        flat[r, (7 * r) % chunk] = v
+    if flat.shape[0] > 4 and chunk > 1:
+        flat[4, 0], flat[4, -1] = float("inf"), -float("inf")
+    return g
+
+
+def _hold_int8(gs, us, stochastic):
+    """One launch over the grids ``gs``, each held to its plain version."""
+    got = ck.INT8_QUANTIZE(gs, us if stochastic else None,
+                           stochastic=stochastic)
+    for k, (q, s) in enumerate(got):
+        q_ref, s_ref = ck.int8_quantize_ref(
+            gs[k], us[k] if stochastic else None, stochastic=stochastic)
+        assert torch.equal(q, q_ref)
+        assert torch.equal(s.view(torch.int32), s_ref.view(torch.int32))
+
+
+# chunk widths of every path of the kernel: groups of 1 and 2 lanes, the
+# two-pass warp per row at 39, 64, 255 and 300, and the vectorised 256
+INT8_WIDTHS = [1, 2, 39, 64, 255, 256, 300]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stochastic", [False, True])
+@pytest.mark.parametrize("chunk", INT8_WIDTHS)
+def test_int8_quantize_matches_plain_version_on_card(cuda_device, chunk,
+                                                     stochastic):
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(chunk + 1000 * stochastic)
+    registry.reset_launches()
+    for C, M in ((3, 1), (4, 77), (2, 1001)):
+        g = torch.randn((C, M, chunk), generator=gen, device=cuda_device)
+        g *= 10.0 ** torch.randint(-6, 3, (C, M, 1), generator=gen,
+                                   device=cuda_device)
+        g[0, 0] = 0.0  # an all-zero chunk takes the 1e-30 floor
+        u = torch.rand(g.shape, generator=gen, device=cuda_device)
+        _hold_int8([g], [u], stochastic)
+        # the non-finite rows: NaN-propagating maximum and clip
+        _hold_int8([_nonfinite_grid(C, M, chunk, gen)], [u], stochastic)
+    assert registry.launch_counts()["int8_quantize"] == 6
+
+
+@pytest.mark.gpu
+def test_int8_quantize_on_unaligned_256_wide_rows_on_card(cuda_device):
+    """256-wide rows that start 4 bytes past a 16-byte boundary cannot take
+    the vector loads: the kernel runs them through its two-pass mapping,
+    beside an aligned grid in the same launch."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(256)
+    base = torch.randn(3 * 41 * 256 + 1, generator=gen, device=cuda_device)
+    g = base[1:].view(3, 41, 256)
+    assert g.data_ptr() % 16 == 4
+    g[0, 3, 17] = float("nan")
+    us = [torch.rand(g.shape, generator=gen, device=cuda_device)
+          for _ in range(2)]
+    aligned = torch.randn((3, 41, 256), generator=gen, device=cuda_device)
+    for stochastic in (True, False):
+        _hold_int8([g, aligned], us, stochastic)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [4, 10])
+def test_int8_quantize_on_the_main_path_grids_on_card(cuda_device, C):
+    """The grids one bert-base round quantizes, in one launch: chunk 256
+    over the 5% of every large leaf, and the short chunks of the small
+    leaves (154, 77, 39, 2, 1), with a non-finite grid among them and an
+    empty one."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(C)
+    shapes = ((21404, 256), (12, 154), (2, 77), (111, 39), (1, 2), (1, 1),
+              (0, 64))
+    gs = [torch.randn((C, M, c), generator=gen, device=cuda_device)
+          for M, c in shapes]
+    gs[3] = _nonfinite_grid(C, 111, 39, gen)
+    us = [torch.rand(g.shape, generator=gen, device=cuda_device) for g in gs]
+    registry.reset_launches()
+    for stochastic in (True, False):
+        _hold_int8(gs, us, stochastic)
+    assert registry.launch_counts()["int8_quantize"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 3, 6, 4099])
+def test_topk_select_on_nonfinite_rows_on_card(cuda_device, k):
+    """NaN, -NaN and both infinities rank as ``lax.top_k`` and the plain
+    version rank them (NaN first, then inf), values gathered with their
+    sign bits."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(k)
+    x = torch.randn((3, 4099), generator=gen, device=cuda_device)
+    x[0, 17], x[0, 4000], x[0, 5] = float("nan"), -float("nan"), float("inf")
+    x[1, 9], x[1, 3] = -float("inf"), float("inf")
+    x[2, ::2] = float("nan")
+    v, i = ck.TOPK_SELECT(x, k=k)
+    v_ref, i_ref = ck.topk_select_ref(x, k=k)
+    assert torch.equal(i, i_ref)
+    assert torch.equal(v.view(torch.int32), v_ref.view(torch.int32))
 
 
 def _topk_rows(kind, R, N, gen):
