@@ -91,26 +91,22 @@ class LedgerConfig:
 #: (field, is-unsupported predicate) — each raises "not ported yet"
 _NOT_PORTED = (
     ("runtime", lambda c: c.runtime != "local"),
-    ("faithful", lambda c: c.faithful),
     ("task", lambda c: c.task != "classification"),
     ("tokenizer", lambda c: c.tokenizer != "hash"),
     ("hf_checkpoint", lambda c: c.hf_checkpoint is not None),
     ("lora_rank", lambda c: c.lora_rank > 0),
-    ("remat", lambda c: c.remat),
     ("tp", lambda c: c.tp > 1),
     ("sp", lambda c: c.sp > 1),
     ("aggregator", lambda c: c.aggregator != "mean"),
-    ("optimizer", lambda c: c.optimizer != "adamw"),
-    ("max_grad_norm", lambda c: c.max_grad_norm > 0),
     ("local_epochs", lambda c: c.local_epochs != 1),
     ("rounds_per_dispatch", lambda c: c.rounds_per_dispatch > 1),
     ("registry_size", lambda c: c.registry_size > 0),
     ("faults", lambda c: c.faults is not None),
     ("reputation", lambda c: c.reputation is not None),
     ("checkpoint_dir", lambda c: c.checkpoint_dir is not None),
-    ("param_dtype", lambda c: c.param_dtype != "float32"),
-    ("compute_dtype", lambda c: c.compute_dtype not in ("float32",
-                                                        "bfloat16")),
+    # the flash kernels have bf16 and float32 instances only
+    ("compute_dtype", lambda c: c.compute_dtype == "float16"
+     and bool(c.use_flash)),
 )
 
 
@@ -140,6 +136,7 @@ class FedConfig:
     # None = the model family's default (encoders: dense attention); True
     # forces flash attention at every length, False dense
     use_flash: Optional[bool] = None
+    # recompute each encoder layer's activations in the backward
     remat: bool = False
     tp: int = 1
     sp: int = 1
@@ -157,13 +154,14 @@ class FedConfig:
     rounds_per_dispatch: int = 1
     weighted_agg: bool = True  # example-weighted FedAvg
     aggregator: str = "mean"
-    # the reference's sequential shared-model serverless quirk
+    # the reference's serverless semantics: clients train one shared model
+    # in turn and the snapshots are averaged (serverless mode, sync)
     faithful: bool = False
 
     # --- optimizer (fresh AdamW lr=5e-5 each round) ---
     learning_rate: float = 5e-5
-    optimizer: str = "adamw"
-    max_grad_norm: float = 0.0
+    optimizer: str = "adamw"  # "adamw" | "sgd"
+    max_grad_norm: float = 0.0  # 0 = off; optax's clip_by_global_norm
 
     # --- async scheduling ---
     async_buffer: int = 0  # aggregate when this many clients arrived (0 = num_clients)
@@ -224,6 +222,21 @@ class FedConfig:
                 f"async_buffer {self.async_buffer} > num_clients "
                 f"{self.num_clients}: the buffer could never fill (use 0 "
                 "for 'aggregate when everyone arrived')")
+        if self.aggregator != "mean" and self.faithful:
+            # the faithful path averages snapshots with a plain weighted
+            # sum; running it under a robust-aggregator label would fake
+            # Byzantine protection
+            raise ValueError(
+                f"aggregator={self.aggregator!r} is not implemented for "
+                "faithful (host-sequential) mode — it always aggregates "
+                "with the reference's plain mean")
+        if self.compression.enabled and self.faithful:
+            # the faithful path mutates ONE shared model in turn: no
+            # per-client update crosses a wire to compress
+            raise ValueError(
+                f"compress={self.compression.kind!r} is not implemented for "
+                "faithful (host-sequential) mode — it exchanges no update "
+                "trees to compress")
         for field, unsupported in _NOT_PORTED:
             if unsupported(self):
                 value = self

@@ -1,4 +1,5 @@
-"""Entry points (port of ``bcfl_tpu/entrypoints``): :func:`run` and the
-``python -m bcfl_tpu_torch.entrypoints`` command line."""
+"""Entry points (port of ``bcfl_tpu/entrypoints``): :func:`run`,
+:func:`run_sweep` and the ``python -m bcfl_tpu_torch.entrypoints`` command
+line."""
 
-from bcfl_tpu_torch.entrypoints.run import run  # noqa: F401
+from bcfl_tpu_torch.entrypoints.run import run, run_sweep  # noqa: F401

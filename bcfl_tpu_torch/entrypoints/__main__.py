@@ -8,6 +8,8 @@ flags the ported slice supports.
         --device cpu --model tiny-albert --dataset synthetic --rounds 2
     python -m bcfl_tpu_torch.entrypoints --preset server_iid_medical \\
         --model bert-base --compress int8+topk --device cuda
+    python -m bcfl_tpu_torch.entrypoints --preset serverless_cancer_biobert \\
+        --sweep --rounds 2    # 5/10/20 clients; figures and JSON in results/
 
 ``--device`` defaults to ``cuda``, which raises when no GPU is present.
 Any flag of the JAX command line that is not listed here is rejected as
@@ -22,7 +24,7 @@ import sys
 
 from bcfl_tpu_torch.compression import KINDS as COMPRESS_KINDS
 from bcfl_tpu_torch.entrypoints.presets import get_preset, list_presets
-from bcfl_tpu_torch.entrypoints.run import run
+from bcfl_tpu_torch.entrypoints.run import run, run_sweep
 
 # (flag, FedConfig field)
 _FIELD_FLAGS = (
@@ -31,7 +33,8 @@ _FIELD_FLAGS = (
     ("batch_size", "batch_size"), ("lr", "learning_rate"),
     ("max_local_batches", "max_local_batches"),
     ("eval_every", "eval_every"), ("seed", "seed"),
-    ("compute_dtype", "compute_dtype"), ("mode", "mode"), ("sync", "sync"),
+    ("compute_dtype", "compute_dtype"), ("param_dtype", "param_dtype"),
+    ("mode", "mode"), ("sync", "sync"),
 )
 
 
@@ -42,6 +45,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help=f"one of: {', '.join(list_presets())}")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--sweep", action="store_true",
+                    help="run the 5/10/20-worker sweep like "
+                         "serverless_cancer_biobert_allclients.py")
     ap.add_argument("--clients", type=int, default=None)
     ap.add_argument("--rounds", type=int, default=None)
     ap.add_argument("--model", default=None)
@@ -57,7 +63,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "evaluates); 0 = never")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--compute-dtype", default=None,
-                    choices=["float32", "bfloat16"])
+                    choices=["float32", "bfloat16", "float16"])
+    ap.add_argument("--remat", action="store_true",
+                    help="per-layer activation rematerialization: less HBM "
+                         "per client (more clients stack per chip) for "
+                         "~1/3 more FLOPs")
+    ap.add_argument("--param-dtype", default=None,
+                    choices=["float32", "bfloat16", "float16"])
+    ap.add_argument("--faithful", action="store_true",
+                    help="reference-exact sequential serverless semantics")
     ap.add_argument("--use-flash", choices=["on", "off"], default=None,
                     help="force flash attention on or off (default: the "
                          "model family's choice; encoders stay dense)")
@@ -89,6 +103,10 @@ def build_config(args):
                  if getattr(args, flag) is not None}
     if args.use_flash is not None:
         overrides["use_flash"] = args.use_flash == "on"
+    if args.remat:
+        overrides["remat"] = True
+    if args.faithful:
+        overrides["faithful"] = True
     if (args.compress is not None or args.compress_topk is not None
             or args.compress_chunk is not None or args.no_compress_ef):
         kind = (args.compress if args.compress is not None
@@ -126,7 +144,10 @@ def main(argv=None) -> int:
     if rest:
         ap.error(f"not ported yet (or unknown): {' '.join(rest)}")
     cfg = build_config(args)
-    run(cfg, device=args.device)
+    if args.sweep:
+        run_sweep(cfg, device=args.device)
+    else:
+        run(cfg, device=args.device)
     return 0
 
 

@@ -3,9 +3,10 @@ reference scripts as named ``FedConfig`` rows, with the JAX fields).
 
 The ``hf=True`` form of the JAX presets (real HF checkpoints and
 tokenizers) is not ported: presets build the same architecture with a
-fresh init. The ``imdb``, ``covid`` and ``cancer`` datasets need the HF hub
-and raise "not ported yet" when a run loads them; override ``dataset``
-(for example ``--dataset synthetic``) to run those rows.
+fresh init. The ``imdb``, ``covid`` and ``cancer`` datasets come from the
+HF hub; offline, or without the ``datasets`` library, they load as
+synthetic stand-ins with the same label space, named
+``<name>:synthetic-standin``, as in JAX.
 """
 
 from __future__ import annotations
@@ -117,3 +118,8 @@ def get_preset(name: str) -> FedConfig:
 
 def list_presets() -> List[str]:
     return sorted(build_presets())
+
+
+# the reference's worker sweep: ``for NUM_CLIENTS in [5, 10, 20]``
+# (serverless_cancer_biobert_allclients.py:41)
+SWEEP_CLIENTS = [5, 10, 20]

@@ -1,5 +1,6 @@
 """The federated round bodies: port of ``bcfl_tpu/fed/client_step.py``
-(``make_optimizer``, ``make_loss_fn``, ``make_local_train``, and of the
+(``make_optimizer`` with optax's ``clip_by_global_norm``, ``make_loss_fn``,
+``make_local_train``, and of the
 GSPMD builder ``train_clients``, ``local_updates_body``,
 ``server_body``/``server_body_comp``, ``gossip_body``/``gossip_body_comp``,
 ``_mix_g``/``_mix_g_recv``, ``_compress_stage``, ``_recon``, the
@@ -30,7 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from bcfl_tpu_torch.compression import codecs as cc
-from bcfl_tpu_torch.models.convert import load_trainable, trainable_tree
+from bcfl_tpu_torch.models.convert import (leaf_specs, load_trainable,
+                                           trainable_tree)
 from bcfl_tpu_torch.parallel import (gossip_mix, gossip_mix_recv,
                                      masked_weighted_mean)
 from bcfl_tpu_torch.parallel.collectives import _col
@@ -40,13 +42,39 @@ Tree = Dict[str, torch.Tensor]
 
 def make_optimizer(params, name: str = "adamw", lr: float = 5e-5
                    ) -> torch.optim.Optimizer:
-    """A fresh optimizer for one local round: AdamW with PyTorch's
-    defaults (betas 0.9/0.999, eps 1e-8, weight decay 0.01), the optax
-    ``adamw`` of the JAX package."""
-    if name != "adamw":
-        raise ValueError(f"optimizer={name!r} is not ported yet")
-    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                             weight_decay=0.01)
+    """A fresh optimizer for one local round: ``adamw`` is AdamW with
+    PyTorch's defaults (betas 0.9/0.999, eps 1e-8, weight decay 0.01), the
+    optax ``adamw`` of the JAX package; ``sgd`` is plain SGD (no momentum,
+    no weight decay), ``optax.sgd``. The moments are held in the params'
+    dtype, as optax's are."""
+    if name == "adamw":
+        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999),
+                                 eps=1e-8, weight_decay=0.01)
+    if name == "sgd":
+        return torch.optim.SGD(params, lr=lr)
+    raise ValueError(f"unknown optimizer {name!r}")
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float
+                         ) -> None:
+    """optax's ``clip_by_global_norm``, in place: with the global norm
+    ``g = sqrt(sum of every leaf's sum of squares)``, every gradient
+    becomes ``(t / g) * max_norm`` where ``g >= max_norm`` and stays as it
+    is otherwise (``torch.nn.utils.clip_grad_norm_`` scales by
+    ``max_norm / (g + 1e-6)`` instead). As in optax, the sums, the norm and
+    the scaling are in the leaves' dtype, ``max_norm`` cast to it, and the
+    leaves are summed in the order given (the JAX leaf order). No host
+    sync: both branches are computed and selected on the device."""
+    total = 0
+    for t in grads:
+        total = total + (t * t).sum()
+    norm = torch.sqrt(total)
+    bound = torch.tensor(max_norm, dtype=norm.dtype, device=norm.device)
+    keep = norm < bound
+    for t in grads:
+        n, b = norm.to(t.dtype), bound.to(t.dtype)
+        t.copy_(torch.where(keep, t, t / n * b))
 
 
 def make_loss_fn(model: nn.Module, task: str = "classification") -> Callable:
@@ -71,10 +99,14 @@ def make_loss_fn(model: nn.Module, task: str = "classification") -> Callable:
 
 
 def make_local_train(model: nn.Module, loss_fn: Callable,
-                     optimizer: str = "adamw", lr: float = 5e-5) -> Callable:
+                     optimizer: str = "adamw", lr: float = 5e-5,
+                     max_grad_norm: float = 0.0) -> Callable:
     """One client's local round:
     ``(trainable, batches, generator) -> (trainable', [loss*n, correct, n])``
-    with a fresh optimizer state, one step per ``[steps, ...]`` batch."""
+    with a fresh optimizer state, one step per ``[steps, ...]`` batch;
+    with ``max_grad_norm > 0`` each step's gradients are clipped first."""
+    named = dict(model.named_parameters())
+    leaves = [named[s.key] for s in leaf_specs(model)]  # JAX leaf order
 
     def local_train(trainable: Tree, batches: Tree,
                     generator: Optional[torch.Generator]):
@@ -87,6 +119,8 @@ def make_local_train(model: nn.Module, loss_fn: Callable,
             loss, correct, n = loss_fn(batch, generator)
             opt.zero_grad(set_to_none=True)
             loss.backward()
+            if max_grad_norm > 0:
+                clip_by_global_norm_([p.grad for p in leaves], max_grad_norm)
             opt.step()
             stats += torch.stack([loss.detach() * n, correct, n])
         return trainable_tree(model), stats

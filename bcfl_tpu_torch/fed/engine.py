@@ -8,9 +8,11 @@ Per round the host control plane:
 1. runs the anomaly filter over the latency graph -> participation mask
    (``cfg.topology.anomaly_filter``; all ones when off);
 2. runs the round: server FedAvg (``mode="server"``), serverless ring
-   gossip (``mode="serverless"``), or one buffered-async aggregation event
-   (``sync="async"``, FedBuff-style, under a simulated network clock
-   derived from the latency graph);
+   gossip (``mode="serverless"``), the reference's own serverless
+   semantics (``faithful=True``: the clients train one shared model in
+   turn and the snapshots are averaged), or one buffered-async
+   aggregation event (``sync="async"``, FedBuff-style, under a simulated
+   network clock derived from the latency graph);
 3. with the ledger on, every update crosses the wire seam
    (:meth:`FedEngine._exchange_updates`): each client's update (the codec
    payload when compression is on) is fingerprinted on the device, the
@@ -21,11 +23,11 @@ Per round the host control plane:
    on the wire, wall time; evaluates every ``eval_every`` rounds and after
    the last.
 
-The fault plan, reputation, robust aggregators, cohorts, the faithful
-sequential mode and fused multi-round dispatch of the JAX engine are not
-ported yet (the config raises); with them off the JAX engine runs exactly
-these steps. Without a fault plan nothing corrupts the wire, so what
-arrives is what was sent.
+A ``ResourceMonitor`` spans the run (``RunMetrics.resources``). The fault
+plan, reputation, robust aggregators, cohorts and fused multi-round
+dispatch of the JAX engine are not ported yet (the config raises); with
+them off the JAX engine runs exactly these steps. Without a fault plan
+nothing corrupts the wire, so what arrives is what was sent.
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from bcfl_tpu_torch.fed import client_step as cs
 from bcfl_tpu_torch.ledger import Ledger
 from bcfl_tpu_torch.ledger import fingerprint as fp_lib
 from bcfl_tpu_torch.metrics import (
+    ResourceMonitor,
     RoundRecord,
     RunMetrics,
     StepClock,
@@ -65,7 +68,8 @@ from bcfl_tpu_torch.models.bert import init_params
 from bcfl_tpu_torch.models.convert import load_trainable, trainable_tree
 from bcfl_tpu_torch.topology import anomaly_filter, random_graph, reference_graph
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
 #: generator lane of the model's fresh init (the JAX engine folds 2)
 INIT_LANE = 2
 
@@ -130,13 +134,14 @@ class FedEngine:
                                vocab_size=self.tokenizer.vocab_size,
                                dtype=DTYPES[cfg.compute_dtype],
                                param_dtype=DTYPES[cfg.param_dtype],
-                               **overrides)
+                               remat=cfg.remat, **overrides)
         init_params(self.model, prng.generator(dev, cfg.seed, INIT_LANE))
         self.trainable0 = trainable_tree(self.model)
         loss_fn = cs.make_loss_fn(self.model, cfg.task)
         self.local_train = cs.make_local_train(self.model, loss_fn,
                                                cfg.optimizer,
-                                               cfg.learning_rate)
+                                               cfg.learning_rate,
+                                               cfg.max_grad_norm)
         self.eval_one = cs.make_eval_one(self.model, loss_fn)
         # --- update codec; its error-feedback residual is round state ---
         self._comp = cfg.compression if cfg.compression.enabled else None
@@ -378,6 +383,58 @@ class FedEngine:
         self._note_degraded(rec, mask)
         return stacked, consensus, rec
 
+    def _faithful_round(self, rnd: int, trainable, mask: np.ndarray):
+        """The reference's serverless semantics
+        (``serverless_NonIID_IMDB.py:284-297``): the clients train ONE
+        shared tree one after another, each from where the previous one
+        left it, and every snapshot is kept; the snapshots are averaged
+        with weights ``mask`` (x ledger auth), normalised, in float32 and
+        cast back to the leaves' dtype.
+
+        With the ledger on, each snapshot's fingerprint is committed as it
+        is produced and the round authenticates the commit-time rows (the
+        snapshots are never touched again, so recomputing would give the
+        same bits). An all-excluded round keeps the starting tree and is
+        marked degraded."""
+        batches, _ = self._round_batches(rnd)
+        gens = self._generators(rnd)
+        shared, snapshots, fps, stats = trainable, [], [], []
+        for c in range(self.C):
+            shared, st = self.local_train(
+                shared, {k: v[c] for k, v in batches.items()}, gens[c])
+            if self.ledger is not None:
+                fence(shared)  # bill the training to the round, not here
+                with self.clock.phase("ledger"):
+                    if "one" not in self._struct_cache:
+                        self._struct_cache["one"] = fp_lib.struct_digest(
+                            self.trainable0, self.cfg.ledger.use_native)
+                    fp = fp_lib.tree_fingerprint(shared).cpu().numpy()
+                    fps.append(fp)
+                    self.ledger.append_digest(
+                        rnd, c, self._entry_digest("one", fp),
+                        self._client_payload_bytes)
+            snapshots.append(shared)
+            stats.append(st)
+        rec = self._stats_to_rec(rnd, torch.stack(stats))
+        w = np.asarray(mask, np.float32)
+        if self.ledger is not None:
+            with self.clock.phase("ledger"):
+                auth = self._ledger_auth_rows(rnd, "one", fps)
+            rec.auth = auth.tolist()
+            w = w * auth
+        total = float(w.sum())
+        if total <= 0.0:
+            self._note_degraded(rec, w)
+            return trainable, rec
+        w = w / total
+        avg = {}
+        for p, x in trainable.items():
+            acc = 0
+            for c, snap in enumerate(snapshots):
+                acc = acc + float(w[c]) * snap[p].float()
+            avg[p] = acc.to(x.dtype)
+        return avg, rec
+
     def _init_async_state(self) -> Dict:
         """Simulated network clock: per-client round duration = local
         compute (proportional to the client's example count, mean-normalized
@@ -514,13 +571,14 @@ class FedEngine:
         """Run ``num_rounds`` rounds; ``on_round(record)`` is called after
         each round's record is complete."""
         cfg = self.cfg
+        monitor = ResourceMonitor()
         metrics = RunMetrics()
         clock = self.clock = StepClock()
         trainable = self.trainable0
         stacked = None
         if self._comp is not None:
             self._ef = cc.zero_residual(trainable, self.C)
-        if cfg.mode == "serverless":
+        if cfg.mode == "serverless" and not cfg.faithful:
             stacked = cs.broadcast(trainable, self.C)
         async_state = (self._init_async_state() if cfg.sync == "async"
                        else None)
@@ -535,6 +593,9 @@ class FedEngine:
                         rnd, trainable, stacked, mask, async_state)
                 elif cfg.mode == "server":
                     trainable, rec = self._server_round(rnd, trainable, mask)
+                elif cfg.faithful:
+                    trainable, rec = self._faithful_round(rnd, trainable,
+                                                          mask)
                 else:
                     stacked, trainable, rec = self._serverless_round(
                         rnd, stacked, trainable, mask)
@@ -553,6 +614,7 @@ class FedEngine:
                 on_round(rec)
         load_trainable(self.model, trainable)
         metrics.model_size_gb = model_size_gb(trainable)
+        metrics.resources = monitor.snapshot()
         metrics.phases = clock.summary()
         raw, wire = self._raw_bytes_per_client, self._wire_bytes_per_client
         metrics.comms = {

@@ -1,6 +1,7 @@
 """Run metrics (port of ``bcfl_tpu/metrics``)."""
 
 from bcfl_tpu_torch.metrics.metrics import (  # noqa: F401
+    ResourceMonitor,
     RoundRecord,
     RunMetrics,
     StepClock,

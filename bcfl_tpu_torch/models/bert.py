@@ -9,7 +9,12 @@ One configurable ``nn.Module`` family, numerically the flax model:
   ``num_layers`` times) and factorized embeddings (``embedding_size``);
 - bf16 compute over f32 params the way flax does it: every dense layer
   casts its input, weight and bias to the compute dtype; LayerNorm takes its
-  statistics in float32 and casts back; the classifier stays float32.
+  statistics in float32 and casts back; the classifier stays float32;
+- parameters held in ``param_dtype`` (float32, bfloat16 or float16), the
+  embedding sum in that dtype, as flax's ``param_dtype``;
+- ``remat``: each encoder layer is recomputed in the backward instead of
+  storing its activations (``nn.remat(EncoderLayer)``), with its dropout
+  masks replayed (:func:`checkpointed_layer`).
 
 Weights are PyTorch-layout ``nn.Linear``/``nn.Embedding``/``nn.LayerNorm``
 parameters whose module names are the flax names, so
@@ -29,6 +34,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from bcfl_tpu_torch.ops.attention import (
@@ -54,6 +60,9 @@ class EncoderConfig:
     embedding_size: Optional[int] = None
     use_flash: bool = False  # flash attention for long sequences
     flash_min_seq: int = 512  # below this, dense attention is faster
+    # recompute each layer's activations in the backward (less memory per
+    # client for about a third more FLOPs)
+    remat: bool = False
     dtype: torch.dtype = torch.bfloat16  # compute dtype
     param_dtype: torch.dtype = torch.float32
 
@@ -71,9 +80,10 @@ def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype
                ) -> torch.Tensor:
-    """flax ``LayerNorm(dtype=...)``: float32 statistics, output in dtype."""
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
-                        ln.eps).to(dtype)
+    """flax ``LayerNorm(dtype=...)``: float32 statistics and affine (the
+    scale and bias promoted), output in dtype."""
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
+                        ln.bias.float(), ln.eps).to(dtype)
 
 
 def dropout(x: torch.Tensor, rate: float, deterministic: bool,
@@ -136,6 +146,35 @@ class EncoderLayer(nn.Module):
         return layer_norm(x + h, self.mlp_norm, c.dtype)
 
 
+def checkpointed_layer(layer: nn.Module, x, bias, deterministic,
+                       generator: Optional[torch.Generator]):
+    """``layer(x, bias, deterministic, generator)`` under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward. ``checkpoint`` restores only the global
+    RNG states, and dropout draws from the explicit ``generator``, which
+    the rest of the forward has advanced by then: the recomputation rewinds
+    the generator to where the layer started, so it draws the same masks,
+    and puts it back afterwards, so later draws are the ones a run without
+    remat makes."""
+    start = (None if deterministic or generator is None
+             else generator.get_state())
+    calls = []
+
+    def fn(x, bias):
+        if not calls or start is None:
+            calls.append(1)
+            return layer(x, bias, deterministic, generator)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return layer(x, bias, deterministic, generator)
+        finally:
+            generator.set_state(now)
+
+    return torch.utils.checkpoint.checkpoint(
+        fn, x, bias, use_reentrant=False, preserve_rng_state=False)
+
+
 class Embeddings(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
@@ -186,8 +225,13 @@ class Encoder(nn.Module):
             type_ids = torch.zeros_like(ids)
         x = self.embeddings(ids, type_ids, deterministic, generator)
         bias = attention_bias_from_mask(mask)
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.layers():
-            x = layer(x, bias, deterministic, generator)
+            if remat:
+                x = checkpointed_layer(layer, x, bias, deterministic,
+                                       generator)
+            else:
+                x = layer(x, bias, deterministic, generator)
         return x
 
 
@@ -201,6 +245,8 @@ class TextClassifier(nn.Module):
         self.encoder = Encoder(cfg)
         self.pooler = nn.Linear(cfg.hidden_size, cfg.hidden_size)
         self.classifier = nn.Linear(cfg.hidden_size, cfg.num_labels)
+        if cfg.param_dtype != torch.float32:
+            self.to(cfg.param_dtype)
 
     def forward(self, ids, mask, type_ids=None, deterministic=True,
                 generator=None):
@@ -216,16 +262,24 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Fresh init with flax's initializers: dense kernels lecun-normal
     (truncated normal, std sqrt(1/fan_in)/0.8796, cut at 2 std), biases 0,
     embeddings normal(0, 1/sqrt(features)), LayerNorm scale 1 / bias 0.
-    The draws are PyTorch's, not threefry's."""
+    The draws are PyTorch's, not threefry's, taken in float32 and cast to
+    the params' dtype."""
+
+    def drawn(w, init):
+        x = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+        init(x)
+        w.copy_(x)
+
     for mod in model.modules():
         if isinstance(mod, nn.Linear):
             std = math.sqrt(1.0 / mod.in_features) / .87962566103423978
-            nn.init.trunc_normal_(mod.weight, std=std, a=-2 * std,
-                                  b=2 * std, generator=generator)
+            drawn(mod.weight, lambda x: nn.init.trunc_normal_(
+                x, std=std, a=-2 * std, b=2 * std, generator=generator))
             nn.init.zeros_(mod.bias)
         elif isinstance(mod, nn.Embedding):
-            nn.init.normal_(mod.weight, std=math.sqrt(1.0 / mod.embedding_dim),
-                            generator=generator)
+            drawn(mod.weight, lambda x: nn.init.normal_(
+                x, std=math.sqrt(1.0 / mod.embedding_dim),
+                generator=generator))
         elif isinstance(mod, nn.LayerNorm):
             nn.init.ones_(mod.weight)
             nn.init.zeros_(mod.bias)

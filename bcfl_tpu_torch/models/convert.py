@@ -141,9 +141,21 @@ def _flatten(tree, prefix=()):
             yield "/".join(prefix + (str(k),)), v
 
 
+def _tensor(v) -> torch.Tensor:
+    """A numpy (or array-like) leaf as a tensor of the same dtype; numpy
+    has no bfloat16 of its own (JAX's is ``ml_dtypes``), so a bfloat16 leaf
+    crosses as its 16-bit pattern."""
+    a = np.array(v)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(
+            torch.bfloat16)
+    return torch.as_tensor(a)
+
+
 def from_flax(params) -> Dict[str, torch.Tensor]:
-    """flax ``params`` tree (numpy or array-like leaves) -> state dict."""
-    return {torch_key(p): to_torch_layout(p, torch.as_tensor(np.array(v)))
+    """flax ``params`` tree (numpy or array-like leaves) -> state dict, in
+    the leaves' dtype."""
+    return {torch_key(p): to_torch_layout(p, _tensor(v))
             for p, v in _flatten(params)}
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``bcfl_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # phases 1-4, paths (a)-(d)
+    python3 chip_smoke.py              # phases 1-4, paths (a)-(g)
     python3 chip_smoke.py --profile    # phases 1-4, then 5
 
 Phases, each of which raises (and the script exits non-zero) on failure:
@@ -57,12 +57,31 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    last round. Both check ``chain_ok`` and that every unmasked client
    authenticated, and print the ledger's time per round; after each, K5
    and K4 are held bit for bit to their plain versions at that path's own
-   calls (its 10-client stacks and grids) and timed.
+   calls (its 10-client stacks and grids) and timed. Then the reference's
+   run surface and the memory switches, each path with the counts set to
+   0 just before it and read just after: (e) the worker sweep,
+   ``run_sweep`` over 5, 10 and 20 clients of the
+   ``serverless_cancer_biobert`` preset (biobert-base width, ring gossip,
+   no codec) on the ``cancer`` stand-in, 2 rounds of 2 local steps of
+   32 x 128 tokens, printing per count the round walls, samples/s,
+   ``resources``, the peak memory and the final accuracy, then the sweep
+   record; no kernel may launch; (f) the faithful serverless mode, the
+   ``serverless_noniid_imdb`` preset at albert-base width (10 clients) on
+   the ``imdb`` stand-in with the ledger: ``chain_ok``, one auth row per
+   snapshot, every client authenticated, the ledger's time per round; (g)
+   path (b) with ``remat``, bf16 parameters, SGD and ``max_grad_norm``
+   1.0: K2 and K3 launch as on (b), K1 once more per training call (the
+   recompute), K4 and K5 as on (b); its peak memory and round walls
+   beside (b)'s; K1-K3 held to their plain versions on the q, k, v of
+   (g)'s own first flash call, and K5/K4 at (g)'s codec calls.
 4. ``reference``: on small inputs, a tiny-bert server round on the card
    against the same round on the CPU (float32, dropout off, at the
    tolerance of ``tests/test_torch_round.py``), with dense attention at
    S=16 and with flash attention at S=64, and the codec tree encode on the
-   card against the CPU, payload bit for bit.
+   card against the CPU, payload bit for bit; a faithful run with the
+   ledger card vs CPU; on the card, a server round with remat and dropout
+   ON against the same round without remat (gradients and round equal to
+   1e-6 of their scale); a float16-compute dense round card vs CPU.
 5. ``profile`` (only with ``--profile``): one warm round of paths (a),
    (b) and (c) split into its stages (local training, codec, FedAvg mean;
    for (c) training, codec, ledger and gossip mix) on the host clock, and
@@ -87,6 +106,7 @@ import csv
 import functools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -419,6 +439,14 @@ def flash_case(fk, stats, gen, label, B, H, Sq, Sk, D, dtype, causal, lens,
     dk, dv and db_h; dq) at the op's bf16 ``parity`` or at ``F32_PARITY``,
     and time them. Returns ``{op: (ms, plain, bound, bound_by, sdpa)}``."""
     q, k, v, do, bias = flash_inputs(gen, B, H, Sq, Sk, D, dtype, lens)
+    return flash_hold(fk, stats, label, q, k, v, do, bias, causal, iters)
+
+
+def flash_hold(fk, stats, label, q, k, v, do, bias, causal, iters):
+    """``flash_case`` on given inputs: q, k, v, dO ``[B, H, S, D]`` and the
+    ``[B, Sk]`` key bias."""
+    B, H, Sq, D = q.shape
+    Sk, dtype = k.shape[2], q.dtype
     parity = (fk.FLASH_FWD.parity if dtype == torch.bfloat16
               else fk.F32_PARITY)
     ref = fk.flash_fwd_ref(q, k, v, bias, causal)
@@ -740,7 +768,7 @@ def main_padding(dataset: str, cfg) -> tuple:
 def drive(cfg, smi, label):
     """One main path through ``run`` with the launch counts set to 0 just
     before it and read just after; checks its losses, parameters and
-    bytes on the wire. Returns ``(result, launches)``."""
+    bytes on the wire. Returns ``(result, launches, peak GB)``."""
     from bcfl_tpu_torch.compression import payload_nbytes
     from bcfl_tpu_torch.entrypoints import run
     from bcfl_tpu_torch.ops import registry
@@ -772,7 +800,7 @@ def drive(cfg, smi, label):
     for p, t in result.trainable.items():
         if not bool(torch.isfinite(t).all()):
             raise RuntimeError(f"{label}: non-finite parameter {p}")
-    return result, launches
+    return result, launches, peak_gb
 
 
 def count_launches(stats, launches):
@@ -787,7 +815,7 @@ def phase_main(ck, stats, smi, dataset, flash_per):
     with flash attention; then each kernel's per-round time at path (b)'s
     calls."""
     cfg = main_config()
-    _, launches = drive(cfg, smi, "seq-128 path")
+    _, launches, _ = drive(cfg, smi, "seq-128 path")
     for name, n in launches.items():
         ran = n > 0
         if ran != (name not in FLASH_OPS):
@@ -795,7 +823,7 @@ def phase_main(ck, stats, smi, dataset, flash_per):
                                "times")
     count_launches(stats, launches)
     cfg = flash_config(dataset)
-    result, launches = drive(cfg, smi, "seq-512 flash path")
+    result, launches, peak = drive(cfg, smi, "seq-512 flash path")
     count_launches(stats, launches)
     for name, n in launches.items():
         if n <= 0:
@@ -808,12 +836,16 @@ def phase_main(ck, stats, smi, dataset, flash_per):
             raise RuntimeError(f"{name} launched {launches[name]} times on "
                                f"the seq-512 path, not rounds x clients x "
                                f"steps x layers = {want}")
+    b_path = {"launches": launches, "peak_gb": peak,
+              "walls": [r.wall_s for r in result.metrics.rounds],
+              "training_calls": want}
     time_main_path_shapes(ck, stats, result.trainable, cfg.compression,
                           cfg.num_clients)
     real_delta_topk(ck, stats, main_config())
     calls = add_main_path_flash(stats, flash_per, cfg, result.model.cfg)
     print(f"per-round kernel times: the codec's calls, and {calls} calls of "
           f"each flash kernel", flush=True)
+    return b_path
 
 
 # --------------------------------------------------- peer-to-peer paths
@@ -939,7 +971,7 @@ def phase_p2p(ck, stats, smi, dataset):
     with the launch counts set to 0 just before it and read just after;
     after each, K5 and K4 held to their plain versions at its calls."""
     cfg = gossip_config(dataset)
-    result, launches = drive(cfg, smi, "serverless gossip path")
+    result, launches, _ = drive(cfg, smi, "serverless gossip path")
     count_launches(stats, launches)
     for name in ("int8_quantize", "topk_select"):
         if launches[name] <= 0:
@@ -955,7 +987,7 @@ def phase_p2p(ck, stats, smi, dataset):
     del template
     torch.cuda.empty_cache()
     cfg = async_config()
-    result, launches = drive(cfg, smi, "bcfl async path")
+    result, launches, _ = drive(cfg, smi, "bcfl async path")
     count_launches(stats, launches)
     for name in ("int8_quantize", "topk_select"):
         if launches[name] <= 0:
@@ -978,6 +1010,230 @@ def phase_p2p(ck, stats, smi, dataset):
     torch.cuda.empty_cache()
     codec_calls(ck, stats, template, cfg.compression, cfg.num_clients,
                 "bcfl-async-path")
+
+
+# ----------------------------------------------------- run surface paths
+
+
+def sweep_config(**kw):
+    """Path (e): the ``serverless_cancer_biobert`` preset as published
+    (biobert-base widths, vocab 28,996, 41 labels, serverless ring gossip,
+    unweighted, IID 500 resampled each round, no codec) on the ``cancer``
+    stand-in (the hub is unreachable); cut to 2 rounds of 2 local steps of
+    32 x 128 tokens, 4 evaluation batches. ``run_sweep`` sets the client
+    count."""
+    from bcfl_tpu_torch.entrypoints.presets import get_preset
+
+    base = dict(name="chip-smoke-sweep-cancer-biobert", vocab_size=28996,
+                num_rounds=2, max_local_batches=2, max_eval_batches=4)
+    base.update(kw)
+    return get_preset("serverless_cancer_biobert").replace(**base)
+
+
+def faithful_config(**kw):
+    """Path (f): the ``serverless_noniid_imdb`` preset at albert-base's
+    widths (vocab 30,000, 10 clients, contiguous 300 / 240 / 60 trailing,
+    unweighted) on the ``imdb`` stand-in, in the reference's own faithful
+    semantics with the ledger on; cut to 2 rounds of 2 local steps of
+    32 x 128 tokens, 4 evaluation batches."""
+    from bcfl_tpu_torch.config import LedgerConfig
+    from bcfl_tpu_torch.entrypoints.presets import get_preset
+
+    base = dict(name="chip-smoke-faithful-noniid-imdb", vocab_size=30000,
+                num_rounds=2, max_local_batches=2, max_eval_batches=4,
+                faithful=True, ledger=LedgerConfig(enabled=True))
+    base.update(kw)
+    return get_preset("serverless_noniid_imdb").replace(**base)
+
+
+def lowp_config(dataset: str):
+    """Path (g): path (b)'s configuration under the memory switches:
+    per-layer remat, bf16 parameters, SGD with the global norm clipped at
+    1.0."""
+    return flash_config(dataset, name="chip-smoke-bert-base-s512-remat-bf16",
+                        remat=True, param_dtype="bfloat16", optimizer="sgd",
+                        max_grad_norm=1.0)
+
+
+def check_finite(result, label):
+    """Every round's losses and every final parameter are finite."""
+    for r in result.metrics.rounds:
+        if not math.isfinite(r.train_loss) or (
+                r.global_loss is not None and not math.isfinite(r.global_loss)):
+            raise RuntimeError(f"{label} round {r.round}: non-finite loss")
+    for p, t in result.trainable.items():
+        if not bool(torch.isfinite(t).all()):
+            raise RuntimeError(f"{label}: non-finite parameter {p}")
+
+
+def path_sweep(smi):
+    """Path (e): ``run_sweep`` over ``SWEEP_CLIENTS``, one count per call
+    so the peak memory resets before each; prints per count the round
+    walls, samples/s, ``resources``, the peak and the final accuracy, then
+    the record ``<name>_sweep.json`` would hold. Dense attention and no
+    codec: no kernel may launch."""
+    import types
+    import warnings
+
+    from bcfl_tpu_torch.data import load_dataset
+    from bcfl_tpu_torch.entrypoints.presets import SWEEP_CLIENTS
+    from bcfl_tpu_torch.entrypoints.run import run_sweep, sweep_record
+    from bcfl_tpu_torch.ops import registry
+
+    cfg = sweep_config()
+    label = "worker sweep path"
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        name = load_dataset(cfg.dataset, num_labels=cfg.num_labels,
+                            text_col=cfg.text_col,
+                            label_col=cfg.label_col).name
+    if not name.endswith(":synthetic-standin"):
+        raise RuntimeError(f"{label}: dataset {name!r} is not the stand-in")
+    print(f"{label}: dataset {name} ({caught[0].message if caught else ''})",
+          flush=True)
+    results = {}
+    for n in SWEEP_CLIENTS:
+        print(smi, flush=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        registry.reset_launches()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = run_sweep(cfg, [n], device="cuda", out_dir=None)[n]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = registry.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if not any("synthetic stand-in" in str(w.message) for w in caught):
+            raise RuntimeError(f"{label} c{n}: the run did not take the "
+                               "stand-in")
+        if any(launches.values()):
+            raise RuntimeError(f"{label} c{n}: kernels launched {launches} "
+                               "on a dense, uncompressed path")
+        check_finite(res, f"{label} c{n}")
+        samples = n * cfg.max_local_batches * cfg.batch_size
+        walls = [r.wall_s for r in res.metrics.rounds]
+        acc = res.metrics.global_accuracies
+        print(f"{label} c{n}: {wall:.2f} s incl. set-up, round walls "
+              f"{[round(w, 4) for w in walls]} s, samples/s "
+              f"{[round(samples / w, 1) for w in walls]}, resources "
+              f"{json.dumps(res.metrics.resources)}, peak memory "
+              f"{peak:.2f} GB, final accuracy {acc[-1]:.4f}, launches "
+              f"{launches}", flush=True)
+        results[n] = types.SimpleNamespace(metrics=res.metrics)
+        del res
+    print(f"{label} record: {json.dumps(sweep_record(cfg, results))}",
+          flush=True)
+    torch.cuda.empty_cache()
+
+
+def path_faithful(stats, smi):
+    """Path (f): the faithful serverless round at albert-base width with
+    the ledger: ``chain_ok`` 1, every unmasked client authenticated, one
+    auth row per snapshot, no codec kernel launched."""
+    cfg = faithful_config()
+    label = "faithful serverless path"
+    result, launches, _ = drive(cfg, smi, label)
+    count_launches(stats, launches)
+    if any(launches.values()):
+        raise RuntimeError(f"{label}: kernels launched {launches} on a "
+                           "dense, uncompressed path")
+    for r in result.metrics.rounds:
+        if r.auth is None or len(r.auth) != cfg.num_clients:
+            raise RuntimeError(f"{label} round {r.round}: auth {r.auth}, not "
+                               f"one row per snapshot")
+    if len(result.ledger) != cfg.num_clients * cfg.num_rounds:
+        raise RuntimeError(f"{label}: {len(result.ledger)} ledger entries")
+    check_ledger(result, label)
+    del result
+    torch.cuda.empty_cache()
+
+
+def capture_flash_call(result, dataset, cfg):
+    """q, k, v and the key bias of the first flash call one training
+    forward of path (g)'s model makes on its corpus (bf16 params, bf16
+    compute, under remat), with a random dO."""
+    import bcfl_tpu_torch.models.bert as bert
+    from bcfl_tpu_torch.data import get_tokenizer, load_dataset
+
+    ds = load_dataset(dataset, num_labels=cfg.num_labels,
+                      text_col=cfg.text_col, label_col=cfg.label_col)
+    ids, mask = get_tokenizer(cfg.tokenizer, cfg.vocab_size).encode_batch(
+        ds.train_texts[:cfg.batch_size], cfg.seq_len)
+    seen = []
+    real = bert.flash_attention
+
+    def spy(q, k, v, bias=None, causal=False):
+        if not seen:
+            seen.append((q.detach(), k.detach(), v.detach(), bias))
+        return real(q, k, v, bias, causal)
+
+    bert.flash_attention = spy
+    try:
+        model = result.model
+        model.train()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(3)
+        model(torch.as_tensor(ids, device="cuda").long(),
+              torch.as_tensor(mask, device="cuda"), deterministic=False,
+              generator=gen).float().sum().backward()
+    finally:
+        bert.flash_attention = real
+    q, k, v, bias = seen[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    return q, k, v, do, bias[:, 0, 0, :].float().contiguous()
+
+
+def path_lowp(ck, fk, stats, smi, dataset, b_path):
+    """Path (g): path (b) with remat, bf16 params, SGD and clipping. K2 and
+    K3 launch as on (b), K1 once more per training call (the recompute),
+    K4 and K5 as on (b); then K1-K3 held to their plain versions on the
+    tensors of (g)'s own first flash call, and K5/K4 at (g)'s codec
+    calls."""
+    cfg = lowp_config(dataset)
+    label = "low-precision remat path"
+    result, launches, peak = drive(cfg, smi, label)
+    count_launches(stats, launches)
+    train = b_path["training_calls"]
+    bl = b_path["launches"]
+    want = {"flash_bwd_dkv": train, "flash_bwd_dq": train,
+            "flash_fwd": bl["flash_fwd"] + train,
+            "int8_quantize": bl["int8_quantize"],
+            "topk_select": bl["topk_select"]}
+    if launches != want:
+        raise RuntimeError(f"{label}: launches {launches}, expected {want} "
+                           f"(path (b): {bl}, training calls {train})")
+    for p, t in result.trainable.items():
+        if t.dtype != torch.bfloat16:
+            raise RuntimeError(f"{label}: {p} is {t.dtype}, not bfloat16")
+    walls = [r.wall_s for r in result.metrics.rounds]
+    print(f"{label}: peak memory {peak:.2f} GB against path (b)'s "
+          f"{b_path['peak_gb']:.2f} GB; round walls "
+          f"{[round(w, 4) for w in walls]} s against path (b)'s "
+          f"{[round(w, 4) for w in b_path['walls']]} s; K1 {want['flash_fwd']}"
+          f" launches = path (b)'s {bl['flash_fwd']} + {train} recomputes",
+          flush=True)
+    q, k, v, do, bias = capture_flash_call(result, dataset, cfg)
+    flash_hold(fk, stats, "remat-bf16-path", q, k, v, do, bias, False, 20)
+    template = result.trainable
+    del result, q, k, v, do, bias
+    torch.cuda.empty_cache()
+    codec_calls(ck, stats, template, cfg.compression, cfg.num_clients,
+                "remat-bf16-path")
+    del template
+    torch.cuda.empty_cache()
+
+
+def phase_run_surface(ck, fk, stats, smi, dataset, b_path):
+    """Paths (e) worker sweep, (f) faithful serverless and (g) path (b)
+    under the memory switches, each with the launch counts set to 0 just
+    before it and read just after."""
+    path_sweep(smi)
+    path_faithful(stats, smi)
+    path_lowp(ck, fk, stats, smi, dataset, b_path)
 
 
 # -------------------------------------------------------------- profile
@@ -1262,6 +1518,166 @@ def reference_gossip_round():
                            "card and the CPU past rtol 1e-5 + 1e-6 max")
 
 
+def tiny_engine_config(**kw):
+    """A tiny-bert engine configuration for the card-vs-CPU checks."""
+    from bcfl_tpu_torch.config import FedConfig, PartitionConfig
+
+    base = dict(name="reference", model="tiny-bert", dataset="synthetic",
+                num_labels=2, num_clients=3, num_rounds=2, seq_len=16,
+                batch_size=4, max_local_batches=2, vocab_size=512,
+                eval_every=0, compute_dtype="float32",
+                partition=PartitionConfig(kind="iid", iid_samples=8))
+    base.update(kw)
+    return FedConfig(**base)
+
+
+def reference_faithful_round():
+    """A tiny-bert faithful run (3 clients, 2 rounds, the ledger on,
+    dropout off, float32) on the card and on the CPU from the same start
+    and batches: ``chain_ok`` 1 and every client authenticated on both,
+    the final trees within 2 * lr * steps per sequential training (each
+    round's last client trained C times in turn), all but 1e-4 of the
+    coordinates within 2e-6 per training."""
+    from bcfl_tpu_torch.config import LedgerConfig
+    from bcfl_tpu_torch.fed.engine import FedEngine
+
+    cfg = tiny_engine_config(mode="serverless", faithful=True,
+                             weighted_agg=False,
+                             ledger=LedgerConfig(enabled=True))
+    out = {}
+    start = None
+    for dev in ("cpu", "cuda"):
+        eng = FedEngine(cfg, device=dev)
+        if start is None:
+            start = eng.trainable0
+        eng.trainable0 = {p: x.to(dev) for p, x in start.items()}
+        eng._generators = lambda rnd: [None] * cfg.num_clients
+        out[dev] = eng.run()
+        m = out[dev].metrics
+        if m.ledger.get("chain_ok") != 1.0 or any(
+                r.auth != [1.0] * cfg.num_clients for r in m.rounds):
+            raise RuntimeError(f"reference faithful run ({dev}): ledger "
+                               f"{m.ledger}, auth {[r.auth for r in m.rounds]}")
+    trainings = cfg.num_clients * cfg.num_rounds
+    lr, steps, far, total, worst = 5e-5, 2, 0, 0, 0.0
+    for p, x in out["cpu"].trainable.items():
+        err = (out["cuda"].trainable[p].cpu() - x).abs()
+        worst = max(worst, float(err.max()))
+        if float(err.max()) > trainings * 2 * lr * steps * 1.01:
+            raise RuntimeError(f"reference faithful run: {p} differs by "
+                               f"{float(err.max())}")
+        if not p.endswith("/key/bias"):
+            far += int((err > trainings * 2e-6).sum())
+            total += err.numel()
+    if far > total * 1e-4:
+        raise RuntimeError(f"reference faithful run: {far} of {total} "
+                           f"coordinates past {trainings} x 2e-6")
+    print(f"reference faithful run (tiny-bert, f32, ledger, {cfg.num_clients}"
+          f" clients, card vs CPU): chain_ok 1 on both, max |diff| "
+          f"{worst:.3e}, {far} of {total} coordinates past {trainings} x 2e-6",
+          flush=True)
+
+
+def reference_remat_dropout():
+    """On the card, a tiny-bert server round (2 clients, float32, dropout
+    ON from per-client CUDA generators of the same seeds) with and without
+    remat: the same gradients (one step, compared directly) and the same
+    round, to float32 noise of the recompute (1e-6 of the largest
+    value)."""
+    from bcfl_tpu_torch.core import prng
+    from bcfl_tpu_torch.fed.client_step import (
+        make_local_train, make_loss_fn, server_round)
+    from bcfl_tpu_torch.models import build
+    from bcfl_tpu_torch.models.bert import init_params
+    from bcfl_tpu_torch.models.convert import trainable_tree
+
+    import numpy as np
+
+    rng = np.random.default_rng(12)
+    C, steps, B, S = 2, 2, 4, 32
+    batches = {
+        "ids": torch.from_numpy(rng.integers(4, 512, (C, steps, B, S))
+                                .astype(np.int64)).cuda(),
+        "mask": torch.from_numpy((np.arange(S)[None, None, None, :]
+                                  < rng.integers(4, S + 1, (C, steps, B, 1)))
+                                 .astype(np.int32)).cuda(),
+        "labels": torch.from_numpy(rng.integers(0, 2, (C, steps, B))
+                                   .astype(np.int64)).cuda(),
+        "example_mask": torch.ones((C, steps, B), device="cuda")}
+    grads, rounds = [], []
+    for remat in (False, True):
+        with torch.device("cuda"):
+            model = build("tiny-bert", num_labels=2, vocab_size=512,
+                          dtype=torch.float32, remat=remat)
+        init_params(model, prng.generator("cuda", 21))
+        g0 = trainable_tree(model)
+        model.train()
+        loss_fn = make_loss_fn(model)
+        loss, _, _ = loss_fn({k: v[0, 0] for k, v in batches.items()},
+                             prng.generator("cuda", 5))
+        loss.backward()
+        grads.append({n: p.grad.clone() for n, p in model.named_parameters()})
+        model.zero_grad(set_to_none=True)
+        gens = [prng.generator("cuda", 6, c) for c in range(C)]
+        rounds.append(server_round(make_local_train(model, loss_fn), None,
+                                   g0, batches, torch.ones(C, device="cuda"),
+                                   gens).global_t)
+    worst_g = max(float((grads[0][n] - x).abs().max())
+                  for n, x in grads[1].items())
+    scale_g = max(float(x.abs().max()) for x in grads[0].values())
+    worst_r = max(float((rounds[0][p] - x).abs().max())
+                  for p, x in rounds[1].items())
+    scale_r = max(float(x.abs().max()) for x in rounds[0].values())
+    print(f"reference remat round (tiny-bert, f32, dropout on, card): "
+          f"gradients max |diff| {worst_g:.3e} of {scale_g:.3e}, round max "
+          f"|diff| {worst_r:.3e} of {scale_r:.3e}", flush=True)
+    if worst_g > 1e-6 * scale_g or worst_r > 1e-6 * scale_r:
+        raise RuntimeError("remat with dropout changed the gradients on the "
+                           "card")
+
+
+def reference_fp16_round():
+    """A tiny-bert server round with float16 compute and dense attention
+    (2 clients, float32 params, SGD at lr 1e-2, dropout off) on the card
+    and on the CPU from the same start: within 2e-5, the tolerance of
+    ``tests/test_torch_switches.py``'s float16 round against JAX."""
+    import numpy as np
+
+    from bcfl_tpu_torch.core import prng
+    from bcfl_tpu_torch.fed.client_step import (
+        make_local_train, make_loss_fn, server_round)
+    from bcfl_tpu_torch.models import build
+    from bcfl_tpu_torch.models.bert import init_params
+    from bcfl_tpu_torch.models.convert import trainable_tree
+
+    rng = np.random.default_rng(13)
+    C, steps, B, S = 2, 2, 4, 16
+    batches_np = {
+        "ids": rng.integers(4, 512, (C, steps, B, S)).astype(np.int32),
+        "mask": (np.arange(S)[None, None, None, :]
+                 < rng.integers(4, S + 1, (C, steps, B, 1))).astype(np.int32),
+        "labels": rng.integers(0, 2, (C, steps, B)).astype(np.int32),
+        "example_mask": np.ones((C, steps, B), np.float32)}
+    base = build("tiny-bert", num_labels=2, vocab_size=512,
+                 dtype=torch.float16, dropout_rate=0.0)
+    init_params(base, prng.generator("cpu", 17))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = copy.deepcopy(base).to(dev)
+        out[dev] = server_round(
+            make_local_train(model, make_loss_fn(model), "sgd", 1e-2),
+            None, trainable_tree(model),
+            {k: torch.from_numpy(v).to(dev) for k, v in batches_np.items()},
+            torch.tensor([2.0, 1.0], device=dev), [None] * C).global_t
+    worst = max(float((out["cuda"][p].cpu() - x).abs().max())
+                for p, x in out["cpu"].items())
+    print(f"reference fp16-compute round (tiny-bert, dense, SGD, card vs "
+          f"CPU): max |diff| {worst:.3e} (bound 2e-5)", flush=True)
+    if worst > 2e-5:
+        raise RuntimeError(f"fp16-compute round: card and CPU differ by "
+                           f"{worst}")
+
+
 def phase_reference():
     """The main paths' functions on small inputs: the card against the
     CPU (plain versions), as the CPU tests hold the CPU against JAX."""
@@ -1301,6 +1717,9 @@ def phase_reference():
     print(f"codec payload (int8+topk, {len(tree)} leaves, 3 clients): card "
           "and CPU bit-identical", flush=True)
     reference_gossip_round()
+    reference_faithful_round()
+    reference_remat_dropout()
+    reference_fp16_round()
 
 
 # ------------------------------------------------------------------ main
@@ -1316,6 +1735,9 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false)", file=sys.stderr)
         return 2
+    # the hub datasets take their offline stand-ins: never reach for a host
+    for var in ("HF_DATASETS_OFFLINE", "HF_HUB_OFFLINE"):
+        os.environ.setdefault(var, "1")
     from bcfl_tpu_torch.ops import codec_kernels as ck
     from bcfl_tpu_torch.ops import cuda_build, registry
     from bcfl_tpu_torch.ops import flash_kernels as fk
@@ -1335,9 +1757,10 @@ def main(argv=None) -> int:
     dataset = write_long_docs()
     main_lens = main_padding(dataset, flash_config(dataset))
     flash_per = phase_kernels(ck, fk, stats, main_lens)
-    phase_main(ck, stats, smi, dataset, flash_per)
+    b_path = phase_main(ck, stats, smi, dataset, flash_per)
     medical = write_medical_docs()
     phase_p2p(ck, stats, smi, medical)
+    phase_run_surface(ck, fk, stats, smi, dataset, b_path)
     phase_reference()
     if args.profile:
         phase_profile(main_config(), "seq-128 path")

@@ -12,9 +12,10 @@ process per checkout that builds that checkout's kernels and drives its
 ``chip_smoke.main_config`` (seq 128, dense attention) and
 ``chip_smoke.flash_config`` (seq 512, flash attention, the long-document
 corpus) through ``bcfl_tpu_torch.entrypoints.run`` for ``--rounds`` rounds
-each, and prints every round's wall. Round 0 carries first-use costs;
-the summary gives the median of the later rounds per checkout and path.
-Compare checkouts only within one run.
+each, and prints every round's wall and the run's peak device memory
+(``torch.cuda.max_memory_allocated``, reset before each path). Round 0
+carries first-use costs; the summary gives the median of the later rounds
+per checkout and path. Compare checkouts only within one run.
 """
 
 from __future__ import annotations
@@ -31,18 +32,24 @@ CHILD = r"""
 import json, sys
 root, rounds = sys.argv[1], int(sys.argv[2])
 sys.path.insert(0, root)
+import torch
 import chip_smoke
 from bcfl_tpu_torch.entrypoints import run
 from bcfl_tpu_torch.ops import cuda_build
 cuda_build.build_all()
 dataset = chip_smoke.write_long_docs()
-out = {}
+out, peak = {}, {}
 for path, cfg in (("seq-128", chip_smoke.main_config(num_rounds=rounds)),
                   ("seq-512", chip_smoke.flash_config(dataset,
                                                       num_rounds=rounds))):
+    torch.cuda.reset_peak_memory_stats()
     res = run(cfg, device="cuda")
     out[path] = [r.wall_s for r in res.metrics.rounds]
+    peak[path] = torch.cuda.max_memory_allocated() / 1e9
+    del res
+    torch.cuda.empty_cache()
 print("ROUNDS " + json.dumps(out), flush=True)
+print("PEAK " + json.dumps(peak), flush=True)
 """
 
 
@@ -68,10 +75,13 @@ def main(argv=None) -> int:
         if proc.returncode != 0 or not line:
             raise RuntimeError(f"{name} failed (exit {proc.returncode}):\n"
                                f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        peaks = json.loads([ln for ln in proc.stdout.splitlines()
+                             if ln.startswith("PEAK ")][0][len("PEAK "):])
         for path, ws in json.loads(line[0][len("ROUNDS "):]).items():
             walls[name].setdefault(path, []).extend(ws[1:])
             print(f"{name} {path} round walls (s): "
-                  f"{' '.join(f'{w:.3f}' for w in ws)}", flush=True)
+                  f"{' '.join(f'{w:.3f}' for w in ws)}; peak "
+                  f"{peaks[path]:.2f} GB", flush=True)
     for name in names:
         for path, ws in walls[name].items():
             print(f"{name} {path}: median of rounds 1.. "
