@@ -8,8 +8,10 @@ Scope today: BERT/ALBERT text classifiers trained by server-mode FedAvg,
 serverless ring gossip, or buffered async aggregation (FedBuff), with
 PageRank (or DBSCAN, modified-Z, community) gating over the latency graph,
 the hash-chained ledger over device-side fingerprints, and the
-``int8+topk`` update codec; flash attention for long inputs. All five TPU
-kernels of the JAX package (the codec's ``int8_quantize`` and
+``int8+topk`` update codec; flash attention for long inputs; crash-safe
+checkpoints with bit-identical resume, the fault plan's local lanes, the
+Byzantine-robust aggregators, peer reputation and partitioned rounds. All
+five TPU kernels of the JAX package (the codec's ``int8_quantize`` and
 ``topk_select``, flash attention's forward and two backward kernels) run
 as hand-written CUDA kernels (``bcfl_tpu_torch/csrc``). Everything else
 raises "not ported yet" at config time (:mod:`bcfl_tpu_torch.config`).

@@ -1,0 +1,312 @@
+"""Crash-safe checkpoint and resume: port of
+``bcfl_tpu/checkpoint/checkpoint.py`` (save, classify, restore, scrub).
+
+A checkpoint is the engine's round state: the global tree, the stacked
+per-client view, the codec's error-feedback residual, the reputation
+arrays and the run's identity (seed, codec, PRNG scheme), plus the ledger
+JSON. The format is the port's own: the state is a dict of CPU tensors
+(nested dicts allowed, ``None`` entries dropped), written with
+``torch.save`` into ``round_XXXXXX/state.pt`` and read back with
+``torch.load(..., weights_only=True)``. Strings and integers travel as
+uint8 and int64 tensors, as the JAX state carries them as arrays. A JAX
+(orbax) checkpoint is not readable here.
+
+Crash safety, as in the JAX package:
+
+- **Atomic commit.** The state is written and fsynced under a
+  dot-prefixed staging directory, renamed to ``round_XXXXXX`` (the one
+  commit point, its directory entry fsynced), and only then is the meta
+  sidecar (the state's SHA-256 digest by
+  :func:`bcfl_tpu_torch.ledger.params_digest`, and the ledger JSON)
+  written, fsynced and renamed into place. A crash leaves no ``round_``
+  entry, a complete state pending its meta (restored unverified), or a
+  complete verified one; on re-save of a round the stale meta goes first,
+  so a valid state is never paired with a mismatching digest.
+- **Verified restore.** :func:`restore_latest` walks the rounds
+  newest-first through :func:`classify_round` and skips (with a warning)
+  any round whose state fails to load, whose digest mismatches, or whose
+  ledger chain fails verification.
+- **One classification.** :func:`classify_round` is the single reader
+  under :func:`restore_latest`, :func:`restore_checkpoint` and
+  :func:`scrub`, over the :data:`ROUND_STATUSES` taxonomy.
+- **Retention.** ``save_checkpoint(..., keep_last=K)`` removes rounds
+  beyond the newest K only after the new round's commit, so a crash during
+  the clean-up leaves extra old rounds, never fewer valid ones.
+
+The JAX module's storage fault seam (``apply_storage_fault``) serves the
+multi-process runtime and is not ported yet.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import shutil
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from bcfl_tpu_torch.ledger.ledger import Ledger, params_digest
+
+logger = logging.getLogger(__name__)
+
+# staging prefix: never matches the `round_` scan, so an interrupted save
+# is invisible until the atomic rename commits it
+_STAGING = ".staging."
+_META_SUFFIX = ".meta.json"
+_STATE_FILE = "state.pt"
+
+# the damage taxonomy classify_round reports:
+#   ok              — loaded, digest verified, ledger chain verifies
+#   unverified      — loaded, no meta sidecar (a save cut between the
+#                     commit and the meta)
+#   unrestorable    — the state fails to load (torn, truncated, rotten)
+#   digest_mismatch — the state loads but its digest differs from the meta
+#   meta_corrupt    — a meta sidecar exists but is unreadable
+#   ledger_corrupt  — state and digest fine, the ledger chain fails
+#   deleted         — the round dir is gone but its meta survived
+#   missing         — neither dir nor meta
+ROUND_STATUSES = ("ok", "unverified", "unrestorable", "digest_mismatch",
+                  "meta_corrupt", "ledger_corrupt", "deleted", "missing")
+
+# statuses a resume may trust
+_USABLE = ("ok", "unverified")
+
+
+def _to_host(state):
+    """The state as CPU tensors: numpy arrays and scalars converted,
+    nested dicts kept, ``None`` entries dropped (as a JAX tree drops
+    them)."""
+    out = {}
+    for k, v in state.items():
+        if v is None:
+            continue
+        if isinstance(v, dict):
+            out[k] = _to_host(v)
+        elif isinstance(v, torch.Tensor):
+            out[k] = v.detach().cpu()
+        else:
+            out[k] = torch.from_numpy(np.array(v))
+    return out
+
+
+def _state_digest(state) -> str:
+    """Hex SHA-256 over the host state (leaf names, dtypes, shapes and raw
+    bytes): the ledger's params digest as integrity evidence."""
+    return params_digest(state).hex()
+
+
+def _fsync_dir(path: str) -> None:
+    """Durably record directory-entry changes (renames)."""
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:  # platform without directory fds; best effort
+        return
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _meta_path(directory: str, round_idx: int) -> str:
+    return os.path.join(directory, f"round_{round_idx:06d}{_META_SUFFIX}")
+
+
+def save_checkpoint(directory: str, round_idx: int, state: Dict[str, Any],
+                    ledger_json: Optional[str] = None,
+                    keep_last: int = 0) -> str:
+    """Atomically write ``state`` for ``round_idx``; returns the committed
+    path. ``keep_last > 0`` then removes every round but the newest
+    ``keep_last``."""
+    directory = os.path.abspath(directory)
+    os.makedirs(directory, exist_ok=True)
+    name = f"round_{round_idx:06d}"
+    final = os.path.join(directory, name)
+    staging = os.path.join(directory, _STAGING + name)
+    if os.path.isdir(staging):  # leftover from an interrupted save
+        shutil.rmtree(staging)
+    os.makedirs(staging)
+
+    host = _to_host(state)
+    with open(os.path.join(staging, _STATE_FILE), "wb") as f:
+        torch.save(host, f)
+        f.flush()
+        os.fsync(f.fileno())
+    _fsync_dir(staging)
+
+    meta_path = _meta_path(directory, round_idx)
+    if os.path.isdir(final):
+        # re-save of the same round: retire the old meta FIRST (the old
+        # state degrades to unverified, never digest-mismatched)
+        if os.path.exists(meta_path):
+            os.unlink(meta_path)
+            _fsync_dir(directory)
+        shutil.rmtree(final)
+    os.replace(staging, final)  # commit point
+    _fsync_dir(directory)
+
+    meta = {"round": int(round_idx), "digest": _state_digest(host),
+            "ledger": ledger_json}
+    meta_staging = os.path.join(directory, _STAGING + name + _META_SUFFIX)
+    with open(meta_staging, "w") as f:
+        json.dump(meta, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(meta_staging, meta_path)
+    _fsync_dir(directory)
+    if keep_last and keep_last > 0:
+        committed = _list_rounds(directory)
+        old = committed[:-keep_last] if len(committed) > keep_last else []
+        for r in old:
+            _remove_round(directory, r)
+        if old:
+            _fsync_dir(directory)
+    return final
+
+
+def _list_rounds(directory: str) -> list:
+    """Committed round indices (dirs only), ascending."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(
+        int(d.split("_")[1]) for d in os.listdir(directory)
+        if d.startswith("round_") and d.split("_")[1].isdigit()
+        and os.path.isdir(os.path.join(directory, d)))
+
+
+def _meta_rounds(directory: str) -> list:
+    """Round indices with a meta sidecar present, ascending."""
+    if not os.path.isdir(directory):
+        return []
+    out = []
+    for f in os.listdir(directory):
+        if not (f.startswith("round_") and f.endswith(_META_SUFFIX)):
+            continue
+        stem = f[:-len(_META_SUFFIX)].split("_")[1]
+        if stem.isdigit():
+            out.append(int(stem))
+    return sorted(out)
+
+
+def _remove_round(directory: str, round_idx: int) -> None:
+    """Remove one committed round and its meta (no fsync: callers batch
+    it)."""
+    path = os.path.join(directory, f"round_{round_idx:06d}")
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    if os.path.exists(_meta_path(directory, round_idx)):
+        os.unlink(_meta_path(directory, round_idx))
+
+
+def _read_meta(directory: str, round_idx: int) -> Optional[Dict[str, Any]]:
+    path = _meta_path(directory, round_idx)
+    if not os.path.exists(path):
+        return None
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, json.JSONDecodeError) as e:
+        logger.warning("checkpoint meta %s unreadable (%s)", path, e)
+        return None
+
+
+def classify_round(directory: str, round_idx: int
+                   ) -> Tuple[str, Optional[Dict[str, Any]], Optional[str]]:
+    """``(status, state, ledger_json)`` for ONE round; ``status`` is one of
+    :data:`ROUND_STATUSES`, ``state`` and ``ledger_json`` are non-None only
+    for the usable statuses (``ok``/``unverified``)."""
+    directory = os.path.abspath(directory)
+    round_idx = int(round_idx)
+    path = os.path.join(directory, f"round_{round_idx:06d}")
+    meta_path = _meta_path(directory, round_idx)
+    if not os.path.isdir(path):
+        return (("deleted" if os.path.exists(meta_path) else "missing"),
+                None, None)
+    meta = None
+    if os.path.exists(meta_path):
+        meta = _read_meta(directory, round_idx)
+        if meta is None:
+            # present but unreadable: the atomic protocol never leaves this
+            return "meta_corrupt", None, None
+    try:
+        state = torch.load(os.path.join(path, _STATE_FILE),
+                           map_location="cpu", weights_only=True)
+    except Exception as e:  # torn, truncated or rotten
+        logger.warning("checkpoint %s failed to restore (%s)", path, e)
+        return "unrestorable", None, None
+    if meta is not None and meta.get("digest"):
+        if _state_digest(state) != meta["digest"]:
+            logger.warning("checkpoint %s digest mismatch (bit corruption "
+                           "or foreign overwrite)", path)
+            return "digest_mismatch", None, None
+    ledger_json = meta.get("ledger") if meta is not None else None
+    if ledger_json:
+        # a checkpoint whose ledger no longer verifies link by link must
+        # not be resumed from
+        try:
+            if Ledger.from_json(ledger_json).verify_chain() != -1:
+                logger.warning("checkpoint %s ledger chain fails "
+                               "verification", path)
+                return "ledger_corrupt", None, None
+        except (ValueError, KeyError, TypeError) as e:
+            logger.warning("checkpoint %s ledger json unreadable (%s)",
+                           path, e)
+            return "ledger_corrupt", None, None
+    return ("ok" if meta is not None else "unverified"), state, ledger_json
+
+
+def restore_checkpoint(directory: str, round_idx: int
+                       ) -> Optional[Tuple[int, Dict[str, Any], Optional[str]]]:
+    """``(round, state, ledger_json)`` of ONE committed round, or None if
+    it is absent or damaged (no fallback to an older round)."""
+    status, state, ledger_json = classify_round(directory, round_idx)
+    if status not in _USABLE:
+        logger.warning("checkpoint %s/round_%06d not restorable: %s",
+                       directory, int(round_idx), status)
+        return None
+    return int(round_idx), state, ledger_json
+
+
+def restore_latest(directory: str
+                   ) -> Optional[Tuple[int, Dict[str, Any], Optional[str]]]:
+    """``(round, state, ledger_json)`` of the newest usable round, or None;
+    damaged rounds are skipped newest-first with a warning."""
+    directory = os.path.abspath(directory)
+    if not os.path.isdir(directory):
+        return None
+    for r in reversed(_list_rounds(directory)):
+        status, state, ledger_json = classify_round(directory, r)
+        if status in _USABLE:
+            return r, state, ledger_json
+        logger.warning("checkpoint %s/round_%06d %s; falling back to the "
+                       "previous checkpoint", directory, r, status)
+    return None
+
+
+def scrub(directory: str) -> Dict[str, Any]:
+    """Audit every round of a checkpoint directory:
+
+        {"empty":         no rounds, no meta, no staging entries,
+         "rounds":        ((round, status), ...) ascending, over the union
+                          of round dirs and meta sidecars,
+         "newest_intact": newest usable round or None,
+         "damaged":       ((round, status), ...) of the unusable rounds,
+         "torn":          (staging entry names, ...)}"""
+    directory = os.path.abspath(directory)
+    torn = tuple(sorted(
+        d for d in (os.listdir(directory) if os.path.isdir(directory) else ())
+        if d.startswith(_STAGING)))
+    rounds = sorted(set(_list_rounds(directory))
+                    | set(_meta_rounds(directory)))
+    statuses = tuple((r, classify_round(directory, r)[0]) for r in rounds)
+    damaged = tuple((r, s) for r, s in statuses if s not in _USABLE)
+    usable = [r for r, s in statuses if s in _USABLE]
+    return {
+        "empty": not statuses and not torn,
+        "rounds": statuses,
+        "newest_intact": max(usable) if usable else None,
+        "damaged": damaged,
+        "torn": torn,
+    }

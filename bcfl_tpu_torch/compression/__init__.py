@@ -3,6 +3,7 @@
 from bcfl_tpu_torch.compression.codecs import (  # noqa: F401
     KINDS,
     CompressionConfig,
+    corrupt_payload,
     decode_tree,
     encode_tree,
     encode_tree_unfused,

@@ -265,6 +265,23 @@ def zero_residual(trainable: Tree, num_clients: int) -> Tree:
             for p, x in trainable.items()}
 
 
+def corrupt_payload(payload: dict, scales: torch.Tensor) -> dict:
+    """Transport corruption of an encoded payload (``codecs.corrupt_payload``):
+    the per-client scale ``scales[c]`` is added to every FLOAT part
+    (quantization scales, top-k values) in that part's dtype; integer parts
+    (int8 codes, indices) pass through untouched. Every codec has a float
+    part per leaf, so a scheduled corruption always lands."""
+    out = {}
+    for p, parts in payload.items():
+        out[p] = {}
+        for name, x in parts.items():
+            if x.is_floating_point():
+                s = scales.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype)
+                x = x + s
+            out[p][name] = x
+    return out
+
+
 def wire_format(comp: Optional[CompressionConfig]) -> str:
     """Identity string of the bytes this codec puts on the wire (the same
     string ``codecs.wire_format`` returns)."""

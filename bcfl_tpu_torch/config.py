@@ -2,9 +2,10 @@
 ``TopologyConfig``, ``LedgerConfig``, ``FedConfig``; the codec config
 lives in :mod:`bcfl_tpu_torch.compression.codecs` as in JAX).
 
-``FedConfig`` holds the fields the ported slice runs, with the JAX
-package's names and defaults, plus the switches of features the port does
-not have yet. A value the slice does not support raises ``ValueError``
+``FedConfig`` holds the fields the ported slices run, with the JAX
+package's names, types and defaults (the fault plan, reputation, robust
+aggregation and checkpoint fields included), plus the switches of features
+the port does not have yet. A value the slice does not support raises ``ValueError``
 naming the field and saying it is "not ported yet" — the port never
 silently runs something other than what was asked for.
 """
@@ -12,9 +13,11 @@ silently runs something other than what was asked for.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 from bcfl_tpu_torch.compression.codecs import CompressionConfig
+from bcfl_tpu_torch.faults.plan import FaultPlan
+from bcfl_tpu_torch.reputation.lifecycle import ReputationConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,13 +100,9 @@ _NOT_PORTED = (
     ("lora_rank", lambda c: c.lora_rank > 0),
     ("tp", lambda c: c.tp > 1),
     ("sp", lambda c: c.sp > 1),
-    ("aggregator", lambda c: c.aggregator != "mean"),
     ("local_epochs", lambda c: c.local_epochs != 1),
     ("rounds_per_dispatch", lambda c: c.rounds_per_dispatch > 1),
     ("registry_size", lambda c: c.registry_size > 0),
-    ("faults", lambda c: c.faults is not None),
-    ("reputation", lambda c: c.reputation is not None),
-    ("checkpoint_dir", lambda c: c.checkpoint_dir is not None),
     # the flash kernels have bf16 and float32 instances only
     ("compute_dtype", lambda c: c.compute_dtype == "float16"
      and bool(c.use_flash)),
@@ -153,7 +152,18 @@ class FedConfig:
     max_local_batches: Optional[int] = None
     rounds_per_dispatch: int = 1
     weighted_agg: bool = True  # example-weighted FedAvg
+    # aggregation rule at every point that consumes the whole stacked
+    # client view (server FedAvg, the consensus/partition/async collapse,
+    # the serverless exact mean):
+    #   mean         — the reference's (example-)weighted FedAvg
+    #   trimmed_mean — drop the ceil(aggregator_trim * k) highest and lowest
+    #                  values per coordinate
+    #   median       — coordinate-wise median
+    #   krum         — adopt the client with the least summed distance to
+    #                  its nearest neighbours (f = ceil(aggregator_trim * k))
+    # the robust rules treat weights as a participation mask
     aggregator: str = "mean"
+    aggregator_trim: float = 0.2
     # the reference's serverless semantics: clients train one shared model
     # in turn and the snapshots are averaged (serverless mode, sync)
     faithful: bool = False
@@ -176,15 +186,19 @@ class FedConfig:
     topology: TopologyConfig = dataclasses.field(
         default_factory=TopologyConfig)
     ledger: LedgerConfig = dataclasses.field(default_factory=LedgerConfig)
-    #: fault-injection plan; None injects nothing (faults are not ported)
-    faults: Optional[Any] = None
-    #: peer-lifecycle reputation; None is off (reputation is not ported)
-    reputation: Optional[Any] = None
+    #: fault-injection plan (the local lanes); the default injects
+    #: nothing, and None is accepted as no plan
+    faults: Optional[FaultPlan] = dataclasses.field(
+        default_factory=FaultPlan)
+    #: peer-lifecycle reputation (off by default)
+    reputation: ReputationConfig = dataclasses.field(
+        default_factory=ReputationConfig)
     compression: CompressionConfig = dataclasses.field(
         default_factory=CompressionConfig)
 
     # --- checkpoint / metrics ---
     checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 0  # rounds; 0 = off
     # evaluate every Nth round (the final round always evaluates); 0 = never
     eval_every: int = 1
     max_eval_batches: Optional[int] = None
@@ -222,6 +236,41 @@ class FedConfig:
                 f"async_buffer {self.async_buffer} > num_clients "
                 f"{self.num_clients}: the buffer could never fill (use 0 "
                 "for 'aggregate when everyone arrived')")
+        if not 0.0 <= self.aggregator_trim < 0.5:
+            # >= 0.5 would trim every client (2t >= k) / assume a Byzantine
+            # majority, which no aggregation rule can survive
+            raise ValueError(
+                f"aggregator_trim must be in [0, 0.5), got "
+                f"{self.aggregator_trim}")
+        plan = self.faults if self.faults is not None else FaultPlan()
+        if plan.corrupts and self.faithful:
+            raise ValueError(
+                "FaultPlan corruption (incl. flaky bursts) models transport "
+                "of the parallel paths' stacked updates; faithful "
+                "(host-sequential) mode has no transport stage — use the "
+                "tamper_hook shim there")
+        if plan.partitions and self.runtime == "local":
+            # partitioned rounds aggregate per component over the stacked
+            # split-phase flow; paths with no per-component form raise
+            # rather than aggregate across a partition that should exist
+            if self.sync == "async":
+                raise ValueError(
+                    "chaos partition is not implemented for sync='async': "
+                    "the buffered FedBuff merge has one global arrival "
+                    "queue, and per-component queues would be a different "
+                    "algorithm, not a fault model")
+            if self.faithful:
+                raise ValueError(
+                    "chaos partition is not implemented for faithful "
+                    "(host-sequential) mode — clients share ONE model, so "
+                    "there is nothing to partition")
+            if self.mode == "serverless" and self.topology.gossip_steps > 0:
+                raise ValueError(
+                    "chaos partition with ring-gossip diffusion "
+                    "(gossip_steps > 0) would need a per-component ring — "
+                    "a mesh reshape the fault model forbids; use "
+                    "gossip_steps=0 (exact mean) for partitioned "
+                    "serverless runs")
         if self.aggregator != "mean" and self.faithful:
             # the faithful path averages snapshots with a plain weighted
             # sum; running it under a robust-aggregator label would fake
@@ -245,8 +294,9 @@ class FedConfig:
                 raise ValueError(
                     f"{field}={value!r} is not ported yet: bcfl_tpu_torch "
                     "runs server FedAvg, serverless ring gossip and "
-                    "buffered async with the anomaly filter and the ledger "
-                    "(see ROADMAP.md for the port's queue)")
+                    "buffered async with the anomaly filter, the ledger, "
+                    "the local fault plan, robust aggregation, reputation "
+                    "and checkpoints (see ROADMAP.md for the port's queue)")
 
     def replace(self, **kw) -> "FedConfig":
         return dataclasses.replace(self, **kw)

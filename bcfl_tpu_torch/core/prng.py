@@ -21,6 +21,17 @@ import torch
 # 4 for the training keys and 0x51F7 for the codec lane)
 TRAIN_LANE = 4
 CODEC_LANE = 0x51F7
+#: version of the coordinate -> seed derivation below
+_SCHEME = "blake2b-coords-v1"
+
+
+def scheme_name(device) -> str:
+    """The identity of the random streams a run on ``device`` draws: the
+    seed derivation plus the device type, whose generator (Mersenne
+    Twister on the CPU, Philox on CUDA) turns a seed into numbers. A
+    checkpoint records it, and resuming under another scheme would change
+    every later draw."""
+    return f"{_SCHEME}:torch.Generator[{torch.device(device).type}]"
 
 
 def stream_seed(*coords: int) -> int:

@@ -10,10 +10,17 @@ flags the ported slice supports.
         --model bert-base --compress int8+topk --device cuda
     python -m bcfl_tpu_torch.entrypoints --preset serverless_cancer_biobert \\
         --sweep --rounds 2    # 5/10/20 clients; figures and JSON in results/
+    python -m bcfl_tpu_torch.entrypoints --preset smoke --device cpu \\
+        --rounds 3 --chaos-crash-round 1 --checkpoint-dir ck \\
+        --checkpoint-every 1    # raises SimulatedCrash at round 1
+    python -m bcfl_tpu_torch.entrypoints --preset smoke --device cpu \\
+        --rounds 3 --chaos-crash-round 1 --checkpoint-dir ck \\
+        --checkpoint-every 1 --resume    # rounds 1 and 2 from round 0's
 
 ``--device`` defaults to ``cuda``, which raises when no GPU is present.
 Any flag of the JAX command line that is not listed here is rejected as
-"not ported yet".
+"not ported yet" (among them the multi-process runtime's ``--chaos-wire*``
+and ``--chaos-byz*`` lanes).
 """
 
 from __future__ import annotations
@@ -34,7 +41,10 @@ _FIELD_FLAGS = (
     ("max_local_batches", "max_local_batches"),
     ("eval_every", "eval_every"), ("seed", "seed"),
     ("compute_dtype", "compute_dtype"), ("param_dtype", "param_dtype"),
-    ("mode", "mode"), ("sync", "sync"),
+    ("mode", "mode"), ("sync", "sync"), ("aggregator", "aggregator"),
+    ("aggregator_trim", "aggregator_trim"),
+    ("checkpoint_dir", "checkpoint_dir"),
+    ("checkpoint_every", "checkpoint_every"),
 )
 
 
@@ -48,6 +58,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sweep", action="store_true",
                     help="run the 5/10/20-worker sweep like "
                          "serverless_cancer_biobert_allclients.py")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the newest valid checkpoint of "
+                         "--checkpoint-dir")
     ap.add_argument("--clients", type=int, default=None)
     ap.add_argument("--rounds", type=int, default=None)
     ap.add_argument("--model", default=None)
@@ -94,7 +107,165 @@ def build_parser() -> argparse.ArgumentParser:
                          "(0 = exact mask-weighted mean)")
     ap.add_argument("--ledger", action="store_true",
                     help="enable the hash-chained weight ledger (BC-FL)")
+    ap.add_argument("--aggregator", default=None,
+                    choices=["mean", "trimmed_mean", "median", "krum"],
+                    help="aggregation rule: mean = reference FedAvg; the "
+                         "robust rules survive up to an aggregator-trim "
+                         "fraction of Byzantine clients without the ledger")
+    ap.add_argument("--aggregator-trim", type=float, default=None,
+                    help="assumed Byzantine fraction for trimmed_mean/krum "
+                         "(default 0.2, must be < 0.5)")
+    # the fault plan's local lanes (bcfl_tpu_torch.faults.FaultPlan)
+    ap.add_argument("--chaos-dropout", type=float, default=None,
+                    metavar="P", help="per-round per-client dropout "
+                    "probability (fault injection)")
+    ap.add_argument("--chaos-straggler", type=float, default=None,
+                    metavar="P", help="per-round per-client straggler "
+                    "probability (simulated-clock delay)")
+    ap.add_argument("--chaos-straggler-delay", type=float, default=30.0,
+                    metavar="SECONDS", help="injected straggler delay")
+    ap.add_argument("--chaos-corrupt", type=float, default=None,
+                    metavar="P", help="per-round per-client transport-"
+                    "corruption probability; with --ledger corrupted "
+                    "updates fail auth, without it use a robust "
+                    "--aggregator")
+    ap.add_argument("--chaos-crash-round", type=int, default=None,
+                    metavar="N", help="inject a host crash at round N "
+                    "(resume afterwards with --resume)")
+    ap.add_argument("--chaos-partition", default=None, metavar="GROUPS",
+                    help="split the clients into isolated components for "
+                         "the --chaos-partition-rounds span: groups like "
+                         "'0,1/2,3' (unlisted clients form one extra "
+                         "component) or an integer N for a seeded N-way "
+                         "split")
+    ap.add_argument("--chaos-partition-rounds", default=None,
+                    metavar="START:END",
+                    help="half-open round span the partition lasts, e.g. "
+                         "'2:5' = rounds 2,3,4 (required with "
+                         "--chaos-partition)")
+    ap.add_argument("--chaos-churn-leave", action="append", default=None,
+                    metavar="CLIENT:ROUND",
+                    help="client CLIENT permanently leaves at round ROUND "
+                         "(repeatable)")
+    ap.add_argument("--chaos-churn-join", action="append", default=None,
+                    metavar="CLIENT:ROUND",
+                    help="client CLIENT joins late at round ROUND "
+                         "(repeatable)")
+    ap.add_argument("--chaos-flaky", default=None, metavar="CLIENTS",
+                    help="comma-separated client ids that corrupt transport "
+                         "in intermittent multi-round bursts (see "
+                         "--reputation)")
+    ap.add_argument("--chaos-flaky-burst", type=int, default=None,
+                    metavar="N", help="rounds per flaky burst window "
+                    "(default 3)")
+    ap.add_argument("--chaos-flaky-on-prob", type=float, default=None,
+                    metavar="P", help="probability each flaky window "
+                    "actually bursts (default 0.5)")
+    ap.add_argument("--chaos-seed", type=int, default=0,
+                    help="seed of the chaos schedule (independent of --seed)")
+    ap.add_argument("--reputation", action="store_true",
+                    help="enable the peer-lifecycle state machine: EWMA "
+                         "trust over per-round evidence drives HEALTHY -> "
+                         "SUSPECT -> QUARANTINED -> PROBATION")
+    ap.add_argument("--reputation-alpha", type=float, default=None,
+                    metavar="A", help="EWMA trust update rate (default 0.4)")
+    ap.add_argument("--reputation-suspect-below", type=float, default=None,
+                    metavar="T", help="trust below T -> SUSPECT "
+                    "(default 0.7)")
+    ap.add_argument("--reputation-quarantine-below", type=float,
+                    default=None, metavar="T",
+                    help="trust below T -> QUARANTINED (default 0.4)")
+    ap.add_argument("--reputation-quarantine-rounds", type=int, default=None,
+                    metavar="N", help="rounds a quarantined peer sits out "
+                    "(default 3)")
+    ap.add_argument("--reputation-probation-rounds", type=int, default=None,
+                    metavar="N", help="clean probation rounds before full "
+                    "readmission (default 2)")
+    ap.add_argument("--reputation-probation-weight", type=float,
+                    default=None, metavar="W",
+                    help="vote weight while on probation (default 0.5)")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=None)
     return ap
+
+
+def _pair_schedule(entries, flag):
+    """``CLIENT:ROUND`` entries -> ((client, round), ...), or None."""
+    if not entries:
+        return None
+    out = []
+    for s in entries:
+        try:
+            c, r = s.split(":")
+            out.append((int(c), int(r)))
+        except ValueError:
+            raise SystemExit(f"{flag} {s!r}: expected CLIENT:ROUND")
+    return tuple(out)
+
+
+def _fault_plan(args):
+    """The FaultPlan the ``--chaos-*`` flags ask for (None: no flag), parsed
+    as the JAX command line parses them."""
+    from bcfl_tpu_torch.faults import FaultPlan
+
+    if not (args.chaos_dropout is not None or args.chaos_straggler is not None
+            or args.chaos_corrupt is not None
+            or args.chaos_crash_round is not None
+            or args.chaos_partition is not None
+            or args.chaos_churn_leave or args.chaos_churn_join
+            or args.chaos_flaky is not None):
+        return None
+    plan_kw = dict(
+        seed=args.chaos_seed,
+        dropout_prob=args.chaos_dropout or 0.0,
+        straggler_prob=args.chaos_straggler or 0.0,
+        straggler_delay_s=args.chaos_straggler_delay,
+        corrupt_prob=args.chaos_corrupt or 0.0,
+        crash_at_round=args.chaos_crash_round,
+        churn_leave=_pair_schedule(args.chaos_churn_leave,
+                                   "--chaos-churn-leave"),
+        churn_join=_pair_schedule(args.chaos_churn_join,
+                                  "--chaos-churn-join"),
+    )
+    if args.chaos_partition is not None:
+        if args.chaos_partition_rounds is None:
+            raise SystemExit("--chaos-partition needs "
+                             "--chaos-partition-rounds START:END")
+        try:
+            lo, hi = (int(x) for x in args.chaos_partition_rounds.split(":"))
+        except ValueError:
+            raise SystemExit(
+                f"--chaos-partition-rounds "
+                f"{args.chaos_partition_rounds!r}: expected START:END")
+        if hi <= lo:
+            raise SystemExit(
+                f"--chaos-partition-rounds "
+                f"{args.chaos_partition_rounds!r}: empty span "
+                "(END must be > START; the span is half-open)")
+        plan_kw["partition_rounds"] = tuple(range(lo, hi))
+        spec = args.chaos_partition
+        try:
+            if "/" in spec or "," in spec:
+                plan_kw["partition_groups"] = tuple(
+                    tuple(int(c) for c in g.split(","))
+                    for g in spec.split("/") if g)
+            else:
+                plan_kw["partition_count"] = int(spec)
+        except ValueError:
+            raise SystemExit(f"--chaos-partition {spec!r}: expected "
+                             "groups like 0,1/2,3 or an integer N")
+    if args.chaos_flaky is not None:
+        try:
+            plan_kw["flaky_clients"] = tuple(
+                int(c) for c in args.chaos_flaky.split(","))
+        except ValueError:
+            raise SystemExit(f"--chaos-flaky {args.chaos_flaky!r}: "
+                             "expected comma-separated client ids")
+        if args.chaos_flaky_burst is not None:
+            plan_kw["flaky_burst_len"] = args.chaos_flaky_burst
+        if args.chaos_flaky_on_prob is not None:
+            plan_kw["flaky_on_prob"] = args.chaos_flaky_on_prob
+    return FaultPlan(**plan_kw)
 
 
 def build_config(args):
@@ -134,6 +305,24 @@ def build_config(args):
         overrides["topology"] = dataclasses.replace(cfg.topology, **topo_kw)
     if args.ledger:
         overrides["ledger"] = dataclasses.replace(cfg.ledger, enabled=True)
+    plan = _fault_plan(args)
+    if plan is not None:
+        overrides["faults"] = plan
+    rep_tweaks = {
+        "ewma_alpha": args.reputation_alpha,
+        "suspect_below": args.reputation_suspect_below,
+        "quarantine_below": args.reputation_quarantine_below,
+        "quarantine_rounds": args.reputation_quarantine_rounds,
+        "probation_rounds": args.reputation_probation_rounds,
+        "probation_weight": args.reputation_probation_weight,
+    }
+    rep_tweaks = {k: v for k, v in rep_tweaks.items() if v is not None}
+    if rep_tweaks and not args.reputation:
+        raise SystemExit("--reputation-* tuning flags have no effect "
+                         "without --reputation")
+    if args.reputation:
+        overrides["reputation"] = dataclasses.replace(
+            cfg.reputation, enabled=True, **rep_tweaks)
     return cfg.replace(**overrides)
 
 
@@ -145,9 +334,9 @@ def main(argv=None) -> int:
         ap.error(f"not ported yet (or unknown): {' '.join(rest)}")
     cfg = build_config(args)
     if args.sweep:
-        run_sweep(cfg, device=args.device)
+        run_sweep(cfg, device=args.device, resume=args.resume)
     else:
-        run(cfg, device=args.device)
+        run(cfg, device=args.device, resume=args.resume)
     return 0
 
 

@@ -4,9 +4,10 @@
 ``run`` builds the engine on ``device`` (``None`` means the GPU, and raises
 when there is none), runs it, streams one line per round and ends with the
 reference's metric set: CPU overhead %, memory GB, latency in minutes,
-model size, the per-round global accuracies. ``run_sweep`` is the
-reference's worker sweep over client counts (no ``resume`` until
-checkpointing is ported)."""
+model size, the per-round global accuracies; ``resume=True`` restores the
+newest valid checkpoint of ``cfg.checkpoint_dir`` first. ``run_sweep`` is
+the reference's worker sweep over client counts, each count checkpointing
+into its own ``c<n>`` subdirectory."""
 
 from __future__ import annotations
 
@@ -18,11 +19,13 @@ from bcfl_tpu_torch.config import FedConfig
 from bcfl_tpu_torch.fed.engine import FedEngine, RunResult
 
 
-def run(cfg: FedConfig, device=None, verbose: bool = True) -> RunResult:
+def run(cfg: FedConfig, device=None, verbose: bool = True,
+        resume: bool = False) -> RunResult:
     engine = FedEngine(cfg, device=device)
     if verbose:
         print("\n".join(_header(cfg, engine.device)), flush=True)
-    result = engine.run(on_round=_print_round if verbose else None)
+    result = engine.run(resume=resume,
+                        on_round=_print_round if verbose else None)
     if verbose:
         print(format_report(result), flush=True)
     return result
@@ -43,9 +46,31 @@ def round_line(r) -> str:
     rejected = ([i for i, a in enumerate(r.auth) if a == 0.0]
                 if r.auth else [])
     rej = f" auth_failed={rejected}" if rejected else ""
+    drop = f" dropped={r.dropped}" if r.dropped else ""
     deg = " DEGRADED" if r.degraded else ""
+    # the fault plan and the peer lifecycle in the stream: partition spans,
+    # heals, churn absences, quarantined and probation peers
+    part = ""
+    if r.partition is not None:
+        comps = sorted(set(p for p in r.partition if p >= 0))
+        part = f" PARTITIONED x{len(comps)}"
+    if r.healed:
+        part += " HEALED"
+    gone = ([i for i, a in enumerate(r.churn_alive) if a == 0.0]
+            if r.churn_alive else [])
+    churn = f" churned_out={gone}" if gone else ""
+    rep = ""
+    if r.reputation_state is not None:
+        q = [i for i, s in enumerate(r.reputation_state)
+             if s == "quarantined"]
+        p = [i for i, s in enumerate(r.reputation_state) if s == "probation"]
+        if q:
+            rep += f" quarantined={q}"
+        if p:
+            rep += f" probation={p}"
     return (f"round {r.round:3d}: train_loss={r.train_loss:.4f} "
-            f"train_acc={r.train_acc:.4f}{acc}{anom}{rej}{deg} "
+            f"train_acc={r.train_acc:.4f}{acc}{anom}{rej}{drop}{part}"
+            f"{churn}{rep}{deg} "
             f"ratio={r.compression_ratio:.2f} wall={r.wall_s:.2f}s")
 
 
@@ -62,6 +87,8 @@ def format_report(result: RunResult) -> str:
                      f"async={r.info_passing_async_s:.3f}s")
     if m.ledger:
         lines.append("ledger: " + json.dumps(m.ledger))
+    if m.reputation:
+        lines.append("reputation: " + json.dumps(m.reputation))
     accs = m.global_accuracies
     lines.append(f"global_accuracies: {[round(a, 4) for a in accs]}")
     return "\n".join(lines)
@@ -85,18 +112,24 @@ def sweep_record(cfg: FedConfig, results: Dict[int, RunResult]) -> dict:
 
 def run_sweep(cfg: FedConfig, client_counts: Optional[List[int]] = None,
               device=None, verbose: bool = True,
-              out_dir: Optional[str] = "results") -> Dict[int, RunResult]:
+              out_dir: Optional[str] = "results",
+              resume: bool = False) -> Dict[int, RunResult]:
     """The reference's worker sweep (``for NUM_CLIENTS in [5, 10, 20]``,
     ``serverless_cancer_biobert_allclients.py:41``) over one config, each
-    count a run named ``<name>_c<n>``. ``out_dir`` gets the latency,
-    accuracy and memory figures by client count (matplotlib) and
+    count a run named ``<name>_c<n>`` that checkpoints into
+    ``<checkpoint_dir>/c<n>`` and, with ``resume``, resumes from there.
+    ``out_dir`` gets the latency, accuracy and memory figures by client
+    count (matplotlib) and
     ``<name>_sweep.json`` (:func:`sweep_record`); None records nothing."""
     from bcfl_tpu_torch.entrypoints.presets import SWEEP_CLIENTS
 
     out: Dict[int, RunResult] = {}
     for n in client_counts or SWEEP_CLIENTS:
-        out[n] = run(cfg.replace(name=f"{cfg.name}_c{n}", num_clients=n),
-                     device=device, verbose=verbose)
+        ckpt = (os.path.join(cfg.checkpoint_dir, f"c{n}")
+                if cfg.checkpoint_dir else None)
+        out[n] = run(cfg.replace(name=f"{cfg.name}_c{n}", num_clients=n,
+                                 checkpoint_dir=ckpt),
+                     device=device, verbose=verbose, resume=resume)
     if out_dir:
         from bcfl_tpu_torch.viz import sweep_report
 

@@ -5,8 +5,8 @@ GSPMD builder ``train_clients``, ``local_updates_body``,
 ``server_body``/``server_body_comp``, ``gossip_body``/``gossip_body_comp``,
 ``_mix_g``/``_mix_g_recv``, ``_compress_stage``, ``_recon``, the
 split-phase codec programs ``encode_deltas``/``encode_deltas_local``/
-``encode_deltas_async``/``decode_delta``, and
-``broadcast``, ``adopt``, ``collapse``).
+``encode_deltas_async``/``decode_recon``/``decode_delta``, and
+``broadcast``, ``adopt``, ``collapse`` with the configured aggregator).
 
 The JAX package compiles every client's local round plus the aggregation
 into one XLA program over a stacked ``[C, ...]`` client axis. Here the
@@ -201,6 +201,14 @@ def recon(ref_t: Tree, dec: Tree, like_t: Tree) -> Tree:
             for p in dec}
 
 
+def decode_recon(comp: cc.CompressionConfig, payload: dict, ref_t: Tree,
+                 like_t: Tree) -> Tree:
+    """The reconstruction ``ref + decoded`` from a payload alone
+    (``decode_recon``): what a receiver rebuilds from a payload that was
+    corrupted in transport."""
+    return recon(ref_t, cc.decode_tree(comp, payload, like_t), like_t)
+
+
 def decode_delta(comp: cc.CompressionConfig, payload: dict,
                  like_t: Tree) -> Tree:
     """The decoded stacked deltas in the param dtype (``decode_delta``):
@@ -244,10 +252,12 @@ def adopt(client_t: Tree, global_t: Tree, pull: torch.Tensor) -> Tree:
             for p, x in client_t.items()}
 
 
-def collapse(stacked: Tree, weights: torch.Tensor, fallback: Tree) -> Tree:
-    """The aggregation rule over the client axis (``collapse``; the port
-    has the mean only)."""
-    return masked_weighted_mean(stacked, weights, fallback)
+def collapse(stacked: Tree, weights: torch.Tensor, fallback: Tree,
+             agg: Optional[Callable] = None) -> Tree:
+    """The aggregation rule over the client axis (``collapse``): ``agg``
+    (:func:`bcfl_tpu_torch.parallel.make_aggregator`), the masked weighted
+    mean by default."""
+    return (agg or masked_weighted_mean)(stacked, weights, fallback)
 
 
 def exact_mean_spread(avg: Tree, new_t: Tree, mask: torch.Tensor) -> Tree:
@@ -259,22 +269,24 @@ def exact_mean_spread(avg: Tree, new_t: Tree, mask: torch.Tensor) -> Tree:
 
 
 def mix(new_t: Tree, mask: torch.Tensor, fallback: Tree, alpha: float,
-        steps: int) -> Tree:
+        steps: int, agg: Optional[Callable] = None) -> Tree:
     """The serverless mix (``_mix_g``): ``steps == 0`` spreads the exact
-    masked mean, otherwise ``steps`` rounds of ring gossip."""
+    masked aggregate (``agg``), otherwise ``steps`` rounds of ring gossip,
+    which keeps its pairwise mixing rule whatever the aggregator."""
     if steps == 0:
-        return exact_mean_spread(collapse(new_t, mask, fallback), new_t, mask)
+        return exact_mean_spread(collapse(new_t, mask, fallback, agg), new_t,
+                                 mask)
     return gossip_mix(new_t, mask, alpha, steps=steps)
 
 
 def mix_recv(self_t: Tree, recv_t: Tree, mask: torch.Tensor, fallback: Tree,
-             alpha: float, steps: int) -> Tree:
+             alpha: float, steps: int, agg: Optional[Callable] = None) -> Tree:
     """The transport-aware mix (``_mix_g_recv``): neighbour and aggregate
     terms from ``recv_t`` (what arrived), each sender's self-term (and a
     masked client's kept state) from its own ``self_t``."""
     if steps == 0:
-        return exact_mean_spread(collapse(recv_t, mask, fallback), self_t,
-                                 mask)
+        return exact_mean_spread(collapse(recv_t, mask, fallback, agg),
+                                 self_t, mask)
     return gossip_mix_recv(self_t, recv_t, mask, alpha, steps=steps)
 
 

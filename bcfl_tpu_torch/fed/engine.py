@@ -1,33 +1,43 @@
 """The federated round engine: port of ``bcfl_tpu/fed/engine.py`` for
 ``runtime="local"`` (``FedEngine.run`` with ``_participation``,
-``_exchange_updates``, the ledger's fingerprint path, ``_server_round``,
-``_serverless_round``, ``_async_round`` and ``_maybe_eval``).
+``_exchange_updates`` and ``_transport``, the ledger's fingerprint and
+byte-hash paths, ``_server_round``, ``_serverless_round``,
+``_faithful_round``, ``_async_round``, ``_partitioned_round``,
+``_heal_partition``, ``_reputation_observe``, ``_maybe_eval`` and
+``_maybe_checkpoint``, with the resume guards).
 
 Per round the host control plane:
 
-1. runs the anomaly filter over the latency graph -> participation mask
-   (``cfg.topology.anomaly_filter``; all ones when off);
+1. runs the anomaly filter over the latency graph (per component under a
+   partition) -> participation mask, composed with the fault plan's
+   dropout and churn and the reputation gate;
 2. runs the round: server FedAvg (``mode="server"``), serverless ring
-   gossip (``mode="serverless"``), the reference's own serverless
-   semantics (``faithful=True``: the clients train one shared model in
-   turn and the snapshots are averaged), or one buffered-async
-   aggregation event (``sync="async"``, FedBuff-style, under a simulated
-   network clock derived from the latency graph);
-3. with the ledger on, every update crosses the wire seam
-   (:meth:`FedEngine._exchange_updates`): each client's update (the codec
-   payload when compression is on) is fingerprinted on the device, the
-   digest is chained, and what arrived is authenticated against the chain
-   before aggregation; a client that fails authentication is masked out;
-4. records the round: mask, anomalies, auth, staleness and merge weights
-   (async), the synchronous/asynchronous information passing times, bytes
-   on the wire, wall time; evaluates every ``eval_every`` rounds and after
-   the last.
+   gossip or its exact aggregate (``mode="serverless"``), the reference's
+   own serverless semantics (``faithful=True``: the clients train one
+   shared model in turn and the snapshots are averaged), one
+   buffered-async aggregation event (``sync="async"``, FedBuff-style,
+   under a simulated network clock derived from the latency graph), or,
+   during a partition span, one aggregation per connected component;
+   every aggregation point takes the configured rule
+   (``cfg.aggregator``: the mean or a Byzantine-robust statistic);
+3. every update crosses the wire seam (:meth:`FedEngine._exchange_updates`):
+   the codec encodes each client's update, the fault plan may corrupt
+   what is in transit, and with the ledger on each client's committed
+   update is fingerprinted on the device, chained, and what arrived is
+   authenticated before aggregation; a client that fails authentication
+   is masked out;
+4. records the round (mask, anomalies, auth, dropped clients, straggler
+   delays, partition, heal, churn, staleness and merge weights, the
+   information passing times, bytes on the wire, wall time), folds the
+   round's evidence into the reputation tracker, evaluates every
+   ``eval_every`` rounds and after the last, and checkpoints every
+   ``checkpoint_every`` rounds.
 
-A ``ResourceMonitor`` spans the run (``RunMetrics.resources``). The fault
-plan, reputation, robust aggregators, cohorts and fused multi-round
-dispatch of the JAX engine are not ported yet (the config raises); with
-them off the JAX engine runs exactly these steps. Without a fault plan
-nothing corrupts the wire, so what arrives is what was sent.
+``run(resume=True)`` restores the newest valid checkpoint and reproduces
+the uninterrupted run bit for bit; the fault plan's host crash fires only
+when nothing was restored. A ``ResourceMonitor`` spans the run
+(``RunMetrics.resources``). Cohorts and the fused multi-round dispatch of
+the JAX engine are not ported yet (the config raises).
 """
 
 from __future__ import annotations
@@ -35,12 +45,14 @@ from __future__ import annotations
 import dataclasses
 import logging
 import time
+import warnings
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from bcfl_tpu_torch.checkpoint import restore_latest, save_checkpoint
 from bcfl_tpu_torch.compression import codecs as cc
 from bcfl_tpu_torch.config import FedConfig
 from bcfl_tpu_torch.core import prng, resolve_device
@@ -53,6 +65,7 @@ from bcfl_tpu_torch.data import (
     get_tokenizer,
     load_dataset,
 )
+from bcfl_tpu_torch.faults import FaultInjector, SimulatedCrash
 from bcfl_tpu_torch.fed import client_step as cs
 from bcfl_tpu_torch.ledger import Ledger
 from bcfl_tpu_torch.ledger import fingerprint as fp_lib
@@ -66,7 +79,15 @@ from bcfl_tpu_torch.metrics import (
 from bcfl_tpu_torch.models import build, full_float32_matmuls
 from bcfl_tpu_torch.models.bert import init_params
 from bcfl_tpu_torch.models.convert import load_trainable, trainable_tree
-from bcfl_tpu_torch.topology import anomaly_filter, random_graph, reference_graph
+from bcfl_tpu_torch.parallel import make_aggregator
+from bcfl_tpu_torch.parallel.collectives import _col
+from bcfl_tpu_torch.reputation import ReputationTracker
+from bcfl_tpu_torch.topology import (
+    anomaly_filter,
+    partitioned_anomaly_filter,
+    random_graph,
+    reference_graph,
+)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -82,6 +103,8 @@ class RunResult:
     trainable: Dict[str, torch.Tensor]  # final global tree, JAX layout
     model: nn.Module  # the model, holding the final global parameters
     ledger: Optional[Ledger] = None
+    # the codec's error-feedback residual the run ended with (codec on)
+    ef_residual: Optional[Dict[str, torch.Tensor]] = None
 
 
 @dataclasses.dataclass
@@ -104,13 +127,49 @@ def _to_device(tree: dict, device: torch.device) -> dict:
             for k, v in tree.items()}
 
 
+def _text(s: str) -> np.ndarray:
+    """A string as a uint8 array (checkpoints hold arrays only)."""
+    return np.frombuffer(s.encode(), np.uint8).copy()
+
+
+def _untext(t) -> str:
+    return bytes(np.asarray(t, np.uint8)).decode()
+
+
 class FedEngine:
-    def __init__(self, cfg: FedConfig, device=None, info_source: int = 1):
+    def __init__(self, cfg: FedConfig, device=None, info_source: int = 1,
+                 tamper_hook: Optional[Callable] = None,
+                 fused_tamper: Optional[Callable] = None):
         self.cfg = cfg
         self.device = dev = resolve_device(device)
         if dev.type == "cuda":
             full_float32_matmuls()
         self.C = cfg.num_clients
+        # ``tamper_hook`` (byte-level tampering of the host trees the
+        # ledger hashes) and ``fused_tamper`` (corruption of fused
+        # multi-round dispatches) are the JAX engine's legacy hooks; new
+        # code schedules corruption with ``cfg.faults``
+        if tamper_hook is not None or fused_tamper is not None:
+            warnings.warn(
+                "tamper_hook/fused_tamper are deprecated shims — schedule "
+                "corruption via FedConfig.faults "
+                "(bcfl_tpu_torch.faults.FaultPlan)",
+                DeprecationWarning, stacklevel=2)
+        self.faults = FaultInjector(cfg.faults, self.C,
+                                    host_tamper=tamper_hook,
+                                    fused_tamper=fused_tamper)
+        if cfg.compression.enabled and tamper_hook is not None:
+            raise ValueError(
+                "tamper_hook models byte-tampering of full host update "
+                "trees; with compression enabled the wire carries encoded "
+                "payloads — schedule corruption via FedConfig.faults "
+                "(it corrupts the compressed representation)")
+        rep = cfg.reputation
+        self.reputation = (ReputationTracker(rep, self.C)
+                           if rep is not None and rep.enabled else None)
+        self.agg = make_aggregator(cfg.aggregator, cfg.aggregator_trim)
+        # the random streams' identity, recorded in checkpoints
+        self._prng_name = prng.scheme_name(dev)
         # --- data: tokenize once ---
         self.dataset = load_dataset(cfg.dataset, num_labels=cfg.num_labels,
                                     text_col=cfg.text_col,
@@ -194,9 +253,19 @@ class FedEngine:
             return None
         return prng.codec_uniforms(self.cfg.seed, rnd)
 
-    def _participation(self, rnd: int) -> Dict:
+    def _participation(self, rnd: int, components=None) -> Dict:
+        if components is not None:
+            # under a partition the filter sees each component's subgraph
+            return partitioned_anomaly_filter(
+                self.cfg.topology.anomaly_filter, self.graph, components,
+                protect=(self.info_source,))
         return anomaly_filter(self.cfg.topology.anomaly_filter, self.graph,
                               protect=(self.info_source,))
+
+    def _transport_scales(self, rnd: int) -> Optional[np.ndarray]:
+        """The round's transport-corruption scales (None = clean): every
+        consumer (round bodies, reputation evidence) draws through here."""
+        return self.faults.transport_scales(rnd)
 
     def _payload_gb(self) -> float:
         # the comms model scales by what crosses a link: the codec payload
@@ -283,18 +352,37 @@ class FedEngine:
                 rnd, c, self._entry_digest(kind, fps[c])) else 0.0
             for c in range(self.C)], np.float32)
 
+    def _ledger_authenticate(self, rnd: int, host) -> np.ndarray:
+        """Byte-hash authentication of the host trees that arrived (after
+        ``tamper_hook``) against the committed chain: the 0/1 auth mask."""
+        tamper = self.faults.host_tamper
+        shipped = tamper(rnd, host) if tamper else host
+        return np.asarray([
+            1.0 if self.ledger.authenticate(
+                rnd, c, {p: x[c] for p, x in shipped.items()}) else 0.0
+            for c in range(self.C)], np.float32)
+
     def _ledger_verify(self, rnd: int, stacked, sent=None,
                        kind: str = "stacked") -> np.ndarray:
         """Commit every client's update, then authenticate what arrived;
         returns the 0/1 auth mask. ``stacked`` is the honest tree each
         client COMMITS (the codec payload with ``kind="payload"``);
-        ``sent`` (default: the same) is what reached the aggregation point.
-        The content digest is the device-side fingerprint: only ``[C, K]``
-        floats reach the host."""
+        ``sent`` (default: the same) is what reached the aggregation point:
+        when the fault plan corrupts transport the two differ, and exactly
+        the corrupted clients fail. The content digest is the device-side
+        fingerprint (only ``[C, K]`` floats reach the host), except under a
+        ``tamper_hook``, which tampers host trees and so takes the full
+        byte-hash flow."""
         # the device is still training: without the fence its time would
         # be billed to the ledger phase
         fence(stacked if sent is None else sent)
         with self.clock.phase("ledger"):
+            if self.faults.host_tamper is not None:
+                host = {p: x.cpu() for p, x in stacked.items()}
+                for c in range(self.C):
+                    self.ledger.append(rnd, c,
+                                       {p: x[c] for p, x in host.items()})
+                return self._ledger_authenticate(rnd, host)
             if kind not in self._struct_cache:
                 self._struct_cache[kind] = fp_lib.struct_digest(
                     stacked, self.cfg.ledger.use_native)
@@ -307,16 +395,18 @@ class FedEngine:
             fp_recv = fp_lib.client_fingerprint(sent).cpu().numpy()
             return self._ledger_auth_rows(rnd, kind, fp_recv)
 
-    def _exchange_updates(self, rnd: int, new_t, ref_t,
+    def _exchange_updates(self, rnd: int, new_t, ref_t, scales,
                           mode: str) -> ExchangeResult:
         """The update-exchange seam: the codec encode (``mode``: "global"
         = delta vs the global, "local" = vs the stacked round-start tree,
-        "async" = recon-free), then the ledger's commit and verify of what
-        crossed the wire."""
+        "async" = recon-free), the simulated transport (``scales``: the
+        round's corruption, None = clean), then the ledger's commit of what
+        was sent and verify of what arrived."""
         if self._comp is None:
-            auth = (self._ledger_verify(rnd, new_t)
+            sent = self._transport(new_t, scales)
+            auth = (self._ledger_verify(rnd, new_t, sent)
                     if self.ledger is not None else None)
-            return ExchangeResult(sent=new_t, recon=new_t, auth=auth)
+            return ExchangeResult(sent=sent, recon=sent, auth=auth)
         uniforms = self._uniforms(rnd)
         if mode == "async":
             payload, self._ef = cs.encode_deltas_async(
@@ -326,27 +416,51 @@ class FedEngine:
             payload, recon, self._ef = cs.encode_deltas(
                 self._comp, new_t, ref_t, self._ef, uniforms)
         self._check_payload(payload)
-        auth = (self._ledger_verify(rnd, payload, kind="payload")
+        sent = payload
+        if scales is not None:
+            sent = cc.corrupt_payload(payload, self._scales_tensor(scales))
+            if recon is not None:
+                # a corrupted wire yields a corrupted reconstruction:
+                # decode the TRANSPORTED payload again
+                recon = cs.decode_recon(self._comp, sent, ref_t, new_t)
+        auth = (self._ledger_verify(rnd, payload, sent, kind="payload")
                 if self.ledger is not None else None)
-        return ExchangeResult(sent=payload, recon=recon, auth=auth)
+        return ExchangeResult(sent=sent, recon=recon, auth=auth)
+
+    def _scales_tensor(self, scales: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(scales, np.float32),
+                               device=self.device)
+
+    def _transport(self, stacked, scales):
+        """Simulated transport of the stacked updates: the tree that
+        arrives is ``stacked + scales[c]`` per client, the same buffer when
+        ``scales`` is None."""
+        if scales is None:
+            return stacked
+        s = self._scales_tensor(scales)
+        return {p: x + _col(s, x) for p, x in stacked.items()}
 
     # ----------------------------------------------------------- round bodies
 
     def _server_round(self, rnd: int, trainable, mask: np.ndarray):
-        # train -> (ledger commit) -> (ledger verify) -> aggregate what
-        # arrived; all rejected keeps the starting params
+        # train -> (ledger commit) -> transport -> (ledger verify) ->
+        # aggregate what arrived; all rejected keeps the starting params.
+        # Without the ledger a corrupted update reaches the aggregation
+        # rule, and the robust aggregators are the defense there.
         batches, n_ex = self._round_batches(rnd)
         new_t, stats = cs.train_clients(self.local_train, trainable, batches,
                                         self._generators(rnd))
-        ex = self._exchange_updates(rnd, new_t, trainable, mode="global")
+        ex = self._exchange_updates(rnd, new_t, trainable,
+                                    self._transport_scales(rnd),
+                                    mode="global")
         del new_t
         auth = ex.auth
         if auth is not None:
             mask = mask * auth
         trainable = cs.collapse(ex.recon, self._weights(mask, n_ex),
-                                trainable)
+                                trainable, self.agg)
         del ex
-        # the record reads the stats back: after the mean is queued
+        # the record reads the stats back: after the aggregate is queued
         rec = self._stats_to_rec(rnd, stats)
         if auth is not None:
             rec.auth = auth.tolist()
@@ -365,23 +479,98 @@ class FedEngine:
         start = stacked  # what an all-rejected round keeps
         new_t, stats = cs.local_updates(self.local_train, stacked, batches,
                                         self._generators(rnd))
-        ex = self._exchange_updates(rnd, new_t, start, mode="local")
+        ex = self._exchange_updates(rnd, new_t, start,
+                                    self._transport_scales(rnd), mode="local")
         auth = ex.auth
         if auth is not None:
             mask = mask * auth
         m = self._mask_tensor(mask)
         if ex.recon is not new_t:
-            stacked = cs.mix_recv(new_t, ex.recon, m, start, alpha, steps)
+            stacked = cs.mix_recv(new_t, ex.recon, m, start, alpha, steps,
+                                  self.agg)
         else:
-            stacked = cs.mix(new_t, m, start, alpha, steps)
+            stacked = cs.mix(new_t, m, start, alpha, steps, self.agg)
         del new_t, ex, start
-        # consensus view for eval (mask-weighted mean)
-        consensus = cs.collapse(stacked, m, prev_consensus)
+        # consensus view for eval and checkpoint (the masked aggregate)
+        consensus = cs.collapse(stacked, m, prev_consensus, self.agg)
         rec = self._stats_to_rec(rnd, stats)
         if auth is not None:
             rec.auth = auth.tolist()
         self._note_degraded(rec, mask)
         return stacked, consensus, rec
+
+    def _partitioned_round(self, rnd: int, trainable, stacked,
+                           mask: np.ndarray, comps):
+        """One round under a network partition: every client trains, but
+        aggregation runs PER CONNECTED COMPONENT through the configured
+        aggregator, and only a component's members adopt its aggregate
+        (serverless: only its participating members). ``trainable``
+        becomes the aggregate across the components (over the per-client
+        component models, weighted by participation): the span's eval and
+        checkpoint view and what the heal round reconciles onto. A fully
+        eliminated component keeps its previous model. The wire quantity
+        is the encoded delta vs each client's round-start params
+        (``mode="local"``) under a codec, the stacked tree otherwise."""
+        cfg = self.cfg
+        C = self.C
+        batches, n_ex = self._round_batches(rnd)
+        if stacked is None:
+            # span entry from server mode: every client starts the span
+            # from the last whole global
+            stacked = cs.broadcast(trainable, C)
+        start = stacked
+        stacked, stats = cs.local_updates(self.local_train, stacked, batches,
+                                          self._generators(rnd))
+        rec = self._stats_to_rec(rnd, stats)
+        ex = self._exchange_updates(rnd, stacked, start,
+                                    self._transport_scales(rnd), mode="local")
+        agg_src, auth = ex.recon, ex.auth
+        if auth is not None:
+            rec.auth = auth.tolist()
+            mask = mask * auth
+        w = np.asarray(mask, np.float32) * (
+            np.asarray(n_ex, np.float32) if cfg.weighted_agg else 1.0)
+        part_id = np.full((C,), -1, np.int64)
+        out = stacked
+        for ci, comp in enumerate(comps):
+            cm = np.zeros((C,), np.float32)
+            cm[list(comp)] = 1.0
+            part_id[list(comp)] = ci
+            wc = w * cm
+            if float(wc.sum()) <= 0.0:
+                # fully eliminated component: in server mode its members
+                # keep the component's round-start model; serverless
+                # members keep their own post-train state
+                if cfg.mode == "server":
+                    keep = self._mask_tensor(cm)
+                    out = {p: torch.where(_col(keep, x) > 0, start[p], x)
+                           for p, x in out.items()}
+                logger.warning(
+                    "round %d: partition component %d fully eliminated — "
+                    "keeping its previous model", rnd, ci)
+                continue
+            comp_agg = cs.collapse(agg_src, self._mask_tensor(wc), trainable,
+                                   self.agg)
+            pull = cm if cfg.mode == "server" else cm * (np.asarray(mask) > 0)
+            out = cs.adopt(out, comp_agg, self._mask_tensor(pull))
+        del ex, agg_src
+        consensus = cs.collapse(out, self._mask_tensor(w), trainable,
+                                self.agg)
+        rec.partition = part_id.tolist()
+        self._note_degraded(rec, mask)
+        return consensus, out, rec
+
+    def _heal_partition(self, trainable, stacked, mask: np.ndarray):
+        """First whole round after a partition span: the aggregate across
+        the components that the last partitioned round computed becomes the
+        starting point. Server mode resumes from it (the per-component view
+        is dropped); serverless participants adopt it into their carried
+        state."""
+        if self.cfg.mode == "server":
+            return trainable, None
+        pull = (np.asarray(mask) > 0).astype(np.float32)
+        return trainable, cs.adopt(stacked, trainable,
+                                   self._mask_tensor(pull))
 
     def _faithful_round(self, rnd: int, trainable, mask: np.ndarray):
         """The reference's serverless semantics
@@ -398,11 +587,12 @@ class FedEngine:
         marked degraded."""
         batches, _ = self._round_batches(rnd)
         gens = self._generators(rnd)
-        shared, snapshots, fps, stats = trainable, [], [], []
+        shared, snapshots, fps, host_snaps, stats = trainable, [], [], [], []
+        fp_mode = self.ledger is not None and self.faults.host_tamper is None
         for c in range(self.C):
             shared, st = self.local_train(
                 shared, {k: v[c] for k, v in batches.items()}, gens[c])
-            if self.ledger is not None:
+            if fp_mode:
                 fence(shared)  # bill the training to the round, not here
                 with self.clock.phase("ledger"):
                     if "one" not in self._struct_cache:
@@ -413,13 +603,24 @@ class FedEngine:
                     self.ledger.append_digest(
                         rnd, c, self._entry_digest("one", fp),
                         self._client_payload_bytes)
+            elif self.ledger is not None:
+                # a tamper_hook tampers host trees: the byte-hash flow
+                with self.clock.phase("ledger"):
+                    snap = {p: x.cpu() for p, x in shared.items()}
+                    self.ledger.append(rnd, c, snap)
+                    host_snaps.append(snap)
             snapshots.append(shared)
             stats.append(st)
         rec = self._stats_to_rec(rnd, torch.stack(stats))
         w = np.asarray(mask, np.float32)
         if self.ledger is not None:
             with self.clock.phase("ledger"):
-                auth = self._ledger_auth_rows(rnd, "one", fps)
+                if fp_mode:
+                    auth = self._ledger_auth_rows(rnd, "one", fps)
+                else:
+                    auth = self._ledger_authenticate(rnd, {
+                        p: torch.stack([h[p] for h in host_snaps])
+                        for p in host_snaps[0]})
             rec.auth = auth.tolist()
             w = w * auth
         total = float(w.sum())
@@ -467,13 +668,14 @@ class FedEngine:
         return float(alpha[arrived].sum() / max(base, 1e-9))
 
     def _async_round(self, rnd: int, trainable, stacked, mask: np.ndarray,
-                     st: Dict):
+                     st: Dict, delays: Optional[np.ndarray] = None):
         """One buffered-async aggregation event (FedBuff-style): the K
         earliest-finishing clients merge their local DELTAS, each decayed
-        by ``staleness_decay ** staleness``; the global takes an
-        ``async_server_lr`` step along the weighted-mean delta, and the
-        arrived clients adopt it. The others keep training on their stale
-        base."""
+        by ``staleness_decay ** staleness``, through the configured
+        aggregator; the global takes an ``async_server_lr`` step along the
+        merged delta, and the arrived clients adopt it. The others keep
+        training on their stale base. Straggler ``delays`` (the run loop's
+        draw) push an affected client's completion later on the clock."""
         cfg = self.cfg
         K = cfg.async_buffer or self.C
         if stacked is None:
@@ -483,10 +685,17 @@ class FedEngine:
         stacked, stats = cs.local_updates(self.local_train, stacked, batches,
                                           self._generators(rnd))
         rec = self._stats_to_rec(rnd, stats)
+        if delays is None:
+            delays = self.faults.straggler_delays(rnd)
+        if delays is not None:
+            st["next_done"] = st["next_done"] + delays
+            rec.straggler_s = delays.tolist()
         # the transmitted quantity is the delta (the encoded delta payload
-        # with a codec); each client's own carried state stays its honest
-        # post-train tree
-        ex = self._exchange_updates(rnd, stacked, base, mode="async")
+        # with a codec), which transport may corrupt; each client's own
+        # carried state stays its honest post-train tree
+        ex = self._exchange_updates(rnd, stacked, base,
+                                    self._transport_scales(rnd),
+                                    mode="async")
         if ex.auth is not None:
             rec.auth = ex.auth.tolist()
             mask = mask * ex.auth
@@ -517,7 +726,7 @@ class FedEngine:
             # sum(un-decayed weights)
             merged = cs.collapse(
                 deltas, torch.as_tensor(alpha, dtype=torch.float32,
-                                        device=self.device), zero)
+                                        device=self.device), zero, self.agg)
             del deltas
             step = cfg.async_server_lr * self._async_merge_scale(
                 alpha, arrived, n_ex)
@@ -564,33 +773,121 @@ class FedEngine:
                 for c in range(self.C)]).double().cpu().numpy()
             rec.local_acc = (local[:, 1] / np.maximum(local[:, 2], 1)).tolist()
 
+    # ------------------------------------------------------ reputation bridge
+
+    def _reputation_observe(self, rnd: int, rec: RoundRecord,
+                            gate: Dict) -> None:
+        """Fold this round's evidence into the tracker and record the
+        post-round states: ledger-auth failures, anomaly flags, the plan's
+        injected corruption hits and async staleness beyond the limit,
+        each weighted by the config and combined per client by max."""
+        rcfg = self.cfg.reputation
+        fault = np.zeros((self.C,), np.float64)
+        if rec.auth is not None:
+            failed = (np.asarray(rec.auth, np.float64) == 0.0)
+            fault = np.maximum(fault, rcfg.w_auth * failed)
+        if gate["anomalies"]:
+            flag = np.zeros((self.C,), np.float64)
+            flag[list(gate["anomalies"])] = 1.0
+            fault = np.maximum(fault, rcfg.w_anomaly * flag)
+        if rcfg.observe_injected:
+            scales = self._transport_scales(rnd)  # deterministic redraw
+            if scales is not None:
+                hit = (np.asarray(scales, np.float64) != 0.0)
+                fault = np.maximum(fault, rcfg.w_corrupt * hit)
+        if rec.staleness is not None and rcfg.staleness_limit > 0:
+            stale = (np.asarray(rec.staleness, np.float64)
+                     > rcfg.staleness_limit)
+            fault = np.maximum(fault, rcfg.w_staleness * stale)
+        self.reputation.observe(fault)
+        rec.reputation_state = self.reputation.state_names()
+        rec.reputation_trust = [float(t) for t in self.reputation.trust]
+
     # ------------------------------------------------------------------- run
 
-    def run(self, on_round: Optional[Callable[[RoundRecord], None]] = None
+    def run(self, resume: bool = False,
+            on_round: Optional[Callable[[RoundRecord], None]] = None
             ) -> RunResult:
-        """Run ``num_rounds`` rounds; ``on_round(record)`` is called after
-        each round's record is complete."""
+        """Run the rounds; ``on_round(record)`` is called after each
+        round's record is complete. ``resume=True`` restores the newest
+        valid checkpoint of ``cfg.checkpoint_dir`` (if any) and runs the
+        rounds after it."""
         cfg = self.cfg
         monitor = ResourceMonitor()
         metrics = RunMetrics()
         clock = self.clock = StepClock()
+        start_round = 0
         trainable = self.trainable0
         stacked = None
-        if self._comp is not None:
+        restored = None
+        self._ef = None
+        if resume and cfg.checkpoint_dir:
+            with clock.phase("restore"):
+                restored = restore_latest(cfg.checkpoint_dir)
+                if restored is not None:
+                    start_round, trainable, stacked = self._restore(restored)
+        if self._comp is not None and self._ef is None:
             self._ef = cc.zero_residual(trainable, self.C)
-        if cfg.mode == "serverless" and not cfg.faithful:
+        if cfg.mode == "serverless" and not cfg.faithful and stacked is None:
             stacked = cs.broadcast(trainable, self.C)
+        # built after the restore, as in the JAX engine: a resumed async
+        # run restarts its simulated network clock
         async_state = (self._init_async_state() if cfg.sync == "async"
                        else None)
-        for rnd in range(cfg.num_rounds):
+        for rnd in range(start_round, cfg.num_rounds):
+            if restored is None and self.faults.should_crash(rnd):
+                # the plan's host crash, before anything of round `rnd`
+                # runs; it models ONE failure, so a run that restored a
+                # checkpoint does not fire it again (a standing resume over
+                # an empty directory still crashes)
+                raise SimulatedCrash(rnd)
+            if (self.faults.fused_tamper is not None
+                    and self.faults.fused_tamper(rnd) is not None):
+                # the port runs every round on the per-round path, where a
+                # fused-dispatch corruption would be silently ignored
+                raise ValueError(
+                    f"fused_tamper requests corruption for round {rnd}, but "
+                    "this round runs the per-round path (chunk=1: check "
+                    "rounds_per_dispatch, eval/checkpoint boundaries, and "
+                    "_chunk_rounds eligibility) — the corruption would be "
+                    "silently ignored; use tamper_hook for per-round "
+                    "tampering")
             t0 = time.perf_counter()
+            comps = self.faults.partition_components(rnd)
             with clock.phase("control_plane"):
-                gate = self._participation(rnd)
+                gate = self._participation(rnd, comps)
                 mask = gate["mask"].astype(np.float32)
+                # dropout, churn and the reputation gate compose with the
+                # anomaly gate: excluded clients carry weight 0 (probation
+                # a reduced weight)
+                keep = self.faults.dropout_keep(rnd)
+                dropped = None
+                if keep is not None:
+                    dropped = [c for c in range(self.C) if keep[c] == 0.0]
+                    mask = mask * keep
+                alive = self.faults.churn_alive(rnd)
+                if alive is not None:
+                    mask = mask * alive
+                if self.reputation is not None:
+                    mask = mask * self.reputation.gate()
+                healed = False
+                if (comps is None and stacked is not None and rnd > 0
+                        and self.faults.partition_components(rnd - 1)
+                        is not None):
+                    # a partition span just ended: reconcile (derived from
+                    # the plan, so a resumed run heals at the same round)
+                    trainable, stacked = self._heal_partition(
+                        trainable, stacked, mask)
+                    healed = True
+            delays = self.faults.straggler_delays(rnd)
             with clock.phase("round_program"):
-                if cfg.sync == "async":
+                if comps is not None:
+                    trainable, stacked, rec = self._partitioned_round(
+                        rnd, trainable, stacked, mask, comps)
+                elif cfg.sync == "async":
                     trainable, stacked, rec = self._async_round(
-                        rnd, trainable, stacked, mask, async_state)
+                        rnd, trainable, stacked, mask, async_state,
+                        delays=delays)
                 elif cfg.mode == "server":
                     trainable, rec = self._server_round(rnd, trainable, mask)
                 elif cfg.faithful:
@@ -601,15 +898,39 @@ class FedEngine:
                         rnd, stacked, trainable, mask)
             rec.mask = mask.tolist()
             rec.anomalies = list(gate["anomalies"])
+            rec.healed = healed
+            if dropped is not None:
+                rec.dropped = dropped
+            if alive is not None:
+                rec.churn_alive = alive.tolist()
+            if delays is not None:
+                rec.straggler_s = delays.tolist()
+            # information passing: under a partition the source informs
+            # only its own component; churned-out clients are no targets
+            # (the source itself always stays in the set)
+            restrict = None
+            if comps is not None:
+                restrict = list(next(
+                    c for c in comps if self.info_source in c))
+            if alive is not None:
+                base = restrict if restrict is not None else range(self.C)
+                restrict = [c for c in base
+                            if alive[c] > 0 or c == self.info_source]
             sync_t, async_t = self.graph.info_passing_time(
                 0.0, source=self.info_source, anomalies=gate["anomalies"],
-                payload_bytes=self._comms_payload_bytes())
+                extra_delay=delays,
+                payload_bytes=self._comms_payload_bytes(), restrict=restrict)
             rec.info_passing_sync_s = sync_t
             rec.info_passing_async_s = async_t
             fence(trainable)
             rec.wall_s = time.perf_counter() - t0
+            if self.reputation is not None:
+                # before eval and checkpoint, so the checkpointed tracker
+                # matches the uninterrupted run's at every boundary
+                self._reputation_observe(rnd, rec, gate)
             self._maybe_eval(rnd, rec, trainable, stacked)
             metrics.rounds.append(rec)
+            self._maybe_checkpoint(rnd, trainable, stacked)
             if on_round is not None:
                 on_round(rec)
         load_trainable(self.model, trainable)
@@ -627,5 +948,106 @@ class FedEngine:
             metrics.ledger = self.ledger.payload_accounting()
             metrics.ledger["chain_ok"] = float(
                 self.ledger.verify_chain() == -1)
+        if self.reputation is not None:
+            metrics.reputation = self.reputation.summary()
         return RunResult(metrics=metrics, trainable=trainable,
-                         model=self.model, ledger=self.ledger)
+                         model=self.model, ledger=self.ledger,
+                         ef_residual=self._ef)
+
+    # ------------------------------------------------------ checkpoint/resume
+
+    def _identity(self) -> Dict[str, np.ndarray]:
+        """What a checkpoint records of the run's identity, checked on
+        resume: the seed, the codec's wire format, the PRNG scheme, the
+        LoRA layout and the cohort sizes (the port runs full fine-tuning
+        without cohorts: ``"full"`` and 0)."""
+        return {
+            "seed": np.int64(self.cfg.seed),
+            "compress_format": _text(cc.wire_format(self._comp)),
+            "prng_impl_name": _text(self._prng_name),
+            "lora_format": _text("full"),
+            "registry_size": np.int64(0),
+            "sample_clients": np.int64(0),
+        }
+
+    def _restore(self, restored):
+        """Adopt a restored checkpoint after its guards: returns ``(first
+        round to run, trainable, stacked)`` and restores the error-feedback
+        residual, the reputation tracker and the ledger."""
+        cfg = self.cfg
+        rnd, state, ledger_json = restored
+        name = state.get("prng_impl_name")
+        if name is not None and _untext(name) != self._prng_name:
+            raise ValueError(
+                f"checkpoint PRNG scheme {_untext(name)!r} != this run's "
+                f"{self._prng_name!r}: resuming would change the RNG stream")
+        ck_comp = state.get("compress_format")
+        if ck_comp is not None:
+            here = cc.wire_format(self._comp)
+            if _untext(ck_comp) != here:
+                raise ValueError(
+                    f"checkpoint was written with compress="
+                    f"{_untext(ck_comp)!r} but this run has {here!r}: "
+                    "resuming would change the wire format under the "
+                    "carried error-feedback state")
+        ck_lora = state.get("lora_format")
+        if ck_lora is not None and _untext(ck_lora) != "full":
+            raise ValueError(
+                f"checkpoint was written with LoRA layout "
+                f"{_untext(ck_lora)!r} but this run has 'full': resuming "
+                "would reinterpret the checkpointed adapter (and "
+                "error-feedback) trees under a different rank layout")
+        ck_seed = state.get("seed")
+        if ck_seed is not None and int(ck_seed) != cfg.seed:
+            raise ValueError(
+                f"checkpoint was written with seed {int(ck_seed)} but "
+                f"config has seed {cfg.seed}: resuming would break the "
+                "per-(client, round) RNG stream")
+        ck_reg = state.get("registry_size")
+        if ck_reg is not None and (int(ck_reg) != 0
+                                   or int(state.get("sample_clients", 0))):
+            raise ValueError(
+                "checkpoint was written with registry_size="
+                f"{int(ck_reg)}/sample_clients="
+                f"{int(state.get('sample_clients', 0))} but this run has "
+                "0/0: resuming would change the per-round cohort stream")
+        # floats take the configured param dtype, whatever wrote them
+        pd = DTYPES[cfg.param_dtype]
+
+        def cast(tree):
+            return {p: (x.to(self.device, pd) if x.is_floating_point()
+                        else x.to(self.device)) for p, x in tree.items()}
+
+        trainable = cast(state["trainable"])
+        stacked = (cast(state["stacked"]) if state.get("stacked") is not None
+                   else None)
+        if state.get("ef_residual") is not None and self._comp is not None:
+            # the residual travels with the checkpoint: a compressed resume
+            # re-injects exactly what the uninterrupted run would carry
+            self._ef = {p: x.to(self.device, torch.float32)
+                        for p, x in state["ef_residual"].items()}
+        if self.reputation is not None and state.get("rep_trust") is not None:
+            self.reputation.restore(
+                {k: v.numpy() for k, v in state.items()
+                 if k.startswith("rep_")})
+        if ledger_json and self.ledger is not None:
+            self.ledger = Ledger.from_json(ledger_json,
+                                           cfg.ledger.use_native)
+        return rnd + 1, trainable, stacked
+
+    def _maybe_checkpoint(self, rnd: int, trainable, stacked) -> None:
+        cfg = self.cfg
+        if not (cfg.checkpoint_dir and cfg.checkpoint_every
+                and (rnd + 1) % cfg.checkpoint_every == 0):
+            return
+        with self.clock.phase("checkpoint"):
+            state = {"trainable": trainable, "stacked": stacked,
+                     # the error-feedback residual (None without a codec)
+                     "ef_residual": self._ef}
+            state.update(self._identity())
+            if self.reputation is not None:
+                # trust, states, timers and counters: the lifecycle resumes
+                # exactly where the crash left it
+                state.update(self.reputation.checkpoint_state())
+            save_checkpoint(cfg.checkpoint_dir, rnd, state,
+                            self.ledger.to_json() if self.ledger else None)

@@ -142,8 +142,24 @@ class RoundRecord:
     # staleness-decayed merge weight per client for this aggregation event
     # (async mode only)
     async_alpha: Optional[List[float]] = None
-    # True when every client was masked out and the global was kept
+    # True when every client was eliminated from the aggregate (anomaly
+    # filter x dropout x churn x reputation x ledger auth): the global was
+    # kept
     degraded: bool = False
+    # the fault plan's clients dropped this round / per-client injected
+    # straggler delay (seconds)
+    dropped: Optional[List[int]] = None
+    straggler_s: Optional[List[float]] = None
+    # per-client connected-component id under a partition (None = whole);
+    # healed marks the first whole round after a span
+    partition: Optional[List[int]] = None
+    healed: bool = False
+    # per-client alive mask under churn (None = no churn scheduled)
+    churn_alive: Optional[List[float]] = None
+    # per-client lifecycle state name and EWMA trust after this round's
+    # evidence (None = reputation off)
+    reputation_state: Optional[List[str]] = None
+    reputation_trust: Optional[List[float]] = None
     # async staleness (global version - client version) at this aggregation
     # event, for each client (async mode only)
     staleness: Optional[List[int]] = None
@@ -172,6 +188,9 @@ class RunMetrics:
         default_factory=dict)
     # codec kind, per-round raw vs on-wire bytes, compression ratio
     comms: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # reputation rollup (ReputationTracker.summary): final state and trust
+    # per client, quarantine event and round counts
+    reputation: Dict = dataclasses.field(default_factory=dict)
 
     @property
     def global_accuracies(self) -> List[float]:
@@ -185,6 +204,7 @@ class RunMetrics:
             "ledger": self.ledger,
             "phases": self.phases,
             "comms": self.comms,
+            "reputation": self.reputation,
             "global_accuracies": self.global_accuracies,
         }, indent=2)
 

@@ -193,8 +193,14 @@ class Embeddings(nn.Module):
     def forward(self, ids, type_ids, deterministic, generator):
         c = self.cfg
         pos = torch.arange(ids.shape[1], device=ids.device)[None, :]
-        x = (self.word(ids) + self.position(pos)
-             + self._modules["type"](type_ids)).to(c.dtype)
+        # every position reads one of the few token-type rows: as a one-hot
+        # product (the same rows, exactly) their gradient is a matmul,
+        # where CUDA's embedding backward sums thousands of repeats of one
+        # row in a different order from call to call
+        types = self._modules["type"].weight
+        one_hot = F.one_hot(type_ids.long(), types.shape[0])
+        type_x = one_hot.to(types.dtype) @ types
+        x = (self.word(ids) + self.position(pos) + type_x).to(c.dtype)
         x = layer_norm(x, self.norm, c.dtype)
         x = dropout(x, c.dropout_rate, deterministic, generator)
         if self.projection is not None:

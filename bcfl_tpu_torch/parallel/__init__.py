@@ -2,9 +2,14 @@
 ``bcfl_tpu/parallel``)."""
 
 from bcfl_tpu_torch.parallel.collectives import (  # noqa: F401
+    AGGREGATORS,
     gossip_mix,
     gossip_mix_recv,
     gossip_step_mix,
+    make_aggregator,
+    masked_krum,
+    masked_median,
+    masked_trimmed_mean,
     masked_weighted_mean,
     mix_with_matrix,
     ring_shift,

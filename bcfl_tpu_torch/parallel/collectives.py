@@ -1,6 +1,7 @@
 """Client-axis aggregation and gossip: port of ``bcfl_tpu/parallel/gspmd.py``
-(``masked_weighted_mean``, ``ring_shift``, ``gossip_mix``,
-``gossip_mix_recv``, ``mix_with_matrix``) and of
+(``masked_weighted_mean``, the robust rules ``masked_trimmed_mean``,
+``masked_median``, ``masked_krum`` and ``make_aggregator``, ``ring_shift``,
+``gossip_mix``, ``gossip_mix_recv``, ``mix_with_matrix``) and of
 ``parallel/collectives.py::gossip_step_mix``, the mixing rule.
 
 The port runs every client on one device, so the JAX package's two forms
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 Tree = Dict[str, torch.Tensor]
@@ -40,6 +42,181 @@ def masked_weighted_mean(tree: Tree, weights: torch.Tensor,
         fb = x.mean(dim=0) if fallback is None else fallback[p]
         out[p] = torch.where(empty, fb.to(mean.dtype), mean)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Byzantine-robust aggregation rules (``gspmd.py:155-316``). Plain PyTorch
+# over the stacked client axis, as the JAX rules are plain ``jnp`` outside
+# any Pallas kernel. They are mask-aware through order statistics, not
+# weighting: ``weights > 0`` marks a client as participating and the
+# magnitudes are ignored. An all-masked round returns ``fallback``, as
+# masked_weighted_mean does. The participation count is read to the host
+# once per call; every sort runs per leaf, over slabs of columns, so the
+# sort's temporaries stay small beside a [C, 30522 x 768] leaf.
+# ---------------------------------------------------------------------------
+
+# sort sentinel for non-participating clients: large but finite, so a
+# ``sentinel * 0`` term of a masked sum is 0.0 rather than inf * 0 = NaN
+_SENTINEL = 1e30
+# elements of one sorted slab ([C, columns]) of a leaf
+_SORT_SLAB = 1 << 24
+
+
+def _participation(weights: torch.Tensor):
+    """``(active [C] float32, k, empty)``: the participating clients
+    (positive weight), their count as a host int, and ``k <= 0``."""
+    active = (weights > 0).to(torch.float32)
+    k = int(active.sum().item())
+    return active, k, k <= 0
+
+
+def _sort_active_first(x: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """Sort the client axis ascending in float32 with non-participants
+    pushed to the tail: slots ``[0, k)`` hold the participating values in
+    order (NaN sorts after every number, as in ``jnp.sort``)."""
+    a = active.reshape((-1,) + (1,) * (x.dim() - 1))
+    keyed = torch.where(a > 0, x.to(torch.float32),
+                        torch.tensor(_SENTINEL, dtype=torch.float32,
+                                     device=x.device))
+    return torch.sort(keyed, dim=0).values
+
+
+def _trim_count(k: int, trim: float) -> int:
+    """``ceil(trim * k)`` in float32 (JAX's arithmetic), clamped so at
+    least one client survives trimming (``2t <= k - 1``)."""
+    t = int(np.ceil(np.float32(trim) * np.float32(k)))
+    return int(np.clip(t, 0, max((k - 1) // 2, 0)))
+
+
+def _by_slab(x: torch.Tensor, leaf_fn) -> torch.Tensor:
+    """``leaf_fn`` over column slabs of the ``[C, ...]`` leaf ``x``,
+    concatenated back to the leaf's unstacked shape: the per-coordinate
+    rules are column-independent, so a slab sees the same values."""
+    C = x.shape[0]
+    flat = x.reshape(C, -1)
+    cols = max(_SORT_SLAB // max(C, 1), 1)
+    out = torch.cat([leaf_fn(flat[:, j:j + cols])
+                     for j in range(0, flat.shape[1], cols)])
+    return out.reshape(x.shape[1:])
+
+
+def _fallback(x: torch.Tensor, fb: Optional[torch.Tensor]) -> torch.Tensor:
+    return (x.mean(dim=0) if fb is None else fb).to(x.dtype)
+
+
+def masked_trimmed_mean(tree: Tree, weights: torch.Tensor, trim: float = 0.2,
+                        fallback: Optional[Tree] = None) -> Tree:
+    """Coordinate-wise trimmed mean over the participating clients: per
+    coordinate, drop the ``t = ceil(trim * k)`` smallest and largest values
+    and mean the middle ``k - 2t`` (summed in float32, cast back to the
+    leaf's dtype)."""
+    active, k, empty = _participation(weights)
+    if empty:
+        return {p: _fallback(x, None if fallback is None else fallback[p])
+                for p, x in tree.items()}
+    t = _trim_count(k, trim)
+    cnt = torch.tensor(float(max(k - 2 * t, 1)), dtype=torch.float32,
+                       device=weights.device)
+    C = weights.shape[0]
+    pos = torch.arange(C, device=weights.device).reshape(-1, 1)
+    sel = ((pos >= t) & (pos < k - t)).to(torch.float32)
+
+    def mean(cols):
+        kept = _sort_active_first(cols, active) * sel
+        # summed row after row, XLA's order for a reduction over the
+        # leading axis (torch's own ``sum`` order varies with the shape)
+        acc = kept[0]
+        for row in kept[1:]:
+            acc = acc + row
+        return acc / cnt
+
+    return {p: _by_slab(x, mean).to(x.dtype) for p, x in tree.items()}
+
+
+def masked_median(tree: Tree, weights: torch.Tensor,
+                  fallback: Optional[Tree] = None) -> Tree:
+    """Coordinate-wise median over the participating clients (the mean of
+    the two middle order statistics for even ``k``), in float32, cast back
+    to the leaf's dtype."""
+    active, k, empty = _participation(weights)
+    if empty:
+        return {p: _fallback(x, None if fallback is None else fallback[p])
+                for p, x in tree.items()}
+    c = weights.shape[0] - 1
+    lo, hi = min(max((k - 1) // 2, 0), c), min(max(k // 2, 0), c)
+
+    def med(cols):
+        xs = _sort_active_first(cols, active)
+        return (xs[lo] + xs[hi]) * 0.5
+
+    return {p: _by_slab(x, med).to(x.dtype) for p, x in tree.items()}
+
+
+def masked_krum(tree: Tree, weights: torch.Tensor, trim: float = 0.2,
+                fallback: Optional[Tree] = None) -> Tree:
+    """Krum (Blanchard et al., NeurIPS 2017) over the participating
+    clients: each is scored by the summed squared distance to its
+    ``m = k - f - 2`` nearest participating neighbours (``f = ceil(trim *
+    k)``, ``m >= 1``) and the lowest-scoring client's update is adopted
+    whole. The ``[C, C]`` matrix of squared distances is summed over the
+    leaves in float32, as in the JAX package; each leaf's distances are
+    taken from the differences of the updates (``torch.cdist`` without
+    its matmul form), not as ``|a|^2 + |b|^2 - 2 a.b``: that form cancels
+    at the parameters' own magnitude, which leaves clients one local round
+    apart to float32 rounding (and the card and the CPU then select
+    different clients)."""
+    active, k, empty = _participation(weights)
+    if empty:
+        return {p: _fallback(x, None if fallback is None else fallback[p])
+                for p, x in tree.items()}
+    f = _trim_count(k, trim)
+    m = max(k - f - 2, 1)
+    C = weights.shape[0]
+    dev = weights.device
+    D = torch.zeros((C, C), dtype=torch.float32, device=dev)
+    for x in tree.values():
+        xf = x.reshape(C, -1).to(torch.float32)
+        d = torch.cdist(xf, xf, compute_mode="donot_use_mm_for_euclid_dist")
+        D = D + d * d
+    pair = active[:, None] * active[None, :]
+    sentinel = torch.tensor(_SENTINEL, dtype=torch.float32, device=dev)
+    D = torch.where(pair > 0, torch.clamp(D, min=0.0), sentinel)
+    D.fill_diagonal_(_SENTINEL)  # no self-distance
+    Ds = torch.sort(D, dim=1).values
+    pos = torch.arange(C, device=dev)[None, :]
+    score = torch.where(pos < m, Ds, torch.zeros((), device=dev)).sum(dim=1)
+    score = torch.where(active > 0, score,
+                        torch.tensor(float("inf"), device=dev))
+    sel = int(torch.argmin(score).item())
+    return {p: x[sel].clone() for p, x in tree.items()}
+
+
+AGGREGATORS = ("mean", "trimmed_mean", "median", "krum")
+
+
+def make_aggregator(name: str, trim: float = 0.2,
+                    hierarchical_groups: int = 0,
+                    rank_mask: Optional[torch.Tensor] = None):
+    """``(tree, weights, fallback) -> tree`` for the configured rule:
+    ``mean`` is the weighted FedAvg mean, the robust rules treat
+    ``weights`` as a participation mask. The JAX builder's
+    ``hierarchical_groups`` (cohort mode) and ``rank_mask`` (heterogeneous
+    LoRA ranks) belong to modules the port does not have yet."""
+    if rank_mask is not None:
+        raise ValueError("rank_mask (rank-aware aggregation of heterogeneous "
+                         "LoRA ranks) is not ported yet (see ROADMAP.md)")
+    if hierarchical_groups > 1:
+        raise ValueError("hierarchical_groups (cohort mode's two-level mean) "
+                         "is not ported yet (see ROADMAP.md)")
+    if name == "mean":
+        return lambda t, w, fb: masked_weighted_mean(t, w, fallback=fb)
+    if name == "trimmed_mean":
+        return lambda t, w, fb: masked_trimmed_mean(t, w, trim, fallback=fb)
+    if name == "median":
+        return lambda t, w, fb: masked_median(t, w, fallback=fb)
+    if name == "krum":
+        return lambda t, w, fb: masked_krum(t, w, trim, fallback=fb)
+    raise ValueError(f"unknown aggregator {name!r} (one of {AGGREGATORS})")
 
 
 def ring_shift(tree: Tree, direction: int = +1) -> Tree:

@@ -128,7 +128,26 @@ def partitioned_anomaly_filter(
         name: str | None, g: LatencyGraph,
         components: Tuple[Tuple[int, ...], ...],
         protect: Tuple[int, ...] = ()) -> Dict:
-    """The per-component filter of a network partition. Partitions come
-    from the JAX package's fault plan, which the port does not have yet."""
-    raise ValueError("partitioned_anomaly_filter is not ported yet: it "
-                     "needs the fault plan's partitions (see ROADMAP.md)")
+    """:func:`anomaly_filter` under a network partition (the fault plan's
+    partition lane): each connected component sees only its own subgraph,
+    since degrees, PageRank mass and communities all change when the
+    cross-component links vanish. The filter runs per component
+    (singletons skipped: a 1-node graph has no statistics) and anomaly
+    indices map back through the subgraph's sorted node order. Same return
+    shape as :func:`anomaly_filter`; scores are stitched into one global
+    [n] vector."""
+    if name is None or name == "none":
+        return anomaly_filter(name, g, protect)
+    if name not in FILTERS:
+        raise KeyError(f"unknown anomaly filter {name!r}; have {sorted(FILTERS)}")
+    n = g.n
+    anomalies: List[int] = []
+    scores = np.zeros((n,), np.float64)
+    for comp in components:
+        nodes = sorted(int(c) for c in comp)
+        if len(nodes) < 2:
+            continue
+        sub_anoms, sub_scores = FILTERS[name](g.subgraph(nodes))
+        scores[nodes] = np.asarray(sub_scores, np.float64)
+        anomalies.extend(nodes[i] for i in sub_anoms)
+    return _gate(anomalies, scores, n, protect)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``bcfl_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # phases 1-4, paths (a)-(g)
+    python3 chip_smoke.py              # phases 1-4, paths (a)-(j)
     python3 chip_smoke.py --profile    # phases 1-4, then 5
 
 Phases, each of which raises (and the script exits non-zero) on failure:
@@ -73,7 +73,31 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    1.0: K2 and K3 launch as on (b), K1 once more per training call (the
    recompute), K4 and K5 as on (b); its peak memory and round walls
    beside (b)'s; K1-K3 held to their plain versions on the q, k, v of
-   (g)'s own first flash call, and K5/K4 at (g)'s codec calls.
+   (g)'s own first flash call, and K5/K4 at (g)'s codec calls. Then the
+   resilience paths, each with the counts set to 0 just before it and
+   read just after, and each writing its checkpoints under
+   ``build/chip_smoke/checkpoints`` (it fails unless the disk holds twice
+   what it writes, and deletes them when it ends): (h) path (b) with the
+   ledger, 3 rounds, uninterrupted and then checkpointed every round,
+   crashed by the fault plan at round 2 (``SimulatedCrash``) and resumed
+   with ``run(resume=True)``: the resumed trainable tree, error-feedback
+   residual, ledger and every round's records equal the uninterrupted
+   run's bit for bit, the crash and resume launch each kernel exactly as
+   often as the uninterrupted run, and the save and restore seconds and
+   bytes on disk print; (i) the chaos matrix of
+   ``tests/test_reputation.py`` at bert-base width and seq 128 (server,
+   4 clients, 5 rounds, ``trimmed_mean``, ``int8+topk``, the ledger,
+   reputation, a partition over rounds 1-2, churn, a flaky client),
+   checkpointed every 2 rounds and crashed at round 3, so the resume
+   re-enters mid-partition: the lanes fired and the resumed run, the
+   reputation arrays included, equals the uninterrupted one bit for bit;
+   (j) path (a) at 10 clients with clients 1 and 7 corrupting their
+   updates in flight and the ledger off, one 2-round engine each for
+   ``trimmed_mean``, ``median`` and ``krum``: the corruption landed, each
+   rule's aggregate of the captured round lies inside the clean clients'
+   range and equals the same call on the CPU (median and krum bit for
+   bit, trimmed_mean to rtol 1e-6); the rules' ms per call and the peak
+   memory print, and K5/K4 are held at (j)'s 10-client calls.
 4. ``reference``: on small inputs, a tiny-bert server round on the card
    against the same round on the CPU (float32, dropout off, at the
    tolerance of ``tests/test_torch_round.py``), with dense attention at
@@ -108,6 +132,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -791,8 +816,11 @@ def drive(cfg, smi, label):
               f"{samples / r.wall_s:.1f} samples/s, compression ratio "
               f"{r.compression_ratio:.3f}, train_loss {r.train_loss:.5f}, "
               f"global_loss {r.global_loss}", flush=True)
-        if not (math.isfinite(r.train_loss) and r.global_loss is not None
-                and math.isfinite(r.global_loss)):
+        evaluated = cfg.eval_every and (
+            (r.round + 1) % cfg.eval_every == 0
+            or r.round == cfg.num_rounds - 1)
+        if not (math.isfinite(r.train_loss) and (not evaluated or (
+                r.global_loss is not None and math.isfinite(r.global_loss)))):
             raise RuntimeError(f"{label} round {r.round}: non-finite loss")
         if r.bytes_on_wire != want:
             raise RuntimeError(f"{label} round {r.round}: bytes_on_wire "
@@ -1234,6 +1262,385 @@ def phase_run_surface(ck, fk, stats, smi, dataset, b_path):
     path_sweep(smi)
     path_faithful(stats, smi)
     path_lowp(ck, fk, stats, smi, dataset, b_path)
+
+
+# ------------------------------------------------------ resilience paths
+
+CKPT_DIR = BUILD_DIR / "checkpoints"
+#: the chaos matrix of ``tests/test_reputation.py``'s composition case
+CHAOS_MATRIX = dict(
+    seed=11, partition_groups=((0, 1), (2, 3)), partition_rounds=(1, 2),
+    churn_leave=((2, 4),), churn_join=((3, 1),), flaky_clients=(1,),
+    flaky_burst_len=2, flaky_on_prob=1.0)
+#: the records a resumed run must repeat bit for bit
+RESUME_FIELDS = ("train_loss", "train_acc", "auth", "mask", "partition",
+                 "healed", "churn_alive", "dropped", "reputation_state",
+                 "reputation_trust", "global_loss", "global_acc")
+
+
+def checkpoint_gb(cfg, stacked: bool) -> float:
+    """Reckoned size of one checkpoint of ``cfg`` in GB: the float32
+    trainable tree, plus the clients' error-feedback residual under a
+    codec, plus the stacked per-client view where one is carried."""
+    from bcfl_tpu_torch.models import build
+
+    with torch.device("meta"):
+        model = build(cfg.model, num_labels=cfg.num_labels,
+                      vocab_size=cfg.vocab_size)
+    tree = 4 * sum(p.numel() for p in model.parameters())
+    copies = 1 + (cfg.num_clients if cfg.compression.enabled else 0) + (
+        cfg.num_clients if stacked else 0)
+    return tree * copies / 1e9
+
+
+def check_disk(need_gb: float, label: str) -> None:
+    """Fail, with the numbers, unless the checkpoint disk holds twice what
+    the path writes."""
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(CKPT_DIR).free / 1e9
+    print(f"{label}: writes about {need_gb:.2f} GB of checkpoints, "
+          f"{free:.1f} GB free under {CKPT_DIR}", flush=True)
+    if free < 2 * need_gb:
+        raise RuntimeError(f"{label}: {free:.1f} GB free, the path needs "
+                           f"twice its {need_gb:.2f} GB")
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def crash_and_resume(cfg, smi, label):
+    """The crashed run (its records kept as they stream) through
+    ``FedEngine.run``, which must raise ``SimulatedCrash`` at the plan's
+    round, then ``run(cfg, resume=True)``; the launch counts are set to 0
+    just before the pair and read just after. Returns ``(records before
+    the crash, resumed result, launches, peak GB, crashed run's
+    checkpoint phase)``."""
+    from bcfl_tpu_torch.entrypoints import run
+    from bcfl_tpu_torch.faults import SimulatedCrash
+    from bcfl_tpu_torch.fed.engine import FedEngine
+    from bcfl_tpu_torch.ops import registry
+
+    print(smi, flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    registry.reset_launches()
+    recs = []
+    eng = FedEngine(cfg, device="cuda")
+    try:
+        eng.run(on_round=recs.append)
+    except SimulatedCrash as e:
+        if e.round != cfg.faults.crash_at_round:
+            raise RuntimeError(f"{label}: crashed at round {e.round}, the "
+                               f"plan says {cfg.faults.crash_at_round}")
+    else:
+        raise RuntimeError(f"{label}: the plan's crash never fired")
+    saved = eng.clock.summary().get("checkpoint")
+    del eng
+    torch.cuda.empty_cache()
+    resumed = run(cfg, device="cuda", resume=True)
+    torch.cuda.synchronize()
+    launches = registry.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    return recs, resumed, launches, peak, saved
+
+
+def check_same_run(label, ref, before, resumed) -> None:
+    """The crashed run's records followed by the resumed run's equal the
+    uninterrupted run's bit for bit, and so do the final trainable tree,
+    the error-feedback residual, the ledger (head and entries) and the
+    reputation rollup."""
+    recs = before + resumed.metrics.rounds
+    if [r.round for r in recs] != [r.round for r in ref.metrics.rounds]:
+        raise RuntimeError(f"{label}: rounds {[r.round for r in recs]}")
+    for a, b in zip(ref.metrics.rounds, recs):
+        for f in RESUME_FIELDS:
+            if getattr(a, f) != getattr(b, f):
+                raise RuntimeError(f"{label} round {a.round}: {f} "
+                                   f"{getattr(b, f)} resumed, "
+                                   f"{getattr(a, f)} uninterrupted")
+    for name, x, y in (("trainable", ref.trainable, resumed.trainable),
+                       ("ef_residual", ref.ef_residual, resumed.ef_residual)):
+        if (x is None) != (y is None) or (x is not None and any(
+                not torch.equal(x[p], y[p]) for p in x)):
+            raise RuntimeError(f"{label}: the resumed {name} differs from "
+                               "the uninterrupted run's")
+    if ref.ledger is not None and (
+            ref.ledger.head != resumed.ledger.head
+            or ref.ledger.to_json() != resumed.ledger.to_json()):
+        raise RuntimeError(f"{label}: the resumed ledger differs")
+    if ref.metrics.reputation != resumed.metrics.reputation:
+        raise RuntimeError(f"{label}: reputation {resumed.metrics.reputation}"
+                           f" resumed, {ref.metrics.reputation} uninterrupted")
+
+
+def report_checkpoints(label, ckdir, saved, resumed) -> None:
+    ph = resumed.metrics.phases
+    both = [x for x in (saved, ph.get("checkpoint")) if x]
+    n = sum(x["count"] for x in both)
+    total = sum(x["total_s"] for x in both)
+    print(f"{label}: {n} checkpoints saved in {total:.3f} s "
+          f"({total / max(n, 1):.3f} s each, digest and fsync included), "
+          f"restore {ph['restore']['total_s']:.3f} s, "
+          f"{dir_bytes(ckdir) / 1e9:.3f} GB on disk in "
+          f"{sorted(p.name for p in ckdir.iterdir())}", flush=True)
+
+
+def path_crash_resume(stats, smi, dataset):
+    """Path (h): path (b) (bert-base, seq 512, flash, ``int8+topk``, server
+    FedAvg) with the ledger, 3 rounds: uninterrupted, then checkpointed
+    every round with the plan's crash at round 2 and resumed from round 1;
+    bit for bit, and the crash + resume pair launches each kernel as often
+    as the uninterrupted run."""
+    from bcfl_tpu_torch.config import LedgerConfig
+    from bcfl_tpu_torch.faults import FaultPlan
+
+    label = "crash-resume path"
+    ref_cfg = flash_config(dataset, name="chip-smoke-crash-resume-s512",
+                           num_rounds=3, ledger=LedgerConfig(enabled=True))
+    ckdir = CKPT_DIR / "h"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    cfg = ref_cfg.replace(checkpoint_dir=str(ckdir), checkpoint_every=1,
+                          faults=FaultPlan(crash_at_round=2))
+    check_disk(3 * checkpoint_gb(cfg, stacked=False), label)
+    try:
+        ref, ref_launches, ref_peak = drive(ref_cfg, smi,
+                                            f"{label} (uninterrupted)")
+        count_launches(stats, ref_launches)
+        before, resumed, launches, peak, saved = crash_and_resume(
+            cfg, smi, label)
+        count_launches(stats, launches)
+        if launches != ref_launches or min(launches.values()) <= 0:
+            raise RuntimeError(f"{label}: crash + resume launched {launches}"
+                               f", the uninterrupted run {ref_launches}")
+        check_same_run(label, ref, before, resumed)
+        report_checkpoints(label, ckdir, saved, resumed)
+        walls = [r.wall_s for r in before + resumed.metrics.rounds]
+        print(f"{label}: resumed bit for bit (trainable, error feedback, "
+              f"ledger head and {len(resumed.ledger)} entries, every "
+              f"round's losses and auth); launches {launches}; round walls "
+              f"{[round(w, 4) for w in walls]} s; peak memory {peak:.2f} GB "
+              f"(uninterrupted {ref_peak:.2f} GB)", flush=True)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+
+def path_chaos_matrix(stats, smi):
+    """Path (i): ``tests/test_reputation.py``'s composition case at
+    bert-base width and seq 128: server, 4 clients, 5 rounds,
+    ``trimmed_mean``, ``int8+topk``, the ledger, reputation (quarantine 2
+    rounds), the partition of rounds 1-2, churn and a flaky client;
+    uninterrupted, then checkpointed every 2 rounds with the crash at
+    round 3, resumed from round 1's checkpoint (the stacked per-component
+    view) mid-partition: it reruns round 2, heals in round 3, runs round
+    4, bit for bit with the reputation arrays."""
+    from bcfl_tpu_torch.config import LedgerConfig
+    from bcfl_tpu_torch.faults import FaultPlan
+    from bcfl_tpu_torch.reputation import ReputationConfig
+
+    label = "chaos-matrix path"
+    ref_cfg = main_config(
+        name="chip-smoke-chaos-matrix", num_rounds=5, eval_every=0,
+        aggregator="trimmed_mean", ledger=LedgerConfig(enabled=True),
+        reputation=ReputationConfig(enabled=True, quarantine_rounds=2),
+        faults=FaultPlan(**CHAOS_MATRIX))
+    ckdir = CKPT_DIR / "i"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    cfg = ref_cfg.replace(checkpoint_dir=str(ckdir), checkpoint_every=2,
+                          faults=FaultPlan(crash_at_round=3, **CHAOS_MATRIX))
+    check_disk(checkpoint_gb(cfg, stacked=True)
+               + checkpoint_gb(cfg, stacked=False), label)
+    try:
+        ref, ref_launches, ref_peak = drive(ref_cfg, smi,
+                                            f"{label} (uninterrupted)")
+        count_launches(stats, ref_launches)
+        recs = ref.metrics.rounds
+        fired = {
+            "partition": any(r.partition for r in recs),
+            "auth 0": any(r.auth and 0.0 in r.auth for r in recs),
+            "quarantine": ref.metrics.reputation.get(
+                "total_quarantine_events", 0) >= 1,
+            "healed in round 3": recs[3].healed,
+        }
+        if not all(fired.values()):
+            raise RuntimeError(f"{label}: lanes fired {fired}")
+        before, resumed, launches, peak, saved = crash_and_resume(
+            cfg, smi, label)
+        count_launches(stats, launches)
+        if [r.round for r in before] != [0, 1, 2] or [
+                r.round for r in resumed.metrics.rounds] != [2, 3, 4]:
+            raise RuntimeError(f"{label}: crashed run rounds "
+                               f"{[r.round for r in before]}, resumed "
+                               f"{[r.round for r in resumed.metrics.rounds]}")
+        check_same_run(label, ref, before[:2], resumed)
+        if before[2].train_loss != recs[2].train_loss:
+            raise RuntimeError(f"{label}: the crashed run's round 2 differs")
+        report_checkpoints(label, ckdir, saved, resumed)
+        for r in recs:
+            print(f"{label} round {r.round}: wall {r.wall_s:.3f} s, mask "
+                  f"{r.mask}, auth {r.auth}, partition {r.partition}, "
+                  f"healed {r.healed}, reputation {r.reputation_state}",
+                  flush=True)
+        print(f"{label}: lanes fired {fired}; resumed bit for bit "
+              f"(reputation {resumed.metrics.reputation}); launches "
+              f"{launches} (uninterrupted {ref_launches}); peak memory "
+              f"{peak:.2f} GB (uninterrupted {ref_peak:.2f} GB)", flush=True)
+        for name in ("int8_quantize", "topk_select"):
+            if launches[name] <= 0 or ref_launches[name] <= 0:
+                raise RuntimeError(f"{name} never launched on the {label}")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+
+ROBUST_RULES = ("trimmed_mean", "median", "krum")
+#: clients whose updates path (j) corrupts in flight
+FLAKY = (1, 7)
+
+
+def robust_config(rule: str):
+    """Path (j): path (a) (bert-base, seq 128, ``int8+topk``, server) at 10
+    clients, the ledger off so corrupted updates reach the aggregator;
+    clients 1 and 7 flaky (``flaky_on_prob`` 1, scale 1e6), the rule at
+    trim 0.2 (trimmed_mean: t = 2; krum: f = 2, m = 6, k >= 2f + 3)."""
+    from bcfl_tpu_torch.faults import FaultPlan
+
+    return main_config(name=f"chip-smoke-robust-{rule}", num_clients=10,
+                       aggregator=rule, aggregator_trim=0.2,
+                       faults=FaultPlan(flaky_clients=FLAKY,
+                                        flaky_on_prob=1.0, flaky_scale=1e6))
+
+
+def capture_first_aggregation(store):
+    """Wrap the engine's aggregator so its first call's inputs (the
+    stacked reconstruction of round 0, the weights and the fallback) are
+    copied to the host into ``store``."""
+    from bcfl_tpu_torch.fed import engine as eng_mod
+
+    make = eng_mod.make_aggregator
+
+    def wrapped(name, trim=0.2, **kw):
+        agg = make(name, trim, **kw)
+
+        def call(tree, w, fb):
+            if not store:
+                store.update(tree={p: x.cpu() for p, x in tree.items()},
+                             w=w.cpu(), fb={p: x.cpu() for p, x in fb.items()},
+                             agg=agg)
+            return agg(tree, w, fb)
+
+        return call
+
+    return make, wrapped
+
+
+def hold_robust_rule(rule, store, label):
+    """On the captured round-0 reconstruction: the corruption landed on
+    the flaky clients only, the card's aggregate lies inside the clean
+    clients' range and equals the same function on the CPU (median bit for
+    bit, trimmed_mean to rtol 1e-6, krum the same client and then bit for
+    bit); returns the card's ms per call."""
+    tree, w, fb, agg = store["tree"], store["w"], store["fb"], store["agg"]
+    clean = [c for c in range(w.shape[0]) if c not in FLAKY]
+    off = {c: max(float((x[c] - fb[p]).abs().max()) for p, x in tree.items())
+           for c in range(w.shape[0])}
+    if min(off[c] for c in FLAKY) < 1e5 or max(off[c] for c in clean) > 1e3:
+        raise RuntimeError(f"{label}: reconstructions off the global by "
+                           f"{off}; the flaky clients must be >= 1e5")
+    on = {p: x.cuda() for p, x in tree.items()}
+    w_on, fb_on = w.cuda(), {p: x.cuda() for p, x in fb.items()}
+    card = agg(on, w_on, fb_on)
+    ms = time_ms(lambda: agg(on, w_on, fb_on), 3)
+    card = {p: x.cpu() for p, x in card.items()}
+    del on, fb_on
+    torch.cuda.empty_cache()
+    host = agg(tree, w, fb)
+    for p, x in tree.items():
+        lo = x[clean].amin(dim=0)
+        hi = x[clean].amax(dim=0)
+        if rule == "trimmed_mean":
+            # a float32 mean of values in [lo, hi] may round past an end
+            slack = 1e-6 * torch.maximum(lo.abs(), hi.abs())
+            lo, hi = lo - slack, hi + slack
+        if not bool(torch.isfinite(card[p]).all()) or bool(
+                ((card[p] < lo) | (card[p] > hi)).any()):
+            raise RuntimeError(f"{label}: {p} outside the clean clients' "
+                               "range")
+        if rule == "trimmed_mean":
+            ok = torch.allclose(card[p], host[p], rtol=1e-6, atol=0)
+        else:
+            ok = torch.equal(card[p], host[p])
+        if not ok:
+            raise RuntimeError(f"{label}: the card's {rule} of {p} differs "
+                               "from the CPU's")
+    if rule == "krum":
+        picks = [c for c in range(w.shape[0])
+                 if all(torch.equal(card[p], x[c]) for p, x in tree.items())]
+        if len(picks) != 1 or picks[0] in FLAKY:
+            raise RuntimeError(f"{label}: krum picked {picks}")
+        print(f"{label}: krum selects client {picks[0]} on the card and "
+              "on the CPU", flush=True)
+    return ms
+
+
+def path_robust(ck, stats, smi):
+    """Path (j): one 2-round engine per robust rule, the launch counts set
+    to 0 just before the three and read just after; each rule held on its
+    captured round, card against CPU; then K5 and K4 held bit for bit to
+    their plain versions at the path's 10-client calls."""
+    from bcfl_tpu_torch.entrypoints import run
+    from bcfl_tpu_torch.fed import engine as eng_mod
+    from bcfl_tpu_torch.ops import registry
+
+    label = "robust-rules path"
+    print(smi, flush=True)
+    registry.reset_launches()
+    held_ms, peaks, stores = {}, {}, {}
+    template = None
+    for rule in ROBUST_RULES:
+        cfg = robust_config(rule)
+        store = {}
+        make, wrapped = capture_first_aggregation(store)
+        eng_mod.make_aggregator = wrapped
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            result = run(cfg, device="cuda")
+        finally:
+            eng_mod.make_aggregator = make
+        torch.cuda.synchronize()
+        peaks[rule] = torch.cuda.max_memory_allocated() / 1e9
+        check_finite(result, f"{label} {rule}")
+        walls = [round(r.wall_s, 4) for r in result.metrics.rounds]
+        print(f"{label} {rule}: round walls {walls} s, peak memory "
+              f"{peaks[rule]:.2f} GB, train losses "
+              f"{[round(r.train_loss, 5) for r in result.metrics.rounds]}",
+              flush=True)
+        template = result.trainable
+        del result
+        torch.cuda.empty_cache()
+        stores[rule] = store
+    launches = registry.launch_counts()
+    count_launches(stats, launches)
+    for name in ("int8_quantize", "topk_select"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"{name} never launched on the {label}")
+    for rule in ROBUST_RULES:
+        held_ms[rule] = hold_robust_rule(rule, stores.pop(rule),
+                                         f"{label} {rule}")
+    print(f"{label}: launches {launches}; aggregator ms per call at "
+          f"bert-base width, 10 clients, card: "
+          f"{ {k: round(v, 3) for k, v in held_ms.items()} }; the card "
+          "equals the CPU (median and krum bit for bit, trimmed_mean to "
+          "rtol 1e-6)", flush=True)
+    cfg = robust_config("median")
+    codec_calls(ck, stats, template, cfg.compression, cfg.num_clients,
+                "robust-path")
+
+
+def phase_resilience(ck, stats, smi, dataset):
+    """Paths (h) crash and resume of path (b), (i) the chaos matrix with a
+    crash mid-partition, and (j) the robust rules at 10 clients."""
+    path_crash_resume(stats, smi, dataset)
+    path_chaos_matrix(stats, smi)
+    path_robust(ck, stats, smi)
 
 
 # -------------------------------------------------------------- profile
@@ -1761,6 +2168,7 @@ def main(argv=None) -> int:
     medical = write_medical_docs()
     phase_p2p(ck, stats, smi, medical)
     phase_run_surface(ck, fk, stats, smi, dataset, b_path)
+    phase_resilience(ck, stats, smi, dataset)
     phase_reference()
     if args.profile:
         phase_profile(main_config(), "seq-128 path")

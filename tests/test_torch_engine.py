@@ -94,12 +94,8 @@ NOT_PORTED = [
     ("lora_rank", {"lora_rank": 4}),
     ("tp", {"tp": 2}),
     ("sp", {"sp": 2}),
-    ("aggregator", {"aggregator": "trimmed_mean"}),
-    ("faults", {"faults": object()}),
-    ("reputation", {"reputation": object()}),
     ("task", {"task": "causal_lm"}),
     ("rounds_per_dispatch", {"rounds_per_dispatch": 2}),
-    ("checkpoint_dir", {"checkpoint_dir": "ck"}),
     # the flash kernels have no float16 instances yet
     ("compute_dtype", {"compute_dtype": "float16", "use_flash": True}),
 ]
@@ -121,6 +117,14 @@ PORTED = [
                   "compression": CompressionConfig(kind="none")}),
     ("max_grad_norm", {"max_grad_norm": 1.0}),
     ("remat", {"remat": True}),
+    ("aggregator", {"aggregator": "trimmed_mean"}),
+    ("faults", {"faults": __import__(
+        "bcfl_tpu_torch.faults", fromlist=["FaultPlan"]).FaultPlan(
+            crash_at_round=1)}),
+    ("reputation", {"reputation": __import__(
+        "bcfl_tpu_torch.reputation", fromlist=["ReputationConfig"]
+    ).ReputationConfig(enabled=True)}),
+    ("checkpoint_dir", {"checkpoint_dir": "ck"}),
 ]
 
 
@@ -163,7 +167,7 @@ def test_cli_runs_smoke_on_cpu_and_rejects_other_flags(capsys):
                      "--compress", "int8+topk"]) == 0
     out = capsys.readouterr().out
     assert "round   0:" in out and "compress=int8+topk" in out
-    for flags in (["--lora-rank", "2"], ["--aggregator", "median"],
+    for flags in (["--lora-rank", "2"], ["--chaos-wire", "drop=0.1"],
                   ["--tp", "2"]):
         with pytest.raises(SystemExit) as e:
             cli_main(["--device", "cpu"] + flags)

@@ -163,8 +163,12 @@ def test_run_sweep_writes_json_and_figures(tmp_path):
         assert r["memory_gb"] == out[int(n)].metrics.resources["memory_gb"]
     for fig in ("latency", "accuracy", "memory"):
         assert (tmp_path / f"tiny_sweep_sweep_{fig}.png").stat().st_size > 0
-    with pytest.raises(ValueError, match="checkpoint_dir=.*not ported yet"):
-        run_sweep(cfg.replace(checkpoint_dir="ck"), [2], device="cpu")
+    # each count checkpoints into its own c<n> subdirectory
+    ck = tmp_path / "ck"
+    run_sweep(cfg.replace(checkpoint_dir=str(ck), checkpoint_every=1), [2],
+              device="cpu", verbose=False, out_dir=None)
+    assert sorted(p.name for p in ck.iterdir()) == ["c2"]
+    assert (ck / "c2" / "round_000000" / "state.pt").is_file()
 
 
 def test_cli_sweep(tmp_path, monkeypatch, capsys):

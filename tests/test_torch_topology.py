@@ -108,8 +108,15 @@ def test_filter_off_unknown_and_partitioned():
         assert gate["anomalies"] == [] and gate["mask"].sum() == 10
     with pytest.raises(KeyError, match="unknown anomaly filter"):
         tfilt.anomaly_filter("louvain", tg)
-    with pytest.raises(ValueError, match="not ported yet"):
-        tfilt.partitioned_anomaly_filter("pagerank", tg, ((0, 1), (2, 3)))
+    # a partition's filter runs per component (the JAX package's result is
+    # held bit for bit in tests/test_torch_faults.py)
+    gate = tfilt.partitioned_anomaly_filter("pagerank", tg, ((0, 1), (2, 3)))
+    assert gate["mask"].shape == (10,)
+    for off in (None, "none"):
+        gate = tfilt.partitioned_anomaly_filter(off, tg, ((0, 1), (2, 3)))
+        assert gate["anomalies"] == [] and gate["mask"].sum() == 10
+    with pytest.raises(KeyError, match="unknown anomaly filter"):
+        tfilt.partitioned_anomaly_filter("louvain", tg, ((0, 1), (2, 3)))
 
 
 @pytest.mark.parametrize("mask", [[1, 1, 1, 1], [1, 0, 1, 1, 0],
