@@ -4,16 +4,18 @@ lives in :mod:`bcfl_tpu_torch.compression.codecs` as in JAX).
 
 ``FedConfig`` holds the fields the ported slices run, with the JAX
 package's names, types and defaults (the fault plan, reputation, robust
-aggregation and checkpoint fields included), plus the switches of features
-the port does not have yet. A value the slice does not support raises ``ValueError``
-naming the field and saying it is "not ported yet" — the port never
-silently runs something other than what was asked for.
+aggregation, checkpoint, LoRA and cohort fields included), plus the
+switches of features the port does not have yet. A value the slice does
+not support raises ``ValueError`` naming the field and saying it is "not
+ported yet" — the port never silently runs something other than what was
+asked for. ``cohort_size`` pins mesh devices in JAX; on the port's one
+card it accepts only 0 and the whole sampled cohort.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 from bcfl_tpu_torch.compression.codecs import CompressionConfig
 from bcfl_tpu_torch.faults.plan import FaultPlan
@@ -91,18 +93,31 @@ class LedgerConfig:
     entry_payload_bytes: int = 46_170_898
 
 
+def parse_lora_ranks(spec: str) -> Tuple[int, ...]:
+    """Parse a ``lora_ranks`` spec ("2,4,8") into a tuple of positive ints.
+    The spec is cycled over the stacked client axis: client ``i`` trains at
+    ``spec[i % len(spec)]``. Raises with the offending spec on bad input."""
+    try:
+        ranks = tuple(int(tok) for tok in spec.split(","))
+    except ValueError:
+        raise ValueError(
+            f"lora_ranks must be comma-separated positive ints "
+            f"(e.g. '2,4,8'), got {spec!r}")
+    if not ranks or any(r <= 0 for r in ranks):
+        raise ValueError(
+            f"lora_ranks entries must all be > 0, got {spec!r}")
+    return ranks
+
+
 #: (field, is-unsupported predicate) — each raises "not ported yet"
 _NOT_PORTED = (
     ("runtime", lambda c: c.runtime != "local"),
-    ("task", lambda c: c.task != "classification"),
     ("tokenizer", lambda c: c.tokenizer != "hash"),
     ("hf_checkpoint", lambda c: c.hf_checkpoint is not None),
-    ("lora_rank", lambda c: c.lora_rank > 0),
     ("tp", lambda c: c.tp > 1),
     ("sp", lambda c: c.sp > 1),
     ("local_epochs", lambda c: c.local_epochs != 1),
     ("rounds_per_dispatch", lambda c: c.rounds_per_dispatch > 1),
-    ("registry_size", lambda c: c.registry_size > 0),
     # the flash kernels have bf16 and float32 instances only
     ("compute_dtype", lambda c: c.compute_dtype == "float16"
      and bool(c.use_flash)),
@@ -129,7 +144,11 @@ class FedConfig:
     task: str = "classification"
     model: str = "tiny-bert"
     hf_checkpoint: Optional[str] = None
-    lora_rank: int = 0
+    lora_rank: int = 0  # 0 = full fine-tune; > 0 = LoRA adapters
+    # per-client LoRA ranks for a heterogeneous fleet ("2,4,8", cycled over
+    # the clients; RBLA aggregation). Exclusive with lora_rank, which it
+    # canonicalizes to max(spec). "" = uniform
+    lora_ranks: str = ""
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
     # None = the model family's default (encoders: dense attention); True
@@ -146,8 +165,17 @@ class FedConfig:
     sync: str = "sync"
     num_clients: int = 4
     num_rounds: int = 2
-    # cohort sampling (the JAX package's registry of clients); 0 = off
+    # cohort mode: a registry of this many clients (data partition, PRNG
+    # streams, fault schedules, reputation and error-feedback residuals
+    # keyed by registry id), of which a seeded sampler draws
+    # ``sample_clients`` (0 = num_clients) onto the stacked axis each
+    # round; 0 = off
     registry_size: int = 0
+    sample_clients: int = 0
+    # clients stacked per device. In JAX it pins the mesh to
+    # sample_clients / cohort_size devices; the port runs on one card, so
+    # only 0 and the whole cohort (one device) are accepted
+    cohort_size: int = 0
     local_epochs: int = 1
     max_local_batches: Optional[int] = None
     rounds_per_dispatch: int = 1
@@ -204,6 +232,16 @@ class FedConfig:
     max_eval_batches: Optional[int] = None
 
     def __post_init__(self):
+        if self.lora_ranks:
+            spec = parse_lora_ranks(self.lora_ranks)
+            if self.lora_rank > 0:
+                raise ValueError(
+                    "set lora_ranks OR lora_rank, not both: lora_ranks is "
+                    "the per-client spec and canonicalizes lora_rank to "
+                    "max(spec)")
+            # canonicalized first, so every `lora_rank > 0` switch sees
+            # the fleet's max rank
+            object.__setattr__(self, "lora_rank", max(spec))
         if self.runtime not in ("local", "dist"):
             raise ValueError(f"unknown runtime: {self.runtime!r}")
         if self.mode not in ("server", "serverless"):
@@ -243,6 +281,7 @@ class FedConfig:
                 f"aggregator_trim must be in [0, 0.5), got "
                 f"{self.aggregator_trim}")
         plan = self.faults if self.faults is not None else FaultPlan()
+        self._check_lora_and_cohort(plan)
         if plan.corrupts and self.faithful:
             raise ValueError(
                 "FaultPlan corruption (incl. flaky bursts) models transport "
@@ -295,8 +334,109 @@ class FedConfig:
                     f"{field}={value!r} is not ported yet: bcfl_tpu_torch "
                     "runs server FedAvg, serverless ring gossip and "
                     "buffered async with the anomaly filter, the ledger, "
-                    "the local fault plan, robust aggregation, reputation "
-                    "and checkpoints (see ROADMAP.md for the port's queue)")
+                    "the local fault plan, robust aggregation, reputation, "
+                    "checkpoints, LoRA and cohort sampling (see ROADMAP.md "
+                    "for the port's queue)")
+
+    def _check_lora_and_cohort(self, plan: FaultPlan) -> None:
+        """The JAX package's rejections of heterogeneous ranks and of cohort
+        mode, with its reasons; plus ``cohort_size`` on one card."""
+        if self.lora_ranks and len(set(parse_lora_ranks(self.lora_ranks))) > 1:
+            if self.aggregator != "mean":
+                raise ValueError(
+                    f"aggregator={self.aggregator!r} does not compose with "
+                    "heterogeneous lora_ranks: order statistics have no "
+                    "sound definition over structural zero padding (a "
+                    "low-rank client's padded coordinate would vote an "
+                    "exact 0 into every trim/median/krum decision) — use "
+                    "aggregator='mean' (the rank-aware RBLA rule)")
+            if self.mode != "server":
+                raise ValueError(
+                    "heterogeneous lora_ranks require mode='server': ring "
+                    "gossip mixes whole neighbor trees, and the rank-aware "
+                    "padded aggregation (RBLA) has no per-edge ring form")
+            if self.faithful:
+                raise ValueError(
+                    "heterogeneous lora_ranks are not implemented for "
+                    "faithful (host-sequential) mode — it averages host-"
+                    "side with the reference's plain mean, which would "
+                    "dilute low-rank clients' padded coordinates")
+            if self.registry_size > 0:
+                raise ValueError(
+                    "heterogeneous lora_ranks do not compose with registry "
+                    "sampling: ranks are cycled over the FIXED stacked "
+                    "client slots, while sampling re-deals which registry "
+                    "client sits in each slot every round — a client's "
+                    "rank would change under it")
+        for field in ("registry_size", "sample_clients", "cohort_size"):
+            if getattr(self, field) < 0:
+                raise ValueError(
+                    f"{field} must be >= 0, got {getattr(self, field)}")
+        if self.registry_size == 0 and (self.sample_clients
+                                        or self.cohort_size):
+            raise ValueError(
+                "sample_clients/cohort_size have no effect without "
+                "registry_size > 0 (they shape the sampled cohort of a "
+                "client registry) — the same fail-loudly stance as the "
+                "codec sub-flags")
+        if self.registry_size == 0:
+            return
+        active = self.sample_clients or self.num_clients
+        if active > self.registry_size:
+            raise ValueError(
+                f"sampled cohort {active} > registry_size "
+                f"{self.registry_size}: cannot draw without replacement")
+        if self.cohort_size and active % self.cohort_size:
+            raise ValueError(
+                f"cohort_size {self.cohort_size} must divide the sampled "
+                f"cohort size {active} (it is the per-device stack of the "
+                "cohort mesh)")
+        if self.cohort_size and self.cohort_size != active:
+            # JAX pins the mesh to active / cohort_size devices; the port
+            # has one card
+            raise ValueError(
+                f"cohort_size {self.cohort_size} needs "
+                f"{active // self.cohort_size} devices for a {active}-client "
+                "cohort, have 1")
+        if self.mode != "server":
+            raise ValueError(
+                "registry sampling requires mode='server': serverless "
+                "peers carry persistent per-client params, which a "
+                "registry >> cohort cannot keep resident (the stacked "
+                "tree IS the peer state)")
+        if self.sync != "sync":
+            raise ValueError(
+                "registry sampling is not implemented for sync='async': "
+                "the simulated network clock tracks per-client "
+                "completion/staleness for a FIXED client set, and a "
+                "per-round cohort would redefine that state each round")
+        if self.faithful:
+            raise ValueError(
+                "registry sampling is not implemented for faithful "
+                "(host-sequential) mode")
+        if plan.partitions:
+            raise ValueError(
+                "chaos partition does not compose with registry "
+                "sampling: components are defined over the full client "
+                "set, and a per-round cohort would dissolve them")
+
+    @property
+    def lora_rank_spec(self) -> Optional[Tuple[int, ...]]:
+        """Parsed ``lora_ranks`` tuple, or None when unset (uniform rank)."""
+        return parse_lora_ranks(self.lora_ranks) if self.lora_ranks else None
+
+    @property
+    def client_lora_ranks(self) -> Optional[Tuple[int, ...]]:
+        """Per-client rank assignment: the spec cycled over the stacked
+        client axis (length ``num_clients``), or None when uniform."""
+        spec = self.lora_rank_spec
+        if spec is None:
+            return None
+        return tuple(spec[i % len(spec)] for i in range(self.num_clients))
 
     def replace(self, **kw) -> "FedConfig":
+        if self.lora_ranks and "lora_rank" not in kw:
+            # lora_rank holds max(spec) after canonicalization; passing it
+            # back with the spec would read as both being set
+            kw["lora_rank"] = 0
         return dataclasses.replace(self, **kw)

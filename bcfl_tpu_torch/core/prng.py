@@ -18,8 +18,10 @@ from typing import Callable, Tuple
 import torch
 
 # lanes separating the streams derived from one seed (the JAX package folds
-# 4 for the training keys and 0x51F7 for the codec lane)
+# 4 for the training keys, 3 for the LoRA adapter init and 0x51F7 for the
+# codec lane)
 TRAIN_LANE = 4
+LORA_LANE = 3
 CODEC_LANE = 0x51F7
 #: version of the coordinate -> seed derivation below
 _SCHEME = "blake2b-coords-v1"
@@ -47,11 +49,14 @@ def generator(device, *coords: int) -> torch.Generator:
     return g
 
 
-def client_round_generators(seed: int, num_clients: int, round_idx: int,
+def client_round_generators(seed: int, clients, round_idx: int,
                             device) -> list:
-    """One dropout generator per client for round ``round_idx``."""
-    return [generator(device, seed, TRAIN_LANE, round_idx, c)
-            for c in range(num_clients)]
+    """One dropout generator per client for round ``round_idx``;
+    ``clients`` is a count (clients ``0..n-1``) or the round's registry ids
+    (cohort mode), so a client's stream follows its id, not its slot."""
+    ids = (range(clients) if isinstance(clients, int)
+           else [int(c) for c in clients])
+    return [generator(device, seed, TRAIN_LANE, round_idx, c) for c in ids]
 
 
 def codec_uniforms(seed: int, round_idx: int

@@ -55,14 +55,17 @@ def _gather_batches(ids, mask, labels, idx: np.ndarray, batch: int,
             valid.reshape(shape))
 
 
-def client_batches(cache: TokenCache, part, num_clients: int,
+def client_batches(cache: TokenCache, part, num_clients,
                    round_idx: int, batch_size: int,
                    max_batches: Optional[int] = None, split: str = "train"
                    ) -> Tuple[dict, np.ndarray]:
     """The round's stacked per-client batches.
 
     ``part`` is anything with ``train_test_indices(client, round)`` (a
-    :class:`~bcfl_tpu_torch.data.partition.Partitioner`). Returns
+    :class:`~bcfl_tpu_torch.data.partition.Partitioner`). ``num_clients``
+    is a count (clients ``0..n-1``) or a vector of client ids: cohort mode
+    passes the round's sampled registry ids, so each slot holds that
+    client's own partition. Returns
     ``(batch_tree, num_examples)``: ``batch_tree`` leaves are
     ``[num_clients, steps, batch, ...]`` numpy arrays (``ids``, ``mask``,
     ``labels``, ``example_mask``) and ``num_examples[c]`` is client ``c``'s
@@ -72,9 +75,12 @@ def client_batches(cache: TokenCache, part, num_clients: int,
                              cache.train_labels)
     else:
         ids, mask, labels = cache.test_ids, cache.test_mask, cache.test_labels
+    client_ids = (range(num_clients)
+                  if isinstance(num_clients, (int, np.integer))
+                  else np.asarray(num_clients).tolist())
     per_client_idx = []
-    for c in range(num_clients):
-        tr, te = part.train_test_indices(c, round_idx)
+    for c in client_ids:
+        tr, te = part.train_test_indices(int(c), round_idx)
         per_client_idx.append(tr if split == "train" else te)
 
     sizes = [max(i.size, 1) for i in per_client_idx]

@@ -16,6 +16,9 @@ flags the ported slice supports.
     python -m bcfl_tpu_torch.entrypoints --preset smoke --device cpu \\
         --rounds 3 --chaos-crash-round 1 --checkpoint-dir ck \\
         --checkpoint-every 1 --resume    # rounds 1 and 2 from round 0's
+    python -m bcfl_tpu_torch.entrypoints --preset smoke --device cpu \\
+        --mode server --model tiny-llama --lora-rank 4 --task causal_lm \\
+        --rounds 1 --seq-len 32 --registry-size 16 --sample-clients 4
 
 ``--device`` defaults to ``cuda``, which raises when no GPU is present.
 Any flag of the JAX command line that is not listed here is rejected as
@@ -44,7 +47,10 @@ _FIELD_FLAGS = (
     ("mode", "mode"), ("sync", "sync"), ("aggregator", "aggregator"),
     ("aggregator_trim", "aggregator_trim"),
     ("checkpoint_dir", "checkpoint_dir"),
-    ("checkpoint_every", "checkpoint_every"),
+    ("checkpoint_every", "checkpoint_every"), ("task", "task"),
+    ("lora_rank", "lora_rank"), ("lora_ranks", "lora_ranks"),
+    ("registry_size", "registry_size"),
+    ("sample_clients", "sample_clients"), ("cohort_size", "cohort_size"),
 )
 
 
@@ -67,6 +73,28 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dataset", default=None)
     ap.add_argument("--mode", choices=["server", "serverless"], default=None)
     ap.add_argument("--sync", choices=["sync", "async"], default=None)
+    ap.add_argument("--task", choices=["classification", "causal_lm"],
+                    default=None,
+                    help="causal_lm = federated next-token fine-tuning "
+                         "(llama-family models; label columns ignored)")
+    ap.add_argument("--lora-rank", type=int, default=None,
+                    help="train LoRA adapters of this rank on a frozen base "
+                         "(0 = full fine-tune)")
+    ap.add_argument("--lora-ranks", type=str, default=None,
+                    help="heterogeneous per-client adapter ranks, e.g. "
+                         "'2,4,8' cycled over clients (RBLA aggregation). "
+                         "Exclusive with --lora-rank")
+    ap.add_argument("--registry-size", type=int, default=None,
+                    help="simulate a registry of N clients (host state "
+                         "only); each round a seeded sampler draws "
+                         "--sample-clients of them onto the stacked axis. "
+                         "Requires mode=server")
+    ap.add_argument("--sample-clients", type=int, default=None,
+                    help="per-round sampled cohort size under "
+                         "--registry-size; defaults to --clients")
+    ap.add_argument("--cohort-size", type=int, default=None,
+                    help="clients stacked per device; on one card only 0 "
+                         "or the whole sampled cohort")
     ap.add_argument("--seq-len", type=int, default=None)
     ap.add_argument("--batch-size", type=int, default=None)
     ap.add_argument("--lr", type=float, default=None)
@@ -272,6 +300,10 @@ def build_config(args):
     cfg = get_preset(args.preset)
     overrides = {field: getattr(args, flag) for flag, field in _FIELD_FLAGS
                  if getattr(args, flag) is not None}
+    if args.lora_ranks is not None and args.lora_rank is None:
+        # a per-client spec supersedes a preset's uniform rank; an explicit
+        # --lora-rank beside it reaches FedConfig, which refuses both
+        overrides["lora_rank"] = 0
     if args.use_flash is not None:
         overrides["use_flash"] = args.use_flash == "on"
     if args.remat:

@@ -32,11 +32,18 @@ def run(cfg: FedConfig, device=None, verbose: bool = True,
 
 
 def _header(cfg: FedConfig, device) -> list:
-    return [f"== {cfg.name} ==",
-            f"mode={cfg.mode} sync={cfg.sync} clients={cfg.num_clients} "
-            f"rounds={cfg.num_rounds} model={cfg.model} "
-            f"dataset={cfg.dataset} compress={cfg.compression.kind} "
-            f"device={device}"]
+    lines = [f"== {cfg.name} ==",
+             f"mode={cfg.mode} sync={cfg.sync} clients={cfg.num_clients} "
+             f"rounds={cfg.num_rounds} model={cfg.model} task={cfg.task} "
+             f"dataset={cfg.dataset} compress={cfg.compression.kind} "
+             f"device={device}"]
+    if cfg.lora_rank > 0:
+        lines.append(f"lora: rank={cfg.lora_rank}"
+                     + (f" ranks={cfg.lora_ranks}" if cfg.lora_ranks else ""))
+    if cfg.registry_size > 0:
+        lines.append(f"cohort mode: registry={cfg.registry_size} "
+                     f"cohort={cfg.sample_clients or cfg.num_clients}/round")
+    return lines
 
 
 def round_line(r) -> str:
@@ -68,9 +75,12 @@ def round_line(r) -> str:
             rep += f" quarantined={q}"
         if p:
             rep += f" probation={p}"
+    cohort = f" cohort={r.cohort}" if r.cohort is not None else ""
+    erank = (f" eff_rank={r.effective_rank:.3f}"
+             if r.effective_rank is not None else "")
     return (f"round {r.round:3d}: train_loss={r.train_loss:.4f} "
             f"train_acc={r.train_acc:.4f}{acc}{anom}{rej}{drop}{part}"
-            f"{churn}{rep}{deg} "
+            f"{churn}{rep}{deg}{cohort}{erank} "
             f"ratio={r.compression_ratio:.2f} wall={r.wall_s:.2f}s")
 
 

@@ -1,6 +1,6 @@
 """The federated round bodies: port of ``bcfl_tpu/fed/client_step.py``
-(``make_optimizer`` with optax's ``clip_by_global_norm``, ``make_loss_fn``,
-``make_local_train``, and of the
+(``make_optimizer`` with optax's ``clip_by_global_norm``, ``make_loss_fn``
+with ``loss_cls`` and ``loss_lm``, ``make_local_train``, and of the
 GSPMD builder ``train_clients``, ``local_updates_body``,
 ``server_body``/``server_body_comp``, ``gossip_body``/``gossip_body_comp``,
 ``_mix_g``/``_mix_g_recv``, ``_compress_stage``, ``_recon``, the
@@ -19,6 +19,15 @@ gossip consume, as the JAX stacked axis does. Trees are ``{flax leaf
 path: tensor}`` dicts in the JAX leaf order and layout
 (:func:`bcfl_tpu_torch.models.convert.trainable_tree`), so codec payloads
 match the JAX package's.
+
+Under LoRA the trainable tree is the adapter tree
+(:mod:`bcfl_tpu_torch.models.lora`) over the frozen base the scratch
+module holds: the local round attaches the client's adapters to the
+module (merged per layer in the forward), and the fresh optimizer covers
+the adapters and heads only. With heterogeneous ranks, ``rmask`` (the
+``[C, R]`` :func:`~bcfl_tpu_torch.models.lora.rank_mask`) clips each
+client's starting tree to its own rank at train entry and its delta before
+the codec, as the JAX programs do.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from bcfl_tpu_torch.compression import codecs as cc
+from bcfl_tpu_torch.models import lora
 from bcfl_tpu_torch.models.convert import (leaf_specs, load_trainable,
                                            trainable_tree)
 from bcfl_tpu_torch.parallel import (gossip_mix, gossip_mix_recv,
@@ -78,11 +88,32 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float
 
 
 def make_loss_fn(model: nn.Module, task: str = "classification") -> Callable:
-    """``loss_fn(batch, generator) -> (loss, correct, n)``: softmax cross
-    entropy over the labels, averaged over the examples the example mask
-    keeps. ``generator=None`` runs without dropout (evaluation)."""
+    """``loss_fn(batch, generator) -> (loss, correct, n)``.
+    ``classification``: softmax cross entropy over the labels, averaged
+    over the examples the example mask keeps. ``causal_lm``: next-token
+    cross entropy, the targets ``ids`` shifted left, each token weighted
+    by the padding mask times the example mask; ``n`` counts tokens.
+    ``generator=None`` runs without dropout (evaluation)."""
+
+    def loss_lm(batch, generator: Optional[torch.Generator]):
+        logits = model(batch["ids"], batch["mask"],
+                       deterministic=generator is None, generator=generator)
+        targets = batch["ids"][:, 1:].long()
+        logits = logits[:, :-1]
+        w = (batch["mask"][:, 1:].float()
+             * batch["example_mask"].float()[:, None])
+        per_tok = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                  targets.reshape(-1), reduction="none")
+        per_tok = per_tok.view(targets.shape)
+        n = w.sum()
+        loss = (per_tok * w).sum() / torch.clamp(n, min=1.0)
+        correct = ((logits.argmax(-1) == targets).float() * w).sum()
+        return loss, correct, n
+
+    if task == "causal_lm":
+        return loss_lm
     if task != "classification":
-        raise ValueError(f"task={task!r} is not ported yet")
+        raise ValueError(f"unknown task {task!r}")
 
     def loss_cls(batch, generator: Optional[torch.Generator]):
         logits = model(batch["ids"], batch["mask"],
@@ -98,13 +129,48 @@ def make_loss_fn(model: nn.Module, task: str = "classification") -> Callable:
     return loss_cls
 
 
+def _steps(loss_fn: Callable, opt: torch.optim.Optimizer, leaves,
+           batches: Tree, generator, max_grad_norm: float) -> torch.Tensor:
+    """One optimizer step per ``[steps, ...]`` batch; the summed
+    ``[loss*n, correct, n]``."""
+    stats = torch.zeros(3, device=batches["ids"].device)
+    for s in range(batches["ids"].shape[0]):
+        batch = {k: v[s] for k, v in batches.items()}
+        loss, correct, n = loss_fn(batch, generator)
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        if max_grad_norm > 0:
+            clip_by_global_norm_([p.grad for p in leaves], max_grad_norm)
+        opt.step()
+        stats += torch.stack([loss.detach() * n, correct, n])
+    return stats
+
+
 def make_local_train(model: nn.Module, loss_fn: Callable,
                      optimizer: str = "adamw", lr: float = 5e-5,
-                     max_grad_norm: float = 0.0) -> Callable:
+                     max_grad_norm: float = 0.0,
+                     adapters: bool = False) -> Callable:
     """One client's local round:
     ``(trainable, batches, generator) -> (trainable', [loss*n, correct, n])``
     with a fresh optimizer state, one step per ``[steps, ...]`` batch;
-    with ``max_grad_norm > 0`` each step's gradients are clipped first."""
+    with ``max_grad_norm > 0`` each step's gradients are clipped first.
+    With ``adapters`` the trainable tree is a LoRA adapter tree over the
+    frozen parameters ``model`` holds: fresh leaf copies of it are attached
+    to the model and trained, the base never changes."""
+    if adapters:
+        def local_train_lora(trainable: Tree, batches: Tree,
+                             generator: Optional[torch.Generator]):
+            leaves = {p: x.detach().clone().requires_grad_(True)
+                      for p, x in trainable.items()}  # JAX leaf order
+            with lora.attached(model, leaves):
+                model.train()
+                opt = make_optimizer(list(leaves.values()), optimizer, lr)
+                stats = _steps(loss_fn, opt, list(leaves.values()), batches,
+                               generator, max_grad_norm)
+            return {p: x.detach() for p, x in leaves.items()}, stats
+
+        return local_train_lora
+
     named = dict(model.named_parameters())
     leaves = [named[s.key] for s in leaf_specs(model)]  # JAX leaf order
 
@@ -113,47 +179,54 @@ def make_local_train(model: nn.Module, loss_fn: Callable,
         load_trainable(model, trainable)
         model.train()
         opt = make_optimizer(model.parameters(), optimizer, lr)
-        stats = torch.zeros(3, device=batches["ids"].device)
-        for s in range(batches["ids"].shape[0]):
-            batch = {k: v[s] for k, v in batches.items()}
-            loss, correct, n = loss_fn(batch, generator)
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            if max_grad_norm > 0:
-                clip_by_global_norm_([p.grad for p in leaves], max_grad_norm)
-            opt.step()
-            stats += torch.stack([loss.detach() * n, correct, n])
+        stats = _steps(loss_fn, opt, leaves, batches, generator,
+                       max_grad_norm)
         return trainable_tree(model), stats
 
     return local_train
 
 
-def make_eval_one(model: nn.Module, loss_fn: Callable) -> Callable:
+def make_eval_one(model: nn.Module, loss_fn: Callable,
+                  adapters: bool = False) -> Callable:
     """``(trainable, batches) -> [loss*n, correct, n]`` summed over the
-    ``[steps, ...]`` eval batches, without dropout."""
+    ``[steps, ...]`` eval batches, without dropout; with ``adapters`` the
+    trainable tree is a LoRA adapter tree over ``model``'s frozen base."""
 
     @torch.no_grad()
     def eval_one(trainable: Tree, batches: Tree) -> torch.Tensor:
-        load_trainable(model, trainable)
+        if adapters:
+            lora.attach(model, trainable)
+        else:
+            load_trainable(model, trainable)
         model.eval()
         stats = torch.zeros(3, device=batches["ids"].device)
-        for s in range(batches["ids"].shape[0]):
-            loss, correct, n = loss_fn({k: v[s] for k, v in batches.items()},
-                                       None)
-            stats += torch.stack([loss * n, correct, n])
+        try:
+            for s in range(batches["ids"].shape[0]):
+                loss, correct, n = loss_fn(
+                    {k: v[s] for k, v in batches.items()}, None)
+                stats += torch.stack([loss * n, correct, n])
+        finally:
+            if adapters:
+                lora.detach(model)
         return stats
 
     return eval_one
 
 
 def _train_each(local_train: Callable, start_of: Callable, batches: Tree,
-                generators: List[Optional[torch.Generator]], like: Tree):
+                generators: List[Optional[torch.Generator]], like: Tree,
+                rmask: Optional[torch.Tensor] = None):
     C = batches["ids"].shape[0]
     new_t = {p: torch.empty((C,) + tuple(x.shape), dtype=x.dtype,
                             device=x.device) for p, x in like.items()}
     stats = []
     for c in range(C):
-        t, s = local_train(start_of(c), {k: v[c] for k, v in batches.items()},
+        start = start_of(c)
+        if rmask is not None:
+            # heterogeneous ranks: a client never sees the fleet's
+            # higher-rank components
+            start = lora.clip_adapters(start, rmask[c])
+        t, s = local_train(start, {k: v[c] for k, v in batches.items()},
                            generators[c])
         for p, x in t.items():
             new_t[p][c] = x
@@ -162,33 +235,41 @@ def _train_each(local_train: Callable, start_of: Callable, batches: Tree,
 
 
 def train_clients(local_train: Callable, global_t: Tree, batches: Tree,
-                  generators: List[Optional[torch.Generator]]):
-    """Every client trains from ``global_t`` on its own ``batches[c]``:
+                  generators: List[Optional[torch.Generator]],
+                  rmask: Optional[torch.Tensor] = None):
+    """Every client trains from ``global_t`` (clipped to its rank by
+    ``rmask``) on its own ``batches[c]``:
     ``-> (stacked [C, ...] trees, stats [C, 3])``."""
     return _train_each(local_train, lambda c: global_t, batches, generators,
-                       global_t)
+                       global_t, rmask)
 
 
 def local_updates(local_train: Callable, client_t: Tree, batches: Tree,
-                  generators: List[Optional[torch.Generator]]):
+                  generators: List[Optional[torch.Generator]],
+                  rmask: Optional[torch.Tensor] = None):
     """Every client trains from its OWN row of the stacked ``client_t``
     (``local_updates_body``): ``-> (stacked [C, ...] trees, stats [C, 3])``."""
     like = {p: x[0] for p, x in client_t.items()}
     return _train_each(local_train,
                        lambda c: {p: x[c] for p, x in client_t.items()},
-                       batches, generators, like)
+                       batches, generators, like, rmask)
 
 
 def compress_stage(comp: cc.CompressionConfig, new_t: Tree, ref_t: Tree,
-                   resid: Tree, uniforms: Optional[cc.Uniforms]):
+                   resid: Tree, uniforms: Optional[cc.Uniforms],
+                   rmask: Optional[torch.Tensor] = None):
     """Sender side of one wire exchange: ``(payload, decoded, resid')`` for
     ``delta = new_t - ref_t`` plus the carried error-feedback residual
     (``_compress_stage``). ``ref_t`` is the global (server mode, it
-    broadcasts) or the stacked round-start tree (serverless, async)."""
-    comp_in = {}
-    for p in new_t:
-        d = new_t[p].float() - ref_t[p].float()
-        comp_in[p] = d.add_(resid[p]) if comp.error_feedback else d
+    broadcasts) or the stacked round-start tree (serverless, async). With
+    heterogeneous ranks the delta's padding dims (``-ref`` there) are
+    clipped first: they are not the client's to ship."""
+    comp_in = {p: new_t[p].float() - ref_t[p].float() for p in new_t}
+    if rmask is not None:
+        comp_in = lora.clip_stacked(comp_in, rmask)
+    if comp.error_feedback:
+        for p, d in comp_in.items():
+            d.add_(resid[p])
     return cc.exchange(comp, comp_in, resid, uniforms, owned=True)
 
 
@@ -218,20 +299,24 @@ def decode_delta(comp: cc.CompressionConfig, payload: dict,
 
 
 def encode_deltas(comp: cc.CompressionConfig, new_t: Tree, ref_t: Tree,
-                  resid: Tree, uniforms: Optional[cc.Uniforms]):
+                  resid: Tree, uniforms: Optional[cc.Uniforms],
+                  rmask: Optional[torch.Tensor] = None):
     """``(payload, recon, resid')``: the codec stage plus the receiver's
     reconstruction against ``ref_t`` (``encode_deltas`` for a global
     ``ref_t``, ``encode_deltas_local`` for the stacked round-start
     tree)."""
-    payload, dec, resid = compress_stage(comp, new_t, ref_t, resid, uniforms)
+    payload, dec, resid = compress_stage(comp, new_t, ref_t, resid, uniforms,
+                                         rmask)
     return payload, recon(ref_t, dec, new_t), resid
 
 
 def encode_deltas_async(comp: cc.CompressionConfig, new_t: Tree, ref_t: Tree,
-                        resid: Tree, uniforms: Optional[cc.Uniforms]):
+                        resid: Tree, uniforms: Optional[cc.Uniforms],
+                        rmask: Optional[torch.Tensor] = None):
     """``(payload, resid')``, recon-free (``encode_deltas_async``): the
     async merge decodes the deltas itself."""
-    payload, _, resid = compress_stage(comp, new_t, ref_t, resid, uniforms)
+    payload, _, resid = compress_stage(comp, new_t, ref_t, resid, uniforms,
+                                       rmask)
     return payload, resid
 
 

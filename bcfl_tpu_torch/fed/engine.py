@@ -36,8 +36,20 @@ Per round the host control plane:
 ``run(resume=True)`` restores the newest valid checkpoint and reproduces
 the uninterrupted run bit for bit; the fault plan's host crash fires only
 when nothing was restored. A ``ResourceMonitor`` spans the run
-(``RunMetrics.resources``). Cohorts and the fused multi-round dispatch of
-the JAX engine are not ported yet (the config raises).
+(``RunMetrics.resources``).
+
+With ``lora_rank > 0`` the trainable tree is a LoRA adapter tree over the
+frozen base the model holds (built on the device from the seed, never
+checkpointed), at a uniform rank or per-client ranks (RBLA: the stacked
+init's rank-aware mean is the round-0 global); every round records the
+adapters' effective rank. Cohort mode (``registry_size > 0``): the stacked
+axis holds the round's sampled cohort (``self.C``) of a registry of
+``self.R`` clients, and batches, PRNG streams, fault-plan rows,
+reputation and ledger identities follow the registry id; the
+error-feedback residual lives per registry client in an
+:class:`~bcfl_tpu_torch.fed.cohort.EFRegistry`, gathered before each
+round and scattered after it. The fused multi-round dispatch of the JAX
+engine is not ported (the config raises).
 """
 
 from __future__ import annotations
@@ -67,6 +79,7 @@ from bcfl_tpu_torch.data import (
 )
 from bcfl_tpu_torch.faults import FaultInjector, SimulatedCrash
 from bcfl_tpu_torch.fed import client_step as cs
+from bcfl_tpu_torch.fed.cohort import ClientSampler, EFRegistry, cohort_view
 from bcfl_tpu_torch.ledger import Ledger
 from bcfl_tpu_torch.ledger import fingerprint as fp_lib
 from bcfl_tpu_torch.metrics import (
@@ -76,10 +89,12 @@ from bcfl_tpu_torch.metrics import (
     StepClock,
     model_size_gb,
 )
-from bcfl_tpu_torch.models import build, full_float32_matmuls
+from bcfl_tpu_torch.models import (build, full_float32_matmuls, lora,
+                                   lora_targets)
 from bcfl_tpu_torch.models.bert import init_params
 from bcfl_tpu_torch.models.convert import load_trainable, trainable_tree
-from bcfl_tpu_torch.parallel import make_aggregator
+from bcfl_tpu_torch.parallel import (make_aggregator,
+                                     rank_aware_weighted_mean)
 from bcfl_tpu_torch.parallel.collectives import _col
 from bcfl_tpu_torch.reputation import ReputationTracker
 from bcfl_tpu_torch.topology import (
@@ -144,7 +159,23 @@ class FedEngine:
         self.device = dev = resolve_device(device)
         if dev.type == "cuda":
             full_float32_matmuls()
-        self.C = cfg.num_clients
+        # cohort mode: C = the stacked width (the round's cohort), R = the
+        # registry; with sampling off R == C == num_clients and every
+        # per-round id is the slot itself
+        self.sampling = cfg.registry_size > 0
+        self.C = ((cfg.sample_clients or cfg.num_clients) if self.sampling
+                  else cfg.num_clients)
+        self.R = cfg.registry_size if self.sampling else cfg.num_clients
+        self.sampler = (ClientSampler(cfg.seed, self.R, self.C)
+                        if self.sampling else None)
+        self._cohort_cache = (-1, None)
+        if self.sampling and (tamper_hook is not None
+                              or fused_tamper is not None):
+            raise ValueError(
+                "the legacy tamper_hook/fused_tamper shims are positional "
+                "over a fixed client set; with registry sampling schedule "
+                "corruption via FedConfig.faults (its schedules are keyed "
+                "by registry id)")
         # ``tamper_hook`` (byte-level tampering of the host trees the
         # ledger hashes) and ``fused_tamper`` (corruption of fused
         # multi-round dispatches) are the JAX engine's legacy hooks; new
@@ -155,7 +186,7 @@ class FedEngine:
                 "corruption via FedConfig.faults "
                 "(bcfl_tpu_torch.faults.FaultPlan)",
                 DeprecationWarning, stacklevel=2)
-        self.faults = FaultInjector(cfg.faults, self.C,
+        self.faults = FaultInjector(cfg.faults, self.R,
                                     host_tamper=tamper_hook,
                                     fused_tamper=fused_tamper)
         if cfg.compression.enabled and tamper_hook is not None:
@@ -165,9 +196,8 @@ class FedEngine:
                 "payloads — schedule corruption via FedConfig.faults "
                 "(it corrupts the compressed representation)")
         rep = cfg.reputation
-        self.reputation = (ReputationTracker(rep, self.C)
+        self.reputation = (ReputationTracker(rep, self.R)
                            if rep is not None and rep.enabled else None)
-        self.agg = make_aggregator(cfg.aggregator, cfg.aggregator_trim)
         # the random streams' identity, recorded in checkpoints
         self._prng_name = prng.scheme_name(dev)
         # --- data: tokenize once ---
@@ -191,21 +221,43 @@ class FedEngine:
         with torch.device(dev):
             self.model = build(cfg.model, num_labels=self.num_labels,
                                vocab_size=self.tokenizer.vocab_size,
+                               head=("lm" if cfg.task == "causal_lm"
+                                     else "classifier"),
                                dtype=DTYPES[cfg.compute_dtype],
                                param_dtype=DTYPES[cfg.param_dtype],
                                remat=cfg.remat, **overrides)
         init_params(self.model, prng.generator(dev, cfg.seed, INIT_LANE))
-        self.trainable0 = trainable_tree(self.model)
+        # heterogeneous LoRA ranks: the [C, R] padding mask of the fleet
+        self._rmask = None
+        self.adapters = cfg.lora_rank > 0
+        if self.adapters:
+            # the model's parameters are the frozen base; the trainable
+            # tree is the adapter tree
+            self.model.requires_grad_(False)
+            self.trainable0 = self._init_adapters()
+        else:
+            self.trainable0 = trainable_tree(self.model)
+        # the rank mask makes the mean RBLA's; cohort mode's two-level
+        # mean has one group on the one device, the masked mean exactly
+        self.agg = make_aggregator(cfg.aggregator, cfg.aggregator_trim,
+                                   rank_mask=self._rmask)
         loss_fn = cs.make_loss_fn(self.model, cfg.task)
         self.local_train = cs.make_local_train(self.model, loss_fn,
                                                cfg.optimizer,
                                                cfg.learning_rate,
-                                               cfg.max_grad_norm)
-        self.eval_one = cs.make_eval_one(self.model, loss_fn)
+                                               cfg.max_grad_norm,
+                                               adapters=self.adapters)
+        self.eval_one = cs.make_eval_one(self.model, loss_fn,
+                                         adapters=self.adapters)
         # --- update codec; its error-feedback residual is round state ---
         self._comp = cfg.compression if cfg.compression.enabled else None
         self._ef = None
-        # --- topology graph (positional over the stacked clients) ---
+        # cohort mode keeps the residual per registry client on the host
+        self._ef_reg = (EFRegistry(self.trainable0)
+                        if self.sampling and self._comp is not None
+                        else None)
+        # --- topology graph (positional over the stacked clients: in
+        # cohort mode the network model applies to whoever is sampled) ---
         if cfg.topology.bandwidth == "reference" and self.C == 10:
             self.graph = reference_graph()
         else:
@@ -228,15 +280,52 @@ class FedEngine:
                                  max_batches=cfg.max_eval_batches), dev)
         self._static_batches = None  # the partition is round-static
 
+    def _init_adapters(self):
+        """The round-0 adapter tree: uniform rank from one generator on the
+        LoRA lane; heterogeneous ranks initialize each client at its own
+        rank (its own generator), zero-padded to the maximum, and start
+        from their RBLA mean (``b`` is zero everywhere, so it blends the
+        per-rank-scaled ``a`` factors)."""
+        cfg, dev = self.cfg, self.device
+        targets = lora_targets(cfg.model)
+        ranks = cfg.client_lora_ranks
+        if ranks is not None and len(set(ranks)) > 1:
+            self._rmask = lora.rank_mask(ranks, device=dev)
+            stacked0 = lora.init_lora_ranks(
+                lambda c: prng.generator(dev, cfg.seed, prng.LORA_LANE, c),
+                self.model, ranks, targets)
+            return rank_aware_weighted_mean(
+                stacked0, torch.ones((len(ranks),), device=dev), self._rmask)
+        return lora.init_lora(prng.generator(dev, cfg.seed, prng.LORA_LANE),
+                              self.model, cfg.lora_rank, targets)
+
     # ----------------------------------------------------------------- utils
+
+    def _cohort_ids(self, rnd: int) -> Optional[np.ndarray]:
+        """The round's sampled registry ids (``[C]`` int64), or None when
+        sampling is off (the slot is the client id)."""
+        if self.sampler is None:
+            return None
+        if self._cohort_cache[0] != rnd:
+            self._cohort_cache = (rnd, self.sampler.cohort_ids(rnd))
+        return self._cohort_cache[1]
+
+    def _client_id(self, rnd: int, pos: int) -> int:
+        """Registry id of the client in stacked slot ``pos`` this round."""
+        ids = self._cohort_ids(rnd)
+        return int(ids[pos]) if ids is not None else pos
 
     def _round_batches(self, rnd: int):
         cfg = self.cfg
-        static = not (cfg.partition.kind == "iid"
-                      and cfg.partition.resample_each_round)
+        # cohort mode: the batches depend on who was sampled
+        static = (not (cfg.partition.kind == "iid"
+                       and cfg.partition.resample_each_round)
+                  and not self.sampling)
         if static and self._static_batches is not None:
             return self._static_batches
-        tree, n_ex = client_batches(self.cache, self.partitioner, self.C,
+        ids = self._cohort_ids(rnd)
+        tree, n_ex = client_batches(self.cache, self.partitioner,
+                                    ids if ids is not None else self.C,
                                     rnd, cfg.batch_size,
                                     max_batches=cfg.max_local_batches)
         out = (_to_device(tree, self.device), np.asarray(n_ex))
@@ -245,8 +334,11 @@ class FedEngine:
         return out
 
     def _generators(self, rnd: int):
-        return prng.client_round_generators(self.cfg.seed, self.C, rnd,
-                                            self.device)
+        # keyed by registry id in cohort mode, never by slot
+        ids = self._cohort_ids(rnd)
+        return prng.client_round_generators(
+            self.cfg.seed, ids if ids is not None else self.C, rnd,
+            self.device)
 
     def _uniforms(self, rnd: int) -> Optional[cc.Uniforms]:
         if self._comp is None or not self._comp.stochastic:
@@ -263,9 +355,16 @@ class FedEngine:
                               protect=(self.info_source,))
 
     def _transport_scales(self, rnd: int) -> Optional[np.ndarray]:
-        """The round's transport-corruption scales (None = clean): every
-        consumer (round bodies, reputation evidence) draws through here."""
-        return self.faults.transport_scales(rnd)
+        """The round's transport-corruption scales for the stacked slots
+        (None = clean): the plan draws per registry client and cohort mode
+        takes the sampled rows. Every consumer (round bodies, reputation
+        evidence) draws through here."""
+        row = self.faults.transport_scales(rnd)
+        ids = self._cohort_ids(rnd)
+        if row is None or ids is None:
+            return row
+        row = row[ids]
+        return row if row.any() else None
 
     def _payload_gb(self) -> float:
         # the comms model scales by what crosses a link: the codec payload
@@ -339,9 +438,11 @@ class FedEngine:
                                    self.cfg.ledger.use_native)
 
     def _ledger_commit_rows(self, rnd: int, kind: str, fps) -> None:
-        """Chain one entry per client for the fingerprint rows [C, K]."""
+        """Chain one entry per client for the fingerprint rows [C, K],
+        keyed by registry id (the slot when sampling is off)."""
         for c in range(self.C):
-            self.ledger.append_digest(rnd, c, self._entry_digest(kind, fps[c]),
+            self.ledger.append_digest(rnd, self._client_id(rnd, c),
+                                      self._entry_digest(kind, fps[c]),
                                       self._client_payload_bytes)
 
     def _ledger_auth_rows(self, rnd: int, kind: str, fps) -> np.ndarray:
@@ -349,7 +450,8 @@ class FedEngine:
         entries for this round?"""
         return np.asarray([
             1.0 if self.ledger.authenticate_digest(
-                rnd, c, self._entry_digest(kind, fps[c])) else 0.0
+                rnd, self._client_id(rnd, c),
+                self._entry_digest(kind, fps[c])) else 0.0
             for c in range(self.C)], np.float32)
 
     def _ledger_authenticate(self, rnd: int, host) -> np.ndarray:
@@ -410,11 +512,11 @@ class FedEngine:
         uniforms = self._uniforms(rnd)
         if mode == "async":
             payload, self._ef = cs.encode_deltas_async(
-                self._comp, new_t, ref_t, self._ef, uniforms)
+                self._comp, new_t, ref_t, self._ef, uniforms, self._rmask)
             recon = None
         else:
             payload, recon, self._ef = cs.encode_deltas(
-                self._comp, new_t, ref_t, self._ef, uniforms)
+                self._comp, new_t, ref_t, self._ef, uniforms, self._rmask)
         self._check_payload(payload)
         sent = payload
         if scales is not None:
@@ -449,7 +551,7 @@ class FedEngine:
         # rule, and the robust aggregators are the defense there.
         batches, n_ex = self._round_batches(rnd)
         new_t, stats = cs.train_clients(self.local_train, trainable, batches,
-                                        self._generators(rnd))
+                                        self._generators(rnd), self._rmask)
         ex = self._exchange_updates(rnd, new_t, trainable,
                                     self._transport_scales(rnd),
                                     mode="global")
@@ -478,7 +580,7 @@ class FedEngine:
         alpha, steps = cfg.topology.gossip_alpha, cfg.topology.gossip_steps
         start = stacked  # what an all-rejected round keeps
         new_t, stats = cs.local_updates(self.local_train, stacked, batches,
-                                        self._generators(rnd))
+                                        self._generators(rnd), self._rmask)
         ex = self._exchange_updates(rnd, new_t, start,
                                     self._transport_scales(rnd), mode="local")
         auth = ex.auth
@@ -520,7 +622,7 @@ class FedEngine:
             stacked = cs.broadcast(trainable, C)
         start = stacked
         stacked, stats = cs.local_updates(self.local_train, stacked, batches,
-                                          self._generators(rnd))
+                                          self._generators(rnd), self._rmask)
         rec = self._stats_to_rec(rnd, stats)
         ex = self._exchange_updates(rnd, stacked, start,
                                     self._transport_scales(rnd), mode="local")
@@ -683,7 +785,7 @@ class FedEngine:
         base = stacked  # each client's round-start params (delta reference)
         batches, n_ex = self._round_batches(rnd)
         stacked, stats = cs.local_updates(self.local_train, stacked, batches,
-                                          self._generators(rnd))
+                                          self._generators(rnd), self._rmask)
         rec = self._stats_to_rec(rnd, stats)
         if delays is None:
             delays = self.faults.straggler_delays(rnd)
@@ -757,7 +859,9 @@ class FedEngine:
             # each client's local accuracy on its own test split: of its
             # own carried tree when clients carry one (serverless, async),
             # of the global otherwise
-            tb, _ = client_batches(self.cache, self.partitioner, self.C, rnd,
+            ids = self._cohort_ids(rnd)
+            tb, _ = client_batches(self.cache, self.partitioner,
+                                   ids if ids is not None else self.C, rnd,
                                    cfg.batch_size,
                                    max_batches=cfg.max_local_batches,
                                    split="test")
@@ -799,9 +903,25 @@ class FedEngine:
             stale = (np.asarray(rec.staleness, np.float64)
                      > rcfg.staleness_limit)
             fault = np.maximum(fault, rcfg.w_staleness * stale)
-        self.reputation.observe(fault)
-        rec.reputation_state = self.reputation.state_names()
-        rec.reputation_trust = [float(t) for t in self.reputation.trust]
+        ids = self._cohort_ids(rnd)
+        if ids is None:
+            self.reputation.observe(fault)
+            rec.reputation_state = self.reputation.state_names()
+            rec.reputation_trust = [float(t) for t in self.reputation.trust]
+            return
+        # cohort mode: the cohort's evidence lands on its registry rows;
+        # only sampled clients are active (their trust and probation
+        # advance, quarantine sentences tick for all); the record holds
+        # the cohort's view, slot-aligned with mask and auth
+        fault_r = np.zeros((self.R,), np.float64)
+        fault_r[ids] = fault
+        active = np.zeros((self.R,), bool)
+        active[ids] = True
+        self.reputation.observe(fault_r, active=active)
+        names = self.reputation.state_names()
+        rec.reputation_state = [names[int(i)] for i in ids]
+        rec.reputation_trust = [float(self.reputation.trust[int(i)])
+                                for i in ids]
 
     # ------------------------------------------------------------------- run
 
@@ -826,7 +946,9 @@ class FedEngine:
                 restored = restore_latest(cfg.checkpoint_dir)
                 if restored is not None:
                     start_round, trainable, stacked = self._restore(restored)
-        if self._comp is not None and self._ef is None:
+        if (self._comp is not None and self._ef is None
+                and self._ef_reg is None):
+            # cohort mode gathers each round's rows from the registry
             self._ef = cc.zero_residual(trainable, self.C)
         if cfg.mode == "serverless" and not cfg.faithful and stacked is None:
             stacked = cs.broadcast(trainable, self.C)
@@ -853,23 +975,27 @@ class FedEngine:
                     "silently ignored; use tamper_hook for per-round "
                     "tampering")
             t0 = time.perf_counter()
+            ids = self._cohort_ids(rnd)
             comps = self.faults.partition_components(rnd)
             with clock.phase("control_plane"):
                 gate = self._participation(rnd, comps)
                 mask = gate["mask"].astype(np.float32)
                 # dropout, churn and the reputation gate compose with the
                 # anomaly gate: excluded clients carry weight 0 (probation
-                # a reduced weight)
-                keep = self.faults.dropout_keep(rnd)
+                # a reduced weight); every lane draws per registry client
+                # and cohort_view takes the sampled rows
+                keep = cohort_view(self.faults.dropout_keep(rnd), ids)
                 dropped = None
                 if keep is not None:
+                    # slot indices, as every per-client list of the record;
+                    # rec.cohort[slot] maps back to the registry
                     dropped = [c for c in range(self.C) if keep[c] == 0.0]
                     mask = mask * keep
-                alive = self.faults.churn_alive(rnd)
+                alive = cohort_view(self.faults.churn_alive(rnd), ids)
                 if alive is not None:
                     mask = mask * alive
                 if self.reputation is not None:
-                    mask = mask * self.reputation.gate()
+                    mask = mask * cohort_view(self.reputation.gate(), ids)
                 healed = False
                 if (comps is None and stacked is not None and rnd > 0
                         and self.faults.partition_components(rnd - 1)
@@ -879,7 +1005,13 @@ class FedEngine:
                     trainable, stacked = self._heal_partition(
                         trainable, stacked, mask)
                     healed = True
-            delays = self.faults.straggler_delays(rnd)
+            delays = cohort_view(self.faults.straggler_delays(rnd), ids)
+            if delays is not None and not delays.any():
+                delays = None  # no sampled client straggles this round
+            if self._ef_reg is not None:
+                # the cohort's residual rows (zeros for a client never
+                # sampled) as the usual stacked [C, ...] residual
+                self._ef = self._ef_reg.gather(ids, self.device)
             with clock.phase("round_program"):
                 if comps is not None:
                     trainable, stacked, rec = self._partitioned_round(
@@ -896,7 +1028,13 @@ class FedEngine:
                 else:
                     stacked, trainable, rec = self._serverless_round(
                         rnd, stacked, trainable, mask)
+            if self._ef_reg is not None:
+                # back by registry id before eval and checkpoint, so the
+                # checkpointed store is the uninterrupted run's
+                self._ef_reg.scatter(ids, self._ef)
             rec.mask = mask.tolist()
+            if ids is not None:
+                rec.cohort = ids.tolist()
             rec.anomalies = list(gate["anomalies"])
             rec.healed = healed
             if dropped is not None:
@@ -924,6 +1062,9 @@ class FedEngine:
             rec.info_passing_async_s = async_t
             fence(trainable)
             rec.wall_s = time.perf_counter() - t0
+            if self.adapters:
+                # the rank-collapse guard over the global adapters
+                rec.effective_rank = float(lora.effective_rank(trainable))
             if self.reputation is not None:
                 # before eval and checkpoint, so the checkpointed tracker
                 # matches the uninterrupted run's at every boundary
@@ -933,8 +1074,13 @@ class FedEngine:
             self._maybe_checkpoint(rnd, trainable, stacked)
             if on_round is not None:
                 on_round(rec)
-        load_trainable(self.model, trainable)
-        metrics.model_size_gb = model_size_gb(trainable)
+        if self.adapters:
+            # the model computes with the final global adapters
+            lora.attach(self.model, trainable)
+        else:
+            load_trainable(self.model, trainable)
+        metrics.model_size_gb = model_size_gb(
+            dict(self.model.named_parameters()))
         metrics.resources = monitor.snapshot()
         metrics.phases = clock.summary()
         raw, wire = self._raw_bytes_per_client, self._wire_bytes_per_client
@@ -956,18 +1102,28 @@ class FedEngine:
 
     # ------------------------------------------------------ checkpoint/resume
 
+    def _lora_format(self) -> str:
+        """The LoRA layout's identity: ``full`` (no adapters), ``r<k>``
+        (uniform) or ``ranks:<per-client spec>``."""
+        cfg = self.cfg
+        if cfg.lora_rank <= 0:
+            return "full"
+        ranks = cfg.client_lora_ranks
+        if ranks is None or len(set(ranks)) <= 1:
+            return f"r{cfg.lora_rank}"
+        return "ranks:" + ",".join(str(r) for r in ranks)
+
     def _identity(self) -> Dict[str, np.ndarray]:
         """What a checkpoint records of the run's identity, checked on
         resume: the seed, the codec's wire format, the PRNG scheme, the
-        LoRA layout and the cohort sizes (the port runs full fine-tuning
-        without cohorts: ``"full"`` and 0)."""
+        LoRA layout and the cohort sizes."""
         return {
             "seed": np.int64(self.cfg.seed),
             "compress_format": _text(cc.wire_format(self._comp)),
             "prng_impl_name": _text(self._prng_name),
-            "lora_format": _text("full"),
-            "registry_size": np.int64(0),
-            "sample_clients": np.int64(0),
+            "lora_format": _text(self._lora_format()),
+            "registry_size": np.int64(self.cfg.registry_size),
+            "sample_clients": np.int64(self.C if self.sampling else 0),
         }
 
     def _restore(self, restored):
@@ -991,10 +1147,11 @@ class FedEngine:
                     "resuming would change the wire format under the "
                     "carried error-feedback state")
         ck_lora = state.get("lora_format")
-        if ck_lora is not None and _untext(ck_lora) != "full":
+        here = self._lora_format()
+        if ck_lora is not None and _untext(ck_lora) != here:
             raise ValueError(
                 f"checkpoint was written with LoRA layout "
-                f"{_untext(ck_lora)!r} but this run has 'full': resuming "
+                f"{_untext(ck_lora)!r} but this run has {here!r}: resuming "
                 "would reinterpret the checkpointed adapter (and "
                 "error-feedback) trees under a different rank layout")
         ck_seed = state.get("seed")
@@ -1003,14 +1160,24 @@ class FedEngine:
                 f"checkpoint was written with seed {int(ck_seed)} but "
                 f"config has seed {cfg.seed}: resuming would break the "
                 "per-(client, round) RNG stream")
+        # the sampler is a pure function of (seed, registry_size,
+        # sample_clients, round): with the seed these pin every remaining
+        # round's cohort
         ck_reg = state.get("registry_size")
-        if ck_reg is not None and (int(ck_reg) != 0
-                                   or int(state.get("sample_clients", 0))):
+        want_sc = self.C if self.sampling else 0
+        if ck_reg is not None:
+            ck_sc = int(state.get("sample_clients", 0))
+            if int(ck_reg) != cfg.registry_size or ck_sc != want_sc:
+                raise ValueError(
+                    "checkpoint was written with registry_size="
+                    f"{int(ck_reg)}/sample_clients={ck_sc} but this run "
+                    f"has {cfg.registry_size}/{want_sc}: resuming would "
+                    "change the per-round cohort stream")
+        elif self.sampling:
             raise ValueError(
-                "checkpoint was written with registry_size="
-                f"{int(ck_reg)}/sample_clients="
-                f"{int(state.get('sample_clients', 0))} but this run has "
-                "0/0: resuming would change the per-round cohort stream")
+                "checkpoint predates cohort mode (no registry_size "
+                "recorded) but this run samples a registry: resuming "
+                "would change every remaining round's cohort")
         # floats take the configured param dtype, whatever wrote them
         pd = DTYPES[cfg.param_dtype]
 
@@ -1026,6 +1193,10 @@ class FedEngine:
             # re-injects exactly what the uninterrupted run would carry
             self._ef = {p: x.to(self.device, torch.float32)
                         for p, x in state["ef_residual"].items()}
+        if self._ef_reg is not None:
+            # cohort mode: the residuals per registry client (ef_ids,
+            # ef_registry); each round gathers its cohort's rows
+            self._ef_reg.restore(state)
         if self.reputation is not None and state.get("rep_trust") is not None:
             self.reputation.restore(
                 {k: v.numpy() for k, v in state.items()
@@ -1042,9 +1213,14 @@ class FedEngine:
             return
         with self.clock.phase("checkpoint"):
             state = {"trainable": trainable, "stacked": stacked,
-                     # the error-feedback residual (None without a codec)
-                     "ef_residual": self._ef}
+                     # the error-feedback residual (None without a codec;
+                     # cohort mode stores the registry's rows instead of
+                     # the last cohort's gathered view)
+                     "ef_residual": (self._ef if self._ef_reg is None
+                                     else None)}
             state.update(self._identity())
+            if self._ef_reg is not None:
+                state.update(self._ef_reg.checkpoint_state())
             if self.reputation is not None:
                 # trust, states, timers and counters: the lifecycle resumes
                 # exactly where the crash left it

@@ -163,6 +163,9 @@ class RoundRecord:
     # async staleness (global version - client version) at this aggregation
     # event, for each client (async mode only)
     staleness: Optional[List[int]] = None
+    # cohort mode: the round's sampled registry ids in slot order; every
+    # other per-client field stays slot-aligned (None = sampling off)
+    cohort: Optional[List[int]] = None
     info_passing_sync_s: Optional[float] = None
     info_passing_async_s: Optional[float] = None
     # what this round's update exchange shipped across all clients: the
@@ -170,6 +173,9 @@ class RoundRecord:
     bytes_raw: Optional[float] = None
     bytes_on_wire: Optional[float] = None
     compression_ratio: Optional[float] = None
+    # LoRA: mean Shannon effective rank of the global adapter tree after
+    # the round's aggregation (None without LoRA)
+    effective_rank: Optional[float] = None
     # host wall seconds of the round, ending after the device finished
     wall_s: float = 0.0
 

@@ -1,5 +1,6 @@
-"""Model registry: port of ``bcfl_tpu/models/__init__.py`` (encoder family;
-the Llama configs are not ported yet)."""
+"""Model registry: port of ``bcfl_tpu/models/__init__.py`` (the encoder
+family and the Llama family; ``build(head="lm")`` builds the causal-LM
+variant of a Llama model; ``tp_param_specs`` is not ported)."""
 
 from __future__ import annotations
 
@@ -7,8 +8,12 @@ import dataclasses
 from typing import Dict
 
 import torch
+from torch import nn
 
+from bcfl_tpu_torch.models import lora
 from bcfl_tpu_torch.models.bert import EncoderConfig, TextClassifier
+from bcfl_tpu_torch.models.llama import (LORA_TARGETS, LlamaClassifier,
+                                         LlamaConfig, LlamaLM)
 
 _CONFIGS: Dict[str, EncoderConfig] = {
     # test/bench scale-downs
@@ -37,27 +42,51 @@ _CONFIGS: Dict[str, EncoderConfig] = {
                                    intermediate_size=3072),
 }
 
-_NOT_PORTED = ("tiny-llama", "llama2-7b")
+_LLAMA_CONFIGS: Dict[str, LlamaConfig] = {
+    # test scale-down (GQA exercised: 4 heads, 2 kv heads)
+    "tiny-llama": LlamaConfig(vocab_size=8192, hidden_size=128, num_layers=2,
+                              num_heads=4, num_kv_heads=2,
+                              intermediate_size=384, max_position=512),
+    # Llama-2-7B (the LoRA federated fine-tune configuration)
+    "llama2-7b": LlamaConfig(vocab_size=32000, hidden_size=4096,
+                             num_layers=32, num_heads=32,
+                             intermediate_size=11008, max_position=4096),
+}
 
 
-def get_config(name: str, **overrides) -> EncoderConfig:
+def get_config(name: str, **overrides):
     if name in _CONFIGS:
         return dataclasses.replace(_CONFIGS[name], **overrides)
-    if name in _NOT_PORTED:
-        raise ValueError(f"model={name!r} is not ported yet (Llama family)")
+    if name in _LLAMA_CONFIGS:
+        return dataclasses.replace(_LLAMA_CONFIGS[name], **overrides)
     raise KeyError(f"unknown model {name!r}; have {list_models()}")
 
 
 def list_models():
-    return sorted(_CONFIGS)
+    return sorted(_CONFIGS) + sorted(_LLAMA_CONFIGS)
 
 
-def build(name: str, head: str = "classifier", **overrides) -> TextClassifier:
-    """Build the named encoder classifier (``head="lm"`` needs a decoder,
-    and the Llama family is not ported yet)."""
-    if head != "classifier":
-        raise ValueError(f"head={head!r} is not ported yet")
-    return TextClassifier(get_config(name, **overrides))
+def build(name: str, head: str = "classifier", **overrides) -> nn.Module:
+    """Build the named model; both families share the forward signature
+    ``model(ids, mask, deterministic=..., generator=...) -> logits``.
+    ``head="lm"`` builds the causal-LM variant (``[B, S, vocab]`` logits;
+    Llama family only: an encoder sees every token, so next-token training
+    would leak the target)."""
+    cfg = get_config(name, **overrides)
+    if name not in _CONFIGS:
+        return LlamaLM(cfg) if head == "lm" else LlamaClassifier(cfg)
+    if head == "lm":
+        raise ValueError(
+            f"model {name!r} is an encoder: causal-LM training needs a "
+            "decoder (llama family)")
+    return TextClassifier(cfg)
+
+
+def lora_targets(name: str):
+    """Module names whose kernels get LoRA adapters, per model family."""
+    if name not in _CONFIGS and name in _LLAMA_CONFIGS:
+        return LORA_TARGETS
+    return lora.DEFAULT_TARGETS
 
 
 def full_float32_matmuls() -> None:

@@ -73,9 +73,14 @@ class EncoderConfig:
 
 def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype
           ) -> torch.Tensor:
-    """flax ``Dense(dtype=...)``: input, kernel and bias cast to ``dtype``."""
-    return F.linear(x.to(dtype), layer.weight.to(dtype),
-                    layer.bias.to(dtype))
+    """flax ``Dense(dtype=...)``: input, kernel and bias (if any) cast to
+    ``dtype``. A layer carrying LoRA adapters
+    (:func:`bcfl_tpu_torch.models.lora.attach`) takes its merged weight
+    and bias from them."""
+    merge = layer.__dict__.get("lora")
+    w, b = (layer.weight, layer.bias) if merge is None else merge(layer)
+    return F.linear(x.to(dtype), w.to(dtype),
+                    None if b is None else b.to(dtype))
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype
@@ -267,7 +272,8 @@ class TextClassifier(nn.Module):
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Fresh init with flax's initializers: dense kernels lecun-normal
     (truncated normal, std sqrt(1/fan_in)/0.8796, cut at 2 std), biases 0,
-    embeddings normal(0, 1/sqrt(features)), LayerNorm scale 1 / bias 0.
+    embeddings normal(0, 1/sqrt(features)), LayerNorm scale 1 / bias 0,
+    RMSNorm scale 1.
     The draws are PyTorch's, not threefry's, taken in float32 and cast to
     the params' dtype."""
 
@@ -281,7 +287,8 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
             std = math.sqrt(1.0 / mod.in_features) / .87962566103423978
             drawn(mod.weight, lambda x: nn.init.trunc_normal_(
                 x, std=std, a=-2 * std, b=2 * std, generator=generator))
-            nn.init.zeros_(mod.bias)
+            if mod.bias is not None:
+                nn.init.zeros_(mod.bias)
         elif isinstance(mod, nn.Embedding):
             drawn(mod.weight, lambda x: nn.init.normal_(
                 x, std=math.sqrt(1.0 / mod.embedding_dim),
@@ -289,3 +296,5 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(mod, nn.LayerNorm):
             nn.init.ones_(mod.weight)
             nn.init.zeros_(mod.bias)
+        elif isinstance(mod, nn.RMSNorm):
+            nn.init.ones_(mod.weight)

@@ -4,20 +4,27 @@ its path keys are ``compression/codecs.py::_path_name``'s).
 A flax leaf path such as ``encoder/layer_0/attention/query/kernel`` maps to
 the state-dict key ``encoder.layer_0.attention.query.weight``. Layouts:
 
-==========================  =======================  ======================
-flax leaf                    flax shape               PyTorch parameter
-==========================  =======================  ======================
-q/k/v ``kernel``             [hidden, heads, hdim]    weight [heads*hdim, hidden]
-q/k/v ``bias``               [heads, hdim]            bias [heads*hdim]
-attention ``out/kernel``     [heads, hdim, hidden]    weight [hidden, heads*hdim]
-other ``kernel``             [in, out]                weight [out, in]
-``scale`` / ``embedding``    as is                    weight
-==========================  =======================  ======================
+===============================  =====================  =====================
+flax leaf                         flax shape             PyTorch parameter
+===============================  =====================  =====================
+q/k/v, q/k/v_proj ``kernel``      [hidden, heads, hdim]  weight [heads*hdim, hidden]
+q/k/v ``bias``                    [heads, hdim]          bias [heads*hdim]
+``out``/``o_proj`` ``kernel``     [heads, hdim, hidden]  weight [hidden, heads*hdim]
+other ``kernel`` (gate/up/down)   [in, out]              weight [out, in]
+``scale`` (LayerNorm, RMSNorm)    as is                  weight
+``embedding``                     as is                  weight
+===============================  =====================  =====================
+
+(k/v_proj carry ``kv_heads`` heads under grouped-query attention.)
 
 The federated round and the codec see a model's trainable tree in the JAX
 leaf order and shapes (:func:`trainable_tree`), so the codec's grouping by
 width, its per-leaf indices and its payload keys are those of the JAX
-package.
+package. A LoRA adapter tree (:mod:`bcfl_tpu_torch.models.lora`) is one
+flat dict too, keyed by the JAX adapter tree's leaf names
+(``model/layer_0/attention/q_proj/a``, ``classifier/kernel/full``) in its
+flatten order (:func:`adapter_order`); :func:`from_flax_adapters` and
+:func:`to_flax_adapters` carry it across.
 """
 
 from __future__ import annotations
@@ -29,9 +36,10 @@ import numpy as np
 import torch
 from torch import nn
 
-_QKV = ("query", "key", "value")
+_QKV = ("query", "key", "value", "q_proj", "k_proj", "v_proj")
+_OUT = ("out", "o_proj")
 _WEIGHT_LEAF = {nn.Linear: "kernel", nn.Embedding: "embedding",
-                nn.LayerNorm: "scale"}
+                nn.LayerNorm: "scale", nn.RMSNorm: "scale"}
 
 
 def jax_order(paths) -> List[str]:
@@ -53,7 +61,7 @@ def _kind(path: str, ndim: int) -> str:
         return "qkv_kernel"
     if leaf == "bias" and mod in _QKV:
         return "qkv_bias"
-    if leaf == "kernel" and mod == "out" and ndim == 3:
+    if leaf == "kernel" and mod in _OUT and ndim == 3:
         return "out_kernel"
     if leaf == "kernel":
         return "kernel"
@@ -84,7 +92,7 @@ class LeafSpec:
 def leaf_specs(model: nn.Module) -> List[LeafSpec]:
     """Every parameter of ``model`` with its flax path and shape, in JAX
     flatten order."""
-    heads = model.cfg.num_heads
+    hd = model.cfg.head_dim
     modules = dict(model.named_modules())
     specs = []
     for key, p in model.named_parameters():
@@ -95,11 +103,11 @@ def leaf_specs(model: nn.Module) -> List[LeafSpec]:
         last = mod_name.split(".")[-1]
         shape = tuple(p.shape)
         if jleaf == "kernel" and last in _QKV:
-            shape = (shape[1], heads, shape[0] // heads)
+            shape = (shape[1], shape[0] // hd, hd)
         elif jleaf == "bias" and last in _QKV:
-            shape = (heads, shape[0] // heads)
-        elif jleaf == "kernel" and last == "out":
-            shape = (heads, shape[1] // heads, shape[0])
+            shape = (shape[0] // hd, hd)
+        elif jleaf == "kernel" and last in _OUT:
+            shape = (shape[1] // hd, hd, shape[0])
         elif jleaf == "kernel":
             shape = (shape[1], shape[0])
         specs.append(LeafSpec(path, key, shape))
@@ -169,4 +177,31 @@ def to_flax(model: nn.Module) -> dict:
         for part in parts[:-1]:
             node = node.setdefault(part, {})
         node[parts[-1]] = t.cpu().numpy()
+    return out
+
+
+def adapter_order(paths) -> List[str]:
+    """Adapter leaf names (``<target>/a``, ``<target>/b``,
+    ``<head leaf>/full``) in the JAX adapter tree's flatten order: the
+    tree is a dict keyed by whole ``/``-joined target paths, which
+    ``jax.tree_util`` sorts as strings, each holding ``a``/``b`` or
+    ``full``."""
+    return sorted(paths, key=lambda p: tuple(p.rsplit("/", 1)))
+
+
+def from_flax_adapters(adapters) -> Dict[str, torch.Tensor]:
+    """A JAX adapter tree (``{target: {"a", "b"} | {"full"}}``, numpy or
+    array-like leaves, with or without a leading client axis) -> the
+    port's flat adapter dict in JAX leaf order and layout."""
+    flat = {f"{k}/{sub}": _tensor(v)
+            for k, entry in adapters.items() for sub, v in entry.items()}
+    return {p: flat[p] for p in adapter_order(flat)}
+
+
+def to_flax_adapters(tree: Dict[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`from_flax_adapters`, as numpy leaves."""
+    out: dict = {}
+    for path, t in tree.items():
+        key, sub = path.rsplit("/", 1)
+        out.setdefault(key, {})[sub] = t.detach().cpu().numpy()
     return out

@@ -1,5 +1,6 @@
 """Client-axis aggregation and gossip: port of ``bcfl_tpu/parallel/gspmd.py``
-(``masked_weighted_mean``, the robust rules ``masked_trimmed_mean``,
+(``masked_weighted_mean``, ``hierarchical_weighted_mean`` (cohort mode),
+``rank_aware_weighted_mean`` (RBLA), the robust rules ``masked_trimmed_mean``,
 ``masked_median``, ``masked_krum`` and ``make_aggregator``, ``ring_shift``,
 ``gossip_mix``, ``gossip_mix_recv``, ``mix_with_matrix``) and of
 ``parallel/collectives.py::gossip_step_mix``, the mixing rule.
@@ -40,6 +41,67 @@ def masked_weighted_mean(tree: Tree, weights: torch.Tensor,
         mean = (_col(weights, x) * x).sum(dim=0) / torch.clamp(
             den, min=EPS).to(x.dtype)
         fb = x.mean(dim=0) if fallback is None else fallback[p]
+        out[p] = torch.where(empty, fb.to(mean.dtype), mean)
+    return out
+
+
+def hierarchical_weighted_mean(tree: Tree, weights: torch.Tensor,
+                               groups: int,
+                               fallback: Optional[Tree] = None) -> Tree:
+    """Two-level masked weighted mean (cohort mode): the ``[C]`` axis
+    splits into ``[groups, C / groups]``, each group (one device's slice of
+    the cohort in JAX) is summed first, then the partial sums. The math of
+    :func:`masked_weighted_mean` up to the summation order; ``groups <= 1``
+    or a ``C`` it does not divide is that function exactly."""
+    C = int(weights.shape[0])
+    if groups <= 1 or C % groups:
+        return masked_weighted_mean(tree, weights, fallback=fallback)
+    per = C // groups
+    den = weights.sum()
+    empty = den <= EPS
+    out = {}
+    for p, x in tree.items():
+        part = (_col(weights, x) * x).reshape(
+            (groups, per) + tuple(x.shape[1:])).sum(dim=1)
+        mean = part.sum(dim=0) / torch.clamp(den, min=EPS).to(x.dtype)
+        fb = x.mean(dim=0) if fallback is None else fallback[p]
+        out[p] = torch.where(empty, fb.to(mean.dtype), mean)
+    return out
+
+
+def rank_aware_weighted_mean(tree: Tree, weights: torch.Tensor,
+                             rank_mask: torch.Tensor,
+                             fallback: Optional[Tree] = None) -> Tree:
+    """RBLA weighted mean (arXiv 2408.08699) over a heterogeneous-rank
+    stacked adapter tree: every client is zero-padded to the fleet's
+    maximum rank R and ``rank_mask`` ``[C, R]`` marks its real rank dims.
+    Per rank dim, ``a`` leaves (``[C, fan_in, R]``) and ``b`` leaves
+    (``[C, R, fan_out]``) average over the clients that hold the dim,
+    normalized by their weights; a dim no participating client holds keeps
+    ``fallback``. ``full`` head leaves take the plain weighted mean; an
+    all-masked round returns ``fallback``."""
+    den_all = weights.sum()
+    empty = den_all <= EPS
+    R = int(rank_mask.shape[1])
+    out = {}
+    for p, x in tree.items():
+        last = p.rsplit("/", 1)[-1]
+        fb = x.mean(dim=0) if fallback is None else fallback[p]
+        if last in ("a", "b") and x.dim() == 3 and x.shape[
+                -1 if last == "a" else 1] == R:
+            w = (weights[:, None] * rank_mask).to(x.dtype)  # [C, R]
+            den = w.sum(dim=0)  # [R]
+            if last == "a":
+                num = torch.einsum("cj,cfj->fj", w, x)
+                den_b = den[None, :]
+            else:
+                num = torch.einsum("cj,cjf->jf", w, x)
+                den_b = den[:, None]
+            mean = num / torch.clamp(den_b, min=EPS)
+            mean = torch.where(den_b > EPS, mean, fb.to(mean.dtype))
+        else:
+            mean = (_col(weights, x) * x).sum(dim=0) / torch.clamp(
+                den_all, min=EPS).to(x.dtype)
         out[p] = torch.where(empty, fb.to(mean.dtype), mean)
     return out
 
@@ -199,16 +261,22 @@ def make_aggregator(name: str, trim: float = 0.2,
                     rank_mask: Optional[torch.Tensor] = None):
     """``(tree, weights, fallback) -> tree`` for the configured rule:
     ``mean`` is the weighted FedAvg mean, the robust rules treat
-    ``weights`` as a participation mask. The JAX builder's
-    ``hierarchical_groups`` (cohort mode) and ``rank_mask`` (heterogeneous
-    LoRA ranks) belong to modules the port does not have yet."""
+    ``weights`` as a participation mask. ``hierarchical_groups > 1`` makes
+    ``mean`` the two-level :func:`hierarchical_weighted_mean` (cohort mode;
+    the robust rules ignore it: their order statistics are global).
+    ``rank_mask`` ``[C, R]`` (heterogeneous LoRA ranks) makes ``mean`` the
+    RBLA :func:`rank_aware_weighted_mean` and rejects any other rule."""
     if rank_mask is not None:
-        raise ValueError("rank_mask (rank-aware aggregation of heterogeneous "
-                         "LoRA ranks) is not ported yet (see ROADMAP.md)")
-    if hierarchical_groups > 1:
-        raise ValueError("hierarchical_groups (cohort mode's two-level mean) "
-                         "is not ported yet (see ROADMAP.md)")
+        if name != "mean":
+            raise ValueError(
+                f"rank-aware aggregation (heterogeneous LoRA ranks) is "
+                f"defined for the mean only, got aggregator {name!r}")
+        return lambda t, w, fb: rank_aware_weighted_mean(
+            t, w, rank_mask, fallback=fb)
     if name == "mean":
+        if hierarchical_groups > 1:
+            return lambda t, w, fb: hierarchical_weighted_mean(
+                t, w, hierarchical_groups, fallback=fb)
         return lambda t, w, fb: masked_weighted_mean(t, w, fallback=fb)
     if name == "trimmed_mean":
         return lambda t, w, fb: masked_trimmed_mean(t, w, trim, fallback=fb)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``bcfl_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # phases 1-4, paths (a)-(j)
+    python3 chip_smoke.py              # phases 1-4, paths (a)-(l)
     python3 chip_smoke.py --profile    # phases 1-4, then 5
 
 Phases, each of which raises (and the script exits non-zero) on failure:
@@ -25,7 +25,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    rows (bert-base-B4-S512 with ragged padding, llama-decode-B1-S2048
    causal), the seq-512 path's own [32, 12, 512, 64] call with its
    padding, a ragged S=300, a suffix-causal Sq=128 / Sk=512, a row whose
-   keys are all padded, and head dims 32 and 128 in both dtypes. One line
+   keys are all padded, head dims 32 and 128 in both dtypes, and the Llama
+   paths' call [8, 32, 512, 128] bf16 causal with their own padding and
+   with ragged rows, both at Llama's -1e30 key bias. One line
    per kernel and shape:
    kernel ms, plain ms, bound ms and a PyTorch yardstick the port never
    calls (``torch.topk``; ``scaled_dot_product_attention`` forward for the
@@ -97,7 +99,25 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    rule's aggregate of the captured round lies inside the clean clients'
    range and equals the same call on the CPU (median and krum bit for
    bit, trimmed_mean to rtol 1e-6); the rules' ms per call and the peak
-   memory print, and K5/K4 are held at (j)'s 10-client calls.
+   memory print, and K5/K4 are held at (j)'s 10-client calls. Then the
+   Llama paths at llama2-7b's full width (32 layers, hidden 4096, 32
+   heads of 128, FFN 11008, vocab 32000; random weights from the seed,
+   float32 base, bf16 compute, remat, 8 x 512 tokens of the long
+   documents, causal flash attention, 2 local steps, 2 rounds,
+   ``int8+topk`` over the adapter tree), each with the counts set to 0
+   just before it and read just after: (k) the north-star configuration,
+   LoRA rank 8 classification in cohort mode (a registry of 64 clients, 4
+   sampled a round; seed 42 draws [6, 12, 49, 52] then [1, 6, 13, 57])
+   with the ledger: the cohorts, client 6's residual row gathered in
+   round 1 equal bit for bit to what round 0 scattered and nonzero,
+   ``chain_ok``, the effective rank, the adapters' size against the
+   base's, and K1-K3 held on the path's own first flash call; (l)
+   causal-LM LoRA at per-client ranks 4, 8, 8, 16 (RBLA mean; the
+   ``lm_head`` carries an adapter): every client's padded rank dims
+   exactly 0 in its trained tree, its shipped delta and its residual in
+   both rounds. Both check that every flash call ran the causal bf16
+   D = 128 instances and the launch counts (K2 and K3 once per layer and
+   step), and hold K5/K4 at their calls.
 4. ``reference``: on small inputs, a tiny-bert server round on the card
    against the same round on the CPU (float32, dropout off, at the
    tolerance of ``tests/test_torch_round.py``), with dense attention at
@@ -107,8 +127,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ON against the same round without remat (gradients and round equal to
    1e-6 of their scale); a float16-compute dense round card vs CPU.
 5. ``profile`` (only with ``--profile``): one warm round of paths (a),
-   (b) and (c) split into its stages (local training, codec, FedAvg mean;
-   for (c) training, codec, ledger and gossip mix) on the host clock, and
+   (b), (c) and (k) (without its ledger) split into its stages (local
+   training, codec, FedAvg mean; for (c) training, codec, ledger and
+   gossip mix) on the host clock, and
    under ``torch.profiler``: the device's busy share and the kernels by
    device time.
 
@@ -406,11 +427,11 @@ def leaf_k(n: int) -> int:
 FLASH_OPS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 
 
-def flash_inputs(gen, B, H, Sq, Sk, D, dtype, lens):
+def flash_inputs(gen, B, H, Sq, Sk, D, dtype, lens, neg=-1e9):
     """q, k, v, dO in the model's layout (``view(B, S, H, D)
     .transpose(1, 2)``, not contiguous) and the ``[B, Sk]`` padding bias
-    (-1e9 past each row's length in ``lens``; none when ``lens`` is
-    None)."""
+    (``neg`` past each row's length in ``lens``: the encoders' -1e9, or
+    Llama's -1e30; none when ``lens`` is None)."""
     def draw(S):
         return torch.randn((B, S, H, D), generator=gen, device="cuda").to(
             dtype).transpose(1, 2)
@@ -420,7 +441,7 @@ def flash_inputs(gen, B, H, Sq, Sk, D, dtype, lens):
     if lens is not None:
         keep = (torch.arange(Sk, device="cuda")[None, :]
                 < torch.tensor(lens, device="cuda")[:, None])
-        bias = torch.where(keep, 0.0, -1e9)
+        bias = torch.where(keep, 0.0, neg)
     return q, k, v, do, bias
 
 
@@ -459,11 +480,11 @@ def sdpa_ms(q, k, v, do, bias, causal, iters):
 
 
 def flash_case(fk, stats, gen, label, B, H, Sq, Sk, D, dtype, causal, lens,
-               iters):
+               iters, neg=-1e9):
     """Hold the three flash kernels to their plain versions (out and lse;
     dk, dv and db_h; dq) at the op's bf16 ``parity`` or at ``F32_PARITY``,
     and time them. Returns ``{op: (ms, plain, bound, bound_by, sdpa)}``."""
-    q, k, v, do, bias = flash_inputs(gen, B, H, Sq, Sk, D, dtype, lens)
+    q, k, v, do, bias = flash_inputs(gen, B, H, Sq, Sk, D, dtype, lens, neg)
     return flash_hold(fk, stats, label, q, k, v, do, bias, causal, iters)
 
 
@@ -542,8 +563,10 @@ def flash_routes(fk):
                   flush=True)
 
 
-def phase_flash_kernels(fk, stats, main_lens):
-    """Every flash case; returns the times of the seq-512 path's call."""
+def phase_flash_kernels(fk, stats, main_lens, llama_lens):
+    """Every flash case; returns the times of the seq-512 path's call and
+    of the Llama paths' call ((k), (l): [8, 32, 512, 128] bf16, causal,
+    their own padded lengths at -1e30)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4321)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -579,11 +602,18 @@ def phase_flash_kernels(fk, stats, main_lens):
                          causal, lens, 20 if main else 5)
         if main:
             main_per = per
-    return main_per
+    # the Llama paths' call with their own padding at Llama's -1e30, and
+    # a ragged batch at that bias (the long documents fill 512 positions)
+    llama_per = flash_case(fk, stats, gen, "llama-path", 8, 32, 512, 512,
+                           128, bf16, True, llama_lens, 20, neg=-1e30)
+    flash_case(fk, stats, gen, "llama-ragged", 8, 32, 512, 512, 128, bf16,
+               True, (512, 377, 200, 65, 1, 300, 511, 450), 5, neg=-1e30)
+    return main_per, llama_per
 
 
-def phase_kernels(ck, fk, stats, main_lens):
-    """Returns the flash kernels' times at the seq-512 path's call."""
+def phase_kernels(ck, fk, stats, main_lens, llama_lens):
+    """Returns the flash kernels' times at the seq-512 path's call and at
+    the Llama paths' call."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1234)
     s4, s5 = stats["int8_quantize"], stats["topk_select"]
@@ -613,7 +643,7 @@ def phase_kernels(ck, fk, stats, main_lens):
     for k in (1, 3, 4099):
         topk_case(ck, s5, x, k, f"negzero-k{k}", 5)
     nonfinite_rows(ck, gen)
-    return phase_flash_kernels(fk, stats, main_lens)
+    return phase_flash_kernels(fk, stats, main_lens, llama_lens)
 
 
 def main_path_calls(template, comp, C):
@@ -1643,6 +1673,262 @@ def phase_resilience(ck, stats, smi, dataset):
     path_robust(ck, stats, smi)
 
 
+# ----------------------------------------------------------- llama paths
+
+#: (k)'s cohorts with seed 42: client 6 is drawn in both rounds, so its
+#: round-0 residual is gathered back in round 1
+LLAMA_COHORTS = [[6, 12, 49, 52], [1, 6, 13, 57]]
+#: (l)'s per-client adapter ranks
+LLAMA_RANKS = "4,8,8,16"
+
+
+def llama_config(dataset: str, **kw):
+    """llama2-7b at full width (32 layers, hidden 4096, 32 heads of 128,
+    FFN 11008, vocab 32000 through the hash tokenizer), random weights from
+    the seed, float32 parameters (the frozen base is 6.74 B x 4 bytes),
+    bf16 compute, remat, 8 x 512 tokens of the long documents (flash
+    attention, causal: the family's default from 512 tokens), 2 local
+    steps, 2 rounds, 4 clients, ``int8+topk`` over the adapter tree, 2
+    evaluation batches."""
+    from bcfl_tpu_torch.compression import CompressionConfig
+    from bcfl_tpu_torch.config import FedConfig
+
+    base = dict(
+        name="chip-smoke-llama2-7b-lora", model="llama2-7b", mode="server",
+        num_clients=4, num_rounds=2, seq_len=512, batch_size=8,
+        max_local_batches=2, dataset=dataset, vocab_size=32000,
+        param_dtype="float32", compute_dtype="bfloat16", remat=True,
+        max_eval_batches=2, compression=CompressionConfig(kind="int8+topk"))
+    base.update(kw)
+    return FedConfig(**base)
+
+
+def spy_llama_flash(calls):
+    """Record every flash call the Llama model makes (shape, dtype,
+    causal; nothing that waits for the device) and keep the first call's
+    q, k, v and key bias; returns the function that restores the real
+    one."""
+    import bcfl_tpu_torch.models.llama as llama
+
+    real = llama.flash_attention
+
+    def spy(q, k, v, bias=None, causal=False):
+        calls.append((tuple(q.shape), q.dtype, causal))
+        if len(calls) == 1:
+            calls.append((q.detach(), k.detach(), v.detach(), bias.detach()))
+        return real(q, k, v, bias, causal)
+
+    llama.flash_attention = spy
+
+    def restore():
+        llama.flash_attention = real
+
+    return restore
+
+
+def check_llama_flash(label, calls):
+    """Every flash call of the path ran the causal bf16 D = 128 instances
+    at [8, 32, 512, 128] (``calls[1]`` holds the first call's tensors);
+    returns the first call's tensors."""
+    first = calls.pop(1)
+    shapes = set(calls)
+    want = {((8, 32, 512, 128), torch.bfloat16, True)}
+    if shapes != want:
+        raise RuntimeError(f"{label}: flash calls {shapes}, not {want}")
+    return first
+
+
+def llama_launch_check(label, cfg, launches, layers):
+    """K2 and K3 launch once per layer of every training step; K1 once
+    more per step for the remat recompute, plus the evaluation forwards;
+    K4 once per round, K5 at least once per round."""
+    train = cfg.num_rounds * cfg.num_clients * cfg.max_local_batches * layers
+    if (launches["flash_bwd_dkv"] != train or launches["flash_bwd_dq"] != train
+            or launches["flash_fwd"] < 2 * train
+            or launches["int8_quantize"] != cfg.num_rounds
+            or launches["topk_select"] < cfg.num_rounds):
+        raise RuntimeError(f"{label}: launches {launches}, training calls "
+                           f"{train}")
+
+
+def path_llama_cohort(ck, fk, stats, smi, dataset, llama_per):
+    """Path (k): the north-star configuration, Llama-2-7B LoRA (rank 8)
+    classification in cohort mode: a registry of 64 clients, 4 sampled per
+    round, server FedAvg, ``int8+topk`` over the adapter tree with error
+    feedback, the ledger on. The re-sampled client's residual is gathered
+    back; K1-K3 held on the path's own first flash call."""
+    from bcfl_tpu_torch.config import LedgerConfig
+    from bcfl_tpu_torch.fed import cohort
+    from bcfl_tpu_torch.models import lora
+
+    label = "llama cohort path (k)"
+    cfg = llama_config(dataset, name="chip-smoke-llama2-7b-lora-cohort",
+                       lora_rank=8, registry_size=64, sample_clients=4,
+                       cohort_size=4, ledger=LedgerConfig(enabled=True))
+    # per round: {registry id: its residual row}, as scattered after the
+    # round and as gathered before it
+    rows = {"scatter": [], "gather": []}
+    scatter, gather = cohort.EFRegistry.scatter, cohort.EFRegistry.gather
+
+    def by_id(ids, stacked):
+        return {int(i): {p: x[pos].detach().cpu().clone()
+                         for p, x in stacked.items()}
+                for pos, i in enumerate(ids)}
+
+    def spy_scatter(reg, ids, stacked):
+        scatter(reg, ids, stacked)
+        rows["scatter"].append(by_id(ids, stacked))
+
+    def spy_gather(reg, ids, device=None):
+        out = gather(reg, ids, device)
+        rows["gather"].append(by_id(ids, out))
+        return out
+
+    calls = []
+    cohort.EFRegistry.scatter, cohort.EFRegistry.gather = (spy_scatter,
+                                                           spy_gather)
+    restore = spy_llama_flash(calls)
+    try:
+        result, launches, peak = drive(cfg, smi, label)
+    finally:
+        cohort.EFRegistry.scatter, cohort.EFRegistry.gather = scatter, gather
+        restore()
+    count_launches(stats, launches)
+    recs = result.metrics.rounds
+    model = result.model
+    layers = model.cfg.num_layers
+    llama_launch_check(label, cfg, launches, layers)
+    if [r.cohort for r in recs] != LLAMA_COHORTS:
+        raise RuntimeError(f"{label}: cohorts {[r.cohort for r in recs]}, "
+                           f"not {LLAMA_COHORTS}")
+    back, sent = rows["gather"][1][6], rows["scatter"][0][6]
+    if not held("bit-identical", [(back[p], sent[p]) for p in sent])[0]:
+        raise RuntimeError(f"{label}: client 6's residual gathered in round "
+                           "1 differs from what round 0 scattered")
+    energy = sum(float(x.abs().sum()) for x in back.values())
+    if not energy > 0:
+        raise RuntimeError(f"{label}: client 6's gathered residual is zero")
+    if any(float(x.abs().sum()) for x in rows["gather"][0][6].values()):
+        raise RuntimeError(f"{label}: client 6's round-0 residual is not "
+                           "the fresh zero row")
+    check_ledger(result, label)
+    n_adapter = lora.num_params(result.trainable)
+    n_base = sum(p.numel() for p in model.parameters())
+    for r in recs:
+        print(f"{label} round {r.round}: cohort {r.cohort}, wall "
+              f"{r.wall_s:.3f} s, bytes on wire {r.bytes_on_wire:.0f} "
+              f"(raw {r.bytes_raw:.0f}, ratio {r.compression_ratio:.3f}), "
+              f"effective rank {r.effective_rank:.4f}, train loss "
+              f"{r.train_loss:.5f}", flush=True)
+    print(f"{label}: client 6's residual row gathered back in round 1 bit "
+          f"for bit (|row|_1 {energy:.6e}); adapters {n_adapter} parameters "
+          f"against the base's {n_base} ({n_adapter / n_base:.5%}); peak "
+          f"memory {peak:.2f} GB; launches {launches}", flush=True)
+    q, k, v, bias = check_llama_flash(label, calls)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    flash_hold(fk, stats, "llama-cohort-path-own-call", q, k, v, do,
+               bias.float().contiguous(), True, 5)
+    template = result.trainable
+    del result, model, q, k, v, do, bias, rows
+    torch.cuda.empty_cache()
+    codec_calls(ck, stats, template, cfg.compression, cfg.num_clients,
+                "llama-cohort-path")
+    calls_per_round = cfg.num_clients * cfg.max_local_batches * layers
+    for name, (ms, plain, bnd, by, lib) in llama_per.items():
+        print(f"{name} per round of (k): {calls_per_round} training calls x "
+              f"{ms:.4f} ms = {ms * calls_per_round:.2f} ms (bound "
+              f"{bnd * calls_per_round:.2f} ms, plain "
+              f"{plain * calls_per_round:.2f} ms, sdpa "
+              f"{lib * calls_per_round:.2f} ms)", flush=True)
+    del template
+    torch.cuda.empty_cache()
+
+
+def path_llama_lm(ck, stats, smi, dataset):
+    """Path (l): causal-LM LoRA at per-client ranks 4, 8, 8, 16 (RBLA
+    mean), 4 clients, server, ``int8+topk``; the ``lm_head`` carries an
+    adapter and computes in float32. Each client's padded rank dims stay
+    exactly 0 in its trained tree, in the delta it ships and in its
+    residual, in both rounds (before and after an aggregate)."""
+    from bcfl_tpu_torch.fed import engine as eng_mod
+    from bcfl_tpu_torch.models import lora
+
+    label = "llama causal-LM path (l)"
+    cfg = llama_config(dataset, name="chip-smoke-llama2-7b-lora-lm",
+                       task="causal_lm", lora_ranks=LLAMA_RANKS)
+    ranks = cfg.client_lora_ranks
+    pads = []
+    encode = eng_mod.cs.encode_deltas
+
+    def padding_abs(tree):
+        """max |x| over every client's padded rank dims of a stacked
+        adapter tree."""
+        worst = 0.0
+        for p, x in tree.items():
+            last = p.rsplit("/", 1)[-1]
+            for c, r in enumerate(ranks):
+                if last == "a":
+                    worst = max(worst, float(x[c, :, r:].abs().max()
+                                             if r < x.shape[-1] else 0.0))
+                elif last == "b":
+                    worst = max(worst, float(x[c, r:].abs().max()
+                                             if r < x.shape[1] else 0.0))
+        return worst
+
+    def spy_encode(comp, new_t, ref_t, resid, uniforms, rmask=None):
+        payload, recon, resid = encode(comp, new_t, ref_t, resid, uniforms,
+                                       rmask)
+        dec = eng_mod.cc.decode_tree(comp, payload, new_t)
+        pads.append((padding_abs(new_t), padding_abs(dec),
+                     padding_abs(resid)))
+        return payload, recon, resid
+
+    calls = []
+    eng_mod.cs.encode_deltas = spy_encode
+    restore = spy_llama_flash(calls)
+    try:
+        result, launches, peak = drive(cfg, smi, label)
+    finally:
+        eng_mod.cs.encode_deltas = encode
+        restore()
+    count_launches(stats, launches)
+    recs = result.metrics.rounds
+    llama_launch_check(label, cfg, launches, result.model.cfg.num_layers)
+    check_llama_flash(label, calls)
+    if len(pads) != cfg.num_rounds or any(any(v != 0.0 for v in row)
+                                          for row in pads):
+        raise RuntimeError(f"{label}: padded rank dims |x| max per round "
+                           f"(trained, shipped, residual) {pads}, not 0")
+    if type(result.model).__name__ != "LlamaLM" or not any(
+            p.startswith("lm_head/") for p in result.trainable):
+        raise RuntimeError(f"{label}: no lm_head adapter")
+    for r in recs:
+        print(f"{label} round {r.round}: wall {r.wall_s:.3f} s, token loss "
+              f"{r.train_loss:.5f} (global {r.global_loss}), effective rank "
+              f"{r.effective_rank:.4f}, ratio {r.compression_ratio:.3f}",
+              flush=True)
+    print(f"{label}: ranks {ranks}; padded rank dims exactly 0 in every "
+          f"round's trained trees, shipped deltas and residuals; adapters "
+          f"{lora.num_params(result.trainable)} parameters; peak memory "
+          f"{peak:.2f} GB; launches {launches}", flush=True)
+    template = result.trainable
+    del result
+    torch.cuda.empty_cache()
+    codec_calls(ck, stats, template, cfg.compression, cfg.num_clients,
+                "llama-lm-path")
+    del template
+    torch.cuda.empty_cache()
+
+
+def phase_llama(ck, fk, stats, smi, dataset, llama_per):
+    """Paths (k) and (l) at llama2-7b's full width, each with the launch
+    counts set to 0 just before it and read just after."""
+    path_llama_cohort(ck, fk, stats, smi, dataset, llama_per)
+    path_llama_lm(ck, stats, smi, dataset)
+
+
 # -------------------------------------------------------------- profile
 
 
@@ -2163,17 +2449,23 @@ def main(argv=None) -> int:
         print(line, flush=True)
     dataset = write_long_docs()
     main_lens = main_padding(dataset, flash_config(dataset))
-    flash_per = phase_kernels(ck, fk, stats, main_lens)
+    llama_lens = main_padding(dataset, llama_config(dataset))
+    flash_per, llama_per = phase_kernels(ck, fk, stats, main_lens,
+                                         llama_lens)
     b_path = phase_main(ck, stats, smi, dataset, flash_per)
     medical = write_medical_docs()
     phase_p2p(ck, stats, smi, medical)
     phase_run_surface(ck, fk, stats, smi, dataset, b_path)
     phase_resilience(ck, stats, smi, dataset)
+    phase_llama(ck, fk, stats, smi, dataset, llama_per)
     phase_reference()
     if args.profile:
         phase_profile(main_config(), "seq-128 path")
         phase_profile(flash_config(dataset), "seq-512 flash path")
         phase_profile_gossip(gossip_config(medical), "serverless gossip path")
+        phase_profile(llama_config(dataset, lora_rank=8, registry_size=64,
+                                   sample_clients=4),
+                      "llama2-7b LoRA cohort path (k)")
     print(json.dumps({"kernels": [s.record() for s in stats.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

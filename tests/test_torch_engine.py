@@ -89,12 +89,9 @@ def test_run_is_deterministic_and_eval_cadence():
 
 
 NOT_PORTED = [
-    ("registry_size", {"registry_size": 8}),
     ("runtime", {"runtime": "dist"}),
-    ("lora_rank", {"lora_rank": 4}),
     ("tp", {"tp": 2}),
     ("sp", {"sp": 2}),
-    ("task", {"task": "causal_lm"}),
     ("rounds_per_dispatch", {"rounds_per_dispatch": 2}),
     # the flash kernels have no float16 instances yet
     ("compute_dtype", {"compute_dtype": "float16", "use_flash": True}),
@@ -125,6 +122,10 @@ PORTED = [
         "bcfl_tpu_torch.reputation", fromlist=["ReputationConfig"]
     ).ReputationConfig(enabled=True)}),
     ("checkpoint_dir", {"checkpoint_dir": "ck"}),
+    # cohort mode, LoRA and the causal-LM task (ported in slice 8)
+    ("registry_size", {"registry_size": 8}),
+    ("lora_rank", {"lora_rank": 4}),
+    ("task", {"task": "causal_lm", "model": "tiny-llama"}),
 ]
 
 
@@ -167,8 +168,8 @@ def test_cli_runs_smoke_on_cpu_and_rejects_other_flags(capsys):
                      "--compress", "int8+topk"]) == 0
     out = capsys.readouterr().out
     assert "round   0:" in out and "compress=int8+topk" in out
-    for flags in (["--lora-rank", "2"], ["--chaos-wire", "drop=0.1"],
-                  ["--tp", "2"]):
+    for flags in (["--rounds-per-dispatch", "2"],
+                  ["--chaos-wire", "drop=0.1"], ["--tp", "2"]):
         with pytest.raises(SystemExit) as e:
             cli_main(["--device", "cpu"] + flags)
         assert e.value.code == 2

@@ -332,10 +332,19 @@ def test_make_aggregator_names_and_unported_options():
                                        rtol=1e-6, atol=1e-7)
     with pytest.raises(ValueError, match="unknown aggregator"):
         tpar.make_aggregator("geomedian")
-    with pytest.raises(ValueError, match="hierarchical_groups.*not ported"):
-        tpar.make_aggregator("mean", hierarchical_groups=2)
-    with pytest.raises(ValueError, match="rank_mask.*not ported"):
-        tpar.make_aggregator("mean", rank_mask=torch.ones(4, 2))
+    # cohort mode's two-level mean and the rank-aware rule are ported
+    # (tests/test_torch_lora.py holds them to JAX); the rank mask composes
+    # with the mean only, as in JAX
+    got = tpar.make_aggregator("mean", hierarchical_groups=2)(
+        tt, torch.tensor(w), None)
+    want = gspmd.make_aggregator("mean", hierarchical_groups=2)(
+        jt, jnp.asarray(w), None)
+    for p in jt:
+        np.testing.assert_allclose(got[p].numpy(), np.asarray(want[p]),
+                                   rtol=1e-6, atol=1e-7)
+    for name in ("trimmed_mean", "median", "krum"):
+        with pytest.raises(ValueError, match="defined for the mean only"):
+            tpar.make_aggregator(name, rank_mask=torch.ones(4, 2))
 
 
 def test_robust_rules_sort_a_wide_leaf_in_slabs(monkeypatch):

@@ -142,7 +142,11 @@ def test_dropout_is_seeded_and_masks_in_training():
 def test_registry_and_not_ported_models():
     assert {"tiny-bert", "tiny-albert", "bert-base", "albert-base"} <= set(
         list_models())
-    with pytest.raises(ValueError, match="not ported yet"):
-        tbuild("llama2-7b")
+    # the Llama family is ported (tests/test_torch_llama.py); a causal-LM
+    # head needs a decoder
+    assert {"tiny-llama", "llama2-7b"} <= set(list_models())
+    assert type(tbuild("tiny-llama", head="lm")).__name__ == "LlamaLM"
+    with pytest.raises(ValueError, match="is an encoder"):
+        tbuild("tiny-bert", head="lm")
     flash = tbuild("tiny-bert", use_flash=True)
     assert flash.cfg.use_flash and flash.cfg.flash_min_seq == 512
