@@ -10,7 +10,12 @@ PageRank (or DBSCAN, modified-Z, community) gating over the latency graph,
 the hash-chained ledger over device-side fingerprints, and the
 ``int8+topk`` update codec; flash attention for long inputs; crash-safe
 checkpoints with bit-identical resume, the fault plan's local lanes, the
-Byzantine-robust aggregators, peer reputation and partitioned rounds. All
+Byzantine-robust aggregators, peer reputation and partitioned rounds;
+the Llama family with LoRA and cohort sampling; the HF importer and the
+native C++ cores; the multi-process runtime's whole-network path
+(:mod:`bcfl_tpu_torch.dist`: peer processes over loopback TCP, FedBuff at
+the leader, the ledger over announced digests) with its event telemetry
+(:mod:`bcfl_tpu_torch.telemetry`). All
 five TPU kernels of the JAX package (the codec's ``int8_quantize`` and
 ``topk_select``, flash attention's forward and two backward kernels) run
 as hand-written CUDA kernels (``bcfl_tpu_torch/csrc``). Everything else

@@ -43,12 +43,14 @@ import json
 import logging
 import os
 import shutil
+import time
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from bcfl_tpu_torch.ledger.ledger import Ledger, params_digest
+from bcfl_tpu_torch.telemetry import events as _telemetry
 
 logger = logging.getLogger(__name__)
 
@@ -94,8 +96,12 @@ def _to_host(state):
 
 def _state_digest(state) -> str:
     """Hex SHA-256 over the host state (leaf names, dtypes, shapes and raw
-    bytes): the ledger's params digest as integrity evidence."""
-    return params_digest(state).hex()
+    bytes): the ledger's params digest as integrity evidence. It hashes
+    gigabytes, so it takes hashlib (OpenSSL, the CPU's SHA instructions),
+    not the ledger's plain C++ core: on an H100 host a 2.2 GB save took
+    23.9 s with the core and 8.2 s with hashlib. The digest is the same
+    either way."""
+    return params_digest(state, use_native=False).hex()
 
 
 def _fsync_dir(path: str) -> None:
@@ -120,6 +126,7 @@ def save_checkpoint(directory: str, round_idx: int, state: Dict[str, Any],
     """Atomically write ``state`` for ``round_idx``; returns the committed
     path. ``keep_last > 0`` then removes every round but the newest
     ``keep_last``."""
+    t0 = time.perf_counter()
     directory = os.path.abspath(directory)
     os.makedirs(directory, exist_ok=True)
     name = f"round_{round_idx:06d}"
@@ -156,6 +163,7 @@ def save_checkpoint(directory: str, round_idx: int, state: Dict[str, Any],
         os.fsync(f.fileno())
     os.replace(meta_staging, meta_path)
     _fsync_dir(directory)
+    old = []
     if keep_last and keep_last > 0:
         committed = _list_rounds(directory)
         old = committed[:-keep_last] if len(committed) > keep_last else []
@@ -163,6 +171,17 @@ def save_checkpoint(directory: str, round_idx: int, state: Dict[str, Any],
             _remove_round(directory, r)
         if old:
             _fsync_dir(directory)
+    # one event per committed checkpoint (a no-op without a writer), with
+    # the committed chain length, as JAX emits it
+    chain_len = None
+    if ledger_json:
+        try:
+            chain_len = len(json.loads(ledger_json))
+        except (ValueError, TypeError):
+            pass
+    _telemetry.emit("ckpt.save", step=int(round_idx), dir=directory,
+                    wall_s=time.perf_counter() - t0, chain_len=chain_len,
+                    gc=len(old))
     return final
 
 
@@ -279,6 +298,7 @@ def restore_latest(directory: str
     for r in reversed(_list_rounds(directory)):
         status, state, ledger_json = classify_round(directory, r)
         if status in _USABLE:
+            _telemetry.emit("ckpt.restore", step=int(r), dir=directory)
             return r, state, ledger_json
         logger.warning("checkpoint %s/round_%06d %s; falling back to the "
                        "previous checkpoint", directory, r, status)
@@ -293,7 +313,10 @@ def scrub(directory: str) -> Dict[str, Any]:
                           of round dirs and meta sidecars,
          "newest_intact": newest usable round or None,
          "damaged":       ((round, status), ...) of the unusable rounds,
-         "torn":          (staging entry names, ...)}"""
+         "torn":          (staging entry names, ...)}
+
+    and emits one ``scrub`` event with the verdict (``clean`` /
+    ``damaged`` / ``empty``)."""
     directory = os.path.abspath(directory)
     torn = tuple(sorted(
         d for d in (os.listdir(directory) if os.path.isdir(directory) else ())
@@ -303,10 +326,16 @@ def scrub(directory: str) -> Dict[str, Any]:
     statuses = tuple((r, classify_round(directory, r)[0]) for r in rounds)
     damaged = tuple((r, s) for r, s in statuses if s not in _USABLE)
     usable = [r for r, s in statuses if s in _USABLE]
-    return {
+    report = {
         "empty": not statuses and not torn,
         "rounds": statuses,
         "newest_intact": max(usable) if usable else None,
         "damaged": damaged,
         "torn": torn,
     }
+    verdict = ("empty" if report["empty"]
+               else "damaged" if (damaged or torn) else "clean")
+    _telemetry.emit("scrub", status=verdict, dir=directory,
+                    newest_intact=report["newest_intact"],
+                    damaged=len(damaged), torn=len(torn))
+    return report

@@ -80,10 +80,9 @@ class TopologyConfig:
 @dataclasses.dataclass(frozen=True)
 class LedgerConfig:
     """The hash-chained weight ledger (the JAX ``LedgerConfig``: same
-    fields and defaults). ``use_native`` selects the JAX package's C++
-    SHA-256 core; the port hashes with ``hashlib`` (identical digests) and
-    its native core is ROADMAP.md's tokenizer-and-native item, so the field
-    has no effect yet."""
+    fields and defaults). ``use_native`` selects the C++ SHA-256 core
+    (:mod:`bcfl_tpu_torch.native`, g++ at first use); without a toolchain
+    the ledger hashes with ``hashlib``, with identical digests."""
 
     enabled: bool = False
     use_native: bool = True
@@ -109,11 +108,468 @@ def parse_lora_ranks(spec: str) -> Tuple[int, ...]:
     return ranks
 
 
+@dataclasses.dataclass(frozen=True)
+class DistConfig:
+    """(The JAX ``DistConfig``: same fields, defaults and checks.)
+    Multi-host async P2P runtime knobs (``FedConfig.runtime='dist'``,
+    RUNTIME.md). Each peer is a real OS process owning a slice of the
+    clients; update exchange is length-prefixed TCP over loopback/DCN
+    carrying the configured codec's wire format plus ledger fingerprint
+    digests; aggregation is FedBuff-style buffered async with MEASURED
+    (arrival-order) staleness. All timeouts are hard deadlines — a hung
+    peer fails the run instead of wedging it (the harness reaps it)."""
+
+    peers: int = 2
+    host: str = "127.0.0.1"
+    # first listen port; peer p listens on base_port + p. 0 = the spawner
+    # picks free ports and passes them down (dist.harness.run_dist, CLI)
+    base_port: int = 0
+    # merge target at a component leader, in DISTINCT sending peers (each
+    # update carries its sender's whole client slice; several updates from
+    # one sender count once toward the target and collapse into one vote
+    # under a robust aggregator — the "f of k" arithmetic is over peers).
+    # 0 = 1: merge on every arrival — the pure-async setting, and the one
+    # that makes the measured staleness distribution non-degenerate. Must
+    # be <= peers.
+    buffer: int = 0
+    # leader-side cap on waiting for the buffer to fill: merge whatever
+    # arrived once this many seconds pass since the first buffered update
+    # (a departed peer must not stall every future merge)
+    buffer_timeout_s: float = 20.0
+    # peer-process watchdog: no observable progress (no message, no local
+    # round) for this long -> the peer exits nonzero instead of wedging
+    idle_timeout_s: float = 120.0
+    # hard wall deadline for one peer process; the in-process watchdog
+    # enforces it even if the supervisor died
+    peer_deadline_s: float = 600.0
+    # checkpoint every N adopted/produced global versions (0 = off); the
+    # crash/rejoin path restores from the newest one
+    checkpoint_every_versions: int = 1
+    # checkpoint retention: keep only the newest K committed rounds on
+    # disk (0 = keep everything). Removal of older rounds is ordered
+    # strictly AFTER the new round's commit+fsync, so a crash mid-GC can
+    # only ever leave EXTRA rounds, never fewer than K usable ones.
+    checkpoint_keep_last: int = 0
+    # --- self-healing transport policy (RUNTIME.md "Delivery contract") ---
+    # every logical send retries failed attempts with exponential backoff
+    # (base * 2^k, capped at retry_max_s, deterministically jittered) up to
+    # send_retries RE-tries, all under the per-destination send_deadline_s
+    # wall budget — at-least-once delivery, made safe by the receiver's
+    # per-sender (from, msg_id) dedup window
+    send_retries: int = 4
+    retry_base_s: float = 0.05
+    retry_max_s: float = 2.0
+    send_deadline_s: float = 20.0
+    # circuit-breaker failure detector: consecutive send-attempt failures
+    # move a peer REACHABLE -> SUSPECT (suspect_after) -> DOWN
+    # (down_after); any success snaps it back to REACHABLE. While DOWN the
+    # circuit is open — sends are skipped except one probe per
+    # probe_interval_s, so a recovered peer is re-detected without paying
+    # a connect timeout on every message
+    suspect_after: int = 2
+    down_after: int = 6
+    probe_interval_s: float = 2.0
+    # --- failure-detection mode (RUNTIME.md "Timing contract") ---
+    # "phi" (default) = adaptive phi-accrual-style estimator: per-peer
+    # inbound-interval EWMA + variance feed a CONTINUOUS suspicion level
+    # phi (monotone in silence, snapped back by any liveness evidence);
+    # suspect/down become thresholds on phi and send deadlines adapt per
+    # destination from measured RTT/throughput (floor/ceiling clamped
+    # below). "fixed" = the consecutive-counter detector above with the
+    # static send_deadline_s — bit-compatible with pre-gray-failure
+    # replays (the knob the existing dist_chaos legs pin).
+    detector: str = "phi"
+    # phi thresholds: suspicion grows by 1 per consecutive failed send
+    # attempt plus the peer's silence beyond its adaptive expected window
+    # (so the defaults grade like suspect_after=2 / down_after=6 under
+    # pure failures, while pure silence also accrues — the gray-failure
+    # signal the fixed counter is blind to)
+    phi_suspect: float = 2.0
+    phi_down: float = 6.0
+    # clamp on the adaptive expected-silence window (EWMA mean + 3 sigma
+    # of inbound intervals): the floor keeps a chatty link from making
+    # sub-second silences suspicious, the ceiling bounds how long an
+    # unheard-from peer can stay unsuspected
+    phi_window_floor_s: float = 5.0
+    phi_window_ceil_s: float = 120.0
+    # clamp on the adaptive per-destination send deadline (measured RTT
+    # headroom + frame_bytes / measured throughput). floor bounds how
+    # aggressive a fast link's deadline may get; ceiling bounds how long
+    # a limping link can hold a send. detector="fixed" ignores both and
+    # uses send_deadline_s verbatim.
+    deadline_floor_s: float = 2.0
+    deadline_ceil_s: float = 120.0
+    # assumed link throughput (bytes/s) before any measurement exists:
+    # the size-proportional term of the adaptive deadline divides by this
+    # until real throughput samples arrive, so a first-contact 32 MB
+    # frame gets a budget that scales with its size instead of starving
+    # under a latency-tuned constant
+    min_bandwidth_bps: float = 1_048_576.0
+    # gossip hedging: when a sampled neighbor's phi crosses this
+    # threshold at dispatch time, the peer re-draws a seeded replacement
+    # neighbor (detector="phi" only; the draw is replayable — see
+    # the JAX package's dist/gossip.py; gossip is not ported yet)
+    gossip_hedge_phi: float = 2.0
+    # receiver-side per-sender dedup window (message ids); ids at or below
+    # (newest seen - window) are treated as duplicates and dropped
+    dedup_window: int = 1024
+    # bounded inbox: a flooding (or chaos-duplicated) peer cannot grow a
+    # leader's queue without bound — overflow REFUSES the newest frame
+    # (no ack, dedup id un-recorded, counted in transport stats
+    # `inbox_overflow`), so the sender's retry can still deliver it once
+    # the inbox drains — at-least-once survives a full inbox
+    inbox_max: int = 1024
+    # partial-report cadence: peers rewrite their report_peer*.json every
+    # N local rounds (and on every adopted/produced version, at startup,
+    # and on SIGTERM) with status="running" — a SIGKILLed or stalled peer
+    # leaves a current partial report instead of nothing. 0 disables the
+    # periodic rewrites (startup/terminal writes remain).
+    report_every_rounds: int = 5
+    # quorum degradation: the FedBuff leader's buffer target counts only
+    # component peers the detector does NOT hold DOWN (merges recorded as
+    # degraded while any are), and below this reachable fraction of the
+    # component the leader refuses to advance the global at all (the idle
+    # watchdog bounds that wait)
+    quorum_frac: float = 0.5
+    # --- comms/compute overlap (RUNTIME.md §4, PERF.md) ---
+    # pipeline=True (default) overlaps communication with computation:
+    # update sends and global broadcasts go through per-destination sender
+    # WORKERS (the round loop enqueues and immediately starts the next
+    # local round; retries/backoff/detector feeding run in the worker),
+    # and the leader drains arrivals on an INTAKE thread into a
+    # double-buffered FedBuff buffer (merge/verify consumes a swapped-out
+    # buffer while intake keeps filling the standby one). False = the
+    # serial loop: sends and intake inline in the round loop.
+    pipeline: bool = True
+    # bounded per-destination handoff queue depth for the sender workers:
+    # when a destination is slower than the round loop, enqueue BLOCKS
+    # after this many frames (back-pressure) instead of buffering
+    # model-sized trees without bound
+    pipeline_depth: int = 2
+    # periodic host-resource sampling (metrics.ResourceMonitor sampling
+    # mode): every this-many seconds each peer emits a catalogued
+    # `resource` telemetry event (RSS, windowed CPU%) so the live
+    # monitor's health series can track drift across a long soak.
+    # 0.0 (default) = off; ignored when telemetry is off.
+    resource_sample_s: float = 0.0
+    # --- dispatch mode (RUNTIME.md "Gossip dispatch") ---
+    # "leader" = the FedBuff path above: min reachable id owns the merge,
+    # the robust votes, and the reputation clock for its component.
+    # "gossip" = leaderless epidemic exchange (not ported yet): every
+    # peer samples seeded neighbors per local round, pushes its full state,
+    # and merges arrivals with a commutative version-vector rule — no
+    # privileged process, elastic membership (dist.membership).
+    dispatch: str = "leader"
+    # gossip neighbors contacted per local round (epidemic fan-out, or the
+    # ring successor count under gossip_topology="ring")
+    gossip_fanout: int = 2
+    # neighbor-sampling topology: "epidemic" draws gossip_fanout live peers
+    # from a PRNG keyed (seed, round, peer) — replayable; "ring" takes the
+    # next gossip_fanout successors around the sorted live view
+    gossip_topology: str = "epidemic"
+    # HELLO beacon cadence (seconds): each peer periodically hellos one
+    # sampled neighbor and any peer answers with a state+chain sync — the
+    # steady-state resync that makes join/leave mid-run continuous
+    gossip_hello_interval_s: float = 5.0
+
+    def __post_init__(self):
+        if self.peers < 2:
+            raise ValueError(
+                f"runtime='dist' needs >= 2 peers, got {self.peers}")
+        if self.buffer < 0 or self.buffer > self.peers:
+            raise ValueError(
+                f"dist buffer {self.buffer} must be in [0, peers="
+                f"{self.peers}] (it counts buffered PEER updates)")
+        for name in ("buffer_timeout_s", "idle_timeout_s",
+                     "peer_deadline_s", "retry_base_s", "retry_max_s",
+                     "send_deadline_s", "probe_interval_s"):
+            if getattr(self, name) <= 0:
+                raise ValueError(f"{name} must be > 0")
+        if self.send_retries < 0:
+            raise ValueError(
+                f"send_retries must be >= 0, got {self.send_retries}")
+        if self.suspect_after < 1:
+            raise ValueError(
+                f"suspect_after must be >= 1, got {self.suspect_after}")
+        if self.down_after < self.suspect_after:
+            raise ValueError(
+                f"down_after {self.down_after} must be >= suspect_after "
+                f"{self.suspect_after} (a peer is SUSPECT before DOWN)")
+        if self.detector not in ("phi", "fixed"):
+            raise ValueError(
+                f"dist detector must be 'phi' or 'fixed', got "
+                f"{self.detector!r}")
+        for name in ("phi_suspect", "phi_window_floor_s",
+                     "deadline_floor_s", "min_bandwidth_bps",
+                     "gossip_hedge_phi"):
+            if getattr(self, name) <= 0:
+                raise ValueError(f"{name} must be > 0")
+        if self.phi_down < self.phi_suspect:
+            raise ValueError(
+                f"phi_down {self.phi_down} must be >= phi_suspect "
+                f"{self.phi_suspect} (a peer is SUSPECT before DOWN)")
+        if self.phi_window_ceil_s < self.phi_window_floor_s:
+            raise ValueError(
+                f"phi_window_ceil_s {self.phi_window_ceil_s} must be >= "
+                f"phi_window_floor_s {self.phi_window_floor_s}")
+        if self.deadline_ceil_s < self.deadline_floor_s:
+            raise ValueError(
+                f"deadline_ceil_s {self.deadline_ceil_s} must be >= "
+                f"deadline_floor_s {self.deadline_floor_s}")
+        for name in ("dedup_window", "inbox_max"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be >= 1")
+        if self.report_every_rounds < 0:
+            raise ValueError(
+                f"report_every_rounds must be >= 0, got "
+                f"{self.report_every_rounds}")
+        if self.checkpoint_keep_last < 0:
+            raise ValueError(
+                f"checkpoint_keep_last must be >= 0 (0 keeps all), got "
+                f"{self.checkpoint_keep_last}")
+        if not 0.0 < self.quorum_frac <= 1.0:
+            raise ValueError(
+                f"quorum_frac must be in (0, 1], got {self.quorum_frac}")
+        if self.pipeline_depth < 1:
+            raise ValueError(
+                f"pipeline_depth must be >= 1, got {self.pipeline_depth}")
+        if self.resource_sample_s < 0:
+            raise ValueError(
+                f"resource_sample_s must be >= 0, got "
+                f"{self.resource_sample_s}")
+        if self.dispatch not in ("leader", "gossip"):
+            raise ValueError(
+                f"dist dispatch must be 'leader' or 'gossip', got "
+                f"{self.dispatch!r}")
+        if self.gossip_topology not in ("epidemic", "ring"):
+            raise ValueError(
+                f"gossip_topology must be 'epidemic' or 'ring', got "
+                f"{self.gossip_topology!r}")
+        if self.gossip_fanout < 1:
+            raise ValueError(
+                f"gossip_fanout must be >= 1, got {self.gossip_fanout}")
+        if self.dispatch == "gossip" and self.gossip_fanout >= self.peers:
+            raise ValueError(
+                f"gossip_fanout {self.gossip_fanout} must be < peers "
+                f"{self.peers} (a peer cannot gossip to more neighbors "
+                "than exist besides itself)")
+        if self.gossip_hello_interval_s <= 0:
+            raise ValueError(
+                f"gossip_hello_interval_s must be > 0, got "
+                f"{self.gossip_hello_interval_s}")
+
+
+def _plan(c) -> FaultPlan:
+    return c.faults if c.faults is not None else FaultPlan()
+
+
+#: the verdict prefix of a capability the port defers: the row is JAX's,
+#: its dist verdict is replaced by this note and raises "not ported yet"
+NOT_PORTED_YET = "not ported yet"
+
+
+# --- runtime capability table (the JAX package's RUNTIME_CAPS) -------------
+# Each row is ``(feature, active, {runtime: verdict})``: ``active(cfg)``
+# says whether the feature is requested, ``True`` means the runtime
+# supports it, and a string is the rejection reason raised at config time,
+# JAX's verbatim. Rows whose dist verdict starts with NOT_PORTED_YET are
+# features JAX runs on its dist runtime and the port defers (ROADMAP.md).
+# JAX's "pod-spanning mesh" and "buffer donation" rows are left out: the
+# port's config has no such fields.
+RUNTIME_CAPS: Tuple = (
+    ("serverless gossip mode",
+     lambda c: c.mode == "serverless",
+     {"local": True,
+      "dist": "the dist runtime's serverless analogue is the leaderless "
+              "dispatch, not the local ring-gossip diffusion — use "
+              "mode='server' with dist.dispatch='gossip'"}),
+    ("simulated-clock sync rounds",
+     lambda c: c.sync == "sync",
+     {"local": True,
+      "dist": "runtime='dist' IS the real-clock async runtime (RUNTIME.md); "
+              "set sync='async' — there is no synchronous barrier to run"}),
+    ("simulated-clock async (sync='async')",
+     lambda c: c.sync == "async",
+     {"local": True, "dist": True}),
+    ("faithful host-sequential mode",
+     lambda c: c.faithful,
+     {"local": True,
+      "dist": "faithful mode mutates ONE shared model host-sequentially; "
+              "peers on different hosts cannot share that model"}),
+    ("cohort registry sampling",
+     lambda c: c.registry_size > 0,
+     {"local": True,
+      "dist": "registry sampling re-deals the client set per round; a "
+              "peer's client slice is its persistent identity (data, "
+              "ledger keys, checkpoints)"}),
+    ("tensor parallelism (tp > 1)",
+     lambda c: c.tp > 1,
+     {"local": True,
+      "dist": "each peer builds a single-host client mesh; inner tp "
+              "sharding across peers is not implemented"}),
+    ("sequence parallelism (sp > 1)",
+     lambda c: c.sp > 1,
+     {"local": True,
+      "dist": "each peer builds a single-host client mesh; inner sp "
+              "sharding across peers is not implemented"}),
+    ("fused multi-round dispatch",
+     lambda c: c.rounds_per_dispatch > 1,
+     {"local": True,
+      "dist": "every peer round ends at the transport (send/receive is "
+              "host work by construction); there is nothing to fuse "
+              "across"}),
+    ("anomaly filter",
+     lambda c: c.topology.anomaly_filter is not None,
+     {"local": True,
+      "dist": "anomaly filters gate on the SIMULATED latency graph; the "
+              "dist runtime measures real transport and has no global "
+              "per-round view to filter"}),
+    ("reputation lifecycle",
+     lambda c: c.reputation.enabled,
+     {"local": True,
+      "dist": NOT_PORTED_YET + ": the per-peer tracker fed by wire "
+              "evidence (reputation/dist.py) waits for its slice"}),
+    ("robust aggregators",
+     lambda c: c.aggregator != "mean",
+     {"local": True,
+      "dist": NOT_PORTED_YET + ": the host-side robust merge over the "
+              "arrival set (dist/robust.py) waits for its slice"}),
+    ("communication compression",
+     lambda c: c.compression.enabled,
+     {"local": True, "dist": True}),
+    ("hash-chained ledger",
+     lambda c: c.ledger.enabled,
+     {"local": True, "dist": True}),
+    ("chaos: transport partition",
+     lambda c: _plan(c).partitions,
+     {"local": True,
+      "dist": NOT_PORTED_YET + ": partitions at the socket, the ledger "
+              "fork and the heal wait for the partition slice"}),
+    ("chaos: stragglers",
+     lambda c: _plan(c).straggler_prob > 0,
+     {"local": True, "dist": True}),  # dist: a REAL pre-send sleep
+    ("chaos: client dropout",
+     lambda c: _plan(c).dropout_prob > 0,
+     {"local": True,
+      "dist": "per-round dropout is a mask over a global stacked round; "
+              "dist peers have no global round to mask — not implemented"}),
+    ("chaos: transport corruption / flaky bursts",
+     lambda c: _plan(c).corrupts,
+     {"local": True,
+      "dist": "per-client corruption scales act on the engine's stacked "
+              "in-graph transport stage, which dist rounds never run; use "
+              "the wire lane instead (wire_corrupt_prob flips real frame "
+              "bytes in flight; the frame CRC and the ledger verify path "
+              "catch them)"}),
+    ("chaos: wire faults (drop/dup/reorder/delay/corrupt)",
+     lambda c: _plan(c).wire_enabled,
+     {"local": "the local engine has no socket boundary to inject at — "
+               "the wire lane acts on real TCP frames in the dist "
+               "transport (PeerTransport); use corrupt_prob for the "
+               "simulated-transport analogue",
+      "dist": NOT_PORTED_YET + ": the wire chaos lane waits for its "
+              "slice"}),
+    ("chaos: byzantine peers",
+     lambda c: _plan(c).byz_enabled,
+     {"local": "byzantine behaviors forge the dist update exchange's wire "
+               "headers and payloads (stale lineage, digest forgeries, "
+               "per-destination equivocation); the local engine exchanges "
+               "none of those — use corrupt_prob/flaky_* for the "
+               "simulated in-graph analogue",
+      "dist": NOT_PORTED_YET + ": the byzantine lane (dist/byzantine.py) "
+              "waits for its slice"}),
+    ("chaos: churn",
+     lambda c: _plan(c).churns,
+     {"local": True,
+      "dist": NOT_PORTED_YET + ": peer-level churn is the crash/rejoin "
+              "path (kill and restart a peer process with --resume), "
+              "which waits for its slice"}),
+    ("chaos: host crash",
+     lambda c: _plan(c).crash_at_round is not None,
+     {"local": True,
+      "dist": NOT_PORTED_YET + ": a real crash is killing the peer "
+              "process, and crash/rejoin waits for its slice"}),
+    ("chaos: storage faults",
+     lambda c: _plan(c).storage_enabled,
+     {"local": "the storage lane damages a peer's durable checkpoint/"
+               "ledger state at the post-commit seam and exercises the "
+               "scrub + STATE_SYNC repair path; the local engine has no "
+               "per-peer durable state or peers to repair from — dist "
+               "only",
+      "dist": NOT_PORTED_YET + ": the storage lane and state sync wait "
+              "for their slice"}),
+    ("chaos: limp faults (gray failures)",
+     lambda c: _plan(c).limp_enabled,
+     {"local": "the limp lane stalls a PEER's train seam and throttles "
+               "its real TCP links, graded by the adaptive failure "
+               "detector and w_slow down-weighting — the local engine "
+               "has neither a wire nor a detector; use straggler_prob "
+               "for the simulated-clock analogue",
+      "dist": NOT_PORTED_YET + ": the limp lane waits for its slice"}),
+    ("chaos: resource faults (ENOSPC/EMFILE)",
+     lambda c: _plan(c).resource_enabled,
+     {"local": "the resource lane fails a peer's durable writes "
+               "(checkpoint commit, ledger append, event flush) and "
+               "grades the emergency-GC → telemetry-shed → exit ladder; "
+               "the local engine has no per-peer durable-write seams — "
+               "dist only",
+      "dist": NOT_PORTED_YET + ": the resource lane waits for its "
+              "slice"}),
+    ("communication compression under gossip dispatch",
+     lambda c: c.compression.enabled and c.dist.dispatch == "gossip",
+     {"local": True,
+      "dist": "the codec wire encodes DELTAS against a shared adopted "
+              "base version; gossip peers merge concurrently with no "
+              "common base to delta against — use compress='none'"}),
+    ("krum under gossip dispatch",
+     lambda c: c.aggregator == "krum" and c.dist.dispatch == "gossip",
+     {"local": True,
+      "dist": "krum selects ONE vote from a population; over a gossip "
+              "peer's tiny neighbor arrival set the selection guarantee "
+              "is vacuous and the merge would just adopt one neighbor "
+              "verbatim — use trimmed_mean or median"}),
+    ("chaos: transport partition under gossip dispatch",
+     lambda c: _plan(c).partitions and c.dist.dispatch == "gossip",
+     {"local": True,
+      "dist": NOT_PORTED_YET + ": gossip dispatch and partitions wait "
+              "for their slices"}),
+    ("per-round central eval",
+     lambda c: c.eval_every != 0,
+     {"local": True,
+      "dist": "per-round central eval would serialize the async runtime "
+              "behind the leader; set eval_every=0 — the leader "
+              "evaluates the final global once at shutdown"}),
+    ("LoRA adapter exchange",
+     lambda c: c.lora_rank > 0 or bool(c.lora_ranks),
+     {"local": True,
+      "dist": NOT_PORTED_YET + ": LoRA and Llama over the dist runtime "
+              "wait for their slice"}),
+    ("heterogeneous LoRA ranks",
+     lambda c: bool(c.lora_ranks)
+     and len(set(parse_lora_ranks(c.lora_ranks))) > 1,
+     {"local": True,
+      "dist": "each dist peer compiles round programs over its own client "
+              "slice; the rank-aware padded aggregation (RBLA) is defined "
+              "over the single-process stacked client axis — use a uniform "
+              "lora_rank"}),
+)
+
+
+def capability_table(cfg: "FedConfig") -> Tuple[Tuple[str, bool, object], ...]:
+    """The resolved ``(feature, active, verdict)`` rows for ``cfg``'s
+    runtime: ``verdict`` is True (supported) or the rejection reason."""
+    return tuple((feature, bool(active(cfg)), verdicts[cfg.runtime])
+                 for feature, active, verdicts in RUNTIME_CAPS)
+
+
+def _llama(name: str) -> bool:
+    from bcfl_tpu_torch.models import _LLAMA_CONFIGS
+
+    return name in _LLAMA_CONFIGS
+
+
 #: (field, is-unsupported predicate) — each raises "not ported yet"
 _NOT_PORTED = (
-    ("runtime", lambda c: c.runtime != "local"),
-    ("tokenizer", lambda c: c.tokenizer != "hash"),
-    ("hf_checkpoint", lambda c: c.hf_checkpoint is not None),
     ("tp", lambda c: c.tp > 1),
     ("sp", lambda c: c.sp > 1),
     ("local_epochs", lambda c: c.local_epochs != 1),
@@ -121,6 +577,13 @@ _NOT_PORTED = (
     # the flash kernels have bf16 and float32 instances only
     ("compute_dtype", lambda c: c.compute_dtype == "float16"
      and bool(c.use_flash)),
+    # the dist runtime's leaderless dispatch, its durable state and its
+    # Llama forms wait for later slices
+    ("dist.dispatch", lambda c: c.runtime == "dist"
+     and c.dist.dispatch == "gossip"),
+    ("dist.checkpoint_every_versions", lambda c: c.runtime == "dist"
+     and c.dist.checkpoint_every_versions > 0),
+    ("model", lambda c: c.runtime == "dist" and _llama(c.model)),
 )
 
 
@@ -223,6 +686,18 @@ class FedConfig:
         default_factory=ReputationConfig)
     compression: CompressionConfig = dataclasses.field(
         default_factory=CompressionConfig)
+    # multi-process P2P runtime knobs (runtime="dist" only)
+    dist: DistConfig = dataclasses.field(default_factory=DistConfig)
+
+    # --- event telemetry (per-process JSONL streams) ---
+    #   None  = the dist runtime streams into its run dir, the local
+    #           engine emits nothing,
+    #   "off" = disabled everywhere,
+    #   path  = stream into this directory on both runtimes.
+    telemetry_dir: Optional[str] = None
+    # deterministic sampling rate in [0, 1] for the high-rate transport
+    # events; invariant-grade events are never sampled
+    telemetry_sample: float = 1.0
 
     # --- checkpoint / metrics ---
     checkpoint_dir: Optional[str] = None
@@ -248,6 +723,25 @@ class FedConfig:
             raise ValueError(f"unknown mode: {self.mode!r}")
         if self.sync not in ("sync", "async"):
             raise ValueError(f"unknown sync: {self.sync!r}")
+        # the one capability check (RUNTIME_CAPS): every requested feature
+        # is supported on this runtime or rejected here with its reason
+        for feature, active, verdict in capability_table(self):
+            if active and verdict is not True:
+                if verdict.startswith(NOT_PORTED_YET):
+                    raise ValueError(
+                        f"{feature} on runtime={self.runtime!r} is {verdict}")
+                raise ValueError(
+                    f"{feature} is not supported on runtime="
+                    f"{self.runtime!r}: {verdict}")
+        if self.runtime == "dist" and self.num_clients % self.dist.peers:
+            raise ValueError(
+                f"num_clients {self.num_clients} must split evenly "
+                f"over {self.dist.peers} peers (each peer owns a "
+                "fixed client slice)")
+        if not 0.0 <= self.telemetry_sample <= 1.0:
+            raise ValueError(
+                f"telemetry_sample must be in [0, 1], got "
+                f"{self.telemetry_sample}")
         if self.task not in ("classification", "causal_lm"):
             raise ValueError(f"unknown task: {self.task!r}")
         if self.aggregator not in ("mean", "trimmed_mean", "median", "krum"):
@@ -335,8 +829,9 @@ class FedConfig:
                     "runs server FedAvg, serverless ring gossip and "
                     "buffered async with the anomaly filter, the ledger, "
                     "the local fault plan, robust aggregation, reputation, "
-                    "checkpoints, LoRA and cohort sampling (see ROADMAP.md "
-                    "for the port's queue)")
+                    "checkpoints, LoRA and cohort sampling, and the "
+                    "multi-process runtime's whole-network path (see "
+                    "ROADMAP.md for the port's queue)")
 
     def _check_lora_and_cohort(self, plan: FaultPlan) -> None:
         """The JAX package's rejections of heterogeneous ranks and of cohort

@@ -59,14 +59,19 @@ def client_round_generators(seed: int, clients, round_idx: int,
     return [generator(device, seed, TRAIN_LANE, round_idx, c) for c in ids]
 
 
-def codec_uniforms(seed: int, round_idx: int
+def codec_uniforms(seed: int, round_idx: int, first_client: int = 0
                    ) -> Callable[[int, Tuple[int, ...], torch.device],
                                  torch.Tensor]:
     """The codec's uniforms source for one round: leaf ``i`` draws
-    U[0, 1) of its grid shape from its own generator."""
+    U[0, 1) of its grid shape from its own generator. ``first_client`` is
+    the stack's first client id (JAX derives the codec key from client
+    0's training key): a dist peer whose slice starts at client ``k``
+    draws its own stream, and a stack starting at 0 keeps the local
+    engine's."""
+    extra = (int(first_client),) if first_client else ()
 
     def draw(i: int, shape, device) -> torch.Tensor:
-        g = generator(device, seed, CODEC_LANE, round_idx, i)
+        g = generator(device, seed, CODEC_LANE, round_idx, i, *extra)
         return torch.rand(shape, generator=g, device=device,
                           dtype=torch.float32)
 

@@ -1,4 +1,4 @@
-"""Data: datasets, hash tokenizer, partitioners and batch stacks (port of
+"""Data: datasets, tokenizers, partitioners and batch stacks (port of
 ``bcfl_tpu/data``)."""
 
 from bcfl_tpu_torch.data.datasets import TextDataset, load_dataset  # noqa: F401
@@ -8,4 +8,8 @@ from bcfl_tpu_torch.data.pipeline import (  # noqa: F401
     central_eval_batches,
     client_batches,
 )
-from bcfl_tpu_torch.data.tokenizer import HashTokenizer, get_tokenizer  # noqa: F401
+from bcfl_tpu_torch.data.tokenizer import (  # noqa: F401
+    HashTokenizer,
+    HFTokenizerAdapter,
+    get_tokenizer,
+)

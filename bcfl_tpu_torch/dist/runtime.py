@@ -1,0 +1,901 @@
+"""PeerRuntime — one OS process of the multi-process async runtime: port
+of ``bcfl_tpu/dist/runtime.py``, the whole-network path.
+
+Each peer owns a fixed slice of the global client set and runs its own
+local training loop on its own device (the card, unless it was started
+with ``--device cpu``); peers exchange updates over
+:mod:`bcfl_tpu_torch.dist.transport` and aggregate FedBuff-style at the
+leader, the lowest peer id (peer 0: the network is whole). Partitions
+with the ledger fork and heal, crash/rejoin with resume and state sync,
+the robust merge, reputation, and the byzantine, wire, limp, storage and
+resource lanes wait for later slices; the config refuses them.
+
+- **Training + wire encode** go through the engine's update-exchange seam
+  (:meth:`bcfl_tpu_torch.fed.engine.FedEngine._exchange_updates`,
+  ``commit=False``): the wire quantity is the codec payload (the encoded
+  delta against the peer's adopted base) under compression, the
+  post-train stacked tree otherwise, and the announced ledger digests
+  bind each client's fingerprint row to the payload's structure, as the
+  local flow chains them. The int8 and top-k codec kernels (K4, K5) run
+  here, in every peer.
+- **Buffered async aggregation** with MEASURED staleness: an update's
+  staleness is the leader's version minus the sender's base version when
+  it is merged (arrival order, not a simulated clock); its merge weight
+  is ``staleness_decay ** staleness`` (times example counts under
+  ``weighted_agg``), and the global takes an ``async_server_lr`` step
+  along the weighted-mean delta with the ``_async_merge_scale`` rescale.
+- **The ledger over announced digests**: the leader commits each merged
+  update's ANNOUNCED digests to its chain, refingerprints what ARRIVED,
+  and masks a client whose bytes do not match; every broadcast carries
+  the chain suffix since the last one, which followers verify link by
+  link before adopting the model.
+- **Nothing can wedge**: a hard per-process deadline, an idle watchdog
+  (no version progress) and a parent-death check each force a nonzero
+  exit, and the harness reaps stragglers.
+- **Everything is traced**: each peer writes ``events_peer{p}.jsonl``
+  (:mod:`bcfl_tpu_torch.telemetry`): local rounds, transport send/recv
+  and detector events, merges with their lineage, ledger commits and
+  appends, broadcasts and adoptions; the collator merges the streams
+  into one causal timeline and checks the invariants. The peer rewrites
+  its JSON report periodically and on SIGTERM, with the kernel launch
+  counts and the device's peak memory beside JAX's fields.
+
+Device work stays on the main thread. The intake thread and the sender
+workers move only CPU tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import math
+import os
+import queue
+import signal
+import sys
+import threading
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from bcfl_tpu_torch import telemetry
+from bcfl_tpu_torch.core.fence import fence
+from bcfl_tpu_torch.metrics.tracing import StepClock
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class MergeRecord:
+    version: int
+    leader: int
+    arrivals: List[Dict]  # per merged update: peer/msg_id/staleness/latency/auth
+    rejected: List[Dict]  # updates excluded (stale lineage, auth failure)
+    wall_s: float
+    solo: bool  # produced while partitioned (always False: no partitions yet)
+    degraded: bool = False  # merged on a reduced quorum (some peer DOWN)
+    quorum: Optional[Dict] = None  # {"component", "alive", "down"} when degraded
+
+
+def measured_staleness(leader_version: int, base_version: int):
+    """``(staleness, clamped)`` of one arrival: the leader's version minus
+    the sender's base version, clamped to >= 0 (a negative difference
+    would INFLATE the decayed merge weight; ``clamped`` surfaces it)."""
+    raw = int(leader_version) - int(base_version)
+    return max(raw, 0), raw < 0
+
+
+def _peer_engine_cfg(cfg, local_clients: int):
+    """The embedded per-peer engine config: the peer's own client slice.
+    The dist layer owns the async, eval and checkpoint semantics, so the
+    inner engine is the plain sync-server build (its round loop is never
+    used, only its data, training, codec and ledger pieces), with the
+    aggregator pinned to "mean" (its ``collapse`` reduces one peer's slice
+    to its vote) and reputation off."""
+    from bcfl_tpu_torch.faults import FaultPlan
+    from bcfl_tpu_torch.reputation import ReputationConfig
+
+    return cfg.replace(
+        runtime="local", sync="sync", mode="server",
+        num_clients=local_clients, eval_every=0,
+        aggregator="mean", reputation=ReputationConfig(),
+        faults=FaultPlan(),  # the straggler lane acts at the transport
+        checkpoint_dir=None, checkpoint_every=0, rounds_per_dispatch=1)
+
+
+def _to_host(tree):
+    """A (nested) tree of tensors on the device -> CPU tensors."""
+    if isinstance(tree, dict):
+        return {k: _to_host(v) for k, v in tree.items()}
+    return tree.detach().cpu()
+
+
+def _to_device(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def peak_gb(device: torch.device) -> Optional[float]:
+    """The device's peak allocated memory in GB (None on the CPU)."""
+    if device.type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device) / 1e9
+
+
+class PeerRuntime:
+    def __init__(self, cfg, peer_id: int, ports: List[int], run_dir: str,
+                 device=None):
+        from bcfl_tpu_torch.compression import codecs as cc
+        from bcfl_tpu_torch.dist.transport import PartitionGate, PeerTransport
+        from bcfl_tpu_torch.fed.engine import FedEngine
+
+        self.cfg = cfg
+        self.peer_id = int(peer_id)
+        self.peers = cfg.dist.peers
+        self.run_dir = run_dir
+        os.makedirs(run_dir, exist_ok=True)
+        # per-process event stream, on by default for the dist runtime
+        # ("off" disables, a path overrides the run dir); installed before
+        # the transport exists so its threads always see the writer
+        self.events_path = None
+        stream_dir = telemetry.resolve_stream_dir(cfg.telemetry_dir,
+                                                  run_dir)
+        if stream_dir is not None:
+            self.events_path = os.path.join(
+                stream_dir, f"events_peer{self.peer_id}.jsonl")
+            telemetry.install(telemetry.EventWriter(
+                self.events_path, peer=self.peer_id, run=cfg.name,
+                sample=cfg.telemetry_sample))
+        k = cfg.num_clients // self.peers
+        self.local_clients = k
+        self.global_ids = np.arange(self.peer_id * k, (self.peer_id + 1) * k)
+
+        # batches, dropout generators and codec uniforms follow the
+        # GLOBAL client ids
+        self.eng = FedEngine(_peer_engine_cfg(cfg, k), device=device,
+                             client_ids=self.global_ids)
+        self.device = self.eng.device
+        if self.eng._comp is not None:
+            self.eng._ef = cc.zero_residual(self.eng.trainable0, k)
+
+        self.trainable = self.eng.trainable0
+        self.version = 0
+        self.local_round = 0
+        self.chain = self.eng.ledger  # the peer's chain replica (or None)
+        # version -> (model tree or None, chain-head hex at creation): an
+        # uncompressed update's delta is computed against the model, and
+        # the head checks the update's lineage (compressed runs keep only
+        # the head)
+        self.history: Dict[int, tuple] = {
+            0: (self.trainable if self.eng._comp is None else None,
+                self._head())}
+        self.history_limit = 16
+
+        self.merges: List[MergeRecord] = []
+        # host-clock phases of the peer's loop (train, encode, merge,
+        # broadcast, ...): in the report, and as ``phase`` events
+        self.clock = StepClock()
+        self.adopted: List[int] = []
+        self._last_broadcast_len = 0  # suffix base of the next chain broadcast
+        self._last_hello = 0.0
+        self._below_quorum = False
+        self._below_quorum_events = 0  # episodes, not loop polls
+        self._buffer: List[tuple] = []  # guarded-by: _buffer_lock — (header, trees, recv_time)
+        self._buffer_shed = 0  # guarded-by: _buffer_lock (writes)
+        # double-buffered intake (cfg.dist.pipeline): the intake thread
+        # drains the transport inbox, UPDATE arrivals land in self._buffer
+        # under this lock, everything else goes to the control queue the
+        # main loop drains; _maybe_merge swaps the buffer out under the
+        # lock and merges it while intake fills the fresh one
+        self._buffer_lock = threading.Lock()
+        self._ctrl: "queue.Queue" = queue.Queue()
+        self._intake_thread: Optional[threading.Thread] = None
+        # when the current merge window opened (first entry into an empty
+        # buffer): the buffer_timeout_s clock
+        self._buffer_since = 0.0  # guarded-by: _buffer_lock
+        self._stop = False
+        self.gate = PartitionGate(self.peers)
+        host = cfg.dist.host
+        # transport incarnation epoch: a file-backed restart counter, not
+        # the wall clock
+        epoch_path = os.path.join(run_dir, f"epoch_peer{self.peer_id}")
+        try:
+            with open(epoch_path) as f:
+                epoch = int(f.read().strip()) + 1
+        except (OSError, ValueError):
+            epoch = 1
+        with open(epoch_path, "w") as f:
+            f.write(str(epoch))
+        self.transport = PeerTransport(
+            self.peer_id, [(host, p) for p in ports], gate=self.gate,
+            io_timeout_s=min(60.0, cfg.dist.peer_deadline_s),
+            policy=cfg.dist, epoch=epoch)
+
+        # --- watchdogs: a hung peer FAILS, it never wedges the run ---
+        self._t0 = time.time()
+        self._last_version_change = time.time()
+        self._ppid = os.getppid()
+        self._deadline_timer = threading.Timer(
+            cfg.dist.peer_deadline_s, self._deadline_fire)
+        self._deadline_timer.daemon = True
+        self._deadline_timer.start()
+        # the deadline timer, the main loop and the SIGTERM handler all
+        # write the report: a reentrant lock serializes them
+        self._report_lock = threading.RLock()
+        self._report_round = -1    # guarded-by: _report_lock (writes)
+        self._report_version = -1  # guarded-by: _report_lock (writes)
+        self._report_terminal = False  # guarded-by: _report_lock
+        self._chain_ok_cache: Optional[bool] = None  # guarded-by: _report_lock
+        try:
+            signal.signal(signal.SIGTERM, self._sigterm)
+        except ValueError:
+            pass  # not the main thread (embedded/test use): skip
+
+    # ------------------------------------------------------------- watchdogs
+
+    def _deadline_fire(self):
+        logger.error("peer %d: hard deadline %.0fs expired; exiting",
+                     self.peer_id, self.cfg.dist.peer_deadline_s)
+        self._write_report(status="deadline")
+        os._exit(3)
+
+    def _sigterm(self, signum, frame):
+        logger.error("peer %d: SIGTERM; writing final partial report",
+                     self.peer_id)
+        try:
+            self._write_report(status="sigterm")
+        finally:
+            os._exit(7)
+
+    def _maybe_flush_report(self):
+        """Rewrite the partial report every ``report_every_rounds`` local
+        rounds and on every version change (0 = never mid-run)."""
+        every = self.cfg.dist.report_every_rounds
+        due = every > 0 and (
+            self.version != self._report_version
+            or self.local_round - self._report_round >= every)
+        if due:
+            self._write_report(status="running")
+
+    def _check_watchdogs(self):
+        if os.getppid() != self._ppid:
+            logger.error("peer %d: supervisor died; exiting", self.peer_id)
+            self._write_report(status="orphaned")
+            os._exit(5)
+        if (time.time() - self._last_version_change
+                > self.cfg.dist.idle_timeout_s):
+            logger.error("peer %d: no version progress for %.0fs; exiting",
+                         self.peer_id, self.cfg.dist.idle_timeout_s)
+            self._write_report(status="stalled")
+            os._exit(4)
+
+    # ------------------------------------------------------------------ utils
+
+    def _head(self) -> Optional[str]:
+        return self.chain.head.hex() if self.chain is not None else None
+
+    def _component(self):
+        return self.gate.component_of(self.peer_id)
+
+    def _leader(self) -> int:
+        return min(self._component())
+
+    def _note_version(self):
+        self._last_version_change = time.time()
+        model = self.trainable if self.eng._comp is None else None
+        self.history[self.version] = (model, self._head())
+        for v in sorted(self.history):
+            if len(self.history) <= self.history_limit:
+                break
+            del self.history[v]
+
+    def _cast(self, tree):
+        """A received model tree on the device, floats in the param
+        dtype."""
+        from bcfl_tpu_torch.fed.engine import DTYPES
+
+        pd = DTYPES[self.cfg.param_dtype]
+        return {p: t.to(device=self.device,
+                        dtype=pd if t.is_floating_point() else t.dtype)
+                for p, t in tree.items()}
+
+    def _stacked_like(self) -> Dict[str, torch.Tensor]:
+        """``[k, ...]`` views of the global tree (no copy): the shape and
+        dtype template the codec decodes a slice's payload against."""
+        k = self.local_clients
+        return {p: x.unsqueeze(0).expand((k,) + tuple(x.shape))
+                for p, x in self.trainable.items()}
+
+    # ----------------------------------------------------------- train + send
+
+    def _train_once(self):
+        """One local round: every local client fine-tunes from the peer's
+        current base; the wire payload comes out of the engine's
+        update-exchange seam."""
+        from bcfl_tpu_torch.fed import client_step as cs
+
+        cfg, eng = self.cfg, self.eng
+        rnd = self.local_round
+        t0 = time.time()
+        batches, n_ex = eng._round_batches(rnd)
+        base = cs.broadcast(self.trainable, self.local_clients)
+        with self.clock.phase("train"):
+            post, stats = cs.local_updates(eng.local_train, base, batches,
+                                           eng._generators(rnd), eng._rmask)
+            fence(post)
+        with self.clock.phase("encode"):
+            ex = eng._exchange_updates(rnd, post, base, None, mode="async",
+                                       commit=False)
+        del post, base
+        digests = None
+        if ex.fp is not None:
+            digests = [eng._entry_digest(ex.wire_kind, ex.fp[c]).hex()
+                       for c in range(self.local_clients)]
+        s = stats.double().sum(0).cpu().numpy()
+        header = {
+            "type": "update", "base_version": int(self.version),
+            "round": int(rnd), "wire_kind": ex.wire_kind,
+            "lineage": self.history[self.version][1],
+            "n_ex": [int(x) for x in np.asarray(n_ex)],
+            "digests": digests, "sent_at": time.time(),
+        }
+        with self.clock.phase("to_host"):
+            wire_tree = _to_host(ex.sent)
+        del ex
+        self.local_round += 1
+        telemetry.emit("round", round=rnd, wall_s=time.time() - t0,
+                       base_version=int(self.version),
+                       train_loss=float(s[0] / max(s[2], 1.0)))
+
+        # the straggler lane, driven for real: a pre-send sleep, so it
+        # shows in the measured staleness and latency
+        plan = cfg.faults
+        delays = (plan.straggler_delays(rnd, self.peers)
+                  if plan is not None else None)
+        if delays is not None and delays[self.peer_id] > 0:
+            time.sleep(float(delays[self.peer_id]))
+
+        leader = self._leader()
+        if leader == self.peer_id:
+            # the leader's own update gets a real (from, msg_id) identity
+            # too, so every merged update is dedup-accountable
+            self._buffer_push((dict(header, **{
+                "from": self.peer_id,
+                "msg_id": self.transport.alloc_msg_id(self.peer_id),
+                "msg_epoch": self.transport.epoch}),
+                {"payload": wire_tree}, time.time()))
+        elif cfg.dist.pipeline:
+            # hand the frame to the per-destination sender worker and
+            # start the next local round (comms/compute overlap); the
+            # bounded handoff blocks when the link is slower than training
+            self.transport.send_async(leader, header, {"payload": wire_tree})
+        else:
+            self.transport.send(leader, header, {"payload": wire_tree})
+
+    # ------------------------------------------------------- leader: merging
+
+    def _buffer_push(self, entry: tuple):
+        """Leader-side FedBuff intake, bounded (shed the OLDEST past the
+        cap); called from the main loop and the intake thread."""
+        cap = max(4, 2 * self.peers, 2 * (self.cfg.dist.buffer or 1))
+        with self._buffer_lock:
+            if not self._buffer:
+                self._buffer_since = entry[2]  # a new merge window opens
+            self._buffer.append(entry)
+            while len(self._buffer) > cap:
+                self._buffer.pop(0)
+                self._buffer_shed += 1
+
+    def _maybe_merge(self):
+        from bcfl_tpu_torch.dist.transport import DOWN
+
+        cfg = self.cfg
+        comp = self._component()
+        # quorum degradation: peers the failure detector holds DOWN do not
+        # count toward the buffer target; below quorum_frac of the
+        # component the leader does not advance the global at all
+        states = self.transport.detector.states()
+        down = [p for p in comp
+                if p != self.peer_id and states.get(p) == DOWN]
+        alive = [p for p in comp if p not in down]
+        if len(alive) < max(1, math.ceil(cfg.dist.quorum_frac * len(comp))):
+            if not self._below_quorum:
+                self._below_quorum = True
+                self._below_quorum_events += 1
+                telemetry.emit("quorum.below", component=len(comp),
+                               alive=len(alive), down=list(down))
+            # nothing else on a parked leader sends: probe the DOWN peers
+            # so a healed network restores the quorum
+            for p in down:
+                self.transport.send(p, {"type": "ping"})
+            return
+        self._below_quorum = False
+        # the target counts DISTINCT senders; target check and swap are
+        # one critical section (the intake thread keeps pushing)
+        want = min(cfg.dist.buffer or 1, len(alive))
+        with self._buffer_lock:
+            if not self._buffer:
+                return
+            distinct = len({int(h.get("from", -1))
+                            for h, _, _ in self._buffer})
+            if (distinct < want and time.time() - self._buffer_since
+                    < cfg.dist.buffer_timeout_s):
+                return
+            buf, self._buffer = self._buffer, []
+        t0 = time.time()
+        arrivals, rejected, weighted = [], [], []
+        for header, trees, recv_t in buf:
+            with self.clock.phase("merge.prepare"):
+                out = self._prepare_update(header, trees, recv_t)
+            (arrivals if out.get("ok") else rejected).append(out["rec"])
+            if out.get("ok"):
+                weighted.append(out)
+        del buf
+        if weighted:
+            with self.clock.phase("merge.apply"):
+                self._apply_merge(weighted)
+        del weighted
+        self.version += 1
+        rec = MergeRecord(
+            version=self.version, leader=self.peer_id, arrivals=arrivals,
+            rejected=rejected, wall_s=time.time() - t0,
+            solo=self.gate.components() is not None,
+            degraded=bool(down),
+            quorum=({"component": len(comp), "alive": len(alive),
+                     "down": down} if down else None))
+        self.merges.append(rec)
+        # the FedBuff lineage event: which (peer, msg_epoch, msg_id)
+        # updates at what measured staleness and weight composed this
+        # version, and the chain state it committed
+        telemetry.emit(
+            "merge", version=rec.version, leader=rec.leader,
+            arrivals=rec.arrivals, rejected=rec.rejected, solo=rec.solo,
+            degraded=rec.degraded, component=list(comp),
+            quorum=rec.quorum, wall_s=rec.wall_s,
+            **({"chain_len": len(self.chain),
+                "head8": self.chain.head.hex()[:16], "rewrite": False}
+               if self.chain is not None else {}))
+        self._note_version()
+        with self.clock.phase("broadcast"):
+            self._broadcast_global()
+
+    def _prepare_update(self, header: Dict, trees: Dict, recv_t: float):
+        """Commit + verify + decode one buffered update: a record and,
+        when accepted, the per-client merge weights and delta rows."""
+        from bcfl_tpu_torch.fed import client_step as cs
+        from bcfl_tpu_torch.ledger import fingerprint as fp_lib
+
+        cfg, eng = self.cfg, self.eng
+        src = int(header["from"])
+        base_v = int(header["base_version"])
+        staleness, clamped = measured_staleness(self.version, base_v)
+        rec = {"peer": src, "msg_id": header.get("msg_id"),
+               "msg_epoch": header.get("msg_epoch"),
+               "round": int(header["round"]),
+               "base_version": base_v, "staleness": staleness,
+               "latency_s": max(recv_t - float(header["sent_at"]), 0.0)}
+        if clamped:
+            rec["staleness_clamped"] = True
+            telemetry.emit("warn", what="negative_staleness", peer_from=src,
+                           leader_version=int(self.version),
+                           base_version=base_v)
+        # lineage check (both wire formats) before anything touches the
+        # chain: the sender names the chain head of its base version, and
+        # it must match this leader's history for that version
+        hist = self.history.get(base_v)
+        if hist is not None and hist[1] != header.get("lineage"):
+            rec["rejected"] = "fork lineage mismatch"
+            return {"ok": False, "rec": rec}
+        if eng._comp is None and hist is None:
+            # the uncompressed wire ships post-train params: the delta
+            # needs the base model
+            rec["rejected"] = "unknown base version"
+            return {"ok": False, "rec": rec}
+        t_dev = time.time()
+        dev = _to_device(trees["payload"], self.device)
+        ids = [src * self.local_clients + c
+               for c in range(self.local_clients)]
+        auth = np.ones((self.local_clients,), np.float32)
+        if self.chain is not None and header.get("digests"):
+            # commit what the sender ANNOUNCED, then authenticate what
+            # ARRIVED: the local flow's commit -> transport -> verify
+            # order, across a real wire
+            kind = header["wire_kind"]
+            for c, d in zip(ids, header["digests"]):
+                self.chain.append_digest(int(header["round"]), int(c),
+                                         bytes.fromhex(d),
+                                         eng._client_payload_bytes)
+            telemetry.emit("ledger", op="commit", round=int(header["round"]),
+                           n=self.local_clients, chain_len=len(self.chain),
+                           rewrite=False,
+                           head8=self.chain.head.hex()[:16])
+            if kind not in eng._struct_cache:
+                eng._struct_cache[kind] = fp_lib.struct_digest(
+                    dev, cfg.ledger.use_native)
+            fp = fp_lib.client_fingerprint(dev).cpu().numpy()
+            for c in range(self.local_clients):
+                if eng._entry_digest(kind, fp[c]).hex() != header["digests"][c]:
+                    auth[c] = 0.0
+            rec["auth"] = auth.tolist()
+        if eng._comp is None:
+            deltas = {p: dev[p] - hist[0][p].unsqueeze(0) for p in dev}
+        else:
+            # the compressed wire ships the encoded delta itself; a base
+            # evicted from the bounded history only can't be
+            # lineage-verified (recorded)
+            if hist is None:
+                rec["lineage_unverified"] = True
+            deltas = cs.decode_delta(eng._comp, dev, self._stacked_like())
+        del dev
+        rec["decode_s"] = time.time() - t_dev
+        n_ex = np.asarray(header["n_ex"], np.float32)
+        alpha = auth * np.float32(cfg.staleness_decay ** staleness)
+        base_w = n_ex if cfg.weighted_agg else np.ones_like(n_ex)
+        alpha = alpha * base_w
+        if float(alpha.sum()) <= 0.0:
+            rec["rejected"] = "all clients eliminated (auth)"
+            return {"ok": False, "rec": rec}
+        # the update's total merge weight: part of the merge lineage
+        rec["weight"] = float(alpha.sum())
+        return {"ok": True, "rec": rec, "deltas": deltas, "alpha": alpha,
+                "base_w": float(base_w.sum())}
+
+    def _apply_merge(self, updates: List[Dict]):
+        """FedBuff step along the staleness-weighted mean delta: each
+        update collapses to its slice's weighted mean delta, the updates
+        combine weighted by their total weights, and the global steps by
+        ``async_server_lr`` times sum(weights) / sum(undecayed weights)."""
+        from bcfl_tpu_torch.fed import client_step as cs
+
+        zero = {p: torch.zeros_like(x) for p, x in self.trainable.items()}
+        parts, weights, base_total = [], [], 0.0
+        for u in updates:
+            w = torch.as_tensor(np.asarray(u["alpha"], np.float32),
+                                device=self.device)
+            parts.append(cs.collapse(u["deltas"], w, zero, self.eng.agg))
+            u["deltas"] = None
+            weights.append(float(np.asarray(u["alpha"]).sum()))
+            base_total += u["base_w"]
+        total = sum(weights)
+        ws = [np.float32(w / total) for w in weights]
+        merged = {p: sum(float(w) * part[p] for w, part in zip(ws, parts))
+                  for p in self.trainable}
+        # decay shrinks the applied STEP, not just the relative votes
+        scale = total / max(base_total, 1e-9)
+        step = float(np.float32(self.cfg.async_server_lr * scale))
+        self.trainable = {p: x + step * merged[p].to(x.dtype)
+                          for p, x in self.trainable.items()}
+
+    def _global_frame(self, start: int) -> Dict:
+        """The header of a GLOBAL carrying the chain rows from ``start``
+        (the suffix since the last broadcast, or the whole chain)."""
+        header = {"type": "global", "version": int(self.version),
+                  "healed": False}
+        if self.chain is not None:
+            header["chain_start"] = int(start)
+            header["chain_prev_head"] = self.chain.head_at(start).hex()
+            header["chain"] = self.chain.segment(start)
+        else:
+            header["chain"] = None
+        return header
+
+    def _broadcast_global(self):
+        """Send the new global and the chain suffix since the last
+        broadcast to every other peer; a follower whose chain does not
+        end where the suffix starts asks for the whole state (HELLO)."""
+        header = self._global_frame(self._last_broadcast_len)
+        if self.chain is not None:
+            self._last_broadcast_len = len(self.chain)
+        telemetry.emit("broadcast", version=int(self.version),
+                       healed=False, full=False)
+        model = _to_host(self.trainable)
+        for p in self._component():
+            if p == self.peer_id:
+                continue
+            # with the pipeline on, broadcasts ride the per-destination
+            # sender workers (FIFO per destination: version N goes out
+            # before N+1) while the leader starts its next round
+            if self.cfg.dist.pipeline:
+                self.transport.send_async(p, header, {"model": model})
+            else:
+                self.transport.send(p, header, {"model": model})
+
+    # --------------------------------------------------------- follower side
+
+    def _request_resync(self, leader: int):
+        """Ask the leader for the whole state (throttled): the suffix a
+        broadcast carried did not extend this replica."""
+        if time.time() - self._last_hello < 2.0:
+            return
+        self._last_hello = time.time()
+        self.transport.send(leader, {"type": "hello",
+                                     "version": int(self.version)})
+
+    def _handle_global(self, header: Dict, trees: Dict):
+        from bcfl_tpu_torch.ledger import Ledger
+
+        version = int(header["version"])
+        if version <= self.version:
+            return
+        if self.chain is not None and header.get("chain") is not None:
+            rows = header["chain"]
+            start = int(header.get("chain_start", 0))
+            if start == 0:
+                # full sync (a hello reply): rebuild and verify the whole
+                # replica from genesis
+                replica = Ledger(self.cfg.ledger.use_native)
+                if replica.append_rows(rows) != -1:
+                    logger.error("peer %d: global v%d carried an "
+                                 "unverifiable chain; not adopting",
+                                 self.peer_id, version)
+                    return
+                self.chain = self.eng.ledger = replica
+                telemetry.emit("ledger", op="resync",
+                               chain_len=len(self.chain), rewrite=True,
+                               head8=self.chain.head.hex()[:16])
+            elif (start == len(self.chain)
+                  and self.chain.head.hex() == header.get("chain_prev_head")):
+                # contiguous suffix: verify each link as it lands
+                if self.chain.append_rows(rows) != -1:
+                    logger.error("peer %d: global v%d suffix failed link "
+                                 "verification; resyncing", self.peer_id,
+                                 version)
+                    self._request_resync(int(header["from"]))
+                    return
+                telemetry.emit("ledger", op="append",
+                               chain_len=len(self.chain), rewrite=False,
+                               head8=self.chain.head.hex()[:16])
+            else:
+                # a gap (missed broadcasts): never adopt a model whose
+                # chain this replica cannot verify
+                self._request_resync(int(header["from"]))
+                return
+        with self.clock.phase("adopt"):
+            self.trainable = self._cast(trees["model"])
+        self.version = version
+        self.adopted.append(version)
+        self._note_version()
+        telemetry.emit("adopt", version=version, healed=False,
+                       leader=int(header.get("from", -1)))
+
+    def _handle_hello(self, header: Dict):
+        """A peer asks for the whole state: the leader replies with the
+        model and the full chain."""
+        if self._leader() != self.peer_id:
+            return
+        self.transport.send(int(header["from"]), self._global_frame(0),
+                            {"model": _to_host(self.trainable)})
+
+    # --------------------------------------------------------------- intake
+
+    def _intake_update(self, header: Dict, trees: Dict):
+        """The UPDATE intake seam (serial path and intake thread): into
+        the leader's locked arrival buffer. An update addressed to a
+        stale leader is dropped; the sender rebases on the next global."""
+        if self._leader() == self.peer_id:
+            self._buffer_push((header, trees, time.time()))
+
+    def _intake_loop(self):
+        """Pipelined intake: UPDATE frames go straight into the arrival
+        buffer, everything else to the control queue the main loop
+        drains. Only CPU tensors pass through here."""
+        while not self._stop:
+            msg = self.transport.recv(timeout_s=0.05)
+            if msg is None:
+                continue
+            header, trees = msg
+            if header.get("type") == "update":
+                self._intake_update(header, trees)
+            else:
+                self._ctrl.put(msg)
+
+    def _next_ctrl(self, timeout_s: float):
+        if self._intake_thread is not None:
+            try:
+                return self._ctrl.get(timeout=timeout_s)
+            except queue.Empty:
+                return None
+        return self.transport.recv(timeout_s=timeout_s)
+
+    def _handle(self, header: Dict, trees: Dict):
+        kind = header.get("type")
+        if kind == "update":
+            self._intake_update(header, trees)  # serial path only
+        elif kind == "ping":
+            pass  # liveness probe: the ack was the answer
+        elif kind == "global":
+            self._handle_global(header, trees)
+        elif kind == "hello":
+            self._handle_hello(header)
+        elif kind == "shutdown":
+            self._stop = True
+        else:
+            logger.warning("peer %d: unknown message type %r",
+                           self.peer_id, kind)
+
+    def _global_eval(self):
+        s = self.eng.eval_one(self.trainable, self.eng.eval_batches)
+        s = s.double().cpu().numpy()
+        return float(s[0] / max(s[2], 1.0)), float(s[1] / max(s[2], 1.0))
+
+    def _finalize(self):
+        loss = acc = None
+        try:
+            loss, acc = self._global_eval()
+        except Exception as e:  # an eval failure must not eat the report
+            logger.warning("peer %d: final eval failed (%s)", self.peer_id, e)
+        self._final_eval = {"loss": loss, "acc": acc}
+        # drain the sender pipeline before the stop message: the final
+        # broadcast rides the workers
+        self.transport.flush_sends(timeout_s=self.cfg.dist.send_deadline_s)
+        for p in range(self.peers):
+            if p != self.peer_id:
+                self.transport.send(p, {"type": "shutdown",
+                                        "version": int(self.version)})
+        self._stop = True
+
+    def run(self) -> int:
+        logger.info("peer %d/%d up on %s: clients %s", self.peer_id,
+                    self.peers, self.device, list(self.global_ids))
+        telemetry.emit("run.start", role="peer", peers=self.peers,
+                       resumed=False, version=int(self.version),
+                       epoch=self.transport.epoch,
+                       pipeline=bool(self.cfg.dist.pipeline))
+        self.transport.start()
+        if self.cfg.dist.pipeline:
+            self._intake_thread = threading.Thread(
+                target=self._intake_loop, daemon=True,
+                name=f"bcfl-dist-intake-{self.peer_id}")
+            self._intake_thread.start()
+        self._write_report(status="running")
+        try:
+            while not self._stop:
+                self._check_watchdogs()
+                self._maybe_flush_report()
+                msg = self._next_ctrl(timeout_s=0.05)
+                while msg is not None:
+                    self._handle(*msg)
+                    msg = self._next_ctrl(timeout_s=0.0)
+                if self._stop:
+                    break
+                if self._leader() == self.peer_id:
+                    self._maybe_merge()
+                if (self.peer_id == 0
+                        and self.version >= self.cfg.num_rounds):
+                    # target version count reached: evaluate, tell
+                    # everyone, stop
+                    self._finalize()
+                if self._stop:
+                    break
+                if self.version < self.cfg.num_rounds:
+                    self._train_once()
+                else:
+                    time.sleep(0.05)  # waiting for shutdown or merges
+        finally:
+            # a short drain so a last enqueued frame is not cut off
+            # mid-stream by close
+            self.transport.flush_sends(timeout_s=2.0)
+            self.transport.close()
+            self._deadline_timer.cancel()
+        self._write_report(status="ok")
+        return 0
+
+    # ---------------------------------------------------------------- report
+
+    def _write_report(self, status: str):
+        """Atomic (tmp + rename) report write. ``"running"`` is the
+        periodic partial flush; any other status is terminal, closes the
+        event stream (run.end + flush) and wins over later rewrites."""
+        with self._report_lock:
+            if self._report_terminal:
+                return
+            if status != "running":
+                self._report_terminal = True
+            self._write_report_locked(status)
+
+    def _chain_ok(self, status: str) -> Optional[bool]:  # guarded-by: _report_lock
+        if self.chain is None:
+            return None
+        # the full re-hash runs on terminal writes only
+        if status != "running" or self._chain_ok_cache is None:
+            self._chain_ok_cache = self.chain.verify_chain() == -1
+        return self._chain_ok_cache
+
+    def _write_report_locked(self, status: str):  # guarded-by: _report_lock
+        from bcfl_tpu_torch.ops import registry
+
+        self._report_round = self.local_round
+        self._report_version = self.version
+        staleness = [a["staleness"] for m in self.merges for a in m.arrivals]
+        latencies = [a["latency_s"] for m in self.merges for a in m.arrivals]
+        tstats = self.transport.stats()
+        report = {
+            "peer": self.peer_id,
+            "peers": self.peers,
+            "status": status,
+            "pid": os.getpid(),
+            "resumed": False,
+            "device": str(self.device),
+            "final_version": int(self.version),
+            "local_rounds": int(self.local_round),
+            "merges": [dataclasses.asdict(m) for m in self.merges],
+            "solo_merges": sum(1 for m in self.merges if m.solo),
+            "degraded_merges": sum(1 for m in self.merges if m.degraded),
+            "below_quorum_events": self._below_quorum_events,
+            "buffer_shed": self._buffer_shed,
+            "adopted_versions": self.adopted,
+            "staleness_values": staleness,
+            "arrival_latency_s": latencies,
+            "transport": tstats,
+            "send_failures": tstats["send_failures"],
+            "dropped_by_gate": tstats["dropped_by_gate"],
+            "chain_len": len(self.chain) if self.chain is not None else None,
+            "chain_head": self._head(),
+            "chain_ok": self._chain_ok(status),
+            "final_eval": getattr(self, "_final_eval", None),
+            "events": self.events_path,
+            "wall_s": time.time() - self._t0,
+            # the kernels this process launched (K4/K5 under the codec)
+            # and the device's peak memory
+            "kernel_launches": registry.launch_counts(),
+            "phases": self.clock.summary(),
+            "peak_gb": peak_gb(self.device),
+        }
+        path = os.path.join(self.run_dir, f"report_peer{self.peer_id}.json")
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(report, f, indent=2)
+        os.replace(tmp, path)
+        telemetry.emit("report.flush", status=status)
+        if status != "running":
+            # run.end marks the stream cleanly closed; the flush makes it
+            # durable on the os._exit watchdog paths too
+            telemetry.emit("run.end", status=status,
+                           version=int(self.version),
+                           local_rounds=int(self.local_round))
+        telemetry.flush()
+
+
+def peer_main(argv=None) -> int:
+    """Entry point of one peer process (``python -m bcfl_tpu_torch.dist``);
+    ends the process with the run's exit code."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="bcfl_tpu_torch.dist")
+    ap.add_argument("--config", required=True,
+                    help="path to the supervisor-written FedConfig JSON")
+    ap.add_argument("--peer-id", type=int, required=True)
+    ap.add_argument("--ports", required=True,
+                    help="comma-separated listen ports, one per peer")
+    ap.add_argument("--run-dir", required=True)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--threads", type=int, default=None,
+                    help="cap the peer's CPU threads (torch.set_num_threads)")
+    args = ap.parse_args(argv)
+
+    logging.basicConfig(
+        level=logging.INFO,
+        format=f"[peer {args.peer_id}] %(levelname)s %(message)s")
+    if args.threads:
+        torch.set_num_threads(args.threads)
+
+    from bcfl_tpu_torch.dist.launch import cfg_from_json
+
+    with open(args.config) as f:
+        cfg = cfg_from_json(f.read())
+    ports = [int(p) for p in args.ports.split(",")]
+    rt = PeerRuntime(cfg, args.peer_id, ports, args.run_dir,
+                     device=args.device)
+    rc = rt.run()
+    # the report and the event stream are on disk: leave without the
+    # interpreter's teardown, which can abort (SIGABRT) while daemon
+    # sender/intake threads and the CUDA runtime still hold resources
+    logging.shutdown()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)

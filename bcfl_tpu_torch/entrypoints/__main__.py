@@ -19,11 +19,20 @@ flags the ported slice supports.
     python -m bcfl_tpu_torch.entrypoints --preset smoke --device cpu \\
         --mode server --model tiny-llama --lora-rank 4 --task causal_lm \\
         --rounds 1 --seq-len 32 --registry-size 16 --sample-clients 4
+    python -m bcfl_tpu_torch.entrypoints --preset smoke --device cpu \\
+        --runtime dist --peers 2 --clients 4 --rounds 3 --seq-len 16 \\
+        --batch-size 4 --ledger --compress int8+topk    # 2 peer processes
 
 ``--device`` defaults to ``cuda``, which raises when no GPU is present.
-Any flag of the JAX command line that is not listed here is rejected as
-"not ported yet" (among them the multi-process runtime's ``--chaos-wire*``
-and ``--chaos-byz*`` lanes).
+``--runtime dist`` spawns ``--peers`` peer processes on the same device
+(:mod:`bcfl_tpu_torch.dist`), prints a JSON summary with the collated
+timeline and its invariant verdicts, and exits 1 on a failed peer or a
+violation; the run directory (``--dist-run-dir``, default a fresh
+temporary directory) keeps the peers' logs, reports and event streams.
+Its checkpoints, ``--resume`` and the chaos lanes of the dist runtime are
+not ported yet. Any flag of the JAX command line that is not listed here
+is rejected as "not ported yet" (among them ``--chaos-wire*`` and
+``--chaos-byz*``).
 """
 
 from __future__ import annotations
@@ -33,7 +42,7 @@ import dataclasses
 import sys
 
 from bcfl_tpu_torch.compression import KINDS as COMPRESS_KINDS
-from bcfl_tpu_torch.entrypoints.presets import get_preset, list_presets
+from bcfl_tpu_torch.entrypoints.presets import _HF, get_preset, list_presets
 from bcfl_tpu_torch.entrypoints.run import run, run_sweep
 
 # (flag, FedConfig field)
@@ -67,12 +76,49 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--resume", action="store_true",
                     help="resume from the newest valid checkpoint of "
                          "--checkpoint-dir")
+    ap.add_argument("--hf", action="store_true",
+                    help="seed the preset from its model's HF checkpoint "
+                         "and tokenizer (needs transformers and the "
+                         "checkpoint on disk)")
     ap.add_argument("--clients", type=int, default=None)
     ap.add_argument("--rounds", type=int, default=None)
     ap.add_argument("--model", default=None)
     ap.add_argument("--dataset", default=None)
     ap.add_argument("--mode", choices=["server", "serverless"], default=None)
     ap.add_argument("--sync", choices=["sync", "async"], default=None)
+    # the multi-process async P2P runtime (bcfl_tpu_torch.dist)
+    ap.add_argument("--runtime", choices=["local", "dist"], default=None,
+                    help="'dist' runs the multi-process async P2P runtime: "
+                         "--peers OS processes, each owning a client "
+                         "slice, exchanging updates over TCP with "
+                         "FedBuff-buffered aggregation and MEASURED "
+                         "staleness (implies sync=async, eval_every=0)")
+    ap.add_argument("--peers", type=int, default=None,
+                    help="peer process count for --runtime dist "
+                         "(num_clients must split evenly across them)")
+    ap.add_argument("--dist-deadline", type=float, default=600.0,
+                    help="hard per-peer wall deadline in seconds for "
+                         "--runtime dist (a hung peer fails the run)")
+    ap.add_argument("--dist-buffer", type=int, default=None, metavar="N",
+                    help="FedBuff merge target for --runtime dist, in "
+                         "DISTINCT sending peers (0 = merge on every "
+                         "arrival, the default; must be <= peers)")
+    ap.add_argument("--dist-quorum", type=float, default=None,
+                    metavar="FRAC",
+                    help="quorum fraction for --runtime dist leaders: "
+                         "below this reachable fraction the leader stops "
+                         "advancing the global (default 0.5)")
+    ap.add_argument("--no-dist-pipeline", action="store_true",
+                    help="disable the comms/compute overlap for --runtime "
+                         "dist (per-destination sender workers + "
+                         "double-buffered merge intake, on by default)")
+    ap.add_argument("--dist-pipeline-depth", type=int, default=None,
+                    metavar="N",
+                    help="bounded per-destination handoff queue for the "
+                         "pipelined sender (default 2)")
+    ap.add_argument("--dist-run-dir", default=None, metavar="DIR",
+                    help="run directory of --runtime dist (default: a "
+                         "fresh temporary directory)")
     ap.add_argument("--task", choices=["classification", "causal_lm"],
                     default=None,
                     help="causal_lm = federated next-token fine-tuning "
@@ -297,9 +343,17 @@ def _fault_plan(args):
 
 
 def build_config(args):
-    cfg = get_preset(args.preset)
+    cfg = get_preset(args.preset, hf=args.hf)
     overrides = {field: getattr(args, flag) for flag, field in _FIELD_FLAGS
                  if getattr(args, flag) is not None}
+    if args.model is not None and cfg.hf_checkpoint is not None:
+        # keep the checkpoint and tokenizer those of the named model
+        if args.model not in _HF:
+            raise SystemExit(
+                f"--model {args.model!r} has no HF checkpoint mapping; "
+                f"under --hf use one of {sorted(_HF)}")
+        overrides["hf_checkpoint"] = _HF[args.model]
+        overrides["tokenizer"] = _HF[args.model]
     if args.lora_ranks is not None and args.lora_rank is None:
         # a per-client spec supersedes a preset's uniform rank; an explicit
         # --lora-rank beside it reaches FedConfig, which refuses both
@@ -355,7 +409,69 @@ def build_config(args):
     if args.reputation:
         overrides["reputation"] = dataclasses.replace(
             cfg.reputation, enabled=True, **rep_tweaks)
+    for flag, given in (("--peers", args.peers is not None),
+                        ("--dist-quorum", args.dist_quorum is not None),
+                        ("--dist-buffer", args.dist_buffer is not None),
+                        ("--no-dist-pipeline", args.no_dist_pipeline),
+                        ("--dist-pipeline-depth",
+                         args.dist_pipeline_depth is not None),
+                        ("--dist-run-dir", args.dist_run_dir is not None)):
+        if given and args.runtime != "dist":
+            raise SystemExit(f"{flag} only applies to --runtime dist")
+    if args.runtime is not None:
+        # one combined replace: fields the user did not set take the
+        # dist defaults, explicit conflicting ones fail in the capability
+        # table
+        overrides["runtime"] = args.runtime
+        if args.runtime == "dist":
+            overrides.setdefault("sync", "async")
+            overrides.setdefault("mode", "server")
+            overrides.setdefault("eval_every", 0)
+            # the dist runtime's checkpoints are not ported yet
+            dist_kw = dict(peers=args.peers or cfg.dist.peers,
+                           peer_deadline_s=args.dist_deadline,
+                           checkpoint_every_versions=0)
+            if args.dist_quorum is not None:
+                dist_kw["quorum_frac"] = args.dist_quorum
+            if args.dist_buffer is not None:
+                dist_kw["buffer"] = args.dist_buffer
+            if args.no_dist_pipeline:
+                dist_kw["pipeline"] = False
+            if args.dist_pipeline_depth is not None:
+                dist_kw["pipeline_depth"] = args.dist_pipeline_depth
+            overrides["dist"] = dataclasses.replace(cfg.dist, **dist_kw)
     return cfg.replace(**overrides)
+
+
+def run_dist_cli(cfg, device: str, run_dir=None) -> int:
+    """Run the dist federation, print its JSON summary (the collated
+    timeline and invariant verdicts included); 1 on a failed peer or an
+    invariant violation."""
+    import json
+    import tempfile
+
+    from bcfl_tpu_torch.dist import run_dist
+    from bcfl_tpu_torch.telemetry import collate
+
+    run_dir = run_dir or tempfile.mkdtemp(prefix="bcfl_dist_cli_")
+    result = run_dist(cfg, run_dir, device=device)
+    summary = {
+        "ok": result["ok"],
+        "process_count": result["process_count"],
+        "returncodes": result["returncodes"],
+        "final_versions": {p: r.get("final_version")
+                           for p, r in result["reports"].items()},
+        "final_eval": result["reports"].get(0, {}).get("final_eval"),
+        "run_dir": result["run_dir"],
+    }
+    if result["event_streams"]:
+        col = collate(result["event_streams"])
+        summary["event_streams"] = result["event_streams"]
+        summary["timeline"] = col["timeline"]
+        summary["invariants"] = col["invariants"]
+        summary["invariants_ok"] = col["ok"]
+    print(json.dumps(summary, indent=2), flush=True)
+    return 0 if result["ok"] and summary.get("invariants_ok", True) else 1
 
 
 def main(argv=None) -> int:
@@ -365,6 +481,12 @@ def main(argv=None) -> int:
     if rest:
         ap.error(f"not ported yet (or unknown): {' '.join(rest)}")
     cfg = build_config(args)
+    if cfg.runtime == "dist":
+        if args.sweep or args.resume:
+            raise SystemExit("--runtime dist composes with neither --sweep "
+                             "nor --resume (the dist runtime's crash/rejoin "
+                             "and resume are not ported yet)")
+        return run_dist_cli(cfg, args.device, args.dist_run_dir)
     if args.sweep:
         run_sweep(cfg, device=args.device, resume=args.resume)
     else:

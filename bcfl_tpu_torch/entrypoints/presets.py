@@ -1,9 +1,10 @@
 """Config presets: port of ``bcfl_tpu/entrypoints/presets.py`` (the
 reference scripts as named ``FedConfig`` rows, with the JAX fields).
 
-The ``hf=True`` form of the JAX presets (real HF checkpoints and
-tokenizers) is not ported: presets build the same architecture with a
-fresh init. The ``imdb``, ``covid`` and ``cancer`` datasets come from the
+``hf=True`` seeds every preset but ``smoke`` from its model's HF
+checkpoint and tokenizer (``_HF``): this needs ``transformers`` and the
+checkpoint on disk (a hub cache, or no network). Without it the presets
+build the same architecture with a fresh init. The ``imdb``, ``covid`` and ``cancer`` datasets come from the
 HF hub; offline, or without the ``datasets`` library, they load as
 synthetic stand-ins with the same label space, named
 ``<name>:synthetic-standin``, as in JAX.
@@ -17,7 +18,15 @@ from bcfl_tpu_torch.config import (FedConfig, LedgerConfig, PartitionConfig,
                                    TopologyConfig)
 
 
-def build_presets() -> Dict[str, FedConfig]:
+_HF = {
+    "albert-base": "albert-base-v2",
+    "biobert-base": "dmis-lab/biobert-v1.1",
+    "bert-base": "bert-base-uncased",
+    "clinical-bert": "emilyalsentzer/Bio_ClinicalBERT",
+}
+
+
+def build_presets(hf: bool = False) -> Dict[str, FedConfig]:
     p: Dict[str, FedConfig] = {}
 
     # ---- server case (Flower-simulation scripts -> mode="server") ----
@@ -106,11 +115,15 @@ def build_presets() -> Dict[str, FedConfig]:
         mode="serverless", weighted_agg=False, num_clients=2, num_rounds=2,
         seq_len=64, max_local_batches=2,
         partition=PartitionConfig(kind="iid", iid_samples=64))
+    if hf:
+        p = {k: (c if k == "smoke" else c.replace(
+                 hf_checkpoint=_HF[c.model], tokenizer=_HF[c.model]))
+             for k, c in p.items()}
     return p
 
 
-def get_preset(name: str) -> FedConfig:
-    presets = build_presets()
+def get_preset(name: str, hf: bool = False) -> FedConfig:
+    presets = build_presets(hf)
     if name not in presets:
         raise KeyError(f"unknown preset {name!r}; have {sorted(presets)}")
     return presets[name]

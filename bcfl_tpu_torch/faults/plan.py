@@ -33,7 +33,10 @@ the failures the local engine is stressed with:
 Every draw comes from ``np.random.default_rng((seed, lane, round))`` with
 the JAX package's lane numbers, so the schedules are the JAX package's bit
 for bit. The wire, byzantine, storage, limp and resource lanes of the JAX
-plan serve its multi-process runtime and are not carried here.
+plan serve its multi-process runtime: the plan carries their fields with
+JAX's names and defaults, so a config can name them, but no lane draws
+here and the config refuses an armed one ("not ported yet" on
+``runtime="dist"``, JAX's own reason on ``"local"``).
 """
 
 from __future__ import annotations
@@ -61,6 +64,13 @@ _LANE_STRAGGLER = 2
 _LANE_CORRUPT = 3
 _LANE_PARTITION = 4
 _LANE_FLAKY = 5
+
+# the dist-only lanes' vocabularies (JAX's canonical orders)
+BYZ_BEHAVIORS = ("scale", "sign_flip", "garbage", "replay", "digest_forge",
+                 "equivocate")
+STORAGE_CLASSES = ("torn", "payload_flip", "meta_flip", "truncate",
+                   "delete", "ledger", "rollback")
+RESOURCE_CLASSES = ("enospc", "emfile")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,9 +116,44 @@ class FaultPlan:
     flaky_burst_len: int = 3
     flaky_on_prob: float = 0.5
     flaky_scale: float = 1e6
+    # --- the JAX plan's dist-only lanes (fields only, see the module
+    # docstring): wire faults, byzantine peers, storage damage, limp
+    # (gray failure) and resource (ENOSPC/EMFILE) faults ---
+    wire_drop_prob: float = 0.0
+    wire_dup_prob: float = 0.0
+    wire_reorder_prob: float = 0.0
+    wire_reorder_hold_s: float = 0.25
+    wire_delay_prob: float = 0.0
+    wire_delay_s: float = 0.2
+    wire_corrupt_prob: float = 0.0
+    wire_rounds: Optional[Tuple[int, ...]] = None
+    byz_peers: Optional[Tuple[int, ...]] = None
+    byz_behaviors: Tuple[str, ...] = BYZ_BEHAVIORS
+    byz_prob: float = 1.0
+    byz_scale: float = 25.0
+    byz_rounds: Optional[Tuple[int, ...]] = None
+    storage_peers: Optional[Tuple[int, ...]] = None
+    storage_prob: float = 0.0
+    storage_classes: Tuple[str, ...] = STORAGE_CLASSES
+    storage_delete_last: int = 1
+    storage_rounds: Optional[Tuple[int, ...]] = None
+    sync_tamper: Optional[Tuple[Tuple[int, int], ...]] = None
+    limp_peers: Optional[Tuple[int, ...]] = None
+    limp_prob: float = 0.0
+    limp_stall_s: float = 2.0
+    limp_throttle_bps: float = 0.0
+    limp_oneway: bool = False
+    limp_rounds: Optional[Tuple[int, ...]] = None
+    resource_peers: Optional[Tuple[int, ...]] = None
+    resource_prob: float = 0.0
+    resource_classes: Tuple[str, ...] = RESOURCE_CLASSES
+    resource_rounds: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self):
-        for name in ("dropout_prob", "straggler_prob", "corrupt_prob"):
+        for name in ("dropout_prob", "straggler_prob", "corrupt_prob",
+                     "wire_drop_prob", "wire_dup_prob", "wire_reorder_prob",
+                     "wire_delay_prob", "wire_corrupt_prob", "byz_prob",
+                     "storage_prob", "limp_prob", "resource_prob"):
             p = getattr(self, name)
             if not 0.0 <= p <= 1.0:
                 raise ValueError(f"{name} must be in [0, 1], got {p}")
@@ -234,6 +279,28 @@ class FaultPlan:
     @property
     def flaky_enabled(self) -> bool:
         return bool(self.flaky_clients) or self.flaky_frac > 0
+
+    @property
+    def wire_enabled(self) -> bool:
+        return (self.wire_drop_prob > 0 or self.wire_dup_prob > 0
+                or self.wire_reorder_prob > 0 or self.wire_delay_prob > 0
+                or self.wire_corrupt_prob > 0)
+
+    @property
+    def byz_enabled(self) -> bool:
+        return bool(self.byz_peers)
+
+    @property
+    def storage_enabled(self) -> bool:
+        return self.storage_prob > 0 or bool(self.sync_tamper)
+
+    @property
+    def limp_enabled(self) -> bool:
+        return self.limp_prob > 0
+
+    @property
+    def resource_enabled(self) -> bool:
+        return self.resource_prob > 0
 
     @property
     def corrupts(self) -> bool:

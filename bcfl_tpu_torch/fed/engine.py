@@ -56,14 +56,16 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 import warnings
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
+from bcfl_tpu_torch import telemetry
 from bcfl_tpu_torch.checkpoint import restore_latest, save_checkpoint
 from bcfl_tpu_torch.compression import codecs as cc
 from bcfl_tpu_torch.config import FedConfig
@@ -91,8 +93,9 @@ from bcfl_tpu_torch.metrics import (
 )
 from bcfl_tpu_torch.models import (build, full_float32_matmuls, lora,
                                    lora_targets)
-from bcfl_tpu_torch.models.bert import init_params
+from bcfl_tpu_torch.models.bert import TextClassifier, init_params
 from bcfl_tpu_torch.models.convert import load_trainable, trainable_tree
+from bcfl_tpu_torch.models.hf_import import import_pretrained, load_into
 from bcfl_tpu_torch.parallel import (make_aggregator,
                                      rank_aware_weighted_mean)
 from bcfl_tpu_torch.parallel.collectives import _col
@@ -133,8 +136,14 @@ class ExchangeResult:
     # with a codec in the global/local modes, ``sent`` itself without one,
     # None in async mode (the async merge decodes the deltas itself)
     recon: object
-    # ledger 0/1 auth mask over the clients (None: ledger off)
+    # ledger 0/1 auth mask over the clients (None: ledger off, or
+    # commit=False)
     auth: Optional[np.ndarray]
+    # commit=False with the ledger on: the [C, K] fingerprint rows of
+    # ``sent``, which a remote leader commits and re-verifies
+    fp: Optional[np.ndarray] = None
+    # what ``sent`` is: "stacked" (the tree itself) or "payload" (codec)
+    wire_kind: str = "stacked"
 
 
 def _to_device(tree: dict, device: torch.device) -> dict:
@@ -154,11 +163,29 @@ def _untext(t) -> str:
 class FedEngine:
     def __init__(self, cfg: FedConfig, device=None, info_source: int = 1,
                  tamper_hook: Optional[Callable] = None,
-                 fused_tamper: Optional[Callable] = None):
+                 fused_tamper: Optional[Callable] = None,
+                 client_ids: Optional[Sequence[int]] = None):
+        """``client_ids``: the global ids of the stacked clients (a dist
+        peer's slice; default ``0..C-1``). Batches, dropout generators,
+        codec uniforms and ledger ids follow them. The dist runtime uses
+        the engine's round pieces, never :meth:`run`, so fixed ids refuse
+        the per-client state that :meth:`run` keeps (registry sampling,
+        reputation)."""
         self.cfg = cfg
         self.device = dev = resolve_device(device)
         if dev.type == "cuda":
             full_float32_matmuls()
+        self._fixed_ids = None
+        if client_ids is not None:
+            if cfg.registry_size > 0 or cfg.reputation.enabled:
+                raise ValueError(
+                    "client_ids (a dist peer's slice) does not compose "
+                    "with registry sampling or reputation")
+            self._fixed_ids = np.asarray(client_ids, np.int64)
+            if len(self._fixed_ids) != cfg.num_clients:
+                raise ValueError(
+                    f"{len(self._fixed_ids)} client_ids for "
+                    f"{cfg.num_clients} clients")
         # cohort mode: C = the stacked width (the round's cohort), R = the
         # registry; with sampling off R == C == num_clients and every
         # per-round id is the slot itself
@@ -218,15 +245,31 @@ class FedEngine:
                 # an explicit "on" forces flash attention at every length
                 # (the family otherwise gates on flash_min_seq)
                 overrides["flash_min_seq"] = 0
-        with torch.device(dev):
-            self.model = build(cfg.model, num_labels=self.num_labels,
-                               vocab_size=self.tokenizer.vocab_size,
-                               head=("lm" if cfg.task == "causal_lm"
-                                     else "classifier"),
-                               dtype=DTYPES[cfg.compute_dtype],
-                               param_dtype=DTYPES[cfg.param_dtype],
-                               remat=cfg.remat, **overrides)
-        init_params(self.model, prng.generator(dev, cfg.seed, INIT_LANE))
+        dtypes = dict(dtype=DTYPES[cfg.compute_dtype],
+                      param_dtype=DTYPES[cfg.param_dtype], remat=cfg.remat,
+                      **overrides)
+        if cfg.hf_checkpoint is not None:
+            # seed from an HF checkpoint on disk (or a hub name the cache
+            # holds): its own architecture, a fresh classifier head
+            if cfg.task == "causal_lm":
+                raise ValueError(
+                    "task='causal_lm' needs a decoder; the HF import path "
+                    "builds encoder classifiers")
+            model_cfg, variables = import_pretrained(
+                cfg.hf_checkpoint, num_labels=self.num_labels,
+                reinit_classifier=True)
+            with torch.device(dev):
+                self.model = TextClassifier(
+                    dataclasses.replace(model_cfg, **dtypes))
+            load_into(self.model, variables["params"])
+        else:
+            with torch.device(dev):
+                self.model = build(cfg.model, num_labels=self.num_labels,
+                                   vocab_size=self.tokenizer.vocab_size,
+                                   head=("lm" if cfg.task == "causal_lm"
+                                         else "classifier"), **dtypes)
+            init_params(self.model,
+                        prng.generator(dev, cfg.seed, INIT_LANE))
         # heterogeneous LoRA ranks: the [C, R] padding mask of the fleet
         self._rmask = None
         self.adapters = cfg.lora_rank > 0
@@ -305,7 +348,7 @@ class FedEngine:
         """The round's sampled registry ids (``[C]`` int64), or None when
         sampling is off (the slot is the client id)."""
         if self.sampler is None:
-            return None
+            return self._fixed_ids
         if self._cohort_cache[0] != rnd:
             self._cohort_cache = (rnd, self.sampler.cohort_ids(rnd))
         return self._cohort_cache[1]
@@ -343,7 +386,8 @@ class FedEngine:
     def _uniforms(self, rnd: int) -> Optional[cc.Uniforms]:
         if self._comp is None or not self._comp.stochastic:
             return None
-        return prng.codec_uniforms(self.cfg.seed, rnd)
+        first = int(self._fixed_ids[0]) if self._fixed_ids is not None else 0
+        return prng.codec_uniforms(self.cfg.seed, rnd, first)
 
     def _participation(self, rnd: int, components=None) -> Dict:
         if components is not None:
@@ -444,6 +488,9 @@ class FedEngine:
             self.ledger.append_digest(rnd, self._client_id(rnd, c),
                                       self._entry_digest(kind, fps[c]),
                                       self._client_payload_bytes)
+        telemetry.emit("ledger", op="commit", round=int(rnd), n=self.C,
+                       chain_len=len(self.ledger), rewrite=False,
+                       head8=self.ledger.head.hex()[:16])
 
     def _ledger_auth_rows(self, rnd: int, kind: str, fps) -> np.ndarray:
         """0/1 auth mask: do the fingerprint rows match the committed chain
@@ -485,10 +532,7 @@ class FedEngine:
                     self.ledger.append(rnd, c,
                                        {p: x[c] for p, x in host.items()})
                 return self._ledger_authenticate(rnd, host)
-            if kind not in self._struct_cache:
-                self._struct_cache[kind] = fp_lib.struct_digest(
-                    stacked, self.cfg.ledger.use_native)
-            fp = fp_lib.client_fingerprint(stacked).cpu().numpy()
+            fp = self._fingerprint_rows(kind, stacked)
             self._ledger_commit_rows(rnd, kind, fp)
             if sent is None or sent is stacked:
                 # the committed buffer IS the aggregated one: recomputing
@@ -498,17 +542,25 @@ class FedEngine:
             return self._ledger_auth_rows(rnd, kind, fp_recv)
 
     def _exchange_updates(self, rnd: int, new_t, ref_t, scales,
-                          mode: str) -> ExchangeResult:
+                          mode: str, commit: bool = True) -> ExchangeResult:
         """The update-exchange seam: the codec encode (``mode``: "global"
         = delta vs the global, "local" = vs the stacked round-start tree,
         "async" = recon-free), the simulated transport (``scales``: the
         round's corruption, None = clean), then the ledger's commit of what
-        was sent and verify of what arrived."""
+        was sent and verify of what arrived. ``commit=False`` (the dist
+        wire) skips the inline chain and returns the fingerprint rows of
+        ``sent`` instead, for the caller to announce to a remote leader,
+        which commits them and re-verifies what arrived."""
         if self._comp is None:
             sent = self._transport(new_t, scales)
-            auth = (self._ledger_verify(rnd, new_t, sent)
-                    if self.ledger is not None else None)
-            return ExchangeResult(sent=sent, recon=sent, auth=auth)
+            auth = fp = None
+            if self.ledger is not None:
+                if commit:
+                    auth = self._ledger_verify(rnd, new_t, sent)
+                else:
+                    fp = self._fingerprint_rows("stacked", sent)
+            return ExchangeResult(sent=sent, recon=sent, auth=auth, fp=fp,
+                                  wire_kind="stacked")
         uniforms = self._uniforms(rnd)
         if mode == "async":
             payload, self._ef = cs.encode_deltas_async(
@@ -525,9 +577,24 @@ class FedEngine:
                 # a corrupted wire yields a corrupted reconstruction:
                 # decode the TRANSPORTED payload again
                 recon = cs.decode_recon(self._comp, sent, ref_t, new_t)
-        auth = (self._ledger_verify(rnd, payload, sent, kind="payload")
-                if self.ledger is not None else None)
-        return ExchangeResult(sent=sent, recon=recon, auth=auth)
+        auth = fp = None
+        if self.ledger is not None:
+            if commit:
+                auth = self._ledger_verify(rnd, payload, sent, kind="payload")
+            else:
+                fp = self._fingerprint_rows("payload", sent)
+        return ExchangeResult(sent=sent, recon=recon, auth=auth, fp=fp,
+                              wire_kind="payload")
+
+    def _fingerprint_rows(self, kind: str, tree) -> np.ndarray:
+        """The ``[C, K]`` fingerprint rows of a stacked tree of ``kind``,
+        on the host; the first tree of a kind fixes its structure
+        digest."""
+        fence(tree)
+        if kind not in self._struct_cache:
+            self._struct_cache[kind] = fp_lib.struct_digest(
+                tree, self.cfg.ledger.use_native)
+        return fp_lib.client_fingerprint(tree).cpu().numpy()
 
     def _scales_tensor(self, scales: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(scales, np.float32),
@@ -931,7 +998,30 @@ class FedEngine:
         """Run the rounds; ``on_round(record)`` is called after each
         round's record is complete. ``resume=True`` restores the newest
         valid checkpoint of ``cfg.checkpoint_dir`` (if any) and runs the
-        rounds after it."""
+        rounds after it. With ``cfg.telemetry_dir`` naming a directory the
+        run streams its events into ``events_engine.jsonl`` there (phases,
+        rounds, ledger commits, reputation, checkpoints), closed with the
+        run's status even when it crashes."""
+        cfg = self.cfg
+        installed = None
+        if cfg.telemetry_dir and cfg.telemetry_dir != "off":
+            installed = telemetry.install(telemetry.EventWriter(
+                os.path.join(cfg.telemetry_dir, "events_engine.jsonl"),
+                peer=None, run=cfg.name, sample=cfg.telemetry_sample))
+            telemetry.emit("run.start", role="engine", resume=resume,
+                           clients=self.C, rounds=cfg.num_rounds)
+        status = "crashed"
+        try:
+            out = self._run(resume, on_round)
+            status = "ok"
+            return out
+        finally:
+            if installed is not None:
+                telemetry.emit("run.end", status=status)
+                telemetry.uninstall()
+
+    def _run(self, resume: bool,
+             on_round: Optional[Callable[[RoundRecord], None]]) -> RunResult:
         cfg = self.cfg
         monitor = ResourceMonitor()
         metrics = RunMetrics()
@@ -1072,6 +1162,9 @@ class FedEngine:
             self._maybe_eval(rnd, rec, trainable, stacked)
             metrics.rounds.append(rec)
             self._maybe_checkpoint(rnd, trainable, stacked)
+            telemetry.emit("round", round=rnd, wall_s=rec.wall_s,
+                           degraded=rec.degraded, healed=rec.healed,
+                           partitioned=rec.partition is not None)
             if on_round is not None:
                 on_round(rec)
         if self.adapters:

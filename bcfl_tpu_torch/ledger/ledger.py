@@ -13,12 +13,14 @@ local engine's part: chain, digests, authentication, accounting, JSON).
 - accounting: entries are ~100 bytes against multi-100 MB trees
   (:meth:`Ledger.payload_accounting`).
 
-Hashing is ``hashlib``. The JAX package takes the same route when its C++
-core is not built, and the digests are identical either way; the port's
-native core is the tokenizer-and-native item of ROADMAP.md, so
-``use_native`` is accepted and has no effect yet. The fork/merge/segment
-and state-commitment API of the JAX ledger serves its multi-process
-runtime and waits for that port.
+Hashing runs in the C++ core (:mod:`bcfl_tpu_torch.native`, built with g++
+at first use) when ``use_native`` is set and a toolchain exists, and in
+``hashlib`` otherwise; the digests are identical either way. The
+multi-process runtime's replicas use :meth:`Ledger.head_at`,
+:meth:`Ledger.segment`, :meth:`Ledger.append_rows` and
+:meth:`Ledger.verify_segment`; the fork/merge and state-commitment API of
+the JAX ledger (``fork_point``, ``merge_rows``, ``adopt_merge``,
+``commit_state``) serves its partition path and waits for that port.
 
 Trees are ``{path: tensor}`` dicts (values may be nested dicts, as codec
 payloads are) with ``/``-joined keys; :func:`flat_leaves` walks them in
@@ -34,23 +36,46 @@ import json
 import struct
 from typing import Dict, Iterator, List, Optional, Tuple
 
+import ctypes
+
 import numpy as np
 import torch
+
+from bcfl_tpu_torch.native.build import load_ledger_lib
 
 GENESIS = b"\x00" * 32
 
 
 def chain_extend(prev: bytes, payload: bytes, use_native: bool = True) -> bytes:
-    """One chain link: ``H(prev || payload)``."""
+    """One chain link: ``H(prev || payload)`` (C++ core when built)."""
+    lib = load_ledger_lib() if use_native else None
+    if lib is not None:
+        out = ctypes.create_string_buffer(32)
+        lib.bcfl_chain_extend(prev, payload, len(payload), out)
+        return out.raw
     return hashlib.sha256(prev + payload).digest()
 
 
 def _sha256_chunks(chunks: List[bytes], use_native: bool = True) -> bytes:
-    """SHA-256 over concatenated chunks."""
+    """SHA-256 over concatenated chunks (C++ core when built)."""
+    lib = load_ledger_lib() if use_native else None
+    if lib is not None:
+        n = len(chunks)
+        bufs = (ctypes.c_char_p * n)(*chunks)
+        lens = (ctypes.c_uint64 * n)(*[len(c) for c in chunks])
+        out = ctypes.create_string_buffer(32)
+        lib.bcfl_sha256_multi(bufs, lens, n, out)
+        return out.raw
     h = hashlib.sha256()
     for c in chunks:
         h.update(c)
     return h.digest()
+
+
+def _row_entry(row: Dict) -> "LedgerEntry":
+    return LedgerEntry(int(row["round"]), int(row["client"]),
+                       bytes.fromhex(row["digest"]),
+                       int(row["payload_bytes"]))
 
 
 def _jax_key(k: str) -> Tuple[str, ...]:
@@ -157,13 +182,73 @@ class Ledger:
 
     def verify_chain(self) -> int:
         """-1 if every link checks out, else the index of the first bad
-        link."""
+        link (in the C++ core when built)."""
+        payloads = [e.serialize() for e in self.entries]
+        lib = load_ledger_lib() if self.use_native else None
+        if lib is not None and payloads:
+            n = len(payloads)
+            bufs = (ctypes.c_char_p * n)(*payloads)
+            lens = (ctypes.c_uint64 * n)(*[len(p) for p in payloads])
+            return int(lib.bcfl_chain_verify(bufs, lens,
+                                             b"".join(self.heads), n))
         prev = GENESIS
-        for i, e in enumerate(self.entries):
-            h = hashlib.sha256(prev + e.serialize()).digest()
+        for i, p in enumerate(payloads):
+            h = hashlib.sha256(prev + p).digest()
             if h != self.heads[i]:
                 return i
             prev = h
+        return -1
+
+    # ------------------------------------------------------ replica sync
+    # A follower keeps a replica of its leader's chain: each broadcast
+    # carries the suffix since the last one (:meth:`segment`), verified
+    # link by link as it lands (:meth:`append_rows`); a gap or a bad link
+    # makes the follower ask for the whole chain instead.
+
+    def head_at(self, n: int) -> bytes:
+        """Chain head after the first ``n`` entries (GENESIS at 0)."""
+        if n < 0 or n > len(self.heads):
+            raise ValueError(f"head_at({n}) out of range [0, {len(self.heads)}]")
+        return GENESIS if n == 0 else self.heads[n - 1]
+
+    def segment(self, start: int) -> List[Dict]:
+        """JSON-able rows for entries ``[start:]`` (entry fields + the head
+        after each link): what a leader ships to its replicas."""
+        return [
+            {"round": e.round, "client": e.client,
+             "digest": e.params_digest.hex(),
+             "payload_bytes": e.payload_bytes,
+             "head": self.heads[start + i].hex()}
+            for i, e in enumerate(self.entries[start:])
+        ]
+
+    @staticmethod
+    def verify_segment(prev_head: bytes, rows: List[Dict],
+                       use_native: bool = True) -> int:
+        """Recompute every link of a received segment from ``prev_head``:
+        -1 if every claimed head checks out, else the index (within the
+        segment) of the first bad link. A tampered entry or a tampered
+        claimed head both fail."""
+        prev = prev_head
+        for i, row in enumerate(rows):
+            h = chain_extend(prev, _row_entry(row).serialize(), use_native)
+            if h != bytes.fromhex(row["head"]):
+                return i
+            prev = h
+        return -1
+
+    def append_rows(self, rows: List[Dict]) -> int:
+        """Append already-chained rows (a replica catching up from its
+        leader), verifying each link as it lands: -1 on success, else the
+        index of the first row whose claimed head does not extend this
+        chain (the rows before it stay appended)."""
+        for i, row in enumerate(rows):
+            entry = _row_entry(row)
+            h = chain_extend(self.head, entry.serialize(), self.use_native)
+            if h != bytes.fromhex(row["head"]):
+                return i
+            self.heads.append(h)
+            self.entries.append(entry)
         return -1
 
     def authenticate(self, round_idx: int, client: int, tree) -> bool:

@@ -4,6 +4,6 @@ from bcfl_tpu_torch.metrics.metrics import (  # noqa: F401
     ResourceMonitor,
     RoundRecord,
     RunMetrics,
-    StepClock,
     model_size_gb,
 )
+from bcfl_tpu_torch.metrics.tracing import StepClock, annotate, trace  # noqa: F401

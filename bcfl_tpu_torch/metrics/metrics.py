@@ -11,23 +11,18 @@ bytes-on-wire accounting, and the ledger rollup.
 the card's machine does not have): CPU time from ``os.times()`` and the
 resident set from ``/proc/self/statm``, the quantities psutil's
 ``Process.cpu_percent`` and ``memory_info().rss`` read on Linux. JAX's
-``start_sampling``/``stop_sampling`` emit telemetry events, and telemetry
-is not ported yet (ROADMAP.md, the multi-process runtime), so they are
-left out.
+``start_sampling``/``stop_sampling`` (the live monitor's resource series)
+are not ported yet. ``StepClock`` lives in :mod:`.tracing`.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import os
 import shutil
 import time
-from collections import defaultdict
 from typing import Dict, List, Optional
-
-import numpy as np
 
 
 def model_size_gb(tree) -> float:
@@ -94,36 +89,6 @@ class ResourceMonitor:
             "memory_gb": (_rss_bytes() - self.rss_before) / 1e9,
             "latency_min": (time.time() - self.t_before) / 60.0,
         }
-
-
-class StepClock:
-    """Named phase timers on the host clock (port of
-    ``bcfl_tpu/metrics/tracing.py::StepClock``, without the event
-    stream): ``with clock.phase("ledger"): ...`` per round."""
-
-    def __init__(self):
-        self._times: Dict[str, List[float]] = defaultdict(list)
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._times[name].append(time.perf_counter() - t0)
-
-    def summary(self) -> Dict[str, Dict[str, float]]:
-        out = {}
-        for name, xs in self._times.items():
-            a = np.asarray(xs)
-            out[name] = {
-                "count": int(a.size),
-                "total_s": float(a.sum()),
-                "mean_s": float(a.mean()),
-                "p50_s": float(np.percentile(a, 50)),
-                "p95_s": float(np.percentile(a, 95)),
-            }
-        return out
 
 
 @dataclasses.dataclass

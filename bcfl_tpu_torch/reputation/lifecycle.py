@@ -20,9 +20,11 @@ peers carry 0.0 (excluded like an anomaly-masked client), probation peers
 robust order statistics treat any positive weight as participation),
 everyone else 1.0.
 
-The JAX tracker also emits ``rep.evidence`` and ``rep.transition``
-telemetry events; telemetry is not ported yet (ROADMAP.md, the
-multi-process runtime), so the port emits none.
+Like the JAX tracker, :meth:`ReputationTracker.observe` emits
+``rep.evidence`` (before the state machine advances) and
+``rep.transition`` events into the run's event stream
+(:mod:`bcfl_tpu_torch.telemetry`; a no-op without a writer), stamped with
+the tracker's ``scope``.
 """
 
 from __future__ import annotations
@@ -31,6 +33,8 @@ import dataclasses
 from typing import Dict, Optional
 
 import numpy as np
+
+from bcfl_tpu_torch.telemetry import events as _telemetry
 
 # lifecycle states (ints so the state vector checkpoints as a plain array)
 HEALTHY = 0
@@ -109,9 +113,13 @@ class ReputationTracker:
     ``gate()`` (the multiplier folded into the round's mask, from the state
     before the round), the round, then ``observe(fault)``."""
 
-    def __init__(self, cfg: ReputationConfig, num_clients: int):
+    def __init__(self, cfg: ReputationConfig, num_clients: int,
+                 scope: str = "client"):
         self.cfg = cfg
         self.n = int(num_clients)
+        # what one index IS ("client", or "peer" for a per-peer tracker);
+        # stamped onto every rep.* event
+        self.scope = str(scope)
         self.trust = np.ones((self.n,), np.float64)
         self.state = np.full((self.n,), HEALTHY, np.int64)
         self.timer = np.zeros((self.n,), np.int64)
@@ -136,6 +144,15 @@ class ReputationTracker:
         fault = np.clip(np.asarray(fault, np.float64), 0.0, 1.0)
         act = (np.ones((self.n,), bool) if active is None
                else np.asarray(active, bool))
+        # evidence events BEFORE the state machine advances (cause
+        # precedes effect in the stream); quarantined clients were
+        # excluded, so their scores are not evidence
+        if _telemetry.get_writer() is not None:
+            for c in np.nonzero(act & (fault > 0.0)
+                                & (self.state != QUARANTINED))[0]:
+                _telemetry.emit("rep.evidence", client=int(c),
+                                fault=float(fault[c]), scope=self.scope)
+        state_before = self.state.copy()
         for c in range(self.n):
             if self.state[c] == QUARANTINED:
                 # excluded this round: no evidence, the sentence ticks
@@ -165,6 +182,13 @@ class ReputationTracker:
                 self.state[c] = SUSPECT
             else:
                 self.state[c] = HEALTHY
+        if _telemetry.get_writer() is not None:
+            for c in np.nonzero(self.state != state_before)[0]:
+                _telemetry.emit(
+                    "rep.transition", client=int(c), scope=self.scope,
+                    **{"from": STATE_NAMES[int(state_before[c])],
+                       "to": STATE_NAMES[int(self.state[c])],
+                       "trust": float(self.trust[c])})
 
     def _quarantine(self, c: int) -> None:
         self.state[c] = QUARANTINED

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``bcfl_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # phases 1-4, paths (a)-(l)
+    python3 chip_smoke.py              # phases 1-4, paths (a)-(n)
     python3 chip_smoke.py --profile    # phases 1-4, then 5
 
 Phases, each of which raises (and the script exits non-zero) on failure:
@@ -9,7 +9,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 1. ``build``: compile every hand-written CUDA kernel from
    ``bcfl_tpu_torch/csrc`` (one ``nvcc`` per source, all at once), and
    print ptxas's registers and spills of each flash kernel instance and
-   any ``wgmma`` serialization notice.
+   any ``wgmma`` serialization notice; then build the native C++ cores
+   (``bcfl_tpu_torch/native``: the ledger's SHA-256, the tokenizer) with
+   g++ and fail unless both loaded (the Python fallback is for machines
+   without a toolchain).
 2. ``kernels``: hold each kernel to its plain PyTorch version on the card
    at its op's ``parity``. The codec kernels bit for bit:
    ``int8_quantize`` on its registered ``bench_shapes`` grids (stochastic
@@ -117,7 +120,28 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    exactly 0 in its trained tree, its shipped delta and its residual in
    both rounds. Both check that every flash call ran the causal bf16
    D = 128 instances and the launch counts (K2 and K3 once per layer and
-   step), and hold K5/K4 at their calls.
+   step), and hold K5/K4 at their calls. Then (m), the multi-process
+   runtime at full width: the ``server_noniid_medical`` preset
+   (biobert-base, 40 labels, 10 clients) on path (c)'s corpus as 5 peer
+   processes of 2 clients each on the one card, buffered async merging
+   every arrival, ``int8+topk`` with error feedback, the ledger over the
+   announced digests, 6 global versions of 2 local steps of 32 x 128
+   tokens (``bcfl_tpu_torch.dist.run_dist``; the peers are fresh
+   interpreters started after the builds). Every peer must exit 0 at
+   version 6 with ``chain_ok``, the heads must agree, no arrival may fail
+   authentication, K4 and K5 must launch in every peer (the record counts
+   the peers' launches), some arrival must be stale, and the collated
+   event timeline must hold every invariant; it prints per peer the
+   rounds, merges, chain, launches and peak memory, the staleness
+   histogram, message latency p50/p99, bytes and send ms per update frame
+   and per model broadcast, merge ms, each peer's contended round walls
+   beside path (c)'s one-process rounds, and holds K5/K4 at a peer's
+   2-client calls. Then (n), an HF import at bert-base width: a
+   ``BertForSequenceClassification``-layout state dict drawn from the seed
+   (HF key names; the card's machine has no ``transformers``) imported
+   with ``import_state_dict``, every parameter equal to the written one,
+   and one path-(a)-shaped server round from it with K4 and K5, the
+   counts set to 0 just before it and read just after.
 4. ``reference``: on small inputs, a tiny-bert server round on the card
    against the same round on the CPU (float32, dropout off, at the
    tolerance of ``tests/test_torch_round.py``), with dense attention at
@@ -1037,6 +1061,7 @@ def phase_p2p(ck, stats, smi, dataset):
                                "gossip path")
     check_ledger(result, "serverless gossip path")
     fingerprint_determinism(result, cfg)
+    c_walls = [r.wall_s for r in result.metrics.rounds]
     template = result.trainable
     del result
     torch.cuda.empty_cache()
@@ -1068,6 +1093,305 @@ def phase_p2p(ck, stats, smi, dataset):
     torch.cuda.empty_cache()
     codec_calls(ck, stats, template, cfg.compression, cfg.num_clients,
                 "bcfl-async-path")
+    return c_walls
+
+
+# ------------------------------------------- the multi-process runtime
+
+
+def dist_config(dataset: str, **kw):
+    """Path (m): the ``server_noniid_medical`` preset at its published
+    shape (biobert-base widths, vocab 28,996, 40 labels, 10 clients,
+    contiguous partition of stride 500, train 400, fixed test 400) on the
+    multi-process runtime: 5 peer processes of 2 clients each, buffered
+    async with a merge on every arrival (``buffer=0``), ``int8+topk`` with
+    error feedback, the ledger on; cut to 6 global versions of 2 local
+    steps of 32 x 128 tokens, 4 evaluation batches at the end, no
+    checkpoints."""
+    from bcfl_tpu_torch.compression import CompressionConfig
+    from bcfl_tpu_torch.config import DistConfig, LedgerConfig
+    from bcfl_tpu_torch.entrypoints.presets import get_preset
+
+    base = dict(name="chip-smoke-dist-noniid-medical", dataset=dataset,
+                vocab_size=28996, runtime="dist", sync="async",
+                num_rounds=6, max_local_batches=2, max_eval_batches=4,
+                eval_every=0,
+                compression=CompressionConfig(kind="int8+topk"),
+                ledger=LedgerConfig(enabled=True),
+                dist=DistConfig(peers=5, buffer=0, peer_deadline_s=300.0,
+                                idle_timeout_s=120.0,
+                                checkpoint_every_versions=0))
+    base.update(kw)
+    return get_preset("server_noniid_medical").replace(**base)
+
+
+def _pct(xs, q):
+    import numpy as np
+
+    return float(np.percentile(np.asarray(xs), q)) if xs else None
+
+
+def message_stats(ordered):
+    """Per message type (``update``, ``global``, ...) over a collated
+    timeline: the frame bytes and send wall of each delivered send, and
+    its latency from the send's start to the accepted receive."""
+    sends, out = {}, {}
+    for e in ordered:
+        if e.get("ev") == "send" and e.get("ok"):
+            key = (e.get("peer"), e.get("to"), e.get("msg_epoch"),
+                   e.get("msg_id"))
+            sends[key] = e
+            row = out.setdefault(e.get("type"), {"bytes": [], "send_s": [],
+                                                 "latency_s": []})
+            row["bytes"].append(e.get("bytes"))
+            row["send_s"].append(e.get("wall_s"))
+        elif (e.get("ev") == "recv" and e.get("disposition") == "accepted"
+              and e.get("msg_id") is not None):
+            snd = sends.get((e.get("src"), e.get("peer"), e.get("msg_epoch"),
+                             e.get("msg_id")))
+            if snd is not None:
+                out[snd.get("type")]["latency_s"].append(
+                    max(e["t_wall"] - snd["t_wall"], 0.0))
+    return out
+
+
+def phase_dist(ck, stats, smi, dataset, c_walls):
+    """Path (m): the multi-process runtime at full width. The peers are
+    fresh interpreters started after the kernels and the native cores
+    were built; each runs K4 and K5 in its own CUDA context on the one
+    card. Checks every peer's exit, version, chain and K4/K5 launches,
+    the auth rejections and the collated invariants; prints the
+    staleness, latency, frame and merge numbers. Then K5 and K4 held to
+    their plain versions at a peer's own calls (2 clients)."""
+    from bcfl_tpu_torch.dist import run_dist
+    from bcfl_tpu_torch.models import build
+    from bcfl_tpu_torch.models.convert import trainable_tree
+    from bcfl_tpu_torch.telemetry import collate
+
+    cfg = dist_config(dataset)
+    run_dir = BUILD_DIR / "dist_m"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    # one CPU thread per peer: 5 processes share the host's 8 cores, and
+    # each peer's math runs on the card (on an H100 host, with torch's
+    # default intra-op pool per peer the run took 180 s and every arrival
+    # merged fresh, staleness 0; with one, 107 s and 24 of 51 stale)
+    result = run_dist(cfg, str(run_dir), deadline_s=360.0, device="cuda",
+                      threads=1)
+    wall = time.perf_counter() - t0
+    reports = result["reports"]
+    if not result["ok"]:
+        raise RuntimeError(f"dist path: not every peer ended ok "
+                           f"{result['returncodes']}: {result['log_tails']}")
+    launches = {}
+    heads = set()
+    for p in range(cfg.dist.peers):
+        r = reports[p]
+        rejected = sum(len(m["rejected"]) for m in r["merges"])
+        bad = sum(1 for m in r["merges"] for a in m["arrivals"]
+                  if 0.0 in (a.get("auth") or []))
+        kl = r["kernel_launches"]
+        phases = {k: (v["count"], round(v["mean_s"], 4))
+                  for k, v in r["phases"].items()}
+        print(f"dist path peer {p}: exit {result['returncodes'][str(p)]}, "
+              f"local rounds {r['local_rounds']}, merges "
+              f"{len(r['merges'])}, final_version {r['final_version']}, "
+              f"chain_ok {r['chain_ok']}, chain {r['chain_len']} entries "
+              f"head {r['chain_head'][:16]}, auth rejections {bad + rejected}"
+              f", launches int8_quantize {kl['int8_quantize']} topk_select "
+              f"{kl['topk_select']}, peak {r['peak_gb']:.2f} GB, arrivals "
+              f"shed {r['buffer_shed']}, phases (count, mean s) "
+              f"{json.dumps(phases)}", flush=True)
+        if r["final_version"] < cfg.num_rounds or not r["chain_ok"]:
+            raise RuntimeError(f"dist path peer {p}: final_version "
+                               f"{r['final_version']}, chain_ok "
+                               f"{r['chain_ok']}")
+        if bad or rejected:
+            raise RuntimeError(f"dist path peer {p}: {bad} arrivals failed "
+                               f"authentication, {rejected} rejected")
+        for name in ("int8_quantize", "topk_select"):
+            if kl[name] <= 0:
+                raise RuntimeError(f"dist path peer {p}: {name} never "
+                                   "launched")
+        for name, n in kl.items():
+            launches[name] = launches.get(name, 0) + n
+        heads.add(r["chain_head"])
+    if len(heads) != 1:
+        raise RuntimeError(f"dist path: the chain heads differ {heads}")
+    count_launches(stats, launches)
+    col = collate(result["event_streams"])
+    tl = col["timeline"]
+    if not col["ok"]:
+        raise RuntimeError(f"dist path: invariant violations "
+                           f"{col['violations']}")
+    if not any(int(k) > 0 for k in tl["staleness"]):
+        raise RuntimeError(f"dist path: no stale arrival {tl['staleness']}")
+    if tl["merges"]["arrivals"] != tl["merges"]["unique_update_ids"]:
+        raise RuntimeError(f"dist path: merge lineage {tl['merges']}")
+    msgs = message_stats(col["ordered"])
+    rounds = {}
+    for e in col["ordered"]:
+        if e.get("ev") == "round":
+            rounds.setdefault(e.get("peer"), []).append(e["wall_s"])
+    merge_ms = [m["wall_s"] * 1e3 for m in reports[0]["merges"]]
+    print(f"dist path: {wall:.2f} s wall incl. 5 interpreters and set-up, "
+          f"{tl['merges']['count']} merges of {tl['merges']['arrivals']} "
+          f"arrivals, staleness {tl['staleness']}, invariant violations "
+          f"{col['invariant_violations_total']}", flush=True)
+    for kind, row in sorted(msgs.items(), key=lambda kv: str(kv[0])):
+        lat = row["latency_s"]
+        print(f"dist path {kind} frames: {len(row['bytes'])} sent, bytes "
+              f"per frame mean {sum(row['bytes']) / len(row['bytes']):.0f} "
+              f"max {max(row['bytes'])}, send ms per frame mean "
+              f"{sum(row['send_s']) / len(row['send_s']) * 1e3:.1f} max "
+              f"{max(row['send_s']) * 1e3:.1f}, latency p50 "
+              f"{_pct(lat, 50)} s p99 {_pct(lat, 99)} s", flush=True)
+    lat = [x for row in msgs.values() for x in row["latency_s"]]
+    print(f"dist path message latency (all types): p50 {_pct(lat, 50)} s, "
+          f"p99 {_pct(lat, 99)} s over {len(lat)} messages; merge ms "
+          f"per merge mean {sum(merge_ms) / len(merge_ms):.1f} max "
+          f"{max(merge_ms):.1f}", flush=True)
+    for p, ws in sorted(rounds.items()):
+        print(f"dist path peer {p} local round walls (5 CUDA contexts share "
+              f"the card): {[round(w, 3) for w in ws]}", flush=True)
+    print(f"one-process 10-client round of the serverless gossip path in "
+          f"this call: {[round(w, 3) for w in c_walls]}", flush=True)
+    with torch.device("meta"):
+        template = trainable_tree(build("biobert-base", num_labels=40,
+                                        vocab_size=28996))
+    k = cfg.num_clients // cfg.dist.peers
+    codec_calls(ck, stats, template, cfg.compression, k, "dist-peer")
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+
+def hf_state_dict(seed: int, vocab: int = 30522, hidden: int = 768,
+                  layers: int = 12, inter: int = 3072, labels: int = 2):
+    """A ``BertForSequenceClassification``-layout state dict at bert-base
+    width (the HF key names and ``[out, in]`` weights), drawn from the
+    seed; the card's machine has no ``transformers``."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+
+    def w(*shape):
+        return torch.randn(shape, generator=gen, device="cuda") * 0.02
+
+    sd = {"bert.embeddings.word_embeddings.weight": w(vocab, hidden),
+          "bert.embeddings.position_embeddings.weight": w(512, hidden),
+          "bert.embeddings.token_type_embeddings.weight": w(2, hidden),
+          "bert.embeddings.LayerNorm.weight": 1.0 + w(hidden),
+          "bert.embeddings.LayerNorm.bias": w(hidden),
+          "bert.pooler.dense.weight": w(hidden, hidden),
+          "bert.pooler.dense.bias": w(hidden),
+          "classifier.weight": w(labels, hidden),
+          "classifier.bias": w(labels)}
+    for i in range(layers):
+        p = f"bert.encoder.layer.{i}"
+        for name in ("attention.self.query", "attention.self.key",
+                     "attention.self.value", "attention.output.dense"):
+            sd[f"{p}.{name}.weight"] = w(hidden, hidden)
+            sd[f"{p}.{name}.bias"] = w(hidden)
+        sd[f"{p}.intermediate.dense.weight"] = w(inter, hidden)
+        sd[f"{p}.intermediate.dense.bias"] = w(inter)
+        sd[f"{p}.output.dense.weight"] = w(hidden, inter)
+        sd[f"{p}.output.dense.bias"] = w(hidden)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            sd[f"{p}.{name}.weight"] = 1.0 + w(hidden)
+            sd[f"{p}.{name}.bias"] = w(hidden)
+    return sd
+
+
+#: HF BERT module names -> the port's (an independent statement of the
+#: mapping ``hf_import`` implements; both keep HF's [out, in] weights)
+HF_TO_PORT = (
+    ("embeddings.word_embeddings", "encoder.embeddings.word"),
+    ("embeddings.position_embeddings", "encoder.embeddings.position"),
+    ("embeddings.token_type_embeddings", "encoder.embeddings.type"),
+    ("embeddings.LayerNorm", "encoder.embeddings.norm"),
+    ("attention.self.", "attention."),
+    ("attention.output.dense", "attention.out"),
+    ("attention.output.LayerNorm", "attention_norm"),
+    ("intermediate.dense", "mlp_in"),
+    ("output.dense", "mlp_out"),
+    ("output.LayerNorm", "mlp_norm"),
+    ("pooler.dense", "pooler"),
+)
+
+
+def hf_to_port_name(key: str) -> str:
+    name = re.sub(r"encoder\.layer\.(\d+)\.", r"encoder.layer_\1.",
+                  key.removeprefix("bert."))
+    for hf, port in HF_TO_PORT:
+        name = name.replace(hf, port)
+    return name
+
+
+def phase_hf(smi):
+    """Path (n): an HF checkpoint at bert-base width imported into the
+    port's model (``import_state_dict`` + ``load_into``), every imported
+    parameter equal to the written one (transposed back to HF's layout),
+    then one (a)-shaped server round from it with K4 and K5, the launch
+    counts set to 0 just before it and read just after."""
+    from bcfl_tpu_torch.fed.engine import FedEngine
+    from bcfl_tpu_torch.models.bert import EncoderConfig
+    from bcfl_tpu_torch.models.convert import trainable_tree
+    from bcfl_tpu_torch.models.hf_import import import_state_dict, load_into
+    from bcfl_tpu_torch.ops import registry
+
+    sd = hf_state_dict(seed=7)
+    hf_cfg = EncoderConfig(vocab_size=30522, hidden_size=768, num_layers=12,
+                           num_heads=12, intermediate_size=3072,
+                           num_labels=2)
+    cfg = main_config(name="chip-smoke-hf-import", num_rounds=1)
+    eng = FedEngine(cfg, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = import_state_dict(sd, hf_cfg)["params"]
+    load_into(eng.model, params)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = dict(eng.model.named_parameters())
+    bad = []
+    for k, v in sd.items():
+        name = hf_to_port_name(k)
+        if name not in got or not torch.equal(got[name].detach(), v):
+            bad.append(name)
+    if bad or len(sd) != len(got):
+        raise RuntimeError(f"HF import: {len(bad)} leaves differ from the "
+                           f"written ones ({bad[:4]}), {len(sd)} written, "
+                           f"{len(got)} in the model")
+    print(f"HF import path: {len(sd)} HF leaves at bert-base width imported "
+          f"in {secs:.3f} s, every leaf equal to the written one", flush=True)
+    eng.trainable0 = trainable_tree(eng.model)
+    print(smi, flush=True)
+    registry.reset_launches()
+    t0 = time.perf_counter()
+    result = eng.run()
+    torch.cuda.synchronize()
+    launches = registry.launch_counts()
+    r = result.metrics.rounds[0]
+    print(f"HF import path: one 4-client server round from the imported "
+          f"weights in {time.perf_counter() - t0:.2f} s (round wall "
+          f"{r.wall_s:.3f} s, train_loss {r.train_loss:.5f}, global_loss "
+          f"{r.global_loss}), launches {launches}", flush=True)
+    for name in ("int8_quantize", "topk_select"):
+        if launches[name] <= 0:
+            raise RuntimeError(f"HF import path: {name} never launched")
+    if not (math.isfinite(r.train_loss) and math.isfinite(r.global_loss)):
+        raise RuntimeError("HF import path: non-finite loss")
+    return launches
+
+
+def native_status():
+    """The native C++ cores (ledger SHA-256, tokenizer) built and loaded;
+    the card's machine has g++, so the Python fallback is a failure."""
+    from bcfl_tpu_torch import native
+
+    st = native.status()
+    print(f"native cores: {json.dumps(st)}", flush=True)
+    bad = {k: v for k, v in st.items() if v != "native"}
+    if bad:
+        raise RuntimeError(f"native core(s) not loaded: {bad}")
 
 
 # ----------------------------------------------------- run surface paths
@@ -2447,6 +2771,7 @@ def main(argv=None) -> int:
           flush=True)
     for line in ptxas_notes(cuda_build.BUILD_LOGS):
         print(line, flush=True)
+    native_status()
     dataset = write_long_docs()
     main_lens = main_padding(dataset, flash_config(dataset))
     llama_lens = main_padding(dataset, llama_config(dataset))
@@ -2454,10 +2779,12 @@ def main(argv=None) -> int:
                                          llama_lens)
     b_path = phase_main(ck, stats, smi, dataset, flash_per)
     medical = write_medical_docs()
-    phase_p2p(ck, stats, smi, medical)
+    c_walls = phase_p2p(ck, stats, smi, medical)
     phase_run_surface(ck, fk, stats, smi, dataset, b_path)
     phase_resilience(ck, stats, smi, dataset)
     phase_llama(ck, fk, stats, smi, dataset, llama_per)
+    phase_dist(ck, stats, smi, medical, c_walls)
+    count_launches(stats, phase_hf(smi))
     phase_reference()
     if args.profile:
         phase_profile(main_config(), "seq-128 path")

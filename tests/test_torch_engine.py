@@ -88,8 +88,16 @@ def test_run_is_deterministic_and_eval_cadence():
     assert a.metrics.rounds[0].compression_ratio == 1.0
 
 
+_DIST = dict(runtime="dist", sync="async", eval_every=0, num_clients=4,
+             dist=__import__("bcfl_tpu_torch.config", fromlist=["DistConfig"]
+                             ).DistConfig(checkpoint_every_versions=0))
+
 NOT_PORTED = [
-    ("runtime", {"runtime": "dist"}),
+    # the dist runtime runs its whole-network path since slice 9; its
+    # deferred features (partitions here) raise at config time
+    ("runtime", dict(_DIST, faults=__import__(
+        "bcfl_tpu_torch.faults", fromlist=["FaultPlan"]).FaultPlan(
+            partition_rounds=(1,), partition_count=2))),
     ("tp", {"tp": 2}),
     ("sp", {"sp": 2}),
     ("rounds_per_dispatch", {"rounds_per_dispatch": 2}),
@@ -126,6 +134,8 @@ PORTED = [
     ("registry_size", {"registry_size": 8}),
     ("lora_rank", {"lora_rank": 4}),
     ("task", {"task": "causal_lm", "model": "tiny-llama"}),
+    # the multi-process runtime's whole-network path (slice 9)
+    ("runtime", _DIST),
 ]
 
 
