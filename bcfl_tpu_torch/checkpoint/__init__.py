@@ -2,6 +2,7 @@
 
 from bcfl_tpu_torch.checkpoint.checkpoint import (  # noqa: F401
     ROUND_STATUSES,
+    apply_storage_fault,
     classify_round,
     restore_checkpoint,
     restore_latest,

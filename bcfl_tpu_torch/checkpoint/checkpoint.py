@@ -32,9 +32,14 @@ Crash safety, as in the JAX package:
 - **Retention.** ``save_checkpoint(..., keep_last=K)`` removes rounds
   beyond the newest K only after the new round's commit, so a crash during
   the clean-up leaves extra old rounds, never fewer valid ones.
-
-The JAX module's storage fault seam (``apply_storage_fault``) serves the
-multi-process runtime and is not ported yet.
+- **Storage fault seam.** :func:`apply_storage_fault` damages committed
+  state in one of the fault plan's ``STORAGE_CLASSES`` (the storage lane
+  of the multi-process runtime); :func:`scrub` is the audit a peer runs
+  before trusting its own disk. The byte-level classes act on the
+  ``torch.save`` archive's members, largest first, as the JAX module acts
+  on the orbax tree's files: a flip lands in the largest tensor's bytes
+  (``digest_mismatch``) or, when the pickled structure is the largest
+  member, in the structure (usually ``unrestorable``).
 """
 
 from __future__ import annotations
@@ -43,7 +48,9 @@ import json
 import logging
 import os
 import shutil
+import struct
 import time
+import zipfile
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -168,7 +175,7 @@ def save_checkpoint(directory: str, round_idx: int, state: Dict[str, Any],
         committed = _list_rounds(directory)
         old = committed[:-keep_last] if len(committed) > keep_last else []
         for r in old:
-            _remove_round(directory, r)
+            _remove_round(directory, r, keep_meta=False)
         if old:
             _fsync_dir(directory)
     # one event per committed checkpoint (a no-op without a writer), with
@@ -209,13 +216,13 @@ def _meta_rounds(directory: str) -> list:
     return sorted(out)
 
 
-def _remove_round(directory: str, round_idx: int) -> None:
-    """Remove one committed round and its meta (no fsync: callers batch
-    it)."""
+def _remove_round(directory: str, round_idx: int, keep_meta: bool) -> None:
+    """Remove one committed round, and its meta unless ``keep_meta`` (no
+    fsync: callers batch it)."""
     path = os.path.join(directory, f"round_{round_idx:06d}")
     if os.path.isdir(path):
         shutil.rmtree(path)
-    if os.path.exists(_meta_path(directory, round_idx)):
+    if not keep_meta and os.path.exists(_meta_path(directory, round_idx)):
         os.unlink(_meta_path(directory, round_idx))
 
 
@@ -339,3 +346,165 @@ def scrub(directory: str) -> Dict[str, Any]:
                     newest_intact=report["newest_intact"],
                     damaged=len(damaged), torn=len(torn))
     return report
+
+
+_HEX = "0123456789abcdef"
+
+
+def _rot_hex(ch: str) -> str:
+    """A different hex digit, deterministically (bit rot that always
+    changes the value)."""
+    return _HEX[(_HEX.index(ch.lower()) + 1) % 16]
+
+
+def _zip_members(path: str) -> list:
+    """``(name, data offset, size)`` of each member of a ``torch.save``
+    archive (an uncompressed zip), or None if ``path`` is no zip."""
+    try:
+        with zipfile.ZipFile(path) as z:
+            infos = z.infolist()
+    except (OSError, zipfile.BadZipFile):
+        return None
+    out = []
+    with open(path, "rb") as f:
+        for zi in infos:
+            # the data follows the local header (30 bytes, then the name
+            # and the extra field, whose lengths it records)
+            f.seek(zi.header_offset + 26)
+            n, m = struct.unpack("<HH", f.read(4))
+            out.append((zi.filename, zi.header_offset + 30 + n + m,
+                        zi.file_size))
+    return out
+
+
+def _tree_files(path: str) -> list:
+    """The byte ranges of a committed round, largest first (name-ordered
+    within a size tie): ``(file, offset, size, name)``. A ``torch.save``
+    archive contributes one range per member (the pickled structure, each
+    tensor's bytes), as the JAX module's orbax tree contributes one file
+    per array and metadata record; any other file is one range."""
+    out = []
+    for root, _dirs, files in os.walk(path):
+        for fn in files:
+            p = os.path.join(root, fn)
+            rel = os.path.relpath(p, path)
+            members = _zip_members(p)
+            if members is None:
+                out.append((-os.path.getsize(p), rel, p, 0,
+                            os.path.getsize(p)))
+                continue
+            for name, off, size in members:
+                out.append((-size, f"{rel}:{name}", p, off, size))
+    return [(p, off, size, name) for _neg, name, p, off, size in sorted(out)]
+
+
+def apply_storage_fault(directory: str, action: Dict[str, Any]
+                        ) -> Optional[Dict[str, Any]]:
+    """Damage committed durable state per one storage draw
+    (:meth:`bcfl_tpu_torch.faults.FaultPlan.storage_action`):
+    ``action`` is ``{"cls", "frac", "delete_last"}``, the damage targets
+    the newest committed round (and older ones for ``delete``). Returns a
+    record of what was done (for the ``chaos`` event), or None when there
+    was nothing to damage.
+
+    The classes: ``torn`` moves the round back under its staging name and
+    drops its meta (an interrupted commit); ``payload_flip`` flips one
+    byte, and ``truncate`` cuts the state file, at ``frac`` of the largest
+    byte range (:func:`_tree_files`); ``meta_flip`` rots one hex digit of
+    the newest meta's digest; ``ledger`` rots one row head of the newest
+    meta's ledger; ``delete`` removes the newest ``delete_last`` round
+    dirs and keeps their metas (the evidence deletion leaves);
+    ``rollback`` removes the newest round and its meta cleanly, which no
+    local audit can tell from a round never written."""
+    directory = os.path.abspath(directory)
+    rounds = _list_rounds(directory)
+    if not rounds:
+        return None
+    cls = action["cls"]
+    frac = float(action.get("frac", 0.0))
+    newest = rounds[-1]
+    name = f"round_{newest:06d}"
+    path = os.path.join(directory, name)
+    meta_path = _meta_path(directory, newest)
+    record: Dict[str, Any] = {"cls": cls, "round": int(newest)}
+
+    if cls == "torn":
+        staging = os.path.join(directory, _STAGING + name)
+        if os.path.isdir(staging):
+            shutil.rmtree(staging)
+        if os.path.exists(meta_path):
+            os.unlink(meta_path)
+        os.replace(path, staging)
+    elif cls in ("payload_flip", "truncate"):
+        ranges = [r for r in _tree_files(path) if r[2] > 0]
+        if not ranges:
+            return None
+        target, start, size, member = ranges[0]
+        offset = start + min(int(frac * size), size - 1)
+        record["file"] = os.path.relpath(target, directory)
+        record["member"] = member
+        record["offset"] = offset
+        with open(target, "r+b") as f:
+            if cls == "payload_flip":
+                f.seek(offset)
+                b = f.read(1)
+                f.seek(offset)
+                f.write(bytes([b[0] ^ 0xFF]))
+            else:
+                f.truncate(offset)
+    elif cls == "meta_flip":
+        # the newest round that has a meta (the newest dir may lack one
+        # when a kill landed inside the commit window)
+        metas = _meta_rounds(directory)
+        if not metas:
+            return None
+        record["round"] = int(metas[-1])
+        meta_path = _meta_path(directory, metas[-1])
+        # rot one hex digit of the committed digest: the smallest meta
+        # flip that is sure to be detected
+        with open(meta_path, "rb") as f:
+            raw = bytearray(f.read())
+        tag = b'"digest": "'
+        idx = raw.find(tag)
+        if idx < 0:
+            return None
+        pos = idx + len(tag) + min(int(frac * 64), 63)
+        raw[pos] = ord(_rot_hex(chr(raw[pos])))
+        record["offset"] = pos
+        with open(meta_path, "wb") as f:
+            f.write(raw)
+    elif cls == "ledger":
+        metas = _meta_rounds(directory)
+        if not metas:
+            return None
+        newest = metas[-1]
+        record["round"] = int(newest)
+        meta_path = _meta_path(directory, newest)
+        meta = _read_meta(directory, newest)
+        if not meta or not meta.get("ledger"):
+            return None
+        try:
+            rows = json.loads(meta["ledger"])
+        except (ValueError, TypeError):
+            return None
+        if not rows:
+            return None
+        i = min(int(frac * len(rows)), len(rows) - 1)
+        rows[i]["head"] = _rot_hex(rows[i]["head"][0]) + rows[i]["head"][1:]
+        meta["ledger"] = json.dumps(rows)
+        record["row"] = i
+        with open(meta_path, "w") as f:
+            json.dump(meta, f)
+    elif cls == "delete":
+        k = max(1, int(action.get("delete_last", 1)))
+        victims = rounds[-k:]
+        for r in victims:
+            _remove_round(directory, r, keep_meta=True)
+        record["rounds"] = [int(r) for r in victims]
+    elif cls == "rollback":
+        _remove_round(directory, newest, keep_meta=False)
+        record["now_newest"] = int(rounds[-2]) if len(rounds) > 1 else None
+    else:
+        raise ValueError(f"unknown storage damage class {cls!r}")
+    _fsync_dir(directory)
+    return record

@@ -442,9 +442,8 @@ RUNTIME_CAPS: Tuple = (
      {"local": True, "dist": True}),
     ("chaos: transport partition",
      lambda c: _plan(c).partitions,
-     {"local": True,
-      "dist": NOT_PORTED_YET + ": partitions at the socket, the ledger "
-              "fork and the heal wait for the partition slice"}),
+     {"local": True, "dist": True}),  # dist: enforced at the socket, the
+    # groups name PEERS; each component forks the ledger chain
     ("chaos: stragglers",
      lambda c: _plan(c).straggler_prob > 0,
      {"local": True, "dist": True}),  # dist: a REAL pre-send sleep
@@ -481,14 +480,15 @@ RUNTIME_CAPS: Tuple = (
     ("chaos: churn",
      lambda c: _plan(c).churns,
      {"local": True,
-      "dist": NOT_PORTED_YET + ": peer-level churn is the crash/rejoin "
-              "path (kill and restart a peer process with --resume), "
-              "which waits for its slice"}),
+      "dist": "peer-level churn is the crash/rejoin path (kill and "
+              "restart a peer process; scripts/dist_async.py --kill-peer "
+              "drives it), not a mask schedule"}),
     ("chaos: host crash",
      lambda c: _plan(c).crash_at_round is not None,
      {"local": True,
-      "dist": NOT_PORTED_YET + ": a real crash is killing the peer "
-              "process, and crash/rejoin waits for its slice"}),
+      "dist": "kill the peer PROCESS instead (scripts/dist_async.py "
+              "--kill-peer): a real crash is the thing itself, not a "
+              "simulated one"}),
     ("chaos: storage faults",
      lambda c: _plan(c).storage_enabled,
      {"local": "the storage lane damages a peer's durable checkpoint/"
@@ -496,8 +496,8 @@ RUNTIME_CAPS: Tuple = (
                "scrub + STATE_SYNC repair path; the local engine has no "
                "per-peer durable state or peers to repair from — dist "
                "only",
-      "dist": NOT_PORTED_YET + ": the storage lane and state sync wait "
-              "for their slice"}),
+      "dist": True}),  # injected after the checkpoint commit; the startup
+    # scrub detects it, a chain-verified STATE_SYNC transfer repairs it
     ("chaos: limp faults (gray failures)",
      lambda c: _plan(c).limp_enabled,
      {"local": "the limp lane stalls a PEER's train seam and throttles "
@@ -577,12 +577,10 @@ _NOT_PORTED = (
     # the flash kernels have bf16 and float32 instances only
     ("compute_dtype", lambda c: c.compute_dtype == "float16"
      and bool(c.use_flash)),
-    # the dist runtime's leaderless dispatch, its durable state and its
-    # Llama forms wait for later slices
+    # the dist runtime's leaderless dispatch and its Llama forms wait for
+    # later slices
     ("dist.dispatch", lambda c: c.runtime == "dist"
      and c.dist.dispatch == "gossip"),
-    ("dist.checkpoint_every_versions", lambda c: c.runtime == "dist"
-     and c.dist.checkpoint_every_versions > 0),
     ("model", lambda c: c.runtime == "dist" and _llama(c.model)),
 )
 
@@ -733,11 +731,8 @@ class FedConfig:
                 raise ValueError(
                     f"{feature} is not supported on runtime="
                     f"{self.runtime!r}: {verdict}")
-        if self.runtime == "dist" and self.num_clients % self.dist.peers:
-            raise ValueError(
-                f"num_clients {self.num_clients} must split evenly "
-                f"over {self.dist.peers} peers (each peer owns a "
-                "fixed client slice)")
+        if self.runtime == "dist":
+            self._check_dist_lanes()
         if not 0.0 <= self.telemetry_sample <= 1.0:
             raise ValueError(
                 f"telemetry_sample must be in [0, 1], got "
@@ -830,8 +825,58 @@ class FedConfig:
                     "buffered async with the anomaly filter, the ledger, "
                     "the local fault plan, robust aggregation, reputation, "
                     "checkpoints, LoRA and cohort sampling, and the "
-                    "multi-process runtime's whole-network path (see "
-                    "ROADMAP.md for the port's queue)")
+                    "multi-process runtime with partitions, the ledger "
+                    "fork and heal, peer checkpoints, crash/rejoin, the "
+                    "storage lane and state sync (see ROADMAP.md for the "
+                    "port's queue)")
+
+    def _check_dist_lanes(self) -> None:
+        """JAX's dist-only checks: the client split, and the fault plan's
+        peer ids and the storage lane's preconditions."""
+        plan = _plan(self)
+        if self.num_clients % self.dist.peers:
+            raise ValueError(
+                f"num_clients {self.num_clients} must split evenly "
+                f"over {self.dist.peers} peers (each peer owns a "
+                "fixed client slice)")
+        if plan.partitions and plan.partition_groups:
+            bad = [i for g in plan.partition_groups for i in g
+                   if i >= self.dist.peers]
+            if bad:
+                raise ValueError(
+                    f"dist partition_groups name PEERS; ids {bad} are "
+                    f">= peers={self.dist.peers}")
+        if plan.partitions and plan.partition_count > self.dist.peers:
+            raise ValueError(
+                f"dist partition_count {plan.partition_count} "
+                f"> peers {self.dist.peers}")
+        if not plan.storage_enabled:
+            return
+        if plan.storage_peers:
+            bad = [p for p in plan.storage_peers if p >= self.dist.peers]
+            if bad:
+                raise ValueError(
+                    f"storage_peers name PEERS; ids {bad} are >= "
+                    f"peers={self.dist.peers}")
+        for srv, req in (plan.sync_tamper or ()):
+            if srv >= self.dist.peers or req >= self.dist.peers:
+                raise ValueError(
+                    f"sync_tamper pair ({srv}, {req}) names PEERS; "
+                    f"ids must be < peers={self.dist.peers}")
+        if not self.dist.checkpoint_every_versions:
+            raise ValueError(
+                "the storage fault lane injects at the checkpoint "
+                "commit seam; checkpoint_every_versions=0 never "
+                "writes one, so the lane would silently never "
+                "fire — enable checkpointing or drop the lane")
+        if not self.ledger.enabled:
+            raise ValueError(
+                "the storage lane's repair path authenticates "
+                "STATE_SYNC transfers against the hash chain "
+                "(commitment rows + verify_segment); without "
+                "ledger.enabled there is no root of trust to "
+                "verify a transfer against — enable the ledger "
+                "or drop the lane")
 
     def _check_lora_and_cohort(self, plan: FaultPlan) -> None:
         """The JAX package's rejections of heterogeneous ranks and of cohort

@@ -1,13 +1,17 @@
 """The multi-process async P2P runtime (``FedConfig.runtime="dist"``):
-port of ``bcfl_tpu/dist``, the whole-network path.
+port of ``bcfl_tpu/dist``, the leadered dispatch with its fault-tolerance
+half.
 
 Each peer is an OS process owning a fixed slice of the clients; updates
 ride length-prefixed TCP over loopback (:mod:`.wire`, byte-identical to
 the JAX package's frames) carrying the codec payload and the ledger
-digests; aggregation is FedBuff-style buffered async at the leader with
-MEASURED staleness (:mod:`.runtime`); :mod:`.harness` spawns, supervises
-and reaps the peers. Partitions, crash/rejoin, the robust merge, the
-chaos lanes and the gossip dispatch wait for later slices.
+digests; aggregation is FedBuff-style buffered async at the component
+leader with MEASURED staleness (:mod:`.runtime`). Partitions fork the
+ledger and heal through a verified reconcile; peers checkpoint, resume
+after a crash and repair damaged state over a chain-verified STATE_SYNC.
+:mod:`.harness` spawns, supervises, kills, restarts and reaps the peers.
+The robust merge, reputation, the wire, byzantine, limp and resource
+lanes and the gossip dispatch wait for later slices.
 """
 
 from bcfl_tpu_torch.dist.harness import free_ports, reap_all, run_dist

@@ -1,14 +1,14 @@
 """PeerRuntime — one OS process of the multi-process async runtime: port
-of ``bcfl_tpu/dist/runtime.py``, the whole-network path.
+of ``bcfl_tpu/dist/runtime.py``, the leadered dispatch.
 
 Each peer owns a fixed slice of the global client set and runs its own
 local training loop on its own device (the card, unless it was started
 with ``--device cpu``); peers exchange updates over
-:mod:`bcfl_tpu_torch.dist.transport` and aggregate FedBuff-style at the
-leader, the lowest peer id (peer 0: the network is whole). Partitions
-with the ledger fork and heal, crash/rejoin with resume and state sync,
-the robust merge, reputation, and the byzantine, wire, limp, storage and
-resource lanes wait for later slices; the config refuses them.
+:mod:`bcfl_tpu_torch.dist.transport` and aggregate FedBuff-style at a
+component leader, the lowest peer id reachable in the peer's connected
+component (peer 0 when the network is whole). The robust merge,
+reputation, gossip dispatch and the byzantine, wire, limp and resource
+lanes wait for later slices; the config refuses them.
 
 - **Training + wire encode** go through the engine's update-exchange seam
   (:meth:`bcfl_tpu_torch.fed.engine.FedEngine._exchange_updates`,
@@ -29,6 +29,27 @@ resource lanes wait for later slices; the config refuses them.
   and masks a client whose bytes do not match; every broadcast carries
   the chain suffix since the last one, which followers verify link by
   link before adopting the model.
+- **Partitions fork the ledger for real**: during a transport partition
+  (the fault plan's groups over peers, on each peer's local-round clock)
+  each component's leader extends its own chain from the common prefix,
+  so two heads exist. At the heal the other component's leader offers
+  its fork to peer 0, which verifies the segment link by link, adopts the
+  deterministic merge (:meth:`Ledger.merge_rows`, ``adopt_merge``) and
+  the participation-weighted mean of the two fork models, and broadcasts
+  the healed global with the whole merged chain.
+- **Crash and rejoin**: every version divisible by
+  ``checkpoint_every_versions`` is checkpointed (the trainable tree, the
+  error-feedback residual, the version counters and the chain), and the
+  storage lane may damage it right after the commit. A peer restarted
+  with ``--resume`` scrubs its checkpoints, restores the newest intact
+  one and rejoins with a HELLO. A peer whose durable state is gone or
+  older than what it once made durable (``--bootstrap``, or the
+  monotone-incarnation guard) trains nothing until a STATE_SYNC transfer
+  passes both gates: the served chain verifies from genesis and extends
+  the peer's surviving prefix, and the tree refingerprints to the
+  server's state-commitment row on that chain. A durable write failing
+  on ENOSPC or EMFILE walks a ladder (retention GC, then telemetry shed)
+  before the peer exits with its own code.
 - **Nothing can wedge**: a hard per-process deadline, an idle watchdog
   (no version progress) and a parent-death check each force a nonzero
   exit, and the harness reaps stragglers.
@@ -47,6 +68,7 @@ workers move only CPU tensors.
 from __future__ import annotations
 
 import dataclasses
+import errno
 import json
 import logging
 import math
@@ -68,6 +90,24 @@ from bcfl_tpu_torch.metrics.tracing import StepClock
 logger = logging.getLogger(__name__)
 
 
+class ResumeError(RuntimeError):
+    """``--resume`` found no usable durable state and ``--bootstrap`` was
+    not given: a peer never silently re-enters the fleet with no state.
+    Its own exit code tells a supervisor "my state is gone" apart from a
+    crash, stall or deadline."""
+
+    EXIT_CODE = 8
+
+
+class DurabilityError(RuntimeError):
+    """A durable write (checkpoint commit, chain high-water) kept failing
+    after every rung of the ladder (retention GC, then telemetry shed).
+    Its own exit code says "this host cannot make rounds durable": the
+    peer never goes on committing state it could not write."""
+
+    EXIT_CODE = 9
+
+
 @dataclasses.dataclass
 class MergeRecord:
     version: int
@@ -75,9 +115,35 @@ class MergeRecord:
     arrivals: List[Dict]  # per merged update: peer/msg_id/staleness/latency/auth
     rejected: List[Dict]  # updates excluded (stale lineage, auth failure)
     wall_s: float
-    solo: bool  # produced while partitioned (always False: no partitions yet)
+    solo: bool  # produced while partitioned (a fork extension)
     degraded: bool = False  # merged on a reduced quorum (some peer DOWN)
     quorum: Optional[Dict] = None  # {"component", "alive", "down"} when degraded
+
+
+def _tamper_tree(tree: Dict[str, torch.Tensor], frac: float):
+    """Flip one byte of one leaf, both chosen by ``frac`` (leaves in the
+    ledger's flatten order): the seeded in-flight corruption of a served
+    state transfer. The input tree is not mutated."""
+    from bcfl_tpu_torch.ledger.ledger import flat_leaves
+
+    names = [n for n, _ in flat_leaves(tree)]
+    name = names[min(int(frac * len(names)), len(names) - 1)]
+    leaf = tree[name].detach().cpu().contiguous().clone()
+    raw = leaf.view(-1).view(torch.uint8)
+    if raw.numel():
+        pos = min(int(frac * raw.numel()), raw.numel() - 1)
+        raw[pos] ^= 0xFF
+    return dict(tree, **{name: leaf})
+
+
+def _tree_digest(tree) -> Optional[str]:
+    """Hex params digest of a tree of tensors (host copies, hashlib), or
+    None for no tree: the report's record of restored state."""
+    from bcfl_tpu_torch.ledger.ledger import params_digest
+
+    if tree is None:
+        return None
+    return params_digest(_to_host(tree), use_native=False).hex()
 
 
 def measured_staleness(leader_version: int, base_version: int):
@@ -128,7 +194,7 @@ def peak_gb(device: torch.device) -> Optional[float]:
 
 class PeerRuntime:
     def __init__(self, cfg, peer_id: int, ports: List[int], run_dir: str,
-                 device=None):
+                 device=None, resume: bool = False, bootstrap: bool = False):
         from bcfl_tpu_torch.compression import codecs as cc
         from bcfl_tpu_torch.dist.transport import PartitionGate, PeerTransport
         from bcfl_tpu_torch.fed.engine import FedEngine
@@ -198,7 +264,38 @@ class PeerRuntime:
         # buffer): the buffer_timeout_s clock
         self._buffer_since = 0.0  # guarded-by: _buffer_lock
         self._stop = False
-        self.gate = PartitionGate(self.peers)
+        # the partition lifecycle (fork.begin at the span's entry,
+        # fork.heal at its exit, the reconcile offer of a fork leader)
+        self.fork: Optional[Dict] = None
+        self.reconcile: Optional[Dict] = None
+        self._partitioned = False
+        self._fork_comps = None
+        self._pending_reconcile = False
+        self._last_reconcile_try = 0.0
+        self._reconciled: Dict[int, int] = {}  # offerer -> version merged
+        # durable-state repair: set by _restore when nothing usable
+        # survived (--bootstrap) or the monotone-incarnation guard fired;
+        # while set the peer neither trains nor announces, it asks live
+        # peers for STATE_SYNC until a verified transfer is adopted
+        self._resumed = False
+        self.bootstrap = bool(bootstrap)
+        self._needs_bootstrap = False
+        self._bootstrap_reason: Optional[str] = None
+        self._repaired: Optional[Dict] = None
+        self._last_sync_req = 0.0
+        self._sync_target_i = 0
+        self._sync_serves: Dict[int, int] = {}  # requester -> serves so far
+        self._restored: Optional[Dict] = None  # what _restore adopted
+        self._ckpt_saves: List[Dict] = []
+        # the span clock is the peer's LOCAL ROUND: it advances with the
+        # peer's own training loop, so every peer crosses the partition
+        # span even while cross-partition messages are dropped (a
+        # version-keyed clock could deadlock: versions advance only through
+        # the messages the partition blocks)
+        plan = cfg.faults if (cfg.faults is not None
+                              and cfg.faults.partitions) else None
+        self.gate = PartitionGate(plan, self.peers,
+                                  version_fn=lambda: self.local_round)
         host = cfg.dist.host
         # transport incarnation epoch: a file-backed restart counter, not
         # the wall clock
@@ -214,6 +311,17 @@ class PeerRuntime:
             self.peer_id, [(host, p) for p in ports], gate=self.gate,
             io_timeout_s=min(60.0, cfg.dist.peer_deadline_s),
             policy=cfg.dist, epoch=epoch)
+
+        self.ckpt_dir = os.path.join(run_dir, f"ckpt_peer{self.peer_id}")
+        # monotone-incarnation high-water marker, like the epoch file a
+        # record outside the checkpoint dir: the newest (version,
+        # chain_len) this peer ever made durable. A restore landing below
+        # it means the durable state was rolled back (or fell back past
+        # damage) and must resync forward before announcing anything
+        self._hw_path = os.path.join(run_dir,
+                                     f"highwater_peer{self.peer_id}")
+        if resume:
+            self._restore()
 
         # --- watchdogs: a hung peer FAILS, it never wedges the run ---
         self._t0 = time.time()
@@ -292,6 +400,17 @@ class PeerRuntime:
             if len(self.history) <= self.history_limit:
                 break
             del self.history[v]
+
+    # --- extension hooks (the reputation tracker and gossip dispatch of
+    # later slices ride the checkpoint through these) ---
+
+    def _checkpoint_extra(self) -> Dict:
+        """Extra keys folded into the checkpoint state."""
+        return {}
+
+    def _restore_extra(self, state: Dict) -> None:
+        """Twin of :meth:`_checkpoint_extra` on restore; called from
+        ``_restore`` inside ``__init__``."""
 
     def _cast(self, tree):
         """A received model tree on the device, floats in the param
@@ -460,8 +579,9 @@ class PeerRuntime:
                 "head8": self.chain.head.hex()[:16], "rewrite": False}
                if self.chain is not None else {}))
         self._note_version()
+        self._maybe_checkpoint()
         with self.clock.phase("broadcast"):
-            self._broadcast_global()
+            self._broadcast_global(healed=False)
 
     def _prepare_update(self, header: Dict, trees: Dict, recv_t: float):
         """Commit + verify + decode one buffered update: a record and,
@@ -483,6 +603,12 @@ class PeerRuntime:
             telemetry.emit("warn", what="negative_staleness", peer_from=src,
                            leader_version=int(self.version),
                            base_version=base_v)
+        if src not in self._component():
+            # buffered before this leader's clock entered a partition span:
+            # the sender is now across the cut, and merging it would cross
+            # the partition (the receiver's clock is authoritative)
+            rec["rejected"] = "outside the leader's component"
+            return {"ok": False, "rec": rec}
         # lineage check (both wire formats) before anything touches the
         # chain: the sender names the chain head of its base version, and
         # it must match this leader's history for that version
@@ -570,11 +696,11 @@ class PeerRuntime:
         self.trainable = {p: x + step * merged[p].to(x.dtype)
                           for p, x in self.trainable.items()}
 
-    def _global_frame(self, start: int) -> Dict:
+    def _global_frame(self, start: int, healed: bool = False) -> Dict:
         """The header of a GLOBAL carrying the chain rows from ``start``
         (the suffix since the last broadcast, or the whole chain)."""
         header = {"type": "global", "version": int(self.version),
-                  "healed": False}
+                  "healed": bool(healed)}
         if self.chain is not None:
             header["chain_start"] = int(start)
             header["chain_prev_head"] = self.chain.head_at(start).hex()
@@ -583,15 +709,24 @@ class PeerRuntime:
             header["chain"] = None
         return header
 
-    def _broadcast_global(self):
-        """Send the new global and the chain suffix since the last
-        broadcast to every other peer; a follower whose chain does not
-        end where the suffix starts asks for the whole state (HELLO)."""
-        header = self._global_frame(self._last_broadcast_len)
+    def _broadcast_global(self, healed: bool):
+        """Send the new global to every other peer of the component, with
+        the chain suffix since the last broadcast. A heal sends the whole
+        chain, since the merge rewrote history past the fork point; so
+        does every broadcast at or past the target version, the last ones
+        of the run: a follower whose replica no longer ends where the
+        suffix starts (it served or took a STATE_SYNC, whose commitment
+        row only its replica holds) then rebuilds it from the broadcast
+        itself, and not through a HELLO round trip that the leader's
+        shutdown can overtake. Mid-run, such a follower asks for the
+        whole state (HELLO)."""
+        full = healed or self.version >= self.cfg.num_rounds
+        start = 0 if full else self._last_broadcast_len
+        header = self._global_frame(start, healed)
         if self.chain is not None:
             self._last_broadcast_len = len(self.chain)
         telemetry.emit("broadcast", version=int(self.version),
-                       healed=False, full=False)
+                       healed=bool(healed), full=full)
         model = _to_host(self.trainable)
         for p in self._component():
             if p == self.peer_id:
@@ -604,6 +739,141 @@ class PeerRuntime:
             else:
                 self.transport.send(p, header, {"model": model})
 
+    # --------------------------------------------------- partition lifecycle
+
+    def _update_partition_state(self):
+        comps = self.gate.components()
+        if comps is not None and not self._partitioned:
+            self._partitioned = True
+            self._fork_comps = comps
+            self.fork = {
+                "at_version": int(self.version),
+                "fork_base": (int(len(self.chain))
+                              if self.chain is not None else None),
+                "head_at_fork": self._head(),
+                "component": list(self.gate.component_of(self.peer_id)),
+            }
+            telemetry.emit("fork.begin", at_version=int(self.version),
+                           component=self.fork["component"],
+                           head8=(self._head() or "")[:16],
+                           fork_base=self.fork["fork_base"])
+            logger.info("peer %d: partition began at version %d "
+                        "(component %s)", self.peer_id, self.version,
+                        self.fork["component"])
+        elif comps is None and self._partitioned:
+            self._partitioned = False
+            self.fork["head_before_heal"] = self._head()
+            self.fork["chain_len_before_heal"] = (
+                int(len(self.chain)) if self.chain is not None else None)
+            old_comp = next(c for c in self._fork_comps
+                            if self.peer_id in c)
+            if min(old_comp) == self.peer_id and self.peer_id != 0:
+                # this peer led a fork component: it offers the fork
+                self._pending_reconcile = True
+            telemetry.emit("fork.heal", at_version=int(self.version),
+                           head8=(self._head() or "")[:16])
+            logger.info("peer %d: partition healed at version %d (head %s)",
+                        self.peer_id, self.version,
+                        (self._head() or "")[:16])
+
+    def _solo_weight(self) -> float:
+        """The participation this peer's fork gathered (arrivals merged
+        in its solo merges): its weight in the reconcile consensus."""
+        return float(sum(len(m.arrivals) for m in self.merges if m.solo)
+                     or 1.0)
+
+    def _try_reconcile(self):
+        """Offer the fork to the global leader, throttled and retried until
+        a healed GLOBAL supersedes it: a send can succeed at the socket and
+        still be dropped by the leader's own gate while its clock is in
+        the span, so only an adopted healed global clears the offer."""
+        if not self.gate.allowed(self.peer_id, 0):
+            return
+        if time.time() - self._last_reconcile_try < 2.0:
+            return
+        self._last_reconcile_try = time.time()
+        header = {
+            "type": "reconcile", "version": int(self.version),
+            "rows": self.chain.segment(0) if self.chain is not None else None,
+            "weight": self._solo_weight(),
+        }
+        self.transport.send(0, header, {"model": _to_host(self.trainable)})
+
+    def _handle_reconcile(self, header: Dict, trees: Dict):
+        """The global leader's side of the heal: verify the offered fork
+        segment, adopt the deterministic chain merge, take the
+        participation-weighted mean of the two fork models and broadcast
+        the healed global."""
+        from bcfl_tpu_torch.ledger import Ledger
+
+        src = int(header["from"])
+        if int(header["version"]) <= self._reconciled.get(src, -1):
+            # a retried offer of a fork already merged (the offerer resends
+            # until the healed global reaches it): merging it again would
+            # count its model twice. Resend the healed state instead.
+            self.transport.send(src, self._global_frame(0, healed=True),
+                                {"model": _to_host(self.trainable)})
+            return
+        t0 = time.time()
+        rec = {"from_peer": src, "their_version": int(header["version"]),
+               "my_version": int(self.version)}
+        their_model = self._cast(trees["model"])
+        their_weight = float(header.get("weight") or 1.0)
+        my_weight = self._solo_weight()
+        if self.chain is not None and header.get("rows") is not None:
+            rows = header["rows"]
+            their_heads = [bytes.fromhex(r["head"]) for r in rows]
+            fork = self.chain.fork_point(their_heads)
+            rec["fork_point"] = fork
+            rec["my_head"] = self._head()
+            rec["their_head"] = rows[-1]["head"] if rows else None
+            rec["forked"] = (rec["my_head"] != rec["their_head"])
+            bad = Ledger.verify_segment(
+                self.chain.head_at(fork), rows[fork:],
+                self.cfg.ledger.use_native)
+            if bad != -1:
+                # a tampered fork segment is never adopted: the offerer is
+                # sent the current, unmerged global instead
+                rec["segment_rejected_at"] = int(bad)
+                self.reconcile = rec
+                logger.warning("peer %d: rejected tampered reconcile "
+                               "segment from %d (link %d)",
+                               self.peer_id, src, bad)
+                self._broadcast_global(healed=False)
+                return
+            merged = Ledger.merge_rows(self.chain.segment(fork), rows[fork:])
+            self.chain.adopt_merge(fork, merged)
+            rec["merged_entries"] = len(merged)
+            rec["merged_head"] = self._head()
+            rec["chain_ok"] = (self.chain.verify_chain() == -1)
+            # a declared history rewrite: the monotone-heads invariant
+            # accepts this kind of length change only
+            telemetry.emit("ledger", op="adopt_merge",
+                           chain_len=len(self.chain), rewrite=True,
+                           head8=(self._head() or "")[:16],
+                           fork_point=fork)
+        # the model consensus of the healed components: the
+        # participation-weighted mean of the two fork models (float32
+        # weights, summed in this order, as JAX's _tree_wsum does)
+        total = my_weight + their_weight
+        w_mine = float(np.float32(my_weight / total))
+        w_theirs = float(np.float32(their_weight / total))
+        self.trainable = {p: w_mine * x + w_theirs * their_model[p]
+                          for p, x in self.trainable.items()}
+        del their_model
+        self.version = max(self.version, int(header["version"])) + 1
+        self._note_version()
+        rec["healed_version"] = int(self.version)
+        rec["wall_s"] = time.time() - t0
+        self.reconcile = rec
+        self._reconciled[src] = int(header["version"])
+        telemetry.emit("reconcile", **rec)
+        self._maybe_checkpoint()
+        self._broadcast_global(healed=True)
+        logger.info("peer %d: reconciled fork from peer %d -> version %d "
+                    "(chain head %s)", self.peer_id, src, self.version,
+                    (self._head() or "")[:16])
+
     # --------------------------------------------------------- follower side
 
     def _request_resync(self, leader: int):
@@ -615,18 +885,46 @@ class PeerRuntime:
         self.transport.send(leader, {"type": "hello",
                                      "version": int(self.version)})
 
+    def _extends_replica(self, start: int, rows: List[Dict],
+                         prev_head: Optional[str]) -> bool:
+        """Does a broadcast suffix from ``start`` continue this replica?
+        It may begin before the replica's end when the rows it overlaps
+        are the replica's own (a peer repaired over STATE_SYNC already
+        holds the server's commitment row, which the server's next
+        suffix carries again): the overlap must match head for head."""
+        n = len(self.chain)
+        if not (start <= n <= start + len(rows)):
+            return False
+        if self.chain.head_at(start).hex() != prev_head:
+            return False
+        return all(rows[i]["head"] == self.chain.heads[start + i].hex()
+                   for i in range(n - start))
+
     def _handle_global(self, header: Dict, trees: Dict):
         from bcfl_tpu_torch.ledger import Ledger
 
         version = int(header["version"])
+        if self._needs_bootstrap:
+            # a repair in flight: globals carry no state commitment, so a
+            # bootstrapping peer adopts only through the verified
+            # STATE_SYNC path
+            return
         if version <= self.version:
+            return
+        if self._pending_reconcile and not header.get("healed"):
+            # a fork is pending: adopting an ordinary global would replace
+            # the fork chain the reconcile must deliver, and clearing the
+            # offer here could cancel one the leader never received (its
+            # gate drops sends while its clock is still in the span). The
+            # healed broadcast supersedes everything.
             return
         if self.chain is not None and header.get("chain") is not None:
             rows = header["chain"]
             start = int(header.get("chain_start", 0))
             if start == 0:
-                # full sync (a hello reply): rebuild and verify the whole
-                # replica from genesis
+                # full sync (a heal or a hello reply): rebuild and verify
+                # the whole replica from genesis; a declared rewrite, since
+                # a heal may shorten a fork replica's chain
                 replica = Ledger(self.cfg.ledger.use_native)
                 if replica.append_rows(rows) != -1:
                     logger.error("peer %d: global v%d carried an "
@@ -637,10 +935,11 @@ class PeerRuntime:
                 telemetry.emit("ledger", op="resync",
                                chain_len=len(self.chain), rewrite=True,
                                head8=self.chain.head.hex()[:16])
-            elif (start == len(self.chain)
-                  and self.chain.head.hex() == header.get("chain_prev_head")):
-                # contiguous suffix: verify each link as it lands
-                if self.chain.append_rows(rows) != -1:
+            elif self._extends_replica(start, rows,
+                                       header.get("chain_prev_head")):
+                # contiguous suffix: verify each new link as it lands
+                if self.chain.append_rows(
+                        rows[len(self.chain) - start:]) != -1:
                     logger.error("peer %d: global v%d suffix failed link "
                                  "verification; resyncing", self.peer_id,
                                  version)
@@ -650,8 +949,9 @@ class PeerRuntime:
                                chain_len=len(self.chain), rewrite=False,
                                head8=self.chain.head.hex()[:16])
             else:
-                # a gap (missed broadcasts): never adopt a model whose
-                # chain this replica cannot verify
+                # a gap (missed broadcasts) or a diverged base (a fork
+                # rewrite): never adopt a model whose chain this replica
+                # cannot verify
                 self._request_resync(int(header["from"]))
                 return
         with self.clock.phase("adopt"):
@@ -659,8 +959,14 @@ class PeerRuntime:
         self.version = version
         self.adopted.append(version)
         self._note_version()
-        telemetry.emit("adopt", version=version, healed=False,
+        telemetry.emit("adopt", version=version,
+                       healed=bool(header.get("healed")),
                        leader=int(header.get("from", -1)))
+        if header.get("healed"):
+            # only the healed global clears a pending offer: it is the one
+            # broadcast that incorporated this peer's fork
+            self._pending_reconcile = False
+        self._maybe_checkpoint()
 
     def _handle_hello(self, header: Dict):
         """A peer asks for the whole state: the leader replies with the
@@ -669,6 +975,380 @@ class PeerRuntime:
             return
         self.transport.send(int(header["from"]), self._global_frame(0),
                             {"model": _to_host(self.trainable)})
+
+    # ------------------------------------------------- state-sync repair
+
+    def _sync_targets(self) -> List[int]:
+        """Peers a bootstrap request cycles through: the leader first (it
+        holds the authoritative state), then every other peer, so a
+        damaged leader repairs from its followers."""
+        leader = min(p for p in range(self.peers) if p != self.peer_id)
+        rest = [p for p in range(self.peers)
+                if p not in (self.peer_id, leader)]
+        return [leader] + rest
+
+    def _maybe_request_sync(self):
+        """Throttled STATE_SYNC requests while ``_needs_bootstrap``: ask
+        one live peer (cycling) for its full verified state."""
+        if not self._needs_bootstrap:
+            return
+        if time.time() - self._last_sync_req < 2.0:
+            return
+        self._last_sync_req = time.time()
+        targets = self._sync_targets()
+        if not targets:
+            return
+        dst = targets[self._sync_target_i % len(targets)]
+        self._sync_target_i += 1
+        have_len = len(self.chain) if self.chain is not None else 0
+        telemetry.emit("state.sync.request",
+                       reason=self._bootstrap_reason or "empty",
+                       to=int(dst), have_version=int(self.version),
+                       have_len=have_len)
+        self.transport.send(dst, {
+            "type": "state_sync_req",
+            "reason": self._bootstrap_reason or "empty",
+            "version": int(self.version), "have_len": int(have_len)})
+
+    def _handle_state_sync_req(self, header: Dict):
+        """Serve a damaged or empty peer the full current state, anchored
+        to the chain: a state-commitment row binding the state's digest at
+        this version is appended (once per distinct digest) before the
+        transfer, so the receiver verifies the chain segment link by link
+        and then refingerprints the tree against committed history."""
+        from bcfl_tpu_torch.ledger.ledger import Ledger, params_digest
+
+        if self._needs_bootstrap:
+            return  # damaged itself: the requester's cycle finds another
+        src = int(header["from"])
+        model = _to_host(self.trainable)
+        header_out = {"type": "state_sync", "version": int(self.version)}
+        if self.chain is not None:
+            # hashlib over the state's bytes (the digest is the same as
+            # the C++ core's, and faster on a model-sized tree)
+            digest = params_digest(model, use_native=False)
+            if Ledger.find_state_commitment(
+                    self.chain.segment(0), self.version,
+                    self.peer_id) != digest:
+                self.chain.commit_state(self.version, self.peer_id, digest)
+                telemetry.emit("ledger", op="commit_state",
+                               chain_len=len(self.chain), rewrite=False,
+                               head8=self.chain.head.hex()[:16])
+            header_out["chain"] = self.chain.segment(0)
+        else:
+            header_out["chain"] = None
+        serial = self._sync_serves.get(src, 0)
+        self._sync_serves[src] = serial + 1
+        tam = (self.cfg.faults.sync_tamper_action(self.peer_id, src, serial)
+               if self.cfg.faults is not None else None)
+        if tam is not None:
+            # the seeded in-flight tamper, after the digest was committed:
+            # the refusal it provokes shows the refingerprint gate holds
+            model = _tamper_tree(model, tam["frac"])
+        telemetry.emit("state.sync.serve", to=src,
+                       version=int(self.version),
+                       chain_len=(len(self.chain)
+                                  if self.chain is not None else 0),
+                       tampered=tam is not None, serial=serial)
+        self.transport.send(src, header_out, {"model": model})
+
+    def _handle_state_sync(self, header: Dict, trees: Dict):
+        """Adopt a served state only after both gates pass: (1) the chain
+        segment verifies link by link from genesis and extends this peer's
+        surviving prefix (a tampered row or a forked history fails here);
+        (2) the received tree refingerprints to the commitment row the
+        chain carries for exactly this (version, server). A refusal
+        re-enters the request cycle. A serve landing after a completed
+        repair goes through the same gates, so a tampered late transfer
+        still surfaces as a refusal, but is never adopted and never
+        re-enters the cycle."""
+        from bcfl_tpu_torch.ledger.ledger import (
+            GENESIS,
+            Ledger,
+            params_digest,
+        )
+
+        adopting = self._needs_bootstrap
+        server = int(header["from"])
+        version = int(header["version"])
+        rows = header.get("chain")
+        refuse = None
+        digest = recomputed = None
+        if self.chain is not None:
+            if not rows:
+                refuse = "no_chain"
+            elif Ledger.verify_segment(
+                    GENESIS, rows, self.cfg.ledger.use_native) != -1:
+                refuse = "bad_links"
+            else:
+                heads = [bytes.fromhex(r["head"]) for r in rows]
+                if self.chain.fork_point(heads) < len(self.chain):
+                    # the served history contradicts what this peer still
+                    # durably holds (a fork, or a rolled-back server)
+                    refuse = "forked_prefix"
+                else:
+                    digest = Ledger.find_state_commitment(rows, version,
+                                                          server)
+                    if digest is None:
+                        refuse = "no_commitment"
+                    else:
+                        recomputed = params_digest(trees["model"],
+                                                   use_native=False)
+                        if recomputed != digest:
+                            refuse = "digest_mismatch"
+        telemetry.emit("state.sync.verify", ok=refuse is None,
+                       src=server, version=version,
+                       digest8=(recomputed.hex()[:16]
+                                if recomputed is not None else None),
+                       reason=refuse)
+        if refuse is not None:
+            logger.warning("peer %d: refusing state_sync from %d (%s)",
+                           self.peer_id, server, refuse)
+            telemetry.emit("state.sync.refuse", reason=refuse, src=server,
+                           version=version)
+            if adopting:
+                self._last_sync_req = 0.0  # next target, now
+            return
+        if not adopting:
+            return  # a clean late serve: audited, nothing to adopt
+        if self.chain is not None:
+            replica = Ledger(self.cfg.ledger.use_native)
+            replica.append_rows(rows)  # verified above; rebuilds the heads
+            self.chain = self.eng.ledger = replica
+            telemetry.emit("ledger", op="resync", chain_len=len(self.chain),
+                           rewrite=True, head8=self.chain.head.hex()[:16])
+        with self.clock.phase("adopt"):
+            self.trainable = self._cast(trees["model"])
+        self.version = version
+        self.adopted.append(version)
+        self._note_version()
+        self._needs_bootstrap = False
+        reason = self._bootstrap_reason
+        self._bootstrap_reason = None
+        self._repaired = {"from": server, "version": version,
+                          "reason": reason}
+        telemetry.emit("state.sync.adopt", version=version, src=server,
+                       digest8=(digest.hex()[:16]
+                                if digest is not None else None),
+                       chain_len=(len(self.chain)
+                                  if self.chain is not None else 0),
+                       reason=reason)
+        logger.info("peer %d: repaired from peer %d at version %d (%s)",
+                    self.peer_id, server, version, reason)
+        self._maybe_checkpoint()
+
+    # --------------------------------------------------- checkpoint / resume
+
+    def _durable_write(self, seam: str, fn):
+        """One durable write through the ladder: a write failing with
+        ENOSPC or EMFILE (the commit protocol is all-or-nothing, so a
+        retry is safe) first drops every retained checkpoint round but the
+        newest, then sheds sampled telemetry, then raises
+        :class:`DurabilityError`."""
+        remedies = 0
+        while True:
+            try:
+                return fn()
+            except OSError as e:
+                if e.errno not in (errno.ENOSPC, errno.EMFILE):
+                    raise
+                if remedies == 0:
+                    self._emergency_gc(seam)
+                elif remedies == 1:
+                    self._shed_telemetry(seam)
+                else:
+                    raise DurabilityError(
+                        f"peer {self.peer_id}: durable write at the "
+                        f"{seam!r} seam still failing (errno {e.errno}) "
+                        f"after emergency GC and telemetry shed") from e
+                remedies += 1
+
+    def _emergency_gc(self, seam: str) -> None:
+        """First rung: drop every retained round but the newest (the peer
+        stays restorable even if the retry fails too)."""
+        from bcfl_tpu_torch.checkpoint.checkpoint import (
+            _fsync_dir,
+            _list_rounds,
+            _remove_round,
+        )
+
+        rounds = _list_rounds(self.ckpt_dir)
+        victims = rounds[:-1]
+        for r in victims:
+            _remove_round(self.ckpt_dir, r, keep_meta=False)
+        if victims:
+            _fsync_dir(self.ckpt_dir)
+        telemetry.emit("gc.emergency", seam=seam, removed=len(victims),
+                       kept=len(rounds) - len(victims))
+
+    def _shed_telemetry(self, seam: str) -> None:
+        """Second rung: stop buffering sampled telemetry (the invariants
+        read only never-sampled events; ledger and checkpoint bytes are
+        never shed)."""
+        w = telemetry.get_writer()
+        if w is not None and w.begin_shed(seam):
+            telemetry.emit("write.shed", seam=seam, mode="on")
+
+    def _maybe_checkpoint(self):
+        from bcfl_tpu_torch.checkpoint import save_checkpoint
+        from bcfl_tpu_torch.compression import codecs as cc
+
+        cfg = self.cfg
+        every = cfg.dist.checkpoint_every_versions
+        if not every or self.version % every:
+            return
+        # the report first: a kill lands only after a commit, and the
+        # report it leaves behind must be at least as new as that commit
+        # (this incarnation's kernel launches included)
+        self._write_report(status="running")
+        t0 = time.time()
+        with self.clock.phase("checkpoint"):
+            state = {
+                "trainable": self.trainable,
+                "version": np.int64(self.version),
+                "local_round": np.int64(self.local_round),
+                "seed": np.int64(cfg.seed),
+                "compress_format": np.frombuffer(
+                    cc.wire_format(self.eng._comp).encode(), np.uint8).copy(),
+                "ef_residual": self.eng._ef,
+            }
+            state.update(self._checkpoint_extra())
+            # both durable seams run the ladder: the checkpoint commit
+            # (the state, then the meta sidecar with the chain) and the
+            # high-water marker the rollback guard reads
+            path = self._durable_write(
+                "checkpoint",
+                lambda: save_checkpoint(
+                    self.ckpt_dir, self.version, state,
+                    self.chain.to_json() if self.chain is not None else None,
+                    keep_last=cfg.dist.checkpoint_keep_last))
+            self._durable_write("ledger", self._write_highwater)
+        del state
+        self._ckpt_saves.append({
+            "version": int(self.version), "save_s": time.time() - t0,
+            "bytes": sum(f.stat().st_size for f in os.scandir(path)
+                         if f.is_file())})
+        # the storage lane: damage the committed state per the seeded
+        # (version, peer) draw, after the commit (media failure, never an
+        # interrupted writer)
+        action = (cfg.faults.storage_action(self.version, self.peer_id)
+                  if cfg.faults is not None else None)
+        if action is not None:
+            from bcfl_tpu_torch.checkpoint import apply_storage_fault
+
+            record = apply_storage_fault(self.ckpt_dir, action)
+            if record is not None:
+                telemetry.emit("chaos", lane="storage", action=record["cls"],
+                               version=int(self.version), **{
+                                   k: v for k, v in record.items()
+                                   if k != "cls"})
+
+    def _read_highwater(self) -> Optional[Dict]:
+        try:
+            with open(self._hw_path) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    def _write_highwater(self):
+        hw = self._read_highwater()
+        cur = {"version": int(self.version),
+               "chain_len": len(self.chain) if self.chain is not None else 0}
+        if hw is not None and hw.get("version", -1) >= cur["version"]:
+            return
+        tmp = self._hw_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(cur, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, self._hw_path)
+
+    def _restore(self):
+        """``--resume``: scrub the checkpoint dir, restore the newest
+        intact round (loaded to the CPU with ``weights_only=True``, then
+        moved to this peer's device) after the seed and wire-format
+        guards, and force a bootstrap when nothing usable survived
+        (``--bootstrap``) or the restored version sits below the durable
+        high-water."""
+        from bcfl_tpu_torch.checkpoint import restore_latest, scrub
+        from bcfl_tpu_torch.compression import codecs as cc
+        from bcfl_tpu_torch.ledger import Ledger
+
+        t0 = time.time()
+        with self.clock.phase("scrub"):
+            report = scrub(self.ckpt_dir)
+        scrub_s = time.time() - t0
+        restored = restore_latest(self.ckpt_dir)
+        if restored is None:
+            if not self.bootstrap:
+                raise ResumeError(
+                    f"peer {self.peer_id}: --resume found no usable "
+                    f"checkpoint in {self.ckpt_dir} "
+                    f"(scrub: {'empty' if report['empty'] else 'damaged'}, "
+                    f"damaged={list(report['damaged'])}, "
+                    f"torn={list(report['torn'])}); pass --bootstrap to "
+                    f"opt into ledger-authenticated peer repair")
+            self._needs_bootstrap = True
+            self._bootstrap_reason = ("empty" if report["empty"]
+                                      else "damaged")
+            self._restored = {"scrub_s": scrub_s, "version": None}
+            logger.warning("peer %d: no usable checkpoint (%s); will "
+                           "bootstrap from a live peer", self.peer_id,
+                           self._bootstrap_reason)
+            return
+        _, state, ledger_json = restored
+        ck_seed = state.get("seed")
+        if ck_seed is not None and int(ck_seed) != self.cfg.seed:
+            raise ValueError(
+                f"peer checkpoint seed {int(ck_seed)} != config seed "
+                f"{self.cfg.seed}: resuming would change every stream")
+        ck_comp = state.get("compress_format")
+        if ck_comp is not None:
+            ck_comp = bytes(ck_comp.numpy().astype(np.uint8)).decode()
+            here = cc.wire_format(self.eng._comp)
+            if ck_comp != here:
+                raise ValueError(
+                    f"peer checkpoint wire format {ck_comp!r} != this "
+                    f"run's {here!r}")
+        self.trainable = self._cast(state["trainable"])
+        self.version = int(state["version"])
+        self.local_round = int(state["local_round"])
+        if state.get("ef_residual") is not None and self.eng._comp is not None:
+            self.eng._ef = {p: x.to(self.device, torch.float32)
+                            for p, x in state["ef_residual"].items()}
+        if ledger_json and self.chain is not None:
+            self.chain = self.eng.ledger = Ledger.from_json(
+                ledger_json, self.cfg.ledger.use_native)
+        self._restore_extra(state)
+        del state, restored
+        self.history = {
+            self.version: (self.trainable if self.eng._comp is None
+                           else None, self._head())}
+        self._resumed = True
+        # what this incarnation holds on its device, read back: the resume
+        # proof holds these digests against the checkpoint file
+        self._restored = {
+            "version": self.version, "restore_s": time.time() - t0 - scrub_s,
+            "scrub_s": scrub_s,
+            "trainable_digest": _tree_digest(self.trainable),
+            "ef_residual_digest": _tree_digest(self.eng._ef)}
+        logger.info("peer %d: restored checkpoint at version %d "
+                    "(round %d)", self.peer_id, self.version,
+                    self.local_round)
+        hw = self._read_highwater()
+        if hw is not None and self.version < int(hw.get("version", -1)):
+            # monotone-incarnation guard: the restored state is older than
+            # one a previous incarnation made durable (a rolled-back dir,
+            # or damage forced the restore past the newest round); the
+            # peer resyncs forward before training or announcing, or it
+            # would re-announce old versions as new
+            self._needs_bootstrap = True
+            self._bootstrap_reason = "rollback"
+            logger.warning(
+                "peer %d: restored version %d is below the durable "
+                "high-water %d (rollback or damage fallback); resyncing "
+                "forward before rejoining", self.peer_id, self.version,
+                int(hw["version"]))
 
     # --------------------------------------------------------------- intake
 
@@ -709,8 +1389,15 @@ class PeerRuntime:
             pass  # liveness probe: the ack was the answer
         elif kind == "global":
             self._handle_global(header, trees)
+        elif kind == "reconcile":
+            if self.peer_id == 0:
+                self._handle_reconcile(header, trees)
         elif kind == "hello":
             self._handle_hello(header)
+        elif kind == "state_sync_req":
+            self._handle_state_sync_req(header)
+        elif kind == "state_sync":
+            self._handle_state_sync(header, trees)
         elif kind == "shutdown":
             self._stop = True
         else:
@@ -739,10 +1426,12 @@ class PeerRuntime:
         self._stop = True
 
     def run(self) -> int:
-        logger.info("peer %d/%d up on %s: clients %s", self.peer_id,
-                    self.peers, self.device, list(self.global_ids))
+        logger.info("peer %d/%d up on %s: clients %s, version %d%s",
+                    self.peer_id, self.peers, self.device,
+                    list(self.global_ids), self.version,
+                    " (resumed)" if self._resumed else "")
         telemetry.emit("run.start", role="peer", peers=self.peers,
-                       resumed=False, version=int(self.version),
+                       resumed=self._resumed, version=int(self.version),
                        epoch=self.transport.epoch,
                        pipeline=bool(self.cfg.dist.pipeline))
         self.transport.start()
@@ -752,6 +1441,9 @@ class PeerRuntime:
                 name=f"bcfl-dist-intake-{self.peer_id}")
             self._intake_thread.start()
         self._write_report(status="running")
+        if self._resumed and self.peer_id != 0 and not self._needs_bootstrap:
+            self.transport.send(0, {"type": "hello",
+                                    "version": int(self.version)})
         try:
             while not self._stop:
                 self._check_watchdogs()
@@ -762,19 +1454,47 @@ class PeerRuntime:
                     msg = self._next_ctrl(timeout_s=0.0)
                 if self._stop:
                     break
+                if self._needs_bootstrap:
+                    # damaged, empty or rolled-back state: repair first; no
+                    # training, merging or announcing until a verified
+                    # transfer is adopted (the idle watchdog bounds it)
+                    self._maybe_request_sync()
+                    time.sleep(0.05)
+                    continue
+                self._update_partition_state()
+                if self._pending_reconcile:
+                    self._try_reconcile()
                 if self._leader() == self.peer_id:
                     self._maybe_merge()
-                if (self.peer_id == 0
-                        and self.version >= self.cfg.num_rounds):
-                    # target version count reached: evaluate, tell
-                    # everyone, stop
+                if (self.peer_id == 0 and self.version >= self.cfg.num_rounds
+                        and self.gate.components() is None
+                        and (self.fork is None
+                             or self.reconcile is not None)):
+                    # target reached, the mesh whole and any fork of this
+                    # run reconciled: evaluate, tell everyone, stop. Never
+                    # mid-partition (a gate-blocked shutdown would strand
+                    # the other component) nor before the heal (the fork
+                    # evidence would be lost)
                     self._finalize()
                 if self._stop:
                     break
-                if self.version < self.cfg.num_rounds:
+                if (self.version < self.cfg.num_rounds
+                        or self.gate.components() is not None
+                        or (self.peer_id == 0 and self.fork is not None
+                            and self.reconcile is None)):
+                    # train past the target while a span is active or a
+                    # fork is unresolved: the span clock IS the local
+                    # round, so stopping would freeze the peer in the
+                    # partition
                     self._train_once()
                 else:
                     time.sleep(0.05)  # waiting for shutdown or merges
+        except DurabilityError as e:
+            # the ladder's last rung: exit with its own code, never go on
+            # committing state that could not be made durable
+            logger.error("%s", e)
+            self._write_report(status="undurable")
+            return DurabilityError.EXIT_CODE
         finally:
             # a short drain so a last enqueued frame is not cut off
             # mid-stream by close
@@ -818,7 +1538,8 @@ class PeerRuntime:
             "peers": self.peers,
             "status": status,
             "pid": os.getpid(),
-            "resumed": False,
+            "incarnation": self.transport.epoch,
+            "resumed": self._resumed,
             "device": str(self.device),
             "final_version": int(self.version),
             "local_rounds": int(self.local_round),
@@ -833,6 +1554,16 @@ class PeerRuntime:
             "transport": tstats,
             "send_failures": tstats["send_failures"],
             "dropped_by_gate": tstats["dropped_by_gate"],
+            "fork": self.fork,
+            "reconcile": self.reconcile,
+            "restored_from_version": (self._restored or {}).get("version"),
+            # the restore's seconds and the digests of the trainable and
+            # residual this incarnation restored onto its device
+            "restored": self._restored,
+            # why this peer bootstrapped and from whom it repaired
+            "bootstrap_reason": self._bootstrap_reason,
+            "repaired": self._repaired,
+            "checkpoints": self._ckpt_saves,
             "chain_len": len(self.chain) if self.chain is not None else None,
             "chain_head": self._head(),
             "chain_ok": self._chain_ok(status),
@@ -872,6 +1603,13 @@ def peer_main(argv=None) -> int:
     ap.add_argument("--ports", required=True,
                     help="comma-separated listen ports, one per peer")
     ap.add_argument("--run-dir", required=True)
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the newest intact checkpoint of this "
+                         "peer's run-dir checkpoints and rejoin")
+    ap.add_argument("--bootstrap", action="store_true",
+                    help="with --resume: if no usable checkpoint survives, "
+                         "repair from a live peer over verified STATE_SYNC "
+                         "instead of failing loudly")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--threads", type=int, default=None,
@@ -889,9 +1627,20 @@ def peer_main(argv=None) -> int:
     with open(args.config) as f:
         cfg = cfg_from_json(f.read())
     ports = [int(p) for p in args.ports.split(",")]
-    rt = PeerRuntime(cfg, args.peer_id, ports, args.run_dir,
-                     device=args.device)
-    rc = rt.run()
+    try:
+        rt = PeerRuntime(cfg, args.peer_id, ports, args.run_dir,
+                         device=args.device, resume=args.resume,
+                         bootstrap=args.bootstrap)
+        rc = rt.run()
+    except ResumeError as e:
+        # "durable state unusable and repair not authorized": an operator
+        # decision, not a crash
+        logger.error("%s", e)
+        rc = ResumeError.EXIT_CODE
+    except DurabilityError as e:
+        logger.error("%s", e)
+        rc = DurabilityError.EXIT_CODE
+    telemetry.flush()
     # the report and the event stream are on disk: leave without the
     # interpreter's teardown, which can abort (SIGABRT) while daemon
     # sender/intake threads and the CUDA runtime still hold resources

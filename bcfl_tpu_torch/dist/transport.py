@@ -34,11 +34,12 @@ The delivery contract, as in JAX:
   the fixed consecutive counter :class:`FailureDetector`
   (``DistConfig.detector``).
 
-:class:`PartitionGate` is consulted on both ends of every message; the
-port carries only its no-plan identity (every pair allowed), because
-partitions of the dist runtime wait for their slice. JAX's wire chaos and
-limp lanes (``WireChaos``, ``LimpChaos``) are not ported: their fault
-plans are refused at config time.
+:class:`PartitionGate` is the fault plan's partition lane over peer ids,
+consulted on both ends of every message: a blocked pair is dropped at the
+sender and, on the receiver's own clock, at the receiver, and both count
+in ``dropped_by_gate``. JAX's wire chaos and limp lanes (``WireChaos``,
+``LimpChaos``) are not ported: their fault plans are refused at config
+time.
 """
 
 from __future__ import annotations
@@ -48,9 +49,10 @@ import queue
 import socket
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 from bcfl_tpu_torch.config import DistConfig
+from bcfl_tpu_torch.faults import FaultPlan
 from bcfl_tpu_torch.dist.wire import (
     CrcError,
     WireError,
@@ -396,22 +398,47 @@ class PhiFailureDetector(FailureDetector):
 
 
 class PartitionGate:
-    """The no-plan identity of JAX's partition gate: one component holding
-    every peer, every pair allowed. It keeps the gate's interface
-    (``components``, ``component_of``, ``allowed``) for the runtime's
-    leader election and the transport's send/receive checks."""
+    """The fault plan's partition lane, evaluated over PEER ids at the
+    socket.
 
-    def __init__(self, peers: int):
+    ``components`` come from :meth:`FaultPlan.partition_components` with
+    the peer count as the population; the span clock is the owning peer's
+    local round (``version_fn``). It advances with the peer's own training
+    loop, so each side crosses the span on its own counter even while
+    cross-partition messages are dropped; the two sides agree on the
+    components and may briefly disagree on whether the span is active
+    (one side drops at send while the other still drops at receive).
+    ``allowed(a, b)`` is False iff the span is active on this peer's clock
+    and ``a`` and ``b`` sit in different components."""
+
+    def __init__(self, plan: Optional[FaultPlan], peers: int,
+                 version_fn: Callable[[], int] = lambda: 0):
+        self.plan = plan if plan is not None else FaultPlan()
         self.peers = int(peers)
+        self.version_fn = version_fn
 
     def components(self) -> Optional[Tuple[Tuple[int, ...], ...]]:
-        return None
+        return self.plan.partition_components(int(self.version_fn()),
+                                              self.peers)
 
     def component_of(self, peer: int) -> Optional[Tuple[int, ...]]:
-        return tuple(range(self.peers))
+        """The peer's component, or None for an id no component holds (an
+        unknown sender, never a crash: see ``allowed``)."""
+        comps = self.components()
+        if comps is None:
+            return tuple(range(self.peers))
+        return next((c for c in comps if peer in c), None)
 
     def allowed(self, a: int, b: int) -> bool:
-        return True
+        comps = self.components()
+        if comps is None:
+            return True
+        ca, cb = self.component_of(a), self.component_of(b)
+        if ca is None or cb is None:
+            # a frame with a missing or out-of-range "from" during a span:
+            # dropped, an unknown sender is in no component
+            return False
+        return ca == cb
 
 
 class PeerTransport:
@@ -728,6 +755,7 @@ class PeerTransport:
         network failure — call sites need no per-call error handling; the
         :meth:`stats` counters and the detector carry the evidence."""
         if self.gate is not None and not self.gate.allowed(self.peer_id, to):
+            self._bump("dropped_by_gate")
             _telemetry.emit("send", to=to, type=header.get("type"),
                             ok=False, reason="gate", msg_id=None)
             return False
@@ -763,6 +791,7 @@ class PeerTransport:
         at-least-once send); False when the partition gate blocks the pair
         at enqueue time or the transport is closing."""
         if self.gate is not None and not self.gate.allowed(self.peer_id, to):
+            self._bump("dropped_by_gate")
             _telemetry.emit("send", to=to, type=header.get("type"),
                             ok=False, reason="gate", msg_id=None)
             return False
@@ -851,6 +880,7 @@ class PeerTransport:
             # can open between enqueue and dequeue, and skipping the
             # attempt keeps a blocked pair from burning its retry budget
             # (the receiver's own gate is still authoritative)
+            self._bump("dropped_by_gate")
             _telemetry.emit("send", to=to, type=header.get("type"),
                             ok=False, reason="gate", msg_id=msg_id)
             return False

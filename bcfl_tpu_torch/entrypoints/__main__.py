@@ -28,11 +28,14 @@ flags the ported slice supports.
 (:mod:`bcfl_tpu_torch.dist`), prints a JSON summary with the collated
 timeline and its invariant verdicts, and exits 1 on a failed peer or a
 violation; the run directory (``--dist-run-dir``, default a fresh
-temporary directory) keeps the peers' logs, reports and event streams.
-Its checkpoints, ``--resume`` and the chaos lanes of the dist runtime are
-not ported yet. Any flag of the JAX command line that is not listed here
-is rejected as "not ported yet" (among them ``--chaos-wire*`` and
-``--chaos-byz*``).
+temporary directory) keeps the peers' logs, reports, event streams and
+checkpoints (``ckpt_peer*``, one every version). ``--chaos-partition``
+and ``--chaos-partition-rounds`` there name PEERS and span each peer's
+local rounds. Peer crash and rejoin are the harness's
+(``bcfl_tpu_torch.dist.run_dist(kill_peer=...)``), so ``--resume`` is
+refused with ``--runtime dist``. Any flag of the JAX command line that is
+not listed here is rejected as "not ported yet" (among them
+``--chaos-wire*`` and ``--chaos-byz*``).
 """
 
 from __future__ import annotations
@@ -427,10 +430,8 @@ def build_config(args):
             overrides.setdefault("sync", "async")
             overrides.setdefault("mode", "server")
             overrides.setdefault("eval_every", 0)
-            # the dist runtime's checkpoints are not ported yet
             dist_kw = dict(peers=args.peers or cfg.dist.peers,
-                           peer_deadline_s=args.dist_deadline,
-                           checkpoint_every_versions=0)
+                           peer_deadline_s=args.dist_deadline)
             if args.dist_quorum is not None:
                 dist_kw["quorum_frac"] = args.dist_quorum
             if args.dist_buffer is not None:
@@ -484,8 +485,10 @@ def main(argv=None) -> int:
     if cfg.runtime == "dist":
         if args.sweep or args.resume:
             raise SystemExit("--runtime dist composes with neither --sweep "
-                             "nor --resume (the dist runtime's crash/rejoin "
-                             "and resume are not ported yet)")
+                             "nor --resume (peer crash/rejoin is driven by "
+                             "bcfl_tpu_torch.dist.run_dist(kill_peer=...) "
+                             "or a peer started with python -m "
+                             "bcfl_tpu_torch.dist --resume)")
         return run_dist_cli(cfg, args.device, args.dist_run_dir)
     if args.sweep:
         run_sweep(cfg, device=args.device, resume=args.resume)

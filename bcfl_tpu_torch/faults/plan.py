@@ -32,11 +32,13 @@ the failures the local engine is stressed with:
 
 Every draw comes from ``np.random.default_rng((seed, lane, round))`` with
 the JAX package's lane numbers, so the schedules are the JAX package's bit
-for bit. The wire, byzantine, storage, limp and resource lanes of the JAX
-plan serve its multi-process runtime: the plan carries their fields with
-JAX's names and defaults, so a config can name them, but no lane draws
-here and the config refuses an armed one ("not ported yet" on
-``runtime="dist"``, JAX's own reason on ``"local"``).
+for bit. Of the JAX plan's lanes for its multi-process runtime, the
+storage lane draws here (:meth:`FaultPlan.storage_action`,
+:meth:`FaultPlan.sync_tamper_action`; the peer runtime consumes them).
+The wire, byzantine, limp and resource lanes carry their fields with JAX's
+names and defaults, so a config can name them, but they draw nothing and
+the config refuses an armed one ("not ported yet" on ``runtime="dist"``,
+JAX's own reason on ``"local"``).
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ _LANE_STRAGGLER = 2
 _LANE_CORRUPT = 3
 _LANE_PARTITION = 4
 _LANE_FLAKY = 5
+_LANE_STORAGE = 8
 
 # the dist-only lanes' vocabularies (JAX's canonical orders)
 BYZ_BEHAVIORS = ("scale", "sign_flip", "garbage", "replay", "digest_forge",
@@ -176,6 +179,7 @@ class FaultPlan:
         self._check_partition()
         self._check_churn()
         self._check_flaky()
+        self._check_storage()
 
     def _check_partition(self):
         if self.partition_groups is not None:
@@ -258,6 +262,61 @@ class FaultPlan:
         if not np.isfinite(self.flaky_scale):
             raise ValueError("flaky_scale must be finite (same fingerprint-"
                              "poisoning concern as corrupt_scale)")
+
+    def _check_storage(self):
+        if self.storage_peers is not None:
+            if not (isinstance(self.storage_peers, tuple)
+                    and all(isinstance(p, int) and p >= 0
+                            for p in self.storage_peers)):
+                raise ValueError(
+                    "storage_peers must be a tuple of non-negative peer ids "
+                    "(hashable — the plan lives inside the frozen "
+                    "FedConfig)")
+            if len(set(self.storage_peers)) != len(self.storage_peers):
+                raise ValueError(
+                    f"storage_peers lists a peer twice: {self.storage_peers!r}")
+            if self.storage_prob <= 0.0:
+                raise ValueError(
+                    "storage_peers with storage_prob=0 would silently never "
+                    "damage anything — the exact vacuous-pass this lane "
+                    "must not have")
+        if not (isinstance(self.storage_classes, tuple)
+                and self.storage_classes):
+            raise ValueError("storage_classes must be a non-empty tuple")
+        bad = [c for c in self.storage_classes if c not in STORAGE_CLASSES]
+        if bad:
+            raise ValueError(
+                f"unknown storage damage classes {bad}; known: "
+                f"{STORAGE_CLASSES}")
+        if self.storage_delete_last < 1:
+            raise ValueError(
+                f"storage_delete_last must be >= 1, got "
+                f"{self.storage_delete_last}")
+        if self.storage_rounds is not None:
+            if not isinstance(self.storage_rounds, tuple):
+                raise ValueError("storage_rounds must be a tuple of version "
+                                 "indices (hashable — the plan lives inside "
+                                 "the frozen FedConfig)")
+            if not self.storage_rounds:
+                raise ValueError(
+                    "storage_rounds is empty: the storage lane would "
+                    "silently never fire (check the span bounds)")
+            if self.storage_prob <= 0.0:
+                raise ValueError(
+                    "storage_rounds without storage_prob > 0 would "
+                    "silently never damage a checkpoint")
+        if self.sync_tamper is not None:
+            if not (isinstance(self.sync_tamper, tuple)
+                    and all(isinstance(e, tuple) and len(e) == 2
+                            and isinstance(e[0], int) and isinstance(e[1], int)
+                            and e[0] >= 0 and e[1] >= 0 and e[0] != e[1]
+                            for e in self.sync_tamper)):
+                raise ValueError(
+                    "sync_tamper must be a tuple of distinct-id (server, "
+                    f"requester) peer pairs, got {self.sync_tamper!r}")
+            if len(set(self.sync_tamper)) != len(self.sync_tamper):
+                raise ValueError(
+                    f"sync_tamper lists a pair twice: {self.sync_tamper!r}")
 
     # ------------------------------------------------------------------ query
 
@@ -419,6 +478,43 @@ class FaultPlan:
         row = np.where(flaky & (draw < self.flaky_on_prob),
                        self.flaky_scale, 0.0)
         return row.astype(np.float32) if row.any() else None
+
+    def storage_action(self, version: int, peer: int) -> Optional[dict]:
+        """Durable-state damage draw for one freshly committed checkpoint
+        of ``peer`` at ``version`` (its global-version clock): None when
+        the state stays intact, else ``{"cls": <one of storage_classes>,
+        "frac": <byte-offset fraction in [0, 1)>, "delete_last":
+        storage_delete_last}``. The same ``(seed, version, peer)`` always
+        draws the same damage; the runtime applies it after the commit."""
+        if self.storage_prob <= 0:
+            return None
+        if self.storage_peers is not None and peer not in self.storage_peers:
+            return None
+        if not self._due(self.storage_rounds, version):
+            return None
+        rng = np.random.default_rng(
+            (self.seed, _LANE_STORAGE, version, peer))
+        if rng.random() >= self.storage_prob:
+            return None
+        pick = int(rng.integers(len(self.storage_classes)))
+        return {"cls": self.storage_classes[pick],
+                "frac": float(rng.random()),
+                "delete_last": int(self.storage_delete_last)}
+
+    def sync_tamper_action(self, server: int, requester: int,
+                           serial: int) -> Optional[dict]:
+        """In-flight tamper draw for one state transfer ``server`` is about
+        to serve ``requester`` (``serial`` counts that pair's serves from
+        0). Only the first serve of a listed pair is tampered, so the
+        requester refuses it and adopts the clean retry. Returns
+        ``{"frac": <byte-offset fraction to flip>}`` or None."""
+        if not self.sync_tamper or serial != 0:
+            return None
+        if (server, requester) not in self.sync_tamper:
+            return None
+        rng = np.random.default_rng(
+            (self.seed, _LANE_STORAGE, server, requester, 1))
+        return {"frac": float(rng.random())}
 
 
 class FaultInjector:

@@ -11,16 +11,25 @@ local engine's part: chain, digests, authentication, accounting, JSON).
   digest and compares it to the committed entry; a mismatch zeroes that
   client's participation mask;
 - accounting: entries are ~100 bytes against multi-100 MB trees
-  (:meth:`Ledger.payload_accounting`).
+  (:meth:`Ledger.payload_accounting`);
+- fork and heal: a partition leaves each component extending its own copy
+  of the chain from a common prefix. The heal locates the fork point
+  (:meth:`Ledger.fork_point`), verifies the other side's divergent
+  segment link by link (:meth:`Ledger.verify_segment`) and re-chains the
+  deterministic union of both segments (:meth:`Ledger.merge_rows`,
+  :meth:`Ledger.adopt_merge`), so every peer holds the same merged chain;
+- state commitments: a peer serving its full state to a repairing peer
+  first appends a reserved row binding the state's digest at its version
+  (:meth:`Ledger.commit_state`); the receiver checks the transferred tree
+  against it (:meth:`Ledger.find_state_commitment`).
 
 Hashing runs in the C++ core (:mod:`bcfl_tpu_torch.native`, built with g++
 at first use) when ``use_native`` is set and a toolchain exists, and in
 ``hashlib`` otherwise; the digests are identical either way. The
 multi-process runtime's replicas use :meth:`Ledger.head_at`,
 :meth:`Ledger.segment`, :meth:`Ledger.append_rows` and
-:meth:`Ledger.verify_segment`; the fork/merge and state-commitment API of
-the JAX ledger (``fork_point``, ``merge_rows``, ``adopt_merge``,
-``commit_state``) serves its partition path and waits for that port.
+:meth:`Ledger.verify_segment`. Rows, heads and merged segments are the
+JAX package's byte for byte: they cross the wire between peers.
 
 Trees are ``{path: tensor}`` dicts (values may be nested dicts, as codec
 payloads are) with ``/``-joined keys; :func:`flat_leaves` walks them in
@@ -44,6 +53,16 @@ import torch
 from bcfl_tpu_torch.native.build import load_ledger_lib
 
 GENESIS = b"\x00" * 32
+
+# reserved row client ids for state commitments: real clients are >= 0 and
+# reputation rows sit at -1000 - peer, so rows at or below this base never
+# collide with either. Peer p's commitments use SYNC_CLIENT_BASE - p; the
+# row's digest slot holds the params digest of the full state p serves.
+SYNC_CLIENT_BASE = -2000
+
+
+def sync_row_client(peer: int) -> int:
+    return SYNC_CLIENT_BASE - int(peer)
 
 
 def chain_extend(prev: bytes, payload: bytes, use_native: bool = True) -> bytes:
@@ -211,6 +230,16 @@ class Ledger:
             raise ValueError(f"head_at({n}) out of range [0, {len(self.heads)}]")
         return GENESIS if n == 0 else self.heads[n - 1]
 
+    def fork_point(self, other_heads: List[bytes]) -> int:
+        """Length of the longest common prefix with another chain's head
+        list (0 = only genesis is shared)."""
+        n = 0
+        for mine, theirs in zip(self.heads, other_heads):
+            if mine != theirs:
+                break
+            n += 1
+        return n
+
     def segment(self, start: int) -> List[Dict]:
         """JSON-able rows for entries ``[start:]`` (entry fields + the head
         after each link): what a leader ships to its replicas."""
@@ -250,6 +279,64 @@ class Ledger:
             self.heads.append(h)
             self.entries.append(entry)
         return -1
+
+    @staticmethod
+    def merge_rows(*segments: List[Dict]) -> List[Dict]:
+        """Deterministic union of divergent fork segments: rows sorted by
+        their full identity ``(round, client, digest, payload_bytes)``,
+        exact duplicates dropped. Every peer computes the same order from
+        the same segments, so re-chaining the merge gives the same heads
+        everywhere."""
+        seen = set()
+        out = []
+        for row in sorted(
+                (r for seg in segments for r in seg),
+                key=lambda r: (int(r["round"]), int(r["client"]),
+                               r["digest"], int(r["payload_bytes"]))):
+            key = (int(row["round"]), int(row["client"]), row["digest"],
+                   int(row["payload_bytes"]))
+            if key in seen:
+                continue
+            seen.add(key)
+            out.append(row)
+        return out
+
+    def adopt_merge(self, fork_base: int, merged_rows: List[Dict]) -> None:
+        """Replace everything after ``fork_base`` with the merged segment,
+        re-chained from the fork-point head."""
+        if fork_base > len(self.entries):
+            raise ValueError(
+                f"fork_base {fork_base} beyond chain length "
+                f"{len(self.entries)}")
+        del self.entries[fork_base:]
+        del self.heads[fork_base:]
+        for row in merged_rows:
+            self.append_digest(int(row["round"]), int(row["client"]),
+                               bytes.fromhex(row["digest"]),
+                               int(row["payload_bytes"]))
+
+    def commit_state(self, version: int, peer: int,
+                     state_digest: bytes) -> LedgerEntry:
+        """Append a reserved state-commitment row: ``peer`` attests that at
+        ``version`` its full state hashes to ``state_digest``."""
+        if len(state_digest) != 32:
+            raise ValueError(
+                f"state commitment digest must be 32 bytes, got "
+                f"{len(state_digest)}")
+        return self.append_digest(int(version), sync_row_client(peer),
+                                  state_digest, 0)
+
+    @staticmethod
+    def find_state_commitment(rows: List[Dict], version: int,
+                              peer: int) -> Optional[bytes]:
+        """The state digest ``peer`` committed for ``version`` in a row
+        segment (the newest match), or None. Verify the segment first: an
+        unverified row proves nothing."""
+        want = sync_row_client(peer)
+        for row in reversed(rows):
+            if int(row["client"]) == want and int(row["round"]) == int(version):
+                return bytes.fromhex(row["digest"])
+        return None
 
     def authenticate(self, round_idx: int, client: int, tree) -> bool:
         """Does ``tree`` match what ``client`` committed for

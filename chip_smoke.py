@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``bcfl_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # phases 1-4, paths (a)-(n)
+    python3 chip_smoke.py              # phases 1-4, paths (a)-(p)
     python3 chip_smoke.py --profile    # phases 1-4, then 5
 
 Phases, each of which raises (and the script exits non-zero) on failure:
@@ -141,7 +141,33 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (HF key names; the card's machine has no ``transformers``) imported
    with ``import_state_dict``, every parameter equal to the written one,
    and one path-(a)-shaped server round from it with K4 and K5, the
-   counts set to 0 just before it and read just after.
+   counts set to 0 just before it and read just after. Then the
+   runtime's fault tolerance at (m)'s width, each path writing its peer
+   checkpoints (1.3 GB a peer: the trainable tree and 2 clients'
+   residual) under ``build/chip_smoke/checkpoints`` after checking the
+   disk holds twice its peak, and deleting them at its end: (o)
+   ``scripts/dist_async.py``'s proof, a partition over peers (0, 1) |
+   (2, 3, 4) on each peer's local rounds 2-4, a checkpoint every 2
+   versions (the newest kept), peer 1 SIGKILLed once its version-2
+   checkpoint and meta are committed and restarted with ``--resume``, 10
+   versions; it gates on every gate of ``analyze`` (all peers complete,
+   a stale arrival, no invariant violation, two heads before the heal
+   and a forked reconcile, the merged chain verifies, the heads agree
+   after it, every chain verifies, the killed peer resumed), on K4/K5 in
+   both of peer 1's incarnations and on the restored trainable and
+   residual equal to the kept checkpoint file bit for bit, and prints
+   the heads, the solo merges, the reconcile, the gate drops, the saves,
+   the restore and the seconds from the kill to the first resumed round;
+   (p) ``tests/test_storage_faults.py``'s repair, a checkpoint every
+   version (2 kept), quorum 0.9, every peer in each merge, peer 4
+   SIGKILLed, its newest meta bit-flipped while it is down and restarted
+   with ``--resume --bootstrap``, the leader's first serve to it
+   tampered; it gates on a ``damaged`` scrub, a refused transfer, a
+   verified then adopted one, the two repair invariants and every other
+   at 0, agreeing heads and K4/K5 in the repaired incarnation, and prints
+   the transfer bytes, the request-to-adopt seconds and the scrub's. Both
+   print (m)'s per-peer, frame, latency and merge lines, and add every
+   incarnation's launches to the record.
 4. ``reference``: on small inputs, a tiny-bert server round on the card
    against the same round on the CPU (float32, dropout off, at the
    tolerance of ``tests/test_torch_round.py``), with dense attention at
@@ -172,6 +198,7 @@ from __future__ import annotations
 import argparse
 import copy
 import csv
+import dataclasses
 import functools
 import json
 import math
@@ -1155,6 +1182,104 @@ def message_stats(ordered):
     return out
 
 
+def check_dist_peers(label, cfg, result, reports=None):
+    """Every peer of a dist run: exit 0 at the target version with
+    ``chain_ok``, no arrival failing authentication, K4 and K5 launched in
+    its newest incarnation; prints one line per peer and returns the
+    launch counts summed over every incarnation of every peer."""
+    reports = reports or result["reports"]
+    if not result["ok"]:
+        raise RuntimeError(f"{label}: not every peer ended ok "
+                           f"{result['returncodes']}: {result['log_tails']}")
+    launches = {}
+    for p in range(cfg.dist.peers):
+        r = reports[p]
+        rejected = sum(len(m["rejected"]) for m in r["merges"])
+        bad = sum(1 for m in r["merges"] for a in m["arrivals"]
+                  if 0.0 in (a.get("auth") or []))
+        kl = r["kernel_launches"]
+        phases = {k: (v["count"], round(v["mean_s"], 4))
+                  for k, v in r["phases"].items()}
+        print(f"{label} peer {p}: exit {result['returncodes'][str(p)]}, "
+              f"incarnation {r['incarnation']}, local rounds "
+              f"{r['local_rounds']}, merges {len(r['merges'])} (solo "
+              f"{r['solo_merges']}), final_version {r['final_version']}, "
+              f"chain_ok {r['chain_ok']}, chain {r['chain_len']} entries "
+              f"head {r['chain_head'][:16]}, auth rejections {bad}, "
+              f"rejected {rejected}, launches int8_quantize "
+              f"{kl['int8_quantize']} topk_select {kl['topk_select']}, peak "
+              f"{r['peak_gb']:.2f} GB, arrivals shed {r['buffer_shed']}, "
+              f"dropped_by_gate {r['dropped_by_gate']}, phases (count, mean "
+              f"s) {json.dumps(phases)}", flush=True)
+        if r["final_version"] < cfg.num_rounds or not r["chain_ok"]:
+            raise RuntimeError(f"{label} peer {p}: final_version "
+                               f"{r['final_version']}, chain_ok "
+                               f"{r['chain_ok']}")
+        if bad:
+            raise RuntimeError(f"{label} peer {p}: {bad} arrivals failed "
+                               "authentication")
+        for name in ("int8_quantize", "topk_select"):
+            if kl[name] <= 0:
+                raise RuntimeError(f"{label} peer {p}: {name} never "
+                                   f"launched in incarnation "
+                                   f"{r['incarnation']}")
+        for rr in [r] + result["incarnation_reports"].get(p, []):
+            for name, n in rr["kernel_launches"].items():
+                launches[name] = launches.get(name, 0) + n
+    heads = {reports[p]["chain_head"] for p in range(cfg.dist.peers)}
+    if len(heads) != 1:
+        raise RuntimeError(f"{label}: the chain heads differ {heads}")
+    return launches
+
+
+def print_dist_timeline(label, result, col, wall):
+    """The collated run: merges, staleness, frames by type, latency and
+    the leader's merge ms, and each peer's local round walls."""
+    tl = col["timeline"]
+    reports = result["reports"]
+    msgs = message_stats(col["ordered"])
+    rounds = {}
+    for e in col["ordered"]:
+        if e.get("ev") == "round":
+            rounds.setdefault(e.get("peer"), []).append(e["wall_s"])
+    merge_ms = [m["wall_s"] * 1e3 for m in reports[0]["merges"]]
+    print(f"{label}: {wall:.2f} s wall incl. the interpreters and set-up, "
+          f"{tl['merges']['count']} merges of {tl['merges']['arrivals']} "
+          f"arrivals, staleness {tl['staleness']}, invariant violations "
+          f"{col['invariant_violations_total']}", flush=True)
+    for kind, row in sorted(msgs.items(), key=lambda kv: str(kv[0])):
+        lat = row["latency_s"]
+        print(f"{label} {kind} frames: {len(row['bytes'])} sent, bytes "
+              f"per frame mean {sum(row['bytes']) / len(row['bytes']):.0f} "
+              f"max {max(row['bytes'])}, send ms per frame mean "
+              f"{sum(row['send_s']) / len(row['send_s']) * 1e3:.1f} max "
+              f"{max(row['send_s']) * 1e3:.1f}, latency p50 "
+              f"{_pct(lat, 50)} s p99 {_pct(lat, 99)} s", flush=True)
+    lat = [x for row in msgs.values() for x in row["latency_s"]]
+    print(f"{label} message latency (all types): p50 {_pct(lat, 50)} s, "
+          f"p99 {_pct(lat, 99)} s over {len(lat)} messages; merge ms "
+          f"per merge mean {sum(merge_ms) / max(len(merge_ms), 1):.1f} max "
+          f"{max(merge_ms, default=0.0):.1f}", flush=True)
+    for p, ws in sorted(rounds.items()):
+        print(f"{label} peer {p} local round walls (every incarnation; the "
+              f"peers share the card): {[round(w, 3) for w in ws]}",
+              flush=True)
+    return msgs
+
+
+def collate_checked(label, result):
+    from bcfl_tpu_torch.telemetry import collate
+
+    col = collate(result["event_streams"])
+    if not col["ok"]:
+        raise RuntimeError(f"{label}: invariant violations "
+                           f"{col['violations']}")
+    tl = col["timeline"]
+    if tl["merges"]["arrivals"] != tl["merges"]["unique_update_ids"]:
+        raise RuntimeError(f"{label}: merge lineage {tl['merges']}")
+    return col
+
+
 def phase_dist(ck, stats, smi, dataset, c_walls):
     """Path (m): the multi-process runtime at full width. The peers are
     fresh interpreters started after the kernels and the native cores
@@ -1166,7 +1291,6 @@ def phase_dist(ck, stats, smi, dataset, c_walls):
     from bcfl_tpu_torch.dist import run_dist
     from bcfl_tpu_torch.models import build
     from bcfl_tpu_torch.models.convert import trainable_tree
-    from bcfl_tpu_torch.telemetry import collate
 
     cfg = dist_config(dataset)
     run_dir = BUILD_DIR / "dist_m"
@@ -1180,81 +1304,17 @@ def phase_dist(ck, stats, smi, dataset, c_walls):
     result = run_dist(cfg, str(run_dir), deadline_s=360.0, device="cuda",
                       threads=1)
     wall = time.perf_counter() - t0
-    reports = result["reports"]
-    if not result["ok"]:
-        raise RuntimeError(f"dist path: not every peer ended ok "
-                           f"{result['returncodes']}: {result['log_tails']}")
-    launches = {}
-    heads = set()
-    for p in range(cfg.dist.peers):
-        r = reports[p]
-        rejected = sum(len(m["rejected"]) for m in r["merges"])
-        bad = sum(1 for m in r["merges"] for a in m["arrivals"]
-                  if 0.0 in (a.get("auth") or []))
-        kl = r["kernel_launches"]
-        phases = {k: (v["count"], round(v["mean_s"], 4))
-                  for k, v in r["phases"].items()}
-        print(f"dist path peer {p}: exit {result['returncodes'][str(p)]}, "
-              f"local rounds {r['local_rounds']}, merges "
-              f"{len(r['merges'])}, final_version {r['final_version']}, "
-              f"chain_ok {r['chain_ok']}, chain {r['chain_len']} entries "
-              f"head {r['chain_head'][:16]}, auth rejections {bad + rejected}"
-              f", launches int8_quantize {kl['int8_quantize']} topk_select "
-              f"{kl['topk_select']}, peak {r['peak_gb']:.2f} GB, arrivals "
-              f"shed {r['buffer_shed']}, phases (count, mean s) "
-              f"{json.dumps(phases)}", flush=True)
-        if r["final_version"] < cfg.num_rounds or not r["chain_ok"]:
-            raise RuntimeError(f"dist path peer {p}: final_version "
-                               f"{r['final_version']}, chain_ok "
-                               f"{r['chain_ok']}")
-        if bad or rejected:
-            raise RuntimeError(f"dist path peer {p}: {bad} arrivals failed "
-                               f"authentication, {rejected} rejected")
-        for name in ("int8_quantize", "topk_select"):
-            if kl[name] <= 0:
-                raise RuntimeError(f"dist path peer {p}: {name} never "
-                                   "launched")
-        for name, n in kl.items():
-            launches[name] = launches.get(name, 0) + n
-        heads.add(r["chain_head"])
-    if len(heads) != 1:
-        raise RuntimeError(f"dist path: the chain heads differ {heads}")
+    launches = check_dist_peers("dist path", cfg, result)
+    rejected = sum(len(m["rejected"]) for r in result["reports"].values()
+                   for m in r["merges"])
+    if rejected:
+        raise RuntimeError(f"dist path: {rejected} updates rejected")
     count_launches(stats, launches)
-    col = collate(result["event_streams"])
-    tl = col["timeline"]
-    if not col["ok"]:
-        raise RuntimeError(f"dist path: invariant violations "
-                           f"{col['violations']}")
-    if not any(int(k) > 0 for k in tl["staleness"]):
-        raise RuntimeError(f"dist path: no stale arrival {tl['staleness']}")
-    if tl["merges"]["arrivals"] != tl["merges"]["unique_update_ids"]:
-        raise RuntimeError(f"dist path: merge lineage {tl['merges']}")
-    msgs = message_stats(col["ordered"])
-    rounds = {}
-    for e in col["ordered"]:
-        if e.get("ev") == "round":
-            rounds.setdefault(e.get("peer"), []).append(e["wall_s"])
-    merge_ms = [m["wall_s"] * 1e3 for m in reports[0]["merges"]]
-    print(f"dist path: {wall:.2f} s wall incl. 5 interpreters and set-up, "
-          f"{tl['merges']['count']} merges of {tl['merges']['arrivals']} "
-          f"arrivals, staleness {tl['staleness']}, invariant violations "
-          f"{col['invariant_violations_total']}", flush=True)
-    for kind, row in sorted(msgs.items(), key=lambda kv: str(kv[0])):
-        lat = row["latency_s"]
-        print(f"dist path {kind} frames: {len(row['bytes'])} sent, bytes "
-              f"per frame mean {sum(row['bytes']) / len(row['bytes']):.0f} "
-              f"max {max(row['bytes'])}, send ms per frame mean "
-              f"{sum(row['send_s']) / len(row['send_s']) * 1e3:.1f} max "
-              f"{max(row['send_s']) * 1e3:.1f}, latency p50 "
-              f"{_pct(lat, 50)} s p99 {_pct(lat, 99)} s", flush=True)
-    lat = [x for row in msgs.values() for x in row["latency_s"]]
-    print(f"dist path message latency (all types): p50 {_pct(lat, 50)} s, "
-          f"p99 {_pct(lat, 99)} s over {len(lat)} messages; merge ms "
-          f"per merge mean {sum(merge_ms) / len(merge_ms):.1f} max "
-          f"{max(merge_ms):.1f}", flush=True)
-    for p, ws in sorted(rounds.items()):
-        print(f"dist path peer {p} local round walls (5 CUDA contexts share "
-              f"the card): {[round(w, 3) for w in ws]}", flush=True)
+    col = collate_checked("dist path", result)
+    if not any(int(k) > 0 for k in col["timeline"]["staleness"]):
+        raise RuntimeError(f"dist path: no stale arrival "
+                           f"{col['timeline']['staleness']}")
+    print_dist_timeline("dist path", result, col, wall)
     print(f"one-process 10-client round of the serverless gossip path in "
           f"this call: {[round(w, 3) for w in c_walls]}", flush=True)
     with torch.device("meta"):
@@ -1262,6 +1322,233 @@ def phase_dist(ck, stats, smi, dataset, c_walls):
                                         vocab_size=28996))
     k = cfg.num_clients // cfg.dist.peers
     codec_calls(ck, stats, template, cfg.compression, k, "dist-peer")
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+
+# ------------------------------ the runtime's fault-tolerance half
+
+
+def peer_checkpoint_gb(cfg) -> float:
+    """One peer checkpoint of ``cfg`` in GB: the float32 trainable tree
+    and the error-feedback residual of the peer's clients."""
+    k = cfg.num_clients // cfg.dist.peers
+    return checkpoint_gb(cfg, stacked=False) / (1 + cfg.num_clients) * (1 + k)
+
+
+def first_round_after(col, peer, pid, t_wall):
+    """Seconds from ``t_wall`` to the first local round the incarnation
+    ``pid`` of ``peer`` finished (its ``round`` event), or None."""
+    ts = [e["t_wall"] for e in col["ordered"]
+          if e.get("ev") == "round" and e.get("peer") == peer
+          and e.get("pid") == pid]
+    return min(ts) - t_wall if ts else None
+
+
+def print_checkpoints(label, reports):
+    """Each peer's checkpoint saves (this incarnation's): bytes on disk
+    and seconds per save, the state's fsync and digest included."""
+    for p, r in sorted(reports.items()):
+        secs = [c["save_s"] for c in r["checkpoints"]]
+        print(f"{label} peer {p} checkpoints: {len(secs)} saves of "
+              f"{max((c['bytes'] for c in r['checkpoints']), default=0)} "
+              f"bytes, save s mean {sum(secs) / max(len(secs), 1):.3f} max "
+              f"{max(secs, default=0.0):.3f} each "
+              f"{[round(x, 3) for x in secs]}", flush=True)
+
+
+def phase_partition_kill(stats, smi, dataset):
+    """Path (o): ``scripts/dist_async.py``'s proof at (m)'s full width. A
+    partition over peers (0, 1) | (2, 3, 4) on each peer's local rounds
+    2-4, checkpoints every 2 versions (the newest kept), peer 1 SIGKILLed
+    once its version-2 checkpoint is committed and restarted with
+    --resume, 10 versions (the leader merges about once per own round, so
+    the margin covers the restarted interpreter). Gates on every gate of
+    ``analyze``: all peers
+    complete, a stale arrival, zero invariant violations, two distinct
+    heads before the heal and a forked reconcile, the merged chain
+    verifies, the heads agree after it, every chain verifies, the killed
+    peer resumed; and on K4/K5 in every incarnation and the restored
+    trainable and residual equal to the kept checkpoint file bit for
+    bit."""
+    from bcfl_tpu_torch.dist import run_dist
+    from bcfl_tpu_torch.faults import FaultPlan
+    from bcfl_tpu_torch.ledger.ledger import params_digest
+
+    base = dist_config(dataset)
+    cfg = base.replace(
+        name="chip-smoke-dist-partition-kill", num_rounds=10,
+        faults=FaultPlan(partition_groups=((0, 1), (2, 3, 4)),
+                         partition_rounds=(2, 3, 4)),
+        dist=dataclasses.replace(base.dist, checkpoint_every_versions=2,
+                                 checkpoint_keep_last=1,
+                                 peer_deadline_s=420.0))
+    label = "partition-kill path (o)"
+    # peak on disk: each peer's kept round and one in flight, plus the
+    # killed peer's hard-linked round
+    check_disk(peer_checkpoint_gb(cfg) * (2 * cfg.dist.peers + 1), label)
+    run_dir = CKPT_DIR / "o"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    result = run_dist(cfg, str(run_dir), deadline_s=480.0, device="cuda",
+                      threads=1, kill_peer=1, kill_after_version=2)
+    wall = time.perf_counter() - t0
+    reports = result["reports"]
+    kill = result["kill"]
+    if kill is None:
+        raise RuntimeError(f"{label}: the kill never fired "
+                           f"{result['log_tails']}")
+    launches = check_dist_peers(label, cfg, result)
+    col = collate_checked(label, result)
+    tl = col["timeline"]
+    heads = {p: (r.get("fork") or {}).get("head_before_heal")
+             for p, r in reports.items() if r.get("fork")}
+    rec = reports[0].get("reconcile") or {}
+    gates = {
+        "all_peers_completed": result["ok"] and len(reports) == 5,
+        "staleness_measured_nonzero": any(
+            int(k) > 0 and v > 0 for k, v in tl["staleness"].items()),
+        "zero_invariant_violations": col["ok"],
+        "ledger_forked_two_heads": (
+            len({h for h in heads.values() if h}) >= 2
+            and bool(rec.get("forked"))),
+        "reconcile_merged_chain_verifies": bool(
+            rec.get("chain_ok") and rec.get("segment_rejected_at") is None),
+        "post_heal_heads_agree": len({r["chain_head"]
+                                      for r in reports.values()}) == 1,
+        "chains_verify": all(r.get("chain_ok") in (True, None)
+                             for r in reports.values()),
+        "killed_peer_resumed_from_checkpoint": bool(
+            reports[1].get("resumed")) and reports[1]["status"] == "ok",
+    }
+    solo = {p: r["solo_merges"] for p, r in reports.items()}
+    print(f"{label} gates: {json.dumps(gates)}", flush=True)
+    print(f"{label}: heads before the heal "
+          f"{ {p: (h or '')[:16] for p, h in heads.items()} }, solo merges "
+          f"per peer {solo}, reconcile fork_point {rec.get('fork_point')} "
+          f"merged_entries {rec.get('merged_entries')} wall_s "
+          f"{rec.get('wall_s')} healed_version {rec.get('healed_version')}",
+          flush=True)
+    if not all(gates.values()):
+        raise RuntimeError(f"{label}: gates failed {gates}")
+    if not (solo[0] > 0 and solo[2] > 0):
+        raise RuntimeError(f"{label}: a component committed no solo "
+                           f"merge {solo}")
+    # the killed incarnation launched K4/K5 too (its last report)
+    dead = result["incarnation_reports"].get(1, [])
+    if not dead or any(d["kernel_launches"][n] <= 0 for d in dead
+                       for n in ("int8_quantize", "topk_select")):
+        raise RuntimeError(f"{label}: the killed incarnation's launches "
+                           f"{[d['kernel_launches'] for d in dead]}")
+    print(f"{label} peer 1 launches per incarnation: "
+          f"{[d['kernel_launches'] for d in dead]} then "
+          f"{reports[1]['kernel_launches']}", flush=True)
+    count_launches(stats, launches)
+    # the resumed trainable and residual against the file it restored
+    restored = reports[1]["restored"]
+    if restored["version"] != kill["round"]:
+        raise RuntimeError(f"{label}: restored version {restored['version']}"
+                           f", the kill left round {kill['round']}")
+    state = torch.load(Path(kill["kept"]) / f"round_{kill['round']:06d}"
+                       / "state.pt", map_location="cpu", weights_only=True)
+    for key in ("trainable", "ef_residual"):
+        want = params_digest(state[key], use_native=False).hex()
+        if restored[f"{key}_digest"] != want:
+            raise RuntimeError(f"{label}: the restored {key} differs from "
+                               f"the checkpoint file")
+    del state
+    back = first_round_after(col, 1, reports[1]["pid"],
+                             kill["killed_at_wall"])
+    print(f"{label}: peer 1 killed at {kill['killed_at_s']:.2f} s after its "
+          f"round-{kill['round']} checkpoint, restored version "
+          f"{restored['version']} in {restored['restore_s']:.3f} s (scrub "
+          f"{restored['scrub_s']:.3f} s), trainable and residual equal to "
+          f"the file bit for bit, first resumed round {back} s after the "
+          "kill", flush=True)
+    print_checkpoints(label, reports)
+    print_dist_timeline(label, result, col, wall)
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+
+def phase_storage_repair(stats, smi, dataset):
+    """Path (p): ``tests/test_storage_faults.py``'s repair at (m)'s full
+    width, cut to 3 versions: a checkpoint every version (the newest 2
+    kept), quorum 0.9, peer 4 SIGKILLed once after 30 s (and a committed
+    checkpoint), its newest meta sidecar bit-flipped while it is down and
+    restarted with --resume --bootstrap; the leader tampers its first
+    serve to peer 4. Gates on a ``damaged`` scrub, a refused
+    transfer, a verified one then the adopt, ``repair_authenticated`` and
+    ``no_rollback_readmission`` at 0 and no violation at all, every peer
+    ok with agreeing heads, and K4/K5 in the repaired incarnation."""
+    from bcfl_tpu_torch.dist import run_dist
+    from bcfl_tpu_torch.faults import FaultPlan
+
+    base = dist_config(dataset)
+    # buffer=5 with a long timeout: the leader merges only with every
+    # peer's update, so the fleet waits for the repaired peer
+    cfg = base.replace(
+        name="chip-smoke-dist-storage-repair", num_rounds=3,
+        faults=FaultPlan(sync_tamper=((0, 4),)),
+        dist=dataclasses.replace(base.dist, buffer=5,
+                                 buffer_timeout_s=120.0,
+                                 checkpoint_every_versions=1,
+                                 checkpoint_keep_last=2, quorum_frac=0.9,
+                                 suspect_after=1, peer_deadline_s=420.0))
+    label = "storage-repair path (p)"
+    check_disk(peer_checkpoint_gb(cfg) * 3 * cfg.dist.peers, label)
+    run_dir = CKPT_DIR / "p"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    result = run_dist(cfg, str(run_dir), deadline_s=480.0, device="cuda",
+                      threads=1,
+                      churn={"peer": 4, "cycles": 1, "period_s": 30.0,
+                             "downtime_s": 2.0, "stop_after_s": 200.0,
+                             "damage": ["meta_flip"], "bootstrap": True})
+    wall = time.perf_counter() - t0
+    reports = result["reports"]
+    if not result["churn"]:
+        raise RuntimeError(f"{label}: the kill never fired "
+                           f"{result['log_tails']}")
+    launches = check_dist_peers(label, cfg, result)
+    col = collate_checked(label, result)
+    evs = col["ordered"]
+    r4 = reports[4]
+    mine = [e for e in evs if e.get("peer") == 4 and e.get("pid") == r4["pid"]]
+    scrubs = [e for e in mine if e["ev"] == "scrub"]
+    verifies = [e for e in mine if e["ev"] == "state.sync.verify"]
+    refusals = [e for e in mine if e["ev"] == "state.sync.refuse"]
+    adopts = [e for e in mine if e["ev"] == "state.sync.adopt"]
+    requests = [e for e in mine if e["ev"] == "state.sync.request"]
+    gates = {
+        "scrub_damaged": any(e.get("status") == "damaged" for e in scrubs),
+        "tampered_transfer_refused": bool(refusals),
+        "verified_then_adopted": bool(
+            adopts and any(v.get("ok") and v["t_wall"] <= adopts[0]["t_wall"]
+                           for v in verifies)),
+        "repair_authenticated": col["invariants"]["repair_authenticated"]
+        == 0,
+        "no_rollback_readmission":
+            col["invariants"]["no_rollback_readmission"] == 0,
+        "zero_invariant_violations": col["ok"],
+    }
+    print(f"{label} gates: {json.dumps(gates)}; churn {result['churn']}; "
+          f"refusals {[e.get('reason') for e in refusals]}, repaired "
+          f"{r4['repaired']}", flush=True)
+    if not all(gates.values()):
+        raise RuntimeError(f"{label}: gates failed {gates}")
+    count_launches(stats, launches)
+    serves = [e for e in evs if e.get("ev") == "send"
+              and e.get("type") == "state_sync" and e.get("ok")]
+    print(f"{label}: transfer bytes {[e.get('bytes') for e in serves]}, "
+          f"send s {[round(e.get('wall_s') or 0.0, 3) for e in serves]}, "
+          f"sync request to adopt "
+          f"{adopts[0]['t_wall'] - requests[0]['t_wall']:.3f} s, scrub "
+          f"{r4['restored']['scrub_s']:.3f} s, restore "
+          f"{r4['restored'].get('restore_s')} s, peer 4 launches in the "
+          f"repaired incarnation {r4['kernel_launches']}", flush=True)
+    print_checkpoints(label, reports)
+    print_dist_timeline(label, result, col, wall)
     shutil.rmtree(run_dir, ignore_errors=True)
 
 
@@ -2784,6 +3071,8 @@ def main(argv=None) -> int:
     phase_resilience(ck, stats, smi, dataset)
     phase_llama(ck, fk, stats, smi, dataset, llama_per)
     phase_dist(ck, stats, smi, medical, c_walls)
+    phase_partition_kill(stats, smi, medical)
+    phase_storage_repair(stats, smi, medical)
     count_launches(stats, phase_hf(smi))
     phase_reference()
     if args.profile:

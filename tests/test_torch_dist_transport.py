@@ -36,7 +36,7 @@ def pair():
     ports = free_ports(2)
     addrs = [("127.0.0.1", p) for p in ports]
     j = jt.PeerTransport(0, addrs, policy=JDist(**POLICY), epoch=11)
-    t = tt.PeerTransport(1, addrs, gate=tt.PartitionGate(2),
+    t = tt.PeerTransport(1, addrs, gate=tt.PartitionGate(None, 2),
                          policy=DistConfig(**POLICY), epoch=22)
     j.start()
     t.start()
@@ -160,7 +160,7 @@ def test_phi_detector_walks_jax_states_under_failures():
 
 
 def test_partition_gate_is_the_no_plan_identity():
-    g = tt.PartitionGate(3)
+    g = tt.PartitionGate(None, 3)
     j = jt.PartitionGate(None, 3, lambda: 0)
     assert g.components() is j.components() is None
     assert g.component_of(2) == j.component_of(2) == (0, 1, 2)

@@ -93,11 +93,12 @@ _DIST = dict(runtime="dist", sync="async", eval_every=0, num_clients=4,
                              ).DistConfig(checkpoint_every_versions=0))
 
 NOT_PORTED = [
-    # the dist runtime runs its whole-network path since slice 9; its
-    # deferred features (partitions here) raise at config time
+    # the dist runtime runs, with partitions, crash/rejoin and the
+    # storage lane; its deferred features (the wire lane here) raise at
+    # config time
     ("runtime", dict(_DIST, faults=__import__(
         "bcfl_tpu_torch.faults", fromlist=["FaultPlan"]).FaultPlan(
-            partition_rounds=(1,), partition_count=2))),
+            wire_drop_prob=0.1))),
     ("tp", {"tp": 2}),
     ("sp", {"sp": 2}),
     ("rounds_per_dispatch", {"rounds_per_dispatch": 2}),
