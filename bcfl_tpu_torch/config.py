@@ -426,14 +426,15 @@ RUNTIME_CAPS: Tuple = (
               "per-round view to filter"}),
     ("reputation lifecycle",
      lambda c: c.reputation.enabled,
-     {"local": True,
-      "dist": NOT_PORTED_YET + ": the per-peer tracker fed by wire "
-              "evidence (reputation/dist.py) waits for its slice"}),
+     {"local": True, "dist": True}),  # dist: the per-PEER tracker fed by
+    # wire evidence (reputation/dist.py); quarantine refusals are post-ack
+    # drops and transitions commit to the ledger
     ("robust aggregators",
      lambda c: c.aggregator != "mean",
-     {"local": True,
-      "dist": NOT_PORTED_YET + ": the host-side robust merge over the "
-              "arrival set (dist/robust.py) waits for its slice"}),
+     {"local": True, "dist": True}),  # dist: the robust rules over the
+    # buffered ARRIVAL set (dist/robust.py), with the buffer preconditions
+    # checked below (trimmed_mean/median need buffer >= 3, krum
+    # buffer >= 2f+3)
     ("communication compression",
      lambda c: c.compression.enabled,
      {"local": True, "dist": True}),
@@ -466,8 +467,8 @@ RUNTIME_CAPS: Tuple = (
                "the wire lane acts on real TCP frames in the dist "
                "transport (PeerTransport); use corrupt_prob for the "
                "simulated-transport analogue",
-      "dist": NOT_PORTED_YET + ": the wire chaos lane waits for its "
-              "slice"}),
+      "dist": NOT_PORTED_YET + ": the wire chaos lane (WireChaos, the "
+              "plan's wire_actions) waits for its slice"}),
     ("chaos: byzantine peers",
      lambda c: _plan(c).byz_enabled,
      {"local": "byzantine behaviors forge the dist update exchange's wire "
@@ -475,8 +476,7 @@ RUNTIME_CAPS: Tuple = (
                "per-destination equivocation); the local engine exchanges "
                "none of those — use corrupt_prob/flaky_* for the "
                "simulated in-graph analogue",
-      "dist": NOT_PORTED_YET + ": the byzantine lane (dist/byzantine.py) "
-              "waits for its slice"}),
+      "dist": True}),  # injected above the wire (dist/byzantine.py)
     ("chaos: churn",
      lambda c: _plan(c).churns,
      {"local": True,
@@ -505,7 +505,9 @@ RUNTIME_CAPS: Tuple = (
                "detector and w_slow down-weighting — the local engine "
                "has neither a wire nor a detector; use straggler_prob "
                "for the simulated-clock analogue",
-      "dist": NOT_PORTED_YET + ": the limp lane waits for its slice"}),
+      "dist": NOT_PORTED_YET + ": the limp lane's injection (the "
+              "plan's limp_action and limp_throttle, LimpChaos) waits for "
+              "its slice"}),
     ("chaos: resource faults (ENOSPC/EMFILE)",
      lambda c: _plan(c).resource_enabled,
      {"local": "the resource lane fails a peer's durable writes "
@@ -513,8 +515,8 @@ RUNTIME_CAPS: Tuple = (
                "grades the emergency-GC → telemetry-shed → exit ladder; "
                "the local engine has no per-peer durable-write seams — "
                "dist only",
-      "dist": NOT_PORTED_YET + ": the resource lane waits for its "
-              "slice"}),
+      "dist": NOT_PORTED_YET + ": the resource lane's injected draws "
+              "(the plan's resource_action) wait for their slice"}),
     ("communication compression under gossip dispatch",
      lambda c: c.compression.enabled and c.dist.dispatch == "gossip",
      {"local": True,
@@ -825,14 +827,16 @@ class FedConfig:
                     "buffered async with the anomaly filter, the ledger, "
                     "the local fault plan, robust aggregation, reputation, "
                     "checkpoints, LoRA and cohort sampling, and the "
-                    "multi-process runtime with partitions, the ledger "
-                    "fork and heal, peer checkpoints, crash/rejoin, the "
-                    "storage lane and state sync (see ROADMAP.md for the "
-                    "port's queue)")
+                    "multi-process runtime's leadered dispatch with "
+                    "partitions, the ledger fork and heal, peer "
+                    "checkpoints, crash/rejoin, the storage lane and state "
+                    "sync, the robust merge, per-peer reputation and the "
+                    "byzantine lane (see ROADMAP.md for the port's queue)")
 
     def _check_dist_lanes(self) -> None:
-        """JAX's dist-only checks: the client split, and the fault plan's
-        peer ids and the storage lane's preconditions."""
+        """JAX's dist-only checks: the client split, the fault plan's peer
+        ids, the storage lane's preconditions and the robust rules'
+        buffer preconditions."""
         plan = _plan(self)
         if self.num_clients % self.dist.peers:
             raise ValueError(
@@ -850,8 +854,62 @@ class FedConfig:
             raise ValueError(
                 f"dist partition_count {plan.partition_count} "
                 f"> peers {self.dist.peers}")
-        if not plan.storage_enabled:
-            return
+        if plan.byz_enabled:
+            bad = [p for p in plan.byz_peers if p >= self.dist.peers]
+            if bad:
+                raise ValueError(
+                    f"byz_peers name PEERS; ids {bad} are >= peers="
+                    f"{self.dist.peers}")
+            if len(plan.byz_peers) >= self.dist.peers:
+                raise ValueError(
+                    "byz_peers lists EVERY peer: an all-adversarial "
+                    "federation has no honest majority for any rule "
+                    "to defend — leave at least one peer honest")
+        if plan.storage_enabled:
+            self._check_storage_lane(plan)
+        if self.aggregator != "mean":
+            self._check_robust_buffer()
+
+    def _check_robust_buffer(self) -> None:
+        """The robust rules' declared preconditions on the merge buffer
+        (the arrival set is the rule's population), from the same source
+        as the runtime's ``robust_degraded`` threshold."""
+        from bcfl_tpu_torch.dist.robust import MIN_ORDER_VOTES, krum_min_buffer
+
+        if self.dist.dispatch == "gossip":
+            # unreachable while gossip dispatch is refused; kept with
+            # JAX's message for when it is ported
+            if self.dist.gossip_fanout + 1 < MIN_ORDER_VOTES:
+                raise ValueError(
+                    f"aggregator={self.aggregator!r} under "
+                    f"dispatch='gossip' needs gossip_fanout >= "
+                    f"{MIN_ORDER_VOTES - 1} (got "
+                    f"{self.dist.gossip_fanout}): the rule's "
+                    "population is a peer's neighbor arrival set "
+                    "plus itself, and an order statistic over < "
+                    f"{MIN_ORDER_VOTES} votes excludes nothing")
+        eff = self.dist.buffer or 1
+        if (self.aggregator in ("trimmed_mean", "median")
+                and self.dist.dispatch != "gossip"):
+            if eff < MIN_ORDER_VOTES:
+                raise ValueError(
+                    f"aggregator={self.aggregator!r} on "
+                    f"runtime='dist' needs dist.buffer >= "
+                    f"{MIN_ORDER_VOTES} (got {eff}): the rule's "
+                    "population is the buffered arrival set, and "
+                    f"an order statistic over < {MIN_ORDER_VOTES} "
+                    "votes excludes nothing")
+        if self.aggregator == "krum":
+            need = krum_min_buffer(eff, self.aggregator_trim)
+            if eff < need:
+                raise ValueError(
+                    f"aggregator='krum' on runtime='dist' needs "
+                    f"dist.buffer >= 2f+3 = {need} for f = "
+                    f"ceil(aggregator_trim * buffer) "
+                    f"(got buffer {eff}): below that the "
+                    "classical selection guarantee is vacuous")
+
+    def _check_storage_lane(self, plan: FaultPlan) -> None:
         if plan.storage_peers:
             bad = [p for p in plan.storage_peers if p >= self.dist.peers]
             if bad:

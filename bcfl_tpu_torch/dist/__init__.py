@@ -1,6 +1,6 @@
 """The multi-process async P2P runtime (``FedConfig.runtime="dist"``):
 port of ``bcfl_tpu/dist``, the leadered dispatch with its fault-tolerance
-half.
+and adversarial halves.
 
 Each peer is an OS process owning a fixed slice of the clients; updates
 ride length-prefixed TCP over loopback (:mod:`.wire`, byte-identical to
@@ -10,8 +10,11 @@ leader with MEASURED staleness (:mod:`.runtime`). Partitions fork the
 ledger and heal through a verified reconcile; peers checkpoint, resume
 after a crash and repair damaged state over a chain-verified STATE_SYNC.
 :mod:`.harness` spawns, supervises, kills, restarts and reaps the peers.
-The robust merge, reputation, the wire, byzantine, limp and resource
-lanes and the gossip dispatch wait for later slices.
+The leader merges with a robust rule over one vote per peer
+(:mod:`.robust`) and quarantines peers through a per-peer reputation
+tracker committed to the ledger; :mod:`.byzantine` injects adversarial
+updates above the wire. The wire, limp and resource chaos lanes and the
+gossip dispatch wait for later slices.
 """
 
 from bcfl_tpu_torch.dist.harness import free_ports, reap_all, run_dist

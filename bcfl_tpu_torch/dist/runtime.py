@@ -6,9 +6,9 @@ local training loop on its own device (the card, unless it was started
 with ``--device cpu``); peers exchange updates over
 :mod:`bcfl_tpu_torch.dist.transport` and aggregate FedBuff-style at a
 component leader, the lowest peer id reachable in the peer's connected
-component (peer 0 when the network is whole). The robust merge,
-reputation, gossip dispatch and the byzantine, wire, limp and resource
-lanes wait for later slices; the config refuses them.
+component (peer 0 when the network is whole). Gossip dispatch and the
+wire, limp and resource chaos lanes wait for later slices; the config
+refuses them.
 
 - **Training + wire encode** go through the engine's update-exchange seam
   (:meth:`bcfl_tpu_torch.fed.engine.FedEngine._exchange_updates`,
@@ -37,6 +37,19 @@ lanes wait for later slices; the config refuses them.
   deterministic merge (:meth:`Ledger.merge_rows`, ``adopt_merge``) and
   the participation-weighted mean of the two fork models, and broadcasts
   the healed global with the whole merged chain.
+- **The adversarial half**: under ``aggregator != "mean"`` the leader
+  merges one vote per sending peer with a robust rule
+  (:mod:`bcfl_tpu_torch.dist.robust`, float64 on the leader's device),
+  whose outlier flags, the ledger's auth failures, replay rejections,
+  staleness and the failure detector feed a per-peer reputation tracker
+  (:mod:`bcfl_tpu_torch.reputation.dist`). A quarantined peer's arrivals
+  are refused after the ack and it leaves the merge target; transitions
+  are committed to the chain before the broadcast, so followers inherit
+  the verdicts, and the tracker rides the checkpoint. The byzantine lane
+  (:mod:`bcfl_tpu_torch.dist.byzantine`) rewrites an adversary's updates
+  above the wire. Every merge samples the phi detector (``detector.phi``
+  events, the tracker's slowness lane), and ``resource_sample_s > 0``
+  emits ``resource`` events.
 - **Crash and rejoin**: every version divisible by
   ``checkpoint_every_versions`` is checkpointed (the trainable tree, the
   error-feedback residual, the version counters and the chain), and the
@@ -118,6 +131,8 @@ class MergeRecord:
     solo: bool  # produced while partitioned (a fork extension)
     degraded: bool = False  # merged on a reduced quorum (some peer DOWN)
     quorum: Optional[Dict] = None  # {"component", "alive", "down"} when degraded
+    robust: Optional[Dict] = None  # robust-rule info (k, trim_t/krum_*) when armed
+    robust_degraded: bool = False  # fewer arrivals than the declared precondition
 
 
 def _tamper_tree(tree: Dict[str, torch.Tensor], frac: float):
@@ -287,6 +302,43 @@ class PeerRuntime:
         self._sync_serves: Dict[int, int] = {}  # requester -> serves so far
         self._restored: Optional[Dict] = None  # what _restore adopted
         self._ckpt_saves: List[Dict] = []
+        # quarantine_drops is bumped from the intake thread and the merge:
+        # a plain += would be a racy read-add-store
+        self._qdrop_lock = threading.Lock()
+        # per-PEER reputation (reputation/dist.py): wire evidence ->
+        # quarantine, transitions committed to the chain, state
+        # checkpointed bit for bit; the leader's tracker gates merges
+        self.rep = None
+        if cfg.reputation.enabled:
+            from bcfl_tpu_torch.reputation.dist import DistReputationTracker
+
+            self.rep = DistReputationTracker(cfg.reputation, self.peers,
+                                             self.peer_id)
+        self._restored_rep: Optional[Dict] = None
+        self._det_seen = 0  # detector transitions already fed as evidence
+        # the byzantine lane, built only when the plan arms it: otherwise
+        # the injection seam in _train_once is absent, not merely inert
+        self.byz = None
+        if cfg.faults is not None and cfg.faults.byz_enabled:
+            from bcfl_tpu_torch.dist.byzantine import ByzantineAdversary
+
+            self.byz = ByzantineAdversary(
+                cfg.faults, self.peer_id,
+                clock_fn=lambda: self.local_round)
+        # the robust rules' declared arrival-count precondition; a merge
+        # below it still aggregates (trim clamped), recorded
+        # robust_degraded
+        self._robust_min = 0
+        if cfg.aggregator != "mean":
+            from bcfl_tpu_torch.dist.robust import (
+                MIN_ORDER_VOTES,
+                krum_min_buffer,
+            )
+
+            self._robust_min = (
+                krum_min_buffer(cfg.dist.buffer or 1, cfg.aggregator_trim)
+                if cfg.aggregator == "krum" else MIN_ORDER_VOTES)
+        self._resmon = None  # the resource sampler, started by run()
         # the span clock is the peer's LOCAL ROUND: it advances with the
         # peer's own training loop, so every peer crosses the partition
         # span even while cross-partition messages are dropped (a
@@ -401,16 +453,30 @@ class PeerRuntime:
                 break
             del self.history[v]
 
-    # --- extension hooks (the reputation tracker and gossip dispatch of
-    # later slices ride the checkpoint through these) ---
+    # --- extension hooks: the reputation tracker rides the checkpoint
+    # through these (a gossip dispatch of a later slice extends them) ---
 
     def _checkpoint_extra(self) -> Dict:
-        """Extra keys folded into the checkpoint state."""
-        return {}
+        """Extra keys folded into the checkpoint state: the per-peer
+        tracker's arrays, with the engine's ``rep_*`` keys."""
+        return self.rep.checkpoint_state() if self.rep is not None else {}
 
     def _restore_extra(self, state: Dict) -> None:
         """Twin of :meth:`_checkpoint_extra` on restore; called from
-        ``_restore`` inside ``__init__``."""
+        ``_restore`` inside ``__init__``. Records the restored tracker
+        (trust as hex) before anything evolves it, for the resume proof,
+        and re-declares each restored quarantine into this incarnation's
+        stream: ``no_quarantined_merge`` is scoped to an incarnation, and
+        ``from: "restored"`` marks the event as no fresh decision."""
+        if self.rep is None or state.get("rep_trust") is None:
+            return
+        self.rep.restore(state)
+        self._restored_rep = self.rep.report()
+        for p in self.rep.quarantined_peers():
+            telemetry.emit(
+                "rep.transition", client=int(p), scope="peer",
+                **{"from": "restored", "to": "quarantined",
+                   "trust": float(self.rep.tracker.trust[p])})
 
     def _cast(self, tree):
         """A received model tree on the device, floats in the param
@@ -479,6 +545,18 @@ class PeerRuntime:
             time.sleep(float(delays[self.peer_id]))
 
         leader = self._leader()
+        if self.byz is not None:
+            # the byzantine lane's one injection seam, above the wire: the
+            # poisoning behaviors re-announce digests over the mutated
+            # payload so ledger auth passes (the robust merge catches
+            # them); forgery and equivocation keep the honest
+            # announcement, so the leader's refingerprint fails
+            header, wire_tree, act = self.byz.corrupt_update(
+                header, wire_tree, dst=leader)
+            if act is not None and act["reannounce"] and header.get(
+                    "digests") is not None:
+                header = dict(header, digests=self._announce_digests(
+                    header["wire_kind"], wire_tree))
         if leader == self.peer_id:
             # the leader's own update gets a real (from, msg_id) identity
             # too, so every merged update is dedup-accountable
@@ -494,6 +572,15 @@ class PeerRuntime:
             self.transport.send_async(leader, header, {"payload": wire_tree})
         else:
             self.transport.send(leader, header, {"payload": wire_tree})
+
+    def _announce_digests(self, wire_kind: str, tree) -> List[str]:
+        """Per-client entry digests of a wire payload, refingerprinted on
+        this peer's device through the same fingerprint the honest
+        announcement takes: what the poisoning behaviors re-announce."""
+        fp = self.eng._fingerprint_rows(wire_kind,
+                                        _to_device(tree, self.device))
+        return [self.eng._entry_digest(wire_kind, fp[c]).hex()
+                for c in range(self.local_clients)]
 
     # ------------------------------------------------------- leader: merging
 
@@ -520,7 +607,14 @@ class PeerRuntime:
         states = self.transport.detector.states()
         down = [p for p in comp
                 if p != self.peer_id and states.get(p) == DOWN]
-        alive = [p for p in comp if p not in down]
+        # QUARANTINED peers leave the merge target like DOWN ones (their
+        # arrivals are refused after the ack, so waiting for them would
+        # hand the adversary a denial of service) but stay in the quorum
+        # denominator: a distrusted majority is not a quorum
+        quarantined = ([p for p in self.rep.quarantined_peers()
+                        if p in comp and p != self.peer_id]
+                       if self.rep is not None else [])
+        alive = [p for p in comp if p not in down and p not in quarantined]
         if len(alive) < max(1, math.ceil(cfg.dist.quorum_frac * len(comp))):
             if not self._below_quorum:
                 self._below_quorum = True
@@ -554,9 +648,13 @@ class PeerRuntime:
             if out.get("ok"):
                 weighted.append(out)
         del buf
+        robust_info = None
         if weighted:
             with self.clock.phase("merge.apply"):
-                self._apply_merge(weighted)
+                if cfg.aggregator != "mean":
+                    robust_info = self._apply_robust_merge(weighted)
+                else:
+                    self._apply_merge(weighted)
         del weighted
         self.version += 1
         rec = MergeRecord(
@@ -565,8 +663,18 @@ class PeerRuntime:
             solo=self.gate.components() is not None,
             degraded=bool(down),
             quorum=({"component": len(comp), "alive": len(alive),
-                     "down": down} if down else None))
+                     "down": down, "quarantined": quarantined}
+                    if (down or quarantined) else None),
+            robust=robust_info,
+            # the precondition counts distinct peer VOTES
+            robust_degraded=bool(
+                robust_info is not None
+                and robust_info.get("k", 0) < self._robust_min))
         self.merges.append(rec)
+        # the leader's per-peer trust vector, for the health series
+        trust_map = ({str(p): round(float(self.rep.tracker.trust[p]), 6)
+                      for p in range(self.peers)}
+                     if self.rep is not None else None)
         # the FedBuff lineage event: which (peer, msg_epoch, msg_id)
         # updates at what measured staleness and weight composed this
         # version, and the chain state it committed
@@ -575,13 +683,147 @@ class PeerRuntime:
             arrivals=rec.arrivals, rejected=rec.rejected, solo=rec.solo,
             degraded=rec.degraded, component=list(comp),
             quorum=rec.quorum, wall_s=rec.wall_s,
+            robust=rec.robust, robust_degraded=rec.robust_degraded,
+            trust=trust_map,
             **({"chain_len": len(self.chain),
                 "head8": self.chain.head.hex()[:16], "rewrite": False}
                if self.chain is not None else {}))
+        # the gray-failure observation shares the merge clock whether or
+        # not reputation is armed
+        self._observe_gray_health()
+        if self.rep is not None:
+            # the merge is the observation clock: fold the pending evidence
+            # AFTER this merge's event (a quarantine it triggers gates the
+            # NEXT merge) and commit the transitions BEFORE the history
+            # snapshot and the broadcast, so the suffix every follower
+            # adopts carries them and the leader's lineage record for this
+            # version is the post-rows head the followers hold (otherwise
+            # every honest update based on it would bounce as a fork
+            # lineage mismatch, and feed the replay lane)
+            self._drain_detector_evidence()
+            arrived = ([a["peer"] for a in arrivals]
+                       + [r["peer"] for r in rejected])
+            transitions = self.rep.observe_merge(arrived)
+            if transitions and self.chain is not None:
+                self.rep.commit_transitions(self.chain, self.version,
+                                            transitions)
+                telemetry.emit("ledger", op="rep_transition",
+                               n=len(transitions),
+                               chain_len=len(self.chain), rewrite=False,
+                               head8=self.chain.head.hex()[:16])
         self._note_version()
         self._maybe_checkpoint()
         with self.clock.phase("broadcast"):
             self._broadcast_global(healed=False)
+
+    def _drain_detector_evidence(self) -> None:
+        """Feed the failure detector's NEW transitions to DOWN since the
+        last merge to the tracker (the weakest lane: death is not
+        malice)."""
+        from bcfl_tpu_torch.dist.transport import DOWN
+
+        det = self.transport.detector
+        new = det.transitions_total - self._det_seen
+        if new <= 0:
+            return
+        self._det_seen = det.transitions_total
+        recent = list(det.transitions)[-min(new, len(det.transitions)):]
+        for t in recent:
+            if t.get("to") == DOWN:
+                self.rep.note_detector_down(t["peer"])
+
+    def _observe_gray_health(self, feed_rep: bool = True) -> None:
+        """Sample the phi detector's per-peer suspicion into the stream
+        (``detector.phi``, sampled) and, with reputation armed and
+        ``feed_rep``, feed the tracker's slowness lane. The leader calls it
+        after each merge event (JAX's clock); a follower, which merges
+        nothing, calls it with ``feed_rep=False`` at each adopted global,
+        so its stream carries its own samples and its tracker stays the
+        leader's rows alone. Severity is the worst of phi over
+        ``phi_down``, the measured throughput's shortfall below
+        ``min_bandwidth_bps`` and the measured RTT's excess beyond
+        ``deadline_floor_s``, each clamped to [0, 1] and 0 for a healthy
+        peer, so the down-weight recovers when a limp clears. It never
+        reaches the quarantine evidence (``slowness_is_not_malice``)."""
+        det = self.transport.detector
+        snap_fn = getattr(det, "phi_snapshot", None)
+        if snap_fn is None:
+            return  # detector="fixed": no continuous suspicion to sample
+        phi_down = float(self.cfg.dist.phi_down)
+        for key, info in snap_fn().items():
+            p = int(key)
+            if p == self.peer_id:
+                continue
+            telemetry.emit_sampled(
+                "detector.phi", (int(self.version), p), target=p,
+                phi=info["phi"], state=det.state_of(p),
+                window_s=info.get("window_s"), rtt_s=info.get("rtt_s"),
+                bps=info.get("bps"))
+            if self.rep is not None and feed_rep:
+                sev_phi = (min(float(info["phi"]) / phi_down, 1.0)
+                           if phi_down > 0 else 0.0)
+                bps = info.get("bps")
+                min_bps = float(self.cfg.dist.min_bandwidth_bps)
+                sev_bw = (max(0.0, 1.0 - float(bps) / min_bps)
+                          if bps and min_bps > 0 else 0.0)
+                rtt = info.get("rtt_s")
+                floor = float(self.cfg.dist.deadline_floor_s)
+                sev_rtt = (max(0.0, float(rtt) / floor - 1.0)
+                           if rtt and floor > 0 else 0.0)
+                self.rep.note_slowness(
+                    p, min(1.0, max(sev_phi, sev_bw, sev_rtt)))
+
+    def _apply_robust_merge(self, updates: List[Dict]) -> Dict:
+        """Robust twin of :meth:`_apply_merge`: each update collapses to
+        its slice's weighted mean delta (the mean path's ``collapse``),
+        the deltas group into one vote per SENDING peer
+        (``combine_votes``), the rule aggregates the votes in float64 on
+        this peer's device, and the global takes the mean path's
+        ``async_server_lr`` x ``_async_merge_scale``-rescaled step along
+        the robust estimate (staleness shrinks the step, never the vote).
+        Flagged peers' arrival records carry ``outlier`` and feed the
+        tracker, never against self. The info gains the rule's seconds
+        and the device it ran on."""
+        from bcfl_tpu_torch.dist.robust import combine_votes, robust_merge
+
+        deltas, weights, base_total = self._collapse_updates(updates)
+        by_peer: Dict[int, List[int]] = {}
+        for i, u in enumerate(updates):
+            by_peer.setdefault(int(u["rec"]["peer"]), []).append(i)
+        peer_order = sorted(by_peer)
+        fence(deltas)
+        t0 = time.perf_counter()
+        votes = [combine_votes([deltas[i] for i in by_peer[p]],
+                               [weights[i] for i in by_peer[p]])
+                 for p in peer_order]
+        del deltas
+        vote_w = [sum(weights[i] for i in by_peer[p]) for p in peer_order]
+        agg, flags, info = robust_merge(
+            votes, vote_w, self.cfg.aggregator, self.cfg.aggregator_trim)
+        fence(agg)
+        info["rule_s"] = time.perf_counter() - t0
+        info["rule_device"] = self.device.type
+        del votes
+        info["votes_by_peer"] = {str(p): len(by_peer[p])
+                                 for p in peer_order}
+        if "krum_selected" in info:
+            # robust_merge speaks in vote positions; the record names the
+            # PEER whose vote became the global
+            info["krum_selected_peer"] = peer_order[info["krum_selected"]]
+        dists = info.get("distances")
+        for j, p in enumerate(peer_order):
+            if not flags[j]:
+                continue
+            for i in by_peer[p]:
+                updates[i]["rec"]["outlier"] = True
+            # never against self: a leader quarantining ITSELF while it
+            # stays the component leader would wedge the run
+            if self.rep is not None and p != self.peer_id:
+                self.rep.note_outlier(
+                    p, distance=(dists[j] if dists else None))
+        if agg is not None:  # None: every vote eliminated, params kept
+            self._step(agg, sum(weights), base_total)
+        return info
 
     def _prepare_update(self, header: Dict, trees: Dict, recv_t: float):
         """Commit + verify + decode one buffered update: a record and,
@@ -603,6 +845,15 @@ class PeerRuntime:
             telemetry.emit("warn", what="negative_staleness", peer_from=src,
                            leader_version=int(self.version),
                            base_version=base_v)
+        # the post-ack quarantine gate, second seam (the first is
+        # _intake_update): an update buffered before the quarantine must
+        # not merge after it (no_quarantined_merge)
+        if (self.rep is not None and src != self.peer_id
+                and self.rep.is_quarantined(src)):
+            with self._qdrop_lock:
+                self.rep.quarantine_drops += 1
+            rec["rejected"] = "peer quarantined (post-ack gate)"
+            return {"ok": False, "rec": rec}
         if src not in self._component():
             # buffered before this leader's clock entered a partition span:
             # the sender is now across the cut, and merging it would cross
@@ -615,11 +866,17 @@ class PeerRuntime:
         hist = self.history.get(base_v)
         if hist is not None and hist[1] != header.get("lineage"):
             rec["rejected"] = "fork lineage mismatch"
+            if self.rep is not None and src != self.peer_id:
+                # the replay behavior's signature: a stale base's lineage
+                # resent against advanced history
+                self.rep.note_replay(src, "fork lineage mismatch")
             return {"ok": False, "rec": rec}
         if eng._comp is None and hist is None:
             # the uncompressed wire ships post-train params: the delta
             # needs the base model
             rec["rejected"] = "unknown base version"
+            if self.rep is not None and src != self.peer_id:
+                self.rep.note_replay(src, "unknown base version")
             return {"ok": False, "rec": rec}
         t_dev = time.time()
         dev = _to_device(trees["payload"], self.device)
@@ -647,6 +904,13 @@ class PeerRuntime:
                 if eng._entry_digest(kind, fp[c]).hex() != header["digests"][c]:
                     auth[c] = 0.0
             rec["auth"] = auth.tolist()
+            if (self.rep is not None and src != self.peer_id
+                    and (auth == 0.0).any()):
+                # the hard evidence lane: one fingerprint announced,
+                # another shipped. Never against self: a leader's forged
+                # self-update is already auth-masked out of the merge
+                self.rep.note_auth_failure(
+                    src, float((auth == 0.0).mean()))
         if eng._comp is None:
             deltas = {p: dev[p] - hist[0][p].unsqueeze(0) for p in dev}
         else:
@@ -658,23 +922,32 @@ class PeerRuntime:
             deltas = cs.decode_delta(eng._comp, dev, self._stacked_like())
         del dev
         rec["decode_s"] = time.time() - t_dev
+        if self.rep is not None and src != self.peer_id:
+            # measured-staleness evidence: a chronically stale peer (real
+            # slowness or deliberate replay) decays toward SUSPECT
+            self.rep.note_staleness(src, staleness)
         n_ex = np.asarray(header["n_ex"], np.float32)
         alpha = auth * np.float32(cfg.staleness_decay ** staleness)
         base_w = n_ex if cfg.weighted_agg else np.ones_like(n_ex)
         alpha = alpha * base_w
+        if self.rep is not None:
+            # trust gates the merge weight: the EWMA score scales the
+            # update's whole vote (probation adds probation_weight)
+            trust_mult = self.rep.gate(src)
+            rec["trust"] = round(float(trust_mult), 6)
+            alpha = alpha * np.float32(trust_mult)
         if float(alpha.sum()) <= 0.0:
-            rec["rejected"] = "all clients eliminated (auth)"
+            rec["rejected"] = "all clients eliminated (auth/trust)"
             return {"ok": False, "rec": rec}
         # the update's total merge weight: part of the merge lineage
         rec["weight"] = float(alpha.sum())
         return {"ok": True, "rec": rec, "deltas": deltas, "alpha": alpha,
                 "base_w": float(base_w.sum())}
 
-    def _apply_merge(self, updates: List[Dict]):
-        """FedBuff step along the staleness-weighted mean delta: each
-        update collapses to its slice's weighted mean delta, the updates
-        combine weighted by their total weights, and the global steps by
-        ``async_server_lr`` times sum(weights) / sum(undecayed weights)."""
+    def _collapse_updates(self, updates: List[Dict]):
+        """``(deltas, weights, base_total)``: each update's slice collapsed
+        to its weighted mean delta (the engine's ``collapse``), its total
+        merge weight, and the sum of the undecayed weights."""
         from bcfl_tpu_torch.fed import client_step as cs
 
         zero = {p: torch.zeros_like(x) for p, x in self.trainable.items()}
@@ -686,15 +959,26 @@ class PeerRuntime:
             u["deltas"] = None
             weights.append(float(np.asarray(u["alpha"]).sum()))
             base_total += u["base_w"]
+        return parts, weights, base_total
+
+    def _step(self, direction: Dict, total: float, base_total: float):
+        """The FedBuff step along ``direction``: ``async_server_lr`` times
+        sum(weights) / sum(undecayed weights), so decay shrinks the
+        applied step, not just the relative votes."""
+        scale = total / max(base_total, 1e-9)
+        step = float(np.float32(self.cfg.async_server_lr * scale))
+        self.trainable = {p: x + step * direction[p].to(x.dtype)
+                          for p, x in self.trainable.items()}
+
+    def _apply_merge(self, updates: List[Dict]):
+        """FedBuff step along the staleness-weighted mean delta: the
+        updates' slice deltas combine weighted by their total weights."""
+        parts, weights, base_total = self._collapse_updates(updates)
         total = sum(weights)
         ws = [np.float32(w / total) for w in weights]
         merged = {p: sum(float(w) * part[p] for w, part in zip(ws, parts))
                   for p in self.trainable}
-        # decay shrinks the applied STEP, not just the relative votes
-        scale = total / max(base_total, 1e-9)
-        step = float(np.float32(self.cfg.async_server_lr * scale))
-        self.trainable = {p: x + step * merged[p].to(x.dtype)
-                          for p, x in self.trainable.items()}
+        self._step(merged, total, base_total)
 
     def _global_frame(self, start: int, healed: bool = False) -> Dict:
         """The header of a GLOBAL carrying the chain rows from ``start``
@@ -935,11 +1219,15 @@ class PeerRuntime:
                 telemetry.emit("ledger", op="resync",
                                chain_len=len(self.chain), rewrite=True,
                                head8=self.chain.head.hex()[:16])
+                if self.rep is not None:
+                    # inherit the leader's committed reputation verdicts:
+                    # a rejoining peer knows who is quarantined
+                    self.rep.absorb_rows(rows)
             elif self._extends_replica(start, rows,
                                        header.get("chain_prev_head")):
                 # contiguous suffix: verify each new link as it lands
-                if self.chain.append_rows(
-                        rows[len(self.chain) - start:]) != -1:
+                new_rows = rows[len(self.chain) - start:]
+                if self.chain.append_rows(new_rows) != -1:
                     logger.error("peer %d: global v%d suffix failed link "
                                  "verification; resyncing", self.peer_id,
                                  version)
@@ -948,6 +1236,10 @@ class PeerRuntime:
                 telemetry.emit("ledger", op="append",
                                chain_len=len(self.chain), rewrite=False,
                                head8=self.chain.head.hex()[:16])
+                if self.rep is not None:
+                    # the suffix carries the leader's reputation rows:
+                    # every follower tracks its verdicts
+                    self.rep.absorb_rows(new_rows)
             else:
                 # a gap (missed broadcasts) or a diverged base (a fork
                 # rewrite): never adopt a model whose chain this replica
@@ -962,6 +1254,7 @@ class PeerRuntime:
         telemetry.emit("adopt", version=version,
                        healed=bool(header.get("healed")),
                        leader=int(header.get("from", -1)))
+        self._observe_gray_health(feed_rep=False)
         if header.get("healed"):
             # only the healed global clears a pending offer: it is the one
             # broadcast that incorporated this peer's fork
@@ -1117,6 +1410,8 @@ class PeerRuntime:
             self.chain = self.eng.ledger = replica
             telemetry.emit("ledger", op="resync", chain_len=len(self.chain),
                            rewrite=True, head8=self.chain.head.hex()[:16])
+            if self.rep is not None:
+                self.rep.absorb_rows(rows)
         with self.clock.phase("adopt"):
             self.trainable = self._cast(trees["model"])
         self.version = version
@@ -1353,9 +1648,18 @@ class PeerRuntime:
     # --------------------------------------------------------------- intake
 
     def _intake_update(self, header: Dict, trees: Dict):
-        """The UPDATE intake seam (serial path and intake thread): into
-        the leader's locked arrival buffer. An update addressed to a
-        stale leader is dropped; the sender rebases on the next global."""
+        """The UPDATE intake seam (serial path and intake thread): the
+        post-ack quarantine gate, then the leader's locked arrival buffer.
+        An update addressed to a stale leader is dropped; the sender
+        rebases on the next global."""
+        src = int(header.get("from", -1))
+        if (self.rep is not None and src != self.peer_id
+                and self.rep.is_quarantined(src)):
+            # refused after the ack, like a partition-gate drop: the
+            # sender's failure detector must not read distrust as death
+            with self._qdrop_lock:
+                self.rep.quarantine_drops += 1
+            return
         if self._leader() == self.peer_id:
             self._buffer_push((header, trees, time.time()))
 
@@ -1416,6 +1720,8 @@ class PeerRuntime:
         except Exception as e:  # an eval failure must not eat the report
             logger.warning("peer %d: final eval failed (%s)", self.peer_id, e)
         self._final_eval = {"loss": loss, "acc": acc}
+        if self._resmon is not None:
+            self._resmon.stop_sampling()
         # drain the sender pipeline before the stop message: the final
         # broadcast rides the workers
         self.transport.flush_sends(timeout_s=self.cfg.dist.send_deadline_s)
@@ -1435,6 +1741,18 @@ class PeerRuntime:
                        epoch=self.transport.epoch,
                        pipeline=bool(self.cfg.dist.pipeline))
         self.transport.start()
+        # periodic host-resource sampling (resource_sample_s): only with
+        # an event stream, which the sampler emits through; a failure is
+        # logged, never fatal
+        if (self.cfg.dist.resource_sample_s > 0
+                and self.events_path is not None):
+            try:
+                from bcfl_tpu_torch.metrics.metrics import ResourceMonitor
+
+                self._resmon = ResourceMonitor(run_dir=self.run_dir)
+                self._resmon.start_sampling(self.cfg.dist.resource_sample_s)
+            except Exception as e:  # noqa: BLE001 — an observer never kills a peer
+                logger.warning("resource sampling unavailable: %s", e)
         if self.cfg.dist.pipeline:
             self._intake_thread = threading.Thread(
                 target=self._intake_loop, daemon=True,
@@ -1501,6 +1819,8 @@ class PeerRuntime:
             self.transport.flush_sends(timeout_s=2.0)
             self.transport.close()
             self._deadline_timer.cancel()
+            if self._resmon is not None:
+                self._resmon.stop_sampling()
         self._write_report(status="ok")
         return 0
 
@@ -1556,6 +1876,15 @@ class PeerRuntime:
             "dropped_by_gate": tstats["dropped_by_gate"],
             "fork": self.fork,
             "reconcile": self.reconcile,
+            # the byzantine-tolerance surfaces: the per-peer tracker, the
+            # tracker as restored (trust as hex), and the adversary's
+            # injection counts (exactly zero with the lane off)
+            "reputation": (self.rep.report()
+                           if self.rep is not None else None),
+            "restored_reputation": self._restored_rep,
+            "byzantine": (self.byz.stats() if self.byz is not None
+                          else {"armed": False, "injected": {},
+                                "total": 0}),
             "restored_from_version": (self._restored or {}).get("version"),
             # the restore's seconds and the digests of the trainable and
             # residual this incarnation restored onto its device

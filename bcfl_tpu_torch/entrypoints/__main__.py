@@ -22,6 +22,11 @@ flags the ported slice supports.
     python -m bcfl_tpu_torch.entrypoints --preset smoke --device cpu \\
         --runtime dist --peers 2 --clients 4 --rounds 3 --seq-len 16 \\
         --batch-size 4 --ledger --compress int8+topk    # 2 peer processes
+    python -m bcfl_tpu_torch.entrypoints --preset smoke --device cpu \\
+        --runtime dist --peers 3 --clients 6 --rounds 5 --seq-len 16 \\
+        --batch-size 4 --ledger --aggregator trimmed_mean --dist-buffer 3 \\
+        --reputation --reputation-quarantine-rounds 1000 --chaos-byz 2 \\
+        --chaos-byz-behaviors scale,digest_forge --chaos-seed 7
 
 ``--device`` defaults to ``cuda``, which raises when no GPU is present.
 ``--runtime dist`` spawns ``--peers`` peer processes on the same device
@@ -31,11 +36,15 @@ violation; the run directory (``--dist-run-dir``, default a fresh
 temporary directory) keeps the peers' logs, reports, event streams and
 checkpoints (``ckpt_peer*``, one every version). ``--chaos-partition``
 and ``--chaos-partition-rounds`` there name PEERS and span each peer's
-local rounds. Peer crash and rejoin are the harness's
+local rounds. ``--aggregator`` (trimmed_mean, median, krum: the robust
+merge over the leader's arrival set, with JAX's buffer preconditions) and
+``--reputation*`` (the per-peer tracker) reach ``--runtime dist``, and
+``--chaos-byz*`` arms the byzantine lane there (adversarial PEER ids).
+Peer crash and rejoin are the harness's
 (``bcfl_tpu_torch.dist.run_dist(kill_peer=...)``), so ``--resume`` is
 refused with ``--runtime dist``. Any flag of the JAX command line that is
 not listed here is rejected as "not ported yet" (among them
-``--chaos-wire*`` and ``--chaos-byz*``).
+``--chaos-wire*``).
 """
 
 from __future__ import annotations
@@ -238,6 +247,27 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--chaos-flaky-on-prob", type=float, default=None,
                     metavar="P", help="probability each flaky window "
                     "actually bursts (default 0.5)")
+    ap.add_argument("--chaos-byz", default=None, metavar="PEERS",
+                    help="byzantine lane for --runtime dist: comma-separated "
+                         "ADVERSARIAL peer ids — each rewrites its outbound "
+                         "updates above the wire (scaled/sign-flipped/"
+                         "garbage payloads, stale replays, digest "
+                         "forgeries, equivocation); caught by the robust "
+                         "--aggregator rules, the ledger refingerprint, and "
+                         "--reputation quarantine")
+    ap.add_argument("--chaos-byz-behaviors", default=None, metavar="LIST",
+                    help="comma subset of scale,sign_flip,garbage,replay,"
+                         "digest_forge,equivocate (default: all)")
+    ap.add_argument("--chaos-byz-prob", type=float, default=None,
+                    metavar="P", help="per-(peer, round) probability an "
+                    "adversarial peer acts (default 1.0)")
+    ap.add_argument("--chaos-byz-scale", type=float, default=None,
+                    metavar="S", help="payload perturbation magnitude for "
+                    "the scale/garbage behaviors (default 25.0)")
+    ap.add_argument("--chaos-byz-rounds", default=None, metavar="START:END",
+                    help="bound the byzantine lane to this half-open span "
+                         "of the adversary's local-round clock (default: "
+                         "every round)")
     ap.add_argument("--chaos-seed", type=int, default=0,
                     help="seed of the chaos schedule (independent of --seed)")
     ap.add_argument("--reputation", action="store_true",
@@ -290,7 +320,13 @@ def _fault_plan(args):
             or args.chaos_crash_round is not None
             or args.chaos_partition is not None
             or args.chaos_churn_leave or args.chaos_churn_join
-            or args.chaos_flaky is not None):
+            or args.chaos_flaky is not None or args.chaos_byz is not None
+            # the byz sub-flags enter the gate, so one without --chaos-byz
+            # reaches the fail-loudly check below
+            or args.chaos_byz_behaviors is not None
+            or args.chaos_byz_prob is not None
+            or args.chaos_byz_scale is not None
+            or args.chaos_byz_rounds is not None):
         return None
     plan_kw = dict(
         seed=args.chaos_seed,
@@ -342,6 +378,40 @@ def _fault_plan(args):
             plan_kw["flaky_burst_len"] = args.chaos_flaky_burst
         if args.chaos_flaky_on_prob is not None:
             plan_kw["flaky_on_prob"] = args.chaos_flaky_on_prob
+    if args.chaos_byz is not None:
+        try:
+            plan_kw["byz_peers"] = tuple(
+                int(p) for p in args.chaos_byz.split(","))
+        except ValueError:
+            raise SystemExit(f"--chaos-byz {args.chaos_byz!r}: "
+                             "expected comma-separated peer ids")
+        if args.chaos_byz_behaviors is not None:
+            plan_kw["byz_behaviors"] = tuple(
+                b.strip() for b in args.chaos_byz_behaviors.split(",")
+                if b.strip())
+        if args.chaos_byz_prob is not None:
+            plan_kw["byz_prob"] = args.chaos_byz_prob
+        if args.chaos_byz_scale is not None:
+            plan_kw["byz_scale"] = args.chaos_byz_scale
+        if args.chaos_byz_rounds is not None:
+            try:
+                lo, hi = (int(x) for x in args.chaos_byz_rounds.split(":"))
+            except ValueError:
+                raise SystemExit(f"--chaos-byz-rounds "
+                                 f"{args.chaos_byz_rounds!r}: "
+                                 "expected START:END")
+            if hi <= lo:
+                raise SystemExit(f"--chaos-byz-rounds "
+                                 f"{args.chaos_byz_rounds!r}: empty "
+                                 "span (END must be > START; the span "
+                                 "is half-open)")
+            plan_kw["byz_rounds"] = tuple(range(lo, hi))
+    elif (args.chaos_byz_behaviors is not None
+          or args.chaos_byz_prob is not None
+          or args.chaos_byz_scale is not None
+          or args.chaos_byz_rounds is not None):
+        raise SystemExit("--chaos-byz-* tuning flags have no effect "
+                         "without --chaos-byz PEERS")
     return FaultPlan(**plan_kw)
 
 

@@ -1,7 +1,8 @@
-"""Seeded fault injection, the local engine's lanes (port of
-``bcfl_tpu/faults``)."""
+"""Seeded fault injection (port of ``bcfl_tpu/faults``): the local
+engine's lanes and the dist runtime's storage and byzantine draws."""
 
 from bcfl_tpu_torch.faults.plan import (  # noqa: F401
+    BYZ_BEHAVIORS,
     FaultInjector,
     FaultPlan,
     SimulatedCrash,

@@ -33,12 +33,15 @@ the failures the local engine is stressed with:
 Every draw comes from ``np.random.default_rng((seed, lane, round))`` with
 the JAX package's lane numbers, so the schedules are the JAX package's bit
 for bit. Of the JAX plan's lanes for its multi-process runtime, the
-storage lane draws here (:meth:`FaultPlan.storage_action`,
-:meth:`FaultPlan.sync_tamper_action`; the peer runtime consumes them).
-The wire, byzantine, limp and resource lanes carry their fields with JAX's
-names and defaults, so a config can name them, but they draw nothing and
-the config refuses an armed one ("not ported yet" on ``runtime="dist"``,
-JAX's own reason on ``"local"``).
+storage lane (:meth:`FaultPlan.storage_action`,
+:meth:`FaultPlan.sync_tamper_action`) and the byzantine lane
+(:meth:`FaultPlan.byz_action`, :meth:`FaultPlan.byz_rng`, consumed by
+:class:`bcfl_tpu_torch.dist.byzantine.ByzantineAdversary`) draw here, over
+numpy generators keyed as JAX keys them. The wire, limp and resource
+lanes carry their fields with JAX's names and defaults, so a config can
+name them, but they draw nothing and the config refuses an armed one
+("not ported yet" on ``runtime="dist"``, JAX's own reason on
+``"local"``).
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ _LANE_STRAGGLER = 2
 _LANE_CORRUPT = 3
 _LANE_PARTITION = 4
 _LANE_FLAKY = 5
+_LANE_BYZ = 7
 _LANE_STORAGE = 8
 
 # the dist-only lanes' vocabularies (JAX's canonical orders)
@@ -119,9 +123,13 @@ class FaultPlan:
     flaky_burst_len: int = 3
     flaky_on_prob: float = 0.5
     flaky_scale: float = 1e6
-    # --- the JAX plan's dist-only lanes (fields only, see the module
-    # docstring): wire faults, byzantine peers, storage damage, limp
-    # (gray failure) and resource (ENOSPC/EMFILE) faults ---
+    # --- the JAX plan's dist-only lanes: wire faults, byzantine peers,
+    # storage damage, limp (gray failure) and resource (ENOSPC/EMFILE)
+    # faults (the wire, limp and resource lanes are fields only, see the
+    # module docstring). Byzantine: `byz_peers` act per (peer, round) with
+    # probability `byz_prob`, drawing one of `byz_behaviors`; `byz_scale`
+    # is the scale/garbage magnitude, `byz_rounds` bounds the lane to a
+    # span of the adversary's local-round clock ---
     wire_drop_prob: float = 0.0
     wire_dup_prob: float = 0.0
     wire_reorder_prob: float = 0.0
@@ -179,6 +187,7 @@ class FaultPlan:
         self._check_partition()
         self._check_churn()
         self._check_flaky()
+        self._check_byz()
         self._check_storage()
 
     def _check_partition(self):
@@ -262,6 +271,47 @@ class FaultPlan:
         if not np.isfinite(self.flaky_scale):
             raise ValueError("flaky_scale must be finite (same fingerprint-"
                              "poisoning concern as corrupt_scale)")
+
+    def _check_byz(self):
+        if self.byz_peers is not None:
+            if not (isinstance(self.byz_peers, tuple)
+                    and all(isinstance(p, int) and p >= 0
+                            for p in self.byz_peers)):
+                raise ValueError(
+                    "byz_peers must be a tuple of non-negative peer ids "
+                    "(hashable — the plan lives inside the frozen "
+                    "FedConfig)")
+            if len(set(self.byz_peers)) != len(self.byz_peers):
+                raise ValueError(
+                    f"byz_peers lists a peer twice: {self.byz_peers!r}")
+        if not (isinstance(self.byz_behaviors, tuple) and self.byz_behaviors):
+            raise ValueError("byz_behaviors must be a non-empty tuple")
+        bad = [b for b in self.byz_behaviors if b not in BYZ_BEHAVIORS]
+        if bad:
+            raise ValueError(
+                f"unknown byzantine behaviors {bad}; known: "
+                f"{BYZ_BEHAVIORS}")
+        if not np.isfinite(self.byz_scale):
+            raise ValueError("byz_scale must be finite (NaN/Inf would "
+                             "poison the very aggregates the robust merge "
+                             "is graded on tolerating)")
+        if self.byz_rounds is not None:
+            if not isinstance(self.byz_rounds, tuple):
+                raise ValueError("byz_rounds must be a tuple of round "
+                                 "indices (hashable — the plan lives "
+                                 "inside the frozen FedConfig)")
+            if not self.byz_rounds:
+                raise ValueError(
+                    "byz_rounds is empty: the byzantine lane would "
+                    "silently never fire (check the span bounds)")
+            if not self.byz_enabled:
+                raise ValueError(
+                    "byz_rounds without byz_peers would silently never "
+                    "inject an adversarial behavior")
+        if self.byz_peers is not None and self.byz_prob <= 0.0:
+            raise ValueError(
+                "byz_peers with byz_prob=0 would silently never act — "
+                "the exact vacuous-pass this lane must not have")
 
     def _check_storage(self):
         if self.storage_peers is not None:
@@ -500,6 +550,33 @@ class FaultPlan:
         return {"cls": self.storage_classes[pick],
                 "frac": float(rng.random()),
                 "delete_last": int(self.storage_delete_last)}
+
+    def byz_action(self, rnd: int, peer: int) -> Optional[dict]:
+        """Adversarial-behavior draw for one update of ``peer`` while its
+        local-round clock reads ``rnd``: None when the peer is honest, the
+        lane is off, the span is not due or the ``byz_prob`` draw says
+        "behave this round", else ``{"behavior": <one of byz_behaviors>,
+        "scale": byz_scale}``. The same ``(seed, rnd, peer)`` always draws
+        the same behavior; the payload noise comes from :meth:`byz_rng`,
+        keyed by the same coordinates plus the destination."""
+        if not self.byz_enabled or peer not in self.byz_peers:
+            return None
+        if not self._due(self.byz_rounds, rnd):
+            return None
+        rng = np.random.default_rng((self.seed, _LANE_BYZ, rnd, peer))
+        if rng.random() >= self.byz_prob:
+            return None
+        pick = int(rng.integers(len(self.byz_behaviors)))
+        return {"behavior": self.byz_behaviors[pick],
+                "scale": float(self.byz_scale)}
+
+    def byz_rng(self, rnd: int, peer: int, dst: int) -> np.random.Generator:
+        """Noise stream of one (adversary, round, destination) payload
+        mutation: keyed by the destination, so equivocation ships
+        different bytes to different receivers, and the same coordinates
+        always replay the same bytes."""
+        return np.random.default_rng(
+            (self.seed, _LANE_BYZ, rnd, peer, dst, 1))
 
     def sync_tamper_action(self, server: int, requester: int,
                            serial: int) -> Optional[dict]:

@@ -10,9 +10,10 @@ bytes-on-wire accounting, and the ledger rollup.
 ``ResourceMonitor`` reads the process's own counters without psutil (which
 the card's machine does not have): CPU time from ``os.times()`` and the
 resident set from ``/proc/self/statm``, the quantities psutil's
-``Process.cpu_percent`` and ``memory_info().rss`` read on Linux. JAX's
-``start_sampling``/``stop_sampling`` (the live monitor's resource series)
-are not ported yet. ``StepClock`` lives in :mod:`.tracing`.
+``Process.cpu_percent`` and ``memory_info().rss`` read on Linux. Its
+``start_sampling``/``stop_sampling`` emit JAX's periodic ``resource``
+event (the dist peers' ``DistConfig.resource_sample_s``). ``StepClock``
+lives in :mod:`.tracing`.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import dataclasses
 import json
 import os
 import shutil
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -89,6 +91,56 @@ class ResourceMonitor:
             "memory_gb": (_rss_bytes() - self.rss_before) / 1e9,
             "latency_min": (time.time() - self.t_before) / 60.0,
         }
+
+    # -------------------------------------------------- periodic sampling
+
+    def start_sampling(self, interval_s: float) -> bool:
+        """Emit a ``resource`` telemetry event every ``interval_s``
+        seconds (absolute RSS in GB, windowed CPU %, the interval, and the
+        run directory's free disk where known) from a daemon thread that
+        waits on a stop event; an exception inside it is swallowed, an
+        observer never ends a run. Idempotent: False when already running
+        or the interval is not positive."""
+        if interval_s <= 0 or getattr(self, "_sample_thread", None):
+            return False
+        from bcfl_tpu_torch.telemetry import events as _telemetry
+
+        self._sample_stop = threading.Event()
+        # the sampler's own CPU window: sharing snapshot()'s would make
+        # both readings meaningless
+        window = [time.monotonic(), _cpu_seconds()]
+
+        def _loop():
+            while not self._sample_stop.wait(interval_s):
+                try:
+                    wall, cpu = time.monotonic(), _cpu_seconds()
+                    dt = wall - window[0]
+                    pct = (round((cpu - window[1]) / dt * 100, 1)
+                           if dt > 0 else 0.0)
+                    window[:] = [wall, cpu]
+                    free = self.disk_free_bytes()
+                    extra = ({} if free is None
+                             else {"disk_free_bytes": free,
+                                   "disk_free_gb": free / 1e9})
+                    _telemetry.emit("resource", rss_gb=_rss_bytes() / 1e9,
+                                    cpu_percent=pct, interval_s=interval_s,
+                                    **extra)
+                except Exception:  # noqa: BLE001 — an observer never ends the run
+                    pass
+
+        self._sample_thread = threading.Thread(
+            target=_loop, daemon=True, name="bcfl-resource-sampler")
+        self._sample_thread.start()
+        return True
+
+    def stop_sampling(self) -> None:
+        """Stop the sampling thread (idempotent, joins briefly)."""
+        t = getattr(self, "_sample_thread", None)
+        if t is None:
+            return
+        self._sample_stop.set()
+        t.join(timeout=5.0)
+        self._sample_thread = None
 
 
 @dataclasses.dataclass

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``bcfl_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # phases 1-4, paths (a)-(p)
+    python3 chip_smoke.py              # phases 1-4, paths (a)-(q)
     python3 chip_smoke.py --profile    # phases 1-4, then 5
 
 Phases, each of which raises (and the script exits non-zero) on failure:
@@ -165,9 +165,32 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    tampered; it gates on a ``damaged`` scrub, a refused transfer, a
    verified then adopted one, the two repair invariants and every other
    at 0, agreeing heads and K4/K5 in the repaired incarnation, and prints
-   the transfer bytes, the request-to-adopt seconds and the scrub's. Both
-   print (m)'s per-peer, frame, latency and merge lines, and add every
-   incarnation's launches to the record.
+   the transfer bytes, the request-to-adopt seconds and the scrub's. Then
+   the runtime's adversarial half at (m)'s width: first the robust rules
+   at the leader's call (5 float32 votes of biobert-base's 108 M
+   parameters from the seed, one scaled 25x), each timed on the card and
+   on the host (``trimmed_mean`` at full width, the other two over the
+   embeddings', first layer's and classifier's leaves), held device
+   against host (the aggregate within one float32 ulp, distances and
+   krum scores at rtol 1e-9, flags and krum's pick identical); then (q)
+   ``scripts/dist_byzantine.py``'s byzantine and resume legs in one run:
+   ``trimmed_mean`` over 5 votes (``buffer=5``), per-peer reputation
+   (the outlier lane weighed 1.0, since the fingerprint cannot see a
+   forged codec scale), peer 4 scaling and forging every update 25x,
+   resource samples every 2 s, a checkpoint every 2 versions, the leader
+   SIGKILLed after its version-4 checkpoint and resumed, 8 versions. It
+   gates on the script's gates (peer 4 quarantined at the leader within
+   half the versions and at every follower, post-ack refusals, no
+   quarantined merge and no other violation across both leader
+   incarnations, one verified head, the restored tracker bit for bit the
+   file's and no readmission, injections at peer 4 only, ``trimmed_mean``
+   on the merges), on K4/K5 in every incarnation and on ``resource`` and
+   ``detector.phi`` events in every peer's stream, and prints the
+   verdict's version, the leader's trust and the rule's seconds per
+   merge, the restore and the kill-to-merge seconds and the final loss
+   beside (m)'s. (m), (o), (p) and (q) print (m)'s per-peer, frame,
+   latency and merge lines, and add every incarnation's launches to the
+   record.
 4. ``reference``: on small inputs, a tiny-bert server round on the card
    against the same round on the CPU (float32, dropout off, at the
    tolerance of ``tests/test_torch_round.py``), with dense attention at
@@ -1323,6 +1346,7 @@ def phase_dist(ck, stats, smi, dataset, c_walls):
     k = cfg.num_clients // cfg.dist.peers
     codec_calls(ck, stats, template, cfg.compression, k, "dist-peer")
     shutil.rmtree(run_dir, ignore_errors=True)
+    return (result["reports"][0].get("final_eval") or {}).get("loss")
 
 
 # ------------------------------ the runtime's fault-tolerance half
@@ -1549,6 +1573,299 @@ def phase_storage_repair(stats, smi, dataset):
           f"repaired incarnation {r4['kernel_launches']}", flush=True)
     print_checkpoints(label, reports)
     print_dist_timeline(label, result, col, wall)
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+
+# ---------------------------------------- the runtime's adversarial half
+
+BYZ_ADVERSARY = 4
+
+
+def byzantine_config(dataset: str):
+    """Path (q): (m)'s preset and width under ``trimmed_mean`` (trim 0.2,
+    so t = 1 of 5 votes) with ``buffer=5`` (every merge wants every
+    sender), per-peer reputation (quarantine longer than the run), peer 4
+    adversarial at every round (``scale`` and ``digest_forge`` at 25x,
+    chaos seed 11, whose draw opens with two forgeries), resource samples
+    every 2 s, a checkpoint every 2 versions (the newest kept); 8
+    versions. The outlier lane weighs 1.0 (``w_anomaly``; default 0.5):
+    under ``int8+topk`` the ledger fingerprint, JAX's design, cannot see
+    a forged 25x of the codec's per-chunk scales at fine-tuning delta
+    sizes (the codes and indices dominate its float32 folds), so both
+    behaviors reach the tracker only as outliers of the robust merge, and
+    at 0.5 a pure outlier parks at SUSPECT (trust's fixed point 0.5)."""
+    from bcfl_tpu_torch.faults import FaultPlan
+    from bcfl_tpu_torch.reputation import ReputationConfig
+
+    base = dist_config(dataset)
+    return base.replace(
+        name="chip-smoke-dist-byzantine", num_rounds=8,
+        aggregator="trimmed_mean", aggregator_trim=0.2,
+        reputation=ReputationConfig(enabled=True, quarantine_rounds=100_000,
+                                    w_anomaly=1.0),
+        faults=FaultPlan(seed=11, byz_peers=(BYZ_ADVERSARY,), byz_prob=1.0,
+                         byz_behaviors=("scale", "digest_forge"),
+                         byz_scale=25.0),
+        dist=dataclasses.replace(base.dist, buffer=5, buffer_timeout_s=60.0,
+                                 resource_sample_s=2.0,
+                                 checkpoint_every_versions=2,
+                                 checkpoint_keep_last=1,
+                                 idle_timeout_s=180.0,
+                                 peer_deadline_s=420.0))
+
+
+def quarantine_version(ordered, adversary: int):
+    """The version of the leader's quarantine verdict: the last merge
+    before the first fresh ``rep.transition -> quarantined`` of the
+    adversary in peer 0's stream (``scripts/dist_byzantine.py``'s
+    measurement; a restored re-declaration is no verdict)."""
+    last = None
+    for e in ordered:
+        if e.get("peer") != 0:
+            continue
+        if e.get("ev") == "merge":
+            last = e.get("version")
+        elif (e.get("ev") == "rep.transition" and e.get("scope") == "peer"
+              and e.get("client") == adversary
+              and e.get("to") == "quarantined"
+              and e.get("from") != "restored"):
+            return last
+    return None
+
+
+def robust_rule_at_width(smi):
+    """The robust rules at (q)'s leader call: 5 float32 votes of
+    biobert-base's trainable tree (108 M parameters, random from the seed,
+    vote 4 scaled 25x). Each rule is timed on the card; ``trimmed_mean``,
+    the rule (q) runs, also on the host at full width, the other two on
+    the host over the embeddings', first layer's and classifier's leaves.
+    Each host result is held against the card's on the same leaves (the
+    aggregate within one float32 ulp, distances and krum scores at rtol
+    1e-9, flags and krum's pick identical). The leader runs the rules on
+    its device."""
+    from bcfl_tpu_torch.dist.robust import RULES, robust_merge
+    from bcfl_tpu_torch.models import build
+    from bcfl_tpu_torch.models.convert import trainable_tree
+
+    with torch.device("meta"):
+        template = trainable_tree(build("biobert-base", num_labels=40,
+                                        vocab_size=28996))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    votes = [{p: torch.randn(x.shape, generator=gen, device="cuda") * 1e-3
+              for p, x in template.items()} for _ in range(5)]
+    votes[BYZ_ADVERSARY] = {p: v * 25.0
+                            for p, v in votes[BYZ_ADVERSARY].items()}
+    part = [p for p in template if not p.startswith("encoder/layer_")
+            or p.startswith("encoder/layer_0/")]
+    w = [4.0] * 5
+    width = sum(x.numel() for x in template.values())
+    print(smi, flush=True)
+    out = {}
+    for rule in RULES:
+        robust_merge(votes, w, rule)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        robust_merge(votes, w, rule)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        extra_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+        keys = list(template) if rule == "trimmed_mean" else part
+        sub = [{p: v[p] for p in keys} for v in votes]
+        agg_d, flags_d, info_d = robust_merge(sub, w, rule)
+        host = [{p: v.cpu() for p, v in vote.items()} for vote in sub]
+        t0 = time.perf_counter()
+        agg_h, flags_h, info_h = robust_merge(host, w, rule)
+        host_s = time.perf_counter() - t0
+        n = sum(template[p].numel() for p in keys)
+        err = max(float((agg_d[p].cpu() - agg_h[p]).abs().max())
+                  for p in keys)
+        ulp_ok = all(torch.allclose(agg_d[p].cpu(), agg_h[p], rtol=2 ** -23,
+                                    atol=0) for p in keys)
+        same = (flags_d == flags_h
+                and info_d.get("krum_selected") == info_h.get("krum_selected")
+                and info_d["k"] == info_h["k"]
+                and info_d.get("trim_t") == info_h.get("trim_t"))
+        for key in ("distances", "krum_scores"):
+            if key in info_h:
+                a = torch.tensor(info_d[key], dtype=torch.float64)
+                b = torch.tensor(info_h[key], dtype=torch.float64)
+                same = same and torch.allclose(a, b, rtol=1e-9, atol=0)
+        print(f"robust rule {rule} at (q)'s leader call (5 votes of "
+              f"{width} float32): device {dev_s * 1e3:.1f} ms "
+              f"(+{extra_gb:.2f} GB peak over the votes); over {n} of them "
+              f"host {host_s * 1e3:.1f} ms, device vs host max |diff| "
+              f"{err:.3g}, within one float32 ulp {ulp_ok}, flags "
+              f"{flags_d}, krum pick {info_d.get('krum_selected')}",
+              flush=True)
+        if not (ulp_ok and same and flags_d[BYZ_ADVERSARY]
+                and sum(flags_d) == 1):
+            raise RuntimeError(f"robust rule {rule}: device {info_d} "
+                               f"{flags_d} against host {info_h} {flags_h}")
+        out[rule] = (dev_s, host_s, n)
+        del agg_d, agg_h, sub, host
+    del votes
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_byzantine(stats, smi, dataset, m_loss):
+    """Path (q): ``scripts/dist_byzantine.py``'s byzantine and resume
+    legs in one run at (m)'s width (``byzantine_config``), the leader
+    (peer 0) SIGKILLed once its version-4 checkpoint and meta are
+    committed (past the quarantine) and restarted with --resume. Gates on
+    the script's gates: every peer completes; peer 4 quarantined at the
+    leader within half the versions and at every follower; post-ack
+    refusals; no ``no_quarantined_merge`` and no other violation over
+    both leader incarnations; one head and every chain verified; the
+    leader killed and resumed with its restored tracker bit for bit the
+    checkpoint file's and peer 4 never readmitted; peer 4's injections
+    > 0 and every honest peer's 0; ``trimmed_mean`` on the merges. And on
+    K4/K5 in every incarnation, ``resource`` and ``detector.phi`` events
+    in every peer's stream. Prints the verdict's version and the first
+    gated merge, the leader's trust per merge, the rule's seconds per
+    merge beside the merge wall, the checkpoint save and restore
+    seconds, the kill-to-first-merge seconds, (m)'s lines, and the final
+    loss beside (m)'s."""
+    from bcfl_tpu_torch.dist import run_dist
+    from bcfl_tpu_torch.reputation.lifecycle import STATE_NAMES
+
+    cfg = byzantine_config(dataset)
+    label = "byzantine path (q)"
+    adv = BYZ_ADVERSARY
+    # peak on disk: each peer's kept round and one in flight, plus the
+    # killed leader's hard-linked round
+    check_disk(peer_checkpoint_gb(cfg) * (2 * cfg.dist.peers + 1), label)
+    rule_s = robust_rule_at_width(smi)
+    run_dir = CKPT_DIR / "q"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    result = run_dist(cfg, str(run_dir), deadline_s=480.0, device="cuda",
+                      threads=1, kill_peer=0, kill_after_version=4)
+    wall = time.perf_counter() - t0
+    reports = result["reports"]
+    kill = result["kill"]
+    if kill is None:
+        raise RuntimeError(f"{label}: the kill never fired "
+                           f"{result['log_tails']}")
+    launches = check_dist_peers(label, cfg, result)
+    col = collate_checked(label, result)
+    evs = col["ordered"]
+    leader = reports[0]
+    dead = result["incarnation_reports"].get(0, [])
+    states = {p: (r.get("reputation") or {}).get("state") or []
+              for p, r in reports.items()}
+    byz = {p: (r.get("byzantine") or {}).get("total", 0)
+           for p, r in reports.items()}
+    q_at = quarantine_version(evs, adv)
+    first_gated = next(
+        (m["version"] for r in dead + [leader] for m in r["merges"]
+         if adv in ((m.get("quorum") or {}).get("quarantined") or [])),
+        None)
+    restored = leader.get("restored_reputation") or {}
+    bit_identical = False
+    if restored and leader.get("restored_from_version") == kill["round"]:
+        state = torch.load(Path(kill["kept"]) / f"round_{kill['round']:06d}"
+                           / "state.pt", map_location="cpu",
+                           weights_only=True)
+        bit_identical = (
+            restored["trust_hex"] == [float(t).hex() for t in
+                                      state["rep_trust"].tolist()]
+            and restored["state"] == [STATE_NAMES[int(x)]
+                                      for x in state["rep_state"]]
+            and restored["timer"] == [int(x) for x in state["rep_timer"]]
+            and restored["quarantine_events"] == [
+                int(x) for x in state["rep_quarantine_events"]])
+        del state
+    rules = {(m.get("robust") or {}).get("rule")
+             for r in list(reports.values()) + dead for m in r["merges"]}
+    streams = {p: {e["ev"] for e in evs if e.get("peer") == p}
+               for p in range(cfg.dist.peers)}
+    gates = {
+        "completed_within_deadline": (result["ok"]
+                                      and len(reports) == cfg.dist.peers),
+        "adversary_injected": byz.get(adv, 0) > 0,
+        "honest_peers_injected_nothing": all(
+            byz.get(p, 0) == 0 for p in range(cfg.dist.peers) if p != adv),
+        "adversary_quarantined_at_leader": (
+            len(states[0]) > adv and states[0][adv] == "quarantined"),
+        "quarantined_within_budget": (
+            q_at is not None and q_at <= max(cfg.num_rounds // 2, 3)),
+        "followers_inherited_quarantine": all(
+            len(states[p]) > adv and states[p][adv] == "quarantined"
+            for p in range(1, cfg.dist.peers)),
+        "post_ack_refusals_fired": (
+            (leader.get("reputation") or {}).get("quarantine_drops", 0) > 0),
+        "zero_no_quarantined_merge":
+            col["invariants"].get("no_quarantined_merge") == 0,
+        "zero_invariant_violations": col["ok"],
+        "consensus_head_verifies": (
+            len({r["chain_head"] for r in reports.values()}) == 1
+            and all(r.get("chain_ok") in (True, None)
+                    for r in reports.values())),
+        "leader_killed_and_resumed": (
+            kill["restarted"] and leader.get("resumed") is True
+            and leader.get("status") == "ok"),
+        "restore_recorded": bool(restored),
+        "tracker_restored_bit_identical": bit_identical,
+        "no_readmission_of_quarantined_peer": (
+            bool(restored) and restored["state"][adv] == "quarantined"
+            and states[0][adv] == "quarantined"),
+        "trimmed_mean_on_the_merges": "trimmed_mean" in rules,
+        "k4_k5_in_every_incarnation": bool(dead) and all(
+            d["kernel_launches"][n] > 0 for d in dead
+            for n in ("int8_quantize", "topk_select")),
+        "resource_and_phi_in_every_stream": all(
+            {"resource", "detector.phi"} <= streams[p]
+            for p in range(cfg.dist.peers)),
+    }
+    print(f"{label} gates: {json.dumps(gates)}", flush=True)
+    print(f"{label}: peer {adv} quarantined at the leader's version {q_at} "
+          f"(budget {max(cfg.num_rounds // 2, 3)}), first merge gated "
+          f"without it {first_gated}, states per peer "
+          f"{ {p: (s[adv] if len(s) > adv else None) for p, s in states.items()} }"
+          f", quarantine drops at the leader "
+          f"{(leader.get('reputation') or {}).get('quarantine_drops')}, "
+          f"injections {byz} by behavior "
+          f"{(reports[adv].get('byzantine') or {}).get('injected')}",
+          flush=True)
+    if not all(gates.values()):
+        raise RuntimeError(f"{label}: gates failed {gates}")
+    count_launches(stats, launches)
+    print(f"{label} peer 0 launches per incarnation: "
+          f"{[d['kernel_launches'] for d in dead]} then "
+          f"{leader['kernel_launches']}", flush=True)
+    for e in evs:
+        if e.get("ev") == "merge" and e.get("peer") == 0:
+            rb = e.get("robust") or {}
+            print(f"{label} merge v{e['version']} (leader pid {e['pid']}): "
+                  f"wall {e['wall_s']:.3f} s, rule {rb.get('rule')} on "
+                  f"{rb.get('rule_device')} {rb.get('rule_s')} s over "
+                  f"{rb.get('k')} votes, robust_degraded "
+                  f"{e.get('robust_degraded')}, trust {e.get('trust')}",
+                  flush=True)
+    back = [e["t_wall"] for e in evs if e.get("ev") == "merge"
+            and e.get("peer") == 0 and e.get("pid") == leader["pid"]]
+    rr = leader["restored"]
+    print(f"{label}: leader killed at {kill['killed_at_s']:.2f} s after its "
+          f"round-{kill['round']} checkpoint, restored version "
+          f"{rr['version']} in {rr['restore_s']:.3f} s (scrub "
+          f"{rr['scrub_s']:.3f} s), tracker bit for bit the file's, first "
+          f"resumed merge {min(back) - kill['killed_at_wall'] if back else None}"
+          f" s after the kill; robust rule at width (device s, host s, "
+          f"host parameters) "
+          f"{ {k: (round(a, 4), round(b, 4), n) for k, (a, b, n) in rule_s.items()} }",
+          flush=True)
+    print_checkpoints(label, reports)
+    print_dist_timeline(label, result, col, wall)
+    loss = (leader.get("final_eval") or {}).get("loss")
+    print(f"{label}: final loss {loss} beside (m)'s adversary-free "
+          f"{m_loss} (printed, not gated: mean over 6 versions there, "
+          f"trimmed_mean with a quarantined peer over 8 here)", flush=True)
+    if loss is None or not math.isfinite(loss):
+        raise RuntimeError(f"{label}: final loss {loss}")
     shutil.rmtree(run_dir, ignore_errors=True)
 
 
@@ -3070,9 +3387,10 @@ def main(argv=None) -> int:
     phase_run_surface(ck, fk, stats, smi, dataset, b_path)
     phase_resilience(ck, stats, smi, dataset)
     phase_llama(ck, fk, stats, smi, dataset, llama_per)
-    phase_dist(ck, stats, smi, medical, c_walls)
+    m_loss = phase_dist(ck, stats, smi, medical, c_walls)
     phase_partition_kill(stats, smi, medical)
     phase_storage_repair(stats, smi, medical)
+    phase_byzantine(stats, smi, medical, m_loss)
     count_launches(stats, phase_hf(smi))
     phase_reference()
     if args.profile:

@@ -14,6 +14,14 @@ verified reconcile, peer 1 resumes in a fresh CUDA context from the
 checkpoint (its restored trainable and residual equal to the file bit for
 bit), and K4/K5 launch in both of its incarnations.
 
+A third runs the byzantine lane: 3 peers under ``trimmed_mean`` with
+per-peer reputation, peer 2 scaling and forging its ``int8+topk``
+updates; the leader quarantines it (through the robust merge's outlier
+flags, weighed 1.0: the fingerprint cannot see a forged scale of the
+codec), is SIGKILLed after its version-4 checkpoint and resumes in a
+fresh CUDA context with its tracker bit for bit the file's, never
+readmits peer 2, and launches K4/K5 there.
+
 The tests are marked ``gpu`` and skip without a card. This file imports
 neither JAX nor the JAX package:
 
@@ -117,3 +125,66 @@ def test_partition_and_kill_on_the_card(tmp_path):
             state[key], use_native=False).hex()
     col = collate_run(result["run_dir"])
     assert col["ok"], col["violations"]
+
+
+@pytest.mark.gpu
+def test_byzantine_leader_killed_on_the_card(tmp_path):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the peers run K4/K5 on the card)")
+    import os
+
+    from bcfl_tpu_torch.compression import CompressionConfig
+    from bcfl_tpu_torch.config import (DistConfig, FedConfig, LedgerConfig,
+                                       PartitionConfig)
+    from bcfl_tpu_torch.dist import run_dist
+    from bcfl_tpu_torch.faults import FaultPlan
+    from bcfl_tpu_torch.ops import cuda_build
+    from bcfl_tpu_torch.reputation import ReputationConfig
+    from bcfl_tpu_torch.telemetry import collate_run
+
+    cuda_build.build_all()
+    cfg = FedConfig(
+        name="dist_gpu_byz", runtime="dist", mode="server", sync="async",
+        model="tiny-bert", dataset="synthetic", num_clients=6, num_rounds=8,
+        seq_len=32, batch_size=8, max_local_batches=2, eval_every=0,
+        partition=PartitionConfig(kind="iid", iid_samples=16),
+        ledger=LedgerConfig(enabled=True), aggregator="trimmed_mean",
+        compression=CompressionConfig(kind="int8+topk"),
+        reputation=ReputationConfig(enabled=True, quarantine_rounds=1000,
+                                    w_anomaly=1.0),
+        faults=FaultPlan(seed=11, byz_peers=(2,), byz_prob=1.0,
+                         byz_behaviors=("scale", "digest_forge")),
+        dist=DistConfig(peers=3, buffer=3, buffer_timeout_s=20.0,
+                        idle_timeout_s=150.0, peer_deadline_s=240.0,
+                        checkpoint_every_versions=1))
+    result = run_dist(cfg, str(tmp_path / "run"), deadline_s=270.0,
+                      device="cuda", threads=1, kill_peer=0,
+                      kill_after_version=4)
+    assert result["ok"], result["log_tails"]
+    reports, kill = result["reports"], result["kill"]
+    assert kill is not None and kill["restarted"]
+    leader = reports[0]
+    assert leader["resumed"] and leader["device"].startswith("cuda")
+    for p in range(3):
+        assert reports[p]["reputation"]["state"][2] == "quarantined"
+        assert reports[p]["chain_ok"]
+    assert leader["reputation"]["quarantine_drops"] > 0
+    assert reports[2]["byzantine"]["total"] > 0
+    assert reports[0]["byzantine"]["total"] == reports[1]["byzantine"][
+        "total"] == 0
+    restored = leader["restored_reputation"]
+    state = torch.load(os.path.join(kill["kept"], f"round_{kill['round']:06d}",
+                                    "state.pt"), weights_only=True)
+    assert leader["restored_from_version"] == kill["round"]
+    assert restored["trust_hex"] == [float(t).hex()
+                                     for t in state["rep_trust"].tolist()]
+    assert restored["state"][2] == "quarantined"
+    # K4/K5 in both of the leader's CUDA contexts, the resumed one too
+    dead = result["incarnation_reports"][0]
+    for r in dead + [leader]:
+        assert r["kernel_launches"]["int8_quantize"] > 0
+        assert r["kernel_launches"]["topk_select"] > 0
+    assert len({r["chain_head"] for r in reports.values()}) == 1
+    col = collate_run(result["run_dir"])
+    assert col["ok"], col["violations"]
+    assert col["invariants"]["no_quarantined_merge"] == 0

@@ -336,7 +336,9 @@ def test_broadcasts_past_the_target_carry_the_whole_chain():
         chain=replica, eng=types.SimpleNamespace(ledger=replica),
         version=2, peer_id=1, _needs_bootstrap=False,
         _pending_reconcile=False, adopted=[], clock=StepClock(),
-        hellos=[])
+        hellos=[], rep=None,
+        # a fixed-threshold detector: nothing for the adopt's phi sample
+        transport=types.SimpleNamespace(detector=types.SimpleNamespace()))
     follower._cast = lambda t: t
     follower._note_version = lambda: None
     follower._maybe_checkpoint = lambda: None

@@ -154,15 +154,17 @@ def test_dist_configs_construct_or_refuse_as_jax(name, over):
 
 
 def test_deferred_dist_features_raise_not_ported_yet():
-    deferred = ["reputation", "robust", "wire", "byz", "limp", "resource",
-                "lora"]
+    deferred = ["wire", "limp", "resource", "lora"]
     for name, over in GRID:
         if name in deferred:
             got = _cfgs(over)["port"]
             assert isinstance(got, str) and "not ported yet" in got, name
-    # the ported fault-tolerance half: partitions run, churn and host
-    # crash take JAX's own rejections, the storage lane JAX's checks
-    for name in ("partition", "churn", "crash", "storage"):
+    # the ported fault-tolerance and adversarial halves: partitions,
+    # reputation and the byzantine lane run, the robust rules take JAX's
+    # buffer preconditions, churn and host crash JAX's own rejections,
+    # the storage lane JAX's checks
+    for name in ("partition", "churn", "crash", "storage", "reputation",
+                 "robust", "byz"):
         over = dict(GRID)[name]
         got, want = _cfgs(over)["port"], _cfgs(over)["jax"]
         assert not (isinstance(got, str) and "not ported yet" in got), name
@@ -266,11 +268,13 @@ def test_apply_merge_equals_jax():
     tcfg = _dist_cfg(staleness_decay=0.5, async_server_lr=0.7,
                      compression=CompressionConfig(kind="none"))
     teng = FedEngine(runtime._peer_engine_cfg(tcfg, 2), device="cpu")
-    tself = types.SimpleNamespace(
+    # a runtime shell (no sockets, no threads) holding what the step reads
+    tself = runtime.PeerRuntime.__new__(runtime.PeerRuntime)
+    tself.__dict__.update(
         eng=teng, cfg=tcfg, device=torch.device("cpu"),
         trainable={n: torch.from_numpy(b.copy()) for n, b in zip(names,
                                                                  base)})
-    runtime.PeerRuntime._apply_merge(tself, [
+    tself._apply_merge([
         {"deltas": {n: torch.from_numpy(d) for n, d in zip(names, deltas)},
          "alpha": alpha, "base_w": bw} for deltas, alpha, bw in updates])
     for n, w in zip(names, want):
@@ -314,6 +318,15 @@ def test_dist_loopback_two_peers(tmp_path):
     # every merged arrival authenticated against its announced digests
     assert all(a["auth"] == [1.0, 1.0] for m in reports[0]["merges"]
                for a in m["arrivals"])
+    # the adversarial surfaces with their lanes off: JAX's exact
+    # off-report, and no tracker
+    for p in (0, 1):
+        assert reports[p]["byzantine"] == {"armed": False, "injected": {},
+                                           "total": 0}
+        assert reports[p]["reputation"] is None
+        assert reports[p]["restored_reputation"] is None
+        assert all(m["robust"] is None and not m["robust_degraded"]
+                   for m in reports[p]["merges"])
     # the report's port fields: the kernel counters (the CPU runs the
     # plain versions: no launch) and no device peak on the CPU
     assert reports[1]["kernel_launches"]["topk_select"] == 0

@@ -4,7 +4,9 @@ the JAX package and psutil, on the CPU.
 - ``ResourceMonitor`` reads the process without psutil: its resident set
   equals psutil's ``memory_info().rss`` within 4 pages at one instant, and
   its windowed CPU percent is psutil's ``cpu_percent(None)`` over the same
-  busy window within 10 points (both count clock ticks of 10 ms);
+  busy window within 10 points (both count clock ticks of 10 ms); its
+  ``start_sampling`` emits ``resource`` events with the fields of JAX's
+  psutil sampler;
 - ``RunMetrics.to_json``: every key is one of JAX's, at the top level and
   in each round, with the same values for the same records; ``summary``
   prints the same resource lines as JAX's, and ``format_report`` carries
@@ -100,6 +102,43 @@ def test_disk_free_bytes():
     free = tm.ResourceMonitor(run_dir=".").disk_free_bytes()
     assert abs(free - shutil.disk_usage(".").free) < 1 << 30
     assert tm.ResourceMonitor(run_dir="/no/such/dir").disk_free_bytes() is None
+
+
+@pytest.mark.parametrize("run_dir", [None, "."])
+def test_sampling_emits_jax_resource_events(tmp_path, run_dir):
+    """``start_sampling`` emits the ``resource`` event with the fields of
+    JAX's sampler (psutil there), idempotently, and ``stop_sampling``
+    ends it; without an installed writer the emit is a no-op."""
+    from bcfl_tpu import telemetry as jtel
+    from bcfl_tpu_torch import telemetry as ttel
+
+    def sample(tel, mon, path):
+        tel.install(tel.EventWriter(str(path), peer=0, run="x"))
+        try:
+            assert mon.start_sampling(0.05)
+            assert not mon.start_sampling(0.05)  # already running
+            time.sleep(0.4)
+            mon.stop_sampling()
+            mon.stop_sampling()
+        finally:
+            tel.flush()
+            tel.uninstall()
+        return [e for e in map(json.loads, open(path))
+                if e["ev"] == "resource"]
+
+    got = sample(ttel, tm.ResourceMonitor(run_dir=run_dir),
+                 tmp_path / "t.jsonl")
+    want = sample(jtel, jm.ResourceMonitor(run_dir=run_dir),
+                  tmp_path / "j.jsonl")
+    assert got and want
+    assert {tuple(sorted(e)) for e in got} == {tuple(sorted(e))
+                                               for e in want}
+    assert all(e["interval_s"] == 0.05 and e["rss_gb"] > 0 for e in got)
+    n = len(got)
+    time.sleep(0.15)
+    assert not tm.ResourceMonitor().start_sampling(0.0)
+    assert len([e for e in map(json.loads, open(tmp_path / "t.jsonl"))
+                if e["ev"] == "resource"]) == n  # stopped
 
 
 # ------------------------------------------------- to_json, summary, report

@@ -282,6 +282,7 @@ def _mk_runtime(chain):
     rt._needs_bootstrap = True
     rt._bootstrap_reason = "damaged"
     rt._repaired = None
+    rt.rep = None  # no per-peer tracker to absorb the adopted rows
     rt._last_sync_req = 99.0
     rt._cast = lambda t: t
     rt._note_version = lambda: None
