@@ -208,7 +208,7 @@ class DistConfig:
     # gossip hedging: when a sampled neighbor's phi crosses this
     # threshold at dispatch time, the peer re-draws a seeded replacement
     # neighbor (detector="phi" only; the draw is replayable — see
-    # the JAX package's dist/gossip.py; gossip is not ported yet)
+    # bcfl_tpu_torch.dist.gossip.HEDGE_LANE)
     gossip_hedge_phi: float = 2.0
     # receiver-side per-sender dedup window (message ids); ids at or below
     # (newest seen - window) are treated as duplicates and dropped
@@ -255,7 +255,7 @@ class DistConfig:
     # --- dispatch mode (RUNTIME.md "Gossip dispatch") ---
     # "leader" = the FedBuff path above: min reachable id owns the merge,
     # the robust votes, and the reputation clock for its component.
-    # "gossip" = leaderless epidemic exchange (not ported yet): every
+    # "gossip" = leaderless epidemic exchange (bcfl_tpu_torch.dist.gossip): every
     # peer samples seeded neighbors per local round, pushes its full state,
     # and merges arrivals with a commutative version-vector rule — no
     # privileged process, elastic membership (dist.membership).
@@ -467,8 +467,7 @@ RUNTIME_CAPS: Tuple = (
                "the wire lane acts on real TCP frames in the dist "
                "transport (PeerTransport); use corrupt_prob for the "
                "simulated-transport analogue",
-      "dist": NOT_PORTED_YET + ": the wire chaos lane (WireChaos, the "
-              "plan's wire_actions) waits for its slice"}),
+      "dist": True}),  # injected at the socket (dist/transport.py)
     ("chaos: byzantine peers",
      lambda c: _plan(c).byz_enabled,
      {"local": "byzantine behaviors forge the dist update exchange's wire "
@@ -505,9 +504,8 @@ RUNTIME_CAPS: Tuple = (
                "detector and w_slow down-weighting — the local engine "
                "has neither a wire nor a detector; use straggler_prob "
                "for the simulated-clock analogue",
-      "dist": NOT_PORTED_YET + ": the limp lane's injection (the "
-              "plan's limp_action and limp_throttle, LimpChaos) waits for "
-              "its slice"}),
+      "dist": True}),  # stall at the train seam, direction-keyed
+    # throttle in the transport, SIGSTOP pauses through the harness
     ("chaos: resource faults (ENOSPC/EMFILE)",
      lambda c: _plan(c).resource_enabled,
      {"local": "the resource lane fails a peer's durable writes "
@@ -515,8 +513,8 @@ RUNTIME_CAPS: Tuple = (
                "grades the emergency-GC → telemetry-shed → exit ladder; "
                "the local engine has no per-peer durable-write seams — "
                "dist only",
-      "dist": NOT_PORTED_YET + ": the resource lane's injected draws "
-              "(the plan's resource_action) wait for their slice"}),
+      "dist": True}),  # drawn per (seam, counter, peer) at the durable
+    # write seams
     ("communication compression under gossip dispatch",
      lambda c: c.compression.enabled and c.dist.dispatch == "gossip",
      {"local": True,
@@ -532,9 +530,9 @@ RUNTIME_CAPS: Tuple = (
               "verbatim — use trimmed_mean or median"}),
     ("chaos: transport partition under gossip dispatch",
      lambda c: _plan(c).partitions and c.dist.dispatch == "gossip",
-     {"local": True,
-      "dist": NOT_PORTED_YET + ": gossip dispatch and partitions wait "
-              "for their slices"}),
+     {"local": True, "dist": True}),  # dist: healed leaderlessly (the
+    # gate component bounds the neighbor draws and the merge, HELLO
+    # probes and version-vector merges absorb the other side at the heal)
     ("per-round central eval",
      lambda c: c.eval_every != 0,
      {"local": True,
@@ -579,10 +577,7 @@ _NOT_PORTED = (
     # the flash kernels have bf16 and float32 instances only
     ("compute_dtype", lambda c: c.compute_dtype == "float16"
      and bool(c.use_flash)),
-    # the dist runtime's leaderless dispatch and its Llama forms wait for
-    # later slices
-    ("dist.dispatch", lambda c: c.runtime == "dist"
-     and c.dist.dispatch == "gossip"),
+    # the dist runtime's Llama forms wait for a later slice
     ("model", lambda c: c.runtime == "dist" and _llama(c.model)),
 )
 
@@ -827,11 +822,12 @@ class FedConfig:
                     "buffered async with the anomaly filter, the ledger, "
                     "the local fault plan, robust aggregation, reputation, "
                     "checkpoints, LoRA and cohort sampling, and the "
-                    "multi-process runtime's leadered dispatch with "
-                    "partitions, the ledger fork and heal, peer "
+                    "multi-process runtime's leadered and gossip dispatch "
+                    "with partitions, the ledger fork and heal, peer "
                     "checkpoints, crash/rejoin, the storage lane and state "
                     "sync, the robust merge, per-peer reputation and the "
-                    "byzantine lane (see ROADMAP.md for the port's queue)")
+                    "byzantine, wire, limp and resource lanes (see "
+                    "ROADMAP.md for the port's queue)")
 
     def _check_dist_lanes(self) -> None:
         """JAX's dist-only checks: the client split, the fault plan's peer
@@ -867,6 +863,18 @@ class FedConfig:
                     "to defend — leave at least one peer honest")
         if plan.storage_enabled:
             self._check_storage_lane(plan)
+        if plan.limp_enabled and plan.limp_peers:
+            bad = [p for p in plan.limp_peers if p >= self.dist.peers]
+            if bad:
+                raise ValueError(
+                    f"limp_peers name PEERS; ids {bad} are >= peers="
+                    f"{self.dist.peers}")
+        if plan.resource_enabled and plan.resource_peers:
+            bad = [p for p in plan.resource_peers if p >= self.dist.peers]
+            if bad:
+                raise ValueError(
+                    f"resource_peers name PEERS; ids {bad} are >= "
+                    f"peers={self.dist.peers}")
         if self.aggregator != "mean":
             self._check_robust_buffer()
 
@@ -877,8 +885,9 @@ class FedConfig:
         from bcfl_tpu_torch.dist.robust import MIN_ORDER_VOTES, krum_min_buffer
 
         if self.dist.dispatch == "gossip":
-            # unreachable while gossip dispatch is refused; kept with
-            # JAX's message for when it is ported
+            # gossip has no leader buffer: the rule's population is a
+            # peer's arrival set, at most its neighbors plus itself (krum
+            # is refused by the caps table)
             if self.dist.gossip_fanout + 1 < MIN_ORDER_VOTES:
                 raise ValueError(
                     f"aggregator={self.aggregator!r} under "

@@ -1,6 +1,5 @@
 """Spawn, supervise and reap the peer processes: port of
-``bcfl_tpu/dist/harness.py`` with its kill/rejoin and churn legs (the limp
-leg waits for the limp lane).
+``bcfl_tpu/dist/harness.py`` with its kill/rejoin, churn and limp legs.
 
 Write the config JSON, pick free ports, spawn one
 ``python -m bcfl_tpu_torch.dist`` process per peer, enforce a hard wall
@@ -164,7 +163,8 @@ def run_dist(cfg, run_dir: str, deadline_s: Optional[float] = None,
              device: str = "cuda", threads: Optional[int] = None,
              kill_peer: Optional[int] = None, kill_after_version: int = 1,
              restart_delay_s: float = 2.0, restart_killed: bool = True,
-             churn: Optional[Dict] = None) -> Dict:
+             churn: Optional[Dict] = None,
+             limp: Optional[Dict] = None) -> Dict:
     """Run one dist federation: spawn ``cfg.dist.peers`` peer processes,
     supervise them under a hard deadline (default: the peers' own
     deadline + 60 s), and collect the per-peer reports.
@@ -186,9 +186,20 @@ def run_dist(cfg, run_dir: str, deadline_s: Optional[float] = None,
     and restarted with ``--resume`` (plus ``--bootstrap`` when
     ``bootstrap``). The cycles land under ``result["churn"]``.
 
+    ``limp`` drives supervised SIGSTOP/SIGCONT pause cycles of one peer,
+    the limp lane's gray failure: the peer never dies and never resumes
+    from a checkpoint, it goes silent for ``pause_s`` seconds and then
+    continues where it was. A dict ``{"peer", "pause_s", "period_s",
+    "cycles", "stop_after_s"}``: every ``period_s`` seconds, while fewer
+    than ``cycles`` pauses have fired, peer 0 and the peer are alive and
+    (with ``stop_after_s``) inside that window, the peer is SIGSTOPped,
+    left frozen ``pause_s`` and SIGCONTed. The cycles land under
+    ``result["limp"]``; ``limp`` composes with ``churn`` and ``kill_peer``
+    on other peers.
+
     Returns ``{"ok", "process_count", "returncodes", "reports",
-    "incarnation_reports", "log_tails", "kill", "churn", "run_dir",
-    "event_streams", "wall_s"}``; raises nothing on peer failure (the
+    "incarnation_reports", "log_tails", "kill", "churn", "limp",
+    "run_dir", "event_streams", "wall_s"}``; raises nothing on peer failure (the
     caller reads the result and the logs under ``run_dir``)."""
     from bcfl_tpu_torch.dist.launch import cfg_to_json
 
@@ -211,6 +222,9 @@ def run_dist(cfg, run_dir: str, deadline_s: Optional[float] = None,
     churn_records: List[Dict] = []
     churn_next = (t0 + float(churn.get("period_s", 45.0))
                   if churn else None)
+    limp_records: List[Dict] = []
+    limp_next = (t0 + float(limp.get("period_s", 20.0))
+                 if limp else None)
 
     def restart(p: int, bootstrap: bool = False) -> None:
         _keep_report(run_dir, p, incarnations[p])
@@ -284,6 +298,31 @@ def run_dist(cfg, run_dir: str, deadline_s: Optional[float] = None,
                      "killed_at_wall": killed_at,
                      **({"damage": damage} if damage else {})})
                 churn_next = time.time() + float(churn.get("period_s", 45.0))
+        if (limp_next is not None and time.time() >= limp_next
+                and len(limp_records) < int(limp.get("cycles", 3))
+                and rcs.get(0) is None
+                and rcs.get(int(limp["peer"])) is None):
+            lp = int(limp["peer"])
+            stop_after = limp.get("stop_after_s")
+            if (stop_after is not None
+                    and time.time() - t0 > float(stop_after)):
+                limp_next = None  # the window closed
+            else:
+                proc = procs[lp]
+                pause_s = float(limp.get("pause_s", 3.0))
+                try:
+                    # freeze, not kill: the peer's sockets stay open, so
+                    # the others see silence and back-pressure, not a reset
+                    proc.send_signal(signal.SIGSTOP)
+                    time.sleep(pause_s)
+                finally:
+                    if proc.poll() is None:
+                        proc.send_signal(signal.SIGCONT)
+                limp_records.append(
+                    {"peer": lp, "cycle": len(limp_records) + 1,
+                     "paused_at_s": round(time.time() - t0 - pause_s, 3),
+                     "pause_s": pause_s})
+                limp_next = time.time() + float(limp.get("period_s", 20.0))
         if all(rc is not None for rc in rcs.values()):
             break
         time.sleep(0.25)
@@ -325,6 +364,7 @@ def run_dist(cfg, run_dir: str, deadline_s: Optional[float] = None,
         "log_tails": logs,
         "kill": kill_record,
         "churn": churn_records,
+        "limp": limp_records,
         "run_dir": run_dir,
         "event_streams": (find_streams(tele_dir)
                           if tele_dir is not None else []),

@@ -6,9 +6,9 @@ local training loop on its own device (the card, unless it was started
 with ``--device cpu``); peers exchange updates over
 :mod:`bcfl_tpu_torch.dist.transport` and aggregate FedBuff-style at a
 component leader, the lowest peer id reachable in the peer's connected
-component (peer 0 when the network is whole). Gossip dispatch and the
-wire, limp and resource chaos lanes wait for later slices; the config
-refuses them.
+component (peer 0 when the network is whole). The leaderless dispatch
+(``dispatch="gossip"``) subclasses this runtime in
+:mod:`bcfl_tpu_torch.dist.gossip` through the ``_*_extra`` hooks.
 
 - **Training + wire encode** go through the engine's update-exchange seam
   (:meth:`bcfl_tpu_torch.fed.engine.FedEngine._exchange_updates`,
@@ -63,6 +63,13 @@ refuses them.
   server's state-commitment row on that chain. A durable write failing
   on ENOSPC or EMFILE walks a ladder (retention GC, then telemetry shed)
   before the peer exits with its own code.
+- **The chaos lanes, driven for real**: the wire lane drops, duplicates,
+  holds, delays and corrupts frames at the socket (``WireChaos``), the
+  limp lane stalls the train seam and paces degraded links
+  (``LimpChaos``), and the resource lane fails durable writes with
+  ENOSPC/EMFILE at the checkpoint, ledger and event-stream seams (the
+  event stream sheds, never exits). Each draw is the fault plan's, keyed
+  by the peer's local round or the seam's write counter.
 - **Nothing can wedge**: a hard per-process deadline, an idle watchdog
   (no version progress) and a parent-death check each force a nonzero
   exit, and the harness reaps stragglers.
@@ -211,7 +218,12 @@ class PeerRuntime:
     def __init__(self, cfg, peer_id: int, ports: List[int], run_dir: str,
                  device=None, resume: bool = False, bootstrap: bool = False):
         from bcfl_tpu_torch.compression import codecs as cc
-        from bcfl_tpu_torch.dist.transport import PartitionGate, PeerTransport
+        from bcfl_tpu_torch.dist.transport import (
+            LimpChaos,
+            PartitionGate,
+            PeerTransport,
+            WireChaos,
+        )
         from bcfl_tpu_torch.fed.engine import FedEngine
 
         self.cfg = cfg
@@ -231,6 +243,16 @@ class PeerRuntime:
             telemetry.install(telemetry.EventWriter(
                 self.events_path, peer=self.peer_id, run=cfg.name,
                 sample=cfg.telemetry_sample))
+        # the resource lane at the event stream: the writer's flush-time
+        # fault hook consults the seeded per-flush draw, and the writer's
+        # own errno handler sheds sampled telemetry (this seam never
+        # reaches the exit rung)
+        self._events_flush_n = 0
+        self._events_fault_busy = False
+        if cfg.faults is not None and cfg.faults.resource_enabled:
+            w = telemetry.get_writer()
+            if w is not None:
+                w.write_fault = self._events_write_fault
         k = cfg.num_clients // self.peers
         self.local_clients = k
         self.global_ids = np.arange(self.peer_id * k, (self.peer_id + 1) * k)
@@ -279,6 +301,7 @@ class PeerRuntime:
         # buffer): the buffer_timeout_s clock
         self._buffer_since = 0.0  # guarded-by: _buffer_lock
         self._stop = False
+        self._stopping = False  # a shutdown is being honored
         # the partition lifecycle (fork.begin at the span's entry,
         # fork.heal at its exit, the reconcile offer of a fork leader)
         self.fork: Optional[Dict] = None
@@ -348,6 +371,13 @@ class PeerRuntime:
                               and cfg.faults.partitions) else None
         self.gate = PartitionGate(plan, self.peers,
                                   version_fn=lambda: self.local_round)
+        # the wire lane and the limp lane's throttle share the gate's
+        # clock; an unarmed lane builds nothing
+        faults = cfg.faults
+        chaos = (WireChaos(faults, clock_fn=lambda: self.local_round)
+                 if faults is not None and faults.wire_enabled else None)
+        limp = (LimpChaos(faults, clock_fn=lambda: self.local_round)
+                if faults is not None and faults.limp_enabled else None)
         host = cfg.dist.host
         # transport incarnation epoch: a file-backed restart counter, not
         # the wall clock
@@ -362,7 +392,7 @@ class PeerRuntime:
         self.transport = PeerTransport(
             self.peer_id, [(host, p) for p in ports], gate=self.gate,
             io_timeout_s=min(60.0, cfg.dist.peer_deadline_s),
-            policy=cfg.dist, epoch=epoch)
+            chaos=chaos, limp=limp, policy=cfg.dist, epoch=epoch)
 
         self.ckpt_dir = os.path.join(run_dir, f"ckpt_peer{self.peer_id}")
         # monotone-incarnation high-water marker, like the epoch file a
@@ -454,7 +484,8 @@ class PeerRuntime:
             del self.history[v]
 
     # --- extension hooks: the reputation tracker rides the checkpoint
-    # through these (a gossip dispatch of a later slice extends them) ---
+    # through the first two; the gossip dispatch (dist/gossip.py) extends
+    # all five ---
 
     def _checkpoint_extra(self) -> Dict:
         """Extra keys folded into the checkpoint state: the per-peer
@@ -477,6 +508,18 @@ class PeerRuntime:
                 "rep.transition", client=int(p), scope="peer",
                 **{"from": "restored", "to": "quarantined",
                    "trust": float(self.rep.tracker.trust[p])})
+
+    def _report_extra(self) -> Dict:
+        """Extra keys a dispatch subclass folds into the peer report."""
+        return {}
+
+    def _sync_serve_extra(self, header_out: Dict) -> None:
+        """Extra header keys a dispatch subclass ships with a STATE_SYNC
+        serve (gossip adds its version vector)."""
+
+    def _adopt_extra(self, header: Dict, trees: Dict) -> None:
+        """Dispatch-subclass hook after a verified STATE_SYNC adoption
+        (gossip refreshes its host state copy and version vector)."""
 
     def _cast(self, tree):
         """A received model tree on the device, floats in the param
@@ -543,6 +586,7 @@ class PeerRuntime:
                   if plan is not None else None)
         if delays is not None and delays[self.peer_id] > 0:
             time.sleep(float(delays[self.peer_id]))
+        self._limp_stall(rnd)
 
         leader = self._leader()
         if self.byz is not None:
@@ -572,6 +616,18 @@ class PeerRuntime:
             self.transport.send_async(leader, header, {"payload": wire_tree})
         else:
             self.transport.send(leader, header, {"payload": wire_tree})
+
+    def _limp_stall(self, rnd: int) -> None:
+        """The limp lane at the train seam: a real stall on the seeded
+        ``(round, peer)`` draw, so the phi detector and the slowness lane
+        are graded against measured slowness. Never sampled: a soak counts
+        the stalls exactly."""
+        plan = self.cfg.faults
+        act = plan.limp_action(rnd, self.peer_id) if plan is not None else None
+        if act is not None and act["stall_s"] > 0:
+            telemetry.emit("limp.inject", kind="stall", round=int(rnd),
+                           stall_s=float(act["stall_s"]))
+            time.sleep(float(act["stall_s"]))
 
     def _announce_digests(self, wire_kind: str, tree) -> List[str]:
         """Per-client entry digests of a wire payload, refingerprinted on
@@ -1330,6 +1386,7 @@ class PeerRuntime:
             header_out["chain"] = self.chain.segment(0)
         else:
             header_out["chain"] = None
+        self._sync_serve_extra(header_out)
         serial = self._sync_serves.get(src, 0)
         self._sync_serves[src] = serial + 1
         tam = (self.cfg.faults.sync_tamper_action(self.peer_id, src, serial)
@@ -1417,6 +1474,7 @@ class PeerRuntime:
         self.version = version
         self.adopted.append(version)
         self._note_version()
+        self._adopt_extra(header, trees)
         self._needs_bootstrap = False
         reason = self._bootstrap_reason
         self._bootstrap_reason = None
@@ -1434,15 +1492,29 @@ class PeerRuntime:
 
     # --------------------------------------------------- checkpoint / resume
 
-    def _durable_write(self, seam: str, fn):
+    def _durable_write(self, seam: str, counter: int, fn):
         """One durable write through the ladder: a write failing with
         ENOSPC or EMFILE (the commit protocol is all-or-nothing, so a
         retry is safe) first drops every retained checkpoint round but the
         newest, then sheds sampled telemetry, then raises
-        :class:`DurabilityError`."""
+        :class:`DurabilityError`. The resource lane's seeded draw for
+        ``(seam, counter)`` fails the first ``depth`` attempts the same
+        way (``resource.inject`` events, one per injected attempt); a real
+        error out of ``fn`` walks the same ladder."""
+        plan = self.cfg.faults
+        act = (plan.resource_action(seam, counter, self.peer_id)
+               if plan is not None and plan.resource_enabled else None)
         remedies = 0
         while True:
             try:
+                if act is not None and remedies < act["depth"]:
+                    err = (errno.ENOSPC if act["cls"] == "enospc"
+                           else errno.EMFILE)
+                    telemetry.emit("resource.inject", seam=seam,
+                                   cls=act["cls"], counter=int(counter),
+                                   depth=int(act["depth"]),
+                                   attempt=remedies, errno=err)
+                    raise OSError(err, os.strerror(err))
                 return fn()
             except OSError as e:
                 if e.errno not in (errno.ENOSPC, errno.EMFILE):
@@ -1454,8 +1526,9 @@ class PeerRuntime:
                 else:
                     raise DurabilityError(
                         f"peer {self.peer_id}: durable write at the "
-                        f"{seam!r} seam still failing (errno {e.errno}) "
-                        f"after emergency GC and telemetry shed") from e
+                        f"{seam!r} seam (counter {counter}) still failing "
+                        f"(errno {e.errno}) after emergency GC and "
+                        f"telemetry shed") from e
                 remedies += 1
 
     def _emergency_gc(self, seam: str) -> None:
@@ -1483,6 +1556,31 @@ class PeerRuntime:
         w = telemetry.get_writer()
         if w is not None and w.begin_shed(seam):
             telemetry.emit("write.shed", seam=seam, mode="on")
+
+    def _events_write_fault(self, nbytes: int) -> None:
+        """The resource lane at the event-stream flush: consult the seeded
+        per-flush draw and fail the stream write cleanly. The writer's own
+        errno handler sheds sampled telemetry in response, so this seam
+        never reaches the exit rung. The counter is the seam's own flush
+        sequence; the busy flag keeps the inject event's own flush from
+        drawing again."""
+        if self._events_fault_busy:
+            return
+        n = self._events_flush_n
+        self._events_flush_n += 1
+        act = self.cfg.faults.resource_action("events", n, self.peer_id)
+        if act is None:
+            return
+        err = errno.ENOSPC if act["cls"] == "enospc" else errno.EMFILE
+        self._events_fault_busy = True
+        try:
+            telemetry.emit("resource.inject", seam="events",
+                           cls=act["cls"], counter=n,
+                           depth=int(act["depth"]), errno=err,
+                           nbytes=int(nbytes))
+            raise OSError(err, os.strerror(err))
+        finally:
+            self._events_fault_busy = False
 
     def _maybe_checkpoint(self):
         from bcfl_tpu_torch.checkpoint import save_checkpoint
@@ -1512,12 +1610,15 @@ class PeerRuntime:
             # (the state, then the meta sidecar with the chain) and the
             # high-water marker the rollback guard reads
             path = self._durable_write(
-                "checkpoint",
+                "checkpoint", self.version,
                 lambda: save_checkpoint(
                     self.ckpt_dir, self.version, state,
                     self.chain.to_json() if self.chain is not None else None,
                     keep_last=cfg.dist.checkpoint_keep_last))
-            self._durable_write("ledger", self._write_highwater)
+            self._durable_write(
+                "ledger",
+                len(self.chain) if self.chain is not None else self.version,
+                self._write_highwater)
         del state
         self._ckpt_saves.append({
             "version": int(self.version), "save_s": time.time() - t0,
@@ -1703,10 +1804,35 @@ class PeerRuntime:
         elif kind == "state_sync":
             self._handle_state_sync(header, trees)
         elif kind == "shutdown":
-            self._stop = True
+            self._honor_shutdown()
         else:
             logger.warning("peer %d: unknown message type %r",
                            self.peer_id, kind)
+
+    def _honor_shutdown(self):
+        """Stop, after the frames that were acked before the shutdown was
+        sent: a wire-lane reorder hold can release the leader's final
+        global after its shutdown arrived, and stopping at once would end
+        this peer one version short with another chain head. Waits for the
+        held frames (bounded by the hold), then handles what is queued."""
+        if self._stopping:
+            return
+        self._stopping = True
+        try:
+            plan = self.cfg.faults
+            hold = (plan.wire_reorder_hold_s
+                    if plan is not None and plan.wire_reorder_prob > 0
+                    else 0.0)
+            if hold <= 0 or not self.transport.wait_held(hold + 1.0):
+                return
+            # the released frames pass through the intake thread (if any)
+            # to the control queue
+            msg = self._next_ctrl(timeout_s=0.1)
+            while msg is not None:
+                self._handle(*msg)
+                msg = self._next_ctrl(timeout_s=0.0)
+        finally:
+            self._stop = True
 
     def _global_eval(self):
         s = self.eng.eval_one(self.trainable, self.eng.eval_batches)
@@ -1904,7 +2030,11 @@ class PeerRuntime:
             "kernel_launches": registry.launch_counts(),
             "phases": self.clock.summary(),
             "peak_gb": peak_gb(self.device),
+            # the event stream's flushes (the resource lane's events-seam
+            # counter; counted only while the lane is armed)
+            "events_flushes": getattr(self, "_events_flush_n", 0),
         }
+        report.update(self._report_extra())
         path = os.path.join(self.run_dir, f"report_peer{self.peer_id}.json")
         tmp = path + ".tmp"
         with open(tmp, "w") as f:
@@ -1956,8 +2086,13 @@ def peer_main(argv=None) -> int:
     with open(args.config) as f:
         cfg = cfg_from_json(f.read())
     ports = [int(p) for p in args.ports.split(",")]
+    runtime_cls = PeerRuntime
+    if cfg.dist.dispatch == "gossip":
+        from bcfl_tpu_torch.dist.gossip import GossipPeerRuntime
+
+        runtime_cls = GossipPeerRuntime
     try:
-        rt = PeerRuntime(cfg, args.peer_id, ports, args.run_dir,
+        rt = runtime_cls(cfg, args.peer_id, ports, args.run_dir,
                          device=args.device, resume=args.resume,
                          bootstrap=args.bootstrap)
         rc = rt.run()

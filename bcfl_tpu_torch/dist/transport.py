@@ -37,9 +37,16 @@ The delivery contract, as in JAX:
 :class:`PartitionGate` is the fault plan's partition lane over peer ids,
 consulted on both ends of every message: a blocked pair is dropped at the
 sender and, on the receiver's own clock, at the receiver, and both count
-in ``dropped_by_gate``. JAX's wire chaos and limp lanes (``WireChaos``,
-``LimpChaos``) are not ported: their fault plans are refused at config
-time.
+in ``dropped_by_gate``.
+
+The fault plan's wire lane (:class:`WireChaos`) injects drop / duplicate /
+reorder-hold / delay-jitter / byte-corruption per transmission attempt at
+the socket, drawn from ``(seed, round, src, dst, msg_id, attempt)``; the
+limp lane (:class:`LimpChaos`) paces a degraded direction's attempts by
+the frame's wire time at the throttled byte rate. Both read the peer's
+local round, pinned at enqueue time on the pipelined path, and both are
+counted (``chaos_injected[action]``, ``limp_paced``) and sampled into the
+event stream (``chaos``, ``limp.inject``).
 """
 
 from __future__ import annotations
@@ -441,23 +448,69 @@ class PartitionGate:
         return ca == cb
 
 
+class WireChaos:
+    """The fault plan's wire lane bound to one sender: per (message,
+    attempt) socket faults, with the peer's local round as the lane clock
+    (the partition gate's clock, which advances with the peer's own
+    training and never through the faulted messages)."""
+
+    def __init__(self, plan: Optional[FaultPlan],
+                 clock_fn: Callable[[], int]):
+        self.plan = plan if plan is not None else FaultPlan()
+        self.clock_fn = clock_fn
+
+    def actions(self, src: int, dst: int, msg_id: int, attempt: int,
+                clock: Optional[int] = None) -> Optional[dict]:
+        """The fault draw of one attempt. ``clock`` pins the lane clock
+        to an instant the caller captured (the pipelined sender records
+        it at enqueue), so a message's fate depends on the round that
+        produced it, not on when a worker sends it."""
+        c = int(self.clock_fn()) if clock is None else int(clock)
+        return self.plan.wire_actions(c, src, dst, msg_id, attempt)
+
+
+class LimpChaos:
+    """The fault plan's limp lane, its throttle seam, bound to one sender:
+    the direction-keyed link byte rate on the local-round clock (pinned at
+    enqueue as :class:`WireChaos` pins it). ``(src, dst)`` and ``(dst,
+    src)`` draw independently: A->B can limp while B->A answers."""
+
+    def __init__(self, plan: Optional[FaultPlan],
+                 clock_fn: Callable[[], int]):
+        self.plan = plan if plan is not None else FaultPlan()
+        self.clock_fn = clock_fn
+
+    def throttle_bps(self, src: int, dst: int,
+                     clock: Optional[int] = None) -> Optional[float]:
+        """The byte rate of the src->dst direction this round, or None
+        when it is healthy or the lane is off."""
+        c = int(self.clock_fn()) if clock is None else int(clock)
+        return self.plan.limp_throttle(c, src, dst)
+
+
 class PeerTransport:
     """Frame transport bound to one peer id.
 
     ``addrs[p]`` is peer ``p``'s ``(host, port)``; the transport listens on
     its own address and connects outward per send. ``gate`` (optional) is
-    consulted on both send and receive; ``policy`` (a :class:`DistConfig`)
-    carries the retry / detector / dedup / inbox knobs."""
+    consulted on both send and receive; ``chaos`` (optional) is the wire
+    fault lane and ``limp`` the limp lane's throttle; ``policy`` (a
+    :class:`DistConfig`) carries the retry / detector / dedup / inbox
+    knobs."""
 
     def __init__(self, peer_id: int, addrs: List[Tuple[str, int]],
                  gate: Optional[PartitionGate] = None,
                  connect_timeout_s: float = 5.0,
                  io_timeout_s: float = 60.0,
+                 chaos: Optional[WireChaos] = None,
                  policy: Optional[DistConfig] = None,
-                 epoch: Optional[int] = None):
+                 epoch: Optional[int] = None,
+                 limp: Optional[LimpChaos] = None):
         self.peer_id = int(peer_id)
         self.addrs = list(addrs)
         self.gate = gate
+        self.chaos = chaos
+        self.limp = limp
         self.policy = policy if policy is not None else DistConfig()
         self.connect_timeout_s = connect_timeout_s
         self.io_timeout_s = io_timeout_s
@@ -492,8 +545,14 @@ class PeerTransport:
         self.crc_drops = 0          # guarded-by: _stats_lock (writes) — CRC failures
         self.wire_drops = 0         # guarded-by: _stats_lock (writes) — malformed/stalled
         self.inbox_overflow = 0     # guarded-by: _stats_lock (writes) — bounded-inbox sheds
+        self.reorders_held = 0      # guarded-by: _stats_lock (writes) — chaos holds
         self.circuit_skips = 0      # guarded-by: _stats_lock (writes) — open-circuit skips
         self.dropped_by_gate = 0    # guarded-by: _stats_lock (writes) — partition drops
+        self.limp_paced = 0         # guarded-by: _stats_lock (writes) — limp throttle pacings
+        self.chaos_injected = {"drop": 0, "dup": 0, "reorder": 0,  # guarded-by: _stats_lock (writes)
+                               "delay": 0, "corrupt": 0}
+        self._held_cv = threading.Condition()
+        self._held = 0  # guarded-by: _held_cv — reorder-held frames not yet enqueued
         # the sender's incarnation epoch: part of the dedup identity, so a
         # restarted peer (fresh msg-id counter) opens a fresh window at
         # every receiver instead of colliding with its dead incarnation's
@@ -594,6 +653,7 @@ class PeerTransport:
                     if msg_id is not None:
                         msg_id = int(msg_id)
                     epoch = int(header.get("msg_epoch") or 0)
+                    hold = float(header.pop("chaos_hold_s", 0.0) or 0.0)
                 except (TypeError, ValueError) as e:
                     self._bump("wire_drops")
                     logger.warning("peer %d: dropped frame with hostile "
@@ -625,7 +685,27 @@ class PeerTransport:
                     self._recv_event("dedup", src, epoch, msg_id, header)
                     self._ack(conn)
                     return
-                if self._enqueue(header, trees):
+                if hold > 0:
+                    # chaos reorder: hold the frame so later arrivals
+                    # overtake it. Capacity is checked now (the ack is due
+                    # while the sender waits); a flood during the hold can
+                    # still shed the release, a chaos-only residual
+                    if self.inbox.full():
+                        self._shed_overflow(header, src, msg_id)
+                        return
+                    self._bump("reorders_held")
+                    with self._held_cv:
+                        self._held += 1
+                    t = threading.Timer(hold, self._release_held,
+                                        args=(header, trees))
+                    t.daemon = True
+                    t.start()
+                    # accepted (it enqueues after the hold): the event
+                    # precedes the ack, as for every accepted frame
+                    self._recv_event("accepted", src, epoch, msg_id,
+                                     header, held_s=hold)
+                    self._ack(conn)
+                elif self._enqueue(header, trees):
                     self._recv_event("accepted", src, epoch, msg_id,
                                      header)
                     self._ack(conn)
@@ -678,6 +758,28 @@ class PeerTransport:
         logger.warning("peer %d: inbox full (%d); refused %s (sender "
                        "will retry)", self.peer_id, self.policy.inbox_max,
                        header.get("type"))
+
+    def _release_held(self, header: Dict, trees: Dict) -> None:
+        try:
+            self._enqueue(header, trees)
+        finally:
+            with self._held_cv:
+                self._held -= 1
+                self._held_cv.notify_all()
+
+    def wait_held(self, timeout_s: float) -> bool:
+        """Block until every reorder-held frame has been enqueued (True),
+        or ``timeout_s``. The frames were acked when they arrived, so a
+        message sent after them (a shutdown) must not be acted on before
+        they land."""
+        deadline = time.monotonic() + timeout_s
+        with self._held_cv:
+            while self._held > 0:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return False
+                self._held_cv.wait(left)
+        return True
 
     def _enqueue(self, header: Dict, trees: Dict) -> bool:
         try:
@@ -807,9 +909,13 @@ class PeerTransport:
                 self._threads.append(t)
             i = self._next_msg_id.get(to, 0)
             self._next_msg_id[to] = i + 1
+        # pin the chaos lanes' clock now: a message's fate is a function of
+        # the round that produced it, not of when the worker sends it
+        chaos_clock = (int(self.chaos.clock_fn())
+                       if self.chaos is not None else None)
         item = (dict(header, **{"from": self.peer_id, "msg_id": i,
                                 "msg_epoch": self.epoch}),
-                trees, timeout_s, time.time())
+                trees, timeout_s, time.time(), chaos_clock)
         with self._inflight_cv:
             self._inflight += 1
         blocked = q.full()  # the enqueue is about to wait on the bound
@@ -841,9 +947,10 @@ class PeerTransport:
                 if self._closing.is_set():
                     return
                 continue
-            header, trees, timeout_s, t_start = item
+            header, trees, timeout_s, t_start, chaos_clock = item
             try:
-                self._send_reliable(to, header, trees, timeout_s, t_start)
+                self._send_reliable(to, header, trees, timeout_s, t_start,
+                                    chaos_clock=chaos_clock)
             except Exception:  # noqa: BLE001 — a worker must never die
                 logger.exception("peer %d: sender worker to %d failed",
                                  self.peer_id, to)
@@ -867,10 +974,11 @@ class PeerTransport:
         return True
 
     def _send_reliable(self, to: int, header: Dict, trees: Optional[Dict],
-                       timeout_s: Optional[float], t_start: float) -> bool:
+                       timeout_s: Optional[float], t_start: float,
+                       chaos_clock: Optional[int] = None) -> bool:
         """The reliable-send protocol shared by the sync seam and the
-        sender workers: circuit check, probe budgeting, retry loop,
-        detector feeding, telemetry. ``header`` arrives
+        sender workers: circuit check, probe budgeting, retry loop, chaos
+        draws, detector feeding, telemetry. ``header`` arrives
         already stamped with (from, msg_id, msg_epoch). Thread-safe: all
         counters go through the stats lock."""
         msg_id = header["msg_id"]
@@ -933,15 +1041,25 @@ class PeerTransport:
             # to the link)
             budget_s = min(budget_s, pol.probe_interval_s)
         deadline = time.monotonic() + budget_s
+        # the limp lane's direction-keyed throttle, drawn once per logical
+        # send (the draw is round-keyed) on the wire lane's pinned clock
+        limp_bps = (self.limp.throttle_bps(self.peer_id, to,
+                                           clock=chaos_clock)
+                    if self.limp is not None else None)
         attempt = 0
         while True:
+            acts = (self.chaos.actions(self.peer_id, to, msg_id, attempt,
+                                       clock=chaos_clock)
+                    if self.chaos is not None else None)
             t_att = time.monotonic()
             try:
-                self._deliver(to, header, trees, prefix, deadline)
+                self._attempt(to, header, trees, prefix, acts, deadline,
+                              limp_bps=limp_bps)
                 self.detector.on_success(to)
                 note = getattr(self.detector, "note_rtt", None)
                 if note is not None:
-                    # per-attempt success wall
+                    # per-attempt success wall, pacing included: an
+                    # injected-slow link is a slow link to the estimator
                     note(to, time.monotonic() - t_att, nbytes)
                 # stamped with the send's START instant (t_wall=t_start):
                 # the causal timeline needs the send to precede the recv
@@ -997,12 +1115,75 @@ class PeerTransport:
                              attempt, e, backoff)
                 time.sleep(backoff)
 
+    def _attempt(self, to: int, header: Dict, trees: Optional[Dict],
+                 prefix: bytes, acts: Optional[dict],
+                 deadline: float, limp_bps: Optional[float] = None) -> None:
+        """One transmission attempt: chaos injection, limp pacing, then the
+        delivery. ``prefix`` is the clean frame prefix computed once per
+        logical send; only the reorder path, which adds a header field,
+        recomputes it. Raises :class:`TransportError`."""
+        def _chaos(action: str, **extra) -> None:
+            # per-injection events are high-rate under an armed lane, so
+            # sampled; their coordinates make each injection replayable
+            with self._stats_lock:
+                self.chaos_injected[action] += 1
+            _telemetry.emit_sampled(
+                "chaos", (to, header.get("msg_id"), action),
+                lane="wire", action=action, dst=to,
+                msg_id=header.get("msg_id"), **extra)
+
+        if acts is not None and acts["delay_s"] > 0:
+            _chaos("delay", delay_s=acts["delay_s"])
+            time.sleep(min(acts["delay_s"],
+                           max(deadline - time.monotonic(), 0.0)))
+        if acts is not None and acts["reorder_s"] > 0:
+            _chaos("reorder", hold_s=acts["reorder_s"])
+            header = dict(header, chaos_hold_s=acts["reorder_s"])
+            prefix = frame_prefix(header, trees)
+        corrupt = (acts["corrupt_pos"]
+                   if acts is not None and acts["corrupt"] else None)
+        if corrupt:
+            _chaos("corrupt")
+        if acts is not None and acts["drop"]:
+            # the frame vanishes in the network: the sender learns only
+            # through the missing ack, modelled without burning a timeout
+            _chaos("drop")
+            raise TransportError(
+                f"chaos wire lane dropped msg {header['msg_id']} "
+                f"-> peer {to}")
+        if limp_bps is not None and limp_bps > 0:
+            # the limp throttle: pace the attempt by the frame's wire time
+            # at the degraded rate, bounded by the remaining budget (an
+            # over-throttled frame then fails visibly in _deliver)
+            nbytes = len(prefix) + int.from_bytes(prefix[4:12], "little")
+            pace_s = min(nbytes / limp_bps,
+                         max(deadline - time.monotonic(), 0.0))
+            if pace_s > 0:
+                self._bump("limp_paced")
+                _telemetry.emit_sampled(
+                    "limp.inject", (to, header.get("msg_id"), "throttle"),
+                    kind="throttle", dst=to, msg_id=header.get("msg_id"),
+                    bps=limp_bps, pace_s=round(pace_s, 4))
+                time.sleep(pace_s)
+        self._deliver(to, header, trees, prefix, corrupt, deadline)
+        if acts is not None and acts["dup"]:
+            # a second clean copy of the same frame within the same
+            # deadline: the receiver's dedup window must absorb it
+            _chaos("dup")
+            try:
+                self._deliver(to, header, trees, prefix, None, deadline)
+            except TransportError:
+                pass
+
     def _deliver(self, to: int, header: Dict, trees: Optional[Dict],
-                 prefix: bytes, deadline: float) -> None:
-        """One delivery attempt: connect, STREAM the frame straight from
+                 prefix: bytes, corrupt: Optional[list],
+                 deadline: float) -> None:
+        """One physical delivery: connect, STREAM the frame straight from
         the leaf buffers (wire.write_frame — the payload is never
-        concatenated), read the ack, every socket op capped by the
-        remaining deadline budget. Raises :class:`TransportError`."""
+        concatenated; ``corrupt`` flips bytes in flight), read the ack,
+        every socket op capped by the remaining deadline budget. The
+        attempt and the chaos duplicate both go through it. Raises
+        :class:`TransportError`."""
         budget = deadline - time.monotonic()
         if budget <= 0:
             raise TransportError(f"send deadline budget exhausted "
@@ -1013,7 +1194,8 @@ class PeerTransport:
                     (host, port),
                     timeout=min(self.connect_timeout_s, budget)) as sock:
                 sock.settimeout(min(self.io_timeout_s, budget))
-                write_frame(sock, header, trees, prefix=prefix)
+                write_frame(sock, header, trees, corrupt_frac=corrupt,
+                            prefix=prefix)
                 read_ack(sock, timeout_s=min(self.io_timeout_s, budget))
         except (OSError, socket.timeout, WireError) as e:
             raise TransportError(
@@ -1030,8 +1212,10 @@ class PeerTransport:
             "crc_drops": self.crc_drops,
             "wire_drops": self.wire_drops,
             "inbox_overflow": self.inbox_overflow,
+            "reorders_held": self.reorders_held,
             "circuit_skips": self.circuit_skips,
             "dropped_by_gate": self.dropped_by_gate,
+            "limp_paced": self.limp_paced,
             "pipeline": {
                 "async_enqueued": self.async_enqueued,
                 "backpressure_blocks": self.backpressure_blocks,
@@ -1040,6 +1224,7 @@ class PeerTransport:
                 # stale one is acceptable observability lag
                 "workers": len(self._send_queues),
             },
+            "chaos_injected": dict(self.chaos_injected),
             "detector": {
                 "states": {str(p): s
                            for p, s in self.detector.states().items()},

@@ -331,6 +331,7 @@ def frame_prefix(header: Dict,
 
 def write_frame(sock: socket.socket, header: Dict,
                 trees: Optional[Dict[str, Any]] = None,
+                corrupt_frac: Optional[list] = None,
                 prefix: Optional[bytes] = None) -> int:
     """Stream one frame: CRC32 accumulated over the payload pieces in a
     first zero-copy pass (the prefix carries it, so it must be known before
@@ -345,8 +346,12 @@ def write_frame(sock: socket.socket, header: Dict,
     logical send so re-attempts skip the CRC pass (the streaming analogue
     of "serialize once per logical send").
 
-    JAX's ``corrupt_frac`` hook (the wire chaos lane's in-flight byte
-    flips) comes with that lane, which is not ported yet."""
+    ``corrupt_frac`` (the wire chaos lane's corruption hook) XOR-flips the
+    payload byte at offset ``min(int(f * payload_len), payload_len - 1)``
+    for each fraction, AFTER the CRC pass, so the receiver sees a
+    well-framed message whose CRC no longer matches: JAX's bytes for the
+    same frame and fractions. Only the pieces a flip lands in are copied;
+    the frame is never materialized."""
     parts, total = _frame_parts(header, trees)
     if total > MAX_FRAME:
         raise WireError(f"frame of {total} bytes exceeds MAX_FRAME")
@@ -356,6 +361,9 @@ def write_frame(sock: socket.socket, header: Dict,
             crc = zlib.crc32(p, crc)
         prefix = (MAGIC + struct.pack("<Q", total)
                   + struct.pack("<I", crc))
+    if corrupt_frac and total > 0:
+        parts = _corrupt_parts(
+            parts, [min(int(f * total), total - 1) for f in corrupt_frac])
     sock.sendall(prefix)
     pending: list = []  # coalesce consecutive small pieces
     for p in parts:
@@ -369,6 +377,29 @@ def write_frame(sock: socket.socket, header: Dict,
     if pending:
         sock.sendall(b"".join(pending))
     return PREFIX_LEN + total
+
+
+def _corrupt_parts(parts: list, corrupt_pos: list) -> list:
+    """Flip the payload byte at each absolute offset, copying only the
+    pieces a flip lands in."""
+    out = list(parts)
+    offsets = []
+    off = 0
+    for p in out:
+        offsets.append(off)
+        off += len(p) if isinstance(p, bytes) else p.nbytes
+    for pos in corrupt_pos:
+        pos = min(int(pos), off - 1)
+        if pos < 0:
+            continue
+        # the last piece starting at or before pos (few pieces: linear)
+        for i in range(len(out) - 1, -1, -1):
+            if offsets[i] <= pos:
+                buf = bytearray(out[i])
+                buf[pos - offsets[i]] ^= 0xFF
+                out[i] = bytes(buf)
+                break
+    return out
 
 
 # ---------------------------------------------------------- streaming reader

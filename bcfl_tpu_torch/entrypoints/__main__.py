@@ -27,6 +27,9 @@ flags the ported slice supports.
         --batch-size 4 --ledger --aggregator trimmed_mean --dist-buffer 3 \\
         --reputation --reputation-quarantine-rounds 1000 --chaos-byz 2 \\
         --chaos-byz-behaviors scale,digest_forge --chaos-seed 7
+    python -m bcfl_tpu_torch.entrypoints --preset smoke --device cpu \\
+        --runtime dist --peers 3 --clients 6 --rounds 3 --seq-len 16 \\
+        --batch-size 4 --ledger --chaos-wire drop=0.2,dup=0.2,corrupt=0.05
 
 ``--device`` defaults to ``cuda``, which raises when no GPU is present.
 ``--runtime dist`` spawns ``--peers`` peer processes on the same device
@@ -39,12 +42,15 @@ and ``--chaos-partition-rounds`` there name PEERS and span each peer's
 local rounds. ``--aggregator`` (trimmed_mean, median, krum: the robust
 merge over the leader's arrival set, with JAX's buffer preconditions) and
 ``--reputation*`` (the per-peer tracker) reach ``--runtime dist``, and
-``--chaos-byz*`` arms the byzantine lane there (adversarial PEER ids).
+``--chaos-byz*`` arms the byzantine lane there (adversarial PEER ids),
+``--chaos-wire*`` the wire lane (socket-level faults on every frame).
+Gossip dispatch, the limp and the resource lanes are config fields
+(``DistConfig(dispatch="gossip")``, ``FaultPlan(limp_*, resource_*)``)
+driven through :func:`bcfl_tpu_torch.dist.run_dist`, as in JAX.
 Peer crash and rejoin are the harness's
 (``bcfl_tpu_torch.dist.run_dist(kill_peer=...)``), so ``--resume`` is
 refused with ``--runtime dist``. Any flag of the JAX command line that is
-not listed here is rejected as "not ported yet" (among them
-``--chaos-wire*``).
+not listed here is rejected as "not ported yet".
 """
 
 from __future__ import annotations
@@ -247,6 +253,18 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--chaos-flaky-on-prob", type=float, default=None,
                     metavar="P", help="probability each flaky window "
                     "actually bursts (default 0.5)")
+    ap.add_argument("--chaos-wire", default=None, metavar="SPEC",
+                    help="wire-fault lane for --runtime dist: comma list of "
+                         "K=V with K in {drop,dup,reorder,delay,corrupt} "
+                         "(per-message probabilities) plus optional "
+                         "delay-s / hold-s (seconds), e.g. "
+                         "'drop=0.2,dup=0.2,reorder=0.2,corrupt=0.05' — "
+                         "seeded socket-level frame drop / duplication / "
+                         "reorder-hold / delay-jitter / byte-corruption, "
+                         "absorbed by the self-healing transport")
+    ap.add_argument("--chaos-wire-rounds", default=None, metavar="START:END",
+                    help="bound the wire lane to this half-open span of the "
+                         "sender's local-round clock (default: every round)")
     ap.add_argument("--chaos-byz", default=None, metavar="PEERS",
                     help="byzantine lane for --runtime dist: comma-separated "
                          "ADVERSARIAL peer ids — each rewrites its outbound "
@@ -320,7 +338,8 @@ def _fault_plan(args):
             or args.chaos_crash_round is not None
             or args.chaos_partition is not None
             or args.chaos_churn_leave or args.chaos_churn_join
-            or args.chaos_flaky is not None or args.chaos_byz is not None
+            or args.chaos_flaky is not None or args.chaos_wire is not None
+            or args.chaos_byz is not None
             # the byz sub-flags enter the gate, so one without --chaos-byz
             # reaches the fail-loudly check below
             or args.chaos_byz_behaviors is not None
@@ -378,6 +397,29 @@ def _fault_plan(args):
             plan_kw["flaky_burst_len"] = args.chaos_flaky_burst
         if args.chaos_flaky_on_prob is not None:
             plan_kw["flaky_on_prob"] = args.chaos_flaky_on_prob
+    if args.chaos_wire is not None:
+        wire_keys = {"drop": "wire_drop_prob", "dup": "wire_dup_prob",
+                     "reorder": "wire_reorder_prob",
+                     "delay": "wire_delay_prob",
+                     "corrupt": "wire_corrupt_prob",
+                     "delay-s": "wire_delay_s",
+                     "hold-s": "wire_reorder_hold_s"}
+        for part in args.chaos_wire.split(","):
+            try:
+                k, v = part.split("=")
+                plan_kw[wire_keys[k.strip()]] = float(v)
+            except (ValueError, KeyError):
+                raise SystemExit(
+                    f"--chaos-wire {part!r}: expected K=V with K in "
+                    f"{sorted(wire_keys)}")
+        if not any(plan_kw.get(wire_keys[k])
+                   for k in ("drop", "dup", "reorder", "delay", "corrupt")):
+            # delay-s/hold-s alone arm nothing: fail loudly instead of
+            # injecting zero faults under a chaos-looking flag
+            raise SystemExit(
+                f"--chaos-wire {args.chaos_wire!r} sets no "
+                "probability: add at least one of "
+                "drop/dup/reorder/delay/corrupt > 0")
     if args.chaos_byz is not None:
         try:
             plan_kw["byz_peers"] = tuple(
@@ -412,6 +454,22 @@ def _fault_plan(args):
           or args.chaos_byz_rounds is not None):
         raise SystemExit("--chaos-byz-* tuning flags have no effect "
                          "without --chaos-byz PEERS")
+    if args.chaos_wire_rounds is not None:
+        if args.chaos_wire is None:
+            raise SystemExit("--chaos-wire-rounds has no effect "
+                             "without --chaos-wire")
+        try:
+            lo, hi = (int(x) for x in args.chaos_wire_rounds.split(":"))
+        except ValueError:
+            raise SystemExit(f"--chaos-wire-rounds "
+                             f"{args.chaos_wire_rounds!r}: expected "
+                             "START:END")
+        if hi <= lo:
+            raise SystemExit(f"--chaos-wire-rounds "
+                             f"{args.chaos_wire_rounds!r}: empty span "
+                             "(END must be > START; the span is "
+                             "half-open)")
+        plan_kw["wire_rounds"] = tuple(range(lo, hi))
     return FaultPlan(**plan_kw)
 
 

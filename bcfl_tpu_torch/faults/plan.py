@@ -32,16 +32,24 @@ the failures the local engine is stressed with:
 
 Every draw comes from ``np.random.default_rng((seed, lane, round))`` with
 the JAX package's lane numbers, so the schedules are the JAX package's bit
-for bit. Of the JAX plan's lanes for its multi-process runtime, the
-storage lane (:meth:`FaultPlan.storage_action`,
-:meth:`FaultPlan.sync_tamper_action`) and the byzantine lane
-(:meth:`FaultPlan.byz_action`, :meth:`FaultPlan.byz_rng`, consumed by
-:class:`bcfl_tpu_torch.dist.byzantine.ByzantineAdversary`) draw here, over
-numpy generators keyed as JAX keys them. The wire, limp and resource
-lanes carry their fields with JAX's names and defaults, so a config can
-name them, but they draw nothing and the config refuses an armed one
-("not ported yet" on ``runtime="dist"``, JAX's own reason on
-``"local"``).
+for bit. The JAX plan's lanes for its multi-process runtime draw here too,
+over numpy generators keyed as JAX keys them:
+
+- **wire** (:meth:`FaultPlan.wire_actions`): per transmission attempt,
+  drop / duplicate / reorder-hold / delay-jitter / byte-corruption,
+  injected at the socket by :class:`bcfl_tpu_torch.dist.transport.WireChaos`;
+- **byzantine** (:meth:`FaultPlan.byz_action`, :meth:`FaultPlan.byz_rng`),
+  consumed by :class:`bcfl_tpu_torch.dist.byzantine.ByzantineAdversary`;
+- **storage** (:meth:`FaultPlan.storage_action`,
+  :meth:`FaultPlan.sync_tamper_action`), damage at rest after a commit;
+- **limp** (:meth:`FaultPlan.limp_action`, :meth:`FaultPlan.limp_throttle`):
+  peers slow but alive, a stall at the train seam and a direction-keyed
+  link throttle (:class:`bcfl_tpu_torch.dist.transport.LimpChaos`);
+- **resource** (:meth:`FaultPlan.resource_action`): ENOSPC/EMFILE at a
+  durable-write seam (:data:`RESOURCE_SEAMS`), answered by the runtime's
+  GC -> shed -> exit ladder.
+
+The local engine refuses the dist-only lanes with JAX's reasons.
 """
 
 from __future__ import annotations
@@ -69,8 +77,11 @@ _LANE_STRAGGLER = 2
 _LANE_CORRUPT = 3
 _LANE_PARTITION = 4
 _LANE_FLAKY = 5
+_LANE_WIRE = 6
 _LANE_BYZ = 7
 _LANE_STORAGE = 8
+_LANE_LIMP = 9
+_LANE_RESOURCE = 10
 
 # the dist-only lanes' vocabularies (JAX's canonical orders)
 BYZ_BEHAVIORS = ("scale", "sign_flip", "garbage", "replay", "digest_forge",
@@ -78,6 +89,9 @@ BYZ_BEHAVIORS = ("scale", "sign_flip", "garbage", "replay", "digest_forge",
 STORAGE_CLASSES = ("torn", "payload_flip", "meta_flip", "truncate",
                    "delete", "ledger", "rollback")
 RESOURCE_CLASSES = ("enospc", "emfile")
+# the durable-write seams the dist runtime consults the resource lane at,
+# in canonical index order (the index keys the draw)
+RESOURCE_SEAMS = ("checkpoint", "ledger", "events")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,13 +137,17 @@ class FaultPlan:
     flaky_burst_len: int = 3
     flaky_on_prob: float = 0.5
     flaky_scale: float = 1e6
-    # --- the JAX plan's dist-only lanes: wire faults, byzantine peers,
-    # storage damage, limp (gray failure) and resource (ENOSPC/EMFILE)
-    # faults (the wire, limp and resource lanes are fields only, see the
-    # module docstring). Byzantine: `byz_peers` act per (peer, round) with
-    # probability `byz_prob`, drawing one of `byz_behaviors`; `byz_scale`
-    # is the scale/garbage magnitude, `byz_rounds` bounds the lane to a
-    # span of the adversary's local-round clock ---
+    # --- the JAX plan's dist-only lanes. Wire: per-attempt drop / dup /
+    # reorder-hold (`wire_reorder_hold_s` at the receiver) / delay jitter
+    # (uniform [0, wire_delay_s)) / byte corruption, `wire_rounds` bounding
+    # the sender's wire clock. Byzantine: `byz_peers` act per (peer, round)
+    # with probability `byz_prob`, drawing one of `byz_behaviors`;
+    # `byz_scale` is the scale/garbage magnitude, `byz_rounds` bounds the
+    # lane to a span of the adversary's local-round clock. Storage: damage
+    # at rest per (peer, version). Limp: `limp_peers` stall their train
+    # seam `limp_stall_s` and, with `limp_throttle_bps` > 0, pace their
+    # links per direction (`limp_oneway`: outbound only). Resource:
+    # ENOSPC/EMFILE per (seam, write counter, peer) ---
     wire_drop_prob: float = 0.0
     wire_dup_prob: float = 0.0
     wire_reorder_prob: float = 0.0
@@ -187,8 +205,11 @@ class FaultPlan:
         self._check_partition()
         self._check_churn()
         self._check_flaky()
+        self._check_wire()
         self._check_byz()
         self._check_storage()
+        self._check_limp()
+        self._check_resource()
 
     def _check_partition(self):
         if self.partition_groups is not None:
@@ -271,6 +292,25 @@ class FaultPlan:
         if not np.isfinite(self.flaky_scale):
             raise ValueError("flaky_scale must be finite (same fingerprint-"
                              "poisoning concern as corrupt_scale)")
+
+    def _check_wire(self):
+        for name in ("wire_reorder_hold_s", "wire_delay_s"):
+            v = getattr(self, name)
+            if v < 0 or not np.isfinite(v):
+                raise ValueError(f"{name} must be finite and >= 0, got {v}")
+        if self.wire_rounds is not None:
+            if not isinstance(self.wire_rounds, tuple):
+                raise ValueError("wire_rounds must be a tuple of round "
+                                 "indices (hashable — the plan lives inside "
+                                 "the frozen FedConfig)")
+            if not self.wire_rounds:
+                raise ValueError(
+                    "wire_rounds is empty: the wire lane would silently "
+                    "never fire (check the span bounds)")
+            if not self.wire_enabled:
+                raise ValueError(
+                    "wire_rounds without any wire_*_prob > 0 would "
+                    "silently never inject a wire fault")
 
     def _check_byz(self):
         if self.byz_peers is not None:
@@ -368,13 +408,96 @@ class FaultPlan:
                 raise ValueError(
                     f"sync_tamper lists a pair twice: {self.sync_tamper!r}")
 
+    def _check_limp(self):
+        if self.limp_peers is not None:
+            if not (isinstance(self.limp_peers, tuple)
+                    and all(isinstance(p, int) and p >= 0
+                            for p in self.limp_peers)):
+                raise ValueError(
+                    "limp_peers must be a tuple of non-negative peer ids "
+                    "(hashable — the plan lives inside the frozen "
+                    "FedConfig)")
+            if len(set(self.limp_peers)) != len(self.limp_peers):
+                raise ValueError(
+                    f"limp_peers lists a peer twice: {self.limp_peers!r}")
+            if self.limp_prob <= 0.0:
+                raise ValueError(
+                    "limp_peers with limp_prob=0 would silently never limp "
+                    "— the exact vacuous-pass this lane must not have")
+        for name in ("limp_stall_s", "limp_throttle_bps"):
+            v = getattr(self, name)
+            if v < 0 or not np.isfinite(v):
+                raise ValueError(f"{name} must be finite and >= 0, got {v}")
+        if (self.limp_prob > 0 and self.limp_stall_s <= 0
+                and self.limp_throttle_bps <= 0):
+            raise ValueError(
+                "limp_prob > 0 with limp_stall_s=0 and limp_throttle_bps=0 "
+                "injects nothing — the exact silent no-op this lane must "
+                "not have")
+        if self.limp_rounds is not None:
+            if not isinstance(self.limp_rounds, tuple):
+                raise ValueError("limp_rounds must be a tuple of round "
+                                 "indices (hashable — the plan lives inside "
+                                 "the frozen FedConfig)")
+            if not self.limp_rounds:
+                raise ValueError(
+                    "limp_rounds is empty: the limp lane would silently "
+                    "never fire (check the span bounds)")
+            if self.limp_prob <= 0.0:
+                raise ValueError(
+                    "limp_rounds without limp_prob > 0 would silently "
+                    "never limp a peer")
+
+    def _check_resource(self):
+        if self.resource_peers is not None:
+            if not (isinstance(self.resource_peers, tuple)
+                    and all(isinstance(p, int) and p >= 0
+                            for p in self.resource_peers)):
+                raise ValueError(
+                    "resource_peers must be a tuple of non-negative peer "
+                    "ids (hashable — the plan lives inside the frozen "
+                    "FedConfig)")
+            if len(set(self.resource_peers)) != len(self.resource_peers):
+                raise ValueError(
+                    f"resource_peers lists a peer twice: "
+                    f"{self.resource_peers!r}")
+            if self.resource_prob <= 0.0:
+                raise ValueError(
+                    "resource_peers with resource_prob=0 would silently "
+                    "never fail a write — the exact vacuous-pass this lane "
+                    "must not have")
+        if not (isinstance(self.resource_classes, tuple)
+                and self.resource_classes):
+            raise ValueError("resource_classes must be a non-empty tuple")
+        bad = [c for c in self.resource_classes if c not in RESOURCE_CLASSES]
+        if bad:
+            raise ValueError(
+                f"unknown resource failure classes {bad}; known: "
+                f"{RESOURCE_CLASSES}")
+        if self.resource_rounds is not None:
+            if not isinstance(self.resource_rounds, tuple):
+                raise ValueError("resource_rounds must be a tuple of write-"
+                                 "counter indices (hashable — the plan "
+                                 "lives inside the frozen FedConfig)")
+            if not self.resource_rounds:
+                raise ValueError(
+                    "resource_rounds is empty: the resource lane would "
+                    "silently never fire (check the span bounds)")
+            if self.resource_prob <= 0.0:
+                raise ValueError(
+                    "resource_rounds without resource_prob > 0 would "
+                    "silently never fail a durable write")
+
     # ------------------------------------------------------------------ query
 
     @property
     def enabled(self) -> bool:
         return (self.dropout_prob > 0 or self.straggler_prob > 0
                 or self.corrupt_prob > 0 or self.crash_at_round is not None
-                or self.partitions or self.churns or self.flaky_enabled)
+                or self.partitions or self.churns or self.flaky_enabled
+                or self.wire_enabled or self.byz_enabled
+                or self.storage_enabled or self.limp_enabled
+                or self.resource_enabled)
 
     @property
     def partitions(self) -> bool:
@@ -529,6 +652,39 @@ class FaultPlan:
                        self.flaky_scale, 0.0)
         return row.astype(np.float32) if row.any() else None
 
+    def wire_actions(self, rnd: int, src: int, dst: int, msg_id: int,
+                     attempt: int = 0) -> Optional[dict]:
+        """Socket-level fault draw for one transmission attempt of message
+        ``(src, dst, msg_id)`` while the sender's wire clock reads ``rnd``
+        (its local round). None when the lane is off or not due, else
+        ``{"drop", "dup", "reorder_s", "delay_s", "corrupt",
+        "corrupt_pos"}``: lose the attempt, send a second clean copy,
+        hold it at the receiver, sleep before sending, flip payload bytes
+        after the CRC at the fractions ``corrupt_pos``. ``attempt`` is in
+        the key, so a retry re-rolls its fate; the same coordinates always
+        replay the same fault."""
+        if not self.wire_enabled or not self._due(self.wire_rounds, rnd):
+            return None
+        rng = self._wire_rng(rnd, src, dst, msg_id, attempt)
+        draw = rng.random(5)
+        delay = 0.0
+        if self.wire_delay_prob > 0 and draw[3] < self.wire_delay_prob:
+            delay = float(rng.random() * self.wire_delay_s)
+        return {
+            "drop": bool(draw[0] < self.wire_drop_prob),
+            "dup": bool(draw[1] < self.wire_dup_prob),
+            "reorder_s": (self.wire_reorder_hold_s
+                          if draw[2] < self.wire_reorder_prob else 0.0),
+            "delay_s": delay,
+            "corrupt": bool(draw[4] < self.wire_corrupt_prob),
+            "corrupt_pos": tuple(float(x) for x in rng.random(4)),
+        }
+
+    def _wire_rng(self, rnd: int, src: int, dst: int, msg_id: int,
+                  attempt: int) -> np.random.Generator:
+        return np.random.default_rng(
+            (self.seed, _LANE_WIRE, rnd, src, dst, msg_id, attempt))
+
     def storage_action(self, version: int, peer: int) -> Optional[dict]:
         """Durable-state damage draw for one freshly committed checkpoint
         of ``peer`` at ``version`` (its global-version clock): None when
@@ -592,6 +748,71 @@ class FaultPlan:
         rng = np.random.default_rng(
             (self.seed, _LANE_STORAGE, server, requester, 1))
         return {"frac": float(rng.random())}
+
+    def limp_action(self, rnd: int, peer: int) -> Optional[dict]:
+        """Gray-failure draw for one round of ``peer`` while its local
+        round reads ``rnd``: None at full speed, else ``{"stall_s": <train
+        seam sleep>, "throttle_bps": <link rate this round, 0 =
+        unthrottled>}``. The throttle is consumed per direction through
+        :meth:`limp_throttle`."""
+        if not self.limp_enabled:
+            return None
+        if self.limp_peers is not None and peer not in self.limp_peers:
+            return None
+        if not self._due(self.limp_rounds, rnd):
+            return None
+        rng = np.random.default_rng((self.seed, _LANE_LIMP, rnd, peer))
+        if rng.random() >= self.limp_prob:
+            return None
+        return {"stall_s": float(self.limp_stall_s),
+                "throttle_bps": float(self.limp_throttle_bps)}
+
+    def limp_throttle(self, rnd: int, src: int, dst: int) -> Optional[float]:
+        """The byte rate the ``src -> dst`` direction is degraded to while
+        the sender's clock reads ``rnd``, or None when it is healthy. Keyed
+        by the ORDERED pair, so A->B can limp while B->A stays healthy;
+        with ``limp_oneway`` only a limp peer's outbound side is
+        eligible."""
+        if not self.limp_enabled or self.limp_throttle_bps <= 0:
+            return None
+        if not self._due(self.limp_rounds, rnd):
+            return None
+        if not (self._is_limp_peer(src)
+                or (not self.limp_oneway and self._is_limp_peer(dst))):
+            return None
+        rng = np.random.default_rng(
+            (self.seed, _LANE_LIMP, rnd, src, dst, 1))
+        if rng.random() >= self.limp_prob:
+            return None
+        return float(self.limp_throttle_bps)
+
+    def _is_limp_peer(self, peer: int) -> bool:
+        return self.limp_peers is None or peer in self.limp_peers
+
+    def resource_action(self, seam: str, counter: int,
+                        peer: int) -> Optional[dict]:
+        """Durable-write failure draw for one write at ``seam`` (a
+        :data:`RESOURCE_SEAMS` name) while that seam's counter reads
+        ``counter`` (checkpoint: the version; ledger: the chain length;
+        events: the flush sequence). None when the write proceeds, else
+        ``{"cls": <one of resource_classes>, "depth": 1 | 2 | 3}``: the
+        fault clears after emergency GC (1), after the telemetry shed (2),
+        or survives both (3, the peer exits with the durability code)."""
+        if not self.resource_enabled:
+            return None
+        if (self.resource_peers is not None
+                and peer not in self.resource_peers):
+            return None
+        if not self._due(self.resource_rounds, counter):
+            return None
+        seam_idx = RESOURCE_SEAMS.index(seam)  # an unknown seam fails loud
+        rng = np.random.default_rng(
+            (self.seed, _LANE_RESOURCE, seam_idx, counter, peer))
+        if rng.random() >= self.resource_prob:
+            return None
+        pick = int(rng.integers(len(self.resource_classes)))
+        depth = 1 + int(rng.integers(3))
+        return {"cls": self.resource_classes[pick], "depth": depth}
 
 
 class FaultInjector:

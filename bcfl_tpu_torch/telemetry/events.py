@@ -330,11 +330,30 @@ class EventWriter:
             # list and its own flush writes only those events — no line
             # is ever written twice
             buf, self._buf = self._buf, []
+            data = b"".join(buf)
+            fault = self.write_fault
             try:
-                data = b"".join(buf)
-                fault = self.write_fault
                 if fault is not None:
                     fault(len(data))  # may raise OSError (injected seam)
+            except OSError as e:
+                # an injected ENOSPC/EMFILE fails the write before any
+                # byte lands: the batch stays buffered, ahead of what
+                # arrived meanwhile, for the next flush. (JAX drops it,
+                # never-sampled events included, and the invariants then
+                # read an accepted frame of that batch as lost.)
+                self._buf = buf + self._buf
+                self._last_flush = time.monotonic()
+                logger.warning("telemetry: flush to %s failed: %s",
+                               self.path, e)
+                self._shed_on_errno(e)
+                return
+            except Exception as e:  # noqa: BLE001 — a broken hook drops
+                self.dropped += len(buf)
+                logger.warning("telemetry: flush to %s failed: %s",
+                               self.path, e)
+                self._last_flush = time.monotonic()
+                return
+            try:
                 self._f.write(data)
                 self._f.flush()  # buffered write to the OS; no fsync
             except Exception as e:  # noqa: BLE001
@@ -345,29 +364,37 @@ class EventWriter:
                 self.dropped += len(buf)
                 logger.warning("telemetry: flush to %s failed: %s",
                                self.path, e)
-                if isinstance(e, OSError) and e.errno in (28, 24):
-                    # ENOSPC/EMFILE on the stream: the disk this stream
-                    # shares with the ledger/checkpoints is failing
-                    # writes — shed sampled telemetry immediately so
-                    # durable bytes get whatever headroom remains.
-                    # RLock: the write.shed emit below re-enters fine;
-                    # it lands in the fresh buffer, never this one.
-                    if not self.shedding:
-                        self.shedding = True
-                        self.emit("write.shed", seam="events", mode="on",
-                                  errno=e.errno)
+                self._shed_on_errno(e)
         self._last_flush = time.monotonic()
+
+    def _shed_on_errno(self, e: BaseException) -> None:  # guarded-by: _lock
+        if isinstance(e, OSError) and e.errno in (28, 24):
+            # ENOSPC/EMFILE on the stream: the disk this stream shares
+            # with the ledger/checkpoints is failing writes — shed sampled
+            # telemetry immediately so durable bytes get whatever headroom
+            # remains. RLock: the write.shed emit below re-enters fine.
+            if not self.shedding:
+                self.shedding = True
+                self.emit("write.shed", seam="events", mode="on",
+                          errno=e.errno)
+
+    def _drain_locked(self) -> None:  # guarded-by: _lock
+        # a batch an injected fault kept is retried: each flush draws anew
+        for _ in range(8):
+            self._flush_locked()
+            if not self._buf:
+                return
 
     def flush(self) -> None:
         with self._lock:
             if not self._closed:
-                self._flush_locked()
+                self._drain_locked()
 
     def close(self) -> None:
         with self._lock:
             if self._closed:
                 return
-            self._flush_locked()
+            self._drain_locked()
             self._closed = True
             try:
                 self._f.close()

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``bcfl_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # phases 1-4, paths (a)-(q)
+    python3 chip_smoke.py              # phases 1-4, paths (a)-(s)
     python3 chip_smoke.py --profile    # phases 1-4, then 5
 
 Phases, each of which raises (and the script exits non-zero) on failure:
@@ -125,10 +125,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (biobert-base, 40 labels, 10 clients) on path (c)'s corpus as 5 peer
    processes of 2 clients each on the one card, buffered async merging
    every arrival, ``int8+topk`` with error feedback, the ledger over the
-   announced digests, 6 global versions of 2 local steps of 32 x 128
+   announced digests, 4 global versions of 2 local steps of 32 x 128
    tokens (``bcfl_tpu_torch.dist.run_dist``; the peers are fresh
    interpreters started after the builds). Every peer must exit 0 at
-   version 6 with ``chain_ok``, the heads must agree, no arrival may fail
+   version 4 with ``chain_ok``, the heads must agree, no arrival may fail
    authentication, K4 and K5 must launch in every peer (the record counts
    the peers' launches), some arrival must be stale, and the collated
    event timeline must hold every invariant; it prints per peer the
@@ -158,8 +158,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    residual equal to the kept checkpoint file bit for bit, and prints
    the heads, the solo merges, the reconcile, the gate drops, the saves,
    the restore and the seconds from the kill to the first resumed round;
-   (p) ``tests/test_storage_faults.py``'s repair, a checkpoint every
-   version (2 kept), quorum 0.9, every peer in each merge, peer 4
+   (p) ``tests/test_storage_faults.py``'s repair, 5 versions, a checkpoint
+   every version (2 kept), quorum 0.9, every peer in each merge, peer 4
    SIGKILLed, its newest meta bit-flipped while it is down and restarted
    with ``--resume --bootstrap``, the leader's first serve to it
    tampered; it gates on a ``damaged`` scrub, a refused transfer, a
@@ -178,7 +178,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (the outlier lane weighed 1.0, since the fingerprint cannot see a
    forged codec scale), peer 4 scaling and forging every update 25x,
    resource samples every 2 s, a checkpoint every 2 versions, the leader
-   SIGKILLed after its version-4 checkpoint and resumed, 8 versions. It
+   SIGKILLed after its version-4 checkpoint and resumed, 6 versions. It
    gates on the script's gates (peer 4 quarantined at the leader within
    half the versions and at every follower, post-ack refusals, no
    quarantined merge and no other violation across both leader
@@ -188,9 +188,34 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``detector.phi`` events in every peer's stream, and prints the
    verdict's version, the leader's trust and the rule's seconds per
    merge, the restore and the kill-to-merge seconds and the final loss
-   beside (m)'s. (m), (o), (p) and (q) print (m)'s per-peer, frame,
-   latency and merge lines, and add every incarnation's launches to the
-   record.
+   beside (m)'s. Then the chaos lanes and the leaderless dispatch at
+   (m)'s width: (r) (m) under the wire lane of
+   ``scripts/dist_chaos.py`` (drop, dup, reorder and delay 0.2, corrupt
+   0.05) for the whole run, peer 3 limping (2 s stalls at the train seam
+   and its outbound link paced at 64 MiB/s, each on 35% of its rounds)
+   and peer 2's durable writes and event flushes failing with ENOSPC or
+   EMFILE on the resource lane's draws (never depth 3), per-peer
+   reputation, a checkpoint every version; it gates on the wire leg's
+   gates (every peer exits 0, no invariant violation over a nonzero
+   merge count, retries, duplicates dropped, CRC drops and reorder holds
+   nonzero, a detector SUSPECT and back, one verified head), peer 3's
+   stalls exactly the plan's draws and peer 3 never quarantined, peer 2's
+   ``resource.inject`` events the plan's draws each followed by its
+   ladder rung, and K4/K5 launched in every peer round, and prints the
+   chaos counters by action, the paced seconds and the merge walls; (s)
+   gossip dispatch, JAX's partition-heal loopback at full width and 5
+   peers (``gossip_fanout`` 2, ``trimmed_mean``, reputation, whole float32
+   states on the wire, a partition (0, 1) | (2, 3, 4) on local rounds
+   2-3, 6 rounds a peer), after the merge of 3 biobert-base states on the
+   card held bit for bit to the same reduction in numpy on the host; it
+   gates on every peer exiting 0 at version 6 on its own clock with a
+   verified chain and its own component, no invariant violation (the
+   leaderless heal included), a leaderless fork begin and heal at every
+   peer, a vote-floor event on the 2-peer side, no quarantine and finite
+   losses, and prints the push bytes and seconds, the merge count, the
+   lag histogram and the card's and host's merge milliseconds. (m)-(r)
+   print (m)'s per-peer, frame, latency and merge lines, and add every
+   incarnation's launches to the record.
 4. ``reference``: on small inputs, a tiny-bert server round on the card
    against the same round on the CPU (float32, dropout off, at the
    tolerance of ``tests/test_torch_round.py``), with dense attention at
@@ -1155,7 +1180,7 @@ def dist_config(dataset: str, **kw):
     contiguous partition of stride 500, train 400, fixed test 400) on the
     multi-process runtime: 5 peer processes of 2 clients each, buffered
     async with a merge on every arrival (``buffer=0``), ``int8+topk`` with
-    error feedback, the ledger on; cut to 6 global versions of 2 local
+    error feedback, the ledger on; cut to 4 global versions of 2 local
     steps of 32 x 128 tokens, 4 evaluation batches at the end, no
     checkpoints."""
     from bcfl_tpu_torch.compression import CompressionConfig
@@ -1164,7 +1189,7 @@ def dist_config(dataset: str, **kw):
 
     base = dict(name="chip-smoke-dist-noniid-medical", dataset=dataset,
                 vocab_size=28996, runtime="dist", sync="async",
-                num_rounds=6, max_local_batches=2, max_eval_batches=4,
+                num_rounds=4, max_local_batches=2, max_eval_batches=4,
                 eval_every=0,
                 compression=CompressionConfig(kind="int8+topk"),
                 ledger=LedgerConfig(enabled=True),
@@ -1496,14 +1521,19 @@ def phase_partition_kill(stats, smi, dataset):
 
 def phase_storage_repair(stats, smi, dataset):
     """Path (p): ``tests/test_storage_faults.py``'s repair at (m)'s full
-    width, cut to 3 versions: a checkpoint every version (the newest 2
-    kept), quorum 0.9, peer 4 SIGKILLed once after 30 s (and a committed
-    checkpoint), its newest meta sidecar bit-flipped while it is down and
+    width, cut to 5 versions: a checkpoint every version (the newest 2
+    kept), quorum 0.9, peer 4 SIGKILLed at its first committed checkpoint
+    (version 1), its newest meta sidecar bit-flipped while it is down and
     restarted with --resume --bootstrap; the leader tampers its first
-    serve to peer 4. Gates on a ``damaged`` scrub, a refused
-    transfer, a verified one then the adopt, ``repair_authenticated`` and
-    ``no_rollback_readmission`` at 0 and no violation at all, every peer
-    ok with agreeing heads, and K4/K5 in the repaired incarnation."""
+    serve to peer 4. The updates peer 4 sent before it died can still
+    fill the leader's merges up to version 3, so versions 4 and 5 are the
+    ones that wait for the repaired peer. With 3 versions and a kill
+    after 30 s, a leader that finished first once left peer 4 repaired
+    at the target with no leader to stop it. Gates on a ``damaged``
+    scrub, a refused transfer, a verified one then the adopt,
+    ``repair_authenticated`` and ``no_rollback_readmission`` at 0 and no
+    violation at all, every peer ok with agreeing heads, and K4/K5 in
+    the repaired incarnation."""
     from bcfl_tpu_torch.dist import run_dist
     from bcfl_tpu_torch.faults import FaultPlan
 
@@ -1511,7 +1541,7 @@ def phase_storage_repair(stats, smi, dataset):
     # buffer=5 with a long timeout: the leader merges only with every
     # peer's update, so the fleet waits for the repaired peer
     cfg = base.replace(
-        name="chip-smoke-dist-storage-repair", num_rounds=3,
+        name="chip-smoke-dist-storage-repair", num_rounds=5,
         faults=FaultPlan(sync_tamper=((0, 4),)),
         dist=dataclasses.replace(base.dist, buffer=5,
                                  buffer_timeout_s=120.0,
@@ -1526,7 +1556,7 @@ def phase_storage_repair(stats, smi, dataset):
     t0 = time.perf_counter()
     result = run_dist(cfg, str(run_dir), deadline_s=480.0, device="cuda",
                       threads=1,
-                      churn={"peer": 4, "cycles": 1, "period_s": 30.0,
+                      churn={"peer": 4, "cycles": 1, "period_s": 10.0,
                              "downtime_s": 2.0, "stop_after_s": 200.0,
                              "damage": ["meta_flip"], "bootstrap": True})
     wall = time.perf_counter() - t0
@@ -1587,10 +1617,10 @@ def byzantine_config(dataset: str):
     sender), per-peer reputation (quarantine longer than the run), peer 4
     adversarial at every round (``scale`` and ``digest_forge`` at 25x,
     chaos seed 11, whose draw opens with two forgeries), resource samples
-    every 2 s, a checkpoint every 2 versions (the newest kept); 8
-    versions. The outlier lane weighs 1.0 (``w_anomaly``; default 0.5):
-    under ``int8+topk`` the ledger fingerprint, JAX's design, cannot see
-    a forged 25x of the codec's per-chunk scales at fine-tuning delta
+    every 2 s, a checkpoint every 2 versions (the newest kept); 6
+    versions (cut from the script's 8). The outlier lane weighs 1.0
+    (``w_anomaly``; default 0.5): under ``int8+topk`` the ledger
+    fingerprint, JAX's design, cannot see a forged 25x of the codec's per-chunk scales at fine-tuning delta
     sizes (the codes and indices dominate its float32 folds), so both
     behaviors reach the tracker only as outliers of the robust merge, and
     at 0.5 a pure outlier parks at SUSPECT (trust's fixed point 0.5)."""
@@ -1599,7 +1629,7 @@ def byzantine_config(dataset: str):
 
     base = dist_config(dataset)
     return base.replace(
-        name="chip-smoke-dist-byzantine", num_rounds=8,
+        name="chip-smoke-dist-byzantine", num_rounds=6,
         aggregator="trimmed_mean", aggregator_trim=0.2,
         reputation=ReputationConfig(enabled=True, quarantine_rounds=100_000,
                                     w_anomaly=1.0),
@@ -1862,10 +1892,450 @@ def phase_byzantine(stats, smi, dataset, m_loss):
     print_dist_timeline(label, result, col, wall)
     loss = (leader.get("final_eval") or {}).get("loss")
     print(f"{label}: final loss {loss} beside (m)'s adversary-free "
-          f"{m_loss} (printed, not gated: mean over 6 versions there, "
-          f"trimmed_mean with a quarantined peer over 8 here)", flush=True)
+          f"{m_loss} (printed, not gated: mean over 4 versions there, "
+          f"trimmed_mean with a quarantined peer over 6 here)", flush=True)
     if loss is None or not math.isfinite(loss):
         raise RuntimeError(f"{label}: final loss {loss}")
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+
+# ------------------------------- the chaos lanes and gossip dispatch
+
+CHAOS_RESOURCE_PEER = 2
+CHAOS_LIMP_PEER = 3
+#: the chaos seed of path (r), chosen on the host from the plan's draws
+#: (``chaos_seed_ok``): the first seed of 0-399 meeting its conditions
+#: with the most ledger-depth coverage over simulated chain lengths
+CHAOS_SEED = 202
+
+
+def chaos_lanes(seed: int) -> dict:
+    """Path (r)'s fault-plan fields for ``seed``: ``scripts/dist_chaos.py``'s
+    wire leg (drop, dup, reorder and delay 0.2, corrupt 0.05, holds of
+    0.2 s, delays under 0.1 s) for the whole run; peer 3 limping (stall
+    2 s at the train seam with probability 0.35, its outbound link paced
+    at 64 MiB/s on the same draw rate); peer 2's durable writes and event
+    flushes failing on every due counter (``resource_prob`` 1.0) of
+    ``resource_rounds``: every counter whose ledger draw (and, up to 16,
+    checkpoint draw) is depth 1 or 2. A depth-3 fault would exit the peer
+    with the durability code, so those counters are left out."""
+    from bcfl_tpu_torch.faults import FaultPlan
+
+    lanes = dict(seed=seed, wire_drop_prob=0.2, wire_dup_prob=0.2,
+                 wire_reorder_prob=0.2, wire_reorder_hold_s=0.2,
+                 wire_delay_prob=0.2, wire_delay_s=0.1,
+                 wire_corrupt_prob=0.05,
+                 limp_peers=(CHAOS_LIMP_PEER,), limp_prob=0.35,
+                 limp_stall_s=2.0, limp_oneway=True,
+                 limp_throttle_bps=float(64 << 20),
+                 resource_peers=(CHAOS_RESOURCE_PEER,), resource_prob=1.0)
+    probe = FaultPlan(**lanes)
+
+    def depth(seam, c):
+        return probe.resource_action(seam, c, CHAOS_RESOURCE_PEER)["depth"]
+
+    due = tuple(c for c in range(4096) if depth("ledger", c) <= 2
+                and (c > 16 or depth("checkpoint", c) <= 2))
+    return dict(lanes, resource_rounds=due)
+
+
+def chaos_seed_ok(plan, rounds: int) -> bool:
+    """The conditions path (r)'s seed meets, read off the plan's draws:
+    peer 3 stalls and is paced in at least two of its first ``rounds``
+    rounds; peer 2's first event flush fails; its checkpoint writes at
+    versions 1..``rounds`` that are due fail at depth 1 twice or more and
+    at depth 2 twice or more (so the durable ladder's both remedies run
+    whichever versions it adopts)."""
+    stalls = [r for r in range(rounds)
+              if plan.limp_action(r, CHAOS_LIMP_PEER) is not None]
+    paced = [r for r in range(rounds)
+             if plan.limp_throttle(r, CHAOS_LIMP_PEER, 0) is not None]
+    ck = [plan.resource_action("checkpoint", v, CHAOS_RESOURCE_PEER)
+          for v in range(1, rounds + 1)]
+    depths = [a["depth"] for a in ck if a is not None]
+    return (len(stalls) >= 2 and len(paced) >= 2
+            and plan.resource_action("events", 0,
+                                     CHAOS_RESOURCE_PEER) is not None
+            and depths.count(1) >= 2 and depths.count(2) >= 2)
+
+
+def chaos_config(dataset: str, seed: int):
+    """Path (r): (m)'s preset and width (biobert-base, vocab 28,996, 40
+    labels, 5 peers of 2 clients, ``buffer=0``, ``int8+topk`` with error
+    feedback, the ledger; 6 versions of 2 local steps of 32 x 128 tokens)
+    under the three lanes of ``chaos_lanes(seed)``, per-peer reputation
+    (so "never quarantined" is a verdict of the tracker, not of its
+    absence), the detector SUSPECT on the first failed attempt
+    (``suspect_after=1``, the chaos script's), and a checkpoint every
+    version (the newest kept): the ledger seam's writes."""
+    from bcfl_tpu_torch.faults import FaultPlan
+    from bcfl_tpu_torch.reputation import ReputationConfig
+
+    base = dist_config(dataset)
+    return base.replace(
+        name="chip-smoke-dist-chaos", num_rounds=6,
+        reputation=ReputationConfig(enabled=True),
+        faults=FaultPlan(**chaos_lanes(seed)),
+        dist=dataclasses.replace(base.dist, suspect_after=1,
+                                 checkpoint_every_versions=1,
+                                 checkpoint_keep_last=1,
+                                 idle_timeout_s=180.0,
+                                 peer_deadline_s=420.0))
+
+
+def check_resource_trail(label, plan, evs, peer):
+    """Peer ``peer``'s ``resource.inject`` events against the plan's
+    draws, each followed by its ladder rung: every event's class and depth
+    are the draw's for its (seam, counter); a durable seam's write fails
+    attempts 0..depth-1 in order, attempt 0 followed by ``gc.emergency``
+    and attempt 1 by ``write.shed`` (or shedding already on); an events
+    seam fault by the writer's own ``write.shed`` (or shedding already
+    on). Returns ``{(seam, depth): count}`` of the faulted writes."""
+    mine = [e for e in evs if e.get("peer") == peer]
+    faults, shed_seen = {}, False
+    for i, e in enumerate(mine):
+        if e.get("ev") == "write.shed":
+            shed_seen = True
+        if e.get("ev") != "resource.inject":
+            continue
+        want = plan.resource_action(e["seam"], e["counter"], peer)
+        if want is None or {k: e[k] for k in ("cls", "depth")} != want:
+            raise RuntimeError(f"{label}: inject {e} is not the plan's "
+                               f"draw {want}")
+        rest = mine[i + 1:]
+        if e["seam"] == "events":
+            rung = next((x for x in rest if x.get("ev") == "write.shed"
+                         and x.get("seam") == "events"), None)
+            if rung is None and not shed_seen:
+                raise RuntimeError(f"{label}: events fault {e} never shed")
+            faults[("events", e["depth"])] = faults.get(
+                ("events", e["depth"]), 0) + 1
+            continue
+        attempt = e["attempt"]
+        if attempt == 0:
+            faults[(e["seam"], e["depth"])] = faults.get(
+                (e["seam"], e["depth"]), 0) + 1
+            rung = next((x for x in rest if x.get("ev") == "gc.emergency"
+                         and x.get("seam") == e["seam"]), None)
+            if rung is None:
+                raise RuntimeError(f"{label}: {e} not followed by the GC "
+                                   "rung")
+        elif attempt == 1:
+            rung = next((x for x in rest if x.get("ev") == "write.shed"),
+                        None)
+            if rung is None and not shed_seen:
+                raise RuntimeError(f"{label}: {e} not followed by the shed "
+                                   "rung")
+        if attempt >= e["depth"] or e["depth"] >= 3:
+            raise RuntimeError(f"{label}: inject {e} past its depth")
+    return faults
+
+
+def phase_chaos(stats, smi, dataset):
+    """Path (r): the wire, limp and resource lanes at (m)'s width
+    (``chaos_config``, chaos seed ``CHAOS_SEED``, checked against the
+    plan's draws before the run). Gates on ``scripts/dist_chaos.py``'s
+    wire leg and the two other lanes: every peer exits 0 at version 6
+    with one verified head; no invariant violation over a nonzero merge
+    count; retries, duplicates dropped, CRC drops and reorder holds
+    nonzero; a detector SUSPECT and back; peer 3's stall events exactly
+    the plan's draws for the rounds it ran and peer 3 never quarantined;
+    peer 2's ``resource.inject`` events the plan's draws, each followed by
+    its rung, with ledger and event-stream faults among them and depth-1
+    and depth-2 faults on its durable seams; K4 and K5 launched in every
+    peer round. The ledger seam's counter is the chain length at each
+    checkpoint, which the run decides, so the depths it meets print
+    beside the gates. Prints the wall, the chaos counters by action, the
+    paced seconds, the merge walls, (m)'s lines, and peer 2's event
+    flushes."""
+    from bcfl_tpu_torch.dist import run_dist
+
+    cfg = chaos_config(dataset, CHAOS_SEED)
+    plan = cfg.faults
+    if not chaos_seed_ok(plan, cfg.num_rounds):
+        raise RuntimeError(f"path (r): seed {CHAOS_SEED} no longer meets "
+                           "chaos_seed_ok's conditions")
+    label = "chaos path (r)"
+    check_disk(peer_checkpoint_gb(cfg) * 2 * cfg.dist.peers, label)
+    run_dir = CKPT_DIR / "r"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    result = run_dist(cfg, str(run_dir), deadline_s=480.0, device="cuda",
+                      threads=1)
+    wall = time.perf_counter() - t0
+    reports = result["reports"]
+    for p, r in sorted(reports.items()):
+        t = r["transport"]
+        print(f"{label} peer {p}: status {r['status']}, final_version "
+              f"{r['final_version']}, local rounds {r['local_rounds']}, "
+              f"transport retries {t['retries']} send_failures "
+              f"{t['send_failures']} dups_dropped {t['dups_dropped']} "
+              f"crc_drops {t['crc_drops']} reorders_held "
+              f"{t['reorders_held']} limp_paced {t['limp_paced']} "
+              f"circuit_skips {t['circuit_skips']}, injected "
+              f"{t['chaos_injected']}, checkpoints "
+              f"{[c['version'] for c in r['checkpoints']]}, event flushes "
+              f"{r.get('events_flushes')}", flush=True)
+    launches = check_dist_peers(label, cfg, result)
+    col = collate_checked(label, result)
+    evs = col["ordered"]
+    tot = {k: sum(r["transport"][k] for r in reports.values())
+           for k in ("retries", "dups_dropped", "crc_drops",
+                     "reorders_held", "limp_paced", "send_failures")}
+    by_action = {}
+    for r in reports.values():
+        for k, v in r["transport"]["chaos_injected"].items():
+            by_action[k] = by_action.get(k, 0) + v
+    limp = [e for e in evs if e.get("ev") == "limp.inject"]
+    stalls = sorted(e["round"] for e in limp if e.get("kind") == "stall")
+    ran = reports[CHAOS_LIMP_PEER]["local_rounds"]
+    want_stalls = [r for r in range(ran)
+                   if plan.limp_action(r, CHAOS_LIMP_PEER) is not None]
+    paced_s = sum(e["pace_s"] for e in limp if e.get("kind") == "throttle")
+    quarantined = [e for e in evs if e.get("ev") == "rep.transition"
+                   and e.get("to") == "quarantined"
+                   and e.get("client") == CHAOS_LIMP_PEER]
+    ledger_writes = [e["counter"] for e in evs
+                     if e.get("ev") == "resource.inject"
+                     and e.get("seam") == "ledger" and e.get("attempt") == 0]
+    faults = check_resource_trail(label, plan, evs, CHAOS_RESOURCE_PEER)
+    grow = {p: (r["local_rounds"], r["kernel_launches"]["int8_quantize"],
+                r["kernel_launches"]["topk_select"])
+            for p, r in reports.items()}
+    gates = {
+        "every_peer_exits_0": result["ok"],
+        "zero_invariant_violations_nonzero_merges": (
+            col["ok"] and col["timeline"]["merges"]["count"] > 0),
+        "retries_nonzero": tot["retries"] > 0,
+        "dups_dropped_nonzero": tot["dups_dropped"] > 0,
+        "crc_drops_nonzero": tot["crc_drops"] > 0,
+        "reorders_held_nonzero": tot["reorders_held"] > 0,
+        "detector_suspect_roundtrip": (
+            col["timeline"]["detector_suspect_roundtrips"] > 0),
+        "one_verified_head": (
+            len({r["chain_head"] for r in reports.values()}) == 1
+            and all(r["chain_ok"] for r in reports.values())),
+        "peer3_stalls_are_the_draws": stalls == want_stalls and bool(stalls),
+        "peer3_never_quarantined": not quarantined and all(
+            (r.get("reputation") or {}).get("state", [None] * 5)[
+                CHAOS_LIMP_PEER] != "quarantined"
+            for r in reports.values()),
+        "ledger_faults": any(s == "ledger" for s, _ in faults),
+        "event_stream_faults": any(s == "events" for s, _ in faults),
+        "durable_depths_1_and_2": {1, 2} <= {
+            d for s, d in faults if s in ("checkpoint", "ledger")},
+        "k4_k5_every_round": all(k4 >= n and k5 >= n and n > 0
+                                 for n, k4, k5 in grow.values()),
+    }
+    print(f"{label} gates: {json.dumps(gates)}", flush=True)
+    print(f"{label}: {wall:.2f} s wall, chaos injected by action "
+          f"{by_action}, transport {tot}, peer 3 stalls at rounds {stalls} "
+          f"(the plan's {want_stalls}), {len([e for e in limp if e.get('kind') == 'throttle'])} "
+          f"paced attempts {paced_s:.3f} s in all, peer 2 faults "
+          f"{ {f'{s}/{d}': n for (s, d), n in sorted(faults.items())} }, "
+          f"ledger writes faulted at counters (depth) "
+          f"{[(c, plan.resource_action('ledger', c, CHAOS_RESOURCE_PEER)['depth']) for c in ledger_writes]}, "
+          f"(local rounds, K4, K5 "
+          f"launches) per peer {grow}", flush=True)
+    if not all(gates.values()):
+        raise RuntimeError(f"{label}: gates failed {gates}")
+    count_launches(stats, launches)
+    merges = [round(m["wall_s"], 3) for m in reports[0]["merges"]]
+    print(f"{label} merge walls (s): {merges}", flush=True)
+    print_checkpoints(label, reports)
+    print_dist_timeline(label, result, col, wall)
+    shutil.rmtree(run_dir, ignore_errors=True)
+
+
+def gossip_dispatch_config(dataset: str):
+    """Path (s): (m)'s preset, width and corpus under leaderless gossip
+    dispatch: 5 peers of 2 clients, ``gossip_fanout=2`` on the epidemic
+    topology, ``trimmed_mean`` (trim 0.2) over each peer's neighbor
+    arrival set and itself, per-peer reputation, whole float32 states on
+    the wire (``compress="none"``: gossip peers share no base to encode a
+    delta against), the ledger, a partition (0, 1) | (2, 3, 4) on local
+    rounds 2-3, 6 local rounds per peer."""
+    from bcfl_tpu_torch.compression import CompressionConfig
+    from bcfl_tpu_torch.faults import FaultPlan
+    from bcfl_tpu_torch.reputation import ReputationConfig
+
+    base = dist_config(dataset)
+    return base.replace(
+        name="chip-smoke-dist-gossip", num_rounds=6,
+        aggregator="trimmed_mean",
+        aggregator_trim=0.2, reputation=ReputationConfig(enabled=True),
+        compression=CompressionConfig(kind="none"),
+        faults=FaultPlan(partition_groups=((0, 1), (2, 3, 4)),
+                         partition_rounds=(2, 3)),
+        dist=dataclasses.replace(base.dist, dispatch="gossip",
+                                 gossip_fanout=2,
+                                 gossip_topology="epidemic",
+                                 idle_timeout_s=180.0,
+                                 peer_deadline_s=420.0))
+
+
+def gossip_merge_at_width(smi):
+    """The gossip merge at (s)'s width: 3 float32 biobert-base states
+    (108 M parameters each, drawn on the card from the seed) merged by
+    ``merge_states`` on the card and by the same reduction in plain numpy
+    float32 on the host (``acc = acc + leaf * w`` in canonical order);
+    the two must be bit-identical. Times both (the card cold, then warm),
+    and ``state_digest`` over one 0.433 GB state."""
+    import numpy as np
+
+    from bcfl_tpu_torch.dist.gossip import merge_states, state_digest
+    from bcfl_tpu_torch.models import build
+    from bcfl_tpu_torch.models.convert import trainable_tree
+
+    with torch.device("meta"):
+        shapes = {p: tuple(x.shape) for p, x in trainable_tree(
+            build("biobert-base", num_labels=40, vocab_size=28996)).items()}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    states = [{p: torch.randn(s, generator=gen, device="cuda")
+               for p, s in shapes.items()} for _ in range(3)]
+    host = [{p: v.cpu().numpy() for p, v in st.items()} for st in states]
+    items = [{"peer": p, "order": (1, p), "vv": np.asarray([3 - p, p, 1, 0,
+                                                           2], np.int64),
+              "mass": 2.0 - 0.5 * p, "trust": 1.0 - 0.1 * p,
+              "state": states[p]} for p in range(3)]
+    card_ms = []
+    for _ in range(3):  # the first call also allocates its outputs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card, _vv, weights = merge_states(items, 0.9)
+        torch.cuda.synchronize()
+        card_ms.append((time.perf_counter() - t0) * 1e3)
+    wsum = sum(weights)
+    norm = [np.float32(w / wsum) for w in weights]
+    t0 = time.perf_counter()
+    ref = {}
+    for k in shapes:
+        acc = host[0][k].astype(np.float32) * norm[0]
+        for leaf, w in zip((host[1][k], host[2][k]), norm[1:]):
+            acc = acc + leaf * w
+        ref[k] = acc
+    host_ms = (time.perf_counter() - t0) * 1e3
+    same = all(np.array_equal(card[k].cpu().numpy().view(np.uint32),
+                              ref[k].view(np.uint32)) for k in shapes)
+    state = {k: card[k].cpu() for k in shapes}
+    t0 = time.perf_counter()
+    state_digest(state)
+    digest_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = sum(v.nbytes for v in host[0].values())
+    print(smi, flush=True)
+    print(f"gossip merge at width (3 float32 biobert-base states, "
+          f"{nbytes} bytes each): card {card_ms[0]:.3f} ms cold, "
+          f"{min(card_ms[1:]):.3f} ms warm, host numpy {host_ms:.3f} ms, "
+          f"bit-identical {same}; state_digest over one state "
+          f"{digest_ms:.3f} ms", flush=True)
+    if not same:
+        raise RuntimeError("gossip merge: card and host numpy differ")
+
+
+def phase_gossip(stats, smi, dataset):
+    """Path (s): gossip dispatch at (m)'s width (``gossip_config``), JAX's
+    ``test_gossip_partition_heal_loopback`` at full width and 5 peers.
+    First the merge at width on the card against the host
+    (``gossip_merge_at_width``). Gates: every peer exits 0 on its own
+    clock at version 6 or past it, ``dispatch`` gossip, a verifying chain
+    and its own seeded component in its fork record; no invariant
+    violation, ``partition_heals_leaderless`` and the gossip scope of
+    ``no_cross_partition_merge`` included; a leaderless ``fork.begin`` and
+    ``fork.heal`` from every peer; a ``gossip.vote_floor`` event from the
+    2-peer side; no quarantine; every final eval loss finite. Prints the
+    bytes and seconds per push, the ``gossip.merge`` count and its lag
+    histogram, the merge walls and the robust rule's seconds."""
+    from bcfl_tpu_torch.dist import run_dist
+
+    cfg = gossip_dispatch_config(dataset)
+    label = "gossip path (s)"
+    gossip_merge_at_width(smi)
+    run_dir = BUILD_DIR / "dist_s"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    result = run_dist(cfg, str(run_dir), deadline_s=480.0, device="cuda",
+                      threads=1)
+    wall = time.perf_counter() - t0
+    reports = result["reports"]
+    if not result["ok"]:
+        raise RuntimeError(f"{label}: not every peer ended ok "
+                           f"{result['returncodes']}: {result['log_tails']}")
+    col = collate_checked(label, result)
+    evs = col["ordered"]
+    comps = {p: ([0, 1] if p in (0, 1) else [2, 3, 4]) for p in reports}
+    forks = {p: {e["ev"] for e in evs if e.get("peer") == p
+                 and e.get("ev") in ("fork.begin", "fork.heal")
+                 and e.get("leaderless") is True} for p in reports}
+    floors = [e for e in evs if e.get("ev") == "gossip.vote_floor"]
+    gmerges = [e for e in evs if e.get("ev") == "gossip.merge"]
+    lag = {}
+    for e in gmerges:
+        for a in e.get("arrivals") or []:
+            lag[a["staleness"]] = lag.get(a["staleness"], 0) + 1
+    losses = {p: (r.get("final_eval") or {}).get("loss")
+              for p, r in reports.items()}
+    gates = {
+        "every_peer_exits_0": result["ok"] and len(reports) == 5,
+        "versions_on_own_clock": all(
+            r["final_version"] >= cfg.num_rounds
+            for r in reports.values()),
+        "dispatch_gossip": all(r.get("dispatch") == "gossip"
+                               for r in reports.values()),
+        "chains_verify": all(r["chain_ok"] for r in reports.values()),
+        "own_component_in_fork": all(
+            ((r.get("gossip") or {}).get("fork") or {}).get("component")
+            == comps[p] for p, r in reports.items()),
+        "zero_invariant_violations": col["ok"],
+        "partition_heals_leaderless_checked":
+            col["invariants"].get("partition_heals_leaderless") == 0,
+        "no_cross_partition_merge_checked":
+            col["invariants"].get("no_cross_partition_merge") == 0,
+        "leaderless_fork_begin_and_heal": all(
+            f == {"fork.begin", "fork.heal"} for f in forks.values()),
+        "vote_floor_from_the_2_peer_side": any(
+            e.get("peer") in (0, 1) for e in floors),
+        "no_quarantine": not any(
+            e.get("ev") == "rep.transition" and e.get("to") == "quarantined"
+            for e in evs),
+        "final_losses_finite": all(
+            v is not None and math.isfinite(v) for v in losses.values()),
+    }
+    print(f"{label} gates: {json.dumps(gates)}", flush=True)
+    if not all(gates.values()):
+        raise RuntimeError(f"{label}: gates failed {gates}")
+    for p, r in sorted(reports.items()):
+        g = r["gossip"]
+        print(f"{label} peer {p}: final_version {r['final_version']}, vv "
+              f"{r['vv']}, exchanges {g['exchanges']}, auth rejects "
+              f"{g['auth_rejects']}, chain merges {g['chain_merges']}, "
+              f"chain {r['chain_len']} entries head {r['chain_head'][:16]}, "
+              f"fork {g['fork']['component']}, rejoin graced "
+              f"{g['rejoin_graced']}, final loss {losses[p]}, peak "
+              f"{r['peak_gb']:.2f} GB, kernel launches "
+              f"{r['kernel_launches']}", flush=True)
+    msgs = message_stats(evs)
+    for kind in ("update", "sync"):
+        row = msgs.get(kind)
+        if row:
+            print(f"{label} {kind} pushes: {len(row['bytes'])}, bytes per "
+                  f"push {sum(row['bytes']) / len(row['bytes']):.0f}, send "
+                  f"s per push mean "
+                  f"{sum(row['send_s']) / len(row['send_s']):.3f} max "
+                  f"{max(row['send_s']):.3f}", flush=True)
+    walls = [round(e["wall_s"], 3) for e in gmerges]
+    rule = [round((e.get("robust") or {}).get("rule_s") or 0.0, 4)
+            for e in gmerges if (e.get("robust") or {}).get("rule_s")]
+    print(f"{label}: {wall:.2f} s wall incl. the interpreters and set-up, "
+          f"{len(gmerges)} gossip.merge events, lag histogram "
+          f"{dict(sorted(lag.items()))}, vote-floor events "
+          f"{[(e['peer'], e['votes']) for e in floors]}, merge walls (s) "
+          f"{walls}, robust rule s on the card {rule}", flush=True)
+    for p in sorted(reports):
+        rounds = [round(e["wall_s"], 3) for e in evs
+                  if e.get("ev") == "round" and e.get("peer") == p]
+        print(f"{label} peer {p} local round walls: {rounds}", flush=True)
     shutil.rmtree(run_dir, ignore_errors=True)
 
 
@@ -3391,6 +3861,8 @@ def main(argv=None) -> int:
     phase_partition_kill(stats, smi, medical)
     phase_storage_repair(stats, smi, medical)
     phase_byzantine(stats, smi, medical, m_loss)
+    phase_chaos(stats, smi, medical)
+    phase_gossip(stats, smi, medical)
     count_launches(stats, phase_hf(smi))
     phase_reference()
     if args.profile:

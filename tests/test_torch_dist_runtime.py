@@ -51,6 +51,10 @@ GRID = [
     ("storage", {"faults": dict(storage_prob=0.5)}),
     ("limp", {"faults": dict(limp_prob=0.5)}),
     ("resource", {"faults": dict(resource_prob=0.5)}),
+    ("gossip", {"dispatch": "gossip"}),
+    ("gossip_partition", {"dispatch": "gossip",
+                          "faults": dict(partition_rounds=(1,),
+                                         partition_count=2)}),
     ("gossip_compress", {"dispatch": "gossip", "compression": "int8"}),
     ("gossip_krum", {"dispatch": "gossip", "aggregator": "krum"}),
     ("eval", {"eval_every": 1}),
@@ -154,17 +158,19 @@ def test_dist_configs_construct_or_refuse_as_jax(name, over):
 
 
 def test_deferred_dist_features_raise_not_ported_yet():
-    deferred = ["wire", "limp", "resource", "lora"]
+    deferred = ["lora"]
     for name, over in GRID:
         if name in deferred:
             got = _cfgs(over)["port"]
             assert isinstance(got, str) and "not ported yet" in got, name
-    # the ported fault-tolerance and adversarial halves: partitions,
-    # reputation and the byzantine lane run, the robust rules take JAX's
-    # buffer preconditions, churn and host crash JAX's own rejections,
-    # the storage lane JAX's checks
+    # the ported fault-tolerance, adversarial and chaos halves and gossip
+    # dispatch: partitions, reputation, the byzantine, wire, limp and
+    # resource lanes and gossip run, the robust rules take JAX's buffer
+    # preconditions, churn and host crash JAX's own rejections, the
+    # storage lane JAX's checks, gossip JAX's refusals of compression
     for name in ("partition", "churn", "crash", "storage", "reputation",
-                 "robust", "byz"):
+                 "robust", "byz", "wire", "limp", "resource", "gossip",
+                 "gossip_partition", "gossip_compress"):
         over = dict(GRID)[name]
         got, want = _cfgs(over)["port"], _cfgs(over)["jax"]
         assert not (isinstance(got, str) and "not ported yet" in got), name
@@ -173,14 +179,16 @@ def test_deferred_dist_features_raise_not_ported_yet():
     assert tconfig.FedConfig(runtime="dist", sync="async", eval_every=0,
                              dist=tconfig.DistConfig(peers=2)
                              ).dist.checkpoint_every_versions == 1
-    for kw in ({"dist": tconfig.DistConfig(peers=4, dispatch="gossip",
-                                           checkpoint_every_versions=0)},
-               {"model": "tiny-llama",
-                "dist": tconfig.DistConfig(peers=2,
-                                           checkpoint_every_versions=0)}):
-        with pytest.raises(ValueError, match="not ported yet"):
-            tconfig.FedConfig(runtime="dist", sync="async", eval_every=0,
-                              **kw)
+    assert tconfig.FedConfig(
+        runtime="dist", sync="async", eval_every=0,
+        dist=tconfig.DistConfig(peers=4, dispatch="gossip",
+                                checkpoint_every_versions=0)
+    ).dist.dispatch == "gossip"
+    with pytest.raises(ValueError, match="not ported yet"):
+        tconfig.FedConfig(runtime="dist", sync="async", eval_every=0,
+                          model="tiny-llama",
+                          dist=tconfig.DistConfig(
+                              peers=2, checkpoint_every_versions=0))
 
 
 def _dist_cfg(**kw):
@@ -346,9 +354,14 @@ def test_dist_loopback_two_peers(tmp_path):
     assert {e["peer"] for e in ends} == {0, 1}
 
 
-def test_cli_runs_dist_and_refuses_its_deferred_flags(tmp_path, capsys):
+def test_cli_runs_dist_and_refuses_its_deferred_flags(tmp_path, capsys,
+                                                     monkeypatch):
     from bcfl_tpu_torch.entrypoints.__main__ import main as cli
 
+    # the CLI has no thread flag: one CPU thread per spawned peer, as the
+    # other loopback runs use, so that peers under a busy xdist suite do
+    # not oversubscribe the host past the 150 s deadline
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
     rc = cli(["--preset", "smoke", "--device", "cpu", "--runtime", "dist",
               "--peers", "2", "--clients", "4", "--rounds", "2",
               "--seq-len", "16", "--batch-size", "4",

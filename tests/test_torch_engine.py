@@ -93,12 +93,9 @@ _DIST = dict(runtime="dist", sync="async", eval_every=0, num_clients=4,
                              ).DistConfig(checkpoint_every_versions=0))
 
 NOT_PORTED = [
-    # the dist runtime runs, with partitions, crash/rejoin and the
-    # storage lane; its deferred features (the wire lane here) raise at
-    # config time
-    ("runtime", dict(_DIST, faults=__import__(
-        "bcfl_tpu_torch.faults", fromlist=["FaultPlan"]).FaultPlan(
-            wire_drop_prob=0.1))),
+    # the dist runtime runs, with every fault lane and gossip dispatch;
+    # its deferred features (LoRA over dist here) raise at config time
+    ("runtime", dict(_DIST, lora_rank=4)),
     ("tp", {"tp": 2}),
     ("sp", {"sp": 2}),
     ("rounds_per_dispatch", {"rounds_per_dispatch": 2}),
@@ -180,7 +177,7 @@ def test_cli_runs_smoke_on_cpu_and_rejects_other_flags(capsys):
     out = capsys.readouterr().out
     assert "round   0:" in out and "compress=int8+topk" in out
     for flags in (["--rounds-per-dispatch", "2"],
-                  ["--chaos-wire", "drop=0.1"], ["--tp", "2"]):
+                  ["--no-telemetry"], ["--tp", "2"]):
         with pytest.raises(SystemExit) as e:
             cli_main(["--device", "cpu"] + flags)
         assert e.value.code == 2

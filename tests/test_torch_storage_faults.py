@@ -444,8 +444,7 @@ def test_durable_write_ladder_equals_jax(failures, want, tmp_path):
         stream = str(tmp_path / pkg / "events_peer0.jsonl")
         tele.install(tele.EventWriter(stream, peer=0, run="ladder"))
         try:
-            got = rt._durable_write("checkpoint", fn) if pkg == "port" \
-                else rt._durable_write("checkpoint", 0, fn)
+            got = rt._durable_write("checkpoint", 0, fn)
         except rt_mod.DurabilityError:
             got = "raise"
         except OSError as e:
