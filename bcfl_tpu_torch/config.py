@@ -363,17 +363,11 @@ def _plan(c) -> FaultPlan:
     return c.faults if c.faults is not None else FaultPlan()
 
 
-#: the verdict prefix of a capability the port defers: the row is JAX's,
-#: its dist verdict is replaced by this note and raises "not ported yet"
-NOT_PORTED_YET = "not ported yet"
-
-
 # --- runtime capability table (the JAX package's RUNTIME_CAPS) -------------
 # Each row is ``(feature, active, {runtime: verdict})``: ``active(cfg)``
 # says whether the feature is requested, ``True`` means the runtime
 # supports it, and a string is the rejection reason raised at config time,
-# JAX's verbatim. Rows whose dist verdict starts with NOT_PORTED_YET are
-# features JAX runs on its dist runtime and the port defers (ROADMAP.md).
+# JAX's verbatim, on both runtimes.
 # JAX's "pod-spanning mesh" and "buffer donation" rows are left out: the
 # port's config has no such fields.
 RUNTIME_CAPS: Tuple = (
@@ -541,9 +535,11 @@ RUNTIME_CAPS: Tuple = (
               "evaluates the final global once at shutdown"}),
     ("LoRA adapter exchange",
      lambda c: c.lora_rank > 0 or bool(c.lora_ranks),
-     {"local": True,
-      "dist": NOT_PORTED_YET + ": LoRA and Llama over the dist runtime "
-              "wait for their slice"}),
+     {"local": True, "dist": True}),  # dist: the trainable tree IS the
+    # adapter tree, so update and broadcast frames, the leader's
+    # refingerprint, the robust merge's votes, the byzantine seam and the
+    # HELLO/checkpoint resync all carry adapter-scale payloads; the frozen
+    # base never crosses the wire
     ("heterogeneous LoRA ranks",
      lambda c: bool(c.lora_ranks)
      and len(set(parse_lora_ranks(c.lora_ranks))) > 1,
@@ -562,12 +558,6 @@ def capability_table(cfg: "FedConfig") -> Tuple[Tuple[str, bool, object], ...]:
                  for feature, active, verdicts in RUNTIME_CAPS)
 
 
-def _llama(name: str) -> bool:
-    from bcfl_tpu_torch.models import _LLAMA_CONFIGS
-
-    return name in _LLAMA_CONFIGS
-
-
 #: (field, is-unsupported predicate) — each raises "not ported yet"
 _NOT_PORTED = (
     ("tp", lambda c: c.tp > 1),
@@ -577,8 +567,6 @@ _NOT_PORTED = (
     # the flash kernels have bf16 and float32 instances only
     ("compute_dtype", lambda c: c.compute_dtype == "float16"
      and bool(c.use_flash)),
-    # the dist runtime's Llama forms wait for a later slice
-    ("model", lambda c: c.runtime == "dist" and _llama(c.model)),
 )
 
 
@@ -722,9 +710,6 @@ class FedConfig:
         # is supported on this runtime or rejected here with its reason
         for feature, active, verdict in capability_table(self):
             if active and verdict is not True:
-                if verdict.startswith(NOT_PORTED_YET):
-                    raise ValueError(
-                        f"{feature} on runtime={self.runtime!r} is {verdict}")
                 raise ValueError(
                     f"{feature} is not supported on runtime="
                     f"{self.runtime!r}: {verdict}")
@@ -817,16 +802,17 @@ class FedConfig:
                 for part in field.split("."):
                     value = getattr(value, part)
                 raise ValueError(
-                    f"{field}={value!r} is not ported yet: bcfl_tpu_torch "
-                    "runs server FedAvg, serverless ring gossip and "
-                    "buffered async with the anomaly filter, the ledger, "
-                    "the local fault plan, robust aggregation, reputation, "
-                    "checkpoints, LoRA and cohort sampling, and the "
-                    "multi-process runtime's leadered and gossip dispatch "
-                    "with partitions, the ledger fork and heal, peer "
-                    "checkpoints, crash/rejoin, the storage lane and state "
-                    "sync, the robust merge, per-peer reputation and the "
-                    "byzantine, wire, limp and resource lanes (see "
+                    f"{field}={value!r} on runtime={self.runtime!r} is not "
+                    "ported yet: bcfl_tpu_torch runs server FedAvg, "
+                    "serverless ring gossip and buffered async with the "
+                    "anomaly filter, the ledger, the local fault plan, "
+                    "robust aggregation, reputation, checkpoints, LoRA and "
+                    "cohort sampling, and the multi-process runtime's "
+                    "leadered and gossip dispatch (LoRA adapters and Llama "
+                    "included) with partitions, the ledger fork and heal, "
+                    "peer checkpoints, crash/rejoin, the storage lane and "
+                    "state sync, the robust merge, per-peer reputation and "
+                    "the byzantine, wire, limp and resource lanes (see "
                     "ROADMAP.md for the port's queue)")
 
     def _check_dist_lanes(self) -> None:

@@ -773,12 +773,14 @@ class GossipPeerRuntime(PeerRuntime):
         comp = self.gate.component_of(self.peer_id) or ()
         return tuple(p for p in live if p in comp)
 
-    def _probe(self, target: int) -> None:
+    def _probe(self, target: int, wait: bool = False) -> None:
         """One anti-entropy HELLO at a peer the live view does not reach
-        (a DOWN target costs one budgeted probe per interval)."""
+        (a DOWN target costs one budgeted probe per interval). ``wait``
+        sends it before returning, past the frames queued for ``target``
+        (the heal's probes)."""
         header = {"type": "hello", "version": int(self.version),
                   "probe": True}
-        if self.cfg.dist.pipeline:
+        if self.cfg.dist.pipeline and not wait:
             self.transport.send_async(target, header)
         else:
             self.transport.send(target, header)
@@ -789,7 +791,18 @@ class GossipPeerRuntime(PeerRuntime):
         ``leaderless=True``; at the heal nothing is offered to peer 0, the
         peer HELLO-probes every peer the cut hid and puts them in rejoin
         grace, and the answering syncs fold in through the ordinary
-        merge and the pairwise chain reconcile of ``_handle_sync``."""
+        merge and the pairwise chain reconcile of ``_handle_sync``.
+
+        Every peer the cut hid is probed, one that has announced leaving
+        too: the gate drops a "leaving" sent during the span, so one read
+        now arrived after the gate opened, from a peer that left while
+        hidden and was never reconciled with. Its probe is refused, and
+        the refusal is the heal's attempt on the stream
+        (``partition_heals_leaderless``); skipping departed peers, as
+        JAX's runtime does, leaves a peer whose other side all finished
+        during its span with no attempt at all. The probes are sent
+        before the loop goes on: queued behind model-sized pushes, one
+        could still be waiting when the peer departs."""
         comps = self.gate.components()
         if comps is not None and not self._partitioned:
             self._partitioned = True
@@ -817,11 +830,10 @@ class GossipPeerRuntime(PeerRuntime):
                            leaderless=True,
                            head8=(self._head() or "")[:16])
             hidden = [p for p in range(self.peers)
-                      if p != self.peer_id and p not in old_comp
-                      and p not in self._peers_done]
+                      if p != self.peer_id and p not in old_comp]
             for p in hidden:
                 self._grace.note_rejoin(p)
-                self._probe(p)
+                self._probe(p, wait=True)
             logger.info("peer %d: partition healed at version %d, probing "
                         "%s", self.peer_id, self.version, hidden)
 

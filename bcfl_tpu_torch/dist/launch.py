@@ -56,4 +56,8 @@ def cfg_from_json(s: str) -> FedConfig:
     data["reputation"] = _rebuild(ReputationConfig, data["reputation"])
     data["compression"] = _rebuild(CompressionConfig, data["compression"])
     data["dist"] = _rebuild(DistConfig, data["dist"])
+    if data.get("lora_ranks"):
+        # lora_rank was canonicalized to max(lora_ranks) at construction;
+        # passing both back would be refused (JAX's rebuild fails here)
+        data["lora_rank"] = 0
     return _rebuild(FedConfig, data)

@@ -392,7 +392,8 @@ class PeerRuntime:
         self.transport = PeerTransport(
             self.peer_id, [(host, p) for p in ports], gate=self.gate,
             io_timeout_s=min(60.0, cfg.dist.peer_deadline_s),
-            chaos=chaos, limp=limp, policy=cfg.dist, epoch=epoch)
+            chaos=chaos, limp=limp, policy=cfg.dist, epoch=epoch,
+            adapters=self.eng.adapters)
 
         self.ckpt_dir = os.path.join(run_dir, f"ckpt_peer{self.peer_id}")
         # monotone-incarnation high-water marker, like the epoch file a
@@ -727,10 +728,21 @@ class PeerRuntime:
                 robust_info is not None
                 and robust_info.get("k", 0) < self._robust_min))
         self.merges.append(rec)
-        # the leader's per-peer trust vector, for the health series
+        # the health series' extras: the leader's per-peer trust vector
+        # and, with LoRA, the merged adapter's effective rank (the
+        # rank-collapse guard statistic); the live monitor folds both
+        # into health.jsonl
         trust_map = ({str(p): round(float(self.rep.tracker.trust[p]), 6)
                       for p in range(self.peers)}
                      if self.rep is not None else None)
+        eff_rank = None
+        if self.eng.adapters:
+            from bcfl_tpu_torch.models import lora
+
+            try:
+                eff_rank = float(lora.effective_rank(self.trainable))
+            except Exception:  # noqa: BLE001 — a health stat never fails the merge
+                pass
         # the FedBuff lineage event: which (peer, msg_epoch, msg_id)
         # updates at what measured staleness and weight composed this
         # version, and the chain state it committed
@@ -740,7 +752,7 @@ class PeerRuntime:
             degraded=rec.degraded, component=list(comp),
             quorum=rec.quorum, wall_s=rec.wall_s,
             robust=rec.robust, robust_degraded=rec.robust_degraded,
-            trust=trust_map,
+            trust=trust_map, effective_rank=eff_rank,
             **({"chain_len": len(self.chain),
                 "head8": self.chain.head.hex()[:16], "rewrite": False}
                if self.chain is not None else {}))

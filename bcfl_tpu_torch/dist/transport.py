@@ -51,6 +51,7 @@ event stream (``chaos``, ``limp.inject``).
 
 from __future__ import annotations
 
+import json
 import logging
 import queue
 import socket
@@ -64,8 +65,10 @@ from bcfl_tpu_torch.dist.wire import (
     CrcError,
     WireError,
     frame_prefix,
+    from_wire,
     read_ack,
     read_frame,
+    to_wire,
     write_ack,
     write_frame,
 )
@@ -496,7 +499,9 @@ class PeerTransport:
     consulted on both send and receive; ``chaos`` (optional) is the wire
     fault lane and ``limp`` the limp lane's throttle; ``policy`` (a
     :class:`DistConfig`) carries the retry / detector / dedup / inbox
-    knobs."""
+    knobs. With ``adapters`` set (the runtime's: True when it trains an
+    adapter tree), the runtime's flat model trees cross in the nesting of
+    JAX's pytree and arrive flat again (:func:`wire.to_wire`)."""
 
     def __init__(self, peer_id: int, addrs: List[Tuple[str, int]],
                  gate: Optional[PartitionGate] = None,
@@ -505,8 +510,12 @@ class PeerTransport:
                  chaos: Optional[WireChaos] = None,
                  policy: Optional[DistConfig] = None,
                  epoch: Optional[int] = None,
-                 limp: Optional[LimpChaos] = None):
+                 limp: Optional[LimpChaos] = None,
+                 adapters: Optional[bool] = None):
         self.peer_id = int(peer_id)
+        # the model-tree layout (wire.to_wire / from_wire): None passes
+        # every tree as the caller gives it
+        self.adapters = adapters
         self.addrs = list(addrs)
         self.gate = gate
         self.chaos = chaos
@@ -642,6 +651,8 @@ class PeerTransport:
         try:
             with conn:
                 header, trees = read_frame(conn, self.io_timeout_s)
+                if self.adapters is not None:
+                    trees = from_wire(header, trees)
                 try:
                     # CRC is integrity, not authentication: a well-CRC'd
                     # frame can still carry hostile field TYPES
@@ -982,6 +993,8 @@ class PeerTransport:
         already stamped with (from, msg_id, msg_epoch). Thread-safe: all
         counters go through the stats lock."""
         msg_id = header["msg_id"]
+        if self.adapters is not None:
+            trees = to_wire(header, trees, self.adapters)
         if (self.gate is not None
                 and not self.gate.allowed(self.peer_id, to)):
             # the async path re-checks at EXECUTION time: a partition span
@@ -1015,6 +1028,9 @@ class PeerTransport:
         # budget: the adaptive deadline scales with the frame size.
         prefix = frame_prefix(header, trees)
         nbytes = len(prefix) + int.from_bytes(prefix[4:12], "little")
+        # the header JSON's share of the frame, as wire._frame_parts
+        # writes it: the rest is framing, tree index and payload
+        header_bytes = len(json.dumps(header).encode())
         if timeout_s is not None:
             budget_s = timeout_s
         else:
@@ -1068,6 +1084,7 @@ class PeerTransport:
                     "send", to=to, type=header.get("type"), ok=True,
                     msg_id=msg_id, msg_epoch=self.epoch,
                     attempts=attempt + 1, bytes=nbytes,
+                    header_bytes=header_bytes,
                     wall_s=time.time() - t_start, t_wall=t_start)
                 return True
             except TransportError as e:

@@ -117,6 +117,60 @@ def _flatten(tree: Any, prefix: str = "") -> list:
     return [(prefix[:-1], _as_array(tree))]
 
 
+def _nest(tree: Dict[str, Any], adapters: bool) -> Dict:
+    """A flat ``{"a/b/c": leaf}`` model tree in the nesting of JAX's
+    pytree of the same model: an adapter tree at each key's last ``/``
+    (``{target: {"a" | "b" | "full": leaf}}``), a parameter tree at every
+    ``/`` (flax params)."""
+    out: Dict = {}
+    for path, leaf in tree.items():
+        parts = path.rsplit("/", 1) if adapters else path.split("/")
+        node = out
+        for k in parts[:-1]:
+            node = node.setdefault(k, {})
+        node[parts[-1]] = leaf
+    return out
+
+
+def _unnest(tree: Dict) -> Dict[str, Any]:
+    """The inverse of :func:`_nest`: nested keys joined with ``/``, in the
+    received (sorted, JAX's flatten) order."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            for kk, vv in _unnest(v).items():
+                out[f"{k}/{kk}"] = vv
+        else:
+            out[k] = v
+    return out
+
+
+def _model_trees(header: Dict) -> bool:
+    """Whether a frame's trees are model trees: every tree but an update's
+    codec payload (``wire_kind == "payload"``), which both packages key
+    by path names."""
+    return header.get("wire_kind") != "payload"
+
+
+def to_wire(header: Dict, trees: Optional[Dict[str, Any]],
+            adapters: bool) -> Optional[Dict[str, Any]]:
+    """A frame's trees as they cross: the port's flat model trees in the
+    nesting of JAX's pytree (``adapters``: the runtime trains an adapter
+    tree), so that the frame's index paths and leaf order, and so its
+    bytes, are JAX's; a codec payload as it is."""
+    if not trees or not _model_trees(header):
+        return trees
+    return {name: _nest(t, adapters) for name, t in trees.items()}
+
+
+def from_wire(header: Dict, trees: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of :func:`to_wire` on a received frame: model trees
+    flat again, ``{"a/b/c": leaf}``."""
+    if not trees or not _model_trees(header):
+        return trees
+    return {name: _unnest(t) for name, t in trees.items()}
+
+
 #: numpy's view of a bfloat16 leaf: JAX's ``ml_dtypes.bfloat16`` reports
 #: ``dtype.str == "<V2"``, and its bytes are the 16-bit patterns
 BF16_WIRE = np.dtype("V2")

@@ -30,6 +30,20 @@ flags the ported slice supports.
     python -m bcfl_tpu_torch.entrypoints --preset smoke --device cpu \\
         --runtime dist --peers 3 --clients 6 --rounds 3 --seq-len 16 \\
         --batch-size 4 --ledger --chaos-wire drop=0.2,dup=0.2,corrupt=0.05
+    python -m bcfl_tpu_torch.entrypoints --preset smoke --device cpu \\
+        --runtime dist --peers 2 --clients 4 --rounds 2 --seq-len 16 \\
+        --batch-size 4 --model tiny-llama --task causal_lm --lora-rank 2 \\
+        --ledger --compress int8+topk --dist-buffer 2 --dist-run-dir RUN
+    python -m bcfl_tpu_torch.entrypoints trace RUN     # collate + invariants
+    python -m bcfl_tpu_torch.entrypoints monitor RUN   # the live monitor
+
+Subcommands: ``trace RUN_DIR`` collates a run's per-process event streams
+into one causally ordered timeline and runs the invariant checks (exit 1
+on any violation); ``monitor RUN_DIR`` is its live counterpart
+(:mod:`bcfl_tpu_torch.telemetry.live`): incremental collation, streaming
+invariants and the per-merge ``health.jsonl`` series over a run that may
+still be going (exit 1 on a violation or an unhealed critical alert, 2
+with no streams).
 
 ``--device`` defaults to ``cuda``, which raises when no GPU is present.
 ``--runtime dist`` spawns ``--peers`` peer processes on the same device
@@ -49,8 +63,14 @@ Gossip dispatch, the limp and the resource lanes are config fields
 driven through :func:`bcfl_tpu_torch.dist.run_dist`, as in JAX.
 Peer crash and rejoin are the harness's
 (``bcfl_tpu_torch.dist.run_dist(kill_peer=...)``), so ``--resume`` is
-refused with ``--runtime dist``. Any flag of the JAX command line that is
-not listed here is rejected as "not ported yet".
+refused with ``--runtime dist``. ``--lora-rank`` (uniform adapters, and
+Llama models) reaches ``--runtime dist`` too: the adapter tree is what
+every frame, vote, fingerprint and checkpoint of the peers carries.
+``--telemetry-dir``, ``--no-telemetry`` and ``--telemetry-sample`` set
+the event streams as JAX's do. ``--fused-tamper`` takes JAX's checks and
+messages; the port runs no fused dispatch, so a well-formed request
+fails at its round instead of passing vacuously. Any flag of the JAX
+command line that is not listed here is rejected as "not ported yet".
 """
 
 from __future__ import annotations
@@ -311,6 +331,27 @@ def build_parser() -> argparse.ArgumentParser:
                     help="vote weight while on probation (default 0.5)")
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=None)
+    ap.add_argument("--telemetry-dir", default=None, metavar="DIR",
+                    help="event-stream directory (bcfl_tpu_torch.telemetry, "
+                         "OBSERVABILITY.md). Default: dist runs stream "
+                         "into their run dir, local runs emit nothing; "
+                         "naming a dir enables streaming on both")
+    ap.add_argument("--no-telemetry", action="store_true",
+                    help="disable event streaming everywhere (the "
+                         "overhead-measurement setting)")
+    ap.add_argument("--telemetry-sample", type=float, default=None,
+                    metavar="P",
+                    help="sampling rate in [0,1] for high-rate transport "
+                         "events (per-attempt outcomes, chaos draws); "
+                         "invariant-grade events are never sampled")
+    ap.add_argument("--fused-tamper", action="append", default=None,
+                    metavar="ROUND:CLIENT:SCALE",
+                    help="inject a simulated transport corruption (additive "
+                         "SCALE) into CLIENT's update in fused round ROUND "
+                         "(repeatable). Needs --ledger and a fused "
+                         "dispatch, which the port does not run: a "
+                         "request landing on a per-round-path round fails "
+                         "loudly instead of being ignored")
     return ap
 
 
@@ -540,6 +581,14 @@ def build_config(args):
     if args.reputation:
         overrides["reputation"] = dataclasses.replace(
             cfg.reputation, enabled=True, **rep_tweaks)
+    if args.no_telemetry and args.telemetry_dir is not None:
+        raise SystemExit("--no-telemetry contradicts --telemetry-dir")
+    if args.no_telemetry:
+        overrides["telemetry_dir"] = "off"
+    elif args.telemetry_dir is not None:
+        overrides["telemetry_dir"] = args.telemetry_dir
+    if args.telemetry_sample is not None:
+        overrides["telemetry_sample"] = args.telemetry_sample
     for flag, given in (("--peers", args.peers is not None),
                         ("--dist-quorum", args.dist_quorum is not None),
                         ("--dist-buffer", args.dist_buffer is not None),
@@ -603,25 +652,86 @@ def run_dist_cli(cfg, device: str, run_dir=None) -> int:
     return 0 if result["ok"] and summary.get("invariants_ok", True) else 1
 
 
+def fused_tamper_schedule(cfg, specs):
+    """``ROUND:CLIENT:SCALE`` entries -> the engine's ``(round) -> [C]
+    scales or None`` callable, with JAX's checks and messages; None when
+    no entry is given."""
+    import numpy as np
+
+    if not specs:
+        return None
+    if not cfg.ledger.enabled:
+        # without the ledger there is no transport-verification stage:
+        # the corruption would be dropped and the demo pass vacuously
+        raise SystemExit("--fused-tamper needs --ledger (the transport-"
+                         "verification stage lives in the ledger's "
+                         "fused fingerprint programs)")
+    spec = {}
+    for s in specs:
+        try:
+            r, c, scale = s.split(":")
+            r, c, scale = int(r), int(c), float(scale)
+        except ValueError:
+            raise SystemExit(
+                f"--fused-tamper {s!r}: expected ROUND:CLIENT:SCALE")
+        if not 0 <= c < cfg.num_clients:
+            raise SystemExit(
+                f"--fused-tamper {s!r}: client out of range "
+                f"[0, {cfg.num_clients})")
+        if not 0 <= r < cfg.num_rounds:
+            # a never-reached round would make the demo pass vacuously
+            raise SystemExit(
+                f"--fused-tamper {s!r}: round out of range "
+                f"[0, {cfg.num_rounds}) (rounds are 0-indexed)")
+        spec.setdefault(r, []).append((c, scale))
+
+    def fused_tamper(rnd, _spec=spec, _n=cfg.num_clients):
+        rows = _spec.get(rnd)
+        if not rows:
+            return None
+        row = np.zeros((_n,), np.float32)
+        for c, scale in rows:
+            row[c] = scale
+        return row
+
+    return fused_tamper
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == "trace":
+        # collate a run's event streams and run the invariant checks
+        from bcfl_tpu_torch.telemetry import trace_main
+
+        return trace_main(argv[1:])
+    if argv and argv[0] == "monitor":
+        # the live counterpart: tails a possibly-running fleet's streams
+        from bcfl_tpu_torch.telemetry.live import monitor_main
+
+        return monitor_main(argv[1:])
     ap = build_parser()
     args, rest = ap.parse_known_args(argv)
     if rest:
         ap.error(f"not ported yet (or unknown): {' '.join(rest)}")
     cfg = build_config(args)
+    fused_tamper = fused_tamper_schedule(cfg, args.fused_tamper)
     if cfg.runtime == "dist":
-        if args.sweep or args.resume:
+        if args.sweep or fused_tamper is not None or args.resume:
             raise SystemExit("--runtime dist composes with neither --sweep "
-                             "nor --resume (peer crash/rejoin is driven by "
+                             "nor --fused-tamper nor --resume (peer "
+                             "crash/rejoin is driven by "
                              "bcfl_tpu_torch.dist.run_dist(kill_peer=...) "
                              "or a peer started with python -m "
                              "bcfl_tpu_torch.dist --resume)")
         return run_dist_cli(cfg, args.device, args.dist_run_dir)
     if args.sweep:
+        if fused_tamper is not None:
+            raise SystemExit("--fused-tamper does not compose with --sweep "
+                             "(client indices change per sweep point)")
         run_sweep(cfg, device=args.device, resume=args.resume)
     else:
-        run(cfg, device=args.device, resume=args.resume)
+        run(cfg, device=args.device, resume=args.resume,
+            fused_tamper=fused_tamper)
     return 0
 
 

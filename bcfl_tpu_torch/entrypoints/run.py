@@ -20,8 +20,11 @@ from bcfl_tpu_torch.fed.engine import FedEngine, RunResult
 
 
 def run(cfg: FedConfig, device=None, verbose: bool = True,
-        resume: bool = False) -> RunResult:
-    engine = FedEngine(cfg, device=device)
+        resume: bool = False, fused_tamper=None) -> RunResult:
+    """``fused_tamper``: optional ``(round) -> [num_clients] scales or
+    None``, the engine's fused-round corruption shim (the port runs no
+    fused dispatch, so a round it names raises)."""
+    engine = FedEngine(cfg, device=device, fused_tamper=fused_tamper)
     if verbose:
         print("\n".join(_header(cfg, engine.device)), flush=True)
     result = engine.run(resume=resume,

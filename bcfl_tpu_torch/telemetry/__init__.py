@@ -8,9 +8,11 @@ the invariant checks as queries over the merged stream (OBSERVABILITY.md).
 - :mod:`bcfl_tpu_torch.telemetry.collate` — the torn-tail-tolerant
   reader, the happens-before merge across processes and the timeline
   rollups;
-- :mod:`bcfl_tpu_torch.telemetry.invariants` — the invariant catalogue.
-
-The live monitor (``bcfl_tpu/telemetry/live.py``) is not ported yet.
+- :mod:`bcfl_tpu_torch.telemetry.invariants` — the invariant catalogue;
+- :mod:`bcfl_tpu_torch.telemetry.live` — the live counterpart: incremental
+  stream tailing, streaming invariant checks with batch parity, the
+  per-round ``health.jsonl`` series with threshold alerts, and the
+  ``monitor`` subcommand (OBSERVABILITY.md §6).
 """
 
 from bcfl_tpu_torch.telemetry.collate import (  # noqa: F401
@@ -37,4 +39,14 @@ from bcfl_tpu_torch.telemetry.events import (  # noqa: F401
 from bcfl_tpu_torch.telemetry.invariants import (  # noqa: F401
     INVARIANTS,
     run_invariants,
+)
+from bcfl_tpu_torch.telemetry.live import (  # noqa: F401
+    STREAMING_CHECKS,
+    AlertManager,
+    AlertThresholds,
+    HealthRollup,
+    LiveCollator,
+    StreamingInvariantSuite,
+    StreamTailer,
+    monitor_main,
 )

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``bcfl_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # phases 1-4, paths (a)-(s)
+    python3 chip_smoke.py              # phases 1-4, paths (a)-(t)
     python3 chip_smoke.py --profile    # phases 1-4, then 5
 
 Phases, each of which raises (and the script exits non-zero) on failure:
@@ -83,8 +83,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    read just after, and each writing its checkpoints under
    ``build/chip_smoke/checkpoints`` (it fails unless the disk holds twice
    what it writes, and deletes them when it ends): (h) path (b) with the
-   ledger, 3 rounds, uninterrupted and then checkpointed every round,
-   crashed by the fault plan at round 2 (``SimulatedCrash``) and resumed
+   ledger, 2 rounds, uninterrupted and then checkpointed every round,
+   crashed by the fault plan at round 1 (``SimulatedCrash``) and resumed
    with ``run(resume=True)``: the resumed trainable tree, error-feedback
    residual, ledger and every round's records equal the uninterrupted
    run's bit for bit, the crash and resume launch each kernel exactly as
@@ -125,10 +125,10 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (biobert-base, 40 labels, 10 clients) on path (c)'s corpus as 5 peer
    processes of 2 clients each on the one card, buffered async merging
    every arrival, ``int8+topk`` with error feedback, the ledger over the
-   announced digests, 4 global versions of 2 local steps of 32 x 128
+   announced digests, 3 global versions of 2 local steps of 32 x 128
    tokens (``bcfl_tpu_torch.dist.run_dist``; the peers are fresh
    interpreters started after the builds). Every peer must exit 0 at
-   version 4 with ``chain_ok``, the heads must agree, no arrival may fail
+   version 3 with ``chain_ok``, the heads must agree, no arrival may fail
    authentication, K4 and K5 must launch in every peer (the record counts
    the peers' launches), some arrival must be stale, and the collated
    event timeline must hold every invariant; it prints per peer the
@@ -178,7 +178,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    (the outlier lane weighed 1.0, since the fingerprint cannot see a
    forged codec scale), peer 4 scaling and forging every update 25x,
    resource samples every 2 s, a checkpoint every 2 versions, the leader
-   SIGKILLed after its version-4 checkpoint and resumed, 6 versions. It
+   SIGKILLed after its version-2 checkpoint (past the quarantine) and
+   resumed, 4 versions. It
    gates on the script's gates (peer 4 quarantined at the leader within
    half the versions and at every follower, post-ack refusals, no
    quarantined merge and no other violation across both leader
@@ -215,7 +216,30 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    losses, and prints the push bytes and seconds, the merge count, the
    lag histogram and the card's and host's merge milliseconds. (m)-(r)
    print (m)'s per-peer, frame, latency and merge lines, and add every
-   incarnation's launches to the record.
+   incarnation's launches to the record. Then (t), the paper's
+   peer-to-peer federated LLM fine-tuning: (k)'s configuration (llama2-7b
+   at full width, LoRA rank 8, float32 frozen base from the seed, bf16
+   compute, remat, causal flash at 8 x 512 tokens) on the peer runtime,
+   2 peer processes of 2 clients each on the one card after the parent
+   released its cached blocks, ``buffer=2``, ``int8+topk`` with error
+   feedback over the adapter tree, the ledger, a checkpoint every
+   version, 3 versions, watched live by ``python -m
+   bcfl_tpu_torch.entrypoints monitor`` from before the peers start
+   until a stop file after the harness returns. It gates on every peer
+   exiting 0 with a verifying chain and one head, zero invariant
+   violations, the monitor exiting 0 with the batch collate's verdict,
+   one ``health.jsonl`` record per merge with a finite effective rank in
+   (0, 8], every frame below 1% of the float32 base, each update frame's
+   body the codec's ``payload_nbytes`` of the adapter tree for the peer's
+   clients (the frame its header, framing and index plus that body,
+   exactly), per peer K2 and K3 once per layer of every training step, K1
+   at least twice that, K4 once and K5 at least once a peer round, a
+   finite final loss and the peers' peaks together under the card's
+   memory; it prints each peer's set-up, round walls, peak and phases,
+   the frames' bytes and send ms, merge and decode ms and the effective
+   rank per version, the checkpoints, and the monitor's lag from a merge
+   event to its health record; K5 and K4 are held to their plain
+   versions at a peer's own calls (2 clients of adapter leaves) first.
 4. ``reference``: on small inputs, a tiny-bert server round on the card
    against the same round on the CPU (float32, dropout off, at the
    tolerance of ``tests/test_torch_round.py``), with dense attention at
@@ -308,18 +332,24 @@ def device_ms(fn, iters: int, kernel: str, flush: bool = False) -> float:
                          device="cuda") if flush else None)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            if scrub is not None:
-                scrub.zero_()
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and kernel in e.key)
-    if total <= 0:
-        raise RuntimeError(f"the profiler saw no device time of {kernel}")
-    return total / 1e3 / iters
+    # the profiler's device trace has come back empty on an H100 host
+    # now and then (a whole window without one kernel record); such a
+    # window is traced again, and three empty ones fail
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                if scrub is not None:
+                    scrub.zero_()
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and kernel in e.key)
+        if total > 0:
+            return total / 1e3 / iters
+        print(f"device_ms: the profiler saw no device time of {kernel} "
+              f"(window {attempt + 1} of 3)", flush=True)
+    raise RuntimeError(f"the profiler saw no device time of {kernel}")
 
 
 def bound_ms(nbytes: float, ops: float,
@@ -644,14 +674,18 @@ def flash_routes(fk):
     for dtype, route, other in ((torch.bfloat16, "wgmma", "kernel"),
                                 (torch.float32, "kernel", "wgmma")):
         q, k, v, do, bias = flash_inputs(gen, 1, 2, 128, 128, 64, dtype, None)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            out, lse = fk.FLASH_FWD(q, k, v, bias, False)
-            fk.FLASH_BWD_DKV(q, k, v, bias, out, do, lse, False)
-            fk.FLASH_BWD_DQ(q, k, v, bias, out, do, lse, False)
-            torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA]
+        names = []
+        for _ in range(3):  # an empty device trace is traced again
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out, lse = fk.FLASH_FWD(q, k, v, bias, False)
+                fk.FLASH_BWD_DKV(q, k, v, bias, out, do, lse, False)
+                fk.FLASH_BWD_DQ(q, k, v, bias, out, do, lse, False)
+                torch.cuda.synchronize()
+            names = [e.key for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA]
+            if names:
+                break
         for op in FLASH_OPS:
             ran = [n for n in names if f"{op}_{route}<" in n]
             wrong = [n for n in names if f"{op}_{other}<" in n]
@@ -1180,7 +1214,7 @@ def dist_config(dataset: str, **kw):
     contiguous partition of stride 500, train 400, fixed test 400) on the
     multi-process runtime: 5 peer processes of 2 clients each, buffered
     async with a merge on every arrival (``buffer=0``), ``int8+topk`` with
-    error feedback, the ledger on; cut to 4 global versions of 2 local
+    error feedback, the ledger on; cut to 3 global versions of 2 local
     steps of 32 x 128 tokens, 4 evaluation batches at the end, no
     checkpoints."""
     from bcfl_tpu_torch.compression import CompressionConfig
@@ -1189,7 +1223,7 @@ def dist_config(dataset: str, **kw):
 
     base = dict(name="chip-smoke-dist-noniid-medical", dataset=dataset,
                 vocab_size=28996, runtime="dist", sync="async",
-                num_rounds=4, max_local_batches=2, max_eval_batches=4,
+                num_rounds=3, max_local_batches=2, max_eval_batches=4,
                 eval_every=0,
                 compression=CompressionConfig(kind="int8+topk"),
                 ledger=LedgerConfig(enabled=True),
@@ -1208,17 +1242,20 @@ def _pct(xs, q):
 
 def message_stats(ordered):
     """Per message type (``update``, ``global``, ...) over a collated
-    timeline: the frame bytes and send wall of each delivered send, and
-    its latency from the send's start to the accepted receive."""
+    timeline: the frame bytes, header JSON bytes and send wall of each
+    delivered send, and its latency from the send's start to the accepted
+    receive."""
     sends, out = {}, {}
     for e in ordered:
         if e.get("ev") == "send" and e.get("ok"):
             key = (e.get("peer"), e.get("to"), e.get("msg_epoch"),
                    e.get("msg_id"))
             sends[key] = e
-            row = out.setdefault(e.get("type"), {"bytes": [], "send_s": [],
+            row = out.setdefault(e.get("type"), {"bytes": [], "header": [],
+                                                 "send_s": [],
                                                  "latency_s": []})
             row["bytes"].append(e.get("bytes"))
+            row["header"].append(e.get("header_bytes"))
             row["send_s"].append(e.get("wall_s"))
         elif (e.get("ev") == "recv" and e.get("disposition") == "accepted"
               and e.get("msg_id") is not None):
@@ -1617,7 +1654,7 @@ def byzantine_config(dataset: str):
     sender), per-peer reputation (quarantine longer than the run), peer 4
     adversarial at every round (``scale`` and ``digest_forge`` at 25x,
     chaos seed 11, whose draw opens with two forgeries), resource samples
-    every 2 s, a checkpoint every 2 versions (the newest kept); 6
+    every 2 s, a checkpoint every 2 versions (the newest kept); 4
     versions (cut from the script's 8). The outlier lane weighs 1.0
     (``w_anomaly``; default 0.5): under ``int8+topk`` the ledger
     fingerprint, JAX's design, cannot see a forged 25x of the codec's per-chunk scales at fine-tuning delta
@@ -1629,7 +1666,7 @@ def byzantine_config(dataset: str):
 
     base = dist_config(dataset)
     return base.replace(
-        name="chip-smoke-dist-byzantine", num_rounds=6,
+        name="chip-smoke-dist-byzantine", num_rounds=4,
         aggregator="trimmed_mean", aggregator_trim=0.2,
         reputation=ReputationConfig(enabled=True, quarantine_rounds=100_000,
                                     w_anomaly=1.0),
@@ -1743,8 +1780,9 @@ def robust_rule_at_width(smi):
 def phase_byzantine(stats, smi, dataset, m_loss):
     """Path (q): ``scripts/dist_byzantine.py``'s byzantine and resume
     legs in one run at (m)'s width (``byzantine_config``), the leader
-    (peer 0) SIGKILLed once its version-4 checkpoint and meta are
-    committed (past the quarantine) and restarted with --resume. Gates on
+    (peer 0) SIGKILLed once its version-2 checkpoint and meta are
+    committed (past the quarantine: the merge commits its transitions
+    before it checkpoints) and restarted with --resume. Gates on
     the script's gates: every peer completes; peer 4 quarantined at the
     leader within half the versions and at every follower; post-ack
     refusals; no ``no_quarantined_merge`` and no other violation over
@@ -1773,7 +1811,7 @@ def phase_byzantine(stats, smi, dataset, m_loss):
     print(smi, flush=True)
     t0 = time.perf_counter()
     result = run_dist(cfg, str(run_dir), deadline_s=480.0, device="cuda",
-                      threads=1, kill_peer=0, kill_after_version=4)
+                      threads=1, kill_peer=0, kill_after_version=2)
     wall = time.perf_counter() - t0
     reports = result["reports"]
     kill = result["kill"]
@@ -1892,8 +1930,9 @@ def phase_byzantine(stats, smi, dataset, m_loss):
     print_dist_timeline(label, result, col, wall)
     loss = (leader.get("final_eval") or {}).get("loss")
     print(f"{label}: final loss {loss} beside (m)'s adversary-free "
-          f"{m_loss} (printed, not gated: mean over 4 versions there, "
-          f"trimmed_mean with a quarantined peer over 6 here)", flush=True)
+          f"{m_loss} (printed, not gated: the mean over (m)'s versions "
+          f"there, trimmed_mean with a quarantined peer over "
+          f"{cfg.num_rounds} versions here)", flush=True)
     if loss is None or not math.isfinite(loss):
         raise RuntimeError(f"{label}: final loss {loss}")
     shutil.rmtree(run_dir, ignore_errors=True)
@@ -1904,9 +1943,9 @@ def phase_byzantine(stats, smi, dataset, m_loss):
 CHAOS_RESOURCE_PEER = 2
 CHAOS_LIMP_PEER = 3
 #: the chaos seed of path (r), chosen on the host from the plan's draws
-#: (``chaos_seed_ok``): the first seed of 0-399 meeting its conditions
-#: with the most ledger-depth coverage over simulated chain lengths
-CHAOS_SEED = 202
+#: (``chaos_seed_ok``): the one seed of 0-1999 meeting its conditions at
+#: 4 versions (its ledger draws fault chain lengths 2 and 22 too)
+CHAOS_SEED = 140
 
 
 def chaos_lanes(seed: int) -> dict:
@@ -1962,7 +2001,7 @@ def chaos_seed_ok(plan, rounds: int) -> bool:
 def chaos_config(dataset: str, seed: int):
     """Path (r): (m)'s preset and width (biobert-base, vocab 28,996, 40
     labels, 5 peers of 2 clients, ``buffer=0``, ``int8+topk`` with error
-    feedback, the ledger; 6 versions of 2 local steps of 32 x 128 tokens)
+    feedback, the ledger; 4 versions of 2 local steps of 32 x 128 tokens)
     under the three lanes of ``chaos_lanes(seed)``, per-peer reputation
     (so "never quarantined" is a verdict of the tracker, not of its
     absence), the detector SUSPECT on the first failed attempt
@@ -1973,7 +2012,7 @@ def chaos_config(dataset: str, seed: int):
 
     base = dist_config(dataset)
     return base.replace(
-        name="chip-smoke-dist-chaos", num_rounds=6,
+        name="chip-smoke-dist-chaos", num_rounds=4,
         reputation=ReputationConfig(enabled=True),
         faults=FaultPlan(**chaos_lanes(seed)),
         dist=dataclasses.replace(base.dist, suspect_after=1,
@@ -2035,7 +2074,7 @@ def phase_chaos(stats, smi, dataset):
     """Path (r): the wire, limp and resource lanes at (m)'s width
     (``chaos_config``, chaos seed ``CHAOS_SEED``, checked against the
     plan's draws before the run). Gates on ``scripts/dist_chaos.py``'s
-    wire leg and the two other lanes: every peer exits 0 at version 6
+    wire leg and the two other lanes: every peer exits 0 at version 4
     with one verified head; no invariant violation over a nonzero merge
     count; retries, duplicates dropped, CRC drops and reorder holds
     nonzero; a detector SUSPECT and back; peer 3's stall events exactly
@@ -2337,6 +2376,260 @@ def phase_gossip(stats, smi, dataset):
                   if e.get("ev") == "round" and e.get("peer") == p]
         print(f"{label} peer {p} local round walls: {rounds}", flush=True)
     shutil.rmtree(run_dir, ignore_errors=True)
+
+
+# ------------------------- LoRA adapters over the peer runtime (t)
+
+
+def lora_dist_config(dataset: str):
+    """Path (t): (k)'s configuration (``llama_config``: llama2-7b at full
+    width, random weights from the seed, float32 frozen base, bf16
+    compute, remat, 8 x 512 tokens of the long documents with causal
+    flash attention, 2 local steps) with LoRA rank 8 on the peer runtime:
+    2 peer processes of 2 clients each, the leadered async path merging
+    when both peers' updates are in (``buffer=2``), ``int8+topk`` with
+    error feedback over the adapter tree, the ledger, a checkpoint every
+    version, 3 versions, the leader's final evaluation on 2 batches."""
+    from bcfl_tpu_torch.config import DistConfig, LedgerConfig
+
+    return llama_config(
+        dataset, name="chip-smoke-llama2-7b-lora-dist", runtime="dist",
+        sync="async", eval_every=0, lora_rank=8, num_rounds=3,
+        ledger=LedgerConfig(enabled=True),
+        dist=DistConfig(peers=2, buffer=2, buffer_timeout_s=60.0,
+                        idle_timeout_s=240.0, peer_deadline_s=420.0,
+                        checkpoint_every_versions=1))
+
+
+def update_frame_overhead(cfg, template) -> tuple:
+    """``(body, fixed)`` bytes of one peer's update frame: the body is the
+    codec's ``payload_nbytes`` of the adapter tree for each of the peer's
+    clients, ``fixed`` the frame's framing and tree index (everything but
+    the header JSON, whose length the send event records), computed from
+    the payload's part shapes."""
+    from bcfl_tpu_torch.compression import codecs as cc
+    from bcfl_tpu_torch.dist import wire
+
+    comp = cfg.compression
+    k = cfg.num_clients // cfg.dist.peers
+    parts = {}
+    for p, leaf in template.items():
+        n = leaf.numel()
+        kk = max(1, int(math.ceil(comp.topk_frac * n)))
+        c = min(comp.chunk, kk)
+        m = -(-kk // c)
+        parts[p] = {"i": torch.empty((k, kk), dtype=torch.int32),
+                    "q": torch.empty((k, m, c), dtype=torch.int8),
+                    "s": torch.empty((k, m), dtype=torch.float32)}
+    index = wire._tree_index(wire._flatten(parts))
+    body = k * cc.payload_nbytes(comp, template)
+    if body != cc.payload_tensor_nbytes(parts):
+        raise RuntimeError(f"update body {body} != the parts' bytes "
+                           f"{cc.payload_tensor_nbytes(parts)}")
+    # prefix, header length word, tree count, then the one tree's name,
+    # index and body length words
+    fixed = (wire.PREFIX_LEN + 4 + 4 + 4 + len("payload") + 4 + len(index)
+             + 8)
+    return body, fixed
+
+
+def start_monitor(run_dir: Path, health: Path, summary: Path, stop: Path):
+    """The live monitor (``python -m bcfl_tpu_torch.entrypoints monitor``)
+    over ``run_dir``, from the checkout's root, until ``stop`` exists."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "bcfl_tpu_torch.entrypoints", "monitor",
+         str(run_dir), "--health-out", str(health), "--summary-out",
+         str(summary), "--stop-file", str(stop), "--poll", "0.5",
+         "--idle", "0", "--quiet"],
+        cwd=str(Path(__file__).resolve().parent),
+        env=dict(os.environ, OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def stop_monitor(mon, stop: Path) -> tuple:
+    """Touch the stop file and collect the monitor: ``(rc, out, err)``; a
+    monitor that has not finalized 120 s later is killed and fails."""
+    stop.write_text("")
+    try:
+        out, err = mon.communicate(timeout=120)
+    except subprocess.TimeoutExpired:
+        mon.kill()
+        out, err = mon.communicate()
+        return None, out, err
+    return mon.returncode, out, err
+
+
+def phase_lora_dist(ck, stats, smi, dataset):
+    """Path (t): the paper's peer-to-peer federated LLM fine-tuning, 2
+    llama2-7b LoRA peers on the one card (``lora_dist_config``), watched
+    live by the ``monitor`` subcommand from before the peers start until
+    a stop file after the harness returns. Gates: every peer exits 0 at
+    version 3 with a verifying chain and one common head; no invariant
+    violation in the batch collate; the monitor exits 0 with the batch
+    verdict; one ``health.jsonl`` record per merge, each with a finite
+    effective rank in (0, 8]; every update and broadcast frame below 1%
+    of the float32 base; each update frame exactly its header (the length
+    its send event records), framing and index, and a body of the codec's
+    ``payload_nbytes`` of the adapter tree for the peer's 2 clients; per
+    peer, K2 and K3 once per layer of every training step, K1 at least
+    twice that, K4 once and K5 at least once a peer round; a finite final
+    loss; the two peers' peaks under the card's memory. Prints each
+    peer's set-up (the 7B build in a fresh interpreter), round walls,
+    peak, frame bytes and send ms, merge and ledger ms, checkpoint bytes
+    and seconds, the effective rank per version and the monitor's lag
+    from a merge event to its health record. Before the peers start, K5
+    and K4 held to their plain versions at a peer's own calls."""
+    from bcfl_tpu_torch.dist import run_dist
+    from bcfl_tpu_torch.models import build, lora, lora_targets
+    from bcfl_tpu_torch.telemetry import read_stream
+
+    label = "llama LoRA dist path (t)"
+    cfg = lora_dist_config(dataset)
+    run_dir = BUILD_DIR / "dist_t"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    mon_dir = BUILD_DIR / "dist_t_monitor"
+    shutil.rmtree(mon_dir, ignore_errors=True)
+    mon_dir.mkdir(parents=True)
+    health, summary, stop = (mon_dir / "health.jsonl",
+                             mon_dir / "summary.json", mon_dir / "stop")
+    with torch.device("meta"):
+        model = build(cfg.model, num_labels=cfg.num_labels,
+                      vocab_size=cfg.vocab_size)
+    template = lora.init_lora(None, model, cfg.lora_rank,
+                              lora_targets(cfg.model))
+    base_bytes = sum(p.numel() * 4 for p in model.parameters())
+    layers = model.cfg.num_layers
+    del model
+    body, fixed = update_frame_overhead(cfg, template)
+    k = cfg.num_clients // cfg.dist.peers
+    # K5 and K4 at a peer's own calls: the adapter leaves of 2 clients
+    codec_calls(ck, stats, template, cfg.compression, k, "lora-dist-peer")
+    torch.cuda.empty_cache()
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    print(f"{label}: the parent holds {torch.cuda.memory_allocated() / 1e9:.3f}"
+          f" GB allocated, {torch.cuda.memory_reserved() / 1e9:.3f} GB "
+          f"reserved before the peers start; adapters "
+          f"{lora.num_params(template)} parameters against the base's "
+          f"{base_bytes // 4} ({base_bytes / 1e9:.3f} GB in float32)",
+          flush=True)
+    print(smi, flush=True)
+    mon = start_monitor(run_dir, health, summary, stop)
+    t0 = time.perf_counter()
+    t0_wall = time.time()
+    try:
+        result = run_dist(cfg, str(run_dir), deadline_s=480.0,
+                          device="cuda", threads=1)
+    finally:
+        mon_rc, mon_out, mon_err = stop_monitor(mon, stop)
+    wall = time.perf_counter() - t0
+    reports = result["reports"]
+    launches = check_dist_peers(label, cfg, result)
+    count_launches(stats, launches)
+    col = collate_checked(label, result)
+    evs = col["ordered"]
+    mon_sum = (json.loads(summary.read_text()) if summary.exists()
+               else {})
+    merges = [e for e in evs if e.get("ev") == "merge"]
+    recs = ([e for e in read_stream(str(health))[0] if e["ev"] == "health"]
+            if health.exists() else [])
+    msgs = message_stats(evs)
+    steps = k * cfg.max_local_batches * layers
+    per_peer = {}
+    for p, r in sorted(reports.items()):
+        kl, train = r["kernel_launches"], r["local_rounds"] * steps
+        per_peer[p] = (
+            kl["flash_bwd_dkv"] == train and kl["flash_bwd_dq"] == train
+            and kl["flash_fwd"] >= 2 * train
+            and kl["int8_quantize"] == r["local_rounds"]
+            and kl["topk_select"] >= r["local_rounds"] and train > 0)
+    upd = msgs.get("update", {"bytes": [], "header": []})
+    updates, headers = upd["bytes"], upd["header"]
+    globals_ = msgs.get("global", {"bytes": []})["bytes"]
+    loss = (reports[0].get("final_eval") or {}).get("loss")
+    peaks = {p: r["peak_gb"] for p, r in reports.items()}
+    gates = {
+        "every_peer_exits_0": result["ok"],
+        "one_verified_head": len({r["chain_head"] for r in reports.values()})
+        == 1 and all(r["chain_ok"] for r in reports.values()),
+        "zero_invariant_violations": col["ok"],
+        "monitor_exits_0": mon_rc == 0,
+        "monitor_verdict_is_collate_verdict": (
+            mon_sum.get("ok") == col["ok"]
+            and mon_sum.get("invariants") == col["invariants"]),
+        "one_health_record_per_merge": (
+            [h["round"] for h in recs] == [m["version"] for m in merges]
+            and len(merges) >= cfg.num_rounds),
+        "effective_rank_in_0_8": bool(recs) and all(
+            h.get("effective_rank") is not None
+            and math.isfinite(h["effective_rank"])
+            and 0.0 < h["effective_rank"] <= cfg.lora_rank for h in recs),
+        "frames_below_1pct_of_base": bool(updates) and bool(globals_) and max(
+            updates + globals_) < 0.01 * base_bytes,
+        "update_body_is_payload_nbytes": bool(updates) and all(
+            h is not None and b == h + fixed + body
+            for b, h in zip(updates, headers)),
+        "launch_counts_per_peer": all(per_peer.values()),
+        "final_loss_finite": loss is not None and math.isfinite(loss),
+        "peaks_under_the_card": sum(peaks.values()) < card_gb,
+    }
+    print(f"{label}: update body {body} bytes = {k} x payload_nbytes "
+          f"{body // k} of the adapter tree, framing and index {fixed}, "
+          f"header JSON {sorted(set(headers))}; largest frame "
+          f"{max(updates + globals_, default=None)} bytes against 1% of "
+          f"the base {0.01 * base_bytes:.0f}", flush=True)
+    print(f"{label} gates: {json.dumps(gates)}", flush=True)
+    if not all(gates.values()):
+        raise RuntimeError(f"{label}: gates failed {gates}; monitor rc "
+                           f"{mon_rc} {mon_out[-2000:]} {mon_err[-2000:]}")
+    starts = {e["peer"]: e["t_wall"] for e in evs
+              if e.get("ev") == "run.start"}
+    for p, r in sorted(reports.items()):
+        rounds = [round(e["wall_s"], 3) for e in evs
+                  if e.get("ev") == "round" and e.get("peer") == p]
+        ph = {n: round(v["mean_s"] * 1e3, 1) for n, v in r["phases"].items()}
+        print(f"{label} peer {p}: set-up {starts[p] - t0_wall:.2f} s (spawn "
+              f"to run.start: interpreter, 7B build and init, data), local "
+              f"round walls {rounds}, peak {r['peak_gb']:.2f} GB, phase ms "
+              f"(mean) {json.dumps(ph)}", flush=True)
+    print(f"{label}: peaks {peaks} GB, together "
+          f"{sum(peaks.values()):.2f} GB of the card's {card_gb:.2f} GB",
+          flush=True)
+    for kind, row in sorted(msgs.items(), key=lambda kv: str(kv[0])):
+        print(f"{label} {kind} frames: {len(row['bytes'])}, bytes "
+              f"{sorted(set(row['bytes']))}, send ms mean "
+              f"{sum(row['send_s']) / len(row['send_s']) * 1e3:.1f} max "
+              f"{max(row['send_s']) * 1e3:.1f}", flush=True)
+    for m in merges:
+        dec = [round(a.get("decode_s", 0.0) * 1e3, 1) for a in m["arrivals"]]
+        print(f"{label} version {m['version']}: merge {m['wall_s'] * 1e3:.1f}"
+              f" ms, arrivals {[a['peer'] for a in m['arrivals']]} at "
+              f"staleness {[a['staleness'] for a in m['arrivals']]}, decode "
+              f"ms {dec}, effective rank {m['effective_rank']:.6f}",
+              flush=True)
+    # the leader's prepare phase is the ledger's commit and refingerprint
+    # of each arrival, its gates and its decode; less the decode, the
+    # ledger's share
+    prep = reports[0]["phases"]["merge.prepare"]
+    decode = sum(a.get("decode_s", 0.0) for m in merges for a in m["arrivals"])
+    print(f"{label}: the leader's ledger and gates "
+          f"{(prep['mean_s'] * prep['count'] - decode) / len(merges) * 1e3:.1f}"
+          f" ms a version (merge.prepare {prep['count']} x "
+          f"{prep['mean_s'] * 1e3:.1f} ms less {decode * 1e3:.1f} ms of "
+          f"decode, over {len(merges)} versions)", flush=True)
+    lags = [round(h["t_mono"] - m["t_mono"], 3) for h, m in zip(recs, merges)]
+    print(f"{label}: monitor lag from each merge event to its health record "
+          f"(s, one host's monotonic clock; the peers flush their streams "
+          f"every 2 s, the monitor polls every 0.5 s) {lags}; monitor "
+          f"summary ok {mon_sum.get('ok')}, {mon_sum.get('events')} events, "
+          f"alerts fired {mon_sum.get('alerts', {}).get('fired')}",
+          flush=True)
+    print_checkpoints(label, reports)
+    print(f"{label}: {wall:.2f} s wall incl. the interpreters and set-up, "
+          f"final loss {loss}, launches summed over the peers {launches}",
+          flush=True)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    shutil.rmtree(mon_dir, ignore_errors=True)
 
 
 def hf_state_dict(seed: int, vocab: int = 30522, hidden: int = 768,
@@ -2815,8 +3108,9 @@ def report_checkpoints(label, ckdir, saved, resumed) -> None:
 
 def path_crash_resume(stats, smi, dataset):
     """Path (h): path (b) (bert-base, seq 512, flash, ``int8+topk``, server
-    FedAvg) with the ledger, 3 rounds: uninterrupted, then checkpointed
-    every round with the plan's crash at round 2 and resumed from round 1;
+    FedAvg) with the ledger, 2 rounds (cut from 3 to keep the script's
+    call short): uninterrupted, then checkpointed every round with the
+    plan's crash at round 1 and resumed from round 0;
     bit for bit, and the crash + resume pair launches each kernel as often
     as the uninterrupted run."""
     from bcfl_tpu_torch.config import LedgerConfig
@@ -2824,12 +3118,12 @@ def path_crash_resume(stats, smi, dataset):
 
     label = "crash-resume path"
     ref_cfg = flash_config(dataset, name="chip-smoke-crash-resume-s512",
-                           num_rounds=3, ledger=LedgerConfig(enabled=True))
+                           num_rounds=2, ledger=LedgerConfig(enabled=True))
     ckdir = CKPT_DIR / "h"
     shutil.rmtree(ckdir, ignore_errors=True)
     cfg = ref_cfg.replace(checkpoint_dir=str(ckdir), checkpoint_every=1,
-                          faults=FaultPlan(crash_at_round=2))
-    check_disk(3 * checkpoint_gb(cfg, stacked=False), label)
+                          faults=FaultPlan(crash_at_round=1))
+    check_disk(2 * checkpoint_gb(cfg, stacked=False), label)
     try:
         ref, ref_launches, ref_peak = drive(ref_cfg, smi,
                                             f"{label} (uninterrupted)")
@@ -3846,25 +4140,47 @@ def main(argv=None) -> int:
     for line in ptxas_notes(cuda_build.BUILD_LOGS):
         print(line, flush=True)
     native_status()
+
+    def done(what):
+        # the script's own clock, so each phase's share of the call shows
+        print(f"{what}: done at {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+    done("build")
     dataset = write_long_docs()
     main_lens = main_padding(dataset, flash_config(dataset))
     llama_lens = main_padding(dataset, llama_config(dataset))
     flash_per, llama_per = phase_kernels(ck, fk, stats, main_lens,
                                          llama_lens)
+    done("kernels")
     b_path = phase_main(ck, stats, smi, dataset, flash_per)
     medical = write_medical_docs()
     c_walls = phase_p2p(ck, stats, smi, medical)
+    done("paths (a)-(d)")
     phase_run_surface(ck, fk, stats, smi, dataset, b_path)
+    done("paths (e)-(g)")
     phase_resilience(ck, stats, smi, dataset)
+    done("paths (h)-(j)")
     phase_llama(ck, fk, stats, smi, dataset, llama_per)
+    done("paths (k)-(l)")
     m_loss = phase_dist(ck, stats, smi, medical, c_walls)
+    done("path (m)")
     phase_partition_kill(stats, smi, medical)
+    done("path (o)")
     phase_storage_repair(stats, smi, medical)
+    done("path (p)")
     phase_byzantine(stats, smi, medical, m_loss)
+    done("path (q)")
     phase_chaos(stats, smi, medical)
+    done("path (r)")
     phase_gossip(stats, smi, medical)
+    done("path (s)")
+    phase_lora_dist(ck, stats, smi, dataset)
+    done("path (t)")
     count_launches(stats, phase_hf(smi))
+    done("path (n)")
     phase_reference()
+    done("reference")
     if args.profile:
         phase_profile(main_config(), "seq-128 path")
         phase_profile(flash_config(dataset), "seq-512 flash path")

@@ -6,7 +6,8 @@ attempt)`` and its validation messages; ``_corrupt_parts`` and
 ``PeerTransport`` over loopback (a drop exhausts the budget, a duplicate is
 deduplicated, corruption is caught by the CRC and healed by a retry, the
 pipelined sender under chaos, a reorder hold and the clock pinned at
-enqueue); the ``--chaos-wire`` flags parsed and refused as JAX parses and
+enqueue); the default phi detector's SUSPECT and REACHABLE round trip
+under a lane that drops a round's every attempt, in both packages; the ``--chaos-wire`` flags parsed and refused as JAX parses and
 refuses them; a follower that honors a shutdown only after the frames held
 before it; and a 3-peer CPU loopback run of the leadered path with
 ``int8+topk`` under the wire lane, graded by JAX's
@@ -208,6 +209,47 @@ def test_chaos_drop_exhausts_budget_and_dup_is_deduped():
         assert c.stats()["chaos_injected"]["dup"] == 1
     finally:
         b.close()
+
+
+def _phi_walk(tr, chaos_cls, plan_cls, dist_cls, addrs, clock):
+    """The phi detector's states toward peer 1 as ``tr``'s transport sends
+    a ping under a wire lane that drops every attempt of round 0, then
+    one of round 1 (lane off): after the failed send, then after the
+    delivered one."""
+    b = tr.PeerTransport(1, addrs, policy=dist_cls(**PHI_POLICY))
+    b.start()
+    try:
+        a = tr.PeerTransport(
+            0, addrs, policy=dist_cls(**PHI_POLICY),
+            chaos=chaos_cls(plan_cls(wire_drop_prob=1.0, wire_rounds=(0,)),
+                            lambda: clock[0]))
+        walk = [a.send(1, {"type": "ping"}), a.detector.state_of(1)]
+        clock[0] = 1
+        walk += [a.send(1, {"type": "ping"}), a.detector.state_of(1)]
+        assert b.recv(3.0) is not None
+        return walk
+    finally:
+        b.close()
+
+
+PHI_POLICY = dict(peers=2, send_retries=2, retry_base_s=0.01,
+                  retry_max_s=0.05, send_deadline_s=3.0, detector="phi",
+                  probe_interval_s=0.05)
+
+
+def test_phi_detector_round_trip_under_the_wire_lane_equals_jax():
+    """The default phi detector under the wire lane, with no inbound frame
+    between the failures: every attempt of round 0 dropped (3 failures in
+    a row) leaves the destination SUSPECT, and the round-1 delivery brings
+    it back to REACHABLE, in both packages' transports."""
+    from bcfl_tpu.config import DistConfig as JDist
+    from bcfl_tpu.dist import transport as jt
+    from bcfl_tpu_torch.dist import transport as tt
+
+    want = [False, "suspect", True, "reachable"]
+    assert _phi_walk(tt, WireChaos, FaultPlan, DistConfig, _pair(),
+                     [0]) == want
+    assert _phi_walk(jt, jt.WireChaos, JPlan, JDist, _pair(), [0]) == want
 
 
 def test_chaos_corruption_is_caught_by_crc_and_healed_by_retry():
@@ -418,7 +460,17 @@ def test_three_peer_loopback_codec_under_wire_chaos(tmp_path):
     violation over a nonzero merge count, and retries, duplicates
     dropped, CRC drops and reorder holds all happened (JAX's
     ``scripts/dist_chaos.py`` wire-leg gates, the detector round trip
-    included)."""
+    included). The counter detector (``detector="fixed"``) makes
+    ``suspect_after=1`` hold: every failed attempt is a SUSPECT and the
+    next delivery to or from that peer a REACHABLE, so the round trip
+    follows from the retries (the default phi detector ignores
+    ``suspect_after`` and needs two failures in a row with no inbound
+    frame between them, which a loaded host's interleaving can deny; its
+    round trip under the wire lane is held by
+    ``test_phi_detector_round_trip_under_the_wire_lane_equals_jax``).
+    ``buffer=3`` makes every merge wait for all three peers, so every
+    version puts both followers' updates on the faulty wire however the
+    host schedules the peers."""
     from bcfl_tpu_torch import config as tconfig
     from bcfl_tpu_torch.compression import CompressionConfig
     from bcfl_tpu_torch.dist import run_dist
@@ -435,7 +487,8 @@ def test_three_peer_loopback_codec_under_wire_chaos(tmp_path):
         faults=FaultPlan(seed=2, wire_drop_prob=0.2, wire_dup_prob=0.2,
                          wire_reorder_prob=0.2, wire_reorder_hold_s=0.2,
                          wire_corrupt_prob=0.15),
-        dist=tconfig.DistConfig(peers=3, buffer=0, suspect_after=1,
+        dist=tconfig.DistConfig(peers=3, buffer=3, buffer_timeout_s=10.0,
+                                suspect_after=1, detector="fixed",
                                 idle_timeout_s=90.0, peer_deadline_s=240.0,
                                 checkpoint_every_versions=0))
     res = run_dist(cfg, str(tmp_path / "chaos"), deadline_s=280.0,

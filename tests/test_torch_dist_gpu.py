@@ -29,7 +29,9 @@ the wire, limp and resource lanes over two card peers' ``int8+topk``
 frames: every frame the lanes drop, duplicate, hold or corrupt still
 merges once, the chains agree, and K4/K5 launch in both peers. A sixth
 runs three gossip peers on the card through a partition and its
-leaderless heal.
+leaderless heal. A seventh runs two ``tiny-llama`` LoRA peers with causal
+flash attention and ``int8+topk`` over the adapter deltas, counting each
+peer's K1-K5 launches against its training steps.
 
 The tests are marked ``gpu`` and skip without a card. This file imports
 neither JAX nor the JAX package:
@@ -311,3 +313,53 @@ def test_gossip_partition_heal_on_the_card(tmp_path):
             [0, 1] if p in (0, 1) else [2])
     col = collate_run(result["run_dir"])
     assert col["ok"], col["violations"]
+
+
+@pytest.mark.gpu
+def test_two_tiny_llama_lora_peers_on_the_card(tmp_path):
+    """2 ``tiny-llama`` causal-LM peers with rank-4 adapters on the card:
+    causal flash attention (bf16, remat), ``int8+topk`` over the adapter
+    deltas and the ledger. Every peer launches K2 and K3 once per layer
+    of every training step, K1 at least twice that (the remat recompute),
+    K4 once and K5 at least once a peer round; every merge carries the
+    merged adapter's effective rank and the chains agree."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the peers run K1-K5 on the card)")
+    from bcfl_tpu_torch.compression import CompressionConfig
+    from bcfl_tpu_torch.config import (DistConfig, FedConfig, LedgerConfig,
+                                       PartitionConfig)
+    from bcfl_tpu_torch.dist import run_dist
+    from bcfl_tpu_torch.ops import cuda_build
+    from bcfl_tpu_torch.telemetry import collate_run
+
+    cuda_build.build_all()
+    cfg = FedConfig(
+        name="dist_llama_lora_gpu", runtime="dist", mode="server",
+        sync="async", model="tiny-llama", task="causal_lm", lora_rank=4,
+        dataset="synthetic", vocab_size=512, num_clients=4, num_rounds=3,
+        seq_len=64, batch_size=4, max_local_batches=2, eval_every=0,
+        use_flash=True, remat=True, compute_dtype="bfloat16",
+        partition=PartitionConfig(kind="iid", iid_samples=16),
+        ledger=LedgerConfig(enabled=True),
+        compression=CompressionConfig(kind="int8+topk"),
+        dist=DistConfig(peers=2, buffer=2, peer_deadline_s=200.0,
+                        idle_timeout_s=120.0, checkpoint_every_versions=1))
+    result = run_dist(cfg, str(tmp_path / "run"), deadline_s=240.0,
+                      device="cuda", threads=1)
+    assert result["ok"], result["log_tails"]
+    reports = result["reports"]
+    for r in reports.values():
+        assert r["device"].startswith("cuda") and r["chain_ok"]
+        kl, train = r["kernel_launches"], r["local_rounds"] * 2 * 2 * 2
+        assert train > 0
+        assert kl["flash_bwd_dkv"] == kl["flash_bwd_dq"] == train, kl
+        assert kl["flash_fwd"] >= 2 * train, kl
+        assert kl["int8_quantize"] == r["local_rounds"], kl
+        assert kl["topk_select"] >= r["local_rounds"], kl
+    assert len({r["chain_head"] for r in reports.values()}) == 1
+    col = collate_run(result["run_dir"])
+    assert col["ok"], col["violations"]
+    ranks = [e["effective_rank"] for e in col["ordered"]
+             if e["ev"] == "merge"]
+    assert len(ranks) >= cfg.num_rounds
+    assert all(0.0 < x <= cfg.lora_rank for x in ranks), ranks

@@ -101,14 +101,10 @@ def test_runtime_caps_verdicts_equal_jax(name, over, runtime_):
     # the port leaves out the rows of fields it does not have
     assert set(want) - set(got) == {"pod-spanning mesh", "buffer donation"}
     assert set(got) <= set(want)
+    # no feature is deferred any more: every row's verdict is JAX's
     for f, (active, verdict) in got.items():
         assert active == want[f][0], f
-        if isinstance(verdict, str) and verdict.startswith(
-                tconfig.NOT_PORTED_YET):
-            # a deferred feature: JAX runs it on dist, the port refuses it
-            assert runtime_ == "dist"
-        else:
-            assert verdict == want[f][1], f
+        assert verdict == want[f][1], f
 
 
 def _cfgs(over):
@@ -158,19 +154,20 @@ def test_dist_configs_construct_or_refuse_as_jax(name, over):
 
 
 def test_deferred_dist_features_raise_not_ported_yet():
-    deferred = ["lora"]
+    # no dist feature of the grid is deferred any more: the ported
+    # fault-tolerance, adversarial and chaos halves, gossip dispatch and
+    # LoRA over dist run; partitions, reputation, the byzantine, wire,
+    # limp and resource lanes, gossip and uniform-rank adapters run, the
+    # robust rules take JAX's buffer preconditions, churn and host crash
+    # JAX's own rejections, the storage lane JAX's checks, gossip JAX's
+    # refusals of compression, heterogeneous ranks JAX's refusal
     for name, over in GRID:
-        if name in deferred:
-            got = _cfgs(over)["port"]
-            assert isinstance(got, str) and "not ported yet" in got, name
-    # the ported fault-tolerance, adversarial and chaos halves and gossip
-    # dispatch: partitions, reputation, the byzantine, wire, limp and
-    # resource lanes and gossip run, the robust rules take JAX's buffer
-    # preconditions, churn and host crash JAX's own rejections, the
-    # storage lane JAX's checks, gossip JAX's refusals of compression
+        got = _cfgs(over)["port"]
+        assert not (isinstance(got, str) and "not ported yet" in got), name
     for name in ("partition", "churn", "crash", "storage", "reputation",
                  "robust", "byz", "wire", "limp", "resource", "gossip",
-                 "gossip_partition", "gossip_compress"):
+                 "gossip_partition", "gossip_compress", "lora",
+                 "hetero_lora"):
         over = dict(GRID)[name]
         got, want = _cfgs(over)["port"], _cfgs(over)["jax"]
         assert not (isinstance(got, str) and "not ported yet" in got), name
@@ -184,11 +181,17 @@ def test_deferred_dist_features_raise_not_ported_yet():
         dist=tconfig.DistConfig(peers=4, dispatch="gossip",
                                 checkpoint_every_versions=0)
     ).dist.dispatch == "gossip"
-    with pytest.raises(ValueError, match="not ported yet"):
-        tconfig.FedConfig(runtime="dist", sync="async", eval_every=0,
-                          model="tiny-llama",
-                          dist=tconfig.DistConfig(
-                              peers=2, checkpoint_every_versions=0))
+    # Llama over dist constructs, with JAX's verdicts
+    llama = {}
+    for pkg, mod in (("port", tconfig), ("jax", jconfig)):
+        llama[pkg] = mod.FedConfig(
+            runtime="dist", sync="async", eval_every=0, model="tiny-llama",
+            dist=mod.DistConfig(peers=2, checkpoint_every_versions=0))
+    assert llama["port"].model == llama["jax"].model == "tiny-llama"
+    assert ([(f, a, v) for f, a, v in tconfig.capability_table(llama["port"])]
+            == [(f, a, v) for f, a, v in
+                jconfig.capability_table(llama["jax"])
+                if f not in ("pod-spanning mesh", "buffer donation")])
 
 
 def _dist_cfg(**kw):

@@ -330,6 +330,89 @@ def test_report_extra_before_and_after_init():
     assert rep["membership"] == rt.membership.report()
 
 
+class _SpanGate:
+    """The partition gate of a (0, 1) | (2, 3, 4) cut that the test opens
+    and closes by hand."""
+
+    def __init__(self):
+        self.comps = ((0, 1), (2, 3, 4))
+
+    def components(self):
+        return self.comps
+
+    def component_of(self, peer):
+        for c in self.comps or ():
+            if peer in c:
+                return c
+        return None
+
+
+def _heal_after_the_other_side_left(pkg, tmp_path):
+    """Peer 0 of 5 through a leaderless span whose other side (2, 3, 4)
+    finished while it was cut off: their "leaving" frames are read only
+    after the gate has opened, just before the heal is observed. The
+    hidden peers listen on nothing. Returns the heal's send events and
+    the ``partition_heals_leaderless`` verdict over the stream."""
+    import types
+
+    if pkg == "port":
+        from bcfl_tpu_torch import telemetry as tele
+        from bcfl_tpu_torch.config import DistConfig
+        from bcfl_tpu_torch.dist.transport import PeerTransport
+        from bcfl_tpu_torch.telemetry.invariants import (
+            partition_heals_leaderless)
+        gmod = tg
+    else:
+        from bcfl_tpu import telemetry as tele
+        from bcfl_tpu.config import DistConfig
+        from bcfl_tpu.dist.transport import PeerTransport
+        from bcfl_tpu.telemetry.invariants import partition_heals_leaderless
+        gmod = jg
+    from bcfl_tpu_torch.dist.harness import free_ports
+
+    addrs = [("127.0.0.1", p) for p in free_ports(5)]
+    policy = DistConfig(peers=5, send_retries=1, retry_base_s=0.01,
+                        retry_max_s=0.05, send_deadline_s=3.0)
+    stream = str(tmp_path / f"{pkg}_events_peer0.jsonl")
+    tele.install(tele.EventWriter(stream, peer=0, run="heal"))
+    rt = gmod.GossipPeerRuntime.__new__(gmod.GossipPeerRuntime)
+    rt.peers, rt.peer_id, rt.version, rt.chain = 5, 0, 2, None
+    rt.cfg = types.SimpleNamespace(dist=types.SimpleNamespace(pipeline=True))
+    rt.gate, rt._partitioned = _SpanGate(), False
+    rt._peers_done, rt._grace = set(), gmod.RejoinGrace()
+    rt.transport = PeerTransport(0, addrs, policy=policy)
+    try:
+        tele.emit("run.start", role="peer", peers=5)
+        rt._update_partition_state()  # the span begins
+        rt.gate.comps = None
+        rt._peers_done |= {2, 3, 4}
+        rt._update_partition_state()  # the heal
+        rt.transport.flush_sends(timeout_s=10.0)
+        tele.emit("run.end", status="ok")
+    finally:
+        rt.transport.close()
+        tele.uninstall()
+    events = tele.read_stream(stream)[0]
+    sends = sorted(e["to"] for e in events if e["ev"] == "send")
+    return sends, partition_heals_leaderless(events)
+
+
+def test_heal_probes_the_peers_that_left_during_the_cut(tmp_path):
+    """The heal probes every peer the cut hid, one that announced leaving
+    too, so the other side finishing during the span still leaves the
+    heal's anti-entropy attempt on the stream. JAX's runtime skips
+    departed peers and its own ``partition_heals_leaderless`` flags the
+    run: the fault the port repairs."""
+    sends, violations = _heal_after_the_other_side_left("port", tmp_path)
+    assert sends == [2, 3, 4]
+    assert violations == []
+    sends, violations = _heal_after_the_other_side_left("jax", tmp_path)
+    assert sends == []
+    assert [v["problem"] for v in violations] == [
+        "no cross-component contact after the leaderless heal — "
+        "anti-entropy never attempted"]
+
+
 def test_checkpoint_and_restore_carry_the_vv():
     rt = _standin()
     rt.rep = None
