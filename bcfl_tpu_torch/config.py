@@ -5,7 +5,8 @@ lives in :mod:`bcfl_tpu_torch.compression.codecs` as in JAX).
 ``FedConfig`` holds the fields the ported slices run, with the JAX
 package's names, types and defaults (the fault plan, reputation, robust
 aggregation, checkpoint, LoRA and cohort fields included), plus the
-switches of features the port does not have yet. A value the slice does
+switches of features the port does not have yet, and one field of its
+own, ``num_layers``, a depth cut at the model's full width. A value the slice does
 not support raises ``ValueError`` naming the field and saying it is "not
 ported yet" — the port never silently runs something other than what was
 asked for. ``cohort_size`` pins mesh devices in JAX; on the port's one
@@ -564,9 +565,6 @@ _NOT_PORTED = (
     ("sp", lambda c: c.sp > 1),
     ("local_epochs", lambda c: c.local_epochs != 1),
     ("rounds_per_dispatch", lambda c: c.rounds_per_dispatch > 1),
-    # the flash kernels have bf16 and float32 instances only
-    ("compute_dtype", lambda c: c.compute_dtype == "float16"
-     and bool(c.use_flash)),
 )
 
 
@@ -589,6 +587,10 @@ class FedConfig:
     # --- task / model ---
     task: str = "classification"
     model: str = "tiny-bert"
+    # the model's layer count: 0 = its catalog depth; > 0 builds that many
+    # encoder/decoder layers at the model's own width (a depth cut; not
+    # with hf_checkpoint, whose depth is the checkpoint's)
+    num_layers: int = 0
     hf_checkpoint: Optional[str] = None
     lora_rank: int = 0  # 0 = full fine-tune; > 0 = LoRA adapters
     # per-client LoRA ranks for a heterogeneous fleet ("2,4,8", cycled over
@@ -690,6 +692,14 @@ class FedConfig:
     max_eval_batches: Optional[int] = None
 
     def __post_init__(self):
+        if self.num_layers < 0:
+            raise ValueError(
+                f"num_layers must be >= 0 (0 = the model's own depth), got "
+                f"{self.num_layers}")
+        if self.num_layers and self.hf_checkpoint:
+            raise ValueError(
+                "num_layers cuts a catalog model's depth; an hf_checkpoint "
+                "brings its own")
         if self.lora_ranks:
             spec = parse_lora_ranks(self.lora_ranks)
             if self.lora_rank > 0:

@@ -1,6 +1,6 @@
 // flash_bwd_dkv: flash-attention backward for dK, dV and the key-bias
-// gradient, one head dim per template instance (32, 64, 128), bf16 or
-// float32 inputs.
+// gradient, one head dim per template instance (32, 64, 128), bf16, fp16
+// or float32 inputs.
 //
 // Replaces the TPU kernel bcfl_tpu/ops/pallas_flash.py::_bwd_dkv_kernel
 // (launched by _flash_bwd_pallas). For each key j against every query i,
@@ -23,20 +23,20 @@
 // written once, with no atomics, and Dsum is recomputed per query tile from
 // dO and O, as the Pallas kernel does. A causal block starts at the first
 // query tile that sees its keys. The route is picked by dtype alone:
-// - bf16, flash_bwd_dkv_wgmma: one warpgroup (128 threads). K, V and the
-//   key biases stay resident; the Q, dO and O tiles and the 64 lse values
-//   of each query tile go through a 2-stage cp.async ring, so the next
-//   tile's copy overlaps this tile's products, and Dsum comes from the
-//   staged dO and O. All four products are wgmma chains on bf16 tiles:
-//   S^T = K Q^T and dP^T = V dO^T with both operands K-major in shared
-//   memory, then dV += P^T dO and dK += dS^T Q with P^T and dS^T, rounded
-//   to bf16, as register A operands and dO, Q read MN-major from the same
-//   tiles: no transposed copy, no p or ds through shared memory. lse and
-//   Dsum are indexed by the accumulator's column (the query). About 66 KB
-//   of shared memory at D = 64 (3 blocks would fit), but four 64 x 64
-//   float accumulators (S^T, dP^T, dK, dV) take the thread to 255
-//   registers, so registers hold it to 2 blocks per SM; at D = 128 ptxas
-//   spills and serializes the wgmma. See flash_sm90.cuh.
+// - bf16 or fp16, flash_bwd_dkv_wgmma<T>: one warpgroup (128 threads).
+//   K, V and the key biases stay resident; the Q, dO and O tiles and the
+//   64 lse values of each query tile go through a 2-stage cp.async ring,
+//   so the next tile's copy overlaps this tile's products, and Dsum comes
+//   from the staged dO and O. All four products are wgmma chains on
+//   16-bit tiles: S^T = K Q^T and dP^T = V dO^T with both operands K-major
+//   in shared memory, then dV += P^T dO and dK += dS^T Q with P^T and
+//   dS^T, rounded to T, as register A operands and dO, Q read MN-major
+//   from the same tiles: no transposed copy, no p or ds through shared
+//   memory. lse and Dsum are indexed by the accumulator's column (the
+//   query). About 66 KB of shared memory at D = 64 (3 blocks would fit),
+//   but four 64 x 64 float accumulators (S^T, dP^T, dK, dV) take the
+//   thread to 255 registers, so registers hold it to 2 blocks per SM; at
+//   D = 128 ptxas spills and serializes the wgmma. See flash_sm90.cuh.
 // - float32, flash_bwd_dkv_kernel: tensor cores have no float32 product
 //   that holds 1e-4, so float32 keeps the float32 FMA kernel, 4 warps with
 //   every operand staged as float in the layout its product reads.
@@ -204,7 +204,7 @@ struct DkvLaunch {
   }
 };
 
-// ------------------------------------------------ bf16: wgmma, cp.async
+// ---------------------------------------- bf16 and fp16: wgmma, cp.async
 
 // shared memory: the K and V tiles, 2 stages of (Q, dO, O tiles, 64 lse
 // values), 64 Dsum values, and the slack to align the tiles to 1024 bytes
@@ -213,11 +213,10 @@ constexpr size_t dkv_wgmma_smem_bytes() {
   return 8 * sm90::Tile<D>::kBytes + 3 * kBM * sizeof(float) + sm90::kAlign;
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(sm90::kThreads)
-    flash_bwd_dkv_wgmma(const Params<__nv_bfloat16> p) {
+    flash_bwd_dkv_wgmma(const Params<T> p) {
   using namespace sm90;
-  using T = __nv_bfloat16;
   using L = Tile<D>;
   constexpr int kTile = L::kBytes;
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -287,11 +286,11 @@ __global__ void __launch_bounds__(sm90::kThreads)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss_n64(s, desc_k<D>(sk, kk), desc_k<D>(sq, kk), 1);
+      mma_ss_n64<T>(s, desc_k<D>(sk, kk), desc_k<D>(sq, kk), 1);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss_n64(dp, desc_k<D>(sv, kk), desc_k<D>(sdo, kk), 1);
+      mma_ss_n64<T>(dp, desc_k<D>(sv, kk), desc_k<D>(sdo, kk), 1);
     wgmma_commit();
 
     {  // Dsum_i = rowsum(dO_i * O_i) from the staged tiles, two threads a row
@@ -304,15 +303,7 @@ __global__ void __launch_bounds__(sm90::kThreads)
            ++c) {
         const uint4 x = *reinterpret_cast<const uint4*>(tdo + L::offset(r, c));
         const uint4 y = *reinterpret_cast<const uint4*>(to + L::offset(r, c));
-        const __nv_bfloat162* xh = reinterpret_cast<const __nv_bfloat162*>(&x);
-        const __nv_bfloat162* yh = reinterpret_cast<const __nv_bfloat162*>(&y);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float2 xf = __bfloat1622float2(xh[u]);
-          const float2 yf = __bfloat1622float2(yh[u]);
-          acc = fmaf(xf.x, yf.x, acc);
-          acc = fmaf(xf.y, yf.y, acc);
-        }
+        acc = dot8<T>(x, y, acc);
       }
       acc += __shfl_xor_sync(0xffffffffu, acc, 1);
       if (half == 0) dsum_s[r] = acc;
@@ -341,13 +332,14 @@ __global__ void __launch_bounds__(sm90::kThreads)
                                ls[col]);
           }
       uint32_t a[4][4];  // p cast to dO's dtype, as A fragments
-      acc_to_a(s, a);
+      acc_to_a<T>(s, a);
       wgmma_wait<0>();  // dP^T
       fence_regs(dp);
       fence_regs(dv);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) mma_rs<D>(dv, a[kk], desc_mn<D>(sdo, kk), 1);
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rs<T, D>(dv, a[kk], desc_mn<D>(sdo, kk), 1);
       wgmma_commit();
 
       __syncthreads();  // Dsum is visible
@@ -366,11 +358,12 @@ __global__ void __launch_bounds__(sm90::kThreads)
             db[hh] += dp[i];
           }
       uint32_t a2[4][4];  // ds cast to q's dtype
-      acc_to_a(dp, a2);
+      acc_to_a<T>(dp, a2);
       fence_regs(dk);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) mma_rs<D>(dk, a2[kk], desc_mn<D>(sq, kk), 1);
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rs<T, D>(dk, a2[kk], desc_mn<D>(sq, kk), 1);
       wgmma_commit();
     };
     if (k0 + kBN > p.Sk || q0 + kBM > p.Sq ||
@@ -400,50 +393,63 @@ struct DkvWgmmaLaunch {
   static int run(const Params<T>& p, int B, cudaStream_t stream) {
     constexpr size_t bytes = dkv_wgmma_smem_bytes<D>();
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dkv_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_bwd_dkv_wgmma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((p.Sk + kBN - 1) / kBN, B * p.H);
-    flash_bwd_dkv_wgmma<D><<<grid, sm90::kThreads, bytes, stream>>>(p);
+    flash_bwd_dkv_wgmma<T, D><<<grid, sm90::kThreads, bytes, stream>>>(p);
     return (int)cudaGetLastError();
   }
 };
 
+template <typename T, template <typename, int> class Launch>
+int dkv_call(const void* q, const void* k, const void* v, const float* bias,
+             const void* o, const void* dout, const float* lse, void* dk,
+             void* dv, float* db, int B, int H, int Sq, int Sk, int D,
+             const long long* strides, float scale, int causal,
+             cudaStream_t stream) {
+  auto p = make_params<T>(q, k, v, bias, H, Sq, Sk, strides, 5, scale,
+                          causal);
+  p.o = static_cast<const T*>(o);
+  p.dout = static_cast<const T*>(dout);
+  p.lse = lse;
+  p.dk = static_cast<T*>(dk);
+  p.dv = static_cast<T*>(dv);
+  p.db = db;
+  return dispatch_d<Launch>(D, p, B, stream);
+}
+
 }  // namespace
 }  // namespace flash
 
-// strides: (b, h, s) of q, k, v, o, dO in elements. bf16 launches the
-// wgmma kernel, float32 the FMA kernel. Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for a head dim not built.
+// strides: (b, h, s) of q, k, v, o, dO in elements. dtype (a DtypeCode):
+// bf16 and fp16 launch their wgmma kernels, float32 the FMA kernel.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// for a dtype code or head dim not built.
 extern "C" int bcfl_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                   const float* bias, const void* o,
                                   const void* dout, const float* lse,
                                   void* dk, void* dv, float* db, int B,
-                                  int H, int Sq, int Sk, int D, int is_bf16,
+                                  int H, int Sq, int Sk, int D, int dtype,
                                   const long long* strides, float scale,
                                   int causal, void* stream) {
   using namespace flash;
   if (B * H == 0 || Sk == 0) return (int)cudaGetLastError();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    auto p = make_params<T>(q, k, v, bias, H, Sq, Sk, strides, 5, scale,
-                            causal);
-    p.o = static_cast<const T*>(o);
-    p.dout = static_cast<const T*>(dout);
-    p.lse = lse;
-    p.dk = static_cast<T*>(dk);
-    p.dv = static_cast<T*>(dv);
-    p.db = db;
-    return dispatch_d<DkvWgmmaLaunch>(D, p, B, st);
+  switch (dtype) {
+    case kBFloat16:
+      return dkv_call<__nv_bfloat16, DkvWgmmaLaunch>(
+          q, k, v, bias, o, dout, lse, dk, dv, db, B, H, Sq, Sk, D, strides,
+          scale, causal, st);
+    case kFloat16:
+      return dkv_call<__half, DkvWgmmaLaunch>(
+          q, k, v, bias, o, dout, lse, dk, dv, db, B, H, Sq, Sk, D, strides,
+          scale, causal, st);
+    case kFloat32:
+      return dkv_call<float, DkvLaunch>(q, k, v, bias, o, dout, lse, dk, dv,
+                                        db, B, H, Sq, Sk, D, strides, scale,
+                                        causal, st);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  auto p = make_params<float>(q, k, v, bias, H, Sq, Sk, strides, 5, scale,
-                              causal);
-  p.o = static_cast<const float*>(o);
-  p.dout = static_cast<const float*>(dout);
-  p.lse = lse;
-  p.dk = static_cast<float*>(dk);
-  p.dv = static_cast<float*>(dv);
-  p.db = db;
-  return dispatch_d<DkvLaunch>(D, p, B, st);
 }

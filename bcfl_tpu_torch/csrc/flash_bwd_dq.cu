@@ -1,5 +1,5 @@
 // flash_bwd_dq: flash-attention backward for dQ, one head dim per template
-// instance (32, 64, 128), bf16 or float32 inputs.
+// instance (32, 64, 128), bf16, fp16 or float32 inputs.
 //
 // Replaces the TPU kernel bcfl_tpu/ops/pallas_flash.py::_bwd_dq_kernel
 // (launched by _flash_bwd_pallas). For each query i over every key j, with
@@ -19,19 +19,20 @@
 // dO and O; a causal block stops at the last key tile its rows can see (a
 // block whose rows see no key writes zeros). The route is picked by dtype
 // alone (never by trying one and falling back):
-// - bf16, flash_bwd_dq_wgmma: one warpgroup (128 threads). The Q and dO
-//   tiles are staged once and stay resident; the K and V tiles and the 64
-//   key biases of each key tile go through a 2-stage cp.async ring, so the
-//   next tile's copy overlaps this tile's products. S = Q K^T and
-//   dP = dO V^T are wgmma m64n64k16 chains issued together on bf16 tiles in
-//   shared memory (both K-major); p and ds are computed on their
-//   accumulator fragments (the key bias by column, lse and Dsum by row);
-//   ds, rounded to bf16 in registers, is the A operand of dQ += dS K, with
-//   K read MN-major from the same tile, as K1's O += P V reads V: no
-//   transposed copy, no p or ds through shared memory. Three float
-//   accumulators (S, dP, dQ) against K2's four; what bounds it is the
-//   score math between the products, which nothing inside the warpgroup
-//   overlaps, so several blocks share an SM (kDqMinBlocks at D <= 64).
+// - bf16 or fp16, flash_bwd_dq_wgmma<T>: one warpgroup (128 threads).
+//   The Q and dO tiles are staged once and stay resident; the K and V
+//   tiles and the 64 key biases of each key tile go through a 2-stage
+//   cp.async ring, so the next tile's copy overlaps this tile's products.
+//   S = Q K^T and dP = dO V^T are wgmma m64n64k16 chains issued together
+//   on 16-bit tiles in shared memory (both K-major); p and ds are
+//   computed on their accumulator fragments (the key bias by column, lse
+//   and Dsum by row); ds, rounded to T (k's dtype) in registers, is the A
+//   operand of dQ += dS K, with K read MN-major from the same tile, as
+//   K1's O += P V reads V: no transposed copy, no p or ds through shared
+//   memory. Three float accumulators (S, dP, dQ) against K2's four; what
+//   bounds it is the score math between the products, which nothing
+//   inside the warpgroup overlaps, so several blocks share an SM
+//   (kDqMinBlocks at D <= 64).
 //   Interior tiles skip the dead-entry checks. See flash_sm90.cuh.
 // - float32, flash_bwd_dq_kernel: tensor cores have no float32 product
 //   that holds 1e-4 (TF32 keeps about three digits), so float32 keeps the
@@ -164,7 +165,7 @@ struct DqLaunch {
   }
 };
 
-// ------------------------------------------------ bf16: wgmma, cp.async
+// ---------------------------------------- bf16 and fp16: wgmma, cp.async
 
 // blocks per SM that __launch_bounds__ asks ptxas to fit at D <= 64
 constexpr int kDqMinBlocks = 3;
@@ -177,11 +178,10 @@ constexpr size_t dq_wgmma_smem_bytes() {
   return 6 * sm90::Tile<D>::kBytes + 3 * kBN * sizeof(float) + sm90::kAlign;
 }
 
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(sm90::kThreads, D <= 64 ? kDqMinBlocks : 1)
-    flash_bwd_dq_wgmma(const Params<__nv_bfloat16> p) {
+    flash_bwd_dq_wgmma(const Params<T> p) {
   using namespace sm90;
-  using T = __nv_bfloat16;
   using L = Tile<D>;
   constexpr int kTile = L::kBytes;
   extern __shared__ __align__(16) uint8_t smem_raw[];
@@ -241,15 +241,7 @@ __global__ void __launch_bounds__(sm90::kThreads, D <= 64 ? kDqMinBlocks : 1)
            ++c) {
         const uint4 x = *reinterpret_cast<const uint4*>(tdo + L::offset(r, c));
         const uint4 y = *reinterpret_cast<const uint4*>(orow + c * 8);
-        const __nv_bfloat162* xh = reinterpret_cast<const __nv_bfloat162*>(&x);
-        const __nv_bfloat162* yh = reinterpret_cast<const __nv_bfloat162*>(&y);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float2 xf = __bfloat1622float2(xh[u]);
-          const float2 yf = __bfloat1622float2(yh[u]);
-          acc = fmaf(xf.x, yf.x, acc);
-          acc = fmaf(xf.y, yf.y, acc);
-        }
+        acc = dot8<T>(x, y, acc);
       }
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
@@ -280,11 +272,11 @@ __global__ void __launch_bounds__(sm90::kThreads, D <= 64 ? kDqMinBlocks : 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss_n64(s, desc_k<D>(sq, kk), desc_k<D>(sk, kk), 1);
+      mma_ss_n64<T>(s, desc_k<D>(sq, kk), desc_k<D>(sk, kk), 1);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss_n64(dp, desc_k<D>(sdo, kk), desc_k<D>(sv, kk), 1);
+      mma_ss_n64<T>(dp, desc_k<D>(sdo, kk), desc_k<D>(sv, kk), 1);
     wgmma_commit();
 
     // p and ds on S's and dP's fragments; the dead-entry checks only on a
@@ -332,11 +324,12 @@ __global__ void __launch_bounds__(sm90::kThreads, D <= 64 ? kDqMinBlocks : 1)
       scores(std::false_type{});
 
     uint32_t a[4][4];  // ds cast to k's dtype, as A fragments
-    acc_to_a(s, a);
+    acc_to_a<T>(s, a);
     fence_regs(dq);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) mma_rs<D>(dq, a[kk], desc_mn<D>(sk, kk), 1);
+    for (int kk = 0; kk < 4; ++kk)
+      mma_rs<T, D>(dq, a[kk], desc_mn<D>(sk, kk), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dq);
@@ -351,45 +344,58 @@ struct DqWgmmaLaunch {
   static int run(const Params<T>& p, int B, cudaStream_t stream) {
     constexpr size_t bytes = dq_wgmma_smem_bytes<D>();
     cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dq_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_bwd_dq_wgmma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((p.Sq + kBM - 1) / kBM, B * p.H);
-    flash_bwd_dq_wgmma<D><<<grid, sm90::kThreads, bytes, stream>>>(p);
+    flash_bwd_dq_wgmma<T, D><<<grid, sm90::kThreads, bytes, stream>>>(p);
     return (int)cudaGetLastError();
   }
 };
 
+template <typename T, template <typename, int> class Launch>
+int dq_call(const void* q, const void* k, const void* v, const float* bias,
+            const void* o, const void* dout, const float* lse, void* dq,
+            int B, int H, int Sq, int Sk, int D, const long long* strides,
+            float scale, int causal, cudaStream_t stream) {
+  auto p = make_params<T>(q, k, v, bias, H, Sq, Sk, strides, 5, scale,
+                          causal);
+  p.o = static_cast<const T*>(o);
+  p.dout = static_cast<const T*>(dout);
+  p.lse = lse;
+  p.out = static_cast<T*>(dq);
+  return dispatch_d<Launch>(D, p, B, stream);
+}
+
 }  // namespace
 }  // namespace flash
 
-// strides: (b, h, s) of q, k, v, o, dO in elements. bf16 launches the
-// wgmma kernel, float32 the FMA kernel. Returns cudaGetLastError() after
-// the launch, or cudaErrorInvalidValue for a head dim not built.
+// strides: (b, h, s) of q, k, v, o, dO in elements. dtype (a DtypeCode):
+// bf16 and fp16 launch their wgmma kernels, float32 the FMA kernel.
+// Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// for a dtype code or head dim not built.
 extern "C" int bcfl_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const float* bias, const void* o,
                                  const void* dout, const float* lse, void* dq,
                                  int B, int H, int Sq, int Sk, int D,
-                                 int is_bf16, const long long* strides,
+                                 int dtype, const long long* strides,
                                  float scale, int causal, void* stream) {
   using namespace flash;
   if (B * H == 0 || Sq == 0) return (int)cudaGetLastError();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    auto p = make_params<T>(q, k, v, bias, H, Sq, Sk, strides, 5, scale,
-                            causal);
-    p.o = static_cast<const T*>(o);
-    p.dout = static_cast<const T*>(dout);
-    p.lse = lse;
-    p.out = static_cast<T*>(dq);
-    return dispatch_d<DqWgmmaLaunch>(D, p, B, st);
+  switch (dtype) {
+    case kBFloat16:
+      return dq_call<__nv_bfloat16, DqWgmmaLaunch>(
+          q, k, v, bias, o, dout, lse, dq, B, H, Sq, Sk, D, strides, scale,
+          causal, st);
+    case kFloat16:
+      return dq_call<__half, DqWgmmaLaunch>(q, k, v, bias, o, dout, lse, dq,
+                                            B, H, Sq, Sk, D, strides, scale,
+                                            causal, st);
+    case kFloat32:
+      return dq_call<float, DqLaunch>(q, k, v, bias, o, dout, lse, dq, B, H,
+                                      Sq, Sk, D, strides, scale, causal, st);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  auto p = make_params<float>(q, k, v, bias, H, Sq, Sk, strides, 5, scale,
-                              causal);
-  p.o = static_cast<const float*>(o);
-  p.dout = static_cast<const float*>(dout);
-  p.lse = lse;
-  p.out = static_cast<float*>(dq);
-  return dispatch_d<DqLaunch>(D, p, B, st);
 }

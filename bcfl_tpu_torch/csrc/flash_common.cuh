@@ -1,6 +1,7 @@
 // flash_common.cuh: what the three flash-attention kernels share (their
 // parameters and C-entry dispatch), and the float32 FMA design of their
-// float32 instances; the bf16 instances are built from flash_sm90.cuh.
+// float32 instances; the bf16 and fp16 instances are built from
+// flash_sm90.cuh.
 //
 // The kernels (flash_fwd.cu, flash_bwd_dkv.cu, flash_bwd_dq.cu) replace the
 // Pallas kernels of bcfl_tpu/ops/pallas_flash.py. Each block owns one
@@ -203,6 +204,10 @@ __device__ __forceinline__ void tile_dsum(const T* __restrict__ o_base,
   acc += __shfl_xor_sync(0xffffffffu, acc, 1);
   if (half == 0) dsum[r] = acc;
 }
+
+// The dtype codes of the C entries' `dtype` argument; any other code is
+// refused with cudaErrorInvalidValue.
+enum DtypeCode : int { kFloat32 = 0, kBFloat16 = 1, kFloat16 = 2 };
 
 // C entries: the D and dtype of a call pick one template instance.
 template <template <typename, int> class Launch, typename T>

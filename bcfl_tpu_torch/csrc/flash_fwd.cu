@@ -1,5 +1,5 @@
 // flash_fwd: flash-attention forward (online softmax), one head dim per
-// template instance (32, 64, 128), bf16 or float32 inputs.
+// template instance (32, 64, 128), bf16, fp16 or float32 inputs.
 //
 // Replaces the TPU kernel bcfl_tpu/ops/pallas_flash.py::_fwd_kernel
 // (launched by _flash_fwd_pallas). For each query row i of q [B, H, Sq, D]
@@ -14,18 +14,19 @@
 //
 // Bound: at bert-base's [32, 12, 512, 64] bf16 call the 4 B H Sq Sk D =
 // 25.8 GFLOP of matmul take 0.026 ms at the card's 989 TFLOP/s of bf16
-// tensor-core work, and the 100.7 MB of q, k, v and out 0.030 ms at
-// 3.35 TB/s: the two are close, so a kernel at the bound needs the tensor
-// cores and reads each K/V tile once per 64 queries.
+// (or fp16) tensor-core work, and the 100.7 MB of q, k, v and out
+// 0.030 ms at 3.35 TB/s: the two are close, so a kernel at the bound
+// needs the tensor cores and reads each K/V tile once per 64 queries.
 //
 // Two routes, picked by dtype alone (never by trying one and falling back):
-// - bf16, flash_fwd_wgmma: one block (one warpgroup, 128 threads) per
-//   (64-query tile, b * h). The Q tile is loaded once; the K and V tiles
+// - bf16 or fp16, flash_fwd_wgmma<T>: one block (one warpgroup, 128
+//   threads) per (64-query tile, b * h), the fp16 instance at fp16's equal
+//   tensor-core rate and bytes. The Q tile is loaded once; the K and V tiles
 //   and the 64 key biases go through a 2-stage cp.async ring, so the next
 //   tile's copy overlaps this tile's products. S = Q K^T is a wgmma
-//   m64n64k16 chain on bf16 tiles in shared memory (both K-major); the
+//   m64n64k16 chain on 16-bit tiles in shared memory (both K-major); the
 //   running max and normaliser come from quad shuffles on S's accumulator
-//   fragment; p, rounded to bf16 in registers, is the A operand of
+//   fragment; p, rounded to T (v's dtype) in registers, is the A operand of
 //   O += P V (wgmma RS form, V read MN-major from the same tile layout), so
 //   p never goes through shared memory. About 42 KB of shared memory and
 //   128 registers a thread at D = 64, so 4 blocks share an SM: while one
@@ -165,7 +166,7 @@ struct FwdLaunch {
   }
 };
 
-// ------------------------------------------------ bf16: wgmma, cp.async
+// ---------------------------------------- bf16 and fp16: wgmma, cp.async
 
 // shared memory: the Q tile, 2 stages of (K tile, V tile), 2 x 64 key
 // biases, and the slack to align the tiles to 1024 bytes
@@ -176,11 +177,10 @@ constexpr size_t fwd_wgmma_smem_bytes() {
 
 // at D <= 64, 4 blocks per SM: ptxas keeps the kernel at 128 registers
 // (147 unbounded, 3 blocks), which hides more of each block's softmax
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(sm90::kThreads, D <= 64 ? 4 : 1)
-    flash_fwd_wgmma(const Params<__nv_bfloat16> p) {
+    flash_fwd_wgmma(const Params<T> p) {
   using namespace sm90;
-  using T = __nv_bfloat16;
   constexpr int kTile = Tile<D>::kBytes;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -234,7 +234,7 @@ __global__ void __launch_bounds__(sm90::kThreads, D <= 64 ? 4 : 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      mma_ss_n64(s, desc_k<D>(sq, kk), desc_k<D>(sk, kk), 1);
+      mma_ss_n64<T>(s, desc_k<D>(sq, kk), desc_k<D>(sk, kk), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s);
@@ -290,11 +290,12 @@ __global__ void __launch_bounds__(sm90::kThreads, D <= 64 ? 4 : 1)
       softmax(std::false_type{});
 
     uint32_t a[4][4];  // p cast to v's dtype, as A fragments
-    acc_to_a(s, a);
+    acc_to_a<T>(s, a);
     fence_regs(o);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) mma_rs<D>(o, a[kk], desc_mn<D>(sv, kk), 1);
+    for (int kk = 0; kk < 4; ++kk)
+      mma_rs<T, D>(o, a[kk], desc_mn<D>(sv, kk), 1);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -321,39 +322,54 @@ struct FwdWgmmaLaunch {
   static int run(const Params<T>& p, int B, cudaStream_t stream) {
     constexpr size_t bytes = fwd_wgmma_smem_bytes<D>();
     cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_fwd_wgmma<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid((p.Sq + kBM - 1) / kBM, B * p.H);
-    flash_fwd_wgmma<D><<<grid, sm90::kThreads, bytes, stream>>>(p);
+    flash_fwd_wgmma<T, D><<<grid, sm90::kThreads, bytes, stream>>>(p);
     return (int)cudaGetLastError();
   }
 };
 
+template <typename T, template <typename, int> class Launch>
+int fwd(const void* q, const void* k, const void* v, const float* bias,
+        void* out, float* lse, int B, int H, int Sq, int Sk, int D,
+        const long long* strides, float scale, int causal,
+        cudaStream_t stream) {
+  auto p = make_params<T>(q, k, v, bias, H, Sq, Sk, strides, 3, scale,
+                          causal);
+  p.out = static_cast<T*>(out);
+  p.lse_out = lse;
+  return dispatch_d<Launch>(D, p, B, stream);
+}
+
 }  // namespace
 }  // namespace flash
 
-// strides: (b, h, s) of q, k, v in elements. bf16 launches the wgmma
-// kernel, float32 the FMA kernel. Returns cudaGetLastError() after the
-// launch, or cudaErrorInvalidValue for a head dim not built.
+// strides: (b, h, s) of q, k, v in elements. dtype (a DtypeCode): bf16
+// and fp16 launch their wgmma kernels, float32 the FMA kernel. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
+// dtype code or head dim not built.
 extern "C" int bcfl_flash_fwd(const void* q, const void* k, const void* v,
                               const float* bias, void* out, float* lse,
-                              int B, int H, int Sq, int Sk, int D,
-                              int is_bf16, const long long* strides,
-                              float scale, int causal, void* stream) {
+                              int B, int H, int Sq, int Sk, int D, int dtype,
+                              const long long* strides, float scale,
+                              int causal, void* stream) {
   using namespace flash;
   if (B * H == 0 || Sq == 0) return (int)cudaGetLastError();
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    auto p = make_params<__nv_bfloat16>(q, k, v, bias, H, Sq, Sk, strides, 3,
-                                        scale, causal);
-    p.out = static_cast<__nv_bfloat16*>(out);
-    p.lse_out = lse;
-    return dispatch_d<FwdWgmmaLaunch>(D, p, B, st);
+  switch (dtype) {
+    case kBFloat16:
+      return fwd<__nv_bfloat16, FwdWgmmaLaunch>(q, k, v, bias, out, lse, B, H,
+                                                Sq, Sk, D, strides, scale,
+                                                causal, st);
+    case kFloat16:
+      return fwd<__half, FwdWgmmaLaunch>(q, k, v, bias, out, lse, B, H, Sq,
+                                         Sk, D, strides, scale, causal, st);
+    case kFloat32:
+      return fwd<float, FwdLaunch>(q, k, v, bias, out, lse, B, H, Sq, Sk, D,
+                                   strides, scale, causal, st);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  auto p = make_params<float>(q, k, v, bias, H, Sq, Sk, strides, 3, scale,
-                              causal);
-  p.out = static_cast<float*>(out);
-  p.lse_out = lse;
-  return dispatch_d<FwdLaunch>(D, p, B, st);
 }

@@ -1,8 +1,13 @@
-// flash_sm90.cuh: Hopper (sm_90a) building blocks of the bf16 flash-attention
-// kernels: warpgroup tensor-core products (wgmma) on bf16 tiles held in
-// shared memory, fed by a zero-filling cp.async ring.
+// flash_sm90.cuh: Hopper (sm_90a) building blocks of the 16-bit
+// flash-attention kernels: warpgroup tensor-core products (wgmma) on bf16
+// or fp16 tiles held in shared memory, fed by a zero-filling cp.async ring.
 //
-// A tile is 64 rows (queries or keys) of D bf16 values, the rows of one
+// Every block is generic over the element type T, __nv_bfloat16 or __half
+// (Elem<T>): both have the same m64nNk16 wgmma shapes, operand layouts,
+// swizzled 16-bit tiles and float32 accumulators, and differ only in the
+// instruction's type name and in how two floats pack into one register.
+//
+// A tile is 64 rows (queries or keys) of D 16-bit values, the rows of one
 // head's [S, D] slab. It is stored as 2D / P "atom columns" of 64 rows x P
 // bytes, P = min(2D, 128), with the 16-byte chunks of each row permuted by
 // the hardware's swizzle of that width (chunk c of row r at c ^ (r & 7) for
@@ -16,8 +21,8 @@
 //   d[4 j + 2 h + e] = D[16 w + g + 8 h][8 j + 2 t + e], j < N / 8;
 // - an A operand from registers (the "RS" form) holds, for a 16-wide slice
 //   kk of the contraction, a[0] = A[16w+g][2t, 2t+1], a[1] = A[16w+g+8][2t,
-//   2t+1], a[2] = A[16w+g][2t+8, 2t+9], a[3] = A[16w+g+8][2t+8, 2t+9] as bf16
-//   pairs, so an accumulator whose columns are the next product's
+//   2t+1], a[2] = A[16w+g][2t+8, 2t+9], a[3] = A[16w+g+8][2t+8, 2t+9] as
+//   16-bit pairs, so an accumulator whose columns are the next product's
 //   contraction turns into A fragments in place (acc_to_a);
 // - a shared-memory operand is a 64-bit descriptor: start address, leading
 //   and stride byte offsets, swizzle mode (desc_k, desc_mn).
@@ -35,6 +40,7 @@
 
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace flash {
@@ -48,7 +54,37 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Layout of one 64 x D bf16 tile.
+// The 16-bit element types of the tiles. pack rounds two floats to
+// nearest even into one register (the low half first), unpack widens one
+// register's pair; kHalf picks the wgmma type name (f16 or bf16).
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<__nv_bfloat16> {
+  static constexpr bool kHalf = false;
+  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+  __device__ __forceinline__ static float2 unpack(uint32_t x) {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+  }
+};
+
+template <>
+struct Elem<__half> {
+  static constexpr bool kHalf = true;
+  __device__ __forceinline__ static uint32_t pack(float lo, float hi) {
+    const __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&h);
+  }
+  __device__ __forceinline__ static float2 unpack(uint32_t x) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&x));
+  }
+};
+
+// Layout of one 64 x D tile of 16-bit elements.
 template <int D>
 struct Tile {
   static_assert(D == 32 || D == 64 || D == 128, "head dim 32, 64 or 128");
@@ -127,19 +163,18 @@ __device__ __forceinline__ void fence_proxy_async() {
 // Stage rows [row0, row0 + 64) of one head's [S, D] slab (rows `stride`
 // elements apart, D contiguous, 16-byte aligned) into the tile at `dst`;
 // rows at or past `limit` are zero-filled.
-template <int D>
-__device__ __forceinline__ void stage_tile(uint32_t dst,
-                                          const __nv_bfloat16* base,
+template <int D, typename T>
+__device__ __forceinline__ void stage_tile(uint32_t dst, const T* base,
                                           long long stride, int row0,
                                           int limit) {
+  static_assert(sizeof(T) == 2, "16-bit elements");
   using L = Tile<D>;
 #pragma unroll
   for (int it = 0; it < kRows * L::kChunks / kThreads; ++it) {
     const int i = threadIdx.x + it * kThreads;
     const int r = i / L::kChunks, c = i % L::kChunks;
     const bool ok = row0 + r < limit;
-    const __nv_bfloat16* src =
-        ok ? base + (long long)(row0 + r) * stride + c * 8 : base;
+    const T* src = ok ? base + (long long)(row0 + r) * stride + c * 8 : base;
     cp_async16(dst + L::offset(r, c), src, ok);
   }
 }
@@ -204,149 +239,143 @@ __device__ __forceinline__ float quad_max(float x) {
   return x;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
 // The 64-column accumulator s (columns = the next product's contraction),
-// rounded to bf16, as the A fragments of its four 16-wide slices.
+// rounded to T, as the A fragments of its four 16-wide slices.
+template <typename T>
 __device__ __forceinline__ void acc_to_a(const float (&s)[32],
                                          uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      a[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+      a[kk][i] = Elem<T>::pack(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
 }
 
-// d (+)= A B for m64n64k16, A and B K-major bf16 tiles in shared memory
+// The asm of each product is written once, as a macro of the wgmma type
+// name TY ("bf16" or "f16"); BCFL_BY_TYPE expands it for T's name.
+#define BCFL_BY_TYPE(T, ASM) \
+  if constexpr (Elem<T>::kHalf) {  \
+    ASM("f16");                    \
+  } else {                         \
+    ASM("bf16");                   \
+  }
+
+// m64n<N>k16 with float32 accumulators on operands of wgmma type TY
+#define BCFL_WGMMA(N, TY) \
+  "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY " {"
+
+// the accumulator's registers: operands %0 .. %(N/2 - 1)
+#define BCFL_REGS16 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define BCFL_REGS32                                                       \
+  BCFL_REGS16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, " \
+              "%27, %28, %29, %30, %31"
+#define BCFL_REGS64                                                       \
+  BCFL_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, " \
+              "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "   \
+              "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define BCFL_ACC16(d)                                                \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),        \
+      "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),    \
+      "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),            \
+      "+f"(d[14]), "+f"(d[15])
+#define BCFL_ACC32(d)                                                \
+  BCFL_ACC16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),            \
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),            \
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define BCFL_ACC64(d)                                                \
+  BCFL_ACC32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),            \
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),            \
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),            \
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),            \
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),            \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),            \
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d (+)= A B for m64n64k16, A and B K-major T tiles in shared memory
 // (descriptors da, db); d += when scale_d != 0, d = A B when it is 0.
+template <typename T>
 __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+#define BCFL_SS_N64(TY)                                             \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"       \
+               BCFL_WGMMA(64, TY) BCFL_REGS32                      \
+               "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                  \
+               : BCFL_ACC32(d)                                     \
+               : "l"(da), "l"(db), "r"(scale_d))
+  BCFL_BY_TYPE(T, BCFL_SS_N64)
+#undef BCFL_SS_N64
 }
 
-// d (+)= A B for m64n32k16: A from registers (four bf16 pairs in the
-// fragment layout), B an MN-major bf16 tile in shared memory (descriptor db).
-__device__ __forceinline__ void mma_rs_n32(float (&d)[16],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-// d (+)= A B for m64n64k16: A from registers (four bf16 pairs in the
-// fragment layout), B an MN-major bf16 tile in shared memory (descriptor db).
-__device__ __forceinline__ void mma_rs_n64(float (&d)[32],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-// d (+)= A B for m64n128k16: A from registers (four bf16 pairs in the
-// fragment layout), B an MN-major bf16 tile in shared memory (descriptor db).
-__device__ __forceinline__ void mma_rs_n128(float (&d)[64],
-                                            const uint32_t (&a)[4],
-                                            uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
-}
-
-// d (+)= A B for m64nNk16, N = 32, 64 or 128, A from registers.
-template <int N>
+// d (+)= A B for m64nNk16, N = 32, 64 or 128: A from registers (four T
+// pairs in the fragment layout), B an MN-major T tile in shared memory
+// (descriptor db). The A pairs, db and scale_d follow the N / 2
+// accumulator operands.
+template <typename T, int N>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
                                        const uint32_t (&a)[4], uint64_t db,
                                        int scale_d) {
+#define BCFL_RS(N, TY, REGS, ACC, A, SC)                               \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, " SC ", 0;\n"     \
+               BCFL_WGMMA(N, TY) REGS "}, " A ", p, 1, 1, 1;\n}\n" \
+               : ACC(d)                                             \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]),        \
+                 "l"(db), "r"(scale_d))
   if constexpr (N == 32) {
-    mma_rs_n32(d, a, db, scale_d);
+#define BCFL_RS_N32(TY) \
+  BCFL_RS(32, TY, BCFL_REGS16, BCFL_ACC16, "{%16, %17, %18, %19}, %20", "%21")
+    BCFL_BY_TYPE(T, BCFL_RS_N32)
+#undef BCFL_RS_N32
   } else if constexpr (N == 64) {
-    mma_rs_n64(d, a, db, scale_d);
+#define BCFL_RS_N64(TY) \
+  BCFL_RS(64, TY, BCFL_REGS32, BCFL_ACC32, "{%32, %33, %34, %35}, %36", "%37")
+    BCFL_BY_TYPE(T, BCFL_RS_N64)
+#undef BCFL_RS_N64
   } else {
-    mma_rs_n128(d, a, db, scale_d);
+    static_assert(N == 128, "N = 32, 64 or 128");
+#define BCFL_RS_N128(TY) \
+  BCFL_RS(128, TY, BCFL_REGS64, BCFL_ACC64, "{%64, %65, %66, %67}, %68", "%69")
+    BCFL_BY_TYPE(T, BCFL_RS_N128)
+#undef BCFL_RS_N128
   }
+#undef BCFL_RS
 }
 
-// Store a 64 x D accumulator's rows (this thread's two) as bf16 pairs,
-// times `mul`, into rows `row0 + r` of a contiguous [*, D] output; rows at
-// or past `limit` are skipped.
-template <int D>
+// Store a 64 x D accumulator's rows (this thread's two) as T pairs, times
+// `mul`, into rows `row0 + r` of a contiguous [*, D] output; rows at or
+// past `limit` are skipped.
+template <int D, typename T>
 __device__ __forceinline__ void store_acc(const float (&d)[D / 2], float mul,
-                                          __nv_bfloat16* out, long long row0,
-                                          int r0, int limit) {
+                                          T* out, long long row0, int r0,
+                                          int limit) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = frag_row(h);
     if (r0 + r >= limit) continue;
-    __nv_bfloat16* o = out + (row0 + r) * D;
+    T* o = out + (row0 + r) * D;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(o + frag_col(j, 0)) =
-          pack_bf16(d[4 * j + 2 * h] * mul, d[4 * j + 2 * h + 1] * mul);
+          Elem<T>::pack(d[4 * j + 2 * h] * mul, d[4 * j + 2 * h + 1] * mul);
   }
+}
+
+// Sum of x . y over the 8-element chunk at each of two 16-byte words of T.
+template <typename T>
+__device__ __forceinline__ float dot8(const uint4& x, const uint4& y,
+                                      float acc) {
+  const uint32_t* xs = reinterpret_cast<const uint32_t*>(&x);
+  const uint32_t* ys = reinterpret_cast<const uint32_t*>(&y);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const float2 xf = Elem<T>::unpack(xs[u]);
+    const float2 yf = Elem<T>::unpack(ys[u]);
+    acc = fmaf(xf.x, yf.x, acc);
+    acc = fmaf(xf.y, yf.y, acc);
+  }
+  return acc;
 }
 
 }  // namespace sm90

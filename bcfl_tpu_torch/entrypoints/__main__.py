@@ -188,7 +188,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "evaluates); 0 = never")
     ap.add_argument("--seed", type=int, default=None)
     ap.add_argument("--compute-dtype", default=None,
-                    choices=["float32", "bfloat16", "float16"])
+                    choices=["float32", "bfloat16", "float16"],
+                    help="the model's compute dtype, dense or flash "
+                         "attention alike (flash runs the kernels' "
+                         "instance of that dtype)")
     ap.add_argument("--remat", action="store_true",
                     help="per-layer activation rematerialization: less HBM "
                          "per client (more clients stack per chip) for "

@@ -264,10 +264,13 @@ class FedEngine:
             load_into(self.model, variables["params"])
         else:
             with torch.device(dev):
+                depth = ({"num_layers": cfg.num_layers}
+                         if cfg.num_layers else {})
                 self.model = build(cfg.model, num_labels=self.num_labels,
                                    vocab_size=self.tokenizer.vocab_size,
                                    head=("lm" if cfg.task == "causal_lm"
-                                         else "classifier"), **dtypes)
+                                         else "classifier"),
+                                   **depth, **dtypes)
             init_params(self.model,
                         prng.generator(dev, cfg.seed, INIT_LANE))
         # heterogeneous LoRA ranks: the [C, R] padding mask of the fleet

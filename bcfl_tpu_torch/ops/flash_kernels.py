@@ -14,10 +14,11 @@ autograd function that joins them (the JAX ``custom_vjp``):
   through ``flash_bwd_dkv`` then ``flash_bwd_dq``.
 
 Shapes keep the JAX layout: q ``[B, H, Sq, D]``, k/v ``[B, H, Sk, D]``,
-bf16 or float32 (the same for all three), and an additive key-side bias
-``[B, Sk]`` float32. Scores are ``q k^T / sqrt(D) + bias``; with
-``causal`` query ``i`` sits at key position ``Sk - Sq + i`` (suffix
-alignment) and sees keys up to it. A masked score is ``NEG_INF`` and its
+bf16, fp16 or float32 (the same for all three), and an additive key-side
+bias ``[B, Sk]`` float32 (the encoders' -1e9 and Llama's -1e30 overflow
+fp16, so the bias never takes the inputs' dtype). Scores are
+``q k^T / sqrt(D) + bias``; with ``causal`` query ``i`` sits at key
+position ``Sk - Sq + i`` (suffix alignment) and sees keys up to it. A masked score is ``NEG_INF`` and its
 probability is zeroed after the exp. The casts of the Pallas kernels are
 kept: ``p`` is cast to ``v``'s dtype before ``p v`` and to ``dO``'s for
 ``dv``, ``ds`` to ``q``'s for ``dk`` and to ``k``'s for ``dq``; every
@@ -25,16 +26,20 @@ product accumulates in float32.
 
 The plain versions repeat that arithmetic over the whole ``[Sq, Sk]``
 score block; the kernels walk it tile by tile, so the two agree to the
-float32 rounding of another summation order (and, in bf16, to a bf16
+float32 rounding of another summation order (and, in bf16 or fp16, to a
 rounding of a probability that lands on the other side of a tie).
-Parity is therefore a tolerance: ``parity`` on each op is the bf16
-contract of ``tests/test_pallas_kernels.py``, :data:`F32_PARITY` the
-float32 one. The CUDA wrappers check shapes, dtype, head dim, a unit
+Parity is therefore a tolerance per dtype, :func:`parity_for`: ``parity``
+on each op is the bf16 contract of ``tests/test_pallas_kernels.py``,
+:data:`FP16_PARITY` and :data:`F32_PARITY` the fp16 and float32 ones.
+Each dtype launches its own kernel instance (bf16 and fp16 their
+tensor-core ``wgmma`` instances, float32 its FMA one); no dtype is cast to
+another's. The CUDA wrappers check shapes, dtype, head dim, a unit
 stride in D and 16-byte aligned rows, allocate their outputs with
 ``torch.empty``, launch on the current stream, raise on a non-zero
-``cudaGetLastError()`` and add one to their op's ``launches``. They read
-q, k, v, out and dO through their (b, h, s) strides, so a
-``view(B, S, H, D).transpose(1, 2)`` needs no copy.
+``cudaGetLastError()`` and add one to their op's ``launches`` (and to
+``launches_by[dtype]``). They read q, k, v, out and dO through their
+(b, h, s) strides, so a ``view(B, S, H, D).transpose(1, 2)`` needs no
+copy.
 """
 
 from __future__ import annotations
@@ -61,8 +66,30 @@ F32_PARITY = "allclose:atol=1e-4,rtol=1e-4"
 #: row whose keys are all padded has p = 1 for every key, since
 #: s - lse rounds to 0 at -1e9, and gradients of magnitude 16-50)
 BF16_PARITY = "allclose:atol=2e-2,rtol=7.8125e-3"
+#: fp16 inputs: one fp16 ulp of the value (2**-10) for outputs stored in
+#: fp16 that round one ulp apart, and an absolute term for the rounding of
+#: ds to fp16. Scaled from bf16's 2e-2 by fp16's 3 more bits that term
+#: would be 2.5e-3, which holds wherever p is small; but on a row whose
+#: keys are all padded p = 1 on every key (s - lse rounds to 0 at -1e9),
+#: ds is as large as dO . v (up to ~30 at D = 64), and where the kernel's
+#: float32 dO . v and the plain version's land either side of an fp16
+#: rounding boundary of ds (about 0.07% of entries), that one flip moves a
+#: row of dq or dk by 2**-6 |k| scale: up to 7.8e-3 for |k| <= 4 at
+#: D = 64. So 1e-2, half the bf16 term (60 such draws on an H100 needed
+#: at most 6.7e-3)
+FP16_PARITY = "allclose:atol=1e-2,rtol=9.765625e-4"
 
-_DTYPES = (torch.bfloat16, torch.float32)
+#: the C entries' dtype codes (``DtypeCode`` in ``csrc/flash_common.cuh``)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPES = tuple(_DTYPE_CODES)
+_PARITY = {torch.bfloat16: BF16_PARITY, torch.float16: FP16_PARITY,
+           torch.float32: F32_PARITY}
+
+
+def parity_for(dtype: torch.dtype) -> str:
+    """The contract that holds a kernel to its plain version on inputs of
+    ``dtype``."""
+    return _PARITY[dtype]
 
 
 def _normalize_bias(bias: Optional[torch.Tensor], B: int, Sk: int,
@@ -167,7 +194,7 @@ def _check(name: str, q, k, v, key_bias, out=None, do=None, lse=None):
                              f"{tuple(t.shape)}")
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for _, t in named):
         raise ValueError(f"{name}: q, k, v (and out, do) must share one "
-                         f"dtype of bf16/float32, got "
+                         f"dtype of bf16/fp16/float32, got "
                          f"{[str(t.dtype) for _, t in named]}")
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
@@ -217,8 +244,8 @@ def _strides(*ts) -> ctypes.Array:
 
 def _entry(op: registry.KernelOp, n_ptrs: int):
     """The C entry ``bcfl_<source>``: ``n_ptrs`` device pointers, then
-    B, H, Sq, Sk, D, is_bf16, the (b, h, s) strides, scale, causal and
-    the stream."""
+    B, H, Sq, Sk, D, the dtype code, the (b, h, s) strides, scale, causal
+    and the stream."""
     fn = getattr(cuda_build.load(op.source), f"bcfl_{op.source}")
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6
                    + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
@@ -232,10 +259,12 @@ def _launch(op: registry.KernelOp, ptrs, q, Sk, strides, causal) -> None:
     fn = _entry(op, len(ptrs))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*ptrs, B, H, Sq, Sk, D, int(q.dtype == torch.bfloat16),
-                 strides, _scale(D), int(causal), stream)
+        err = fn(*ptrs, B, H, Sq, Sk, D, _DTYPE_CODES[q.dtype], strides,
+                 _scale(D), int(causal), stream)
     cuda_build.check(err, f"{op.name} launch")
     op.launches += 1
+    key = str(q.dtype).split(".")[-1]
+    op.launches_by[key] = op.launches_by.get(key, 0) + 1
 
 
 def _flash_fwd_cuda(q, k, v, key_bias, causal: bool):

@@ -12,7 +12,9 @@ flag:
 Every op carries ``launches``, a plain int that its CUDA wrapper
 increments once per kernel launch and nowhere else, so a run can show that
 its main path went through the kernel (:func:`reset_launches`,
-:func:`launch_counts`). ``parity`` says how a kernel is held to its plain
+:func:`launch_counts`); an op with several kernel instances also counts
+each launch under its instance's kind in ``launches_by`` (the flash ops:
+by dtype). ``parity`` says how a kernel is held to its plain
 version, and :func:`parity_check` turns it into the check.
 """
 
@@ -40,6 +42,8 @@ class KernelOp:
     #: stem of the kernel's source, ``bcfl_tpu_torch/csrc/<source>.cu``
     source: str = ""
     launches: int = 0
+    #: ``launches`` split by kernel instance (the flash ops: by dtype)
+    launches_by: Dict[str, int] = dataclasses.field(default_factory=dict)
 
     def __call__(self, *args, **kwargs):
         dev = _device_of(args)
@@ -124,6 +128,7 @@ def kernel_ops() -> Tuple[KernelOp, ...]:
 def reset_launches() -> None:
     for op in _REGISTRY.values():
         op.launches = 0
+        op.launches_by.clear()
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``bcfl_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # phases 1-4, paths (a)-(t)
+    python3 chip_smoke.py              # phases 1-4, paths (a)-(u)
     python3 chip_smoke.py --profile    # phases 1-4, then 5
 
 Phases, each of which raises (and the script exits non-zero) on failure:
@@ -23,18 +23,24 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    to 300, both roundings). The flash
    kernels (forward; backward dK/dV/d-bias; backward dQ): first their
    routes (under ``torch.profiler``, a bf16 call of each runs its
-   ``wgmma`` instance, a float32 call its FMA one), then
-   within a tolerance, bf16 at 2e-2 and float32 at 1e-4: the JAX bench
+   ``wgmma`` instance on ``__nv_bfloat16``, an fp16 call its ``wgmma``
+   instance on ``__half``, a float32 call its FMA one), then within each
+   dtype's contract (``flash_kernels.parity_for``: bf16 2e-2 and fp16
+   1e-2, each plus one ulp of the value; float32 1e-4): the JAX bench
    rows (bert-base-B4-S512 with ragged padding, llama-decode-B1-S2048
    causal), the seq-512 path's own [32, 12, 512, 64] call with its
    padding, a ragged S=300, a suffix-causal Sq=128 / Sk=512, a row whose
    keys are all padded, head dims 32 and 128 in both dtypes, and the Llama
    paths' call [8, 32, 512, 128] bf16 causal with their own padding and
-   with ragged rows, both at Llama's -1e30 key bias. One line
-   per kernel and shape:
-   kernel ms, plain ms, bound ms and a PyTorch yardstick the port never
+   with ragged rows, both at Llama's -1e30 key bias; then in fp16 the
+   seq-512 call, the all-padded row, the suffix-causal call, head dims 32
+   (causal) and 128 and the Llama call with its padding (each plain
+   version timed once, on the compared call). One line per kernel and
+   shape: kernel ms, plain ms, bound ms (at the tensor-core rate of 989
+   TFLOP/s for bf16 and fp16) and a PyTorch yardstick the port never
    calls (``torch.topk``; ``scaled_dot_product_attention`` forward for the
-   flash forward, its backward for the two flash backward kernels).
+   flash forward, its backward for the two flash backward kernels, in the
+   call's dtype).
 3. ``main``: two paths through ``bcfl_tpu_torch.entrypoints.run`` at
    bert-base's full width (random weights from the seed), each with the
    launch counts set to 0 just before it and read just after:
@@ -49,8 +55,13 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    Then times each kernel at the calls one round of path (b) makes, and
    ``topk_select`` also on the stacked deltas of one real round (4 clients
    after 2 local AdamW steps of path (a)), held bit for bit and printed
-   beside the Gaussian rows. Then the peer-to-peer paths, each with the
-   counts set to 0 just before it and read just after: (c) serverless ring
+   beside the Gaussian rows. Then (u), path (b) at
+   ``compute_dtype="float16"``, with the counts set to 0 just before it
+   and read just after: finite losses, every kernel launched, K2 and K3
+   exactly rounds x clients x steps x layers times, every flash launch an
+   fp16 instance; its round walls and peak beside (b)'s. Then the
+   peer-to-peer paths, each with the counts set to 0 just before it and
+   read just after: (c) serverless ring
    gossip, the ``serverless_noniid_medical`` preset at biobert-base's
    width (10 clients, 40 labels, 2 rounds of 2 local steps of 32 x 128
    tokens, ``int8+topk``, the ledger on) on a ``csv:`` corpus the script
@@ -82,8 +93,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    resilience paths, each with the counts set to 0 just before it and
    read just after, and each writing its checkpoints under
    ``build/chip_smoke/checkpoints`` (it fails unless the disk holds twice
-   what it writes, and deletes them when it ends): (h) path (b) with the
-   ledger, 2 rounds, uninterrupted and then checkpointed every round,
+   what it writes, and deletes them when it ends), all three on
+   ``CUT_LAYERS`` = 4 of their model's 12 layers at its full width: (h)
+   path (b) with the ledger, 2 rounds, uninterrupted and then checkpointed every round,
    crashed by the fault plan at round 1 (``SimulatedCrash``) and resumed
    with ``run(resume=True)``: the resumed trainable tree, error-feedback
    residual, ledger and every round's records equal the uninterrupted
@@ -122,7 +134,9 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    D = 128 instances and the launch counts (K2 and K3 once per layer and
    step), and hold K5/K4 at their calls. Then (m), the multi-process
    runtime at full width: the ``server_noniid_medical`` preset
-   (biobert-base, 40 labels, 10 clients) on path (c)'s corpus as 5 peer
+   (biobert-base, 40 labels, 10 clients; like every peer path up to (s),
+   at biobert-base's width on ``CUT_LAYERS`` = 4 of its 12 layers, 51.6 M
+   parameters) on path (c)'s corpus as 5 peer
    processes of 2 clients each on the one card, buffered async merging
    every arrival, ``int8+topk`` with error feedback, the ledger over the
    announced digests, 3 global versions of 2 local steps of 32 x 128
@@ -143,7 +157,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    and one path-(a)-shaped server round from it with K4 and K5, the
    counts set to 0 just before it and read just after. Then the
    runtime's fault tolerance at (m)'s width, each path writing its peer
-   checkpoints (1.3 GB a peer: the trainable tree and 2 clients'
+   checkpoints (0.62 GB a peer: the trainable tree and 2 clients'
    residual) under ``build/chip_smoke/checkpoints`` after checking the
    disk holds twice its peak, and deleting them at its end: (o)
    ``scripts/dist_async.py``'s proof, a partition over peers (0, 1) |
@@ -167,8 +181,8 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    at 0, agreeing heads and K4/K5 in the repaired incarnation, and prints
    the transfer bytes, the request-to-adopt seconds and the scrub's. Then
    the runtime's adversarial half at (m)'s width: first the robust rules
-   at the leader's call (5 float32 votes of biobert-base's 108 M
-   parameters from the seed, one scaled 25x), each timed on the card and
+   at the leader's call (5 float32 votes of (q)'s 51.6 M parameters
+   from the seed, one scaled 25x), each timed on the card and
    on the host (``trimmed_mean`` at full width, the other two over the
    embeddings', first layer's and classifier's leaves), held device
    against host (the aggregate within one float32 ulp, distances and
@@ -207,7 +221,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    gossip dispatch, JAX's partition-heal loopback at full width and 5
    peers (``gossip_fanout`` 2, ``trimmed_mean``, reputation, whole float32
    states on the wire, a partition (0, 1) | (2, 3, 4) on local rounds
-   2-3, 6 rounds a peer), after the merge of 3 biobert-base states on the
+   2-3, 6 rounds a peer), after the merge of 3 of its states on the
    card held bit for bit to the same reduction in numpy on the host; it
    gates on every peer exiting 0 at version 6 on its own clock with a
    verified chain and its own component, no invariant violation (the
@@ -257,7 +271,11 @@ Phases, each of which raises (and the script exits non-zero) on failure:
 
 The script prints the card's name and power limit first, and as its last
 three lines the kernels' JSON record, the card line again and the result
-``{"ok": true, "device": {...}}``. Times are CUDA-event means over
+``{"ok": true, "device": {...}}``. The flash kernels' records carry
+``by_dtype``: per dtype instance, its launches on the in-process paths
+(the peer processes' launches, all bf16, are in ``launches`` only), the
+largest |diff| of its comparisons, and its times at the seq-512 and
+Llama calls. Times are CUDA-event means over
 repeated launches after a warm-up; the caches are warm. A call whose host
 wrapper takes longer than its kernel reads the wrapper's rate that way,
 so K4's round calls also print their kernel's device time under
@@ -287,6 +305,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM bf16 dense tensor-core rate
+FP16_OPS_PER_S = 989e12  # H100 SXM fp16 dense tensor-core rate
 TOPK_FRAC = 0.05  # the codec's default topk_frac
 BUILD_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
@@ -380,7 +399,9 @@ def ptxas_notes(logs) -> list:
                 label = None
                 if m:
                     d = re.search(r"Li(\d+)E", m.group(2))
-                    dtype = "f32" if m.group(2).startswith("f") else "bf16"
+                    args = m.group(2)
+                    dtype = ("f32" if args.startswith("f") else
+                             "fp16" if "__half" in args else "bf16")
                     label = (f"{m.group(1)}<{dtype}, "
                              f"{d.group(1) if d else '?'}>")
                     spill = 0
@@ -421,9 +442,22 @@ class KernelStats:
         # per-round totals over the main path's calls
         self.ms = self.plain_ms = self.bound_ms = self.library_ms = None
         self.bound_by = None
+        # the flash ops, per dtype instance: launches on the in-process
+        # paths, the largest |diff| of its comparisons, and its times at
+        # the seq-512 and Llama paths' calls
+        self.by_dtype = {}
 
-    def compared(self, err: float):
+    def compared(self, err: float, dtype=None):
         self.max_abs_err = max(self.max_abs_err or 0.0, err)
+        if dtype is not None:
+            d = self.by_dtype.setdefault(dtype_name(dtype), {})
+            d["max_abs_err"] = max(d.get("max_abs_err", 0.0), err)
+
+    def launched(self, by: dict):
+        """Add one in-process path's launches per dtype instance."""
+        for key, n in by.items():
+            d = self.by_dtype.setdefault(key, {})
+            d["launches"] = d.get("launches", 0) + n
 
     def add_times(self, ms, plain, bnd, by, lib=None, calls=1):
         self.ms = (self.ms or 0.0) + ms * calls
@@ -434,11 +468,40 @@ class KernelStats:
         self.bound_by = by
 
     def record(self):
-        return {"name": self.name, "route": "cuda", "source": self.source,
-                "replaces": self.replaces, "launches": self.launches,
-                "max_abs_err": self.max_abs_err, "ms": self.ms,
-                "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
-                "bound_by": self.bound_by, "library_ms": self.library_ms}
+        rec = {"name": self.name, "route": "cuda", "source": self.source,
+               "replaces": self.replaces, "launches": self.launches,
+               "max_abs_err": self.max_abs_err, "ms": self.ms,
+               "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+               "bound_by": self.bound_by, "library_ms": self.library_ms}
+        if self.by_dtype:
+            rec["by_dtype"] = self.by_dtype
+        return rec
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+#: the flash ops' launches per dtype instance over the in-process paths
+#: (``harvest_dtypes``); the peer processes' launches (all bf16) are in
+#: the record's ``launches`` only
+PATH_LAUNCHES_BY_DTYPE = {}
+
+
+def harvest_dtypes() -> dict:
+    """The flash ops' launches per dtype instance since the counts were
+    last set to 0, read at the end of an in-process path (never after a
+    comparison with a plain version) and added to
+    ``PATH_LAUNCHES_BY_DTYPE``."""
+    from bcfl_tpu_torch.ops import registry
+
+    by = {op.name: dict(op.launches_by) for op in registry.kernel_ops()
+          if op.name in FLASH_OPS}
+    for name, counts in by.items():
+        total = PATH_LAUNCHES_BY_DTYPE.setdefault(name, {})
+        for key, n in counts.items():
+            total[key] = total.get(key, 0) + n
+    return by
 
 
 def int8_case(ck, st, gen, shapes, stochastic, label, iters, device=False):
@@ -611,19 +674,34 @@ def sdpa_ms(q, k, v, do, bias, causal, iters):
 def flash_case(fk, stats, gen, label, B, H, Sq, Sk, D, dtype, causal, lens,
                iters, neg=-1e9):
     """Hold the three flash kernels to their plain versions (out and lse;
-    dk, dv and db_h; dq) at the op's bf16 ``parity`` or at ``F32_PARITY``,
-    and time them. Returns ``{op: (ms, plain, bound, bound_by, sdpa)}``."""
+    dk, dv and db_h; dq) at their dtype's contract (``fk.parity_for``:
+    bf16 2e-2 and fp16 1e-2, each plus one ulp of the value; float32
+    1e-4), and time them. Returns ``{op: (ms, plain, bound, bound_by,
+    sdpa)}``. The fp16 cases time each plain version once, on the call
+    that is compared (at the Llama call one takes about a second)."""
     q, k, v, do, bias = flash_inputs(gen, B, H, Sq, Sk, D, dtype, lens, neg)
-    return flash_hold(fk, stats, label, q, k, v, do, bias, causal, iters)
+    return flash_hold(fk, stats, label, q, k, v, do, bias, causal, iters,
+                      plain_once=dtype == torch.float16)
 
 
-def flash_hold(fk, stats, label, q, k, v, do, bias, causal, iters):
+def timed_once(fn):
+    """``(fn(), its CUDA-event ms)``: one call, no warm-up."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def flash_hold(fk, stats, label, q, k, v, do, bias, causal, iters,
+               plain_once=False):
     """``flash_case`` on given inputs: q, k, v, dO ``[B, H, S, D]`` and the
     ``[B, Sk]`` key bias."""
     B, H, Sq, D = q.shape
     Sk, dtype = k.shape[2], q.dtype
-    parity = (fk.FLASH_FWD.parity if dtype == torch.bfloat16
-              else fk.F32_PARITY)
+    parity = fk.parity_for(dtype)
     ref = fk.flash_fwd_ref(q, k, v, bias, causal)
     bwd = (q, k, v, bias, ref[0], do, ref[1], causal)
     calls = {
@@ -636,15 +714,18 @@ def flash_hold(fk, stats, label, q, k, v, do, bias, causal, iters):
     }
     lib_fwd, lib_bwd = sdpa_ms(q, k, v, do, bias, causal, iters)
     cost = flash_cost(B, H, Sq, Sk, D, q.element_size(), causal)
-    rate = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
+    rate = {torch.bfloat16: BF16_OPS_PER_S, torch.float16: FP16_OPS_PER_S,
+            torch.float32: F32_OPS_PER_S}[dtype]
     out, bad = {}, []
     for name, (kernel, plain) in calls.items():
-        got, want = kernel(), plain()
+        got = kernel()
         torch.cuda.synchronize()
+        want, once_ms = timed_once(plain)
         ok, err = held(parity, zip(got, want))
-        stats[name].compared(err)
+        stats[name].compared(err, dtype)
         ms = time_ms(kernel, iters)
-        plain_ms = time_ms(plain, max(1, iters // 2))
+        plain_ms = (once_ms if plain_once
+                    else time_ms(plain, max(1, iters // 2)))
         bnd, by = bound_ms(*cost[name], rate)
         lib = lib_fwd if name == "flash_fwd" else lib_bwd
         print(f"{name} {label} [{B},{H},{Sq},{Sk},{D}] "
@@ -662,17 +743,36 @@ def flash_hold(fk, stats, label, q, k, v, do, bias, causal, iters):
     return out
 
 
+#: the kernel instance each dtype must launch: (route, element type as
+#: the profiler's demangled name spells the first template argument)
+FLASH_INSTANCES = {torch.bfloat16: ("wgmma", "__nv_bfloat16"),
+                   torch.float16: ("wgmma", "__half"),
+                   torch.float32: ("kernel", "float")}
+
+
+def flash_instance(name: str, op: str):
+    """``(route, element type)`` of a profiled kernel ``name`` that is an
+    instance of flash ``op`` (``void flash::...::flash_fwd_wgmma<__half,
+    64>(...)``), or None."""
+    for route in ("wgmma", "kernel"):
+        head = f"{op}_{route}<"
+        if head in name:
+            return route, name.split(head, 1)[1].split(",")[0].strip()
+    return None
+
+
 def flash_routes(fk):
     """Hold the C entries' routes by dtype: under ``torch.profiler``, a
-    bf16 call of K1, K2 and K3 must launch their ``wgmma`` instances and a
-    float32 call their float32 FMA instances, and nothing else."""
+    bf16 call of K1, K2 and K3 must launch their ``wgmma`` instances on
+    ``__nv_bfloat16``, an fp16 call their ``wgmma`` instances on ``__half``
+    and a float32 call their float32 FMA instances, and no other
+    instance."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
-    for dtype, route, other in ((torch.bfloat16, "wgmma", "kernel"),
-                                (torch.float32, "kernel", "wgmma")):
+    for dtype, want in FLASH_INSTANCES.items():
         q, k, v, do, bias = flash_inputs(gen, 1, 2, 128, 128, 64, dtype, None)
         names = []
         for _ in range(3):  # an empty device trace is traced again
@@ -687,22 +787,25 @@ def flash_routes(fk):
             if names:
                 break
         for op in FLASH_OPS:
-            ran = [n for n in names if f"{op}_{route}<" in n]
-            wrong = [n for n in names if f"{op}_{other}<" in n]
+            mine = [(n, flash_instance(n, op)) for n in names
+                    if flash_instance(n, op)]
+            ran = [n for n, inst in mine if inst == want]
+            wrong = [n for n, inst in mine if inst != want]
             if not ran or wrong:
                 raise RuntimeError(f"{op} {dtype}: launched {wrong or names}, "
-                                   f"not its {route} instance")
-            print(f"route {op} {str(dtype).split('.')[-1]}: {ran[0][:90]}",
+                                   f"not its {want} instance")
+            print(f"route {op} {dtype_name(dtype)}: {ran[0][:90]}",
                   flush=True)
 
 
 def phase_flash_kernels(fk, stats, main_lens, llama_lens):
     """Every flash case; returns the times of the seq-512 path's call and
     of the Llama paths' call ((k), (l): [8, 32, 512, 128] bf16, causal,
-    their own padded lengths at -1e30)."""
+    their own padded lengths at -1e30), in bf16. Those two calls' times in
+    each 16-bit dtype go into the record's ``by_dtype``."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4321)
-    bf16, f32 = torch.bfloat16, torch.float32
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
     rows = {sh["label"]: sh for sh in fk.FLASH_FWD.bench_shapes}
     bert4, llama, main = (rows["bert-base-B4-S512"],
                           rows["llama-decode-B1-S2048"],
@@ -727,21 +830,36 @@ def phase_flash_kernels(fk, stats, main_lens, llama_lens):
         ("head-dim-32", 2, 4, 200, 200, 32, f32, True, (200, 120)),
         ("head-dim-128", 2, 4, 200, 200, 128, bf16, False, (200, 120)),
         ("head-dim-128", 2, 4, 200, 200, 128, f32, False, (200, 120)),
+        # the fp16 instances, path (u)'s call first
+        ("seq-512-path", *(main[x] for x in "BHSSD"), f16, False,
+         main_lens),
+        ("all-keys-padded", 2, 12, 256, 256, 64, f16, False, (256, 0)),
+        ("suffix-causal", 2, 12, 128, 512, 64, f16, True, None),
+        ("head-dim-32", 2, 4, 200, 200, 32, f16, True, (200, 120)),
+        ("head-dim-128", 2, 4, 200, 200, 128, f16, False, (200, 120)),
     ]
     flash_routes(fk)
+    per = {}
     for label, B, H, Sq, Sk, D, dtype, causal, lens in cases:
         main = label == "seq-512-path"
-        per = flash_case(fk, stats, gen, label, B, H, Sq, Sk, D, dtype,
-                         causal, lens, 20 if main else 5)
-        if main:
-            main_per = per
+        per[label, dtype] = flash_case(fk, stats, gen, label, B, H, Sq, Sk,
+                                       D, dtype, causal, lens,
+                                       20 if main else 5)
     # the Llama paths' call with their own padding at Llama's -1e30, and
     # a ragged batch at that bias (the long documents fill 512 positions)
-    llama_per = flash_case(fk, stats, gen, "llama-path", 8, 32, 512, 512,
-                           128, bf16, True, llama_lens, 20, neg=-1e30)
+    for dtype in (bf16, f16):
+        per["llama-path", dtype] = flash_case(
+            fk, stats, gen, "llama-path", 8, 32, 512, 512, 128, dtype, True,
+            llama_lens, 20, neg=-1e30)
     flash_case(fk, stats, gen, "llama-ragged", 8, 32, 512, 512, 128, bf16,
                True, (512, 377, 200, 65, 1, 300, 511, 450), 5, neg=-1e30)
-    return main_per, llama_per
+    for (label, dtype), times in per.items():
+        if label in ("seq-512-path", "llama-path") and dtype != f32:
+            for name, (ms, plain, bnd, by, lib) in times.items():
+                stats[name].by_dtype.setdefault(dtype_name(dtype), {})[
+                    label] = {"ms": ms, "plain_ms": plain, "bound_ms": bnd,
+                              "bound_by": by, "library_ms": lib}
+    return per["seq-512-path", bf16], per["llama-path", bf16]
 
 
 def phase_kernels(ck, fk, stats, main_lens, llama_lens):
@@ -968,6 +1086,7 @@ def drive(cfg, smi, label):
     result = run(cfg, device="cuda")
     torch.cuda.synchronize()
     launches = registry.launch_counts()
+    harvest_dtypes()
     wall = time.perf_counter() - t0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     print(f"{label}: {wall:.2f} s incl. set-up, launches {launches}, "
@@ -1004,7 +1123,7 @@ def count_launches(stats, launches):
 def phase_main(ck, stats, smi, dataset, flash_per):
     """Path (a), seq 128 with dense attention, then path (b), seq 512
     with flash attention; then each kernel's per-round time at path (b)'s
-    calls."""
+    calls; then path (u), path (b) at float16 compute."""
     cfg = main_config()
     _, launches, _ = drive(cfg, smi, "seq-128 path")
     for name, n in launches.items():
@@ -1036,7 +1155,52 @@ def phase_main(ck, stats, smi, dataset, flash_per):
     calls = add_main_path_flash(stats, flash_per, cfg, result.model.cfg)
     print(f"per-round kernel times: the codec's calls, and {calls} calls of "
           f"each flash kernel", flush=True)
+    del result
+    torch.cuda.empty_cache()
+    path_fp16_flash(stats, smi, dataset, b_path)
     return b_path
+
+
+def path_fp16_flash(stats, smi, dataset, b_path):
+    """Path (u): path (b) at ``compute_dtype="float16"``, through the same
+    entry point. Its losses finite, K2 and K3 exactly rounds x clients x
+    steps x layers launches as on (b), K1-K5 all launched, and every flash
+    launch an fp16 instance (the kernel phase held those instances at
+    (u)'s own [32, 12, 512, 64] call and padding within ``FP16_PARITY``
+    before this path runs); its walls and peak beside (b)'s."""
+    cfg = flash_config(dataset, compute_dtype="float16")
+    label = "seq-512 fp16 flash path (u)"
+    result, launches, peak = drive(cfg, smi, label)
+    count_launches(stats, launches)
+    for name, n in launches.items():
+        if n <= 0:
+            raise RuntimeError(f"kernel {name} never launched on {label}")
+    layers = result.model.cfg.num_layers
+    want = cfg.num_rounds * cfg.num_clients * cfg.max_local_batches * layers
+    for name in ("flash_bwd_dkv", "flash_bwd_dq"):
+        if launches[name] != want:
+            raise RuntimeError(f"{name} launched {launches[name]} times on "
+                               f"{label}, not rounds x clients x steps x "
+                               f"layers = {want}")
+    from bcfl_tpu_torch.ops import registry
+
+    for op in registry.kernel_ops():
+        if op.name in FLASH_OPS and op.launches_by != {
+                "float16": launches[op.name]}:
+            raise RuntimeError(f"{label}: {op.name} launched "
+                               f"{op.launches_by}, not only its fp16 "
+                               "instance")
+    if not all("seq-512-path" in stats[n].by_dtype.get("float16", {})
+               for n in FLASH_OPS):
+        raise RuntimeError(f"{label}: the fp16 seq-512-path case was not "
+                           "held")
+    walls = [round(r.wall_s, 4) for r in result.metrics.rounds]
+    print(f"{label}: round walls {walls} s against path (b)'s "
+          f"{[round(w, 4) for w in b_path['walls']]} s; peak memory "
+          f"{peak:.2f} GB against {b_path['peak_gb']:.2f} GB; launches "
+          f"{launches} (path (b): {b_path['launches']})", flush=True)
+    del result
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------- peer-to-peer paths
@@ -1208,22 +1372,42 @@ def phase_p2p(ck, stats, smi, dataset):
 # ------------------------------------------- the multi-process runtime
 
 
+# the depth of the resilience paths (h)-(j) and the peer paths (m)-(s):
+# their models' full width (hidden 768, 12 heads, FFN 3072) on 4 of their
+# 12 layers (biobert-base: 51.6 M parameters of 108.3 M). Checkpoints,
+# frames, digests, host-side rules and steps all scale with it; at 12
+# layers these paths took 966 of the script's 1177 s on an H100
+# (PERF.md section 7)
+CUT_LAYERS = 4
+
+
+def model_template(cfg):
+    """``cfg``'s trainable tree on the meta device (shapes only)."""
+    from bcfl_tpu_torch.models import build
+    from bcfl_tpu_torch.models.convert import trainable_tree
+
+    depth = {"num_layers": cfg.num_layers} if cfg.num_layers else {}
+    with torch.device("meta"):
+        return trainable_tree(build(cfg.model, num_labels=cfg.num_labels,
+                                    vocab_size=cfg.vocab_size, **depth))
+
+
 def dist_config(dataset: str, **kw):
     """Path (m): the ``server_noniid_medical`` preset at its published
     shape (biobert-base widths, vocab 28,996, 40 labels, 10 clients,
     contiguous partition of stride 500, train 400, fixed test 400) on the
     multi-process runtime: 5 peer processes of 2 clients each, buffered
     async with a merge on every arrival (``buffer=0``), ``int8+topk`` with
-    error feedback, the ledger on; cut to 3 global versions of 2 local
-    steps of 32 x 128 tokens, 4 evaluation batches at the end, no
-    checkpoints."""
+    error feedback, the ledger on; cut to ``CUT_LAYERS`` of biobert-base's
+    12 layers and to 3 global versions of 2 local steps of 32 x 128
+    tokens, 4 evaluation batches at the end, no checkpoints."""
     from bcfl_tpu_torch.compression import CompressionConfig
     from bcfl_tpu_torch.config import DistConfig, LedgerConfig
     from bcfl_tpu_torch.entrypoints.presets import get_preset
 
     base = dict(name="chip-smoke-dist-noniid-medical", dataset=dataset,
-                vocab_size=28996, runtime="dist", sync="async",
-                num_rounds=3, max_local_batches=2, max_eval_batches=4,
+                vocab_size=28996, num_layers=CUT_LAYERS, runtime="dist",
+                sync="async", num_rounds=3, max_local_batches=2, max_eval_batches=4,
                 eval_every=0,
                 compression=CompressionConfig(kind="int8+topk"),
                 ledger=LedgerConfig(enabled=True),
@@ -1402,9 +1586,7 @@ def phase_dist(ck, stats, smi, dataset, c_walls):
     print_dist_timeline("dist path", result, col, wall)
     print(f"one-process 10-client round of the serverless gossip path in "
           f"this call: {[round(w, 3) for w in c_walls]}", flush=True)
-    with torch.device("meta"):
-        template = trainable_tree(build("biobert-base", num_labels=40,
-                                        vocab_size=28996))
+    template = model_template(cfg)
     k = cfg.num_clients // cfg.dist.peers
     codec_calls(ck, stats, template, cfg.compression, k, "dist-peer")
     shutil.rmtree(run_dir, ignore_errors=True)
@@ -1700,10 +1882,10 @@ def quarantine_version(ordered, adversary: int):
     return None
 
 
-def robust_rule_at_width(smi):
+def robust_rule_at_width(smi, cfg):
     """The robust rules at (q)'s leader call: 5 float32 votes of
-    biobert-base's trainable tree (108 M parameters, random from the seed,
-    vote 4 scaled 25x). Each rule is timed on the card; ``trimmed_mean``,
+    ``cfg``'s trainable tree (biobert-base's width at (q)'s depth, 51.6 M
+    parameters, random from the seed, vote 4 scaled 25x). Each rule is timed on the card; ``trimmed_mean``,
     the rule (q) runs, also on the host at full width, the other two on
     the host over the embeddings', first layer's and classifier's leaves.
     Each host result is held against the card's on the same leaves (the
@@ -1711,12 +1893,8 @@ def robust_rule_at_width(smi):
     1e-9, flags and krum's pick identical). The leader runs the rules on
     its device."""
     from bcfl_tpu_torch.dist.robust import RULES, robust_merge
-    from bcfl_tpu_torch.models import build
-    from bcfl_tpu_torch.models.convert import trainable_tree
 
-    with torch.device("meta"):
-        template = trainable_tree(build("biobert-base", num_labels=40,
-                                        vocab_size=28996))
+    template = model_template(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     votes = [{p: torch.randn(x.shape, generator=gen, device="cuda") * 1e-3
               for p, x in template.items()} for _ in range(5)]
@@ -1805,7 +1983,7 @@ def phase_byzantine(stats, smi, dataset, m_loss):
     # peak on disk: each peer's kept round and one in flight, plus the
     # killed leader's hard-linked round
     check_disk(peer_checkpoint_gb(cfg) * (2 * cfg.dist.peers + 1), label)
-    rule_s = robust_rule_at_width(smi)
+    rule_s = robust_rule_at_width(smi, cfg)
     run_dir = CKPT_DIR / "q"
     shutil.rmtree(run_dir, ignore_errors=True)
     print(smi, flush=True)
@@ -2214,22 +2392,19 @@ def gossip_dispatch_config(dataset: str):
                                  peer_deadline_s=420.0))
 
 
-def gossip_merge_at_width(smi):
-    """The gossip merge at (s)'s width: 3 float32 biobert-base states
-    (108 M parameters each, drawn on the card from the seed) merged by
+def gossip_merge_at_width(smi, cfg):
+    """The gossip merge at (s)'s width and depth: 3 float32 states of
+    ``cfg``'s trainable tree (51.6 M parameters each, drawn on the card
+    from the seed) merged by
     ``merge_states`` on the card and by the same reduction in plain numpy
     float32 on the host (``acc = acc + leaf * w`` in canonical order);
     the two must be bit-identical. Times both (the card cold, then warm),
-    and ``state_digest`` over one 0.433 GB state."""
+    and ``state_digest`` over one state."""
     import numpy as np
 
     from bcfl_tpu_torch.dist.gossip import merge_states, state_digest
-    from bcfl_tpu_torch.models import build
-    from bcfl_tpu_torch.models.convert import trainable_tree
 
-    with torch.device("meta"):
-        shapes = {p: tuple(x.shape) for p, x in trainable_tree(
-            build("biobert-base", num_labels=40, vocab_size=28996)).items()}
+    shapes = {p: tuple(x.shape) for p, x in model_template(cfg).items()}
     gen = torch.Generator(device="cuda").manual_seed(5)
     states = [{p: torch.randn(s, generator=gen, device="cuda")
                for p, s in shapes.items()} for _ in range(3)]
@@ -2263,7 +2438,7 @@ def gossip_merge_at_width(smi):
     digest_ms = (time.perf_counter() - t0) * 1e3
     nbytes = sum(v.nbytes for v in host[0].values())
     print(smi, flush=True)
-    print(f"gossip merge at width (3 float32 biobert-base states, "
+    print(f"gossip merge at (s)'s width and depth (3 float32 states, "
           f"{nbytes} bytes each): card {card_ms[0]:.3f} ms cold, "
           f"{min(card_ms[1:]):.3f} ms warm, host numpy {host_ms:.3f} ms, "
           f"bit-identical {same}; state_digest over one state "
@@ -2289,7 +2464,7 @@ def phase_gossip(stats, smi, dataset):
 
     cfg = gossip_dispatch_config(dataset)
     label = "gossip path (s)"
-    gossip_merge_at_width(smi)
+    gossip_merge_at_width(smi, cfg)
     run_dir = BUILD_DIR / "dist_s"
     shutil.rmtree(run_dir, ignore_errors=True)
     print(smi, flush=True)
@@ -3005,9 +3180,10 @@ def checkpoint_gb(cfg, stacked: bool) -> float:
     codec, plus the stacked per-client view where one is carried."""
     from bcfl_tpu_torch.models import build
 
+    depth = {"num_layers": cfg.num_layers} if cfg.num_layers else {}
     with torch.device("meta"):
         model = build(cfg.model, num_labels=cfg.num_labels,
-                      vocab_size=cfg.vocab_size)
+                      vocab_size=cfg.vocab_size, **depth)
     tree = 4 * sum(p.numel() for p in model.parameters())
     copies = 1 + (cfg.num_clients if cfg.compression.enabled else 0) + (
         cfg.num_clients if stacked else 0)
@@ -3061,6 +3237,7 @@ def crash_and_resume(cfg, smi, label):
     resumed = run(cfg, device="cuda", resume=True)
     torch.cuda.synchronize()
     launches = registry.launch_counts()
+    harvest_dtypes()
     peak = torch.cuda.max_memory_allocated() / 1e9
     return recs, resumed, launches, peak, saved
 
@@ -3107,9 +3284,9 @@ def report_checkpoints(label, ckdir, saved, resumed) -> None:
 
 
 def path_crash_resume(stats, smi, dataset):
-    """Path (h): path (b) (bert-base, seq 512, flash, ``int8+topk``, server
-    FedAvg) with the ledger, 2 rounds (cut from 3 to keep the script's
-    call short): uninterrupted, then checkpointed every round with the
+    """Path (h): path (b) (bert-base's width, seq 512, flash, ``int8+topk``,
+    server FedAvg) on ``CUT_LAYERS`` layers with the ledger, 2 rounds (cut
+    from 3 to keep the script's call short): uninterrupted, then checkpointed every round with the
     plan's crash at round 1 and resumed from round 0;
     bit for bit, and the crash + resume pair launches each kernel as often
     as the uninterrupted run."""
@@ -3118,7 +3295,8 @@ def path_crash_resume(stats, smi, dataset):
 
     label = "crash-resume path"
     ref_cfg = flash_config(dataset, name="chip-smoke-crash-resume-s512",
-                           num_rounds=2, ledger=LedgerConfig(enabled=True))
+                           num_layers=CUT_LAYERS, num_rounds=2,
+                           ledger=LedgerConfig(enabled=True))
     ckdir = CKPT_DIR / "h"
     shutil.rmtree(ckdir, ignore_errors=True)
     cfg = ref_cfg.replace(checkpoint_dir=str(ckdir), checkpoint_every=1,
@@ -3148,7 +3326,8 @@ def path_crash_resume(stats, smi, dataset):
 
 def path_chaos_matrix(stats, smi):
     """Path (i): ``tests/test_reputation.py``'s composition case at
-    bert-base width and seq 128: server, 4 clients, 5 rounds,
+    bert-base width on ``CUT_LAYERS`` layers and seq 128: server, 4
+    clients, 5 rounds,
     ``trimmed_mean``, ``int8+topk``, the ledger, reputation (quarantine 2
     rounds), the partition of rounds 1-2, churn and a flaky client;
     uninterrupted, then checkpointed every 2 rounds with the crash at
@@ -3161,7 +3340,8 @@ def path_chaos_matrix(stats, smi):
 
     label = "chaos-matrix path"
     ref_cfg = main_config(
-        name="chip-smoke-chaos-matrix", num_rounds=5, eval_every=0,
+        name="chip-smoke-chaos-matrix", num_layers=CUT_LAYERS,
+        num_rounds=5, eval_every=0,
         aggregator="trimmed_mean", ledger=LedgerConfig(enabled=True),
         reputation=ReputationConfig(enabled=True, quarantine_rounds=2),
         faults=FaultPlan(**CHAOS_MATRIX))
@@ -3219,13 +3399,14 @@ FLAKY = (1, 7)
 
 
 def robust_config(rule: str):
-    """Path (j): path (a) (bert-base, seq 128, ``int8+topk``, server) at 10
-    clients, the ledger off so corrupted updates reach the aggregator;
+    """Path (j): path (a) (bert-base's width on ``CUT_LAYERS`` layers, seq
+    128, ``int8+topk``, server) at 10 clients, the ledger off so corrupted updates reach the aggregator;
     clients 1 and 7 flaky (``flaky_on_prob`` 1, scale 1e6), the rule at
     trim 0.2 (trimmed_mean: t = 2; krum: f = 2, m = 6, k >= 2f + 3)."""
     from bcfl_tpu_torch.faults import FaultPlan
 
-    return main_config(name=f"chip-smoke-robust-{rule}", num_clients=10,
+    return main_config(name=f"chip-smoke-robust-{rule}",
+                       num_layers=CUT_LAYERS, num_clients=10,
                        aggregator=rule, aggregator_trim=0.2,
                        faults=FaultPlan(flaky_clients=FLAKY,
                                         flaky_on_prob=1.0, flaky_scale=1e6))
@@ -3348,7 +3529,7 @@ def path_robust(ck, stats, smi):
         held_ms[rule] = hold_robust_rule(rule, stores.pop(rule),
                                          f"{label} {rule}")
     print(f"{label}: launches {launches}; aggregator ms per call at "
-          f"bert-base width, 10 clients, card: "
+          f"(j)'s width and depth, 10 clients, card: "
           f"{ {k: round(v, 3) for k, v in held_ms.items()} }; the card "
           "equals the CPU (median and krum bit for bit, trimmed_mean to "
           "rtol 1e-6)", flush=True)
@@ -4156,7 +4337,7 @@ def main(argv=None) -> int:
     b_path = phase_main(ck, stats, smi, dataset, flash_per)
     medical = write_medical_docs()
     c_walls = phase_p2p(ck, stats, smi, medical)
-    done("paths (a)-(d)")
+    done("paths (a)-(d), (u)")
     phase_run_surface(ck, fk, stats, smi, dataset, b_path)
     done("paths (e)-(g)")
     phase_resilience(ck, stats, smi, dataset)
@@ -4188,6 +4369,8 @@ def main(argv=None) -> int:
         phase_profile(llama_config(dataset, lora_rank=8, registry_size=64,
                                    sample_clients=4),
                       "llama2-7b LoRA cohort path (k)")
+    for name, by in PATH_LAUNCHES_BY_DTYPE.items():
+        stats[name].launched(by)
     print(json.dumps({"kernels": [s.record() for s in stats.values()]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

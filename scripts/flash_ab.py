@@ -102,6 +102,7 @@ def run_case(entries, names, label, B, H, Sq, Sk, D, causal, lens, timed):
     stream = torch.cuda.current_stream().cuda_stream
     check = registry.parity_check(fk.BF16_PARITY)
     calls = {}
+    bf16 = fk._DTYPE_CODES[torch.bfloat16]  # the C entries' dtype code
     for name in names:
         f1 = entries[(name, "flash_fwd")]
         f2 = entries[(name, "flash_bwd_dkv")]
@@ -109,17 +110,17 @@ def run_case(entries, names, label, B, H, Sq, Sk, D, causal, lens, timed):
         calls[name] = (
             lambda f1=f1: cuda_build.check(f1(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                out.data_ptr(), lse.data_ptr(), B, H, Sq, Sk, D, 1,
+                out.data_ptr(), lse.data_ptr(), B, H, Sq, Sk, D, bf16,
                 fwd_strides, fk._scale(D), int(causal), stream), "K1"),
             lambda f2=f2: cuda_build.check(f2(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                 out_ref.data_ptr(), do.data_ptr(), lse_ref.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), db.data_ptr(), B, H, Sq, Sk, D,
-                1, bwd_strides, fk._scale(D), int(causal), stream), "K2"),
+                bf16, bwd_strides, fk._scale(D), int(causal), stream), "K2"),
             lambda f3=f3: cuda_build.check(f3(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                 out_ref.data_ptr(), do.data_ptr(), lse_ref.data_ptr(),
-                dq.data_ptr(), B, H, Sq, Sk, D, 1, bwd_strides,
+                dq.data_ptr(), B, H, Sq, Sk, D, bf16, bwd_strides,
                 fk._scale(D), int(causal), stream), "K3"))
         for call in calls[name]:
             call()

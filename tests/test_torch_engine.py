@@ -94,14 +94,14 @@ _DIST = dict(runtime="dist", sync="async", eval_every=0, num_clients=4,
 
 NOT_PORTED = [
     # the dist runtime runs, with every fault lane, gossip dispatch, LoRA
-    # and Llama; a feature deferred on it (the flash kernels' float16
-    # instances here) raises at config time, naming the runtime
-    ("runtime", dict(_DIST, compute_dtype="float16", use_flash=True)),
+    # and Llama; a feature deferred on it (local_epochs here: tp and sp
+    # are refused earlier on dist, by the runtime's capability table)
+    # raises at config time, naming the runtime
+    ("runtime", dict(_DIST, local_epochs=2)),
     ("tp", {"tp": 2}),
     ("sp", {"sp": 2}),
     ("rounds_per_dispatch", {"rounds_per_dispatch": 2}),
-    # the flash kernels have no float16 instances yet
-    ("compute_dtype", {"compute_dtype": "float16", "use_flash": True}),
+    ("local_epochs", {"local_epochs": 2}),
 ]
 
 
@@ -135,6 +135,10 @@ PORTED = [
     ("task", {"task": "causal_lm", "model": "tiny-llama"}),
     # the multi-process runtime's whole-network path (slice 9)
     ("runtime", _DIST),
+    # float16 compute with flash: the kernels' fp16 instances, on the
+    # local and the dist runtime
+    ("compute_dtype", {"compute_dtype": "float16", "use_flash": True}),
+    ("compute_dtype", dict(_DIST, compute_dtype="float16", use_flash=True)),
 ]
 
 
@@ -163,12 +167,70 @@ def test_async_buffer_checks_match_jax(buffer):
     assert got == want
 
 
+@pytest.mark.parametrize("model,layers", [("tiny-bert", 1),
+                                          ("tiny-llama", 1),
+                                          ("tiny-bert", 0)])
+def test_num_layers_cuts_depth_at_the_model_width(model, layers):
+    """``num_layers`` builds that many layers at the model's own width (0:
+    the catalog depth), and the peer processes' JSON carries it."""
+    from bcfl_tpu_torch.dist.launch import cfg_from_json, cfg_to_json
+    from bcfl_tpu_torch.fed.engine import FedEngine
+    from bcfl_tpu_torch.models import build, get_config
+    from bcfl_tpu_torch.models.convert import trainable_tree
+
+    cfg = _tiny(model=model, num_layers=layers)
+    assert cfg_from_json(cfg_to_json(cfg)) == cfg
+    eng = FedEngine(cfg, device="cpu")
+    full = get_config(model)
+    assert eng.model.cfg.num_layers == (layers or full.num_layers)
+    assert eng.model.cfg.hidden_size == full.hidden_size
+    names = {p.split("/")[1] for p in eng.trainable0
+             if p.split("/")[1].startswith("layer_")}
+    assert len(names) == (layers or full.num_layers)
+    want = trainable_tree(build(model, num_labels=eng.num_labels,
+                                vocab_size=512,
+                                num_layers=layers or full.num_layers))
+    assert ({p: tuple(x.shape) for p, x in eng.trainable0.items()}
+            == {p: tuple(x.shape) for p, x in want.items()})
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"num_layers": -1}, "num_layers must be >= 0"),
+    ({"num_layers": 2, "hf_checkpoint": "ckpt"}, "brings its own"),
+])
+def test_num_layers_refuses_what_it_cannot_cut(kw, match):
+    with pytest.raises(ValueError, match=match):
+        _tiny(**kw)
+
+
 def test_run_without_device_raises_without_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run(_tiny(), verbose=False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run(_tiny(), device="cuda", verbose=False)
+
+
+def test_cli_runs_fp16_flash_on_cpu(capsys, monkeypatch):
+    """``--compute-dtype float16 --use-flash on`` trains one tiny round
+    on the CPU through the flash ops' plain versions at float16."""
+    from bcfl_tpu_torch.ops import flash_kernels as fk
+
+    seen = []
+    for op in (fk.FLASH_FWD, fk.FLASH_BWD_DKV, fk.FLASH_BWD_DQ):
+        def spy(q, *args, _plain=op.torch, _name=op.name, **kw):
+            seen.append((_name, q.dtype))
+            return _plain(q, *args, **kw)
+        monkeypatch.setattr(op, "torch", spy)
+    registry.reset_launches()
+    assert cli_main(["--preset", "smoke", "--device", "cpu", "--rounds", "1",
+                     "--mode", "server", "--model", "tiny-bert",
+                     "--seq-len", "32", "--max-local-batches", "1",
+                     "--compute-dtype", "float16", "--use-flash", "on"]) == 0
+    assert "round   0:" in capsys.readouterr().out
+    assert set(seen) == {(name, torch.float16) for name in
+                         ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+    assert set(registry.launch_counts().values()) == {0}  # no kernel here
 
 
 def test_cli_runs_smoke_on_cpu_and_rejects_other_flags(capsys):
@@ -339,6 +401,9 @@ def test_chip_smoke_reads_the_ptxas_report():
         entry.format("20flash_bwd_dkv_kernelIfLi128EEEvNS_6ParamsIT_EE"),
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 168 registers, used 1 barriers",
+        entry.format("19flash_bwd_dkv_wgmmaI6__halfLi128EEEvNS_6ParamsIT_EE"),
+        "    0 bytes stack frame, 96 bytes spill stores, 96 bytes spill loads",
+        "ptxas info    : Used 255 registers, used 1 barriers",
         "ptxas info    : (C7512) Potential Performance Loss: wgmma.mma_async "
         "instructions are serialized due to insufficient register resources",
         "ptxas info    : Compiling entry function '_Z13int8_kernelPKf' for "
@@ -350,6 +415,26 @@ def test_chip_smoke_reads_the_ptxas_report():
         "ptxas flash_bwd_dkv_wgmma<bf16, 64>: 255 registers, 8 bytes spilled",
         "ptxas flash_bwd_dkv_kernel<f32, 128>: 168 registers, 0 bytes "
         "spilled",
+        "ptxas flash_bwd_dkv_wgmma<fp16, 128>: 255 registers, 96 bytes "
+        "spilled",
         "ptxas WARNING (flash_bwd_dkv): ptxas info    : (C7512) Potential "
         "Performance Loss: wgmma.mma_async instructions are serialized due "
         "to insufficient register resources"]
+
+
+def test_chip_smoke_tells_flash_instances_apart():
+    """The route check reads the instance (route, element type) from the
+    profiler's demangled kernel name, per op."""
+    smoke = _chip_smoke()
+    name = ("void flash::(anonymous namespace)::flash_bwd_dq_wgmma<__half, "
+            "64>(flash::Params<__half>)")
+    assert smoke.flash_instance(name, "flash_bwd_dq") == ("wgmma", "__half")
+    assert smoke.flash_instance(name, "flash_bwd_dkv") is None
+    assert smoke.flash_instance(name.replace("__half", "__nv_bfloat16"),
+                                "flash_bwd_dq") == ("wgmma", "__nv_bfloat16")
+    assert smoke.flash_instance(
+        "void flash::(anonymous namespace)::flash_fwd_kernel<float, 32>("
+        "flash::Params<float>)", "flash_fwd") == ("kernel", "float")
+    assert set(smoke.FLASH_INSTANCES) == {torch.bfloat16, torch.float16,
+                                          torch.float32}
+    assert len(set(smoke.FLASH_INSTANCES.values())) == 3

@@ -16,6 +16,12 @@ The JAX Pallas kernels run in interpret mode on the CPU, as
     at D = 64 with a row whose keys are all padded, suffix-causal
     ``Sq < Sk``, and causal ``Sq > Sk`` (the first queries see no key).
 (c) bf16 forward at 2e-2 (the JAX contract).
+(a), (b) and the plain K3 also run at float16, the same numpy draws cast
+    to float16 on both sides (the Pallas kernels are dtype-generic; the
+    key bias stays float32), held to the kernels' fp16 contract
+    ``fk.FP16_PARITY`` (1e-2 absolute plus one fp16 ulp, 2**-10, of the
+    value): the same contract the CUDA kernels meet against the plain
+    versions on the card.
 (d) ``flash_attention_blockwise`` against ``flash_attention_xla``, the
     dense-bias branch included; atol 2e-5.
 (e) tiny-bert and tiny-albert with ``use_flash=True, flash_min_seq=0``,
@@ -24,7 +30,12 @@ The JAX Pallas kernels run in interpret mode on the CPU, as
     ``flash_attention_xla`` on the CPU) at ``test_torch_model.py``'s
     tolerance.
 (f) One tiny-bert server round with ``use_flash=True`` against the JAX
-    ``server_round``, at ``test_torch_round.py``'s tolerance.
+    ``server_round``, at ``test_torch_round.py``'s tolerance; and one at
+    ``compute_dtype="float16"`` on both sides, with SGD at lr 1e-2 as
+    ``test_torch_switches.py``'s dense float16 round (SGD is linear in
+    the gradient, so the round shows the fp16 flash gradients themselves):
+    every coordinate within that test's 2e-5, the per-client
+    ``[loss*n, correct, n]`` within its low-precision 1e-2.
 (g) The CUDA wrappers and ``flash_attention`` reject a dense bias, an
     unsupported head dim and a non-unit D stride before anything is built.
 """
@@ -56,6 +67,7 @@ from bcfl_tpu_torch.models import build as tbuild
 from bcfl_tpu_torch.models import convert
 from bcfl_tpu_torch.ops import cuda_build
 from bcfl_tpu_torch.ops import flash_kernels as fk
+from bcfl_tpu_torch.ops import registry
 from bcfl_tpu_torch.ops.attention import attention_bias_from_mask
 from bcfl_tpu_torch.ops.flash import (
     flash_attention, flash_attention_blockwise)
@@ -84,6 +96,23 @@ def _ragged_mask(B, S, lens):
         np.int32)
 
 
+def _with_fp16(names):
+    """Each case at float32 under its own name, then at float16 as
+    ``<name>-float16``."""
+    return [pytest.param(n, np.float32, id=str(n)) for n in names] + [
+        pytest.param(n, np.float16, id=f"{n}-float16") for n in names]
+
+
+def _hold_fp16(got: torch.Tensor, want, name: str) -> None:
+    """``got`` (the port, float16 or float32) against ``want`` (JAX) at
+    the kernels' fp16 contract, compared in float64."""
+    assert got.dtype == {np.float16: torch.float16,
+                         np.float32: torch.float32}[np.asarray(want).dtype.type]
+    ok, err = registry.parity_check(fk.parity_for(torch.float16))(
+        got.float(), torch.from_numpy(np.array(want, np.float32)))
+    assert ok, f"{name}: max |diff| {err} past {fk.FP16_PARITY}"
+
+
 # ------------------------------------------------------------ (a) plain K1
 
 FWD_CASES = {
@@ -94,11 +123,11 @@ FWD_CASES = {
 }
 
 
-@pytest.mark.parametrize("name", list(FWD_CASES))
-def test_plain_forward_matches_pallas_kernel(name):
+@pytest.mark.parametrize("name,dtype", _with_fp16(FWD_CASES))
+def test_plain_forward_matches_pallas_kernel(name, dtype):
     B, H, Sq, Sk, D, causal, lens, block = FWD_CASES[name]
-    q = _draw((B, H, Sq, D), 1)
-    k, v = _draw((B, H, Sk, D), 2), _draw((B, H, Sk, D), 3)
+    q = _draw((B, H, Sq, D), 1, dtype)
+    k, v = _draw((B, H, Sk, D), 2, dtype), _draw((B, H, Sk, D), 3, dtype)
     bias4 = None if lens is None else jbias_from_mask(
         jnp.asarray(_ragged_mask(B, Sk, lens)))
     out_j, lse_j = _flash_fwd_pallas(
@@ -109,6 +138,10 @@ def test_plain_forward_matches_pallas_kernel(name):
         B, Sk, "cpu")
     out_t, lse_t = fk.flash_fwd_ref(torch.from_numpy(q), torch.from_numpy(k),
                                     torch.from_numpy(v), key_bias, causal)
+    if dtype == np.float16:
+        _hold_fp16(out_t, out_j, "out")
+        _hold_fp16(lse_t, np.asarray(lse_j)[..., 0], "lse")
+        return
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j),
                                atol=FWD_ATOL)
     np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j)[..., 0],
@@ -118,12 +151,14 @@ def test_plain_forward_matches_pallas_kernel(name):
 # ------------------------------------------- (b) the autograd function
 
 
-@pytest.mark.parametrize("bias_rank", [2, 4])
-def test_flash_fn_grads_match_pallas_vjp(bias_rank):
+@pytest.mark.parametrize("bias_rank,dtype", _with_fp16([2, 4]))
+def test_flash_fn_grads_match_pallas_vjp(bias_rank, dtype):
     """Causal, ragged padding (-1e9) plus a random bias, uneven blocks; a
-    random cotangent so dO is a real tensor."""
+    random cotangent so dO is a real tensor (cast to q's dtype by the
+    output's cast on both sides). The bias and its gradient stay
+    float32."""
     B, H, S, D = 2, 2, 96, 32
-    q, k, v = (_draw((B, H, S, D), s) for s in (4, 5, 6))
+    q, k, v = (_draw((B, H, S, D), s, dtype) for s in (4, 5, 6))
     w = _draw((B, H, S, D), 7)
     mask = _ragged_mask(B, S, (96, 70))
     bias = (_draw((B, S), 8) * 0.1 + (1 - mask) * -1e9).astype(np.float32)
@@ -131,13 +166,18 @@ def test_flash_fn_grads_match_pallas_vjp(bias_rank):
     bias = bias.reshape(shape)
 
     def loss_j(q, k, v, b):
-        return (flash_pl(q, k, v, b, True, 32, 32) * w).sum()
+        return (flash_pl(q, k, v, b, True, 32, 32).astype(jnp.float32)
+                * w).sum()
 
     gj = jax.grad(loss_j, (0, 1, 2, 3))(*map(jnp.asarray, (q, k, v, bias)))
     ts = [torch.from_numpy(x).requires_grad_() for x in (q, k, v, bias)]
-    (flash_attention(*ts, causal=True) * torch.from_numpy(w)).sum().backward()
+    (flash_attention(*ts, causal=True).float()
+     * torch.from_numpy(w)).sum().backward()
     for name, t, g in zip(("dq", "dk", "dv", "dbias"), ts, gj):
         assert t.grad.shape == t.shape
+        if dtype == np.float16:
+            _hold_fp16(t.grad, g, name)
+            continue
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(g),
                                    atol=BWD_ATOL, err_msg=name)
 
@@ -152,13 +192,13 @@ DQ_CASES = {
 }
 
 
-@pytest.mark.parametrize("name", list(DQ_CASES))
-def test_plain_dq_matches_pallas_bwd_dq_kernel(name):
+@pytest.mark.parametrize("name,dtype", _with_fp16(DQ_CASES))
+def test_plain_dq_matches_pallas_bwd_dq_kernel(name, dtype):
     """The forward's out and lse come from the interpret-mode Pallas
-    forward and feed both backward sides; float32."""
+    forward and feed both backward sides."""
     B, H, Sq, Sk, D, causal, lens, block = DQ_CASES[name]
-    q, do = _draw((B, H, Sq, D), 21), _draw((B, H, Sq, D), 22)
-    k, v = _draw((B, H, Sk, D), 23), _draw((B, H, Sk, D), 24)
+    q, do = _draw((B, H, Sq, D), 21, dtype), _draw((B, H, Sq, D), 22, dtype)
+    k, v = _draw((B, H, Sk, D), 23, dtype), _draw((B, H, Sk, D), 24, dtype)
     bias4 = None if lens is None else jbias_from_mask(
         jnp.asarray(_ragged_mask(B, Sk, lens)))
     key_bias_j = j_normalize_bias(bias4, B, Sk)
@@ -176,6 +216,9 @@ def test_plain_dq_matches_pallas_bwd_dq_kernel(name):
     if causal and Sq > Sk:  # queries before the first key see none
         assert not np.asarray(dq_j)[:, :, :Sq - Sk].any()
         assert not dq_t[:, :, :Sq - Sk].any()
+    if dtype == np.float16:
+        _hold_fp16(dq_t, dq_j, "dq")
+        return
     np.testing.assert_allclose(dq_t.numpy(), np.asarray(dq_j),
                                atol=BWD_ATOL)
 
@@ -296,11 +339,10 @@ LR = 5e-5
 ATOL_ROUND = 2e-6  # test_torch_round.py's
 
 
-def test_flash_server_round_matches_jax():
-    """test_torch_round.py's uncompressed round with use_flash=True on both
-    sides: every coordinate within 2 * lr * steps (AdamW's reach on a
-    near-zero gradient), all but 1e-4 of them (key biases aside, whose
-    exact gradient is zero) within 2e-6."""
+def _flash_round(compute="float32", optimizer="adamw", lr=LR):
+    """One tiny-bert server round with ``use_flash=True`` in both packages
+    from the same flax init and batches: (the port's ``RoundOut``, JAX's
+    stats and tree, the start tree)."""
     ds = jload("synthetic", num_labels=2, n_train=256, n_test=64)
     cache = JTokenCache.build(ds, HashTokenizer(512), SEQ)
     part = JPartitioner(JPart(kind="iid", iid_samples=6), ds.n_train,
@@ -308,30 +350,42 @@ def test_flash_server_round_matches_jax():
     tree, n_ex = jclient_batches(cache, part, C, 0, BATCH, max_batches=STEPS)
     kw = dict(num_labels=2, vocab_size=512, dropout_rate=0.0,
               use_flash=True, flash_min_seq=0)
-    jm = jbuild("tiny-bert", dtype=jnp.float32, **kw)
+    jm = jbuild("tiny-bert", dtype=getattr(jnp, compute), **kw)
     params = jm.init(jax.random.key(1), jnp.ones((2, SEQ), jnp.int32),
                      jnp.ones((2, SEQ), jnp.int32))["params"]
-    progs = build_programs(jm, client_mesh(C))
+    progs = build_programs(jm, client_mesh(C), optimizer=optimizer,
+                           learning_rate=lr)
     w = np.asarray(n_ex, np.float32)
     rngs = jax.random.key_data(jax.vmap(jax.random.key)(
         jnp.arange(C, dtype=jnp.uint32)))
     g_j, stats_j = progs.server_round(params, None,
                                       jax.tree.map(jnp.asarray, tree),
                                       jnp.asarray(w), rngs)
-    tm = tbuild("tiny-bert", dtype=torch.float32, **kw)
+    tm = tbuild("tiny-bert", dtype=getattr(torch, compute), **kw)
     tm.load_state_dict(convert.from_flax(jax.tree.map(np.asarray, params)))
     g0 = {_path_name(p): torch.from_numpy(np.array(x))
           for p, x in jax.tree_util.tree_flatten_with_path(params)[0]}
-    out = server_round(make_local_train(tm, make_loss_fn(tm)), None, g0,
+    out = server_round(make_local_train(tm, make_loss_fn(tm), optimizer, lr),
+                       None, g0,
                        {k: torch.from_numpy(v) for k, v in tree.items()},
                        torch.from_numpy(w), [None] * C)
-    np.testing.assert_allclose(out.stats.numpy(), np.asarray(stats_j),
+    flat_j = {_path_name(p): np.asarray(x)
+              for p, x in jax.tree_util.tree_flatten_with_path(g_j)[0]}
+    assert list(out.global_t) == list(flat_j)
+    return out, np.asarray(stats_j), flat_j, g0
+
+
+def test_flash_server_round_matches_jax():
+    """test_torch_round.py's uncompressed round with use_flash=True on both
+    sides: every coordinate within 2 * lr * steps (AdamW's reach on a
+    near-zero gradient), all but 1e-4 of them (key biases aside, whose
+    exact gradient is zero) within 2e-6."""
+    out, stats_j, flat_j, g0 = _flash_round()
+    np.testing.assert_allclose(out.stats.numpy(), stats_j,
                                rtol=1e-4, atol=1e-4)
     far = total = 0
     moved = 0.0
-    for p, x in jax.tree_util.tree_flatten_with_path(g_j)[0]:
-        name = _path_name(p)
-        x = np.asarray(x)
+    for name, x in flat_j.items():
         err = np.abs(out.global_t[name].numpy() - x)
         moved = max(moved, float(np.abs(x - g0[name].numpy()).max()))
         assert err.max() <= 2 * LR * STEPS * 1.01, name
@@ -340,6 +394,20 @@ def test_flash_server_round_matches_jax():
             total += err.size
     assert far <= total * 1e-4, f"{far} of {total} coordinates past atol"
     assert moved > 10 * ATOL_ROUND  # the round really trained
+
+
+def test_fp16_flash_server_round_matches_jax():
+    """``compute_dtype="float16"`` with flash on both sides, SGD at lr
+    1e-2: test_torch_switches.py's float16 dense round's tolerances."""
+    out, stats_j, flat_j, g0 = _flash_round("float16", "sgd", 1e-2)
+    np.testing.assert_allclose(out.stats.numpy(), stats_j, rtol=1e-2,
+                               atol=1e-2)
+    err = max(float(np.abs(out.global_t[n].numpy() - x).max())
+              for n, x in flat_j.items())
+    moved = max(float(np.abs(x - g0[n].numpy()).max())
+                for n, x in flat_j.items())
+    assert err <= 2e-5, err
+    assert moved > 1e-4  # the round really trained
 
 
 # ------------------------------------------------- (g) input checks
@@ -372,6 +440,10 @@ def test_flash_wrappers_reject_bad_inputs_before_building(monkeypatch):
     with pytest.raises(ValueError, match="one dtype"):
         fk._flash_fwd_cuda(q.double(), q.double(), q.double(), key_bias,
                            False)
+    # float16 is one of the kernels' dtypes: it passes the dtype check
+    h = q.half()
+    with pytest.raises(ValueError, match="CUDA device"):
+        fk._flash_bwd_dq_cuda(h, h, h, key_bias, h, h, lse, False)
     # a valid call on CPU tensors stops at the device check
     with pytest.raises(ValueError, match="CUDA device"):
         fk._flash_fwd_cuda(q, q, q, key_bias, False)

@@ -231,6 +231,22 @@ def test_parity_check_reads_the_op_contract():
         registry.parity_check("allclose:2e-2")
 
 
+def test_flash_parity_follows_the_dtype():
+    """One contract per dtype: bf16 the ops' ``parity``, fp16 1e-2 plus
+    one fp16 ulp (2**-10) of the value, float32 1e-4."""
+    assert fk.parity_for(torch.bfloat16) == fk.FLASH_FWD.parity
+    assert fk.parity_for(torch.float32) == fk.F32_PARITY
+    assert fk.parity_for(torch.float16) == fk.FP16_PARITY
+    close = registry.parity_check(fk.FP16_PARITY)
+    a = torch.ones(3)  # 1e-2 plus one fp16 ulp of 1 (2**-10)
+    assert close(a + 0.01097, a)[0]
+    assert not close(a + 0.01098, a)[0]
+    assert close(a * 32 + 0.0412, a * 32)[0]  # one fp16 ulp at 32: 2**-5
+    assert not close(a * 32 + 0.0414, a * 32)[0]
+    with pytest.raises(KeyError):
+        fk.parity_for(torch.float64)
+
+
 FLASH_CASES = [
     # (B, H, Sq, Sk, D, causal, padded key lengths per batch row or None)
     (2, 3, 300, 300, 64, False, (300, 211)),
@@ -248,7 +264,8 @@ FLASH_CASES = [
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_kernels_match_plain_versions_on_card(cuda_device, dtype,
                                                     case):
@@ -266,9 +283,7 @@ def test_flash_kernels_match_plain_versions_on_card(cuda_device, dtype,
         pos = torch.arange(Sk, device=cuda_device)[None, :]
         bias = torch.where(pos < torch.tensor(lens, device=cuda_device)[
             :, None], 0.0, -1e9)
-    check = registry.parity_check(fk.FLASH_FWD.parity
-                                  if dtype == torch.bfloat16
-                                  else fk.F32_PARITY)
+    check = registry.parity_check(fk.parity_for(dtype))
     registry.reset_launches()
     out, lse = fk.FLASH_FWD(q, k, v, bias, causal)
     ref = fk.flash_fwd_ref(q, k, v, bias, causal)
@@ -284,6 +299,9 @@ def test_flash_kernels_match_plain_versions_on_card(cuda_device, dtype,
     counts = registry.launch_counts()
     assert [counts[n] for n in ("flash_fwd", "flash_bwd_dkv",
                                 "flash_bwd_dq")] == [1, 1, 1]
+    key = str(dtype).split(".")[-1]  # each launch counted under its dtype
+    assert [op.launches_by for op in (fk.FLASH_FWD, fk.FLASH_BWD_DKV,
+                                      fk.FLASH_BWD_DQ)] == [{key: 1}] * 3
     # through autograd: one launch of each per forward and backward
     qkv = [t.detach().requires_grad_() for t in (q, k, v)]
     fk.FlashAttentionFn.apply(*qkv, bias, causal).backward(do)
@@ -294,9 +312,10 @@ def test_flash_kernels_match_plain_versions_on_card(cuda_device, dtype,
 
 @pytest.mark.gpu
 def test_flash_route_follows_the_dtype_on_card(cuda_device):
-    """bf16 calls of the forward, dK/dV and dQ launch their wgmma (tensor
-    core) instances, float32 calls their float32 FMA instances: the check
-    ``chip_smoke.py`` runs, which raises otherwise."""
+    """bf16 and fp16 calls of the forward, dK/dV and dQ launch their own
+    wgmma (tensor core) instances, float32 calls their float32 FMA
+    instances: the check ``chip_smoke.py`` runs, which raises
+    otherwise."""
     import importlib.util
     from pathlib import Path
 
@@ -305,6 +324,26 @@ def test_flash_route_follows_the_dtype_on_card(cuda_device):
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
     smoke.flash_routes(fk)
+
+
+@pytest.mark.gpu
+def test_flash_entries_refuse_an_unknown_dtype_code_on_card(cuda_device):
+    """A dtype code no instance is built for comes back as
+    ``cudaErrorInvalidValue`` (1) from each C entry, before any launch."""
+    x = torch.zeros((1, 1, 64, 64), dtype=torch.float16, device=cuda_device)
+    bias = torch.zeros((1, 64), device=cuda_device)
+    lse = torch.zeros((1, 1, 64), device=cuda_device)
+    strides = fk._strides(x, x, x, x, x)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    assert 3 not in fk._DTYPE_CODES.values()
+    for op, ptrs in ((fk.FLASH_FWD, [x, x, x, bias, x, lse]),
+                     (fk.FLASH_BWD_DKV, [x, x, x, bias, x, x, lse, x, x,
+                                         lse]),
+                     (fk.FLASH_BWD_DQ, [x, x, x, bias, x, x, lse, x])):
+        fn = fk._entry(op, len(ptrs))
+        assert fn(*[t.data_ptr() for t in ptrs], 1, 1, 64, 64, 64, 3,
+                  strides, 0.125, 0, stream) == 1, op.name
+    torch.cuda.synchronize()
 
 
 @pytest.fixture(scope="module")
@@ -326,46 +365,49 @@ def sm90_check(tmp_path_factory):
                           capture_output=True, text=True)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     fn = ctypes.CDLL(str(out)).bcfl_sm90_check
-    fn.argtypes = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3 + [
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [
         ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("live", [64, 37])
 @pytest.mark.parametrize("D", [32, 64, 128])
-def test_sm90_primitives_match_matmul_on_card(sm90_check, D, live):
-    """``flash_sm90.cuh`` on one product of each form: the swizzled tile
-    layout and its K-major and MN-major descriptors, the accumulator
-    fragment packed to bf16 as a register A operand, and the zero-fill of
-    the rows at or past ``live`` (the output starts as NaN, so a product
-    that reads a stale row or skips an element fails)."""
+def test_sm90_primitives_match_matmul_on_card(sm90_check, D, live, dtype):
+    """``flash_sm90.cuh`` on one product of each form, in bf16 and fp16:
+    the swizzled tile layout and its K-major and MN-major descriptors, the
+    accumulator fragment packed to the dtype as a register A operand, and
+    the zero-fill of the rows at or past ``live`` (the output starts as
+    NaN, so a product that reads a stale row or skips an element
+    fails)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(D + live)
     check = registry.parity_check(fk.F32_PARITY)
+    code = fk._DTYPE_CODES[dtype]
 
-    def bf16(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    def draw(*shape):  # an operand in the dtype under test
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     def zero_past_live(t):
         t = t.float().clone()
         t[live:] = 0.0
         return t
 
-    a, b = bf16(64, D), bf16(64, D)
+    a, b = draw(64, D), draw(64, D)
     c = torch.full((64, 64), float("nan"), device="cuda")
-    assert sm90_check(0, D, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+    assert sm90_check(0, D, code, a.data_ptr(), b.data_ptr(), c.data_ptr(),
                       live) == 0
     torch.cuda.synchronize()
     ok, err = check(c, a.float() @ zero_past_live(b).T)
     assert ok, f"S = Q K^T form: max |diff| {err}"
 
     p = torch.randn((64, 64), generator=gen, device="cuda")
-    v = bf16(64, D)
+    v = draw(64, D)
     c = torch.full((64, D), float("nan"), device="cuda")
-    assert sm90_check(1, D, p.data_ptr(), v.data_ptr(), c.data_ptr(),
+    assert sm90_check(1, D, code, p.data_ptr(), v.data_ptr(), c.data_ptr(),
                       live) == 0
     torch.cuda.synchronize()
-    ok, err = check(c, p.bfloat16().float() @ zero_past_live(v))
+    ok, err = check(c, p.to(dtype).float() @ zero_past_live(v))
     assert ok, f"O += P V form: max |diff| {err}"

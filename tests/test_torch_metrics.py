@@ -2,9 +2,10 @@
 the JAX package and psutil, on the CPU.
 
 - ``ResourceMonitor`` reads the process without psutil: its resident set
-  equals psutil's ``memory_info().rss`` within 4 pages at one instant, and
-  its windowed CPU percent is psutil's ``cpu_percent(None)`` over the same
-  busy window within 10 points (both count clock ticks of 10 ms); its
+  lies within 4 pages of the psutil ``memory_info().rss`` readings taken
+  just before and just after it, and its windowed CPU percent is psutil's
+  ``cpu_percent(None)`` over the same busy window within 10 points (both
+  count clock ticks of 10 ms); its
   ``start_sampling`` emits ``resource`` events with the fields of JAX's
   psutil sampler;
 - ``RunMetrics.to_json``: every key is one of JAX's, at the top level and
@@ -57,6 +58,12 @@ def _tiny(**kw):
 
 
 def test_rss_matches_psutil():
+    """The port's reading lies between two psutil readings taken just
+    before and just after it (within 4 pages): a worker's other threads
+    (a transport's senders, a sampler, torch's pools) may allocate between
+    any two reads, so a single pair can drift apart by more than the
+    reading's own error; the bracket holds whatever they do in between
+    as long as the resident set only grows or only shrinks across it."""
     import psutil
 
     page = os.sysconf("SC_PAGE_SIZE")
@@ -64,8 +71,11 @@ def test_rss_matches_psutil():
     readings = []
     blob = None
     for _ in range(2):
-        a, b = tm._rss_bytes(), proc.memory_info().rss
-        assert abs(a - b) <= 4 * page, (a, b)
+        before = proc.memory_info().rss
+        a = tm._rss_bytes()
+        after = proc.memory_info().rss
+        lo, hi = min(before, after), max(before, after)
+        assert lo - 4 * page <= a <= hi + 4 * page, (before, a, after)
         readings.append(a)
         if blob is None:  # the reading moves with the process
             blob = bytearray(64 << 20)
