@@ -561,8 +561,6 @@ def capability_table(cfg: "FedConfig") -> Tuple[Tuple[str, bool, object], ...]:
 
 #: (field, is-unsupported predicate) — each raises "not ported yet"
 _NOT_PORTED = (
-    ("tp", lambda c: c.tp > 1),
-    ("sp", lambda c: c.sp > 1),
     ("local_epochs", lambda c: c.local_epochs != 1),
     ("rounds_per_dispatch", lambda c: c.rounds_per_dispatch > 1),
 )
@@ -604,7 +602,13 @@ class FedConfig:
     use_flash: Optional[bool] = None
     # recompute each encoder layer's activations in the backward
     remat: bool = False
+    # tensor-parallel shards per client: tp > 1 builds a 2-D (clients, tp)
+    # mesh and splits the frozen base megatron-style over its inner
+    # devices (LoRA only; bcfl_tpu_torch.parallel.tp_linear)
     tp: int = 1
+    # sequence-parallel shards per client: sp > 1 builds a 2-D
+    # (clients, seq) mesh and rides exact ring attention over its inner
+    # devices (bcfl_tpu_torch.parallel.sp)
     sp: int = 1
 
     # --- federated topology ---
@@ -746,6 +750,17 @@ class FedConfig:
             raise ValueError(f"eval_every must be >= 0, got {self.eval_every}")
         if self.tp < 1 or self.sp < 1:
             raise ValueError(f"tp/sp must be >= 1, got {self.tp}/{self.sp}")
+        if self.tp > 1 and self.sp > 1:
+            raise ValueError("pick ONE inner mesh axis per run: tp or sp")
+        if self.sp > 1 and self.seq_len % self.sp:
+            raise ValueError(
+                f"seq_len {self.seq_len} must be divisible by sp={self.sp} "
+                "(ring attention shards the sequence into sp equal blocks)")
+        if self.tp > 1 and self.lora_rank <= 0:
+            raise ValueError(
+                "tp > 1 tensor-shards the FROZEN base and keeps per-client "
+                "LoRA adapters; set lora_rank > 0 (full fine-tune is 1-D "
+                "clients-only)")
         if self.async_buffer < 0:
             raise ValueError(
                 f"async_buffer must be >= 0, got {self.async_buffer}")

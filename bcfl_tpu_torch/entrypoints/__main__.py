@@ -66,6 +66,10 @@ Peer crash and rejoin are the harness's
 refused with ``--runtime dist``. ``--lora-rank`` (uniform adapters, and
 Llama models) reaches ``--runtime dist`` too: the adapter tree is what
 every frame, vote, fingerprint and checkpoint of the peers carries.
+``--tp`` and ``--sp`` (tensor and sequence parallelism, JAX's flags) take
+the engine's devices: the visible CUDA devices, refusing an inner axis
+larger than their count in JAX's words, or with ``--device cpu`` as many
+CPU devices as the inner axis needs (``FedEngine``'s rule).
 ``--telemetry-dir``, ``--no-telemetry`` and ``--telemetry-sample`` set
 the event streams as JAX's do. ``--fused-tamper`` takes JAX's checks and
 messages; the port runs no fused dispatch, so a well-formed request
@@ -98,6 +102,7 @@ _FIELD_FLAGS = (
     ("lora_rank", "lora_rank"), ("lora_ranks", "lora_ranks"),
     ("registry_size", "registry_size"),
     ("sample_clients", "sample_clients"), ("cohort_size", "cohort_size"),
+    ("tp", "tp"), ("sp", "sp"),
 )
 
 
@@ -179,6 +184,13 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cohort-size", type=int, default=None,
                     help="clients stacked per device; on one card only 0 "
                          "or the whole sampled cohort")
+    ap.add_argument("--sp", type=int, default=None,
+                    help="sequence-parallel shards per client: 2-D "
+                         "(clients, seq) mesh, ring attention over the seq "
+                         "axis (llama causal / encoder non-causal)")
+    ap.add_argument("--tp", type=int, default=None,
+                    help="tensor-parallel shards per client (2-D clients x tp "
+                         "mesh; requires --lora-rank > 0)")
     ap.add_argument("--seq-len", type=int, default=None)
     ap.add_argument("--batch-size", type=int, default=None)
     ap.add_argument("--lr", type=float, default=None)

@@ -20,11 +20,13 @@ from bcfl_tpu_torch.fed.engine import FedEngine, RunResult
 
 
 def run(cfg: FedConfig, device=None, verbose: bool = True,
-        resume: bool = False, fused_tamper=None) -> RunResult:
+        resume: bool = False, fused_tamper=None, devices=None) -> RunResult:
     """``fused_tamper``: optional ``(round) -> [num_clients] scales or
     None``, the engine's fused-round corruption shim (the port runs no
-    fused dispatch, so a round it names raises)."""
-    engine = FedEngine(cfg, device=device, fused_tamper=fused_tamper)
+    fused dispatch, so a round it names raises). ``devices``: the mesh's
+    device list for ``tp``/``sp > 1`` (``FedEngine``'s)."""
+    engine = FedEngine(cfg, device=device, fused_tamper=fused_tamper,
+                       devices=devices)
     if verbose:
         print("\n".join(_header(cfg, engine.device)), flush=True)
     result = engine.run(resume=resume,

@@ -28,11 +28,20 @@ the adapters and heads only. With heterogeneous ranks, ``rmask`` (the
 ``[C, R]`` :func:`~bcfl_tpu_torch.models.lora.rank_mask`) clips each
 client's starting tree to its own rank at train entry and its delta before
 the codec, as the JAX programs do.
+
+:func:`build_programs` binds these bodies to one model and
+:class:`~bcfl_tpu_torch.core.mesh.ClientMesh` (``FedPrograms``): with
+``tp > 1`` the model's frozen base must already be split over the mesh's
+inner devices (:func:`bcfl_tpu_torch.parallel.tp_linear.shard_base`), with
+``sp > 1`` its attention must ride the ring
+(:func:`bcfl_tpu_torch.parallel.sp.ring_config`); the round bodies are
+the same either way, as the JAX package's GSPMD bodies are.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, List, Optional
 
 import torch
@@ -40,11 +49,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from bcfl_tpu_torch.compression import codecs as cc
+from bcfl_tpu_torch.core.mesh import ClientMesh
 from bcfl_tpu_torch.models import lora
 from bcfl_tpu_torch.models.convert import (leaf_specs, load_trainable,
                                            trainable_tree)
 from bcfl_tpu_torch.parallel import (gossip_mix, gossip_mix_recv,
                                      masked_weighted_mean)
+from bcfl_tpu_torch.parallel import tp_linear
 from bcfl_tpu_torch.parallel.collectives import _col
 
 Tree = Dict[str, torch.Tensor]
@@ -427,3 +438,53 @@ def gossip_round(local_train: Callable, comp: Optional[cc.CompressionConfig],
                                         uniforms)
     mixed = mix_recv(new_t, rec, mask, client_t, alpha, steps)
     return RoundOut(mixed, stats, resid, payload)
+
+
+@dataclasses.dataclass
+class FedPrograms:
+    """The round and evaluation bodies bound to one (model, mesh,
+    optimizer)."""
+
+    mesh: ClientMesh
+    # (trainable, batches, generator) -> (trainable, stats)
+    local_train: Callable
+    eval_one: Callable  # (trainable, batches) -> [loss*n, correct, n]
+    # (client_t, batches, mask, generators, resid=None, uniforms=None)
+    gossip_round: Callable
+
+
+def build_programs(model: nn.Module, mesh: ClientMesh,
+                   optimizer: str = "adamw", learning_rate: float = 5e-5,
+                   max_grad_norm: float = 0.0, gossip_alpha: float = 0.5,
+                   gossip_steps: int = 1, task: str = "classification",
+                   compression: Optional[cc.CompressionConfig] = None,
+                   adapters: bool = False) -> FedPrograms:
+    """The :class:`FedPrograms` of ``model`` on ``mesh``. The ``impl``
+    choice of the JAX ``build_programs`` (and its refusal of
+    ``shard_map`` on a 2-D mesh) has no counterpart: the port has one
+    implementation of every body. What it checks instead is that the
+    model carries the mesh's inner axis, so that nothing runs ``tp > 1``
+    dense or ``sp > 1`` without the ring."""
+    if mesh.tp > 1:
+        split = {len(sh.weights)
+                 for sh in tp_linear.split_layers(model).values()}
+        if split != {mesh.tp}:
+            raise ValueError(
+                f"a tp={mesh.tp} mesh needs the model's frozen base split "
+                f"{mesh.tp} ways (tp_linear.shard_base), found "
+                f"{sorted(split) or 'no split layer'}")
+    if mesh.sp > 1 and model.cfg.attention_override is None:
+        raise ValueError(
+            f"an sp={mesh.sp} mesh needs the model's attention on the ring "
+            "(sp.ring_config)")
+    loss_fn = make_loss_fn(model, task)
+    local_train = make_local_train(model, loss_fn, optimizer, learning_rate,
+                                   max_grad_norm, adapters=adapters)
+    comp = (compression if compression is not None and compression.enabled
+            else None)
+    return FedPrograms(
+        mesh=mesh, local_train=local_train,
+        eval_one=make_eval_one(model, loss_fn, adapters=adapters),
+        gossip_round=functools.partial(gossip_round, local_train, comp,
+                                       alpha=gossip_alpha,
+                                       steps=gossip_steps))

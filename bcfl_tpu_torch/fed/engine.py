@@ -50,6 +50,15 @@ error-feedback residual lives per registry client in an
 :class:`~bcfl_tpu_torch.fed.cohort.EFRegistry`, gathered before each
 round and scattered after it. The fused multi-round dispatch of the JAX
 engine is not ported (the config raises).
+
+Tensor and sequence parallelism (``tp``/``sp > 1``) run over an explicit
+device list (``devices=``, :func:`_devices`): the mesh is built before the
+model (:func:`bcfl_tpu_torch.core.mesh.client_mesh`, JAX's checks), every
+client runs on its first device, and the inner shard ``i`` lives on
+``mesh.devices[i]``: under ``tp`` the frozen base is split megatron-style
+(:mod:`bcfl_tpu_torch.parallel.tp_linear`), under ``sp`` the attention
+rides the ring (:func:`bcfl_tpu_torch.parallel.sp.ring_override`, flash
+off).
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ from bcfl_tpu_torch.checkpoint import restore_latest, save_checkpoint
 from bcfl_tpu_torch.compression import codecs as cc
 from bcfl_tpu_torch.config import FedConfig
 from bcfl_tpu_torch.core import prng, resolve_device
+from bcfl_tpu_torch.core.mesh import client_mesh, visible_devices
 from bcfl_tpu_torch.core.fence import fence
 from bcfl_tpu_torch.data import (
     Partitioner,
@@ -92,13 +102,15 @@ from bcfl_tpu_torch.metrics import (
     model_size_gb,
 )
 from bcfl_tpu_torch.models import (build, full_float32_matmuls, lora,
-                                   lora_targets)
+                                   lora_targets, tp_param_specs)
 from bcfl_tpu_torch.models.bert import TextClassifier, init_params
-from bcfl_tpu_torch.models.convert import load_trainable, trainable_tree
+from bcfl_tpu_torch.models.convert import (leaf_specs, load_trainable,
+                                           trainable_tree)
 from bcfl_tpu_torch.models.hf_import import import_pretrained, load_into
 from bcfl_tpu_torch.parallel import (make_aggregator,
-                                     rank_aware_weighted_mean)
+                                     rank_aware_weighted_mean, tp_linear)
 from bcfl_tpu_torch.parallel.collectives import _col
+from bcfl_tpu_torch.parallel.sp import ring_override
 from bcfl_tpu_torch.reputation import ReputationTracker
 from bcfl_tpu_torch.topology import (
     anomaly_filter,
@@ -160,20 +172,54 @@ def _untext(t) -> str:
     return bytes(np.asarray(t, np.uint8)).decode()
 
 
+def _devices(cfg: FedConfig, device, devices) -> list:
+    """The engine's device list: ``devices`` as given (its first entry
+    the engine's device), else one device (``device``, default the GPU)
+    without an inner axis; with ``tp``/``sp > 1`` the visible CUDA
+    devices, or on the CPU as many CPU devices as the inner axis needs
+    (the JAX package's virtual host devices)."""
+    inner = max(cfg.tp, cfg.sp)
+    if devices is not None:
+        devices = [resolve_device(d) for d in devices]
+        if not devices:
+            raise ValueError("devices is empty")
+        dev = resolve_device(device) if device is not None else devices[0]
+        # "cuda" names the current card, index 0 here
+        if (dev.type, dev.index or 0) != (devices[0].type,
+                                           devices[0].index or 0):
+            raise ValueError(f"device={device} is not devices[0]="
+                             f"{devices[0]}")
+        return devices
+    dev = resolve_device(device)
+    if inner == 1:
+        return [dev]
+    if dev.type == "cpu":
+        return [dev] * inner
+    return visible_devices()
+
+
 class FedEngine:
     def __init__(self, cfg: FedConfig, device=None, info_source: int = 1,
                  tamper_hook: Optional[Callable] = None,
                  fused_tamper: Optional[Callable] = None,
-                 client_ids: Optional[Sequence[int]] = None):
+                 client_ids: Optional[Sequence[int]] = None,
+                 devices: Optional[Sequence] = None):
         """``client_ids``: the global ids of the stacked clients (a dist
         peer's slice; default ``0..C-1``). Batches, dropout generators,
         codec uniforms and ledger ids follow them. The dist runtime uses
         the engine's round pieces, never :meth:`run`, so fixed ids refuse
         the per-client state that :meth:`run` keeps (registry sampling,
-        reputation)."""
+        reputation).
+
+        ``devices``: the mesh's devices (see :func:`_devices`); every
+        client runs on the first, the inner ``tp``/``sp`` shard ``i`` on
+        the inner axis's ``i``-th. A list may name one card twice
+        (``[cuda:0, cuda:0]``): the shards then share it, which proves the
+        sharded arithmetic and gives no memory or speed gain."""
         self.cfg = cfg
-        self.device = dev = resolve_device(device)
-        if dev.type == "cuda":
+        devices = _devices(cfg, device, devices)
+        self.device = dev = devices[0]
+        if any(d.type == "cuda" for d in devices):
             full_float32_matmuls()
         self._fixed_ids = None
         if client_ids is not None:
@@ -237,6 +283,22 @@ class FedEngine:
         self.num_labels = max(cfg.num_labels, self.cache.num_labels)
         self.partitioner = Partitioner(cfg.partition, self.dataset.n_train,
                                        self.dataset.n_test, cfg.seed)
+        # --- mesh (before the model: sp puts the mesh into attention) ---
+        if self.sampling and cfg.cohort_size:
+            # exactly C / cohort_size client shards, each reserving the
+            # inner (tp/sp) axis's devices
+            inner = max(cfg.tp, cfg.sp)
+            need = (self.C // cfg.cohort_size) * inner
+            if need > len(devices):
+                raise ValueError(
+                    f"cohort_size {cfg.cohort_size} needs {need} devices "
+                    f"for a {self.C}-client cohort"
+                    + (f" x {inner} inner (tp/sp) shards" if inner > 1
+                       else "")
+                    + f", have {len(devices)}")
+            devices = devices[:need]
+        self.mesh = client_mesh(self.C, devices=devices, tp=cfg.tp,
+                                sp=cfg.sp)
         # --- model: built on the device, fresh init from the seed ---
         overrides = {}
         if cfg.use_flash is not None:
@@ -245,6 +307,12 @@ class FedEngine:
                 # an explicit "on" forces flash attention at every length
                 # (the family otherwise gates on flash_min_seq)
                 overrides["flash_min_seq"] = 0
+        if cfg.sp > 1:
+            # each client's attention becomes exact ring attention over the
+            # mesh's seq axis; llama rides the causal ring, encoders the
+            # non-causal one
+            overrides["attention_override"] = ring_override(self.mesh.mesh)
+            overrides["use_flash"] = False
         dtypes = dict(dtype=DTYPES[cfg.compute_dtype],
                       param_dtype=DTYPES[cfg.param_dtype], remat=cfg.remat,
                       **overrides)
@@ -283,18 +351,30 @@ class FedEngine:
             self.trainable0 = self._init_adapters()
         else:
             self.trainable0 = trainable_tree(self.model)
+        if cfg.tp > 1:
+            # the megatron split of the frozen base over the inner devices
+            # (tp_param_specs dispatches on the BUILT model's family: an
+            # hf_checkpoint always builds an encoder)
+            specs = tp_param_specs(self.model, {
+                s.path: s for s in leaf_specs(self.model)})
+            if not any(d is not None for d in specs.values()):
+                raise ValueError(
+                    "tp > 1 but no parameter matched the tensor-parallel "
+                    "layout — model family unsupported for tp")
+            tp_linear.shard_base(self.model, specs, self.mesh.devices)
         # the rank mask makes the mean RBLA's; cohort mode's two-level
         # mean has one group on the one device, the masked mean exactly
         self.agg = make_aggregator(cfg.aggregator, cfg.aggregator_trim,
                                    rank_mask=self._rmask)
-        loss_fn = cs.make_loss_fn(self.model, cfg.task)
-        self.local_train = cs.make_local_train(self.model, loss_fn,
-                                               cfg.optimizer,
-                                               cfg.learning_rate,
-                                               cfg.max_grad_norm,
-                                               adapters=self.adapters)
-        self.eval_one = cs.make_eval_one(self.model, loss_fn,
-                                         adapters=self.adapters)
+        progs = cs.build_programs(
+            self.model, self.mesh, optimizer=cfg.optimizer,
+            learning_rate=cfg.learning_rate,
+            max_grad_norm=cfg.max_grad_norm,
+            gossip_alpha=cfg.topology.gossip_alpha,
+            gossip_steps=cfg.topology.gossip_steps, task=cfg.task,
+            compression=cfg.compression, adapters=self.adapters)
+        self.local_train = progs.local_train
+        self.eval_one = progs.eval_one
         # --- update codec; its error-feedback residual is round state ---
         self._comp = cfg.compression if cfg.compression.enabled else None
         self._ef = None

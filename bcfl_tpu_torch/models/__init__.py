@@ -1,6 +1,7 @@
 """Model registry: port of ``bcfl_tpu/models/__init__.py`` (the encoder
 family and the Llama family; ``build(head="lm")`` builds the causal-LM
-variant of a Llama model; ``tp_param_specs`` is not ported)."""
+variant of a Llama model; ``tp_param_specs`` dispatches the megatron
+split on the built model's family)."""
 
 from __future__ import annotations
 
@@ -87,6 +88,25 @@ def lora_targets(name: str):
     if name not in _CONFIGS and name in _LLAMA_CONFIGS:
         return LORA_TARGETS
     return lora.DEFAULT_TARGETS
+
+
+def tp_param_specs(model, params, axis: str = "tp"):
+    """Megatron tensor-parallel specs for ``params`` (keyed by flax path:
+    ``{path: torch dim or None}``, see :func:`bcfl_tpu_torch.models.llama.
+    tp_specs`), dispatched on the BUILT model's family. Pass the model
+    instance, not a registry name: an ``hf_checkpoint`` run always builds
+    an encoder even when the config names a llama model."""
+    if isinstance(model, str):
+        raise TypeError(
+            "tp_param_specs takes the built model instance, not a name: "
+            "a name cannot see through hf_checkpoint overrides")
+    if isinstance(model, TextClassifier):
+        from bcfl_tpu_torch.models.bert import tp_specs
+
+        return tp_specs(params, axis=axis)
+    from bcfl_tpu_torch.models.llama import tp_specs
+
+    return tp_specs(params, axis=axis)
 
 
 def full_float32_matmuls() -> None:

@@ -16,6 +16,10 @@ One configurable ``nn.Module`` family, numerically the flax model:
   storing its activations (``nn.remat(EncoderLayer)``), with its dropout
   masks replayed (:func:`checkpointed_layer`).
 
+``attention_override`` swaps the attention op (ring attention, sequence
+parallelism); :func:`tp_specs` names the megatron split of the
+parameters, which :mod:`bcfl_tpu_torch.parallel.tp_linear` applies.
+
 Weights are PyTorch-layout ``nn.Linear``/``nn.Embedding``/``nn.LayerNorm``
 parameters whose module names are the flax names, so
 :mod:`bcfl_tpu_torch.models.convert` maps between the two trees by path.
@@ -30,7 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +46,8 @@ from bcfl_tpu_torch.ops.attention import (
     dot_product_attention,
 )
 from bcfl_tpu_torch.ops.flash import flash_attention
+from bcfl_tpu_torch.parallel import tp_linear as tp
+from bcfl_tpu_torch.parallel.tp_linear import dense
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +66,11 @@ class EncoderConfig:
     embedding_size: Optional[int] = None
     use_flash: bool = False  # flash attention for long sequences
     flash_min_seq: int = 512  # below this, dense attention is faster
+    # sequence-parallelism hook: a callable (q, k, v, key_bias,
+    # causal=False) -> out replacing the attention op, e.g. ring attention
+    # over a 'seq' mesh axis (bcfl_tpu_torch.parallel.sp); padding rides
+    # the [B, S] key bias
+    attention_override: Optional[Callable] = None
     # recompute each layer's activations in the backward (less memory per
     # client for about a third more FLOPs)
     remat: bool = False
@@ -69,18 +80,6 @@ class EncoderConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_heads
-
-
-def dense(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype
-          ) -> torch.Tensor:
-    """flax ``Dense(dtype=...)``: input, kernel and bias (if any) cast to
-    ``dtype``. A layer carrying LoRA adapters
-    (:func:`bcfl_tpu_torch.models.lora.attach`) takes its merged weight
-    and bias from them."""
-    merge = layer.__dict__.get("lora")
-    w, b = (layer.weight, layer.bias) if merge is None else merge(layer)
-    return F.linear(x.to(dtype), w.to(dtype),
-                    None if b is None else b.to(dtype))
 
 
 def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype
@@ -113,20 +112,32 @@ class SelfAttention(nn.Module):
         self.out = nn.Linear(inner, cfg.hidden_size)
 
     def forward(self, x, bias, deterministic, generator):
+        """``bias`` is the ``[B, 1, 1|S, S]`` attention bias, or the
+        ``[B, S]`` key bias under ``attention_override``. On a
+        tensor-parallel base each of the ``n`` shards attends over its own
+        ``num_heads / n`` heads (tp_linear)."""
         c = self.cfg
         B, S, _ = x.shape
+        n = tp.ways(self.query)
+        H = c.num_heads // n
+        parts = []
+        for i in range(n):
+            dev = tp.device_of(self.query, i, x.device)
 
-        def heads(layer):  # [B, S, H*D] -> [B, H, S, D]
-            return dense(x, layer, c.dtype).view(
-                B, S, c.num_heads, c.head_dim).transpose(1, 2)
+            def heads(layer):  # [B, S, H*D] -> [B, H, S, D]
+                return tp.column(x, layer, i, n, c.dtype).view(
+                    B, S, H, c.head_dim).transpose(1, 2)
 
-        q, k, v = heads(self.query), heads(self.key), heads(self.value)
-        if c.use_flash and S >= c.flash_min_seq:
-            out = flash_attention(q, k, v, bias)
-        else:
-            out = dot_product_attention(q, k, v, bias)
-        out = out.transpose(1, 2).reshape(B, S, c.num_heads * c.head_dim)
-        out = dense(out, self.out, c.dtype)
+            q, k, v = heads(self.query), heads(self.key), heads(self.value)
+            b = bias.to(dev)
+            if c.attention_override is not None:
+                out = c.attention_override(q, k, v, b, causal=False)
+            elif c.use_flash and S >= c.flash_min_seq:
+                out = flash_attention(q, k, v, b)
+            else:
+                out = dot_product_attention(q, k, v, b)
+            parts.append(out.transpose(1, 2).reshape(B, S, H * c.head_dim))
+        out = tp.row(parts, self.out, c.dtype)
         return dropout(out, c.dropout_rate, deterministic, generator)
 
 
@@ -145,8 +156,10 @@ class EncoderLayer(nn.Module):
         c = self.cfg
         a = self.attention(x, bias, deterministic, generator)
         x = layer_norm(x + a, self.attention_norm, c.dtype)
-        h = F.gelu(dense(x, self.mlp_in, c.dtype), approximate="none")
-        h = dense(h, self.mlp_out, c.dtype)
+        n = tp.ways(self.mlp_in)
+        h = tp.row([F.gelu(tp.column(x, self.mlp_in, i, n, c.dtype),
+                           approximate="none") for i in range(n)],
+                   self.mlp_out, c.dtype)
         h = dropout(h, c.dropout_rate, deterministic, generator)
         return layer_norm(x + h, self.mlp_norm, c.dtype)
 
@@ -235,7 +248,11 @@ class Encoder(nn.Module):
         if type_ids is None:
             type_ids = torch.zeros_like(ids)
         x = self.embeddings(ids, type_ids, deterministic, generator)
-        bias = attention_bias_from_mask(mask)
+        # override (ring) path: padding rides the [B, S] key bias, so the
+        # dense bias is never built
+        bias = (attention_bias_from_mask(mask)
+                if self.cfg.attention_override is None
+                else torch.where(mask > 0, 0.0, -1e30).to(torch.float32))
         remat = self.cfg.remat and torch.is_grad_enabled()
         for layer in self.layers():
             if remat:
@@ -298,3 +315,30 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
             nn.init.zeros_(mod.bias)
         elif isinstance(mod, nn.RMSNorm):
             nn.init.ones_(mod.weight)
+
+
+def tp_specs(params, axis: str = "tp"):
+    """Megatron tensor parallelism of the encoder family: ``{flax path:
+    the dimension of the torch tensor that the tp axis splits, or None}``
+    for the flax paths that key ``params``. Column-parallel
+    query/key/value (heads) and mlp_in (the FFN width) split their
+    ``[out, in]`` weight and their bias along dim 0; row-parallel
+    out/mlp_out split the weight's input side, dim 1, and keep the bias
+    whole (added once after the partial sums); embeddings, norms, pooler
+    and classifier stay whole. The JAX package's ``PartitionSpec`` tree
+    names the flax dimension instead (``axis`` is its mesh axis; the port
+    has the one ``tp`` axis). ``tp`` must divide ``num_heads`` and
+    ``intermediate_size``."""
+    COL = {"query", "key", "value", "mlp_in"}
+    ROW = {"out", "mlp_out"}
+
+    def spec(path):
+        names = path.split("/")
+        mod = names[-2] if len(names) >= 2 else ""
+        if mod in COL:
+            return 0
+        if mod in ROW and names[-1] != "bias":
+            return 1
+        return None
+
+    return {path: spec(path) for path in params}

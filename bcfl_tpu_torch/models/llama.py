@@ -26,22 +26,30 @@ Numerically the flax model:
 - ``remat`` recomputes each layer in the backward (``nn.remat``); the
   model has no dropout, so there is no generator to rewind.
 
+``attention_override`` swaps the attention op after the GQA repeat (the
+causal ring of sequence parallelism, which needs no dense bias);
+:func:`tp_specs` names the megatron split that
+:mod:`bcfl_tpu_torch.parallel.tp_linear` applies: on a tensor-parallel base
+each shard runs RoPE, the GQA repeat and attention (the flash kernels at
+``num_heads / tp`` heads a launch) over its own contiguous head group.
+
 Module names are the flax names, so :mod:`bcfl_tpu_torch.models.convert`
-maps the trees by path. ``tp_specs`` (tensor parallelism) is not ported.
+maps the trees by path.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.utils.checkpoint
 from torch import nn
 
-from bcfl_tpu_torch.models.bert import dense
 from bcfl_tpu_torch.ops.attention import dot_product_attention
 from bcfl_tpu_torch.ops.flash import flash_attention
+from bcfl_tpu_torch.parallel import tp_linear as tp
+from bcfl_tpu_torch.parallel.tp_linear import dense
 
 # lm_head is a LoRA target, not a fully trained head: on llama2-7b it holds
 # 131 M parameters; the small classifier head trains in full
@@ -66,6 +74,10 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     use_flash: bool = True  # causal flash attention from flash_min_seq
     flash_min_seq: int = 512  # below this, dense attention
+    # sequence parallelism hook: a callable (q, k, v, key_bias, causal=...)
+    # -> out replacing the attention op, e.g. ring attention over a 'seq'
+    # mesh axis (bcfl_tpu_torch.parallel.sp.ring_config)
+    attention_override: Optional[Callable] = None
     remat: bool = False
     dtype: torch.dtype = torch.bfloat16  # compute dtype
     param_dtype: torch.dtype = torch.float32
@@ -134,27 +146,39 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x, bias, key_bias, positions):
         """``bias`` is the dense ``[B, 1, S, S]`` bias (None on the flash
-        path); ``key_bias`` ``[B, S]`` is the flash path's padding bias."""
+        and override paths); ``key_bias`` ``[B, S]`` is their padding
+        bias. On a tensor-parallel base each of the ``n`` shards attends
+        over its own ``num_heads / n`` heads and ``kv_heads / n`` kv heads
+        (tp_linear)."""
         c = self.cfg
         B, S, _ = x.shape
         hd = c.head_dim
+        n = tp.ways(self.q_proj)
+        H, KV = c.num_heads // n, c.kv_heads // n
+        parts = []
+        for i in range(n):
+            dev = tp.device_of(self.q_proj, i, x.device)
+            pos = positions.to(dev)
 
-        def heads(layer, n):  # [B, S, n*hd] -> [B, n, S, hd]
-            return dense(x, layer, c.dtype).view(B, S, n, hd).transpose(1, 2)
+            def heads(layer, h):  # [B, S, h*hd] -> [B, h, S, hd]
+                return tp.column(x, layer, i, n, c.dtype).view(
+                    B, S, h, hd).transpose(1, 2)
 
-        q = rope(heads(self.q_proj, c.num_heads), positions, c.rope_theta)
-        k = rope(heads(self.k_proj, c.kv_heads), positions, c.rope_theta)
-        v = heads(self.v_proj, c.kv_heads)
-        if c.kv_heads != c.num_heads:  # GQA: head h reads kv head h // rep
-            rep = c.num_heads // c.kv_heads
-            k = k.repeat_interleave(rep, dim=1)
-            v = v.repeat_interleave(rep, dim=1)
-        if bias is None:
-            out = flash_attention(q, k, v, key_bias, causal=True)
-        else:
-            out = dot_product_attention(q, k, v, bias)
-        out = out.transpose(1, 2).reshape(B, S, c.num_heads * hd)
-        return dense(out, self.o_proj, c.dtype)
+            q = rope(heads(self.q_proj, H), pos, c.rope_theta)
+            k = rope(heads(self.k_proj, KV), pos, c.rope_theta)
+            v = heads(self.v_proj, KV)
+            if KV != H:  # GQA: head h reads kv head h // rep
+                k = k.repeat_interleave(H // KV, dim=1)
+                v = v.repeat_interleave(H // KV, dim=1)
+            if c.attention_override is not None:
+                out = c.attention_override(q, k, v, key_bias.to(dev),
+                                           causal=True)
+            elif bias is None:
+                out = flash_attention(q, k, v, key_bias.to(dev), causal=True)
+            else:
+                out = dot_product_attention(q, k, v, bias.to(dev))
+            parts.append(out.transpose(1, 2).reshape(B, S, H * hd))
+        return tp.row(parts, self.o_proj, c.dtype)
 
 
 class LlamaMLP(nn.Module):
@@ -170,8 +194,13 @@ class LlamaMLP(nn.Module):
 
     def forward(self, x):
         dt = self.cfg.dtype
-        gate = torch.nn.functional.silu(dense(x, self.gate_proj, dt))
-        return dense(gate * dense(x, self.up_proj, dt), self.down_proj, dt)
+        n = tp.ways(self.gate_proj)
+        parts = []
+        for i in range(n):
+            gate = torch.nn.functional.silu(
+                tp.column(x, self.gate_proj, i, n, dt))
+            parts.append(gate * tp.column(x, self.up_proj, i, n, dt))
+        return tp.row(parts, self.down_proj, dt)
 
 
 class LlamaLayer(nn.Module):
@@ -202,10 +231,12 @@ class LlamaModel(nn.Module):
         c = self.cfg
         S = ids.shape[1]
         x = self.embed(ids).to(c.dtype)
-        # flash: the causal triangle and the padding are applied blockwise;
-        # the dense [B, 1, S, S] bias exists only below flash_min_seq
-        bias = None if c.use_flash and S >= c.flash_min_seq else causal_bias(
-            mask)
+        # flash and override (ring) paths: the causal triangle and the
+        # padding are applied blockwise; the dense [B, 1, S, S] bias exists
+        # only below flash_min_seq
+        blockwise = ((c.use_flash and S >= c.flash_min_seq)
+                     or c.attention_override is not None)
+        bias = None if blockwise else causal_bias(mask)
         key_bias = torch.where(mask > 0, 0.0, NEG_INF).to(torch.float32)
         positions = torch.arange(S, device=ids.device)
         remat = c.remat and torch.is_grad_enabled()
@@ -257,3 +288,23 @@ class LlamaLM(nn.Module):
     def forward(self, ids, mask, type_ids=None, deterministic=True,
                 generator=None):
         return dense(self.model(ids, mask), self.lm_head, torch.float32)
+
+
+def tp_specs(params, axis: str = "tp"):
+    """Megatron tensor parallelism: ``{flax path: the dimension of the
+    torch tensor that the tp axis splits, or None}`` for the flax paths
+    that key ``params``. Column-parallel q/k/v/gate/up split their
+    ``[out, in]`` weight's outputs (heads, FFN width), dim 0; row-parallel
+    o_proj/down split its input side, dim 1; everything else stays whole.
+    The JAX package's ``PartitionSpec`` tree names the flax dimension
+    instead (``axis`` is its mesh axis; the port has the one ``tp``
+    axis)."""
+    COL = {"q_proj", "k_proj", "v_proj", "gate_proj", "up_proj"}
+    ROW = {"o_proj", "down_proj"}
+
+    def spec(path):
+        names = path.split("/")
+        mod = names[-2] if len(names) >= 2 else ""
+        return 0 if mod in COL else 1 if mod in ROW else None
+
+    return {path: spec(path) for path in params}

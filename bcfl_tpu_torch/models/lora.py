@@ -21,8 +21,10 @@ in the adapters' dtype, times ``scale``, in the ``nn.Linear`` layout (the
 transpose of the flax kernel's 2-D view), added to the frozen weight in
 its dtype, then the layer's own compute-dtype cast; only one layer's
 merged weight is alive at a time, and gradients flow through it as in
-JAX. Heterogeneous ranks (RBLA) pad every client to the fleet's maximum
-rank; :func:`rank_mask` marks the real rank dims.
+JAX. On a tensor-parallel base each shard merges its own rows or columns
+of the delta (:func:`_merger`'s ``shard``), never the dense weight.
+Heterogeneous ranks (RBLA) pad every client to the fleet's maximum rank;
+:func:`rank_mask` marks the real rank dims.
 """
 
 from __future__ import annotations
@@ -113,12 +115,25 @@ def apply_lora(params: Tree, adapters: Tree, scale: float = 1.0) -> Tree:
 
 
 def _merger(path: str, a, b, full_w, full_b, scale: float) -> Callable:
-    def merge(layer: nn.Linear):
+    def merge(layer: nn.Linear, shard=None):
+        """``(weight, bias)``; ``shard = (w_i, b_i, dim, lo, hi)`` merges
+        one tensor-parallel shard instead (:mod:`bcfl_tpu_torch.parallel.
+        tp_linear`): its delta is ``a @ b[:, lo:hi]`` (column-parallel,
+        ``dim`` 0) or ``a[lo:hi] @ b`` (row-parallel), the adapters whole."""
         w, bias = layer.weight, layer.bias
+        aa, bb = a, b
+        if shard is not None:
+            w, bias, dim, lo, hi = shard
+            if full_w is not None or full_b is not None:
+                raise ValueError(f"{path}: a fully trained head leaf cannot "
+                                 "replace a tensor-parallel shard")
+            if a is not None:
+                aa, bb = (a, b[:, lo:hi]) if dim == 0 else (a[lo:hi], b)
+                aa, bb = aa.to(w.device), bb.to(w.device)
         if full_w is not None:
             w = to_torch_layout(f"{path}/kernel", full_w).to(w.dtype)
         elif a is not None:
-            w = w + _delta(a, b, scale).to(w.dtype)
+            w = w + _delta(aa, bb, scale).to(w.dtype)
         if full_b is not None:
             bias = to_torch_layout(f"{path}/bias", full_b).to(bias.dtype)
         return w, bias
@@ -128,7 +143,9 @@ def _merger(path: str, a, b, full_w, full_b, scale: float) -> Callable:
 
 def attach(model: nn.Module, adapters: Tree, scale: float = 1.0) -> None:
     """Route every targeted ``nn.Linear`` of ``model`` through its
-    adapters (:func:`bcfl_tpu_torch.models.bert.dense` reads the hook):
+    adapters (:func:`bcfl_tpu_torch.parallel.tp_linear.dense` and, on a
+    tensor-parallel base, :func:`~bcfl_tpu_torch.parallel.tp_linear.column`
+    and :func:`~bcfl_tpu_torch.parallel.tp_linear.row` read the hook):
     ``a``/``b`` add ``scale * (a @ b)`` to the frozen weight, ``full``
     leaves replace the weight or bias. Raises if an adapter names no
     layer of the model."""

@@ -1,5 +1,9 @@
-"""Aggregation and gossip over the client axis (port of
-``bcfl_tpu/parallel``)."""
+"""Aggregation and gossip over the client axis, ring attention (port of
+``bcfl_tpu/parallel``); the tensor-parallel forward is
+:mod:`bcfl_tpu_torch.parallel.tp_linear`, the clients x tp rounds
+:mod:`bcfl_tpu_torch.parallel.fed_tp`, sequence parallelism
+:mod:`bcfl_tpu_torch.parallel.sp` (imported from their modules: they
+reach the models, which reach this package)."""
 
 from bcfl_tpu_torch.parallel.collectives import (  # noqa: F401
     AGGREGATORS,
@@ -15,4 +19,9 @@ from bcfl_tpu_torch.parallel.collectives import (  # noqa: F401
     mix_with_matrix,
     rank_aware_weighted_mean,
     ring_shift,
+)
+from bcfl_tpu_torch.parallel.ring_attention import (  # noqa: F401
+    ring_attention,
+    ring_attention_gspmd,
+    ring_attention_sharded,
 )

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``bcfl_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # phases 1-4, paths (a)-(u)
+    python3 chip_smoke.py              # phases 1-4, paths (a)-(w)
     python3 chip_smoke.py --profile    # phases 1-4, then 5
 
 Phases, each of which raises (and the script exits non-zero) on failure:
@@ -94,7 +94,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    read just after, and each writing its checkpoints under
    ``build/chip_smoke/checkpoints`` (it fails unless the disk holds twice
    what it writes, and deletes them when it ends), all three on
-   ``CUT_LAYERS`` = 4 of their model's 12 layers at its full width: (h)
+   ``CUT_LAYERS`` = 2 of their model's 12 layers at its full width: (h)
    path (b) with the ledger, 2 rounds, uninterrupted and then checkpointed every round,
    crashed by the fault plan at round 1 (``SimulatedCrash``) and resumed
    with ``run(resume=True)``: the resumed trainable tree, error-feedback
@@ -132,11 +132,45 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    exactly 0 in its trained tree, its shipped delta and its residual in
    both rounds. Both check that every flash call ran the causal bf16
    D = 128 instances and the launch counts (K2 and K3 once per layer and
-   step), and hold K5/K4 at their calls. Then (m), the multi-process
+   step), and hold K5/K4 at their calls. Then tensor and sequence
+   parallelism on (k)'s model (llama2-7b at full width and depth, float32
+   base, bf16 compute, remat, LoRA rank 8), each path with the counts set
+   to 0 just before it and read just after, and each passing an explicit
+   device list that names the one card more than once, so the shards
+   share it (the sharded arithmetic is proved, not a memory or speed
+   gain): (v) ``tp=2`` on ``[cuda:0, cuda:0]``, server mode, 4 clients,
+   one round of 2 local steps of 8 x 512 tokens, ``int8+topk`` over the
+   adapters, the ledger on. It gates on every column- and row-parallel
+   leaf split 2 ways with every shard a view of its weight (the base
+   stored once) and the peak memory within (k)'s of the same run plus
+   10%; on layer 0's split ops against tp=1 on client 0's first batch in
+   bf16 (column shards and head-shard attention within one bf16 ulp, the
+   row-parallel sums within the partials' rounding); on client 0's first
+   local step at tp=2 against tp=1 on the same weights and batch (float32
+   compute: loss within 1e-5 relative, adapter gradients within 1e-4 of
+   their L2 norm; bf16: tp=2's logits and gradients no farther than twice
+   tp=1's from the float32 step, the loss within the logits' Lipschitz
+   bound); on K2 and K3 once per layer, step and
+   shard, the flash calls all ``[8, 16, 512, 128]``, K1-K3 held on the
+   path's first head-shard call and timed beside the full-head call's;
+   on finite losses, every client authenticated and ``chain_ok``. (w)
+   ``sp=4`` on ``[cuda:0] * 4``: the causal-LM task at Llama-2's
+   4096-token context on a corpus of 4096-token documents the script
+   writes under ``build/``, batch 1, 2 clients, one round of 2 local
+   steps. It gates on 3 rotations per ring call, at least two ring calls
+   per layer and training step and no flash launch; on the ring of the
+   path's first attention call against dense float32 attention of the
+   same q, k, v and key bias on the card (1e-4); on client 0's first
+   step at sp=4 against sp=1 on the same weights and batch (bf16 against
+   the flash kernels: the token loss within 1e-4 relative, the adapter
+   gradients no farther than twice flash's from the float32 step;
+   float32 compute against the float32 attention in one block: loss
+   within 1e-5, gradients within 1e-4); on finite losses; it prints the
+   peak memory and the round wall. Then (m), the multi-process
    runtime at full width: the ``server_noniid_medical`` preset
    (biobert-base, 40 labels, 10 clients; like every peer path up to (s),
-   at biobert-base's width on ``CUT_LAYERS`` = 4 of its 12 layers, 51.6 M
-   parameters) on path (c)'s corpus as 5 peer
+   at biobert-base's width on ``CUT_LAYERS`` = 2 of its 12 layers, 37.5 M
+   parameters, (o) on 4) on path (c)'s corpus as 5 peer
    processes of 2 clients each on the one card, buffered async merging
    every arrival, ``int8+topk`` with error feedback, the ledger over the
    announced digests, 3 global versions of 2 local steps of 32 x 128
@@ -181,7 +215,7 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    at 0, agreeing heads and K4/K5 in the repaired incarnation, and prints
    the transfer bytes, the request-to-adopt seconds and the scrub's. Then
    the runtime's adversarial half at (m)'s width: first the robust rules
-   at the leader's call (5 float32 votes of (q)'s 51.6 M parameters
+   at the leader's call (5 float32 votes of (q)'s 37.5 M parameters
    from the seed, one scaled 25x), each timed on the card and
    on the host (``trimmed_mean`` at full width, the other two over the
    embeddings', first layer's and classifier's leaves), held device
@@ -337,12 +371,15 @@ def time_ms(fn, iters: int) -> float:
 
 
 def device_ms(fn, iters: int, kernel: str, flush: bool = False) -> float:
-    """Mean device time per call of ``fn`` in the kernels whose name holds
-    ``kernel``, under ``torch.profiler`` (after one warm-up call): the
-    kernel's own time, where ``time_ms`` of a call whose host wrapper
-    takes longer than its kernel reads the wrapper's rate. With ``flush``,
-    a buffer four times the L2 cache is written before every call, so no
-    call reads what the one before left in L2 (the fill is not counted)."""
+    """Mean device time per launch of the kernels whose name holds
+    ``kernel`` over ``iters`` calls of ``fn`` (one launch each), under
+    ``torch.profiler`` (after one warm-up call): the kernel's own time,
+    where ``time_ms`` of a call whose host wrapper takes longer than its
+    kernel reads the wrapper's rate. The mean is over the launch records
+    the trace holds, which on an H100 host has now and then lacked some.
+    With ``flush``, a buffer four times the L2 cache is written before
+    every call, so no call reads what the one before left in L2 (the fill
+    is not counted)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -362,10 +399,15 @@ def device_ms(fn, iters: int, kernel: str, flush: bool = False) -> float:
                     scrub.zero_()
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA and kernel in e.key)
+        mine = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and kernel in e.key]
+        total = sum(e.self_device_time_total for e in mine)
         if total > 0:
-            return total / 1e3 / iters
+            launches = sum(e.count for e in mine)
+            if launches != iters:
+                print(f"device_ms: {launches} of {iters} launches of "
+                      f"{kernel} in the trace", flush=True)
+            return total / 1e3 / launches
         print(f"device_ms: the profiler saw no device time of {kernel} "
               f"(window {attempt + 1} of 3)", flush=True)
     raise RuntimeError(f"the profiler saw no device time of {kernel}")
@@ -476,6 +518,11 @@ class KernelStats:
         if self.by_dtype:
             rec["by_dtype"] = self.by_dtype
         return rec
+
+
+#: launches per timing of the flash kernels at the Llama paths' calls (the
+#: full-head call and (v)'s head-shard call)
+LLAMA_ITERS = 20
 
 
 def dtype_name(dtype) -> str:
@@ -850,7 +897,7 @@ def phase_flash_kernels(fk, stats, main_lens, llama_lens):
     for dtype in (bf16, f16):
         per["llama-path", dtype] = flash_case(
             fk, stats, gen, "llama-path", 8, 32, 512, 512, 128, dtype, True,
-            llama_lens, 20, neg=-1e30)
+            llama_lens, LLAMA_ITERS, neg=-1e30)
     flash_case(fk, stats, gen, "llama-ragged", 8, 32, 512, 512, 128, bf16,
                True, (512, 377, 200, 65, 1, 300, 511, 450), 5, neg=-1e30)
     for (label, dtype), times in per.items():
@@ -1033,12 +1080,13 @@ def flash_config(dataset: str, **kw):
 
 
 def write_long_docs(seed: int = 0, n_train: int = 2048, n_test: int = 256,
-                    min_words: int = 600) -> str:
-    """A ``csv:`` corpus of long documents under ``build/chip_smoke/``:
-    ``n_train`` + ``n_test`` rows of ``min_words`` to ``min_words + 99``
-    words from a 200-word vocabulary, 2 labels, each label drawing 60% of
-    its words from its own half of the vocabulary. Every document fills
-    512 positions. Returns the dataset spec ``csv:<train>::<test>``."""
+                    min_words: int = 600, name: str = "long_docs") -> str:
+    """A ``csv:`` corpus of long documents under ``build/chip_smoke/``
+    (``<name>_train.csv``, ``<name>_test.csv``): ``n_train`` + ``n_test``
+    rows of ``min_words`` to ``min_words + 99`` words from a 200-word
+    vocabulary, 2 labels, each label drawing 60% of its words from its own
+    half of the vocabulary. Every document fills 512 positions by default.
+    Returns the dataset spec ``csv:<train>::<test>``."""
     import numpy as np
 
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -1047,7 +1095,7 @@ def write_long_docs(seed: int = 0, n_train: int = 2048, n_test: int = 256,
     paths = []
     for split, n in (("train", n_train), ("test", n_test)):
         labels = rng.integers(0, 2, n)
-        path = BUILD_DIR / f"long_docs_{split}.csv"
+        path = BUILD_DIR / f"{name}_{split}.csv"
         with open(path, "w", newline="") as f:
             w = csv.writer(f)
             w.writerow(["text", "labels"])
@@ -1071,10 +1119,11 @@ def main_padding(dataset: str, cfg) -> tuple:
     return tuple(int(n) for n in mask.sum(1))
 
 
-def drive(cfg, smi, label):
-    """One main path through ``run`` with the launch counts set to 0 just
-    before it and read just after; checks its losses, parameters and
-    bytes on the wire. Returns ``(result, launches, peak GB)``."""
+def drive(cfg, smi, label, devices=None):
+    """One main path through ``run`` (on ``devices``, the mesh's device
+    list, when given) with the launch counts set to 0 just before it and
+    read just after; checks its losses, parameters and bytes on the wire.
+    Returns ``(result, launches, peak GB)``."""
     from bcfl_tpu_torch.compression import payload_nbytes
     from bcfl_tpu_torch.entrypoints import run
     from bcfl_tpu_torch.ops import registry
@@ -1083,7 +1132,7 @@ def drive(cfg, smi, label):
     torch.cuda.reset_peak_memory_stats()
     registry.reset_launches()
     t0 = time.perf_counter()
-    result = run(cfg, device="cuda")
+    result = run(cfg, device=None if devices else "cuda", devices=devices)
     torch.cuda.synchronize()
     launches = registry.launch_counts()
     harvest_dtypes()
@@ -1373,12 +1422,16 @@ def phase_p2p(ck, stats, smi, dataset):
 
 
 # the depth of the resilience paths (h)-(j) and the peer paths (m)-(s):
-# their models' full width (hidden 768, 12 heads, FFN 3072) on 4 of their
-# 12 layers (biobert-base: 51.6 M parameters of 108.3 M). Checkpoints,
+# their models' full width (hidden 768, 12 heads, FFN 3072) on 2 of their
+# 12 layers (biobert-base: 37.5 M parameters of 108.3 M). Checkpoints,
 # frames, digests, host-side rules and steps all scale with it; at 12
-# layers these paths took 966 of the script's 1177 s on an H100
-# (PERF.md section 7)
-CUT_LAYERS = 4
+# layers these paths took 966 of the script's 1177 s on an H100, at 4
+# layers 675 of 1007 s on a slower one (PERF.md sections 5 and 7)
+CUT_LAYERS = 2
+#: path (o)'s depth: its SIGKILLed peer must come back (a fresh
+#: interpreter and first step, 20-30 s) before the others finish their 10
+#: versions, and at 2 layers they finished first on an H100
+PARTITION_KILL_LAYERS = 4
 
 
 def model_template(cfg):
@@ -1625,7 +1678,8 @@ def print_checkpoints(label, reports):
 
 
 def phase_partition_kill(stats, smi, dataset):
-    """Path (o): ``scripts/dist_async.py``'s proof at (m)'s full width. A
+    """Path (o): ``scripts/dist_async.py``'s proof at (m)'s full width on
+    ``PARTITION_KILL_LAYERS`` of its layers. A
     partition over peers (0, 1) | (2, 3, 4) on each peer's local rounds
     2-4, checkpoints every 2 versions (the newest kept), peer 1 SIGKILLed
     once its version-2 checkpoint is committed and restarted with
@@ -1645,6 +1699,7 @@ def phase_partition_kill(stats, smi, dataset):
     base = dist_config(dataset)
     cfg = base.replace(
         name="chip-smoke-dist-partition-kill", num_rounds=10,
+        num_layers=PARTITION_KILL_LAYERS,
         faults=FaultPlan(partition_groups=((0, 1), (2, 3, 4)),
                          partition_rounds=(2, 3, 4)),
         dist=dataclasses.replace(base.dist, checkpoint_every_versions=2,
@@ -1884,7 +1939,7 @@ def quarantine_version(ordered, adversary: int):
 
 def robust_rule_at_width(smi, cfg):
     """The robust rules at (q)'s leader call: 5 float32 votes of
-    ``cfg``'s trainable tree (biobert-base's width at (q)'s depth, 51.6 M
+    ``cfg``'s trainable tree (biobert-base's width at (q)'s depth, 37.5 M
     parameters, random from the seed, vote 4 scaled 25x). Each rule is timed on the card; ``trimmed_mean``,
     the rule (q) runs, also on the host at full width, the other two on
     the host over the embeddings', first layer's and classifier's leaves.
@@ -2394,7 +2449,7 @@ def gossip_dispatch_config(dataset: str):
 
 def gossip_merge_at_width(smi, cfg):
     """The gossip merge at (s)'s width and depth: 3 float32 states of
-    ``cfg``'s trainable tree (51.6 M parameters each, drawn on the card
+    ``cfg``'s trainable tree (37.5 M parameters each, drawn on the card
     from the seed) merged by
     ``merge_states`` on the card and by the same reduction in plain numpy
     float32 on the host (``acc = acc + leaf * w`` in canonical order);
@@ -3599,23 +3654,26 @@ def spy_llama_flash(calls):
     return restore
 
 
-def check_llama_flash(label, calls):
+def check_llama_flash(label, calls, heads=32):
     """Every flash call of the path ran the causal bf16 D = 128 instances
-    at [8, 32, 512, 128] (``calls[1]`` holds the first call's tensors);
-    returns the first call's tensors."""
+    at [8, heads, 512, 128] (32 heads, or a tensor-parallel shard's;
+    ``calls[1]`` holds the first call's tensors); returns the first call's
+    tensors."""
     first = calls.pop(1)
     shapes = set(calls)
-    want = {((8, 32, 512, 128), torch.bfloat16, True)}
+    want = {((8, heads, 512, 128), torch.bfloat16, True)}
     if shapes != want:
         raise RuntimeError(f"{label}: flash calls {shapes}, not {want}")
     return first
 
 
 def llama_launch_check(label, cfg, launches, layers):
-    """K2 and K3 launch once per layer of every training step; K1 once
-    more per step for the remat recompute, plus the evaluation forwards;
-    K4 once per round, K5 at least once per round."""
-    train = cfg.num_rounds * cfg.num_clients * cfg.max_local_batches * layers
+    """K2 and K3 launch once per layer (and tensor-parallel shard) of
+    every training step; K1 once more per step for the remat recompute,
+    plus the evaluation forwards; K4 once per round, K5 at least once per
+    round."""
+    train = (cfg.num_rounds * cfg.num_clients * cfg.max_local_batches
+             * layers * cfg.tp)
     if (launches["flash_bwd_dkv"] != train or launches["flash_bwd_dq"] != train
             or launches["flash_fwd"] < 2 * train
             or launches["int8_quantize"] != cfg.num_rounds
@@ -3717,6 +3775,7 @@ def path_llama_cohort(ck, fk, stats, smi, dataset, llama_per):
               f"{lib * calls_per_round:.2f} ms)", flush=True)
     del template
     torch.cuda.empty_cache()
+    return peak
 
 
 def path_llama_lm(ck, stats, smi, dataset):
@@ -3797,9 +3856,523 @@ def path_llama_lm(ck, stats, smi, dataset):
 
 def phase_llama(ck, fk, stats, smi, dataset, llama_per):
     """Paths (k) and (l) at llama2-7b's full width, each with the launch
-    counts set to 0 just before it and read just after."""
-    path_llama_cohort(ck, fk, stats, smi, dataset, llama_per)
+    counts set to 0 just before it and read just after; returns (k)'s
+    peak memory in GB."""
+    k_peak = path_llama_cohort(ck, fk, stats, smi, dataset, llama_per)
     path_llama_lm(ck, stats, smi, dataset)
+    return k_peak
+
+
+# ------------------------------------------------------ tp and sp paths
+
+#: (v)'s gate (2a): on layer 0 of the path's model, client 0's first
+#: batch and bf16 compute, each column-parallel shard's output (q, k, v,
+#: gate, up) and each head shard's attention against the same slice of the
+#: tp=1 op: the same float32 sums rounded to bf16 once, so every element
+#: within one bf16 ulp (2**-7 of its magnitude); the row-parallel o_proj
+#: and down_proj against the dense product: each shard's partial product
+#: is rounded to bf16 before the float32 sum, so each element within
+#: 2**-8 of the partials' magnitudes plus an ulp of its own (JAX's
+#: all-reduce of bf16 partial sums rounds the same way). float32's own
+#: summation order adds 2**-16 of the largest element.
+TP_ULP = 2.0 ** -7
+TP_PARTIAL = 2.0 ** -8
+TP_F32_FLOOR = 2.0 ** -16
+#: The steps of (v) and (w) against their one-shard forms on the same
+#: weights and batch. In float32 compute only the sums' order differs
+#: (the split sums of (v), the ring's blocks and merge of (w)): loss
+#: within 1e-5 relative, adapter gradients within 1e-4 of their L2 norm.
+F32_LOSS_RTOL = 1e-5
+F32_GRAD_REL = 1e-4
+#: In the paths' bf16 compute a rounding that lands the other way is
+#: amplified through 32 random layers (on the order of 1e-2 in the
+#: logits and gradients), so the sharded step is held to float32 compute
+#: as the one-shard step is: its distance to the float32 step (relative
+#: L2 of the adapter gradients, and for (v) of the logits) within
+#: TP_BF16_FACTOR times the one-shard step's. (v)'s bf16 loss stays within
+#: the logits' bound: softmax cross entropy moves by at most twice the
+#: largest logit change of an example, averaged over the batch. (w)'s
+#: token loss, averaged over 4095 tokens, within 1e-4 relative of flash
+#: sp=1's.
+TP_BF16_FACTOR = 2.0
+#: (w)'s ring against dense float32 attention of the same float32 q, k, v
+#: (sums over 4096 keys in another order)
+SP_RING_TOL = 1e-4
+SP_LOSS_RTOL = 1e-4
+
+
+def write_long4k_docs() -> str:
+    """(w)'s corpus: ``write_long_docs`` with documents of at least 4200
+    words, so every one fills Llama-2's 4096-token context."""
+    return write_long_docs(seed=5, n_train=48, n_test=8, min_words=4200,
+                           name="long4k_docs")
+
+
+def spy_first_call(calls):
+    """Record the arguments of ``make_local_train``'s first local round
+    (the client's starting adapters and its batches), on the host."""
+    from bcfl_tpu_torch.fed import client_step as cs
+
+    real = cs.make_local_train
+
+    def make(*args, **kw):
+        inner = real(*args, **kw)
+
+        def local_train(trainable, batches, generator):
+            if not calls:
+                calls.append(({p: x.detach().clone()
+                               for p, x in trainable.items()},
+                              {k: v.clone() for k, v in batches.items()}))
+            return inner(trainable, batches, generator)
+
+        return local_train
+
+    cs.make_local_train = make
+
+    def restore():
+        cs.make_local_train = real
+
+    return restore
+
+
+def first_step(model, task, adapters, batches, keep_output=False):
+    """Loss and adapter gradients of one local step's forward and backward
+    (the first batch, no dropout), and the model's float32 output when
+    ``keep_output``."""
+    from bcfl_tpu_torch.fed import client_step as cs
+    from bcfl_tpu_torch.models import lora
+
+    outs = []
+    hook = model.register_forward_hook(
+        lambda m, a, o: outs.append(o.detach().float()) if keep_output
+        else None)
+    leaves = {p: x.clone().requires_grad_(True) for p, x in adapters.items()}
+    try:
+        with lora.attached(model, leaves):
+            model.train()
+            loss, _, _ = cs.make_loss_fn(model, task)(
+                {k: v[0] for k, v in batches.items()}, None)
+            loss.backward()
+    finally:
+        hook.remove()
+    return (float(loss.detach()),
+            {p: x.grad.detach() for p, x in leaves.items()},
+            outs[0] if keep_output else None)
+
+
+def set_compute_dtype(model, dtype, **kw):
+    """Every model config's compute dtype (and any other field in ``kw``)."""
+    for mod in model.modules():
+        if "cfg" in vars(mod):
+            mod.cfg = dataclasses.replace(mod.cfg, dtype=dtype, **kw)
+
+
+def split_arith_check(label, model, specs, devices, adapters, ids):
+    """(v)'s gate (2a): layer 0's split ops on the path's own model and
+    batch against the same ops at tp=1 (``TP_ULP``, ``TP_PARTIAL``);
+    returns ``{op: max |diff|}``."""
+    import torch.nn.functional as F
+
+    from bcfl_tpu_torch.models import llama as L
+    from bcfl_tpu_torch.models import lora
+    from bcfl_tpu_torch.parallel import tp_linear as tpl
+
+    c = model.model.cfg
+    layer = model.model.layer_0
+    att, mlp = layer.attention, layer.mlp
+    n, hd = len(devices), c.head_dim
+    H, KV, FF = c.num_heads // n, c.kv_heads // n, c.intermediate_size // n
+    B, S = ids.shape
+    pos = torch.arange(S, device=ids.device)
+    kb = torch.zeros((B, S), dtype=torch.float32, device=ids.device)
+    widths = {"q_proj": H * hd, "k_proj": KV * hd, "v_proj": KV * hd,
+              "gate_proj": FF, "up_proj": FF}
+    worst, bad = {}, []
+
+    def hold(name, got, want, partials=()):
+        got, want = got.float(), want.float()
+        tol = TP_ULP * want.abs() + TP_F32_FLOOR * want.abs().max()
+        for p in partials:
+            tol = tol + TP_PARTIAL * p.float().abs()
+        diff = (got - want).abs()
+        worst[name] = max(worst.get(name, 0.0), float(diff.max()))
+        if not bool((diff <= tol).all()):
+            bad.append(name)
+
+    def attend(q, k, v):  # [B, S, h*hd] x3 -> [B, S, h*hd]
+        def heads(t):
+            return t.view(B, S, -1, hd).transpose(1, 2)
+
+        rep = q.shape[-1] // k.shape[-1]
+        out = L.flash_attention(
+            L.rope(heads(q), pos, c.rope_theta),
+            L.rope(heads(k), pos, c.rope_theta).repeat_interleave(rep, 1),
+            heads(v).repeat_interleave(rep, 1), kb, causal=True)
+        return out.transpose(1, 2).reshape(B, S, -1)
+
+    def partials(layer, parts):
+        sh = layer.__dict__["tp"]
+        return [F.linear(x, sh.part(layer, i)[0].to(c.dtype))
+                for i, x in enumerate(parts)]
+
+    with torch.no_grad(), lora.attached(model, adapters):
+        h = L.rms_norm(model.model.embed(ids).to(c.dtype), layer.input_norm)
+        tpl.unshard(model)
+        full = {nm: tpl.dense(h, getattr(att if nm in ("q_proj", "k_proj",
+                                                          "v_proj") else mlp,
+                                         nm), c.dtype) for nm in widths}
+        attn = attend(full["q_proj"], full["k_proj"], full["v_proj"])
+        ff = F.silu(full["gate_proj"]) * full["up_proj"]
+        dense_out = {"o_proj": tpl.dense(attn, att.o_proj, c.dtype),
+                     "down_proj": tpl.dense(ff, mlp.down_proj, c.dtype)}
+        tpl.shard_base(model, specs, devices)
+        shards = {"o_proj": [], "down_proj": []}
+        for i in range(n):
+            got = {}
+            for nm, w in widths.items():
+                mod = att if nm in ("q_proj", "k_proj", "v_proj") else mlp
+                got[nm] = tpl.column(h, getattr(mod, nm), i, n, c.dtype)
+                hold(nm, got[nm], full[nm][..., i * w:(i + 1) * w])
+            cols = slice(i * H * hd, (i + 1) * H * hd)
+            hold("attention", attend(got["q_proj"], got["k_proj"],
+                                     got["v_proj"]), attn[..., cols])
+            # the row-parallel layers read tp=1's own slices, so their
+            # check sees only the split sum
+            shards["o_proj"].append(attn[..., cols])
+            shards["down_proj"].append(ff[..., i * FF:(i + 1) * FF])
+        for nm, mod in (("o_proj", att), ("down_proj", mlp)):
+            layer_ = getattr(mod, nm)
+            hold(nm, tpl.row(shards[nm], layer_, c.dtype), dense_out[nm],
+                 partials(layer_, shards[nm]))
+    print(f"{label}: layer 0's split ops against tp=1 in bf16, max |diff| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + f" (column and attention within {TP_ULP} relative, row within "
+          f"{TP_PARTIAL} of the partials + {TP_ULP})", flush=True)
+    if bad:
+        raise RuntimeError(f"{label}: split ops past one bf16 rounding: "
+                           f"{bad}")
+    return worst
+
+
+def grad_rel(got: dict, want: dict) -> float:
+    """||got - want|| / ||want|| over every leaf together."""
+    num = sum(float((got[p].float() - x.float()).square().sum())
+              for p, x in want.items())
+    den = sum(float(x.float().square().sum()) for x in want.values())
+    return math.sqrt(num / max(den, 1e-30))
+
+
+def path_tp(fk, stats, smi, dataset, llama_per, k_peak):
+    """Path (v): tensor parallelism, (k)'s model (llama2-7b at full width
+    and depth, float32 base, bf16 compute, remat, LoRA rank 8) at
+    ``tp=2`` on ``devices=[cuda:0, cuda:0]``: server mode, 4 clients, one
+    round of 2 local steps of 8 x 512 tokens, ``int8+topk`` over the
+    adapters, the ledger on. Both shards share the one card: the sharded
+    arithmetic is proved, not a memory or speed gain."""
+    from bcfl_tpu_torch.config import LedgerConfig
+    from bcfl_tpu_torch.models import tp_param_specs
+    from bcfl_tpu_torch.models.convert import leaf_specs
+    from bcfl_tpu_torch.parallel import tp_linear
+
+    label = "tensor-parallel path (v)"
+    cfg = llama_config(dataset, name="chip-smoke-llama2-7b-lora-tp",
+                       lora_rank=8, num_rounds=1, tp=2,
+                       ledger=LedgerConfig(enabled=True))
+    devices = [torch.device("cuda", 0)] * cfg.tp
+    calls, first = [], []
+    restore = spy_llama_flash(calls)
+    restore_step = spy_first_call(first)
+    try:
+        t0 = time.perf_counter()
+        result, launches, peak = drive(cfg, smi, label, devices=devices)
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+        restore_step()
+    count_launches(stats, launches)
+    model = result.model
+    layers = model.cfg.num_layers
+    llama_launch_check(label, cfg, launches, layers)
+    # (1) every column- and row-parallel leaf split, each shard a view of
+    # its weight: the base stored once
+    specs = tp_param_specs(model, {s.path: s for s in leaf_specs(model)})
+    want = {p.rsplit("/", 1)[0].replace("/", ".")
+            for p, d in specs.items() if d is not None}
+    split = tp_linear.split_layers(model)
+    if set(split) != want:
+        raise RuntimeError(f"{label}: split layers {len(split)}, the "
+                           f"megatron layout names {len(want)}")
+    for name, sh in split.items():
+        w = model.get_submodule(name).weight
+        if len(sh.weights) != cfg.tp or any(
+                x.untyped_storage().data_ptr()
+                != w.untyped_storage().data_ptr() for x in sh.weights):
+            raise RuntimeError(f"{label}: {name} is not {cfg.tp} views of "
+                               "its weight")
+    base_gb = sum(p.numel() * p.element_size()
+                  for p in model.parameters()) / 1e9
+    print(f"{label}: {len(split)} column- and row-parallel layers split "
+          f"{cfg.tp} ways, every shard a view of its weight (base "
+          f"{base_gb:.2f} GB stored once); peak memory {peak:.2f} GB "
+          f"against (k)'s {k_peak:.2f} GB on this run; {wall:.1f} s with "
+          f"set-up; {smi}", flush=True)
+    if peak > 1.1 * k_peak:
+        raise RuntimeError(f"{label}: peak {peak:.2f} GB past (k)'s "
+                           f"{k_peak:.2f} GB + 10%")
+    # (4) the round: finite (drive), every client authenticated, the chain
+    rec = result.metrics.rounds[0]
+    if rec.auth != [1.0] * cfg.num_clients:
+        raise RuntimeError(f"{label}: auth {rec.auth}")
+    check_ledger(result, label)
+    print(f"{label} round 0: wall {rec.wall_s:.3f} s, train loss "
+          f"{rec.train_loss:.5f}, auth {rec.auth}; launches {launches}",
+          flush=True)
+    # (2) client 0's first local step at tp=2 against tp=1 on the same
+    # weights (the split undone and re-taken: the shards are views) and
+    # batch: (2a) layer 0's split ops, (2b) the step in the path's bf16
+    # compute and in float32 compute
+    adapters, batches = first[0]
+    split_arith_check(label, model, specs, devices, adapters,
+                      batches["ids"][0])
+    steps = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        set_compute_dtype(model, dtype)
+        tp_linear.shard_base(model, specs, devices)
+        steps[dtype, 2] = first_step(model, cfg.task, adapters, batches, True)
+        tp_linear.unshard(model)
+        steps[dtype, 1] = first_step(model, cfg.task, adapters, batches, True)
+    rows = {}
+    for key, (loss, g, z) in steps.items():
+        ref_loss, ref_g, ref_z = steps[torch.float32, 1]
+        rows[key] = (abs(loss - ref_loss) / abs(ref_loss), grad_rel(g, ref_g),
+                     float((z - ref_z).norm() / ref_z.norm()))
+        print(f"{label}: client 0's first step in {dtype_name(key[0])} at "
+              f"tp={key[1]}: loss {loss:.6f}; against float32 tp=1: loss "
+              f"relative {rows[key][0]:.3e}, adapter gradients relative L2 "
+              f"{rows[key][1]:.3e}, logits relative L2 {rows[key][2]:.3e}",
+              flush=True)
+    bf, f32 = torch.bfloat16, torch.float32
+    (l2, g2, z2), (l1, g1, z1) = steps[bf, 2], steps[bf, 1]
+    # softmax cross entropy is 2-Lipschitz in the max norm of one
+    # example's logits: the loss (a mean over the kept examples) can move
+    # no further than this
+    keep = batches["example_mask"][0].float()
+    loss_bound = float(2 * ((z2 - z1).abs().amax(dim=-1) * keep).sum()
+                       / keep.sum())
+    print(f"{label}: bf16 tp=2 against tp=1: loss {l2:.6f} against "
+          f"{l1:.6f} (|diff| {abs(l2 - l1):.3e}, the logits' bound "
+          f"{loss_bound:.3e}), gradients relative L2 {grad_rel(g2, g1):.3e};"
+          f" tp=2's distance to float32 within {TP_BF16_FACTOR} x tp=1's "
+          f"(gradients {rows[bf, 2][1]:.3e} vs {rows[bf, 1][1]:.3e}, logits "
+          f"{rows[bf, 2][2]:.3e} vs {rows[bf, 1][2]:.3e})", flush=True)
+    if not (abs(l2 - l1) <= loss_bound
+            and rows[bf, 2][1] <= TP_BF16_FACTOR * rows[bf, 1][1]
+            and rows[bf, 2][2] <= TP_BF16_FACTOR * rows[bf, 1][2]):
+        raise RuntimeError(f"{label}: tp=2's bf16 step is further from "
+                           "float32 compute than tp=1's")
+    print(f"{label}: float32 tp=2 against tp=1: loss relative "
+          f"{rows[f32, 2][0]:.3e} (limit {F32_LOSS_RTOL}), gradients "
+          f"relative L2 {rows[f32, 2][1]:.3e} (limit {F32_GRAD_REL})",
+          flush=True)
+    if not (rows[f32, 2][0] <= F32_LOSS_RTOL
+            and rows[f32, 2][1] <= F32_GRAD_REL):
+        raise RuntimeError(f"{label}: tp=2 step differs from tp=1 in "
+                           "float32")
+    del steps, g1, g2
+    # (3) K1-K3 on the path's first head-shard call
+    q, k, v, bias = check_llama_flash(label, calls,
+                                      heads=32 // cfg.tp)
+    del result, model, adapters, batches, first
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    do = torch.randn(q.shape, generator=gen, device="cuda").to(q.dtype)
+    # as many launches per timing as the full-head Llama call's
+    shard = flash_hold(fk, stats, "llama-tp-head-shard-call", q, k, v, do,
+                       bias.float().contiguous(), True, LLAMA_ITERS)
+    for name, (ms, plain, bnd, by, lib) in shard.items():
+        full = llama_per[name]
+        print(f"{name} head-shard call [8,{32 // cfg.tp},512,512,128]: "
+              f"{ms:.4f} ms (bound {bnd:.4f} ms, plain {plain:.4f} ms, sdpa "
+              f"{lib:.4f} ms) beside the full-head call's {full[0]:.4f} ms; "
+              f"{smi}", flush=True)
+    # the kernels' own device time (torch.profiler) at the head-shard call
+    # and at a full-head call of its heads twice over: at these shapes K1
+    # and K3 take about as long as their host wrappers, so the event
+    # timing above can read the host's rate
+    bias = bias.float().contiguous()
+    shard_dev = flash_device_ms(fk, q, k, v, do, bias)
+    full_dev = flash_device_ms(fk, *(torch.cat([x, x], dim=1)
+                                     for x in (q, k, v, do)), bias)
+    for name, t in shard_dev.items():
+        print(f"{name} device time (torch.profiler, {LLAMA_ITERS} "
+              f"launches): head-shard call {t:.4f} ms, full-head call "
+              f"[8,32,512,512,128] {full_dev[name]:.4f} ms "
+              f"({t / full_dev[name]:.2f}x); {smi}", flush=True)
+    del q, k, v, do, bias
+    torch.cuda.empty_cache()
+
+
+def flash_device_ms(fk, q, k, v, do, bias) -> dict:
+    """K1-K3's mean device time per call (bf16, causal) on these inputs."""
+    out, lse = fk.FLASH_FWD(q, k, v, bias, True)
+    bwd = (q, k, v, bias, out, do, lse, True)
+    calls = {"flash_fwd": lambda: fk.FLASH_FWD(q, k, v, bias, True),
+             "flash_bwd_dkv": lambda: fk.FLASH_BWD_DKV(*bwd),
+             "flash_bwd_dq": lambda: fk.FLASH_BWD_DQ(*bwd)}
+    route = FLASH_INSTANCES[q.dtype][0]
+    return {name: device_ms(fn, LLAMA_ITERS, f"{name}_{route}<")
+            for name, fn in calls.items()}
+
+
+def spy_ring(calls):
+    """Record every ring call (its rotations), and keep the first call's
+    q, k, v and key bias; returns the function that restores the real
+    one."""
+    import importlib
+
+    from bcfl_tpu_torch.parallel import sp
+
+    ra = importlib.import_module("bcfl_tpu_torch.parallel.ring_attention")
+    real = sp.ring_attention_gspmd
+
+    def spy(q, k, v, key_bias, devices, causal=False):
+        if not calls:
+            calls.append((q.detach().clone(), k.detach().clone(),
+                          v.detach().clone(), key_bias.detach().clone(),
+                          tuple(devices)))
+        before = ra.rotations()
+        out = real(q, k, v, key_bias, devices, causal)
+        calls.append(ra.rotations() - before)
+        return out
+
+    sp.ring_attention_gspmd = spy
+
+    def restore():
+        sp.ring_attention_gspmd = real
+
+    return restore
+
+
+def dense_causal_f32(q, k, v, key_bias):
+    """Dense float32 attention with a causal mask and the [B, S] key
+    bias: the ring's reference on the card."""
+    S, D = q.shape[2], q.shape[3]
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(D)
+    s = s + key_bias[:, None, None, :]
+    dead = (torch.arange(S, device=q.device)[None, :]
+            > torch.arange(S, device=q.device)[:, None])
+    s = s.masked_fill(dead, -1e30)
+    return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1), v)
+
+
+def path_sp(stats, smi, long4k):
+    """Path (w): sequence parallelism, (k)'s model (llama2-7b at full
+    width and depth, float32 base, bf16 compute, remat, LoRA rank 8) on
+    the causal-LM task at Llama-2's 4096-token context, ``sp=4`` on
+    ``devices=[cuda:0] * 4``: batch 1, 2 clients, one round of 2 local
+    steps. The four ring blocks share the one card: the ring's
+    arithmetic is proved, not a memory or speed gain."""
+    from bcfl_tpu_torch.parallel.ring_attention import ring_attention_gspmd
+
+    label = "sequence-parallel path (w)"
+    cfg = llama_config(long4k, name="chip-smoke-llama2-7b-lora-sp",
+                       task="causal_lm", lora_rank=8, seq_len=4096,
+                       batch_size=1, num_clients=2, num_rounds=1, sp=4,
+                       max_eval_batches=1)
+    devices = [torch.device("cuda", 0)] * cfg.sp
+    rings, first = [], []
+    restore = spy_ring(rings)
+    restore_step = spy_first_call(first)
+    try:
+        t0 = time.perf_counter()
+        result, launches, peak = drive(cfg, smi, label, devices=devices)
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+        restore_step()
+    count_launches(stats, launches)
+    model = result.model
+    layers = model.cfg.num_layers
+    rec = result.metrics.rounds[0]
+    q, k, v, key_bias, ring_devs = rings.pop(0)
+    if set(rings) != {cfg.sp - 1}:
+        raise RuntimeError(f"{label}: rotations per ring call {set(rings)}"
+                           f", not {cfg.sp - 1}")
+    # forward, remat recompute and evaluation: at least 2 ring calls per
+    # layer of every training step
+    train = cfg.num_clients * cfg.max_local_batches * layers
+    if len(rings) < 2 * train or any(
+            launches[n] for n in FLASH_OPS):
+        raise RuntimeError(f"{label}: {len(rings)} ring calls for {train} "
+                           f"training calls, flash launches {launches}")
+    print(f"{label}: {wall:.1f} s with set-up, round wall {rec.wall_s:.3f} s"
+          f", token loss {rec.train_loss:.5f}, peak memory {peak:.2f} GB; "
+          f"{len(rings)} ring calls of {cfg.sp - 1} rotations each over "
+          f"{len(ring_devs)} devices; launches {launches}; {smi}",
+          flush=True)
+    # (1) the ring on the path's first call against dense float32
+    # attention of the same q, k, v and key bias
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    t0 = time.perf_counter()
+    got = ring_attention_gspmd(qf, kf, vf, key_bias, ring_devs, causal=True)
+    torch.cuda.synchronize()
+    ring_s = time.perf_counter() - t0
+    want = dense_causal_f32(qf, kf, vf, key_bias.float())
+    err = float((got - want).abs().max())
+    ok = bool(torch.allclose(got, want, atol=SP_RING_TOL, rtol=SP_RING_TOL))
+    print(f"{label}: ring_attention_gspmd on the first call's q, k, v "
+          f"{list(q.shape)} against dense float32 attention: max |diff| "
+          f"{err:.3e} (limit {SP_RING_TOL} abs + rel), {ring_s * 1e3:.1f} ms "
+          "for the float32 ring", flush=True)
+    if not ok:
+        raise RuntimeError(f"{label}: the ring differs from dense "
+                           "attention")
+    del qf, kf, vf, got, want, q, k, v
+    # (2) client 0's first step at sp=4 against sp=1 on the same weights
+    # and batch: in the path's bf16 compute against the flash kernels
+    # (K1-K3); in float32 compute against the same float32 attention in
+    # one block (the ring at n = 1)
+    adapters, batches = first[0]
+    bf, f32 = model.cfg.dtype, torch.float32
+    ring4, one = model.cfg.attention_override, ring_devs[:1]
+
+    def ring1(q, k, v, kb, causal=False):
+        return ring_attention_gspmd(q, k, v, kb, one, causal)
+
+    steps = {}
+    for dtype, name, override in ((bf, "sp=4", ring4), (f32, "sp=4", ring4),
+                                  (f32, "one block", ring1),
+                                  (bf, "flash", None)):
+        set_compute_dtype(model, dtype, attention_override=override,
+                          use_flash=override is None)
+        steps[dtype, name] = first_step(model, cfg.task, adapters, batches)[:2]
+    (l4, g4), (l1, g1) = steps[bf, "sp=4"], steps[bf, "flash"]
+    (lf4, gf4), (lfb, gfb) = steps[f32, "sp=4"], steps[f32, "one block"]
+    dloss, dloss32 = abs(l4 - l1) / abs(l1), abs(lf4 - lfb) / abs(lfb)
+    rel4, rel1, rel32 = grad_rel(g4, gfb), grad_rel(g1, gfb), grad_rel(gf4, gfb)
+    print(f"{label}: client 0's first step in bf16, token loss at sp=4 "
+          f"{l4:.6f} and at sp=1 with flash {l1:.6f} (relative {dloss:.3e}, "
+          f"limit {SP_LOSS_RTOL}), adapter gradients relative L2 "
+          f"{grad_rel(g4, g1):.3e}; distance to float32 compute: sp=4 "
+          f"{rel4:.3e}, flash sp=1 {rel1:.3e} (sp=4 within "
+          f"{TP_BF16_FACTOR} x flash's); in float32 at sp=4 {lf4:.6f} and "
+          f"in one block {lfb:.6f}: loss relative {dloss32:.3e} (limit "
+          f"{F32_LOSS_RTOL}), gradients relative L2 {rel32:.3e} (limit "
+          f"{F32_GRAD_REL})", flush=True)
+    if not (dloss <= SP_LOSS_RTOL and rel4 <= TP_BF16_FACTOR * rel1
+            and dloss32 <= F32_LOSS_RTOL and rel32 <= F32_GRAD_REL):
+        raise RuntimeError(f"{label}: sp=4 step differs from sp=1")
+    del result, model, adapters, batches, first, steps, g4, g1, gf4, gfb
+    torch.cuda.empty_cache()
+
+
+def phase_parallel(fk, stats, smi, dataset, llama_per, k_peak):
+    """Paths (v) and (w), each with the launch counts set to 0 just
+    before it and read just after."""
+    path_tp(fk, stats, smi, dataset, llama_per, k_peak)
+    path_sp(stats, smi, write_long4k_docs())
+
 
 
 # -------------------------------------------------------------- profile
@@ -4342,8 +4915,10 @@ def main(argv=None) -> int:
     done("paths (e)-(g)")
     phase_resilience(ck, stats, smi, dataset)
     done("paths (h)-(j)")
-    phase_llama(ck, fk, stats, smi, dataset, llama_per)
+    k_peak = phase_llama(ck, fk, stats, smi, dataset, llama_per)
     done("paths (k)-(l)")
+    phase_parallel(fk, stats, smi, dataset, llama_per, k_peak)
+    done("paths (v)-(w)")
     m_loss = phase_dist(ck, stats, smi, medical, c_walls)
     done("path (m)")
     phase_partition_kill(stats, smi, medical)

@@ -98,8 +98,6 @@ NOT_PORTED = [
     # are refused earlier on dist, by the runtime's capability table)
     # raises at config time, naming the runtime
     ("runtime", dict(_DIST, local_epochs=2)),
-    ("tp", {"tp": 2}),
-    ("sp", {"sp": 2}),
     ("rounds_per_dispatch", {"rounds_per_dispatch": 2}),
     ("local_epochs", {"local_epochs": 2}),
 ]
@@ -139,6 +137,10 @@ PORTED = [
     # local and the dist runtime
     ("compute_dtype", {"compute_dtype": "float16", "use_flash": True}),
     ("compute_dtype", dict(_DIST, compute_dtype="float16", use_flash=True)),
+    # tensor and sequence parallelism (slice 15), as JAX's configs
+    # construct them: tp over a LoRA base, sp with a divisible seq_len
+    ("tp", {"tp": 2, "lora_rank": 2}),
+    ("sp", {"sp": 2}),
 ]
 
 
@@ -239,12 +241,20 @@ def test_cli_runs_smoke_on_cpu_and_rejects_other_flags(capsys):
                      "--compress", "int8+topk"]) == 0
     out = capsys.readouterr().out
     assert "round   0:" in out and "compress=int8+topk" in out
-    for flags in (["--rounds-per-dispatch", "2"],
-                  ["--donate"], ["--tp", "2"]):
+    for flags in (["--rounds-per-dispatch", "2"], ["--donate"]):
         with pytest.raises(SystemExit) as e:
             cli_main(["--device", "cpu"] + flags)
         assert e.value.code == 2
     assert "not ported yet" in capsys.readouterr().err
+    # --tp is ported: the command line takes the engine's devices, which
+    # refuse an inner axis larger than a one-device CPU list in JAX's words
+    # (the command line itself runs --tp on as many CPU devices as it needs:
+    # tests/test_torch_fed_tp.py)
+    from bcfl_tpu_torch.fed.engine import FedEngine
+
+    with pytest.raises(ValueError, match="tp=2 needs at least that many "
+                                         "devices, have 1"):
+        FedEngine(_tiny(tp=2, lora_rank=2), devices=["cpu"])
 
 
 def _imports(path: pathlib.Path):
