@@ -7,10 +7,12 @@ The encoded payload is bit-identical to the JAX package's for the same
 delta and the same stochastic-rounding uniforms: payload bytes feed ledger
 digests in the reference, so "close" is not enough.
 
-Trees here are plain ``dict``s ``{leaf path: [C, ...] tensor}`` whose
-iteration order is the JAX flatten order (sorted path tuples, see
-:func:`bcfl_tpu_torch.models.convert.jax_order`); leaf ``i`` of that order
-is the leaf JAX folds into its codec key as ``fold_in(key, i)``.
+Trees here are plain ``dict``s ``{leaf path: [C, ...] tensor}``, walked in
+sorted path order. For every tree the port builds that is the JAX flatten
+order (sorted path tuples, see
+:func:`bcfl_tpu_torch.models.convert.jax_order`), since no path segment
+holds a character below ``/``; leaf ``i`` of that order is the leaf JAX
+folds into its codec key as ``fold_in(key, i)``.
 
 The stochastic-rounding uniforms are drawn OUTSIDE the kernel, one draw per
 leaf of the leaf's chunk-grid shape ``[C, M, chunk]``, and passed to the
@@ -126,7 +128,8 @@ def _decode_leaf(comp, part: dict, n: int) -> torch.Tensor:
 def _flat(delta: Tree):
     if not delta:
         raise ValueError("cannot encode an empty tree")
-    return [(p, x.reshape(x.shape[0], -1).float()) for p, x in delta.items()]
+    return [(p, x.reshape(x.shape[0], -1).float())
+            for p, x in sorted(delta.items())]
 
 
 def encode_tree_unfused(comp: CompressionConfig, delta: Tree,
@@ -225,7 +228,7 @@ def encode_tree(comp: CompressionConfig, delta: Tree,
 def decode_tree(comp: CompressionConfig, payload: dict, like: Tree) -> Tree:
     """payload -> stacked f32 delta tree shaped like ``like``."""
     return {p: _decode_leaf(comp, payload[p], x[0].numel()).reshape(x.shape)
-            for p, x in like.items()}
+            for p, x in sorted(like.items())}
 
 
 def roundtrip(comp: CompressionConfig, delta: Tree, resid: Tree,
@@ -234,9 +237,10 @@ def roundtrip(comp: CompressionConfig, delta: Tree, resid: Tree,
     resid')`` with ``resid' = (delta + resid) - decoded`` (zeros when
     ``error_feedback`` is off), as ``codecs.roundtrip``."""
     if comp.error_feedback:
-        comp_in = {p: d.float() + resid[p] for p, d in delta.items()}
+        comp_in = {p: d.float() + resid[p]
+                   for p, d in sorted(delta.items())}
     else:
-        comp_in = {p: d.float() for p, d in delta.items()}
+        comp_in = {p: d.float() for p, d in sorted(delta.items())}
     return exchange(comp, comp_in, resid, uniforms, owned=comp.error_feedback)
 
 
@@ -252,9 +256,10 @@ def exchange(comp: CompressionConfig, comp_in: Tree, resid: Tree,
     decoded = decode_tree(comp, payload, comp_in)
     if comp.error_feedback:
         resid = {p: (x.sub_(decoded[p]) if owned else x - decoded[p])
-                 for p, x in comp_in.items()}
+                 for p, x in sorted(comp_in.items())}
     else:
-        resid = {p: torch.zeros_like(r) for p, r in resid.items()}
+        resid = {p: torch.zeros_like(r)
+                 for p, r in sorted(resid.items())}
     return payload, decoded, resid
 
 
@@ -262,7 +267,7 @@ def zero_residual(trainable: Tree, num_clients: int) -> Tree:
     """Fresh [C, ...] f32 error-feedback state for an unstacked template."""
     return {p: torch.zeros((num_clients,) + tuple(x.shape),
                            dtype=torch.float32, device=x.device)
-            for p, x in trainable.items()}
+            for p, x in sorted(trainable.items())}
 
 
 def corrupt_payload(payload: dict, scales: torch.Tensor) -> dict:
@@ -272,9 +277,9 @@ def corrupt_payload(payload: dict, scales: torch.Tensor) -> dict:
     (int8 codes, indices) pass through untouched. Every codec has a float
     part per leaf, so a scheduled corruption always lands."""
     out = {}
-    for p, parts in payload.items():
+    for p, parts in sorted(payload.items()):
         out[p] = {}
-        for name, x in parts.items():
+        for name, x in sorted(parts.items()):
             if x.is_floating_point():
                 s = scales.reshape((-1,) + (1,) * (x.dim() - 1)).to(x.dtype)
                 x = x + s
@@ -302,6 +307,8 @@ def payload_nbytes(comp: Optional[CompressionConfig], template) -> int:
     ``template`` maps paths to unstacked tensors (anything with ``numel``
     and ``element_size``)."""
     total = 0
+    # lint: disable=determinism — an integer sum of sizes: the order
+    # reaches no draw, payload or digest
     for leaf in template.values():
         n = int(leaf.numel())
         if comp is None or not comp.enabled:
@@ -322,4 +329,6 @@ def payload_nbytes(comp: Optional[CompressionConfig], template) -> int:
 def payload_tensor_nbytes(payload: dict) -> int:
     """Bytes actually held by an encoded payload's tensors (all clients)."""
     return sum(t.numel() * t.element_size()
+               # lint: disable=determinism — an integer sum of sizes: the
+               # order reaches no draw, payload or digest
                for parts in payload.values() for t in parts.values())

@@ -860,6 +860,8 @@ class PeerRuntime:
             by_peer.setdefault(int(u["rec"]["peer"]), []).append(i)
         peer_order = sorted(by_peer)
         fence(deltas)
+        # lint: disable=determinism — rule_s times the rule on its device
+        # for the merge event; no vote, weight or draw reads it
         t0 = time.perf_counter()
         votes = [combine_votes([deltas[i] for i in by_peer[p]],
                                [weights[i] for i in by_peer[p]])
@@ -869,6 +871,7 @@ class PeerRuntime:
         agg, flags, info = robust_merge(
             votes, vote_w, self.cfg.aggregator, self.cfg.aggregator_trim)
         fence(agg)
+        # lint: disable=determinism — the same measurement's end
         info["rule_s"] = time.perf_counter() - t0
         info["rule_device"] = self.device.type
         del votes

@@ -36,6 +36,7 @@ flags the ported slice supports.
         --ledger --compress int8+topk --dist-buffer 2 --dist-run-dir RUN
     python -m bcfl_tpu_torch.entrypoints trace RUN     # collate + invariants
     python -m bcfl_tpu_torch.entrypoints monitor RUN   # the live monitor
+    python -m bcfl_tpu_torch.entrypoints lint --json   # static analysis
 
 Subcommands: ``trace RUN_DIR`` collates a run's per-process event streams
 into one causally ordered timeline and runs the invariant checks (exit 1
@@ -43,7 +44,9 @@ on any violation); ``monitor RUN_DIR`` is its live counterpart
 (:mod:`bcfl_tpu_torch.telemetry.live`): incremental collation, streaming
 invariants and the per-merge ``health.jsonl`` series over a run that may
 still be going (exit 1 on a violation or an unhealed critical alert, 2
-with no streams).
+with no streams); ``lint [PATHS]`` runs the static checkers of
+:mod:`bcfl_tpu_torch.analysis` over ``bcfl_tpu_torch/`` (or PATHS) and
+exits 1 on any unsuppressed, unbaselined finding.
 
 ``--device`` defaults to ``cuda``, which raises when no GPU is present.
 ``--runtime dist`` spawns ``--peers`` peer processes on the same device
@@ -724,6 +727,12 @@ def main(argv=None) -> int:
         from bcfl_tpu_torch.telemetry.live import monitor_main
 
         return monitor_main(argv[1:])
+    if argv and argv[0] == "lint":
+        # the static analysis of the port's own contracts (stdlib ast);
+        # exits nonzero on any unsuppressed, unbaselined finding
+        from bcfl_tpu_torch.analysis import lint_main
+
+        return lint_main(argv[1:])
     ap = build_parser()
     args, rest = ap.parse_known_args(argv)
     if rest:

@@ -30,7 +30,9 @@ float32 rounding of another summation order (and, in bf16 or fp16, to a
 rounding of a probability that lands on the other side of a tie).
 Parity is therefore a tolerance per dtype, :func:`parity_for`: ``parity``
 on each op is the bf16 contract of ``tests/test_pallas_kernels.py``,
-:data:`FP16_PARITY` and :data:`F32_PARITY` the fp16 and float32 ones.
+:data:`FP16_PARITY` and :data:`F32_PARITY` the fp16 and float32 ones; in
+bf16 and fp16, dk and dq also take :func:`ds_slack`, nonzero only on rows
+whose keys are all padded.
 Each dtype launches its own kernel instance (bf16 and fp16 their
 tensor-core ``wgmma`` instances, float32 its FMA one); no dtype is cast to
 another's. The CUDA wrappers check shapes, dtype, head dim, a unit
@@ -62,22 +64,37 @@ F32_PARITY = "allclose:atol=1e-4,rtol=1e-4"
 #: bf16 inputs: the JAX contract (tests/test_pallas_kernels.py, 2e-2
 #: absolute) plus one bf16 ulp of the value (2**-7 relative): the outputs
 #: are stored in bf16, so two float32 sums that differ in their last bits
-#: can round one ulp apart, and past magnitude 4 one ulp exceeds 2e-2 (a
-#: row whose keys are all padded has p = 1 for every key, since
-#: s - lse rounds to 0 at -1e9, and gradients of magnitude 16-50)
+#: can round one ulp apart, and past magnitude 4 one ulp exceeds 2e-2.
+#: dk and dq add :func:`ds_slack`, zero on every row that sees a live key.
+#: Its derivation: both sides round ds to the inputs' dtype before
+#: ``dq = scale ds k`` and ``dk = scale ds^T q``, from float32 values of
+#: ds that differ by the rounding of another summation order. Where the
+#: two float32 values straddle a rounding boundary of ds they round one
+#: ulp apart, and that flip moves dq[i] by ulp(ds[i, j]) |k[j]| scale. On
+#: a live row p sums to 1 and ds is small, so a flip moves dq by far less
+#: than 2e-2. On a row whose keys are all padded, every score is the
+#: padding bias (-1e9, float32 ulp 64; Llama's -1e30), s - lse rounds to
+#: 0 and p = 1 on every key, so ds is as large as dO . v (up to ~50) and
+#: one flip moves dq by up to 0.05 at D = 128 (``scripts/flash_contract.py``
+#: measured 0.0394, 0.0256 and 0.0486 over 20 draws). Any entry of such a
+#: row may flip, each by at most one ulp of the row's largest |ds|, so
+#: there dq may move by ulp(max_j |ds[i, j]|) sum_j |k[j]| scale, and dk[j]
+#: by ulp(max_i |ds[i, j]|) sum_i |q[i]| scale over the all-padded rows i.
 BF16_PARITY = "allclose:atol=2e-2,rtol=7.8125e-3"
 #: fp16 inputs: one fp16 ulp of the value (2**-10) for outputs stored in
 #: fp16 that round one ulp apart, and an absolute term for the rounding of
 #: ds to fp16. Scaled from bf16's 2e-2 by fp16's 3 more bits that term
-#: would be 2.5e-3, which holds wherever p is small; but on a row whose
-#: keys are all padded p = 1 on every key (s - lse rounds to 0 at -1e9),
-#: ds is as large as dO . v (up to ~30 at D = 64), and where the kernel's
-#: float32 dO . v and the plain version's land either side of an fp16
-#: rounding boundary of ds (about 0.07% of entries), that one flip moves a
-#: row of dq or dk by 2**-6 |k| scale: up to 7.8e-3 for |k| <= 4 at
-#: D = 64. So 1e-2, half the bf16 term (60 such draws on an H100 needed
-#: at most 6.7e-3)
+#: would be 2.5e-3, which holds wherever p is small; on a row whose keys
+#: are all padded the flips of ds move a row of dq or dk by 2**-6 |k|
+#: scale (up to 7.8e-3 for |k| <= 4 at D = 64; 60 draws on an H100
+#: needed at most 6.7e-3), so the term is 1e-2. dk and dq add
+#: :func:`ds_slack` as bf16 does, with fp16's ulp: the same derivation.
 FP16_PARITY = "allclose:atol=1e-2,rtol=9.765625e-4"
+#: a row whose log-sum-exp is at or below this sees only padded keys (a
+#: live key's score is O(10)): the rows :func:`ds_slack` covers
+PADDED_LSE = -1e8
+#: mantissa bits of the 16-bit dtypes, for :func:`ulp`
+_MANTISSA = {torch.bfloat16: 7, torch.float16: 10}
 
 #: the C entries' dtype codes (``DtypeCode`` in ``csrc/flash_common.cuh``)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -90,6 +107,38 @@ def parity_for(dtype: torch.dtype) -> str:
     """The contract that holds a kernel to its plain version on inputs of
     ``dtype``."""
     return _PARITY[dtype]
+
+
+def ulp(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """One ``dtype`` ulp at ``|x|``, in float32: ``2**(e - mantissa)`` for
+    ``|x|`` in ``[2**e, 2**(e+1))``, the smallest normal's below it."""
+    e = torch.floor(torch.log2(
+        x.abs().float().clamp_min(torch.finfo(dtype).tiny)))
+    return torch.exp2(e - _MANTISSA[dtype])
+
+
+def ds_slack(q, k, v, key_bias, out, do, lse, causal: bool) -> tuple:
+    """The per-element term the 16-bit contract adds to the backward
+    outputs, lined up with ``(dk, dv, db_h, dq)``: ``(dk_slack, None,
+    None, dq_slack)`` (derivation at :data:`BF16_PARITY`), from the plain
+    version's float32 ds. Rows whose ``lse`` is above :data:`PADDED_LSE`
+    see a live key and add exactly 0; an all-padded row adds one ulp of
+    its largest ``|ds|`` times ``sum_j |k[j]|`` times the scale to dq, and
+    each key adds one ulp of its largest ``|ds|`` over those rows times
+    their ``sum_i |q[i]|`` times the scale to dk. All None for float32
+    inputs, whose ds is never rounded."""
+    if q.dtype not in _MANTISSA:
+        return None, None, None, None
+    padded = (lse <= PADDED_LSE).float()[..., None]  # [B, H, Sq, 1]
+    _, ds = _probs_and_ds(q, k, v, key_bias, out, do, lse, causal)
+    ads = ds.abs() * padded
+    del ds
+    scale = _scale(q.shape[3])
+    dq = (ulp(ads.amax(dim=-1, keepdim=True), q.dtype) * padded
+          * k.float().abs().sum(dim=-2, keepdim=True) * scale)
+    dk = (ulp(ads.amax(dim=-2)[..., None], q.dtype)
+          * (q.float().abs() * padded).sum(dim=-2, keepdim=True) * scale)
+    return dk, None, None, dq
 
 
 def _normalize_bias(bias: Optional[torch.Tensor], B: int, Sk: int,

@@ -58,18 +58,22 @@ class KernelOp:
 _ALLCLOSE = re.compile(r"allclose:atol=([0-9.eE+-]+),rtol=([0-9.eE+-]+)$")
 
 
-def parity_check(parity: str) -> Callable[[torch.Tensor, torch.Tensor],
-                                          Tuple[bool, float]]:
-    """``check(got, want) -> (ok, max_abs_err)`` for a ``parity`` string:
-    ``"bit-identical"`` (same bits, so -0.0 and NaN payloads count) or
-    ``"allclose:atol=<x>,rtol=<y>"`` (``|got - want| <= atol + rtol *
-    |want|`` everywhere, in float64)."""
+def parity_check(parity: str) -> Callable[..., Tuple[bool, float]]:
+    """``check(got, want, slack=None) -> (ok, max_abs_err)`` for a
+    ``parity`` string: ``"bit-identical"`` (same bits, so -0.0 and NaN
+    payloads count; no slack) or ``"allclose:atol=<x>,rtol=<y>"``
+    (``|got - want| <= atol + rtol * |want| + slack`` everywhere, in
+    float64; ``slack`` is an optional per-element term broadcast against
+    ``want``, such as one of
+    :func:`bcfl_tpu_torch.ops.flash_kernels.ds_slack`)."""
     def err(a, b):
         return (float((a.double() - b.double()).abs().max())
                 if a.numel() else 0.0)
 
     if parity == "bit-identical":
-        def bits(a, b):
+        def bits(a, b, slack=None):
+            if slack is not None:
+                raise ValueError("a bit-identical contract takes no slack")
             if a.shape != b.shape or a.dtype != b.dtype:
                 return False, float("inf")
             if a.is_floating_point():
@@ -86,11 +90,14 @@ def parity_check(parity: str) -> Callable[[torch.Tensor, torch.Tensor],
                          "'allclose:atol=<x>,rtol=<y>'")
     atol, rtol = float(m.group(1)), float(m.group(2))
 
-    def close(a, b):
+    def close(a, b, slack=None):
         if a.shape != b.shape:
             return False, float("inf")
         d = (a.double() - b.double()).abs()
-        ok = bool((d <= atol + rtol * b.double().abs()).all())
+        tol = atol + rtol * b.double().abs()
+        if slack is not None:
+            tol = tol + slack.to(device=tol.device, dtype=torch.float64)
+        ok = bool((d <= tol).all())
         return ok, err(a, b)
     return close
 
@@ -126,7 +133,7 @@ def kernel_ops() -> Tuple[KernelOp, ...]:
 
 
 def reset_launches() -> None:
-    for op in _REGISTRY.values():
+    for _, op in sorted(_REGISTRY.items()):
         op.launches = 0
         op.launches_by.clear()
 

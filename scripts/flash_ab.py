@@ -125,8 +125,10 @@ def run_case(entries, names, label, B, H, Sq, Sk, D, causal, lens, timed):
         for call in calls[name]:
             call()
         torch.cuda.synchronize()
+        slack = fk.ds_slack(q, k, v, bias, out_ref, do, lse_ref, causal)
         res = [check(out, out_ref), check(lse, lse_ref)] + [
-            check(a, b) for a, b in zip((dk, dv, db, dq), want)]
+            check(a, b, sl) for a, b, sl in zip((dk, dv, db, dq), want,
+                                                 slack)]
         print(f"{label} {name}: max |diff| out, lse, dk, dv, db_h, dq "
               f"{[f'{err:.2e}' for _, err in res]}", flush=True)
         if not all(ok for ok, _ in res):

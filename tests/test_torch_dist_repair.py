@@ -7,8 +7,12 @@ The startup scrub flags the damage, the repair is a chain-verified
 STATE_SYNC adopt, the fleet completes with agreeing heads, and the whole
 invariant suite is clean over the collated streams. ``buffer=3`` with a
 long ``buffer_timeout_s`` keeps the leader from running to the target
-while peer 2 is down, so there is a live fleet to repair from; 8
-versions and a kill 3 s in keep the kill well before the end.
+while peer 2 is down, so there is a live fleet to repair from; 10
+versions and a kill at peer 2's first committed checkpoint keep the kill
+well before the end. The leader, the quorum and the followers wait out a
+restart that a loaded host slows down (each peer is a fresh interpreter),
+and every assertion names the run's timeline, so a failure says which
+step went wrong.
 
 A second run arms the in-process lanes instead: the seeded storage draw
 damages peer 1's own commits, and the leader tampers its first serve to a
@@ -27,12 +31,12 @@ def _cfg(**kw):
     base = dict(
         name="storage_loopback", runtime="dist", mode="server",
         sync="async", model="tiny-bert", dataset="synthetic",
-        num_clients=6, num_rounds=8, seq_len=16, batch_size=4,
+        num_clients=6, num_rounds=10, seq_len=16, batch_size=4,
         max_local_batches=2, eval_every=0, seed=42, vocab_size=512,
         partition=tconfig.PartitionConfig(kind="iid", iid_samples=8),
         ledger=tconfig.LedgerConfig(enabled=True),
-        dist=tconfig.DistConfig(peers=3, buffer=3, buffer_timeout_s=30.0,
-                                idle_timeout_s=120.0, peer_deadline_s=280.0,
+        dist=tconfig.DistConfig(peers=3, buffer=3, buffer_timeout_s=60.0,
+                                idle_timeout_s=240.0, peer_deadline_s=400.0,
                                 checkpoint_every_versions=1,
                                 checkpoint_keep_last=2, suspect_after=1,
                                 quorum_frac=0.9))
@@ -46,34 +50,65 @@ def _events(res):
     return [e for p in res["event_streams"] for e in read_stream(p)[0]]
 
 
+#: the events that tell a repair run's story, and the fields worth showing
+_STORY = ("run.start", "run.end", "merge", "detector", "quorum.below",
+          "scrub", "state.sync.request", "state.sync.serve",
+          "state.sync.verify", "state.sync.refuse", "state.sync.adopt")
+_FIELDS = ("version", "status", "target", "from", "to", "ok", "reason",
+           "alive", "resumed")
+
+
+def _timeline(res, evs=None) -> str:
+    """The run's churn record and its story events in wall-clock order,
+    one line each, seconds from the first event: what a failed assertion
+    prints."""
+    evs = sorted((e for e in (evs if evs is not None else _events(res))
+                  if e["ev"] in _STORY), key=lambda e: e["t_wall"])
+    t0 = evs[0]["t_wall"] if evs else 0.0
+    lines = [f"returncodes {res['returncodes']}, churn {res['churn']}, "
+             f"wall {res['wall_s']:.1f} s"]
+    for e in evs:
+        fields = {k: e[k] for k in _FIELDS if k in e}
+        if e["ev"] == "merge":
+            fields["from_peers"] = sorted({a.get("peer")
+                                           for a in e.get("arrivals", ())})
+        lines.append(f"{e['t_wall'] - t0:7.2f} peer {e['peer']} {e['ev']} "
+                     f"{fields}")
+    return "\n".join(lines)
+
+
 def test_three_peer_loopback_storage_repair(tmp_path):
     from bcfl_tpu_torch.dist import run_dist
     from bcfl_tpu_torch.telemetry import collate
 
-    res = run_dist(_cfg(), str(tmp_path / "run"), deadline_s=320.0,
+    # the churn loop fires at its first check after period_s at which peer
+    # 2 has a committed checkpoint: a fresh interpreter takes longer than
+    # 1 s to commit one, so this is peer 2's first commit
+    res = run_dist(_cfg(), str(tmp_path / "run"), deadline_s=460.0,
                    device="cpu", threads=2,
-                   churn={"peer": 2, "cycles": 1, "period_s": 3.0,
-                          "downtime_s": 1.0, "stop_after_s": 150.0,
+                   churn={"peer": 2, "cycles": 1, "period_s": 1.0,
+                          "downtime_s": 1.0, "stop_after_s": 200.0,
                           "damage": ["meta_flip"], "bootstrap": True})
-    assert res["ok"], (res["returncodes"], res["log_tails"])
-    assert res["churn"], "the supervised kill never fired"
-    assert (res["churn"][0].get("damage") or {}).get("cls") == "meta_flip", \
-        res["churn"]
     evs = _events(res)
+    story = _timeline(res, evs)
+    assert res["ok"], (story, res["log_tails"])
+    assert res["churn"], f"the supervised kill never fired\n{story}"
+    assert (res["churn"][0].get("damage") or {}).get("cls") == "meta_flip", \
+        story
     assert any(e["ev"] == "scrub" and e.get("status") == "damaged"
-               for e in evs), "the bit-flip never surfaced in a scrub"
+               for e in evs), f"the bit-flip never surfaced in a scrub\n{story}"
     assert any(e["ev"] == "state.sync.verify" and e.get("ok")
-               for e in evs), "no chain-verified transfer"
+               for e in evs), f"no chain-verified transfer\n{story}"
     adopts = [e for e in evs if e["ev"] == "state.sync.adopt"]
-    assert adopts, "the damaged peer never adopted a repair"
+    assert adopts, f"the damaged peer never adopted a repair\n{story}"
     col = collate(res["event_streams"])
-    assert col["ok"], col["violations"]
-    assert col["invariants"]["repair_authenticated"] == 0
-    assert col["invariants"]["no_rollback_readmission"] == 0
+    assert col["ok"], (col["violations"], story)
+    assert col["invariants"]["repair_authenticated"] == 0, story
+    assert col["invariants"]["no_rollback_readmission"] == 0, story
     reports = res["reports"]
-    assert len({r["chain_head"] for r in reports.values()}) == 1
-    assert reports[2]["repaired"]["reason"] in ("damaged", "rollback")
-    assert reports[2]["incarnation"] == 2
+    assert len({r["chain_head"] for r in reports.values()}) == 1, story
+    assert reports[2]["repaired"]["reason"] in ("damaged", "rollback"), story
+    assert reports[2]["incarnation"] == 2, story
 
 
 def test_seeded_storage_lane_and_tampered_serve(tmp_path):
@@ -84,7 +119,7 @@ def test_seeded_storage_lane_and_tampered_serve(tmp_path):
                      storage_classes=("payload_flip", "ledger"),
                      storage_rounds=(1,), sync_tamper=((0, 2),))
     res = run_dist(_cfg(faults=plan), str(tmp_path / "run"),
-                   deadline_s=320.0, device="cpu", threads=2,
+                   deadline_s=460.0, device="cpu", threads=2,
                    churn={"peer": 2, "cycles": 1, "period_s": 3.0,
                           "downtime_s": 1.0, "stop_after_s": 150.0,
                           "damage": ["delete"], "bootstrap": True})

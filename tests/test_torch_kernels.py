@@ -247,6 +247,97 @@ def test_flash_parity_follows_the_dtype():
         fk.parity_for(torch.float64)
 
 
+def test_parity_check_takes_a_slack():
+    close = registry.parity_check(fk.BF16_PARITY)
+    a = torch.ones(3)
+    assert not close(a + 0.03, a)[0]
+    assert close(a + 0.03, a, torch.full((3,), 0.003))[0]
+    assert not close(a + 0.03, a, torch.tensor([0.003, 0.003, 0.0]))[0]
+    with pytest.raises(ValueError, match="no slack"):
+        registry.parity_check("bit-identical")(a, a, a)
+
+
+def test_ulp_of_the_16bit_dtypes():
+    x = torch.tensor([1.0, 1.99, 2.0, 32.0, -40.0, 0.0])
+    assert fk.ulp(x, torch.bfloat16).tolist()[:5] == [
+        2.0 ** -7, 2.0 ** -7, 2.0 ** -6, 0.25, 0.25]
+    assert fk.ulp(x, torch.float16).tolist()[:5] == [
+        2.0 ** -10, 2.0 ** -10, 2.0 ** -9, 2.0 ** -5, 2.0 ** -5]
+    assert 0.0 < fk.ulp(x, torch.bfloat16)[5] < 1e-38
+    # one ulp up is the next value of the dtype; less than half rounds back
+    for dtype in (torch.bfloat16, torch.float16):
+        y = torch.tensor([3.0, 17.0, 0.3]).to(dtype)
+        u = fk.ulp(y, dtype)
+        nxt = (y.float() + u).to(dtype)
+        assert bool((nxt > y).all())
+        assert torch.equal((y.float() + 0.49 * u).to(dtype), y)
+        assert torch.equal((nxt.float() - 0.51 * u).to(dtype), y)
+
+
+def _slack_case(dtype, D, causal, seed=0, S=128):
+    """Batch row 0 with live keys (its tail padded), row 1 all padded."""
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn((2, S, 2, D), generator=g).to(dtype)
+                   .transpose(1, 2) for _ in range(4))
+    bias = torch.zeros((2, S))
+    bias[0, S - S // 4:] = -1e9
+    bias[1] = -1e9
+    out, lse = fk.flash_fwd_ref(q, k, v, bias, causal)
+    return (q, k, v, bias, out, do, lse, causal)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D,causal", [(64, False), (32, True),
+                                      (128, False)])
+def test_ds_slack_is_zero_on_live_rows_and_covers_an_all_padded_row(
+        dtype, D, causal):
+    """On rows that see a live key the slack is exactly 0, so dk and dq
+    are held to the flat contract there. On the all-padded row a
+    constructed flip of ds's rounding, one ulp at the entry that moves dq
+    and dk the most, breaks the flat contract and stays within the
+    slack."""
+    bwd = _slack_case(dtype, D, causal)
+    q, k, v, bias, out, do, lse, _ = bwd
+    sdk, sdv, sdb, sdq = fk.ds_slack(*bwd)
+    assert sdv is None and sdb is None
+    assert sdq.shape == q.shape and sdk.shape == k.shape
+    assert bool((lse[0] > fk.PADDED_LSE).all())
+    assert bool((lse[1] <= fk.PADDED_LSE).all())
+    assert torch.count_nonzero(sdq[0]) == 0
+    assert torch.count_nonzero(sdk[0]) == 0
+    assert bool((sdq[1] > 0).all()) and bool((sdk[1] > 0).all())
+    check = registry.parity_check(fk.parity_for(dtype))
+    dk_want = fk.flash_bwd_dkv_ref(*bwd)[0]
+    dq_want = fk.flash_bwd_dq_ref(*bwd)
+    _, ds = fk._probs_and_ds(*bwd)
+    scale = D ** -0.5
+    for b in (0, 1):
+        # flip ds[b, 0, i, j] by one ulp where |ds ulp * k[j, d]| is
+        # largest against the flat tolerance of dq[i, d]
+        dsr = ds.to(dtype).float()
+        step = fk.ulp(ds, dtype)[b, 0]
+        kf = k[b, 0].float()
+        tol = 2e-2 + 2.0 ** -7 * dq_want[b, 0].float().abs()
+        gain = (step[:, :, None] * kf.abs()[None] * scale
+                / tol[:, None, :])  # [i, j, d]
+        i, j, _ = torch.unravel_index(gain.argmax(), gain.shape)
+        dsr[b, 0, i, j] += step[i, j] * torch.sign(ds[b, 0, i, j])
+        dq = (torch.matmul(dsr, k.float()) * scale).to(dtype)
+        dk = (torch.matmul(dsr.transpose(-1, -2), q.float())
+              * scale).to(dtype)
+        live = b == 0
+        assert check(dq, dq_want, sdq)[0] and check(dk, dk_want, sdk)[0]
+        if not live and dtype == torch.bfloat16:
+            assert not check(dq, dq_want)[0]  # past the flat contract
+        if live:  # the slack adds nothing: the flat contract decides
+            assert check(dq, dq_want)[0] == check(dq, dq_want, sdq)[0]
+
+
+def test_ds_slack_none_for_float32():
+    bwd = _slack_case(torch.float32, 64, False)
+    assert fk.ds_slack(*bwd) == (None,) * 4
+
+
 FLASH_CASES = [
     # (B, H, Sq, Sk, D, causal, padded key lengths per batch row or None)
     (2, 3, 300, 300, 64, False, (300, 211)),
@@ -292,9 +383,11 @@ def test_flash_kernels_match_plain_versions_on_card(cuda_device, dtype,
     want = fk.flash_bwd_dkv_ref(q, k, v, bias, ref[0], do, ref[1], causal)
     want += (fk.flash_bwd_dq_ref(q, k, v, bias, ref[0], do, ref[1], causal),)
     torch.cuda.synchronize()
-    for name, a, b in zip(("out", "lse", "dk", "dv", "db_h", "dq"),
-                          (out, lse) + got, ref + want):
-        ok, err = check(a, b)
+    slack = (None, None) + fk.ds_slack(q, k, v, bias, ref[0], do, ref[1],
+                                       causal)
+    for name, a, b, sl in zip(("out", "lse", "dk", "dv", "db_h", "dq"),
+                              (out, lse) + got, ref + want, slack):
+        ok, err = check(a, b, sl)
         assert ok, f"{name}: max |diff| {err}"
     counts = registry.launch_counts()
     assert [counts[n] for n in ("flash_fwd", "flash_bwd_dkv",

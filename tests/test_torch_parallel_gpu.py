@@ -167,8 +167,8 @@ def test_flash_on_a_tp_head_shard(cuda_device):
     want = ref + tuple(fk.flash_bwd_dkv_ref(*bwd)) + (
         fk.flash_bwd_dq_ref(*bwd),)
     torch.cuda.synchronize()
-    for a, b in zip(got, want):
-        ok, err = check(a, b)
+    for a, b, sl in zip(got, want, (None, None) + fk.ds_slack(*bwd)):
+        ok, err = check(a, b, sl)
         assert ok, err
     counts = registry.launch_counts()
     assert [counts[n] for n in ("flash_fwd", "flash_bwd_dkv",
