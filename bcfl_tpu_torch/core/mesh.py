@@ -1,18 +1,23 @@
 """Device mesh with a ``clients`` axis and one inner axis: port of the part
-of ``bcfl_tpu/core/mesh.py`` that tensor and sequence parallelism need
-(``CLIENT_AXIS``, ``ClientMesh``, ``client_mesh``, ``fed_tp_mesh``, with
-JAX's checks and messages).
+of ``bcfl_tpu/core/mesh.py`` that runs on one host (``CLIENT_AXIS``,
+``ClientMesh``, ``client_mesh``, ``fed_tp_mesh``, with JAX's checks and
+messages).
 
 The JAX package lays its clients and an inner ``tp`` or ``seq`` axis over a
 ``jax.sharding.Mesh``; the port keeps the same grid as a :class:`Mesh` of
-``torch.device`` entries. The port's engine runs every client on the first
-client shard's devices, one client after another; only the inner axis
-spreads: inner shard ``i`` lives on ``ClientMesh.devices[i]``. A device
-list may name one device more than once (``[cuda:0, cuda:0]``), as the JAX
-package's virtual host devices name one host: the shards then share that
-device, which proves the sharded arithmetic and gives no memory or speed
-gain. Without a list, :func:`client_mesh` takes the visible CUDA devices
-and refuses, in JAX's words, an inner axis larger than their count.
+``torch.device`` entries. On a 1-D mesh the clients axis spreads: client
+shard ``s`` lives on ``ClientMesh.client_devices[s]`` and holds clients
+``[s * per_device, (s + 1) * per_device)`` (:meth:`ClientMesh.shard_of`,
+JAX's device-major layout), and the engine trains each shard's clients on
+its own device. On a 2-D mesh only the inner axis spreads: every client
+runs on the first client shard's devices, one after another, and inner
+shard ``i`` lives on ``ClientMesh.devices[i]``. A device list may name one
+device more than once (``[cuda:0, cuda:0]``), as the JAX package's virtual
+host devices name one host: the shards then share that device, which
+proves the sharded arithmetic and gives no memory or speed gain. Without
+a list, :func:`client_mesh` takes the visible CUDA devices, as JAX takes
+``jax.devices()``, and refuses, in JAX's words, an inner axis larger than
+their count.
 """
 
 from __future__ import annotations
@@ -100,6 +105,35 @@ class ClientMesh:
         if self.inner_axis is None:
             return [self.mesh.flat[0]]
         return self.mesh.axis_devices(self.inner_axis)
+
+    @property
+    def client_devices(self) -> List[torch.device]:
+        """One device per client shard (shard ``s`` on
+        ``client_devices[s]``; on a 2-D mesh the shard's first inner
+        device)."""
+        return self.mesh.axis_devices(CLIENT_AXIS)
+
+    @property
+    def train_devices(self) -> List[torch.device]:
+        """The devices the clients train on, one per training shard: every
+        client shard's on a 1-D mesh; on a 2-D mesh the first client
+        shard's alone (it holds every client, its inner axis spread)."""
+        devs = self.client_devices
+        return devs if self.inner_axis is None else devs[:1]
+
+    def train_device(self, client: int) -> torch.device:
+        """The device stacked client ``client`` trains on."""
+        devs = self.train_devices
+        return devs[self.shard_of(client) % len(devs)]
+
+    def shard_of(self, client: int) -> int:
+        """The client shard holding stacked client ``client``: shard ``s``
+        holds clients ``[s * per_device, (s + 1) * per_device)``, the JAX
+        package's device-major layout."""
+        if not 0 <= client < self.num_clients:
+            raise ValueError(f"client {client} is not one of the mesh's "
+                             f"{self.num_clients}")
+        return client // self.per_device
 
 
 def fed_tp_mesh(client_shards: int, tp: int,

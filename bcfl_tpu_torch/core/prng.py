@@ -53,10 +53,19 @@ def client_round_generators(seed: int, clients, round_idx: int,
                             device) -> list:
     """One dropout generator per client for round ``round_idx``;
     ``clients`` is a count (clients ``0..n-1``) or the round's registry ids
-    (cohort mode), so a client's stream follows its id, not its slot."""
+    (cohort mode), so a client's stream follows its id, not its slot.
+    ``device`` is one device for every client or a sequence of one device
+    per client (each client's shard device on a clients mesh): the seed
+    depends on the coordinates only, so a client's stream is the same on
+    whichever card of one type it is drawn."""
     ids = (range(clients) if isinstance(clients, int)
            else [int(c) for c in clients])
-    return [generator(device, seed, TRAIN_LANE, round_idx, c) for c in ids]
+    devs = (list(device) if isinstance(device, (list, tuple))
+            else [device] * len(ids))
+    if len(devs) != len(ids):
+        raise ValueError(f"{len(devs)} devices for {len(ids)} clients")
+    return [generator(d, seed, TRAIN_LANE, round_idx, c)
+            for d, c in zip(devs, ids)]
 
 
 def codec_uniforms(seed: int, round_idx: int, first_client: int = 0

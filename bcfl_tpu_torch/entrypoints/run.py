@@ -2,7 +2,8 @@
 ``bcfl_tpu/entrypoints/run.py``.
 
 ``run`` builds the engine on ``device`` (``None`` means the GPU, and raises
-when there is none), runs it, streams one line per round and ends with the
+when there is none; ``devices=[...]`` spreads the clients axis over the
+cards it lists), runs it, streams one line per round and ends with the
 reference's metric set: CPU overhead %, memory GB, latency in minutes,
 model size, the per-round global accuracies; ``resume=True`` restores the
 newest valid checkpoint of ``cfg.checkpoint_dir`` first. ``run_sweep`` is
@@ -24,11 +25,13 @@ def run(cfg: FedConfig, device=None, verbose: bool = True,
     """``fused_tamper``: optional ``(round) -> [num_clients] scales or
     None``, the engine's fused-round corruption shim (the port runs no
     fused dispatch, so a round it names raises). ``devices``: the mesh's
-    device list for ``tp``/``sp > 1`` (``FedEngine``'s)."""
+    device list (``FedEngine``'s)."""
     engine = FedEngine(cfg, device=device, fused_tamper=fused_tamper,
                        devices=devices)
     if verbose:
-        print("\n".join(_header(cfg, engine.device)), flush=True)
+        shards = engine.local_train.devices
+        print("\n".join(_header(cfg, ",".join(str(d) for d in shards))),
+              flush=True)
     result = engine.run(resume=resume,
                         on_round=_print_round if verbose else None)
     if verbose:

@@ -9,14 +9,21 @@ split-phase codec programs ``encode_deltas``/``encode_deltas_local``/
 ``broadcast``, ``adopt``, ``collapse`` with the configured aggregator).
 
 The JAX package compiles every client's local round plus the aggregation
-into one XLA program over a stacked ``[C, ...]`` client axis. Here the
-clients run one after another on the one device through a single scratch
-``nn.Module``: each loads its starting tree (the round's global in server
-mode, its own row of the stacked tree in serverless and async mode),
-trains with a fresh AdamW, and its post-train tree lands in row ``c`` of
-the stacked ``[C, ...]`` tree that the codec, the FedAvg mean and the ring
-gossip consume, as the JAX stacked axis does. Trees are ``{flax leaf
-path: tensor}`` dicts in the JAX leaf order and layout
+into one XLA program over a stacked ``[C, ...]`` client axis, sharded over
+the mesh's ``clients`` axis. Here each client shard of a 1-D mesh has its
+own scratch ``nn.Module`` on its own device (:class:`Sharded`), and the
+caller's thread issues every shard's clients, shard after shard, while
+the cards run what they were given (:func:`run_sharded`); within a shard
+the clients run one after another. Each client loads its starting tree
+(the round's global in server mode, its own row of the stacked tree in
+serverless and async mode), copied to its shard's device with its batch
+rows, trains with a fresh AdamW, and its post-train tree lands in row
+``c`` of the stacked ``[C, ...]`` tree on the lead device (the first
+shard's). The codec, the FedAvg mean and the ring gossip consume that
+stack on the lead device, as the JAX stacked axis is consumed, so the bits
+are the one-shard run's. An exception in any shard is raised in the
+caller. Trees are ``{flax leaf path: tensor}`` dicts in
+the JAX leaf order and layout
 (:func:`bcfl_tpu_torch.models.convert.trainable_tree`), so codec payloads
 match the JAX package's.
 
@@ -40,9 +47,11 @@ the same either way, as the JAX package's GSPMD bodies are.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import dataclasses
 import functools
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -224,25 +233,120 @@ def make_eval_one(model: nn.Module, loss_fn: Callable,
     return eval_one
 
 
+@dataclasses.dataclass(eq=False)
+class Sharded:
+    """One round body per client shard: shard ``s`` runs clients
+    ``[s * per_device, (s + 1) * per_device)`` on ``devices[s]`` through
+    ``bodies[s]``, bound to that shard's own scratch module. Called
+    directly it is shard 0's body, on the lead device (the faithful round,
+    the global evaluation, the dist runtime's pieces)."""
+
+    bodies: List[Callable]
+    devices: List[torch.device]
+    per_device: int
+
+    def __call__(self, *args, **kwargs):
+        return self.bodies[0](*args, **kwargs)
+
+    @property
+    def lead(self) -> torch.device:
+        return self.devices[0]
+
+
+def _shards(body) -> Optional[Sharded]:
+    """``body`` as a :class:`Sharded` of more than one shard, else None
+    (one body: the clients run one after another, each landed at once)."""
+    if isinstance(body, Sharded) and len(body.bodies) > 1:
+        return body
+    return None
+
+
+def run_sharded(sh: Sharded, inputs: Sequence[tuple]) -> list:
+    """``sh.bodies[s](*inputs[c])`` for every client ``c`` of every shard
+    ``s``, all issued from the caller's thread. First every client's
+    ``inputs`` (trees and tensors on the lead device; generators, made on
+    the client's device, and None pass as they are) are copied to its
+    shard's device, a tensor that several clients share once per device;
+    then each shard's clients run one after another under its device, shard
+    after shard. A copy between two cards only orders their current streams
+    and nothing in a body waits on the card, so each card works through
+    its shard while this thread issues the next. Returns the per-client
+    outputs, on the shards' devices, in client order; the caller lands
+    them on the lead device after every shard is issued (a copy between
+    cards issued earlier would hold a shard back behind the lead's
+    queue). An exception in a body is raised as it is, its shard named in
+    a note; the shards after it do not run."""
+    per, copies = sh.per_device, {}
+
+    def to(x, dev: torch.device):
+        if isinstance(x, dict):
+            return {k: to(v, dev) for k, v in x.items()}
+        if not isinstance(x, torch.Tensor) or x.device == dev:
+            return x
+        key = (id(x), dev)  # every input stays alive until the round ends
+        if key not in copies:
+            copies[key] = x.to(dev, non_blocking=True)
+        return copies[key]
+
+    staged = [tuple(to(a, sh.devices[c // per]) for a in args)
+              for c, args in enumerate(inputs)]
+    outs = []
+    for s, (body, dev) in enumerate(zip(sh.bodies, sh.devices)):
+        with (torch.cuda.device(dev) if dev.type == "cuda"
+              else contextlib.nullcontext()):
+            for args in staged[s * per:(s + 1) * per]:
+                try:
+                    outs.append(body(*args))
+                except Exception as err:
+                    err.add_note(f"in client shard {s} on {dev}")
+                    raise
+    return outs
+
+
 def _train_each(local_train: Callable, start_of: Callable, batches: Tree,
                 generators: List[Optional[torch.Generator]], like: Tree,
                 rmask: Optional[torch.Tensor] = None):
     C = batches["ids"].shape[0]
     new_t = {p: torch.empty((C,) + tuple(x.shape), dtype=x.dtype,
                             device=x.device) for p, x in like.items()}
-    stats = []
-    for c in range(C):
-        start = start_of(c)
-        if rmask is not None:
-            # heterogeneous ranks: a client never sees the fleet's
-            # higher-rank components
-            start = lora.clip_adapters(start, rmask[c])
-        t, s = local_train(start, {k: v[c] for k, v in batches.items()},
-                           generators[c])
+
+    def start(c):
+        if rmask is None:
+            return start_of(c)
+        # heterogeneous ranks: a client never sees the fleet's higher-rank
+        # components
+        return lora.clip_adapters(start_of(c), rmask[c])
+
+    sh = _shards(local_train)
+    if sh is None:
+        stats = []
+        for c in range(C):
+            t, s = local_train(start(c), {k: v[c] for k, v in batches.items()},
+                               generators[c])
+            for p, x in t.items():
+                new_t[p][c] = x
+            stats.append(s)
+        return new_t, torch.stack(stats)
+    outs = run_sharded(sh, [(start(c), {k: v[c] for k, v in batches.items()},
+                             generators[c]) for c in range(C)])
+    for c, (t, _) in enumerate(outs):
         for p, x in t.items():
-            new_t[p][c] = x
-        stats.append(s)
-    return new_t, torch.stack(stats)
+            new_t[p][c].copy_(x)
+    return new_t, torch.stack([s.to(sh.lead) for _, s in outs])
+
+
+def eval_clients(eval_one: Callable, tree_of: Callable, batches: Tree
+                 ) -> torch.Tensor:
+    """Each client's ``[loss*n, correct, n]`` of ``tree_of(c)`` on its own
+    ``batches[c]``, ``[C, 3]`` on the lead device; the clients of a
+    :class:`Sharded` ``eval_one`` on their shards' devices."""
+    C = batches["ids"].shape[0]
+    rows = [(tree_of(c), {k: v[c] for k, v in batches.items()})
+            for c in range(C)]
+    sh = _shards(eval_one)
+    if sh is None:
+        return torch.stack([eval_one(*r) for r in rows])
+    return torch.stack([s.to(sh.lead) for s in run_sharded(sh, rows)])
 
 
 def train_clients(local_train: Callable, global_t: Tree, batches: Tree,
@@ -440,15 +544,29 @@ def gossip_round(local_train: Callable, comp: Optional[cc.CompressionConfig],
     return RoundOut(mixed, stats, resid, payload)
 
 
+def _replica(model: nn.Module, device: torch.device) -> nn.Module:
+    """A copy of ``model`` on ``device``, the same weights: each parameter
+    and buffer is copied straight to ``device`` (never a second copy on
+    the model's own card, which a 7B frozen base would not fit)."""
+    memo = {}
+    for t in model.parameters():
+        memo[id(t)] = nn.Parameter(t.detach().to(device, copy=True),
+                                   requires_grad=t.requires_grad)
+    for t in model.buffers():
+        memo[id(t)] = t.to(device, copy=True)
+    return copy.deepcopy(model, memo).to(device)
+
+
 @dataclasses.dataclass
 class FedPrograms:
     """The round and evaluation bodies bound to one (model, mesh,
-    optimizer)."""
+    optimizer): :class:`Sharded`, one body per client shard that trains on
+    its own device."""
 
     mesh: ClientMesh
     # (trainable, batches, generator) -> (trainable, stats)
-    local_train: Callable
-    eval_one: Callable  # (trainable, batches) -> [loss*n, correct, n]
+    local_train: Sharded
+    eval_one: Sharded  # (trainable, batches) -> [loss*n, correct, n]
     # (client_t, batches, mask, generators, resid=None, uniforms=None)
     gossip_round: Callable
 
@@ -464,7 +582,13 @@ def build_programs(model: nn.Module, mesh: ClientMesh,
     ``shard_map`` on a 2-D mesh) has no counterpart: the port has one
     implementation of every body. What it checks instead is that the
     model carries the mesh's inner axis, so that nothing runs ``tp > 1``
-    dense or ``sp > 1`` without the ring."""
+    dense or ``sp > 1`` without the ring.
+
+    On a 1-D mesh of more than one client shard, shard ``s > 0`` trains
+    and evaluates on its own scratch copy of ``model`` (the same weights)
+    on ``mesh.client_devices[s]``, and shard 0 on ``model``, which must be
+    on the first. A 2-D mesh keeps every client on ``model`` (the first
+    client shard's devices), whatever its number of client shards."""
     if mesh.tp > 1:
         split = {len(sh.weights)
                  for sh in tp_linear.split_layers(model).values()}
@@ -477,14 +601,21 @@ def build_programs(model: nn.Module, mesh: ClientMesh,
         raise ValueError(
             f"an sp={mesh.sp} mesh needs the model's attention on the ring "
             "(sp.ring_config)")
-    loss_fn = make_loss_fn(model, task)
-    local_train = make_local_train(model, loss_fn, optimizer, learning_rate,
-                                   max_grad_norm, adapters=adapters)
+    devices = mesh.train_devices
+    models = [model] + [_replica(model, d) for d in devices[1:]]
+    trains, evals = [], []
+    for m in models:
+        loss_fn = make_loss_fn(m, task)
+        trains.append(make_local_train(m, loss_fn, optimizer, learning_rate,
+                                       max_grad_norm, adapters=adapters))
+        evals.append(make_eval_one(m, loss_fn, adapters=adapters))
+    per = mesh.num_clients // len(devices)
+    local_train = Sharded(trains, devices, per)
     comp = (compression if compression is not None and compression.enabled
             else None)
     return FedPrograms(
         mesh=mesh, local_train=local_train,
-        eval_one=make_eval_one(model, loss_fn, adapters=adapters),
+        eval_one=Sharded(evals, devices, per),
         gossip_round=functools.partial(gossip_round, local_train, comp,
                                        alpha=gossip_alpha,
                                        steps=gossip_steps))

@@ -51,10 +51,23 @@ error-feedback residual lives per registry client in an
 round and scattered after it. The fused multi-round dispatch of the JAX
 engine is not ported (the config raises).
 
-Tensor and sequence parallelism (``tp``/``sp > 1``) run over an explicit
-device list (``devices=``, :func:`_devices`): the mesh is built before the
-model (:func:`bcfl_tpu_torch.core.mesh.client_mesh`, JAX's checks), every
-client runs on its first device, and the inner shard ``i`` lives on
+The clients axis: the engine's devices (:func:`_devices`: ``devices=`` as
+given, else the one device ``device`` names) carry the mesh
+(:func:`bcfl_tpu_torch.core.mesh.client_mesh`, the largest divisor of the
+client count that fits them), and on a 1-D mesh each client shard trains
+and evaluates its clients on its own device, the cards working at once
+while one host thread issues them
+(:class:`bcfl_tpu_torch.fed.client_step.Sharded`). Everything after
+training (the codec, the ledger, the mean, the gossip mix, the async merge)
+runs on the lead device, the first shard's, so a run's bits are the
+one-shard run's. Without ``devices=`` the engine stays on one card:
+spread over four H100s, the host-bound BERT rounds ran slower than on one
+(``scripts/clients_axis.py``).
+
+Tensor and sequence parallelism (``tp``/``sp > 1``) run over the same
+device list: the mesh is built before the model (JAX's checks), every
+client runs on its first client shard's devices, one after another, even
+when the mesh has more client shards, and the inner shard ``i`` lives on
 ``mesh.devices[i]``: under ``tp`` the frozen base is split megatron-style
 (:mod:`bcfl_tpu_torch.parallel.tp_linear`), under ``sp`` the attention
 rides the ring (:func:`bcfl_tpu_torch.parallel.sp.ring_override`, flash
@@ -211,10 +224,12 @@ class FedEngine:
         the per-client state that :meth:`run` keeps (registry sampling,
         reputation).
 
-        ``devices``: the mesh's devices (see :func:`_devices`); every
-        client runs on the first, the inner ``tp``/``sp`` shard ``i`` on
-        the inner axis's ``i``-th. A list may name one card twice
-        (``[cuda:0, cuda:0]``): the shards then share it, which proves the
+        ``devices``: the mesh's devices (see :func:`_devices`). On a 1-D
+        mesh client shard ``s`` trains on ``mesh.client_devices[s]``; with
+        an inner axis every client runs on the first client shard's
+        devices and the inner ``tp``/``sp`` shard ``i`` on the inner axis's
+        ``i``-th. A list may name one card more than once
+        (``[cuda:0] * 4``): the shards then share it, which proves the
         sharded arithmetic and gives no memory or speed gain."""
         self.cfg = cfg
         devices = _devices(cfg, device, devices)
@@ -286,7 +301,7 @@ class FedEngine:
         # --- mesh (before the model: sp puts the mesh into attention) ---
         if self.sampling and cfg.cohort_size:
             # exactly C / cohort_size client shards, each reserving the
-            # inner (tp/sp) axis's devices
+            # inner (tp/sp) axis's devices: the cards the mesh uses
             inner = max(cfg.tp, cfg.sp)
             need = (self.C // cfg.cohort_size) * inner
             if need > len(devices):
@@ -375,6 +390,10 @@ class FedEngine:
             compression=cfg.compression, adapters=self.adapters)
         self.local_train = progs.local_train
         self.eval_one = progs.eval_one
+        # the device each stacked slot trains on (its dropout generator's)
+        self._slot_devices = (
+            [self.device] * self.C if cfg.faithful
+            else [self.mesh.train_device(c) for c in range(self.C)])
         # --- update codec; its error-feedback residual is round state ---
         self._comp = cfg.compression if cfg.compression.enabled else None
         self._ef = None
@@ -464,7 +483,7 @@ class FedEngine:
         ids = self._cohort_ids(rnd)
         return prng.client_round_generators(
             self.cfg.seed, ids if ids is not None else self.C, rnd,
-            self.device)
+            self._slot_devices)
 
     def _uniforms(self, rnd: int) -> Optional[cc.Uniforms]:
         if self._comp is None or not self._comp.stochastic:
@@ -1022,9 +1041,8 @@ class FedEngine:
                     return trainable
                 return {p: x[c] for p, x in stacked.items()}
 
-            local = torch.stack([
-                self.eval_one(tree_of(c), {k: v[c] for k, v in tb.items()})
-                for c in range(self.C)]).double().cpu().numpy()
+            local = cs.eval_clients(self.eval_one, tree_of,
+                                    tb).double().cpu().numpy()
             rec.local_acc = (local[:, 1] / np.maximum(local[:, 2], 1)).tolist()
 
     # ------------------------------------------------------ reputation bridge

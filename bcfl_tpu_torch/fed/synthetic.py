@@ -1,8 +1,8 @@
 """Synthetic round inputs for benchmarks and dry runs: port of
 ``bcfl_tpu/fed/synthetic.py``. The stacked per-client batch tree
 :func:`bcfl_tpu_torch.data.pipeline.client_batches` produces, filled with
-random tokens, plus uniform weights and one dropout generator per client,
-all on the mesh's device."""
+random tokens and uniform weights on the mesh's first device, plus one
+dropout generator per client on the device that client trains on."""
 
 from __future__ import annotations
 
@@ -47,5 +47,6 @@ def synthetic_round_inputs(
                                    device=device),
     }
     weights = torch.ones((C,), dtype=torch.float32, device=device)
-    generators = prng.client_round_generators(seed + 1, C, 0, device)
+    generators = prng.client_round_generators(
+        seed + 1, C, 0, [mesh.train_device(c) for c in range(C)])
     return batches, weights, generators

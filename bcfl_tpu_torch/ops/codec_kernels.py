@@ -134,7 +134,7 @@ def _int8_cuda(gs: Sequence[torch.Tensor],
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*args, n, int(stochastic), stream)
     cuda_build.check(err, "int8_quantize launch")
-    INT8_QUANTIZE.launches += 1
+    registry.count_launch(INT8_QUANTIZE)
     return out
 
 
@@ -192,7 +192,7 @@ def _topk_cuda(x: torch.Tensor, *, k: int
         err = fn(x.data_ptr(), val.data_ptr(), idx.data_ptr(), R, N, k,
                  work.data_ptr(), words, stream)
     cuda_build.check(err, "topk_select launch")
-    TOPK_SELECT.launches += 1
+    registry.count_launch(TOPK_SELECT)
     return val, idx
 
 

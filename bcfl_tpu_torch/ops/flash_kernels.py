@@ -311,9 +311,7 @@ def _launch(op: registry.KernelOp, ptrs, q, Sk, strides, causal) -> None:
         err = fn(*ptrs, B, H, Sq, Sk, D, _DTYPE_CODES[q.dtype], strides,
                  _scale(D), int(causal), stream)
     cuda_build.check(err, f"{op.name} launch")
-    op.launches += 1
-    key = str(q.dtype).split(".")[-1]
-    op.launches_by[key] = op.launches_by.get(key, 0) + 1
+    registry.count_launch(op, str(q.dtype).split(".")[-1])
 
 
 def _flash_fwd_cuda(q, k, v, key_bias, causal: bool):

@@ -14,14 +14,18 @@ increments once per kernel launch and nowhere else, so a run can show that
 its main path went through the kernel (:func:`reset_launches`,
 :func:`launch_counts`); an op with several kernel instances also counts
 each launch under its instance's kind in ``launches_by`` (the flash ops:
-by dtype). ``parity`` says how a kernel is held to its plain
-version, and :func:`parity_check` turns it into the check.
+by dtype). The wrappers count through :func:`count_launch`, under one
+lock, so the counts stay exact should kernels launch from several threads
+at once (the engine's client shards issue from one). ``parity`` says how
+a kernel is held to its plain version, and :func:`parity_check` turns it
+into the check.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import re
+import threading
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -112,6 +116,18 @@ def _device_of(args) -> torch.device:
 
 
 _REGISTRY: Dict[str, KernelOp] = {}
+#: serializes every update of the ops' ``launches`` and ``launches_by``
+_LAUNCH_LOCK = threading.Lock()
+
+
+def count_launch(op: KernelOp, kind: Optional[str] = None) -> None:
+    """Add one launch to ``op.launches`` (and to ``op.launches_by[kind]``
+    when ``kind`` is given): the one place a CUDA wrapper counts, after its
+    kernel launched."""
+    with _LAUNCH_LOCK:
+        op.launches += 1
+        if kind is not None:
+            op.launches_by[kind] = op.launches_by.get(kind, 0) + 1
 
 
 def register_op(op: KernelOp) -> KernelOp:
@@ -133,13 +149,15 @@ def kernel_ops() -> Tuple[KernelOp, ...]:
 
 
 def reset_launches() -> None:
-    for _, op in sorted(_REGISTRY.items()):
-        op.launches = 0
-        op.launches_by.clear()
+    with _LAUNCH_LOCK:
+        for _, op in sorted(_REGISTRY.items()):
+            op.launches = 0
+            op.launches_by.clear()
 
 
 def launch_counts() -> Dict[str, int]:
-    return {op.name: op.launches for op in kernel_ops()}
+    with _LAUNCH_LOCK:
+        return {op.name: op.launches for op in kernel_ops()}
 
 
 def kernel_sources() -> Tuple[str, ...]:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``bcfl_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # phases 1-4, paths (a)-(y)
+    python3 chip_smoke.py              # phases 1-4, paths (a)-(z)
     python3 chip_smoke.py --profile    # phases 1-4, then 5
 
 Phases, each of which raises (and the script exits non-zero) on failure:
@@ -179,7 +179,15 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``int8+topk`` on them, the counts set to 0 just before it and read
    just after: K4 and K5 launched, a finite loss and global tree, the
    round's wall printed beside the card line; K5 and K4 then held to
-   their plain versions at its calls. Then (m), the multi-process
+   their plain versions at its calls. Then (z), the clients axis: path
+   (b)'s configuration with the ledger on ``devices=[cuda:0] * 4`` (4
+   client shards of 1, each with its own scratch model, on the one card),
+   then path (c) on ``[cuda:0] * 4`` (2 shards of 5), each
+   against the same configuration on ``[cuda:0]``, all four with the
+   counts set to 0 just before and read just after: the global tree,
+   every round's payload, the ledger head, the per-client stats and
+   evaluation, and the launches of every kernel equal bit for bit; the
+   round walls and peak memory of both print. Then (m), the multi-process
    runtime at full width: the ``server_noniid_medical`` preset
    (biobert-base, 40 labels, 10 clients; like every peer path up to (s),
    at biobert-base's width on ``CUT_LAYERS`` = 2 of its 12 layers, 37.5 M
@@ -4581,6 +4589,136 @@ def path_synthetic(ck, stats, smi):
     codec_calls(ck, stats, g0, cfg.compression, C, "synthetic-path")
 
 
+# ------------------------------------------------------ the clients axis
+
+
+def drive_tapped(cfg, smi, label, devices):
+    """``drive`` on ``devices`` with every round's codec payload and
+    per-client stats captured on the device (clones, so the round walls
+    keep no host copy) and the peak memory of every distinct card of
+    ``devices``. Returns ``(result, launches, payloads, stats, peaks)``."""
+    from bcfl_tpu_torch.fed.engine import FedEngine
+
+    payloads, client_stats = [], []
+    check, to_rec = FedEngine._check_payload, FedEngine._stats_to_rec
+
+    def tap_payload(self, payload):
+        payloads.append({p: {k: v.clone() for k, v in parts.items()}
+                         for p, parts in payload.items()})
+        return check(self, payload)
+
+    def tap_stats(self, rnd, st):
+        client_stats.append(st.clone())
+        return to_rec(self, rnd, st)
+
+    cards = sorted({torch.device(d) for d in devices}, key=str)
+    torch.cuda.init()  # the allocator's per-card stats exist from here
+    for d in cards:
+        torch.cuda.reset_peak_memory_stats(d)
+    FedEngine._check_payload, FedEngine._stats_to_rec = tap_payload, tap_stats
+    try:
+        result, launches, _ = drive(cfg, smi, label, devices=devices)
+    finally:
+        FedEngine._check_payload, FedEngine._stats_to_rec = check, to_rec
+    peaks = {str(d): torch.cuda.max_memory_allocated(d) / 1e9 for d in cards}
+    return result, launches, payloads, client_stats, peaks
+
+
+def same_bits(a, b) -> bool:
+    """Equal dtype, shape and bits (-0.0 and NaN payloads count)."""
+    return held("bit-identical", [(a.to(b.device), b)])[0]
+
+
+def clients_axis_pair(cfg, smi, label, devices):
+    """``cfg`` on ``[cuda:0]`` (one client shard) and on ``devices`` (one
+    shard per device the mesh takes), each through ``run`` with the launch
+    counts set to 0 just before it and read just after: the global tree,
+    every round's payload bytes, the ledger head, the per-client stats and
+    evaluation and the launches of every kernel equal bit for bit. Returns
+    ``{"one": ..., "many": ...}``, each ``(launches, round walls,
+    peaks)``."""
+    out, runs = {}, {}
+    for key, devs in (("one", [torch.device("cuda", 0)]),
+                      ("many", list(devices))):
+        result, launches, payloads, st, peaks = drive_tapped(
+            cfg, smi, f"{label} on {len(devs)} device(s)", devs)
+        # keep what is compared, not the model (a 7B base twice would not
+        # fit the lead card)
+        head = result.ledger.head if result.ledger is not None else None
+        runs[key] = (result.trainable, head, result.metrics.rounds,
+                     launches, payloads, st)
+        out[key] = (launches, [r.wall_s for r in result.metrics.rounds],
+                    peaks)
+        del result
+        torch.cuda.empty_cache()
+    (t1, head1, rec1, n1, p1, s1) = runs["one"]
+    (tn, headn, recn, nn, pn, sn) = runs["many"]
+    bad = [p for p, x in t1.items() if not same_bits(tn[p], x)]
+    if len(p1) != cfg.num_rounds or len(pn) != len(p1):
+        bad.append(f"payload rounds {len(p1)} / {len(pn)}")
+    for rnd, (a, b) in enumerate(zip(p1, pn)):
+        bad += [f"round {rnd} payload {p}/{k}" for p in a for k in a[p]
+                if not same_bits(b[p][k], a[p][k])]
+    bad += [f"round {rnd} client stats" for rnd, (a, b)
+            in enumerate(zip(s1, sn)) if not same_bits(b, a)]
+    if head1 != headn:
+        bad.append("ledger head")
+    for a, b in zip(rec1, recn):
+        if (a.train_loss, a.local_acc, a.global_loss, a.bytes_on_wire) != (
+                b.train_loss, b.local_acc, b.global_loss, b.bytes_on_wire):
+            bad.append(f"round {a.round} record")
+    if nn != n1:
+        bad.append(f"launches {nn} against one shard's {n1}")
+    if bad:
+        raise RuntimeError(f"{label}: {len(devices)} devices differ from "
+                           f"one: {bad[:8]}")
+    return out
+
+
+def print_clients_axis(label, pair, shards):
+    (_, w1, pk1), (nn, wn, pkn) = pair["one"], pair["many"]
+    print(f"{label}: {shards} client shard(s) equal one shard bit for bit "
+          f"(global tree, payloads, ledger head, per-client stats, "
+          f"launches {nn}); round walls one shard "
+          f"{[round(w, 4) for w in w1]} s, {shards} shards "
+          f"{[round(w, 4) for w in wn]} s; peak GB one shard "
+          f"{ {k: round(v, 2) for k, v in pk1.items()} }, {shards} shards "
+          f"{ {k: round(v, 2) for k, v in pkn.items()} }", flush=True)
+
+
+def phase_clients_axis(stats, smi, dataset, medical):
+    """(z): the clients axis. Path (b)'s configuration with the ledger on
+    ``[cuda:0] * 4`` (4 client shards of 1 sharing one card), then path
+    (c) (10 clients) on ``[cuda:0] * 4`` (2 shards of 5), each against the same configuration on ``[cuda:0]``: global tree,
+    payload bytes, ledger head and per-client stats bit for bit, and the
+    launches of K1-K5 (K4, K5 for (c)) equal to the one-shard run's; the
+    round walls and peaks of both print. Each of the four runs is a main
+    path run whose launches count."""
+    from bcfl_tpu_torch.config import LedgerConfig
+
+    quad = [torch.device("cuda", 0)] * 4
+    cfg = flash_config(dataset, ledger=LedgerConfig(enabled=True))
+    label = "clients axis (z) seq-512 flash"
+    pair = clients_axis_pair(cfg, smi, label, quad)
+    for key in ("one", "many"):
+        count_launches(stats, pair[key][0])
+        if min(pair[key][0].values()) <= 0:
+            raise RuntimeError(f"{label}: a kernel never launched "
+                               f"({pair[key][0]})")
+    print_clients_axis(label, pair, 4)
+    torch.cuda.empty_cache()
+    cfg = gossip_config(medical)
+    label = "clients axis (z) serverless gossip"
+    pair = clients_axis_pair(cfg, smi, label, quad)
+    for key in ("one", "many"):
+        count_launches(stats, pair[key][0])
+        for name in ("int8_quantize", "topk_select"):
+            if pair[key][0][name] <= 0:
+                raise RuntimeError(f"{label}: {name} never launched")
+    print_clients_axis(label, pair, 2)
+    torch.cuda.empty_cache()
+
+
 
 # -------------------------------------------------------------- profile
 
@@ -5129,6 +5267,8 @@ def main(argv=None) -> int:
     phase_lint()
     path_synthetic(ck, stats, smi)
     done("paths (x)-(y)")
+    phase_clients_axis(stats, smi, dataset, medical)
+    done("path (z)")
     m_loss = phase_dist(ck, stats, smi, medical, c_walls)
     done("path (m)")
     phase_partition_kill(stats, smi, medical)
