@@ -19,7 +19,8 @@ leaf of the leaf's chunk-grid shape ``[C, M, chunk]``, and passed to the
 ``int8_quantize`` op as an operand (``_int8_parts_batched`` in JAX). The
 draw comes from a caller-supplied ``uniforms(i, shape, device)`` callable:
 the engine passes :func:`bcfl_tpu_torch.core.prng.codec_uniforms`; parity
-tests pass JAX's own uniforms.
+tests pass JAX's own uniforms. A client shard that encodes its own rows
+takes its rows of the one-stack draw (:func:`row_uniforms`).
 """
 
 from __future__ import annotations
@@ -77,6 +78,23 @@ def _pad_grid(y: torch.Tensor, chunk: int) -> torch.Tensor:
     if pad:
         y = torch.nn.functional.pad(y, (0, pad))
     return y.reshape(C, (N + pad) // chunk, chunk)
+
+
+def row_uniforms(uniforms: Optional[Uniforms], total: int, a: int, b: int
+                 ) -> Optional[Uniforms]:
+    """Rows ``[a, b)`` of ``uniforms``' draws for a stack of ``total``
+    rows: each leaf is drawn at the whole stack's grid shape on the
+    caller's device and cut to the rows (a draw's numbers depend on its
+    shape, so a ``[b - a, ...]`` draw is not those rows). A client shard
+    encoding clients ``[a, b)`` so takes the numbers the one-stack encode
+    gives them."""
+    if uniforms is None:
+        return None
+
+    def draw(i: int, shape, device) -> torch.Tensor:
+        return uniforms(i, (total,) + tuple(shape[1:]), device)[a:b]
+
+    return draw
 
 
 def _draw(uniforms: Optional[Uniforms], i: int, shape, device) -> torch.Tensor:
@@ -263,10 +281,12 @@ def exchange(comp: CompressionConfig, comp_in: Tree, resid: Tree,
     return payload, decoded, resid
 
 
-def zero_residual(trainable: Tree, num_clients: int) -> Tree:
-    """Fresh [C, ...] f32 error-feedback state for an unstacked template."""
+def zero_residual(trainable: Tree, num_clients: int, device=None) -> Tree:
+    """Fresh [C, ...] f32 error-feedback state for an unstacked template,
+    on ``device`` (default: the template's)."""
     return {p: torch.zeros((num_clients,) + tuple(x.shape),
-                           dtype=torch.float32, device=x.device)
+                           dtype=torch.float32,
+                           device=x.device if device is None else device)
             for p, x in sorted(trainable.items())}
 
 

@@ -39,6 +39,7 @@
 //
 // C interface (ctypes): returns cudaGetLastError() after the launch.
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -214,15 +215,22 @@ __global__ void __launch_bounds__(kThreads) int8_quantize_kernel(
   }
 }
 
-// Blocks for `warps` warps of work: enough to fill every SM (8 blocks of
-// 256 threads each), never more than the work needs.
+// Blocks for `warps` warps of work on the current device: enough to fill
+// every SM (8 blocks of 256 threads each), never more than the work needs.
+// The SM count is read once per device: client shards launch on every
+// card of a host, and a host may mix cards.
+constexpr int kMaxDevices = 64;
+
 long long blocks_for(long long warps) {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
+  static std::atomic<int> sms_of[kMaxDevices];  // zero: not read yet
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  const bool cached = dev >= 0 && dev < kMaxDevices;
+  if (cached) sms = sms_of[dev].load(std::memory_order_relaxed);
+  if (sms <= 0) {
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (sms <= 0) sms = 132;
+    if (cached) sms_of[dev].store(sms, std::memory_order_relaxed);
   }
   const long long need = (warps + kThreads / 32 - 1) / (kThreads / 32);
   const long long cap = 8LL * sms;

@@ -263,7 +263,7 @@ class PeerRuntime:
                              client_ids=self.global_ids)
         self.device = self.eng.device
         if self.eng._comp is not None:
-            self.eng._ef = cc.zero_residual(self.eng.trainable0, k)
+            self.eng.set_ef_residual(cc.zero_residual(self.eng.trainable0, k))
 
         self.trainable = self.eng.trainable0
         self.version = 0
@@ -1618,7 +1618,7 @@ class PeerRuntime:
                 "seed": np.int64(cfg.seed),
                 "compress_format": np.frombuffer(
                     cc.wire_format(self.eng._comp).encode(), np.uint8).copy(),
-                "ef_residual": self.eng._ef,
+                "ef_residual": self.eng.ef_residual(),
             }
             state.update(self._checkpoint_extra())
             # both durable seams run the ladder: the checkpoint commit
@@ -1725,8 +1725,7 @@ class PeerRuntime:
         self.version = int(state["version"])
         self.local_round = int(state["local_round"])
         if state.get("ef_residual") is not None and self.eng._comp is not None:
-            self.eng._ef = {p: x.to(self.device, torch.float32)
-                            for p, x in state["ef_residual"].items()}
+            self.eng.set_ef_residual(state["ef_residual"])
         if ledger_json and self.chain is not None:
             self.chain = self.eng.ledger = Ledger.from_json(
                 ledger_json, self.cfg.ledger.use_native)
@@ -1742,7 +1741,7 @@ class PeerRuntime:
             "version": self.version, "restore_s": time.time() - t0 - scrub_s,
             "scrub_s": scrub_s,
             "trainable_digest": _tree_digest(self.trainable),
-            "ef_residual_digest": _tree_digest(self.eng._ef)}
+            "ef_residual_digest": _tree_digest(self.eng.ef_residual())}
         logger.info("peer %d: restored checkpoint at version %d "
                     "(round %d)", self.peer_id, self.version,
                     self.local_round)

@@ -17,12 +17,20 @@ the cards run what they were given (:func:`run_sharded`); within a shard
 the clients run one after another. Each client loads its starting tree
 (the round's global in server mode, its own row of the stacked tree in
 serverless and async mode), copied to its shard's device with its batch
-rows, trains with a fresh AdamW, and its post-train tree lands in row
-``c`` of the stacked ``[C, ...]`` tree on the lead device (the first
-shard's). The codec, the FedAvg mean and the ring gossip consume that
-stack on the lead device, as the JAX stacked axis is consumed, so the bits
-are the one-shard run's. An exception in any shard is raised in the
-caller. Trees are ``{flax leaf path: tensor}`` dicts in
+rows, and trains with a fresh AdamW. With a codec on a mesh of more than
+one shard, the sender's side of the exchange runs on the shard's device
+too, as JAX constrains ``_compress_stage``'s payload and residual to
+``P('clients')`` (:class:`Sender`): the shard's post-train rows are
+stacked there, their deltas encoded, and the error-feedback residual rows
+stay there; only the payload rows land on the lead device (the first
+shard's), in client order, plus the post-train rows where they are the
+round's carried state (serverless, async, partitioned). Without a codec,
+or on one shard, every post-train tree lands in row ``c`` of the stacked
+``[C, ...]`` tree on the lead device. The receiver's side (transport,
+ledger, decode, the FedAvg mean, the ring gossip, the async merge)
+consumes the stack on the lead device, as the JAX stacked axis is
+consumed, so the bits are the one-shard run's. An exception in any shard
+is raised in the caller. Trees are ``{flax leaf path: tensor}`` dicts in
 the JAX leaf order and layout
 (:func:`bcfl_tpu_torch.models.convert.trainable_tree`), so codec payloads
 match the JAX package's.
@@ -233,17 +241,55 @@ def make_eval_one(model: nn.Module, loss_fn: Callable,
     return eval_one
 
 
+def _traffic() -> Dict[str, int]:
+    return {"to_shards": 0, "to_lead": 0}
+
+
+def _nbytes(x) -> int:
+    if isinstance(x, dict):
+        return sum(_nbytes(v) for v in x.values())
+    return x.numel() * x.element_size() if isinstance(x, torch.Tensor) else 0
+
+
+def _packed(xs: Sequence[torch.Tensor]) -> Dict[torch.dtype, torch.Tensor]:
+    """``xs`` flattened into one buffer per dtype, in order: a tree moves
+    between cards in a copy per dtype, not one per leaf (each copy between
+    cards costs the host tens of microseconds, whatever its size)."""
+    by: Dict[torch.dtype, list] = {}
+    for x in xs:
+        by.setdefault(x.dtype, []).append(x.reshape(-1))
+    return {dt: torch.cat(v) for dt, v in by.items()}
+
+
+def _unpacked(bufs: Dict[torch.dtype, torch.Tensor],
+              like: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Views of :func:`_packed` buffers shaped like ``like``, its order."""
+    sizes: Dict[torch.dtype, list] = {}
+    for x in like:
+        sizes.setdefault(x.dtype, []).append(x.numel())
+    pieces = {dt: iter(torch.split(bufs[dt], n)) for dt, n in sizes.items()}
+    return [next(pieces[x.dtype]).view(x.shape) for x in like]
+
+
 @dataclasses.dataclass(eq=False)
 class Sharded:
     """One round body per client shard: shard ``s`` runs clients
     ``[s * per_device, (s + 1) * per_device)`` on ``devices[s]`` through
     ``bodies[s]``, bound to that shard's own scratch module. Called
     directly it is shard 0's body, on the lead device (the faithful round,
-    the global evaluation, the dist runtime's pieces)."""
+    the global evaluation, the dist runtime's pieces).
+
+    ``traffic`` counts the bytes between the lead shard and the others
+    since it was made, as the round bodies move them (:meth:`stage`,
+    :meth:`land`): ``to_shards`` what the lead copies to shards 1 and up,
+    ``to_lead`` what lands from them on the lead. It counts shards, not
+    cards: on ``[cuda:0] * 4`` no byte crosses a card, and the count is
+    what would."""
 
     bodies: List[Callable]
     devices: List[torch.device]
     per_device: int
+    traffic: Dict[str, int] = dataclasses.field(default_factory=_traffic)
 
     def __call__(self, *args, **kwargs):
         return self.bodies[0](*args, **kwargs)
@@ -251,6 +297,37 @@ class Sharded:
     @property
     def lead(self) -> torch.device:
         return self.devices[0]
+
+    def rows(self) -> List[tuple]:
+        """``(first client, end, device)`` of every shard."""
+        per = self.per_device
+        return [(s * per, (s + 1) * per, d)
+                for s, d in enumerate(self.devices)]
+
+    def stage(self, s: int, x, packed: Optional[dict] = None):
+        """A tensor or tree on the lead device copied to shard ``s``'s
+        device, counted (shard 0's passes as it is). A tree crosses as
+        :func:`_packed` buffers, packed once for every shard it goes to
+        when the caller passes a ``packed`` cache (keyed by the tree's id:
+        the caller keeps the tree alive)."""
+        if not s:
+            return x
+        self.traffic["to_shards"] += _nbytes(x)
+        dev = self.devices[s]
+        if not isinstance(x, dict):
+            return x.to(dev, non_blocking=True)
+        packed = {} if packed is None else packed
+        if id(x) not in packed:
+            packed[id(x)] = _packed(list(x.values()))
+        bufs = {dt: b.to(dev, non_blocking=True)
+                for dt, b in packed[id(x)].items()}
+        return dict(zip(x, _unpacked(bufs, list(x.values()))))
+
+    def land(self, s: int, x: torch.Tensor) -> torch.Tensor:
+        """Shard ``s``'s output ``x`` on the lead device, counted."""
+        if s:
+            self.traffic["to_lead"] += _nbytes(x)
+        return x.to(self.lead)
 
 
 def _shards(body) -> Optional[Sharded]:
@@ -261,21 +338,24 @@ def _shards(body) -> Optional[Sharded]:
     return None
 
 
-def run_sharded(sh: Sharded, inputs: Sequence[tuple]) -> list:
+def run_sharded(sh: Sharded, inputs: Sequence[tuple],
+                after: Optional[Callable] = None) -> list:
     """``sh.bodies[s](*inputs[c])`` for every client ``c`` of every shard
     ``s``, all issued from the caller's thread. First every client's
     ``inputs`` (trees and tensors on the lead device; generators, made on
     the client's device, and None pass as they are) are copied to its
     shard's device, a tensor that several clients share once per device;
     then each shard's clients run one after another under its device, shard
-    after shard. A copy between two cards only orders their current streams
-    and nothing in a body waits on the card, so each card works through
-    its shard while this thread issues the next. Returns the per-client
-    outputs, on the shards' devices, in client order; the caller lands
-    them on the lead device after every shard is issued (a copy between
-    cards issued earlier would hold a shard back behind the lead's
-    queue). An exception in a body is raised as it is, its shard named in
-    a note; the shards after it do not run."""
+    after shard, each shard followed by ``after(s, outputs of its
+    clients)`` when given. A copy between two cards orders both cards'
+    current streams, and nothing in a body waits on the card, so each card
+    works through its shard while this thread issues the next; nothing is
+    copied between cards once the first shard is issued. Returns the
+    per-client outputs, on the shards' devices, in client order; the
+    caller lands them on the lead device after every shard is issued (a
+    copy between cards issued earlier would hold a shard back behind the
+    lead's queue). An exception in a body or in ``after`` is raised as it
+    is, its shard named in a note; the shards after it do not run."""
     per, copies = sh.per_device, {}
 
     def to(x, dev: torch.device):
@@ -294,45 +374,157 @@ def run_sharded(sh: Sharded, inputs: Sequence[tuple]) -> list:
     for s, (body, dev) in enumerate(zip(sh.bodies, sh.devices)):
         with (torch.cuda.device(dev) if dev.type == "cuda"
               else contextlib.nullcontext()):
-            for args in staged[s * per:(s + 1) * per]:
-                try:
-                    outs.append(body(*args))
-                except Exception as err:
-                    err.add_note(f"in client shard {s} on {dev}")
-                    raise
+            try:
+                mine = [body(*args) for args in staged[s * per:(s + 1) * per]]
+                if after is not None:
+                    after(s, mine)
+            except Exception as err:
+                err.add_note(f"in client shard {s} on {dev}")
+                raise
+        outs += mine
     return outs
 
 
-def _train_each(local_train: Callable, start_of: Callable, batches: Tree,
-                generators: List[Optional[torch.Generator]], like: Tree,
-                rmask: Optional[torch.Tensor] = None):
-    C = batches["ids"].shape[0]
-    new_t = {p: torch.empty((C,) + tuple(x.shape), dtype=x.dtype,
-                            device=x.device) for p, x in like.items()}
+@dataclasses.dataclass(eq=False)
+class Sender:
+    """The sender's side of one wire exchange on a clients mesh of more
+    than one shard: :func:`train_clients` and :func:`local_updates` run
+    :func:`compress_stage` on each shard's device right after its clients
+    are issued, over the shard's stacked post-train rows, its rows of the
+    reference (the global, or the stacked round-start tree), of ``rmask``
+    and of the round's ``uniforms`` draw (:func:`cc.row_uniforms`), and
+    its ``resid`` rows. The round leaves ``payload``, every client's rows
+    on the lead device in client order (each row's codes are the
+    one-stack encode's: K5 and K4 treat rows apart), and ``resid``, each
+    shard's new residual rows on its own device. Launches: K4 once and
+    K5 once per distinct leaf width, per shard."""
 
-    def start(c):
-        if rmask is None:
-            return start_of(c)
+    comp: cc.CompressionConfig
+    #: per shard: its ``[per, ...]`` float32 residual rows, on its device
+    resid: List[Tree]
+    uniforms: Optional[cc.Uniforms] = None
+    payload: Optional[dict] = None
+
+    @staticmethod
+    def _flat(payload: dict) -> List[torch.Tensor]:
+        return [x for parts in payload.values() for x in parts.values()]
+
+    def pack(self, s: int, payload: dict):
+        """Shard ``s``'s payload as it crosses to the lead: shard 0's as it
+        is, another's as :func:`_packed` buffers on its own device."""
+        return _packed(self._flat(payload)) if s else payload
+
+    def gather(self, sh: Sharded, parts: list) -> None:
+        """The shards' payload rows (shard 0's payload, the others'
+        :meth:`pack` buffers) concatenated on the lead device in client
+        order, shaped like shard 0's."""
+        like = self._flat(parts[0])
+        rows = [like] + [
+            _unpacked({dt: sh.land(s, b) for dt, b in bufs.items()}, like)
+            for s, bufs in enumerate(parts) if s]
+        flat = iter([torch.cat(xs) for xs in zip(*rows)])
+        self.payload = {p: {k: next(flat) for k in part}
+                        for p, part in parts[0].items()}
+
+
+def cat_rows(rows: List[Tree], device) -> Tree:
+    """Per-shard row trees as one ``[C, ...]`` tree on ``device``, in
+    client order (the one shard's tree itself)."""
+    if len(rows) == 1:
+        return {p: x.to(device) for p, x in rows[0].items()}
+    return {p: torch.cat([r[p].to(device) for r in rows])
+            for p in rows[0]}
+
+
+def split_rows(tree: Tree, rows: List[tuple]) -> List[Tree]:
+    """A ``[C, ...]`` tree as each shard's float32 rows on its device
+    (``rows``: :meth:`Sharded.rows`)."""
+    return [{p: x[a:b].to(d, torch.float32) for p, x in tree.items()}
+            for a, b, d in rows]
+
+
+def stacked_like(tree: Tree, num_clients: int) -> Tree:
+    """``[C, ...]`` views of an unstacked tree (no copy): the shapes and
+    dtypes a receiver decodes a payload into when no stack landed."""
+    return {p: x.unsqueeze(0).expand((num_clients,) + tuple(x.shape))
+            for p, x in tree.items()}
+
+
+def _train_each(local_train: Callable, start_of: Callable, ref_of: Callable,
+                batches: Tree, generators: List[Optional[torch.Generator]],
+                like: Tree, rmask: Optional[torch.Tensor] = None,
+                sender: Optional[Sender] = None, state: bool = True):
+    """Every client trains from ``start_of(ref, i)``, ``ref`` being
+    ``ref_of(a, b)`` (the reference of clients ``[a, b)``) and ``i`` the
+    client's row in it. On a mesh of more than one shard each shard's
+    reference and ``rmask`` rows are copied to its device once, before any
+    shard is issued, and its clients start from them."""
+    C = batches["ids"].shape[0]
+
+    def stacked():
+        return {p: torch.empty((C,) + tuple(x.shape), dtype=x.dtype,
+                               device=x.device) for p, x in like.items()}
+
+    def start(ref, masks, i):
+        if masks is None:
+            return start_of(ref, i)
         # heterogeneous ranks: a client never sees the fleet's higher-rank
         # components
-        return lora.clip_adapters(start_of(c), rmask[c])
+        return lora.clip_adapters(start_of(ref, i), masks[i])
 
     sh = _shards(local_train)
     if sh is None:
-        stats = []
+        if sender is not None:
+            raise ValueError("a Sender runs on a clients mesh of more than "
+                             "one shard")
+        ref, new_t, stats = ref_of(0, C), stacked(), []
         for c in range(C):
-            t, s = local_train(start(c), {k: v[c] for k, v in batches.items()},
+            t, s = local_train(start(ref, rmask, c),
+                               {k: v[c] for k, v in batches.items()},
                                generators[c])
             for p, x in t.items():
                 new_t[p][c] = x
             stats.append(s)
         return new_t, torch.stack(stats)
-    outs = run_sharded(sh, [(start(c), {k: v[c] for k, v in batches.items()},
-                             generators[c]) for c in range(C)])
-    for c, (t, _) in enumerate(outs):
-        for p, x in t.items():
-            new_t[p][c].copy_(x)
-    return new_t, torch.stack([s.to(sh.lead) for _, s in outs])
+    rows = sh.rows()
+    # the global is packed once for every shard; the cache is keyed by
+    # id, so every shard's tree stays alive until all are staged
+    trees, packed = [ref_of(a, b) for a, b, _ in rows], {}
+    refs = [sh.stage(s, t, packed) for s, t in enumerate(trees)]
+    masks = [None if rmask is None else sh.stage(s, rmask[a:b])
+             for s, (a, b, _) in enumerate(rows)]
+    per = sh.per_device
+    inputs = [(start(refs[c // per], masks[c // per], c % per),
+               sh.stage(c // per, {k: v[c] for k, v in batches.items()}),
+               generators[c]) for c in range(C)]
+    stacks, parts = [], []
+
+    def send(s, mine):
+        a, b, _ = rows[s]
+        stacks.append({p: torch.stack([t[p] for t, _ in mine])
+                       for p in like})
+        payload, _, sender.resid[s] = compress_stage(
+            sender.comp, stacks[s], refs[s], sender.resid[s],
+            cc.row_uniforms(sender.uniforms, C, a, b), masks[s])
+        parts.append(sender.pack(s, payload))
+
+    outs = run_sharded(sh, inputs, None if sender is None else send)
+    stats = torch.stack([sh.land(c // per, s)
+                         for c, (_, s) in enumerate(outs)])
+    if sender is None:
+        new_t = stacked()
+        for c, (t, _) in enumerate(outs):
+            for p, x in t.items():
+                new_t[p][c].copy_(sh.land(c // per, x))
+        return new_t, stats
+    sender.gather(sh, parts)
+    if not state:
+        return None, stats
+    new_t = stacked()
+    for s, (a, b, _) in enumerate(rows):
+        for p, x in stacks[s].items():
+            new_t[p][a:b].copy_(sh.land(s, x))
+    return new_t, stats
 
 
 def eval_clients(eval_one: Callable, tree_of: Callable, batches: Tree
@@ -346,28 +538,49 @@ def eval_clients(eval_one: Callable, tree_of: Callable, batches: Tree
     sh = _shards(eval_one)
     if sh is None:
         return torch.stack([eval_one(*r) for r in rows])
-    return torch.stack([s.to(sh.lead) for s in run_sharded(sh, rows)])
+    per, staged, packed = sh.per_device, {}, {}
+
+    def stage(c, tree):  # a tree several clients share, once a shard
+        key = (id(tree), c // per)  # every tree stays alive in ``rows``
+        if key not in staged:
+            staged[key] = sh.stage(c // per, tree, packed)
+        return staged[key]
+
+    inputs = [(stage(c, t), sh.stage(c // per, b))
+              for c, (t, b) in enumerate(rows)]
+    return torch.stack([sh.land(c // per, s)
+                        for c, s in enumerate(run_sharded(sh, inputs))])
 
 
 def train_clients(local_train: Callable, global_t: Tree, batches: Tree,
                   generators: List[Optional[torch.Generator]],
-                  rmask: Optional[torch.Tensor] = None):
+                  rmask: Optional[torch.Tensor] = None,
+                  sender: Optional[Sender] = None):
     """Every client trains from ``global_t`` (clipped to its rank by
     ``rmask``) on its own ``batches[c]``:
-    ``-> (stacked [C, ...] trees, stats [C, 3])``."""
-    return _train_each(local_train, lambda c: global_t, batches, generators,
-                       global_t, rmask)
+    ``-> (stacked [C, ...] trees, stats [C, 3])``. With a ``sender`` each
+    shard encodes its deltas against ``global_t`` on its own device, and
+    no post-train tree lands (None in their place): the round keeps no
+    per-client state."""
+    return _train_each(local_train, lambda ref, i: ref,
+                       lambda a, b: global_t, batches, generators, global_t,
+                       rmask, sender, state=False)
 
 
 def local_updates(local_train: Callable, client_t: Tree, batches: Tree,
                   generators: List[Optional[torch.Generator]],
-                  rmask: Optional[torch.Tensor] = None):
+                  rmask: Optional[torch.Tensor] = None,
+                  sender: Optional[Sender] = None):
     """Every client trains from its OWN row of the stacked ``client_t``
-    (``local_updates_body``): ``-> (stacked [C, ...] trees, stats [C, 3])``."""
+    (``local_updates_body``): ``-> (stacked [C, ...] trees, stats [C, 3])``.
+    With a ``sender`` each shard encodes its deltas against its rows of
+    ``client_t`` on its own device; the post-train trees still land, the
+    round's carried state."""
     like = {p: x[0] for p, x in client_t.items()}
     return _train_each(local_train,
-                       lambda c: {p: x[c] for p, x in client_t.items()},
-                       batches, generators, like, rmask)
+                       lambda ref, i: {p: x[i] for p, x in ref.items()},
+                       lambda a, b: {p: x[a:b] for p, x in client_t.items()},
+                       batches, generators, like, rmask, sender)
 
 
 def compress_stage(comp: cc.CompressionConfig, new_t: Tree, ref_t: Tree,
@@ -501,6 +714,17 @@ class RoundOut:
     payload: Optional[dict] = None  # what crossed the wire (codec on)
 
 
+def _round_sender(local_train: Callable,
+                  comp: Optional[cc.CompressionConfig], resid: Optional[Tree],
+                  uniforms: Optional[cc.Uniforms]) -> Optional[Sender]:
+    """The shards' :class:`Sender` for a ``[C, ...]`` ``resid``, or None
+    (no codec, or one shard: the codec runs on the landed stack)."""
+    sh = _shards(local_train)
+    if sh is None or comp is None or not comp.enabled:
+        return None
+    return Sender(comp, split_rows(resid, sh.rows()), uniforms)
+
+
 def server_round(local_train: Callable, comp: Optional[cc.CompressionConfig],
                  global_t: Tree, batches: Tree, weights: torch.Tensor,
                  generators: List[Optional[torch.Generator]],
@@ -511,13 +735,24 @@ def server_round(local_train: Callable, comp: Optional[cc.CompressionConfig],
     through ``roundtrip`` with its carried residual and the server averages
     the reconstructions ``global + decoded``, never the full-precision
     updates. An all-masked round keeps ``global_t``. ``FedEngine`` runs
-    the same steps split around its ledger seam."""
-    new_t, stats = train_clients(local_train, global_t, batches, generators)
+    the same steps split around its ledger seam. On a clients mesh of more
+    than one shard each shard encodes its own rows (:class:`Sender`) and
+    the server decodes the payload; ``resid`` in and out is the whole
+    ``[C, ...]`` tree on the lead device."""
+    sender = _round_sender(local_train, comp, resid, uniforms)
+    new_t, stats = train_clients(local_train, global_t, batches, generators,
+                                 sender=sender)
     if comp is None or not comp.enabled:
         return RoundOut(masked_weighted_mean(new_t, weights, global_t), stats)
-    payload, rec, resid = encode_deltas(comp, new_t, global_t, resid,
-                                        uniforms)
-    del new_t
+    if sender is None:
+        payload, rec, resid = encode_deltas(comp, new_t, global_t, resid,
+                                            uniforms)
+        del new_t
+    else:
+        payload = sender.payload
+        resid = cat_rows(sender.resid, next(iter(global_t.values())).device)
+        rec = decode_recon(comp, payload, global_t,
+                           stacked_like(global_t, len(stats)))
     avg = masked_weighted_mean(rec, weights, global_t)
     return RoundOut(avg, stats, resid, payload)
 
@@ -534,12 +769,21 @@ def gossip_round(local_train: Callable, comp: Optional[cc.CompressionConfig],
     neighbour terms come from the lossy reconstruction, each sender's
     self-term stays its honest post-train tree. ``global_t`` of the result
     is the mixed ``[C, ...]`` stack. ``FedEngine`` runs the same steps
-    split around its ledger seam."""
-    new_t, stats = local_updates(local_train, client_t, batches, generators)
+    split around its ledger seam. On a clients mesh of more than one shard
+    each shard encodes its own rows (:class:`Sender`), as in
+    :func:`server_round`."""
+    sender = _round_sender(local_train, comp, resid, uniforms)
+    new_t, stats = local_updates(local_train, client_t, batches, generators,
+                                 sender=sender)
     if comp is None or not comp.enabled:
         return RoundOut(mix(new_t, mask, client_t, alpha, steps), stats)
-    payload, rec, resid = encode_deltas(comp, new_t, client_t, resid,
-                                        uniforms)
+    if sender is None:
+        payload, rec, resid = encode_deltas(comp, new_t, client_t, resid,
+                                            uniforms)
+    else:
+        payload = sender.payload
+        resid = cat_rows(sender.resid, next(iter(new_t.values())).device)
+        rec = decode_recon(comp, payload, client_t, new_t)
     mixed = mix_recv(new_t, rec, mask, client_t, alpha, steps)
     return RoundOut(mixed, stats, resid, payload)
 
@@ -610,12 +854,13 @@ def build_programs(model: nn.Module, mesh: ClientMesh,
                                        max_grad_norm, adapters=adapters))
         evals.append(make_eval_one(m, loss_fn, adapters=adapters))
     per = mesh.num_clients // len(devices)
-    local_train = Sharded(trains, devices, per)
+    traffic = _traffic()  # the round's and the evaluation's, together
+    local_train = Sharded(trains, devices, per, traffic)
     comp = (compression if compression is not None and compression.enabled
             else None)
     return FedPrograms(
         mesh=mesh, local_train=local_train,
-        eval_one=Sharded(evals, devices, per),
+        eval_one=Sharded(evals, devices, per, traffic),
         gossip_round=functools.partial(gossip_round, local_train, comp,
                                        alpha=gossip_alpha,
                                        steps=gossip_steps))

@@ -57,12 +57,18 @@ given, else the one device ``device`` names) carry the mesh
 client count that fits them), and on a 1-D mesh each client shard trains
 and evaluates its clients on its own device, the cards working at once
 while one host thread issues them
-(:class:`bcfl_tpu_torch.fed.client_step.Sharded`). Everything after
-training (the codec, the ledger, the mean, the gossip mix, the async merge)
-runs on the lead device, the first shard's, so a run's bits are the
-one-shard run's. Without ``devices=`` the engine stays on one card:
-spread over four H100s, the host-bound BERT rounds ran slower than on one
-(``scripts/clients_axis.py``).
+(:class:`bcfl_tpu_torch.fed.client_step.Sharded`). With a codec the
+sender's side of every exchange runs there too
+(:class:`bcfl_tpu_torch.fed.client_step.Sender`, JAX's ``_compress_stage``
+under ``P('clients')``): each shard encodes its own deltas and keeps its
+error-feedback rows on its device between rounds, and only the payload
+rows cross to the lead device, the first shard's (with the post-train
+trees where they are the round's state: serverless, async,
+partitioned). Everything after the wire (transport, the ledger, the
+decode, the mean, the gossip mix, the async merge) runs on the lead
+device, so a run's bits are the one-shard run's. Without ``devices=``
+the engine stays on one card: spread over four H100s, the host-bound
+BERT rounds ran slower than on one (``scripts/clients_axis.py``).
 
 Tensor and sequence parallelism (``tp``/``sp > 1``) run over the same
 device list: the mesh is built before the model (JAX's checks), every
@@ -394,9 +400,10 @@ class FedEngine:
         self._slot_devices = (
             [self.device] * self.C if cfg.faithful
             else [self.mesh.train_device(c) for c in range(self.C)])
-        # --- update codec; its error-feedback residual is round state ---
+        # --- update codec; its error-feedback residual is round state,
+        # each client shard's rows on its device (ef_residual) ---
         self._comp = cfg.compression if cfg.compression.enabled else None
-        self._ef = None
+        self._ef_rows = None
         # cohort mode keeps the residual per registry client on the host
         self._ef_reg = (EFRegistry(self.trainable0)
                         if self.sampling and self._comp is not None
@@ -490,6 +497,30 @@ class FedEngine:
             return None
         first = int(self._fixed_ids[0]) if self._fixed_ids is not None else 0
         return prng.codec_uniforms(self.cfg.seed, rnd, first)
+
+    def ef_residual(self) -> Optional[Dict[str, torch.Tensor]]:
+        """The codec's error-feedback residual as one ``[C, ...]`` float32
+        tree on the lead device, in client order (None without a codec,
+        and before the run sets it): each client shard's rows gathered
+        from its device."""
+        if self._ef_rows is None:
+            return None
+        return cs.cat_rows(self._ef_rows, self.device)
+
+    def set_ef_residual(self, tree: Optional[Dict[str, torch.Tensor]]):
+        """Adopt a ``[C, ...]`` residual (a restored checkpoint's, a dist
+        peer's fresh one): each client shard's rows, as float32, on its
+        device."""
+        self._ef_rows = (None if tree is None
+                         else cs.split_rows(tree, self.local_train.rows()))
+
+    def _sender(self, rnd: int) -> Optional[cs.Sender]:
+        """The round's sender stage on the client shards' devices (None
+        without a codec or on one shard: the exchange encodes the landed
+        stack on the lead device)."""
+        if self._comp is None or cs._shards(self.local_train) is None:
+            return None
+        return cs.Sender(self._comp, list(self._ef_rows), self._uniforms(rnd))
 
     def _participation(self, rnd: int, components=None) -> Dict:
         if components is not None:
@@ -644,7 +675,9 @@ class FedEngine:
             return self._ledger_auth_rows(rnd, kind, fp_recv)
 
     def _exchange_updates(self, rnd: int, new_t, ref_t, scales,
-                          mode: str, commit: bool = True) -> ExchangeResult:
+                          mode: str, commit: bool = True,
+                          sender: Optional[cs.Sender] = None
+                          ) -> ExchangeResult:
         """The update-exchange seam: the codec encode (``mode``: "global"
         = delta vs the global, "local" = vs the stacked round-start tree,
         "async" = recon-free), the simulated transport (``scales``: the
@@ -652,7 +685,11 @@ class FedEngine:
         was sent and verify of what arrived. ``commit=False`` (the dist
         wire) skips the inline chain and returns the fingerprint rows of
         ``sent`` instead, for the caller to announce to a remote leader,
-        which commits them and re-verifies what arrived."""
+        which commits them and re-verifies what arrived. A ``sender`` that
+        ran on the client shards brings the encoded payload and the new
+        residual rows; ``new_t`` is then None in "global" mode (no tree
+        landed), and the reconstruction is decoded here from what
+        arrived."""
         if self._comp is None:
             sent = self._transport(new_t, scales)
             auth = fp = None
@@ -663,22 +700,31 @@ class FedEngine:
                     fp = self._fingerprint_rows("stacked", sent)
             return ExchangeResult(sent=sent, recon=sent, auth=auth, fp=fp,
                                   wire_kind="stacked")
-        uniforms = self._uniforms(rnd)
-        if mode == "async":
-            payload, self._ef = cs.encode_deltas_async(
-                self._comp, new_t, ref_t, self._ef, uniforms, self._rmask)
-            recon = None
+        recon = None
+        if sender is not None:
+            payload = sender.payload
+            self._ef_rows = sender.resid
+        elif mode == "async":
+            payload, ef = cs.encode_deltas_async(
+                self._comp, new_t, ref_t, self.ef_residual(),
+                self._uniforms(rnd), self._rmask)
+            self.set_ef_residual(ef)
         else:
-            payload, recon, self._ef = cs.encode_deltas(
-                self._comp, new_t, ref_t, self._ef, uniforms, self._rmask)
+            payload, recon, ef = cs.encode_deltas(
+                self._comp, new_t, ref_t, self.ef_residual(),
+                self._uniforms(rnd), self._rmask)
+            self.set_ef_residual(ef)
         self._check_payload(payload)
         sent = payload
         if scales is not None:
             sent = cc.corrupt_payload(payload, self._scales_tensor(scales))
-            if recon is not None:
-                # a corrupted wire yields a corrupted reconstruction:
-                # decode the TRANSPORTED payload again
-                recon = cs.decode_recon(self._comp, sent, ref_t, new_t)
+        if mode != "async" and (recon is None or sent is not payload):
+            # the shards' payload is decoded where it arrived, and a
+            # corrupted wire yields a corrupted reconstruction: decode the
+            # TRANSPORTED payload
+            like = (new_t if new_t is not None
+                    else cs.stacked_like(ref_t, self.C))
+            recon = cs.decode_recon(self._comp, sent, ref_t, like)
         auth = fp = None
         if self.ledger is not None:
             if commit:
@@ -719,11 +765,13 @@ class FedEngine:
         # Without the ledger a corrupted update reaches the aggregation
         # rule, and the robust aggregators are the defense there.
         batches, n_ex = self._round_batches(rnd)
+        sender = self._sender(rnd)
         new_t, stats = cs.train_clients(self.local_train, trainable, batches,
-                                        self._generators(rnd), self._rmask)
+                                        self._generators(rnd), self._rmask,
+                                        sender)
         ex = self._exchange_updates(rnd, new_t, trainable,
                                     self._transport_scales(rnd),
-                                    mode="global")
+                                    mode="global", sender=sender)
         del new_t
         auth = ex.auth
         if auth is not None:
@@ -748,10 +796,13 @@ class FedEngine:
         batches, _ = self._round_batches(rnd)
         alpha, steps = cfg.topology.gossip_alpha, cfg.topology.gossip_steps
         start = stacked  # what an all-rejected round keeps
+        sender = self._sender(rnd)
         new_t, stats = cs.local_updates(self.local_train, stacked, batches,
-                                        self._generators(rnd), self._rmask)
+                                        self._generators(rnd), self._rmask,
+                                        sender)
         ex = self._exchange_updates(rnd, new_t, start,
-                                    self._transport_scales(rnd), mode="local")
+                                    self._transport_scales(rnd), mode="local",
+                                    sender=sender)
         auth = ex.auth
         if auth is not None:
             mask = mask * auth
@@ -790,11 +841,14 @@ class FedEngine:
             # from the last whole global
             stacked = cs.broadcast(trainable, C)
         start = stacked
+        sender = self._sender(rnd)
         stacked, stats = cs.local_updates(self.local_train, stacked, batches,
-                                          self._generators(rnd), self._rmask)
+                                          self._generators(rnd), self._rmask,
+                                          sender)
         rec = self._stats_to_rec(rnd, stats)
         ex = self._exchange_updates(rnd, stacked, start,
-                                    self._transport_scales(rnd), mode="local")
+                                    self._transport_scales(rnd), mode="local",
+                                    sender=sender)
         agg_src, auth = ex.recon, ex.auth
         if auth is not None:
             rec.auth = auth.tolist()
@@ -953,8 +1007,10 @@ class FedEngine:
             stacked = cs.broadcast(trainable, self.C)
         base = stacked  # each client's round-start params (delta reference)
         batches, n_ex = self._round_batches(rnd)
+        sender = self._sender(rnd)
         stacked, stats = cs.local_updates(self.local_train, stacked, batches,
-                                          self._generators(rnd), self._rmask)
+                                          self._generators(rnd), self._rmask,
+                                          sender)
         rec = self._stats_to_rec(rnd, stats)
         if delays is None:
             delays = self.faults.straggler_delays(rnd)
@@ -966,7 +1022,7 @@ class FedEngine:
         # carried state stays its honest post-train tree
         ex = self._exchange_updates(rnd, stacked, base,
                                     self._transport_scales(rnd),
-                                    mode="async")
+                                    mode="async", sender=sender)
         if ex.auth is not None:
             rec.auth = ex.auth.tolist()
             mask = mask * ex.auth
@@ -1131,16 +1187,17 @@ class FedEngine:
         trainable = self.trainable0
         stacked = None
         restored = None
-        self._ef = None
+        self._ef_rows = None
         if resume and cfg.checkpoint_dir:
             with clock.phase("restore"):
                 restored = restore_latest(cfg.checkpoint_dir)
                 if restored is not None:
                     start_round, trainable, stacked = self._restore(restored)
-        if (self._comp is not None and self._ef is None
+        if (self._comp is not None and self._ef_rows is None
                 and self._ef_reg is None):
             # cohort mode gathers each round's rows from the registry
-            self._ef = cc.zero_residual(trainable, self.C)
+            self._ef_rows = [cc.zero_residual(trainable, b - a, d)
+                             for a, b, d in self.local_train.rows()]
         if cfg.mode == "serverless" and not cfg.faithful and stacked is None:
             stacked = cs.broadcast(trainable, self.C)
         # built after the restore, as in the JAX engine: a resumed async
@@ -1201,8 +1258,9 @@ class FedEngine:
                 delays = None  # no sampled client straggles this round
             if self._ef_reg is not None:
                 # the cohort's residual rows (zeros for a client never
-                # sampled) as the usual stacked [C, ...] residual
-                self._ef = self._ef_reg.gather(ids, self.device)
+                # sampled), each shard's straight to its device
+                self._ef_rows = [self._ef_reg.gather(ids[a:b], d)
+                                 for a, b, d in self.local_train.rows()]
             with clock.phase("round_program"):
                 if comps is not None:
                     trainable, stacked, rec = self._partitioned_round(
@@ -1222,7 +1280,9 @@ class FedEngine:
             if self._ef_reg is not None:
                 # back by registry id before eval and checkpoint, so the
                 # checkpointed store is the uninterrupted run's
-                self._ef_reg.scatter(ids, self._ef)
+                for (a, b, _), rows in zip(self.local_train.rows(),
+                                           self._ef_rows):
+                    self._ef_reg.scatter(ids[a:b], rows)
             rec.mask = mask.tolist()
             if ids is not None:
                 rec.cohort = ids.tolist()
@@ -1292,7 +1352,7 @@ class FedEngine:
             metrics.reputation = self.reputation.summary()
         return RunResult(metrics=metrics, trainable=trainable,
                          model=self.model, ledger=self.ledger,
-                         ef_residual=self._ef)
+                         ef_residual=self.ef_residual())
 
     # ------------------------------------------------------ checkpoint/resume
 
@@ -1384,9 +1444,9 @@ class FedEngine:
                    else None)
         if state.get("ef_residual") is not None and self._comp is not None:
             # the residual travels with the checkpoint: a compressed resume
-            # re-injects exactly what the uninterrupted run would carry
-            self._ef = {p: x.to(self.device, torch.float32)
-                        for p, x in state["ef_residual"].items()}
+            # re-injects exactly what the uninterrupted run would carry,
+            # on however many client shards this run has
+            self.set_ef_residual(state["ef_residual"])
         if self._ef_reg is not None:
             # cohort mode: the residuals per registry client (ef_ids,
             # ef_registry); each round gathers its cohort's rows
@@ -1410,8 +1470,8 @@ class FedEngine:
                      # the error-feedback residual (None without a codec;
                      # cohort mode stores the registry's rows instead of
                      # the last cohort's gathered view)
-                     "ef_residual": (self._ef if self._ef_reg is None
-                                     else None)}
+                     "ef_residual": (self.ef_residual()
+                                     if self._ef_reg is None else None)}
             state.update(self._identity())
             if self._ef_reg is not None:
                 state.update(self._ef_reg.checkpoint_state())

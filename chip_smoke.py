@@ -4595,12 +4595,17 @@ def path_synthetic(ck, stats, smi):
 def drive_tapped(cfg, smi, label, devices):
     """``drive`` on ``devices`` with every round's codec payload and
     per-client stats captured on the device (clones, so the round walls
-    keep no host copy) and the peak memory of every distinct card of
-    ``devices``. Returns ``(result, launches, payloads, stats, peaks)``."""
+    keep no host copy), the peak memory of every distinct card of
+    ``devices``, and each round's bytes between the lead client shard and
+    the others (``Sharded.traffic``, read after the round body and after
+    its evaluation: ``to_shards``, ``to_lead``, ``eval_to_shards``,
+    ``eval_to_lead``). Returns ``(result, launches, payloads, stats,
+    peaks, traffic, shards)``."""
     from bcfl_tpu_torch.fed.engine import FedEngine
 
-    payloads, client_stats = [], []
+    payloads, client_stats, marks, shards = [], [], [], []
     check, to_rec = FedEngine._check_payload, FedEngine._stats_to_rec
+    evaluate = FedEngine._maybe_eval
 
     def tap_payload(self, payload):
         payloads.append({p: {k: v.clone() for k, v in parts.items()}
@@ -4608,20 +4613,36 @@ def drive_tapped(cfg, smi, label, devices):
         return check(self, payload)
 
     def tap_stats(self, rnd, st):
+        # every mode lands its rows before its record reads the stats
         client_stats.append(st.clone())
+        marks.append(dict(self.local_train.traffic))
         return to_rec(self, rnd, st)
+
+    def tap_eval(self, rnd, *args):
+        evaluate(self, rnd, *args)
+        marks.append(dict(self.local_train.traffic))
+        shards[:] = [len(self.local_train.bodies)]
 
     cards = sorted({torch.device(d) for d in devices}, key=str)
     torch.cuda.init()  # the allocator's per-card stats exist from here
     for d in cards:
         torch.cuda.reset_peak_memory_stats(d)
     FedEngine._check_payload, FedEngine._stats_to_rec = tap_payload, tap_stats
+    FedEngine._maybe_eval = tap_eval
     try:
         result, launches, _ = drive(cfg, smi, label, devices=devices)
     finally:
         FedEngine._check_payload, FedEngine._stats_to_rec = check, to_rec
+        FedEngine._maybe_eval = evaluate
     peaks = {str(d): torch.cuda.max_memory_allocated(d) / 1e9 for d in cards}
-    return result, launches, payloads, client_stats, peaks
+    traffic, last = [], {"to_shards": 0, "to_lead": 0}
+    for body, after_eval in zip(marks[::2], marks[1::2]):
+        traffic.append({**{k: body[k] - last[k] for k in body},
+                        **{f"eval_{k}": after_eval[k] - body[k]
+                           for k in body}})
+        last = after_eval
+    return (result, launches, payloads, client_stats, peaks, traffic,
+            shards[0])
 
 
 def same_bits(a, b) -> bool:
@@ -4629,18 +4650,26 @@ def same_bits(a, b) -> bool:
     return held("bit-identical", [(a.to(b.device), b)])[0]
 
 
+#: the kernels each client shard launches for its own rows (the codec's
+#: sender stage): on ``n`` shards, ``n`` times one shard's launches
+SHARD_CODEC_OPS = ("int8_quantize", "topk_select")
+
+
 def clients_axis_pair(cfg, smi, label, devices):
     """``cfg`` on ``[cuda:0]`` (one client shard) and on ``devices`` (one
     shard per device the mesh takes), each through ``run`` with the launch
     counts set to 0 just before it and read just after: the global tree,
     every round's payload bytes, the ledger head, the per-client stats and
-    evaluation and the launches of every kernel equal bit for bit. Returns
-    ``{"one": ..., "many": ...}``, each ``(launches, round walls,
-    peaks)``."""
+    evaluation bit for bit; K1-K3 launched as often as on one shard, K4
+    and K5 (each shard encodes its own rows) exactly ``shards`` times as
+    often. Returns ``{"one": ..., "many": ..., "shards": n, "template":
+    ...}``, each run ``(launches, round walls, peaks, per-round bytes
+    between the lead shard and the others)``, the template the trained
+    tree's leaf shapes on the meta device."""
     out, runs = {}, {}
     for key, devs in (("one", [torch.device("cuda", 0)]),
                       ("many", list(devices))):
-        result, launches, payloads, st, peaks = drive_tapped(
+        result, launches, payloads, st, peaks, traffic, shards = drive_tapped(
             cfg, smi, f"{label} on {len(devs)} device(s)", devs)
         # keep what is compared, not the model (a 7B base twice would not
         # fit the lead card)
@@ -4648,7 +4677,10 @@ def clients_axis_pair(cfg, smi, label, devices):
         runs[key] = (result.trainable, head, result.metrics.rounds,
                      launches, payloads, st)
         out[key] = (launches, [r.wall_s for r in result.metrics.rounds],
-                    peaks)
+                    peaks, traffic)
+        out["shards"] = shards
+        out["template"] = {p: torch.empty(x.shape, device="meta")
+                           for p, x in result.trainable.items()}
         del result
         torch.cuda.empty_cache()
     (t1, head1, rec1, n1, p1, s1) = runs["one"]
@@ -4667,16 +4699,20 @@ def clients_axis_pair(cfg, smi, label, devices):
         if (a.train_loss, a.local_acc, a.global_loss, a.bytes_on_wire) != (
                 b.train_loss, b.local_acc, b.global_loss, b.bytes_on_wire):
             bad.append(f"round {a.round} record")
-    if nn != n1:
-        bad.append(f"launches {nn} against one shard's {n1}")
+    want = {k: v * (out["shards"] if k in SHARD_CODEC_OPS else 1)
+            for k, v in n1.items()}
+    if nn != want:
+        bad.append(f"launches {nn} against {want} (one shard's {n1}, K4 "
+                   f"and K5 x {out['shards']} shards)")
     if bad:
         raise RuntimeError(f"{label}: {len(devices)} devices differ from "
                            f"one: {bad[:8]}")
     return out
 
 
-def print_clients_axis(label, pair, shards):
-    (_, w1, pk1), (nn, wn, pkn) = pair["one"], pair["many"]
+def print_clients_axis(label, pair, smi):
+    (_, w1, pk1, _), (nn, wn, pkn, moved) = pair["one"], pair["many"]
+    shards = pair["shards"]
     print(f"{label}: {shards} client shard(s) equal one shard bit for bit "
           f"(global tree, payloads, ledger head, per-client stats, "
           f"launches {nn}); round walls one shard "
@@ -4684,16 +4720,64 @@ def print_clients_axis(label, pair, shards):
           f"{[round(w, 4) for w in wn]} s; peak GB one shard "
           f"{ {k: round(v, 2) for k, v in pk1.items()} }, {shards} shards "
           f"{ {k: round(v, 2) for k, v in pkn.items()} }", flush=True)
+    for rnd, t in enumerate(moved):
+        print(f"{label} round {rnd}: MB between the lead shard and the "
+              f"others: the round to them {t['to_shards'] / 1e6:.3f}, to "
+              f"the lead {t['to_lead'] / 1e6:.3f}; its evaluation to them "
+              f"{t['eval_to_shards'] / 1e6:.3f}, to the lead "
+              f"{t['eval_to_lead'] / 1e6:.3f} ({smi})", flush=True)
 
 
-def phase_clients_axis(stats, smi, dataset, medical):
+def codec_on_each_card(ck, template, comp, per, label):
+    """K5 and K4 on every visible card but card 0, at one client shard's
+    calls of ``per`` clients (``main_path_calls``), random inputs, each
+    held bit for bit to its plain version on the same card: the kernels a
+    shard launches on its own card. These launches compare, they do not
+    count for a path."""
+    n = torch.cuda.device_count()
+    topk, int8 = main_path_calls(template, comp, per)
+    for d in range(1, n):
+        with torch.cuda.device(d):
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(100 + d)
+            pairs = []
+            for R, N, k in topk:
+                x = torch.randn((R, N), generator=gen, device="cuda")
+                pairs += zip(ck.TOPK_SELECT(x, k=k),
+                             ck.topk_select_ref(x, k=k))
+                del x
+            gs = [torch.randn(sh, generator=gen, device="cuda")
+                  for sh in int8]
+            us = ([torch.rand(sh, generator=gen, device="cuda")
+                   for sh in int8] if comp.stochastic else None)
+            for got, want in zip(
+                    ck.INT8_QUANTIZE(gs, us, stochastic=comp.stochastic),
+                    ck.int8_quantize_grids_ref(gs, us,
+                                               stochastic=comp.stochastic)):
+                pairs += zip(got, want)
+            torch.cuda.synchronize(d)
+            same, _ = held("bit-identical", pairs)
+        print(f"{label}: on cuda:{d}, topk_select ({len(topk)} calls of "
+              f"{per} client(s)' rows) and int8_quantize (one call, "
+              f"{len(int8)} grids) "
+              f"{'equal' if same else 'DIFFER from'} their plain versions "
+              f"bit for bit", flush=True)
+        if not same:
+            raise RuntimeError(f"{label}: a codec kernel on cuda:{d} "
+                               "differs from its plain version")
+
+
+def phase_clients_axis(ck, stats, smi, dataset, medical):
     """(z): the clients axis. Path (b)'s configuration with the ledger on
     ``[cuda:0] * 4`` (4 client shards of 1 sharing one card), then path
-    (c) (10 clients) on ``[cuda:0] * 4`` (2 shards of 5), each against the same configuration on ``[cuda:0]``: global tree,
-    payload bytes, ledger head and per-client stats bit for bit, and the
-    launches of K1-K5 (K4, K5 for (c)) equal to the one-shard run's; the
-    round walls and peaks of both print. Each of the four runs is a main
-    path run whose launches count."""
+    (c) (10 clients) on ``[cuda:0] * 4`` (2 shards of 5), each against the
+    same configuration on ``[cuda:0]``: global tree, payload bytes, ledger
+    head and per-client stats bit for bit, K1-K3 launched as on one shard
+    and K4, K5 once per shard (each shard encodes its own rows); the round
+    walls, the peaks and each round's bytes between the lead shard and the
+    others print. Each of the four runs is a main path run whose launches
+    count. Where more cards are visible, K4 and K5 on each of them are
+    held to their plain versions at (b)'s calls of one shard's rows."""
     from bcfl_tpu_torch.config import LedgerConfig
 
     quad = [torch.device("cuda", 0)] * 4
@@ -4705,17 +4789,18 @@ def phase_clients_axis(stats, smi, dataset, medical):
         if min(pair[key][0].values()) <= 0:
             raise RuntimeError(f"{label}: a kernel never launched "
                                f"({pair[key][0]})")
-    print_clients_axis(label, pair, 4)
+    print_clients_axis(label, pair, smi)
+    codec_on_each_card(ck, pair["template"], cfg.compression, 1, label)
     torch.cuda.empty_cache()
     cfg = gossip_config(medical)
     label = "clients axis (z) serverless gossip"
     pair = clients_axis_pair(cfg, smi, label, quad)
     for key in ("one", "many"):
         count_launches(stats, pair[key][0])
-        for name in ("int8_quantize", "topk_select"):
+        for name in SHARD_CODEC_OPS:
             if pair[key][0][name] <= 0:
                 raise RuntimeError(f"{label}: {name} never launched")
-    print_clients_axis(label, pair, 2)
+    print_clients_axis(label, pair, smi)
     torch.cuda.empty_cache()
 
 
@@ -4779,7 +4864,7 @@ def phase_profile_gossip(cfg, label):
     eng = FedEngine(cfg, device="cuda")
     C = cfg.num_clients
     start = cs.broadcast(eng.trainable0, C)
-    eng._ef = {p: torch.zeros_like(x) for p, x in start.items()}
+    ef = [{p: torch.zeros_like(x) for p, x in start.items()}]
     batches, _ = eng._round_batches(0)
     m = eng._mask_tensor(np.ones((C,), np.float32))
     rnd = [0]
@@ -4792,8 +4877,8 @@ def phase_profile_gossip(cfg, label):
         torch.cuda.synchronize()
         t["train"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        payload, rec, eng._ef = cs.encode_deltas(
-            eng._comp, new_t, start, eng._ef, prng.codec_uniforms(cfg.seed, 0))
+        payload, rec, ef[0] = cs.encode_deltas(
+            eng._comp, new_t, start, ef[0], prng.codec_uniforms(cfg.seed, 0))
         torch.cuda.synchronize()
         t["codec"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -5267,7 +5352,7 @@ def main(argv=None) -> int:
     phase_lint()
     path_synthetic(ck, stats, smi)
     done("paths (x)-(y)")
-    phase_clients_axis(stats, smi, dataset, medical)
+    phase_clients_axis(ck, stats, smi, dataset, medical)
     done("path (z)")
     m_loss = phase_dist(ck, stats, smi, medical, c_walls)
     done("path (m)")

@@ -19,19 +19,30 @@ through ``bcfl_tpu_torch.entrypoints.run``:
    and path (k)'s model (llama2-7b, LoRA rank 8, 4 of 64 clients a round)
    with its cohort spread over them (4 cards: 4 shards of 1), the
    GPU-bound cell beside the host-bound BERT ones,
-4. then :func:`thread_probe`: small tensor ops a second from 1, 2 and 4
+4. then, with more than one card, K4 and K5 on every card but 0 held bit
+   for bit to their plain versions at (b)'s calls of one shard's rows
+   (``chip_smoke.codec_on_each_card``),
+5. then :func:`profile_split`: one warm round of (b) on one card and on
+   the largest ``N`` cards under ``torch.profiler``, each split into the host's stages (staging,
+   issuing the shards' training and codec, landing, the receiver, the
+   mean) and each card's device time by kind (flash, codec, copies, the
+   rest) against the round's wall,
+6. then :func:`thread_probe`: small tensor ops a second from 1, 2 and 4
    host threads, on the CPU and on card 0 (why the shards are issued from
    one thread).
 
 Each pair must agree bit for bit (``chip_smoke.clients_axis_pair``: global
-tree, payload bytes, ledger head, per-client stats, kernel launches). It
-prints each run's round walls, the peak memory of every card it used and,
-per round, the seconds of training (``train_clients`` or
-``local_updates`` fenced with ``torch.cuda.synchronize()`` on every card:
-the fences cost a little and are in both runs of a pair) against the rest
-of the round, and each client's local train's host seconds (what issuing
-its work took), then one JSON line with all of it, beside
-``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``.
+tree, payload bytes, ledger head, per-client stats, K1-K3 launches equal
+and K4, K5 once per shard). It prints each run's round walls, the peak
+memory of every card it used, each round's bytes between the lead shard
+and the others (the round's and its evaluation's) and, per round, the
+seconds of training with each shard's codec stage and landing
+(``train_clients`` or ``local_updates`` fenced with
+``torch.cuda.synchronize()`` on every card: the fences cost a little and
+are in both runs of a pair) against the rest of the round, and each
+client's local train's host seconds (what issuing its work took), then
+one JSON line with all of it, beside ``nvidia-smi
+--query-gpu=name,power.limit --format=csv,noheader``.
 """
 
 from __future__ import annotations
@@ -100,20 +111,119 @@ def pair(chip_smoke, cfg, smi, label, devices) -> dict:
     finally:
         cs.train_clients, cs.local_updates, cs.make_local_train = saved
     rounds, C = cfg.num_rounds, cfg.num_clients
-    rec = {}
+    rec = {"shards": out["shards"]}
     for i, key in enumerate(("one", "many")):
-        launches, walls, peaks = out[key]
+        launches, walls, peaks, moved = out[key]
         train = times[i * rounds:(i + 1) * rounds]
         host = bodies[i * rounds * C:(i + 1) * rounds * C]
         rec[key] = {"round_wall_s": walls, "train_s": train,
                     "rest_s": [w - t for w, t in zip(walls, train)],
                     "client_host_s": [host[r * C:(r + 1) * C]
                                       for r in range(rounds)],
-                    "peak_gb": peaks, "launches": launches}
+                    "peak_gb": peaks, "launches": launches,
+                    "bytes_between_shards": moved}
     rec["devices"] = [str(d) for d in devices]
     rec["cards"] = len({str(d) for d in devices})
     print(f"{label}: {json.dumps(rec)}", flush=True)
-    return rec
+    chip_smoke.print_clients_axis(label, out, smi)
+    return rec, out["template"]
+
+
+#: K4's and K5's kernels (``csrc/int8_quantize.cu``, ``csrc/topk_select.cu``)
+CODEC_KERNELS = ("int8_quantize_kernel", "hist_row_kernel", "select_kernel",
+                 "compact_kernel", "hist_cand_kernel", "sort_count_kernel",
+                 "sort_scan_kernel", "sort_scatter_kernel")
+
+
+def _kind(name: str) -> str:
+    if name.startswith(("Memcpy", "Memset")):
+        return "copies"
+    if "flash" in name:
+        return "flash"
+    if any(k in name for k in CODEC_KERNELS):
+        return "codec"
+    return "rest"
+
+
+def profile_split(cfg, devices, label) -> dict:
+    """One warm round (the third) of ``cfg`` on ``devices`` under
+    ``torch.profiler``, evaluation off: the host seconds of each stage
+    (``stage``: the lead's copies to the shards; ``issue``: every shard's
+    training and codec stage issued, ``run_sharded``; ``codec``: the
+    shards' ``compress_stage``, inside ``issue``; ``land``: rows, stats
+    and payload landing on the lead; ``receiver``: transport, ledger and
+    decode, ``_exchange_updates``; ``aggregate``: the mean) and each
+    card's device milliseconds by kind (``flash``, ``codec``, ``copies``
+    between cards or within one, ``rest``: the GEMMs and elementwise
+    passes of training, the codec's elementwise passes and the mean),
+    against the round's host wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from bcfl_tpu_torch.fed import client_step as cs
+    from bcfl_tpu_torch.fed.engine import FedEngine
+
+    spans = {"stage": (cs.Sharded, "stage"), "land": (cs.Sharded, "land"),
+             "issue": (cs, "run_sharded"), "codec": (cs, "compress_stage"),
+             "land_payload": (cs.Sender, "gather"),
+             "receiver": (FedEngine, "_exchange_updates"),
+             "aggregate": (cs, "collapse")}
+
+    def spanned(name, fn):
+        def run(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return run
+
+    saved = {name: getattr(owner, attr)
+             for name, (owner, attr) in spans.items()}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    window = {}
+
+    def sync():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+    def on_round(rec):
+        if rec.round == 1:
+            sync()
+            prof.__enter__()
+        elif rec.round == 2:
+            sync()
+            prof.__exit__(None, None, None)
+            window["wall_s"] = rec.wall_s
+
+    for name, (owner, attr) in spans.items():
+        setattr(owner, attr, spanned(name, saved[name]))
+    try:
+        eng = FedEngine(cfg.replace(num_rounds=3, eval_every=0),
+                        devices=devices)
+        eng.run(on_round=on_round)
+    finally:
+        for name, (owner, attr) in spans.items():
+            setattr(owner, attr, saved[name])
+    host, cards = {}, {}
+    events = prof.events()
+    # a host range's mirror on the device spans the kernels launched
+    # inside it: left out, or their time counts twice
+    host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
+    for e in events:
+        if e.device_type == DeviceType.CPU and e.name in spans:
+            h = host.setdefault(e.name, {"ms": 0.0, "calls": 0})
+            h["ms"] += e.cpu_time_total / 1e3
+            h["calls"] += 1
+        elif (e.device_type == DeviceType.CUDA
+              and e.name not in host_names):
+            c = cards.setdefault(f"cuda:{e.device_index}", {})
+            kind = _kind(e.name)
+            c[kind] = c.get(kind, 0.0) + e.self_device_time_total / 1e3
+    wall_ms = window["wall_s"] * 1e3
+    for c in cards.values():
+        c["busy"] = sum(c.values())
+        c["idle_share"] = 1.0 - c["busy"] / wall_ms
+    out = {"round_wall_ms": wall_ms, "host_ms": host, "device_ms": cards}
+    print(f"{label} profiled round: {json.dumps(out)}", flush=True)
+    return out
 
 
 def thread_probe(device: str, threads: int, ops: int = 20000) -> float:
@@ -148,7 +258,7 @@ def main() -> int:
         os.environ.setdefault(var, "1")
     import chip_smoke
     from bcfl_tpu_torch.config import LedgerConfig
-    from bcfl_tpu_torch.ops import codec_kernels  # noqa: F401
+    from bcfl_tpu_torch.ops import codec_kernels
     from bcfl_tpu_torch.ops import cuda_build
     from bcfl_tpu_torch.ops import flash_kernels  # noqa: F401
 
@@ -161,30 +271,37 @@ def main() -> int:
     b_cfg = chip_smoke.flash_config(dataset, ledger=LedgerConfig(enabled=True),
                                     num_rounds=ROUNDS)
     out = {"smi": smi, "cards_visible": n}
-    out["b_one_card_4_shards"] = pair(chip_smoke, b_cfg, smi,
-                                      "(b) on [cuda:0] * 4", [lead] * 4)
+    out["b_one_card_4_shards"], template = pair(
+        chip_smoke, b_cfg, smi, "(b) on [cuda:0] * 4", [lead] * 4)
     counts = [k for k in CARDS if k <= n]
     if not counts:
         print(f"clients_axis: {n} card(s) visible, {CARDS} wanted: "
               "no run across cards", flush=True)
     for k in counts:
         cards = [torch.device("cuda", i) for i in range(k)]
-        out[f"b_{k}_cards"] = pair(chip_smoke, b_cfg, smi,
-                                   f"(b) on {k} cards", cards)
+        out[f"b_{k}_cards"], _ = pair(chip_smoke, b_cfg, smi,
+                                      f"(b) on {k} cards", cards)
     if counts:
         k = max(counts)
         cards = [torch.device("cuda", i) for i in range(k)]
         c_cfg = chip_smoke.gossip_config(chip_smoke.write_medical_docs(),
                                          num_rounds=ROUNDS)
-        out[f"c_{k}_cards"] = pair(chip_smoke, c_cfg, smi,
-                                   f"(c) on {k} cards", cards)
+        out[f"c_{k}_cards"], _ = pair(chip_smoke, c_cfg, smi,
+                                      f"(c) on {k} cards", cards)
         # (k)'s model, its cohort spread over the cards (cohort_size 0)
         k_cfg = chip_smoke.llama_config(
             dataset, name="clients-axis-llama2-7b-lora-cohort",
             lora_rank=8, registry_size=64, sample_clients=4,
             num_rounds=ROUNDS, ledger=LedgerConfig(enabled=True))
-        out[f"k_{k}_cards"] = pair(chip_smoke, k_cfg, smi,
-                                   f"(k) cohort on {k} cards", cards)
+        out[f"k_{k}_cards"], _ = pair(chip_smoke, k_cfg, smi,
+                                      f"(k) cohort on {k} cards", cards)
+        chip_smoke.codec_on_each_card(codec_kernels, template,
+                                      b_cfg.compression, 4 // k,
+                                      "(b)'s shard codec")
+        out["b_one_card_profile"] = profile_split(b_cfg, [lead],
+                                                  "(b) on one card")
+        out[f"b_{k}_cards_profile"] = profile_split(
+            b_cfg, cards, f"(b) on {k} cards")
     for dev in ("cpu", "cuda:0"):
         thread_probe(dev, 1, 2000)  # warm up
         out[f"thread_probe_{dev}"] = {str(t): thread_probe(dev, t)

@@ -58,7 +58,7 @@ def child(tag: str, dataset: str) -> None:
     k = cfg.num_clients // cfg.dist.peers
     eng = FedEngine(_peer_engine_cfg(cfg, k), device="cuda",
                     client_ids=np.arange(k))
-    eng._ef = cc.zero_residual(eng.trainable0, k)
+    eng.set_ef_residual(cc.zero_residual(eng.trainable0, k))
     now = mark("engine_build", now)
     try:
         for rnd in range(3):

@@ -261,7 +261,7 @@ def test_crash_resume_bit_identical(tmp_path, kw):
     ref, res, eng = _crash_resume(tmp_path, _tiny(**kw), crash_at=2)
     _assert_same_run(ref, res, 2)
     if eng._comp is not None:
-        assert eng._ef is not None
+        assert eng.ef_residual() is not None
     phases = res.metrics.phases
     assert phases["restore"]["count"] == 1 and "checkpoint" in phases
 
