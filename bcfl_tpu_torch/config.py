@@ -9,8 +9,7 @@ switches of features the port does not have yet, and one field of its
 own, ``num_layers``, a depth cut at the model's full width. A value the slice does
 not support raises ``ValueError`` naming the field and saying it is "not
 ported yet" — the port never silently runs something other than what was
-asked for. ``cohort_size`` pins mesh devices in JAX; on the port's one
-card it accepts only 0 and the whole sampled cohort.
+asked for.
 """
 
 from __future__ import annotations
@@ -624,9 +623,10 @@ class FedConfig:
     # round; 0 = off
     registry_size: int = 0
     sample_clients: int = 0
-    # clients stacked per device. In JAX it pins the mesh to
-    # sample_clients / cohort_size devices; the port runs on one card, so
-    # only 0 and the whole cohort (one device) are accepted
+    # clients stacked per client shard: > 0 pins the mesh to exactly
+    # sample_clients / cohort_size client shards (each reserving tp or sp
+    # devices) instead of the largest-divisor default; the engine refuses
+    # a pin its devices cannot meet. Must divide the sampled cohort size.
     cohort_size: int = 0
     local_epochs: int = 1
     max_local_batches: Optional[int] = None
@@ -958,7 +958,7 @@ class FedConfig:
 
     def _check_lora_and_cohort(self, plan: FaultPlan) -> None:
         """The JAX package's rejections of heterogeneous ranks and of cohort
-        mode, with its reasons; plus ``cohort_size`` on one card."""
+        mode, with its reasons."""
         if self.lora_ranks and len(set(parse_lora_ranks(self.lora_ranks))) > 1:
             if self.aggregator != "mean":
                 raise ValueError(
@@ -1009,13 +1009,6 @@ class FedConfig:
                 f"cohort_size {self.cohort_size} must divide the sampled "
                 f"cohort size {active} (it is the per-device stack of the "
                 "cohort mesh)")
-        if self.cohort_size and self.cohort_size != active:
-            # JAX pins the mesh to active / cohort_size devices; the port
-            # has one card
-            raise ValueError(
-                f"cohort_size {self.cohort_size} needs "
-                f"{active // self.cohort_size} devices for a {active}-client "
-                "cohort, have 1")
         if self.mode != "server":
             raise ValueError(
                 "registry sampling requires mode='server': serverless "

@@ -9,9 +9,12 @@ The JAX package lays its clients and an inner ``tp`` or ``seq`` axis over a
 shard ``s`` lives on ``ClientMesh.client_devices[s]`` and holds clients
 ``[s * per_device, (s + 1) * per_device)`` (:meth:`ClientMesh.shard_of`,
 JAX's device-major layout), and the engine trains each shard's clients on
-its own device. On a 2-D mesh only the inner axis spreads: every client
-runs on the first client shard's devices, one after another, and inner
-shard ``i`` lives on ``ClientMesh.devices[i]``. A device list may name one
+its own device. On a 2-D mesh ``(clients, tp)`` or ``(clients, seq)``
+every row of the grid is a client shard: shard ``s`` trains its clients
+on its own row of inner devices (:meth:`ClientMesh.row_devices`,
+JAX's ``mesh.devices[s]``), its inner shard ``i`` on the row's ``i``-th
+device, and ``ClientMesh.client_devices[s]`` is the row's first device,
+where the shard's clients are issued. A device list may name one
 device more than once (``[cuda:0, cuda:0]``), as the JAX package's virtual
 host devices name one host: the shards then share that device, which
 proves the sharded arithmetic and gives no memory or speed gain. Without
@@ -58,12 +61,15 @@ class Mesh:
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.dims))
 
-    def axis_devices(self, axis: str) -> List[torch.device]:
-        """The devices along ``axis`` at index 0 of every other axis."""
+    def axis_devices(self, axis: str, at: Optional[Dict[str, int]] = None
+                     ) -> List[torch.device]:
+        """The devices along ``axis`` at index ``at[a]`` of every other
+        axis ``a`` (0 where ``at`` does not name it)."""
+        at = at or {}
         grid = np.empty(len(self.flat), dtype=object)
         grid[:] = self.flat
         grid = grid.reshape(self.dims)
-        index = tuple(slice(None) if a == axis else 0
+        index = tuple(slice(None) if a == axis else at.get(a, 0)
                       for a in self.axis_names)
         return list(grid[index].reshape(-1))
 
@@ -98,38 +104,45 @@ class ClientMesh:
     def inner_axis(self) -> Optional[str]:
         return "tp" if self.tp > 1 else "seq" if self.sp > 1 else None
 
+    def row_devices(self, shard: int) -> List[torch.device]:
+        """Client shard ``shard``'s inner devices (its inner shard ``i`` on
+        the ``i``-th; JAX's ``mesh.devices[shard]``); on a 1-D mesh the
+        shard's one device."""
+        if self.inner_axis is None:
+            return [self.client_devices[shard]]
+        return self.mesh.axis_devices(self.inner_axis,
+                                      at={CLIENT_AXIS: shard})
+
     @property
     def devices(self) -> List[torch.device]:
-        """One device per inner axis position (inner shard ``i`` on
-        ``devices[i]``); the one device of a 1-D mesh's first shard."""
-        if self.inner_axis is None:
-            return [self.mesh.flat[0]]
-        return self.mesh.axis_devices(self.inner_axis)
+        """The first client shard's inner devices (:meth:`row_devices` of
+        shard 0): one device per inner axis position, the one device of a
+        1-D mesh's first shard."""
+        return self.row_devices(0)
 
     @property
     def client_devices(self) -> List[torch.device]:
         """One device per client shard (shard ``s`` on
-        ``client_devices[s]``; on a 2-D mesh the shard's first inner
-        device)."""
+        ``client_devices[s]``; on a 2-D mesh the first device of the
+        shard's row)."""
         return self.mesh.axis_devices(CLIENT_AXIS)
 
     @property
     def train_devices(self) -> List[torch.device]:
-        """The devices the clients train on, one per training shard: every
-        client shard's on a 1-D mesh; on a 2-D mesh the first client
-        shard's alone (it holds every client, its inner axis spread)."""
-        devs = self.client_devices
-        return devs if self.inner_axis is None else devs[:1]
+        """The devices the client shards train on, one per shard, 1-D or
+        2-D: the device each shard's clients are issued on (on a 2-D mesh
+        the first of its row, the others carrying its inner shards)."""
+        return self.client_devices
 
     def train_device(self, client: int) -> torch.device:
-        """The device stacked client ``client`` trains on."""
-        devs = self.train_devices
-        return devs[self.shard_of(client) % len(devs)]
+        """The device stacked client ``client`` trains on: its shard's
+        entry of :attr:`train_devices`."""
+        return self.train_devices[self.shard_of(client)]
 
     def shard_of(self, client: int) -> int:
         """The client shard holding stacked client ``client``: shard ``s``
-        holds clients ``[s * per_device, (s + 1) * per_device)``, the JAX
-        package's device-major layout."""
+        (a row of a 2-D mesh) holds clients ``[s * per_device, (s + 1) *
+        per_device)``, the JAX package's device-major layout."""
         if not 0 <= client < self.num_clients:
             raise ValueError(f"client {client} is not one of the mesh's "
                              f"{self.num_clients}")

@@ -72,7 +72,9 @@ every frame, vote, fingerprint and checkpoint of the peers carries.
 ``--tp`` and ``--sp`` (tensor and sequence parallelism, JAX's flags) take
 the engine's devices: the visible CUDA devices, refusing an inner axis
 larger than their count in JAX's words, or with ``--device cpu`` as many
-CPU devices as the inner axis needs (``FedEngine``'s rule).
+CPU devices as the inner axis needs (``FedEngine``'s rule). Every row of
+that mesh trains: on four cards ``--tp 2`` runs two client shards of
+``tp=2``, as JAX's mesh over ``jax.devices()`` does.
 ``--telemetry-dir``, ``--no-telemetry`` and ``--telemetry-sample`` set
 the event streams as JAX's do. ``--fused-tamper`` takes JAX's checks and
 messages; the port runs no fused dispatch, so a well-formed request
@@ -185,8 +187,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per-round sampled cohort size under "
                          "--registry-size; defaults to --clients")
     ap.add_argument("--cohort-size", type=int, default=None,
-                    help="clients stacked per device; on one card only 0 "
-                         "or the whole sampled cohort")
+                    help="clients stacked per client shard: pins the "
+                         "mesh to sample_clients/cohort_size client "
+                         "shards; must divide the sampled cohort size")
     ap.add_argument("--sp", type=int, default=None,
                     help="sequence-parallel shards per client: 2-D "
                          "(clients, seq) mesh, ring attention over the seq "

@@ -10,10 +10,12 @@ split-phase codec programs ``encode_deltas``/``encode_deltas_local``/
 
 The JAX package compiles every client's local round plus the aggregation
 into one XLA program over a stacked ``[C, ...]`` client axis, sharded over
-the mesh's ``clients`` axis. Here each client shard of a 1-D mesh has its
-own scratch ``nn.Module`` on its own device (:class:`Sharded`), and the
-caller's thread issues every shard's clients, shard after shard, while
-the cards run what they were given (:func:`run_sharded`); within a shard
+the mesh's ``clients`` axis. Here each client shard has its own scratch
+``nn.Module`` on its own device (:class:`Sharded`), on a 2-D mesh on its
+own row of devices (under ``tp`` its own split of the frozen base, under
+``sp`` its own ring), and the caller's thread issues every shard's
+clients, shard after shard, while the cards run what they were given
+(:func:`run_sharded`); within a shard
 the clients run one after another. Each client loads its starting tree
 (the round's global in server mode, its own row of the stacked tree in
 serverless and async mode), copied to its shard's device with its batch
@@ -46,11 +48,12 @@ the codec, as the JAX programs do.
 
 :func:`build_programs` binds these bodies to one model and
 :class:`~bcfl_tpu_torch.core.mesh.ClientMesh` (``FedPrograms``): with
-``tp > 1`` the model's frozen base must already be split over the mesh's
-inner devices (:func:`bcfl_tpu_torch.parallel.tp_linear.shard_base`), with
-``sp > 1`` its attention must ride the ring
-(:func:`bcfl_tpu_torch.parallel.sp.ring_config`); the round bodies are
-the same either way, as the JAX package's GSPMD bodies are.
+``tp > 1`` the model's frozen base must already be split over the first
+row's devices (:func:`bcfl_tpu_torch.parallel.tp_linear.shard_base`),
+with ``sp > 1`` its attention must ride the first row's ring
+(:func:`bcfl_tpu_torch.parallel.sp.ring_override`), and every other
+row's copy gets its own; the round bodies are the same either way, as
+the JAX package's GSPMD bodies are.
 """
 
 from __future__ import annotations
@@ -72,7 +75,7 @@ from bcfl_tpu_torch.models.convert import (leaf_specs, load_trainable,
                                            trainable_tree)
 from bcfl_tpu_torch.parallel import (gossip_mix, gossip_mix_recv,
                                      masked_weighted_mean)
-from bcfl_tpu_torch.parallel import tp_linear
+from bcfl_tpu_torch.parallel import sp, tp_linear
 from bcfl_tpu_torch.parallel.collectives import _col
 
 Tree = Dict[str, torch.Tensor]
@@ -274,8 +277,10 @@ def _unpacked(bufs: Dict[torch.dtype, torch.Tensor],
 @dataclasses.dataclass(eq=False)
 class Sharded:
     """One round body per client shard: shard ``s`` runs clients
-    ``[s * per_device, (s + 1) * per_device)`` on ``devices[s]`` through
-    ``bodies[s]``, bound to that shard's own scratch module. Called
+    ``[s * per_device, (s + 1) * per_device)`` on ``devices[s]`` (on a
+    2-D mesh the first device of row ``s``, whose other devices carry the
+    shard's inner shards) through ``bodies[s]``, bound to that shard's own
+    scratch module. Called
     directly it is shard 0's body, on the lead device (the faithful round,
     the global evaluation, the dist runtime's pieces).
 
@@ -788,17 +793,63 @@ def gossip_round(local_train: Callable, comp: Optional[cc.CompressionConfig],
     return RoundOut(mixed, stats, resid, payload)
 
 
-def _replica(model: nn.Module, device: torch.device) -> nn.Module:
-    """A copy of ``model`` on ``device``, the same weights: each parameter
-    and buffer is copied straight to ``device`` (never a second copy on
-    the model's own card, which a 7B frozen base would not fit)."""
-    memo = {}
+def _replica(model: nn.Module, devices: Sequence[torch.device],
+             share: bool) -> nn.Module:
+    """A copy of ``model``, the same weights, for a client shard whose
+    (inner) devices are ``devices``: its parameters and buffers on
+    ``devices[0]``, and under ``tp`` its own split of every split layer
+    over ``devices``, shard ``i`` copied from the lead's shard ``i``
+    straight to ``devices[i]`` (:func:`tp_linear.moved`; the dense weight
+    a ``meta`` placeholder). No device ever receives a whole split weight,
+    nor a second copy of anything on the model's own card, which a 7B base
+    would not fit. With ``share`` (the caller's promise that the
+    parameters are never written, a frozen LoRA base, and that
+    ``devices`` are the lead shard's own) the copy holds the lead's
+    parameters, buffers and splits themselves: only the modules, their
+    configs and their LoRA hooks are its own."""
+    dev, memo = devices[0], {}
+    for name, sh in tp_linear.split_layers(model).items():
+        if share:
+            memo[id(sh)] = sh
+            continue
+        memo[id(sh)] = tp_linear.moved(sh, devices)
+        w = model.get_submodule(name).weight
+        memo[id(w)] = nn.Parameter(torch.empty_like(w, device="meta"),
+                                   requires_grad=w.requires_grad)
     for t in model.parameters():
-        memo[id(t)] = nn.Parameter(t.detach().to(device, copy=True),
-                                   requires_grad=t.requires_grad)
+        if id(t) not in memo:
+            memo[id(t)] = t if share else nn.Parameter(
+                t.detach().to(dev, copy=True), requires_grad=t.requires_grad)
     for t in model.buffers():
-        memo[id(t)] = t.to(device, copy=True)
-    return copy.deepcopy(model, memo).to(device)
+        memo[id(t)] = t if share else t.to(dev, copy=True)
+    return copy.deepcopy(model, memo)
+
+
+def _check_inner(model: nn.Module, mesh: ClientMesh, shard: int) -> None:
+    """Refuse a client shard's model that does not carry the mesh's inner
+    axis on the shard's own row: nothing runs ``tp > 1`` dense, ``sp > 1``
+    without the ring, or on another shard's devices."""
+    row = [tp_linear.indexed(d) for d in mesh.row_devices(shard)]
+    if mesh.tp > 1:
+        splits = tp_linear.split_layers(model).values()
+        ways = {len(sh.weights) for sh in splits}
+        if ways != {mesh.tp}:
+            raise ValueError(
+                f"a tp={mesh.tp} mesh needs the model's frozen base split "
+                f"{mesh.tp} ways (tp_linear.shard_base), found "
+                f"{sorted(ways) or 'no split layer'}")
+        if any(sh.devices != row for sh in splits):
+            raise ValueError(f"client shard {shard}'s frozen base is not "
+                             f"split over its own row {row}")
+    if mesh.sp > 1:
+        if model.cfg.attention_override is None:
+            raise ValueError(
+                f"an sp={mesh.sp} mesh needs the model's attention on the "
+                "ring (sp.ring_config)")
+        ring = sp.ring_devices(model)
+        if ring is not None and [tp_linear.indexed(d) for d in ring] != row:
+            raise ValueError(f"client shard {shard}'s ring runs over "
+                             f"{list(ring)}, not its own row {row}")
 
 
 @dataclasses.dataclass
@@ -824,29 +875,34 @@ def build_programs(model: nn.Module, mesh: ClientMesh,
     """The :class:`FedPrograms` of ``model`` on ``mesh``. The ``impl``
     choice of the JAX ``build_programs`` (and its refusal of
     ``shard_map`` on a 2-D mesh) has no counterpart: the port has one
-    implementation of every body. What it checks instead is that the
-    model carries the mesh's inner axis, so that nothing runs ``tp > 1``
-    dense or ``sp > 1`` without the ring.
+    implementation of every body. What it checks instead is that every
+    client shard's model carries the mesh's inner axis on the shard's own
+    row, so that nothing runs ``tp > 1`` dense, ``sp > 1`` without the
+    ring, or one shard on another's devices.
 
-    On a 1-D mesh of more than one client shard, shard ``s > 0`` trains
-    and evaluates on its own scratch copy of ``model`` (the same weights)
-    on ``mesh.client_devices[s]``, and shard 0 on ``model``, which must be
-    on the first. A 2-D mesh keeps every client on ``model`` (the first
-    client shard's devices), whatever its number of client shards."""
-    if mesh.tp > 1:
-        split = {len(sh.weights)
-                 for sh in tp_linear.split_layers(model).values()}
-        if split != {mesh.tp}:
-            raise ValueError(
-                f"a tp={mesh.tp} mesh needs the model's frozen base split "
-                f"{mesh.tp} ways (tp_linear.shard_base), found "
-                f"{sorted(split) or 'no split layer'}")
-    if mesh.sp > 1 and model.cfg.attention_override is None:
-        raise ValueError(
-            f"an sp={mesh.sp} mesh needs the model's attention on the ring "
-            "(sp.ring_config)")
+    Client shard 0 trains and evaluates on ``model``, which must be on
+    ``mesh.client_devices[0]`` (under ``tp`` split over
+    ``mesh.row_devices(0)``, under ``sp`` on that row's ring). Each other
+    shard ``s`` (1-D or 2-D) does so on its own scratch copy of ``model``
+    (:func:`_replica`, the same weights) on ``mesh.client_devices[s]``:
+    under ``tp`` split over ``mesh.row_devices(s)``, under ``sp`` with
+    its attention on its own row's ring (``sp.ride_ring``), as JAX's
+    GSPMD program gives each row of the grid its own clients. Under LoRA a
+    copy on exactly the lead shard's devices (``[cuda:0] * 4``, the CPU)
+    shares the lead's frozen base, never written; on other devices it owns
+    its slices."""
     devices = mesh.train_devices
-    models = [model] + [_replica(model, d) for d in devices[1:]]
+    lead = [tp_linear.indexed(d) for d in mesh.row_devices(0)]
+    models = [model]
+    for s in range(1, len(devices)):
+        row = mesh.row_devices(s)
+        rep = _replica(model, row, share=adapters and [
+            tp_linear.indexed(d) for d in row] == lead)
+        if mesh.sp > 1:
+            sp.ride_ring(rep, sp.ring_override(mesh.mesh, sp.SEQ_AXIS, s))
+        models.append(rep)
+    for s, m in enumerate(models):
+        _check_inner(m, mesh, s)
     trains, evals = [], []
     for m in models:
         loss_fn = make_loss_fn(m, task)

@@ -54,8 +54,9 @@ engine is not ported (the config raises).
 The clients axis: the engine's devices (:func:`_devices`: ``devices=`` as
 given, else the one device ``device`` names) carry the mesh
 (:func:`bcfl_tpu_torch.core.mesh.client_mesh`, the largest divisor of the
-client count that fits them), and on a 1-D mesh each client shard trains
-and evaluates its clients on its own device, the cards working at once
+client count that fits them), and each client shard trains and
+evaluates its clients on its own device (on a 2-D mesh, its own row of
+devices, below), the cards working at once
 while one host thread issues them
 (:class:`bcfl_tpu_torch.fed.client_step.Sharded`). With a codec the
 sender's side of every exchange runs there too
@@ -66,18 +67,24 @@ rows cross to the lead device, the first shard's (with the post-train
 trees where they are the round's state: serverless, async,
 partitioned). Everything after the wire (transport, the ledger, the
 decode, the mean, the gossip mix, the async merge) runs on the lead
-device, so a run's bits are the one-shard run's. Without ``devices=``
+device, so a run's bits are the one-shard run's (cohort mode's
+two-level mean aside). Without ``devices=``
 the engine stays on one card: spread over four H100s, the host-bound
 BERT rounds ran slower than on one (``scripts/clients_axis.py``).
 
 Tensor and sequence parallelism (``tp``/``sp > 1``) run over the same
-device list: the mesh is built before the model (JAX's checks), every
-client runs on its first client shard's devices, one after another, even
-when the mesh has more client shards, and the inner shard ``i`` lives on
-``mesh.devices[i]``: under ``tp`` the frozen base is split megatron-style
-(:mod:`bcfl_tpu_torch.parallel.tp_linear`), under ``sp`` the attention
-rides the ring (:func:`bcfl_tpu_torch.parallel.sp.ring_override`, flash
-off).
+device list: the mesh is built before the model (JAX's checks), and every
+row of the 2-D mesh is a client shard that trains its own clients on its
+own row of devices, inner shard ``i`` on the row's ``i``-th
+(``mesh.row_devices(s)``): under ``tp`` each shard holds a megatron split
+of the frozen base over its row
+(:mod:`bcfl_tpu_torch.parallel.tp_linear`; the model's over row 0, each
+other shard's copy slice by slice over its own), under ``sp`` each
+shard's attention rides a ring over its row
+(:func:`bcfl_tpu_torch.parallel.sp.ring_override`, flash off). In cohort
+mode the FedAvg mean is JAX's two-level mean over the client shards
+(``hierarchical_weighted_mean``, as many groups as the clients axis has
+shards).
 """
 
 from __future__ import annotations
@@ -196,7 +203,10 @@ def _devices(cfg: FedConfig, device, devices) -> list:
     the engine's device), else one device (``device``, default the GPU)
     without an inner axis; with ``tp``/``sp > 1`` the visible CUDA
     devices, or on the CPU as many CPU devices as the inner axis needs
-    (the JAX package's virtual host devices)."""
+    (the JAX package's virtual host devices). With an inner axis every
+    row of the mesh over those devices trains, as JAX's mesh over
+    ``jax.devices()`` does: four cards at ``tp=2`` are two client shards
+    (pass ``devices`` of one row to keep one)."""
     inner = max(cfg.tp, cfg.sp)
     if devices is not None:
         devices = [resolve_device(d) for d in devices]
@@ -230,11 +240,12 @@ class FedEngine:
         the per-client state that :meth:`run` keeps (registry sampling,
         reputation).
 
-        ``devices``: the mesh's devices (see :func:`_devices`). On a 1-D
-        mesh client shard ``s`` trains on ``mesh.client_devices[s]``; with
-        an inner axis every client runs on the first client shard's
-        devices and the inner ``tp``/``sp`` shard ``i`` on the inner axis's
-        ``i``-th. A list may name one card more than once
+        ``devices``: the mesh's devices (see :func:`_devices`). Client
+        shard ``s`` trains its clients on ``mesh.client_devices[s]``; with
+        an inner axis that is the first device of the mesh's row ``s``,
+        and the shard's inner ``tp``/``sp`` shard ``i`` lives on the row's
+        ``i``-th (``mesh.row_devices(s)``). A list may name one card more
+        than once
         (``[cuda:0] * 4``): the shards then share it, which proves the
         sharded arithmetic and gives no memory or speed gain."""
         self.cfg = cfg
@@ -383,9 +394,14 @@ class FedEngine:
                     "tp > 1 but no parameter matched the tensor-parallel "
                     "layout — model family unsupported for tp")
             tp_linear.shard_base(self.model, specs, self.mesh.devices)
-        # the rank mask makes the mean RBLA's; cohort mode's two-level
-        # mean has one group on the one device, the masked mean exactly
+        # the rank mask makes the mean RBLA's; cohort mode's mean is the
+        # two-level one, one group per client shard (JAX's hierarchical
+        # build, normalized to the plain rule for the robust aggregators):
+        # with one client a shard it is the flat mean bit for bit
+        groups = (self.mesh.mesh.shape["clients"]
+                  if self.sampling and cfg.aggregator == "mean" else 0)
         self.agg = make_aggregator(cfg.aggregator, cfg.aggregator_trim,
+                                   hierarchical_groups=groups,
                                    rank_mask=self._rmask)
         progs = cs.build_programs(
             self.model, self.mesh, optimizer=cfg.optimizer,
@@ -396,7 +412,8 @@ class FedEngine:
             compression=cfg.compression, adapters=self.adapters)
         self.local_train = progs.local_train
         self.eval_one = progs.eval_one
-        # the device each stacked slot trains on (its dropout generator's)
+        # the device each stacked slot trains on (its dropout generator's):
+        # its client shard's first device
         self._slot_devices = (
             [self.device] * self.C if cfg.faithful
             else [self.mesh.train_device(c) for c in range(self.C)])

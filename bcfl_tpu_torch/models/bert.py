@@ -38,7 +38,6 @@ from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
-import torch.utils.checkpoint
 from torch import nn
 
 from bcfl_tpu_torch.ops.attention import (
@@ -120,12 +119,13 @@ class SelfAttention(nn.Module):
         B, S, _ = x.shape
         n = tp.ways(self.query)
         H = c.num_heads // n
+        xs = tp.replicate(x, self.query)
         parts = []
         for i in range(n):
             dev = tp.device_of(self.query, i, x.device)
 
             def heads(layer):  # [B, S, H*D] -> [B, H, S, D]
-                return tp.column(x, layer, i, n, c.dtype).view(
+                return tp.column(xs[i], layer, i, n, c.dtype).view(
                     B, S, H, c.head_dim).transpose(1, 2)
 
             q, k, v = heads(self.query), heads(self.key), heads(self.value)
@@ -157,7 +157,8 @@ class EncoderLayer(nn.Module):
         a = self.attention(x, bias, deterministic, generator)
         x = layer_norm(x + a, self.attention_norm, c.dtype)
         n = tp.ways(self.mlp_in)
-        h = tp.row([F.gelu(tp.column(x, self.mlp_in, i, n, c.dtype),
+        xs = tp.replicate(x, self.mlp_in)
+        h = tp.row([F.gelu(tp.column(xs[i], self.mlp_in, i, n, c.dtype),
                            approximate="none") for i in range(n)],
                    self.mlp_out, c.dtype)
         h = dropout(h, c.dropout_rate, deterministic, generator)
@@ -167,10 +168,11 @@ class EncoderLayer(nn.Module):
 def checkpointed_layer(layer: nn.Module, x, bias, deterministic,
                        generator: Optional[torch.Generator]):
     """``layer(x, bias, deterministic, generator)`` under
-    ``torch.utils.checkpoint`` (non-reentrant): its activations are
-    recomputed in the backward. ``checkpoint`` restores only the global
-    RNG states, and dropout draws from the explicit ``generator``, which
-    the rest of the forward has advanced by then: the recomputation rewinds
+    ``torch.utils.checkpoint`` (:func:`tp_linear.checkpoint`, the
+    reentrant form): its activations are recomputed in the backward.
+    ``checkpoint`` restores only the global RNG states, and dropout draws
+    from the explicit ``generator``, which the rest of the forward has
+    advanced by then: the recomputation rewinds
     the generator to where the layer started, so it draws the same masks,
     and puts it back afterwards, so later draws are the ones a run without
     remat makes."""
@@ -189,8 +191,7 @@ def checkpointed_layer(layer: nn.Module, x, bias, deterministic,
         finally:
             generator.set_state(now)
 
-    return torch.utils.checkpoint.checkpoint(
-        fn, x, bias, use_reentrant=False, preserve_rng_state=False)
+    return tp.checkpoint(fn, x, bias)
 
 
 class Embeddings(nn.Module):

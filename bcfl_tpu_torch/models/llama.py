@@ -43,7 +43,6 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
-import torch.utils.checkpoint
 from torch import nn
 
 from bcfl_tpu_torch.ops.attention import dot_product_attention
@@ -155,13 +154,14 @@ class LlamaAttention(nn.Module):
         hd = c.head_dim
         n = tp.ways(self.q_proj)
         H, KV = c.num_heads // n, c.kv_heads // n
+        xs = tp.replicate(x, self.q_proj)
         parts = []
         for i in range(n):
             dev = tp.device_of(self.q_proj, i, x.device)
             pos = positions.to(dev)
 
             def heads(layer, h):  # [B, S, h*hd] -> [B, h, S, hd]
-                return tp.column(x, layer, i, n, c.dtype).view(
+                return tp.column(xs[i], layer, i, n, c.dtype).view(
                     B, S, h, hd).transpose(1, 2)
 
             q = rope(heads(self.q_proj, H), pos, c.rope_theta)
@@ -195,11 +195,12 @@ class LlamaMLP(nn.Module):
     def forward(self, x):
         dt = self.cfg.dtype
         n = tp.ways(self.gate_proj)
+        xs = tp.replicate(x, self.gate_proj)
         parts = []
         for i in range(n):
             gate = torch.nn.functional.silu(
-                tp.column(x, self.gate_proj, i, n, dt))
-            parts.append(gate * tp.column(x, self.up_proj, i, n, dt))
+                tp.column(xs[i], self.gate_proj, i, n, dt))
+            parts.append(gate * tp.column(xs[i], self.up_proj, i, n, dt))
         return tp.row(parts, self.down_proj, dt)
 
 
@@ -243,9 +244,7 @@ class LlamaModel(nn.Module):
         for i in range(c.num_layers):
             layer = getattr(self, f"layer_{i}")
             if remat:
-                x = torch.utils.checkpoint.checkpoint(
-                    layer, x, bias, key_bias, positions, use_reentrant=False,
-                    preserve_rng_state=False)
+                x = tp.checkpoint(layer, x, bias, key_bias, positions)
             else:
                 x = layer(x, bias, key_bias, positions)
         return rms_norm(x, self.final_norm)

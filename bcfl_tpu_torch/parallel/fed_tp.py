@@ -6,9 +6,11 @@ For a model too large for one device each client spans ``tp`` devices: the
 frozen base carries the megatron split
 (:func:`bcfl_tpu_torch.models.tp_param_specs`, applied by
 :func:`bcfl_tpu_torch.parallel.tp_linear.shard_base`: shard ``i`` on the
-mesh's inner ``devices[i]``) and is shared by every client, while the
-per-client LoRA adapters stay whole (JAX keeps them replicated over
-``tp``). As in JAX no separate round implementation exists: the
+first row's ``i``-th device) and is shared by that row's clients, while
+the per-client LoRA adapters stay whole (JAX keeps them replicated over
+``tp``). Every other row of the mesh is a client shard of its own, with
+its own split of the base over its own row, built by
+:func:`~bcfl_tpu_torch.fed.client_step.build_programs`. As in JAX no separate round implementation exists: the
 :func:`bcfl_tpu_torch.fed.client_step.build_programs` bodies run unchanged
 and the split lives in the model's forward (``tp_linear.column``/``row``,
 the port's counterpart of the collectives XLA inserts). The product route
@@ -20,6 +22,7 @@ the sharded arithmetic and gives no memory or speed gain.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional
 
 import torch
@@ -50,7 +53,8 @@ def as_client_mesh(mesh: Mesh, num_clients: Optional[int] = None
 def build_fed_tp_programs(model: nn.Module, mesh: Mesh,
                           num_clients: Optional[int] = None, **kw):
     """The :class:`~bcfl_tpu_torch.fed.client_step.FedPrograms` of a
-    tp-split ``model`` on a clients x tp mesh; ``kw`` forwards to
+    ``model`` split over the mesh's first row on a clients x tp mesh,
+    every row a client shard with its own split; ``kw`` forwards to
     :func:`~bcfl_tpu_torch.fed.client_step.build_programs` (the adapter
     programs: tp splits a frozen base)."""
     from bcfl_tpu_torch.fed.client_step import build_programs
@@ -73,17 +77,19 @@ def build_fed_tp_round(model: nn.Module, mesh: Mesh,
     masked clients keep their own trained state.
 
     ``frozen`` is a state dict loaded into ``model``'s base before the
-    round (None: the base the model holds). ``frozen_specs``, when given,
-    splits the base by it (now and after each load), so a base that
-    arrives whole gets the megatron split rather than running dense; a
-    base already split keeps its split, re-taken after a load.
+    round (None: the base the model holds), and every client shard's split
+    is taken anew from it. ``frozen_specs``, when given, splits the base
+    by it (now and after each load), so a base that arrives whole gets the
+    megatron split rather than running dense; a base already split keeps
+    its split, re-taken after a load.
     """
     devices = mesh.axis_devices("tp")
     if frozen_specs is not None:
         tp_linear.shard_base(model, frozen_specs, devices)
-    progs = build_fed_tp_programs(model, mesh, optimizer=optimizer,
-                                  learning_rate=learning_rate,
-                                  gossip_steps=0)
+    build = functools.partial(build_fed_tp_programs, model, mesh,
+                              optimizer=optimizer,
+                              learning_rate=learning_rate, gossip_steps=0)
+    progs = [build()]
     C = mesh.shape[CLIENT_AXIS]
 
     def round_fn(stacked, frozen, batches, generators, mask=None):
@@ -91,10 +97,14 @@ def build_fed_tp_round(model: nn.Module, mesh: Mesh,
             mask = torch.ones((C,), dtype=torch.float32, device=devices[0])
         if frozen is not None:
             specs = frozen_specs or tp_linear.layout(model)
+            # a split over several devices holds no dense weight to load
+            # into: load whole, then split again, the other shards too
+            tp_linear.unshard(model)
             with torch.no_grad():
                 model.load_state_dict(frozen)
             tp_linear.shard_base(model, specs, devices)
-        out = progs.gossip_round(stacked, batches, mask, generators)
+            progs[0] = build()
+        out = progs[0].gossip_round(stacked, batches, mask, generators)
         return out.global_t, out.stats
 
     return round_fn
@@ -102,7 +112,9 @@ def build_fed_tp_round(model: nn.Module, mesh: Mesh,
 
 def stack_adapters(mesh: Mesh, adapters: Tree, num_clients: int) -> Tree:
     """Broadcast one adapter tree to a client-stacked ``[C, ...]`` tree on
-    the mesh's first device, where the clients run."""
+    the mesh's first device, the lead client shard's, where the round's
+    stacked state lives (each shard's rows are copied to its own row as
+    the round issues it)."""
     dev = mesh.flat[0]
     return {p: x.to(dev).unsqueeze(0).expand(
         (num_clients,) + tuple(x.shape)).clone() for p, x in adapters.items()}

@@ -14,13 +14,17 @@ device and the dense weight gives up its storage for a ``meta``
 placeholder of its shape (:func:`unshard` puts it back together). Load new
 weights into a split model after :func:`unshard`. The split is recorded
 on the layer (``layer.__dict__["tp"]``, beside the LoRA hook ``"lora"``).
+A client shard of a 2-D ``(clients, tp)`` mesh gets its own split over
+its own row of devices by :func:`moved`, slice by slice from the lead
+shard's (``fed/client_step.py``'s ``_replica``).
 
 The models call :func:`column` and :func:`row` for their projections:
 
 - :func:`column` gives shard ``i``'s output columns of a column-parallel
   layer (q/k/v, the MLP's input side): ``x`` is replicated onto the
-  shard's device, the shard's own weight rows (and bias) apply, and the
-  per-shard outputs stay split into the head-sharded attention or the
+  shard's device (once for all of a block's layers, by
+  :func:`replicate`), the shard's own weight rows (and bias) apply, and
+  the per-shard outputs stay split into the head-sharded attention or the
   FFN;
 - :func:`row` gives a row-parallel layer's output (the attention output,
   the MLP's output side) from the per-shard inputs: each shard multiplies
@@ -39,10 +43,11 @@ merges per shard: the adapters stay whole (JAX keeps them replicated over
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 
@@ -108,6 +113,56 @@ def _split(layer: nn.Linear, n: int) -> Optional[Shards]:
     return sh
 
 
+class _Replicate(torch.autograd.Function):
+    """``x`` on each of ``devices``; the backward sums the copies'
+    gradients on ``x``'s device, in device order."""
+
+    @staticmethod
+    def forward(ctx, x, devices):
+        ctx.home = x.device
+        return tuple(x.view_as(x) if d == x.device else x.to(d, copy=True)
+                     for d in devices)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = None
+        for g in grads:
+            if g is not None:
+                g = g.to(ctx.home)
+                total = g if total is None else total + g
+        return total, None
+
+
+def replicate(x: torch.Tensor, layer: nn.Linear) -> List[torch.Tensor]:
+    """``x`` for each shard of ``layer``'s split (``[x]`` when it is not
+    split), to feed every column-parallel layer of a block that reads
+    ``x``. Over several devices the copies are made together and their
+    gradients meet on ``x``'s device in shard order: copies made layer by
+    layer would add up there in whatever order the devices' backward
+    threads finish, and the sum's bits would change from run to run."""
+    sh = layer.__dict__.get("tp")
+    if sh is None:
+        return [x]
+    if all(d == x.device for d in sh.devices):
+        return [x] * len(sh.devices)
+    return list(_Replicate.apply(x, tuple(sh.devices)))
+
+
+def checkpoint(fn: Callable, x: torch.Tensor, *args):
+    """``fn(x, *args)`` with its activations recomputed in the backward
+    (``torch.utils.checkpoint``, the global RNG states not restored), in
+    the reentrant form: the non-reentrant one recomputes from whichever
+    device's backward thread first unpacks a saved activation, and over a
+    split on several devices two threads can unpack the same layer's at
+    once (PyTorch then stops on its recomputation count). The reentrant
+    form needs an input that requires grad: a frozen ``x`` (the first
+    layer's, under LoRA) is given one, its gradient dropped."""
+    if not x.requires_grad:
+        x = x.detach().requires_grad_()
+    return torch.utils.checkpoint.checkpoint(
+        fn, x, *args, use_reentrant=True, preserve_rng_state=False)
+
+
 def column(x: torch.Tensor, layer: nn.Linear, i: int, n: int,
            dtype: torch.dtype) -> torch.Tensor:
     """Shard ``i`` of ``n`` of a column-parallel layer's output, on the
@@ -139,7 +194,7 @@ def row(parts: Sequence[torch.Tensor], layer: nn.Linear, dtype: torch.dtype
     return acc.to(dtype)
 
 
-def _indexed(d) -> torch.device:
+def indexed(d) -> torch.device:
     """``d`` with its index (``cuda`` names the current card)."""
     d = torch.device(d)
     if d.type == "cuda" and d.index is None:
@@ -151,7 +206,7 @@ def shard_layer(layer: nn.Linear, dim: int, devices: Sequence,
                 split_bias: bool) -> None:
     """Split ``layer``'s weight along ``dim`` (and its bias with the
     outputs when ``split_bias``) into ``len(devices)`` contiguous shards."""
-    devices = [_indexed(d) for d in devices]
+    devices = [indexed(d) for d in devices]
     n = len(devices)
     size = layer.weight.shape[dim]
     if size % n:
@@ -174,6 +229,23 @@ def shard_layer(layer: nn.Linear, dim: int, devices: Sequence,
                                     requires_grad=layer.weight.requires_grad)
     layer.__dict__["tp"] = Shards(dim, devices, bounds, weights, biases,
                                   home=w.device if own else None)
+
+
+def moved(sh: Shards, devices: Sequence) -> Shards:
+    """``sh``'s split over ``devices``: shard ``i``'s slice (and bias)
+    copied from ``sh.devices[i]`` straight to ``devices[i]``, so that no
+    device receives more than its own slices. The copy owns them (its
+    layer's dense weight is a ``meta`` placeholder that :func:`unshard`
+    puts back together on ``devices[0]``)."""
+    devices = [indexed(d) for d in devices]
+    if len(devices) != len(sh.weights):
+        raise ValueError(f"a {len(sh.weights)}-way split moved onto "
+                         f"{len(devices)} devices")
+    weights = [w.to(d, copy=True) for w, d in zip(sh.weights, devices)]
+    biases = (None if sh.biases is None else
+              [b.to(d, copy=True) for b, d in zip(sh.biases, devices)])
+    return Shards(sh.dim, devices, list(sh.bounds), weights, biases,
+                  home=devices[0])
 
 
 def shard_base(model: nn.Module, specs: Dict[str, Optional[int]],

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``bcfl_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # phases 1-4, paths (a)-(z)
+    python3 chip_smoke.py              # phases 1-4, paths (a)-(aa)
     python3 chip_smoke.py --profile    # phases 1-4, then 5
 
 Phases, each of which raises (and the script exits non-zero) on failure:
@@ -168,7 +168,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    gradients no farther than twice flash's from the float32 step;
    float32 compute against the float32 attention in one block: loss
    within 1e-5, gradients within 1e-4); on finite losses; it prints the
-   peak memory and the round wall. Then two short host-side paths: (x)
+   peak memory and the round wall. (aa) makes every row of a 2-D mesh a
+   client shard: (v)'s configuration on ``[cuda:0] * 4`` (2 rows of
+   ``tp=2``, 2 clients a row) against (v)'s own one-row run, and (w)'s
+   at ``sp=2`` on ``[cuda:0] * 4`` (2 rows of 1 client, each with its own
+   ring) against ``[cuda:0] * 2``, each with the counts set to 0 just
+   before and read just after: the global tree, every round's payload,
+   the ledger head, the per-client stats and evaluation bit for bit,
+   K1-K3 as often as one row's, K4 and K5 once a row, the ring's hops by
+   row adding up to the one row's; walls, peaks and the bytes between the
+   rows print. Then two short host-side paths: (x)
    ``python -m bcfl_tpu_torch.entrypoints lint --json`` in a fresh
    interpreter of this machine, which has no JAX: exit 0, zero failing
    findings, the six checkers; then each checker's firing fixture
@@ -4090,33 +4099,55 @@ def grad_rel(got: dict, want: dict) -> float:
     return math.sqrt(num / max(den, 1e-30))
 
 
+def tp_config(dataset: str):
+    """Path (v)'s configuration: (k)'s model, LoRA rank 8, one round, 4
+    clients, ``tp=2``, the ledger on."""
+    from bcfl_tpu_torch.config import LedgerConfig
+
+    return llama_config(dataset, name="chip-smoke-llama2-7b-lora-tp",
+                        lora_rank=8, num_rounds=1, tp=2,
+                        ledger=LedgerConfig(enabled=True))
+
+
+def sp_config(long4k: str, sp: int):
+    """Path (w)'s configuration: (k)'s model on the causal-LM task at
+    Llama-2's 4096-token context, LoRA rank 8, batch 1, 2 clients, one
+    round, sequence parallelism ``sp``."""
+    return llama_config(long4k, name="chip-smoke-llama2-7b-lora-sp",
+                        task="causal_lm", lora_rank=8, seq_len=4096,
+                        batch_size=1, num_clients=2, num_rounds=1, sp=sp,
+                        max_eval_batches=1)
+
+
 def path_tp(fk, stats, smi, dataset, llama_per, k_peak):
     """Path (v): tensor parallelism, (k)'s model (llama2-7b at full width
     and depth, float32 base, bf16 compute, remat, LoRA rank 8) at
     ``tp=2`` on ``devices=[cuda:0, cuda:0]``: server mode, 4 clients, one
     round of 2 local steps of 8 x 512 tokens, ``int8+topk`` over the
     adapters, the ledger on. Both shards share the one card: the sharded
-    arithmetic is proved, not a memory or speed gain."""
-    from bcfl_tpu_torch.config import LedgerConfig
+    arithmetic is proved, not a memory or speed gain. Returns the run's
+    :func:`kept_run`, the one-row baseline of (aa)."""
     from bcfl_tpu_torch.models import tp_param_specs
     from bcfl_tpu_torch.models.convert import leaf_specs
     from bcfl_tpu_torch.parallel import tp_linear
 
     label = "tensor-parallel path (v)"
-    cfg = llama_config(dataset, name="chip-smoke-llama2-7b-lora-tp",
-                       lora_rank=8, num_rounds=1, tp=2,
-                       ledger=LedgerConfig(enabled=True))
+    cfg = tp_config(dataset)
     devices = [torch.device("cuda", 0)] * cfg.tp
     calls, first = [], []
     restore = spy_llama_flash(calls)
     restore_step = spy_first_call(first)
     try:
         t0 = time.perf_counter()
-        result, launches, peak = drive(cfg, smi, label, devices=devices)
+        result, launches, payloads, client_stats, peaks, traffic, _ = (
+            drive_tapped(cfg, smi, label, devices))
         wall = time.perf_counter() - t0
     finally:
         restore()
         restore_step()
+    one_row = kept_run(result, launches, payloads, client_stats, peaks,
+                       traffic)
+    peak = peaks["cuda:0"]
     count_launches(stats, launches)
     model = result.model
     layers = model.cfg.num_layers
@@ -4239,6 +4270,7 @@ def path_tp(fk, stats, smi, dataset, llama_per, k_peak):
               f"({t / full_dev[name]:.2f}x); {smi}", flush=True)
     del q, k, v, do, bias
     torch.cuda.empty_cache()
+    return one_row
 
 
 def flash_device_ms(fk, q, k, v, do, bias) -> dict:
@@ -4304,10 +4336,7 @@ def path_sp(stats, smi, long4k):
     from bcfl_tpu_torch.parallel.ring_attention import ring_attention_gspmd
 
     label = "sequence-parallel path (w)"
-    cfg = llama_config(long4k, name="chip-smoke-llama2-7b-lora-sp",
-                       task="causal_lm", lora_rank=8, seq_len=4096,
-                       batch_size=1, num_clients=2, num_rounds=1, sp=4,
-                       max_eval_batches=1)
+    cfg = sp_config(long4k, 4)
     devices = [torch.device("cuda", 0)] * cfg.sp
     rings, first = [], []
     restore = spy_ring(rings)
@@ -4397,9 +4426,73 @@ def path_sp(stats, smi, long4k):
 
 def phase_parallel(fk, stats, smi, dataset, llama_per, k_peak):
     """Paths (v) and (w), each with the launch counts set to 0 just
-    before it and read just after."""
-    path_tp(fk, stats, smi, dataset, llama_per, k_peak)
-    path_sp(stats, smi, write_long4k_docs())
+    before it and read just after. Returns (v)'s :func:`kept_run` and
+    (w)'s corpus, for (aa)."""
+    tp_one = path_tp(fk, stats, smi, dataset, llama_per, k_peak)
+    long4k = write_long4k_docs()
+    path_sp(stats, smi, long4k)
+    return tp_one, long4k
+
+
+def phase_inner_rows(stats, smi, dataset, long4k, tp_one):
+    """(aa): clients x tp and clients x seq with more than one client
+    shard, through :func:`clients_axis_pair`. Each leg runs on
+    ``[cuda:0] * 4``, a mesh of 2 rows of 2 (every row a client shard of
+    2 or 1 clients, its inner shards sharing the one card with the other
+    row's), against the same configuration on ``[cuda:0] * 2``, one row:
+    the global tree, the payload bytes, the ledger head, the per-client
+    stats and evaluation bit for bit, K4 and K5 once per row, walls,
+    peaks and bytes between the rows printed.
+
+    - ``tp``: path (v)'s configuration; every row holds a split of the
+      frozen base (on the lead row's own card, the lead's, never written)
+      and runs K1-K3 on its head shards as often as the one row does in
+      all. The one-row run is (v)'s own (``tp_one``).
+    - ``sp``: path (w)'s configuration at ``sp=2``, full depth; every row
+      rides its own ring (no kernel: the float32 ring), its hops counted
+      under its row (``sp.hops``), the rows' hops adding up to the one
+      row's.
+    """
+    from bcfl_tpu_torch.parallel import sp
+
+    quad = [torch.device("cuda", 0)] * 4
+    row = [torch.device("cuda", 0)] * 2
+    label = "clients x tp (aa)"
+    pair = clients_axis_pair(tp_config(dataset), smi, label, quad, one=row,
+                             one_run=tp_one)
+    launches = pair["many"][0]
+    count_launches(stats, launches)  # the one row's counted by (v)
+    if pair["shards"] != 2 or min(launches.values()) <= 0:
+        raise RuntimeError(f"{label}: {pair['shards']} client shards, "
+                           f"launches {launches}")
+    print_clients_axis(label, pair, smi)
+    torch.cuda.empty_cache()
+    label = "clients x seq (aa)"
+    cfg = sp_config(long4k, 2)
+    sp.reset_hops()
+    result, *tapped, _ = drive_tapped(cfg, smi, f"{label} on 2 device(s)",
+                                      row)
+    one_hops = [sp.hops(r) for r in range(2)]
+    one_run = kept_run(result, *tapped)
+    del result
+    torch.cuda.empty_cache()
+    sp.reset_hops()
+    pair = clients_axis_pair(cfg, smi, label, quad, one=row, one_run=one_run)
+    hops = [sp.hops(r) for r in range(2)]
+    for key in ("one", "many"):
+        count_launches(stats, pair[key][0])
+        if any(pair[key][0][n] for n in FLASH_OPS) or min(
+                pair[key][0][n] for n in SHARD_CODEC_OPS) <= 0:
+            raise RuntimeError(f"{label}: launches {pair[key][0]}")
+    # each row rode its own ring; the rows' hops add up to the one row's
+    if (pair["shards"] != 2 or one_hops[1] or min(hops) <= 0
+            or sum(hops) != one_hops[0]):
+        raise RuntimeError(f"{label}: {pair['shards']} client shards, ring "
+                           f"hops by row {hops} against one row's "
+                           f"{one_hops}")
+    print_clients_axis(label, pair, smi)
+    print(f"{label}: ring hops by row {hops}, one row's {one_hops[0]}",
+          flush=True)
 
 
 # ------------------------------------------------- lint and synthetic inputs
@@ -4655,29 +4748,44 @@ def same_bits(a, b) -> bool:
 SHARD_CODEC_OPS = ("int8_quantize", "topk_select")
 
 
-def clients_axis_pair(cfg, smi, label, devices):
-    """``cfg`` on ``[cuda:0]`` (one client shard) and on ``devices`` (one
-    shard per device the mesh takes), each through ``run`` with the launch
-    counts set to 0 just before it and read just after: the global tree,
-    every round's payload bytes, the ledger head, the per-client stats and
-    evaluation bit for bit; K1-K3 launched as often as on one shard, K4
-    and K5 (each shard encodes its own rows) exactly ``shards`` times as
-    often. Returns ``{"one": ..., "many": ..., "shards": n, "template":
-    ...}``, each run ``(launches, round walls, peaks, per-round bytes
-    between the lead shard and the others)``, the template the trained
-    tree's leaf shapes on the meta device."""
+def kept_run(result, launches, payloads, client_stats, peaks, traffic):
+    """What :func:`clients_axis_pair` keeps of one ``drive_tapped`` run:
+    ``(compared, printed)``, the first ``(trainable, ledger head, round
+    records, launches, payloads, per-client stats)``, the second
+    ``(launches, round walls, peaks, per-round bytes between the lead
+    shard and the others)``; not the model (a 7B base twice would not fit
+    the lead card)."""
+    head = result.ledger.head if result.ledger is not None else None
+    return ((result.trainable, head, result.metrics.rounds, launches,
+             payloads, client_stats),
+            (launches, [r.wall_s for r in result.metrics.rounds], peaks,
+             traffic))
+
+
+def clients_axis_pair(cfg, smi, label, devices, one=None, one_run=None):
+    """``cfg`` on ``one`` (default ``[cuda:0]``: one client shard) and on
+    ``devices`` (one shard per device the mesh takes, or per row of a 2-D
+    mesh), each through ``run`` with the launch counts set to 0 just
+    before it and read just after: the global tree, every round's payload
+    bytes, the ledger head, the per-client stats and evaluation bit for
+    bit; K1-K3 launched as often as on one shard, K4 and K5 (each shard
+    encodes its own rows) exactly ``shards`` times as often. ``one_run``,
+    when given, is the one-shard run's :func:`kept_run` from a path that
+    already ran that configuration on ``one``. Returns ``{"one": ...,
+    "many": ..., "shards": n, "template": ...}``, each run ``(launches,
+    round walls, peaks, per-round bytes between the lead shard and the
+    others)``, the template the trained tree's leaf shapes on the meta
+    device."""
     out, runs = {}, {}
-    for key, devs in (("one", [torch.device("cuda", 0)]),
-                      ("many", list(devices))):
+    if one_run is not None:
+        runs["one"], out["one"] = one_run
+    todo = [("one", list(one or [torch.device("cuda", 0)])),
+            ("many", list(devices))]
+    for key, devs in todo[1 if one_run is not None else 0:]:
         result, launches, payloads, st, peaks, traffic, shards = drive_tapped(
             cfg, smi, f"{label} on {len(devs)} device(s)", devs)
-        # keep what is compared, not the model (a 7B base twice would not
-        # fit the lead card)
-        head = result.ledger.head if result.ledger is not None else None
-        runs[key] = (result.trainable, head, result.metrics.rounds,
-                     launches, payloads, st)
-        out[key] = (launches, [r.wall_s for r in result.metrics.rounds],
-                    peaks, traffic)
+        runs[key], out[key] = kept_run(result, launches, payloads, st,
+                                       peaks, traffic)
         out["shards"] = shards
         out["template"] = {p: torch.empty(x.shape, device="meta")
                            for p, x in result.trainable.items()}
@@ -5347,8 +5455,11 @@ def main(argv=None) -> int:
     done("paths (h)-(j)")
     k_peak = phase_llama(ck, fk, stats, smi, dataset, llama_per)
     done("paths (k)-(l)")
-    phase_parallel(fk, stats, smi, dataset, llama_per, k_peak)
+    tp_one, long4k = phase_parallel(fk, stats, smi, dataset, llama_per,
+                                    k_peak)
     done("paths (v)-(w)")
+    phase_inner_rows(stats, smi, dataset, long4k, tp_one)
+    done("path (aa)")
     phase_lint()
     path_synthetic(ck, stats, smi)
     done("paths (x)-(y)")

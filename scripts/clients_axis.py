@@ -4,6 +4,13 @@ several (card only).
 
     python3 scripts/clients_axis.py
 
+On a host with four or more cards it first runs the ``tp`` leg, path
+(v)'s configuration (llama2-7b at full width and depth, LoRA rank 8,
+``tp=2``, 4 clients, ``ROUNDS`` rounds) on ``[cuda:0, ..., cuda:3]``, a
+``(clients, tp)`` mesh of 2 rows (row 1 on cards 2 and 3, with its own
+split of the frozen base), against ``[cuda:0, cuda:1]``, one row: bits,
+round walls, the peak memory of every card.
+
 Runs ``chip_smoke.py``'s path (b) configuration (bert-base, 4 clients,
 2 local steps of 32 x 512 tokens of long documents, flash attention, bf16,
 ``int8+topk``, server FedAvg) with the ledger on, ``ROUNDS`` rounds,
@@ -100,14 +107,14 @@ def fenced_training(times: list, bodies: list):
     return saved
 
 
-def pair(chip_smoke, cfg, smi, label, devices) -> dict:
+def pair(chip_smoke, cfg, smi, label, devices, one=None) -> dict:
     from bcfl_tpu_torch.fed import client_step as cs
 
     times: list = []
     bodies: list = []
     saved = fenced_training(times, bodies)
     try:
-        out = chip_smoke.clients_axis_pair(cfg, smi, label, devices)
+        out = chip_smoke.clients_axis_pair(cfg, smi, label, devices, one=one)
     finally:
         cs.train_clients, cs.local_updates, cs.make_local_train = saved
     rounds, C = cfg.num_rounds, cfg.num_clients
@@ -123,6 +130,7 @@ def pair(chip_smoke, cfg, smi, label, devices) -> dict:
                     "peak_gb": peaks, "launches": launches,
                     "bytes_between_shards": moved}
     rec["devices"] = [str(d) for d in devices]
+    rec["one_devices"] = [str(d) for d in one or [torch.device("cuda", 0)]]
     rec["cards"] = len({str(d) for d in devices})
     print(f"{label}: {json.dumps(rec)}", flush=True)
     chip_smoke.print_clients_axis(label, out, smi)
@@ -271,6 +279,15 @@ def main() -> int:
     b_cfg = chip_smoke.flash_config(dataset, ledger=LedgerConfig(enabled=True),
                                     num_rounds=ROUNDS)
     out = {"smi": smi, "cards_visible": n}
+    if n >= 4:
+        cards = [torch.device("cuda", i) for i in range(4)]
+        tp_cfg = chip_smoke.tp_config(dataset).replace(num_rounds=ROUNDS)
+        out["tp_4_cards"], _ = pair(chip_smoke, tp_cfg, smi,
+                                    "(v) on 4 cards, 2 rows of tp=2", cards,
+                                    one=cards[:2])
+    else:
+        print(f"clients_axis: {n} card(s) visible: no tp leg across 4",
+              flush=True)
     out["b_one_card_4_shards"], template = pair(
         chip_smoke, b_cfg, smi, "(b) on [cuda:0] * 4", [lead] * 4)
     counts = [k for k in CARDS if k <= n]

@@ -121,11 +121,14 @@ def test_client_devices_and_inner_devices():
     assert one.train_devices == devs[:2]
     assert [one.train_device(c) for c in (0, 4, 5, 9)] == [
         devs[0], devs[0], devs[1], devs[1]]
-    # a 2-D mesh: two client shards, every client on the first
+    # a 2-D mesh: two client shards, each training on its own row
     tp = tmesh.client_mesh(4, devs, tp=2)
     assert tp.client_devices == [devs[0], devs[2]]
-    assert tp.devices == devs[:2] and tp.train_devices == devs[:1]
-    assert {tp.train_device(c) for c in range(4)} == {devs[0]}
+    assert tp.devices == tp.row_devices(0) == devs[:2]
+    assert tp.row_devices(1) == devs[2:]
+    assert tp.train_devices == [devs[0], devs[2]]
+    assert [tp.train_device(c) for c in range(4)] == [
+        devs[0], devs[0], devs[2], devs[2]]
 
 
 # ------------------------------------------------------- engine bit parity

@@ -18,6 +18,14 @@ and codec issued to its own card. On a host with two or more cards,
 K4 and K5 launched on card 1 equal their plain versions there, and the
 codec's uniforms drawn on card 1 equal card 0's.
 
+A 2-D ``(clients, tp)`` mesh trains every row as a client shard: a tiny
+Llama LoRA engine at ``tp=2`` (4 clients, flash at every length, K1-K3
+once per head shard) on ``[cuda:0] * 4`` (2 rows of 2 sharing the card)
+and, on a host with four or more cards, on ``[cuda:0, ..., cuda:3]``
+(row 1 on cards 2 and 3) equals the same run on one row (``[cuda:0] * 2``,
+``[cuda:0, cuda:1]``) bit for bit, every row's model split over its own
+row's cards.
+
 The tests marked ``gpu`` skip without a card. This file imports neither
 JAX nor the JAX package:
 
@@ -37,6 +45,7 @@ from bcfl_tpu_torch.config import FedConfig, LedgerConfig
 from bcfl_tpu_torch.fed import client_step as cs
 from bcfl_tpu_torch.models import get_config
 from bcfl_tpu_torch.ops import codec_kernels as ck
+from bcfl_tpu_torch.parallel import tp_linear
 
 ROUNDS, STEPS = 2, 2
 
@@ -79,29 +88,42 @@ def _smoke():
 
 
 def _cfg(**kw):
-    return FedConfig(name="clients-axis-gpu", model="tiny-bert",
-                     dataset="synthetic", num_labels=2, num_rounds=ROUNDS,
-                     seq_len=64, batch_size=8, max_local_batches=STEPS,
-                     vocab_size=512, eval_every=1, use_flash=True,
-                     compression=CompressionConfig(kind="int8+topk"),
-                     ledger=LedgerConfig(enabled=True), **kw)
+    base = dict(name="clients-axis-gpu", model="tiny-bert",
+                dataset="synthetic", num_labels=2, num_rounds=ROUNDS,
+                seq_len=64, batch_size=8, max_local_batches=STEPS,
+                vocab_size=512, eval_every=1, use_flash=True,
+                compression=CompressionConfig(kind="int8+topk"),
+                ledger=LedgerConfig(enabled=True))
+    base.update(kw)
+    return FedConfig(**base)
 
 
-def _pair(monkeypatch, cfg, devices):
+def _pair(monkeypatch, cfg, devices, one=None):
     """``chip_smoke.clients_axis_pair`` (which raises on any difference)
-    with the shard devices every sharded call ran on; the exact launch
-    counts checked."""
+    of ``devices`` against ``one`` (default ``[cuda:0]``) with the shard
+    devices every sharded call ran on, the exact launch counts checked;
+    under ``tp`` every client shard's model is split over its own row."""
     seen = []
-    run_sharded = cs.run_sharded
+    run_sharded, build_programs = cs.run_sharded, cs.build_programs
 
     def recording(sh, inputs, *args):
         seen.append(list(sh.devices))
         return run_sharded(sh, inputs, *args)
 
+    def checked(model, mesh, *args, **kw):
+        progs = build_programs(model, mesh, *args, **kw)
+        for s, body in enumerate(progs.local_train.bodies):
+            m = next(c.cell_contents for c in body.__closure__
+                     if isinstance(c.cell_contents, torch.nn.Module))
+            for sh in tp_linear.split_layers(m).values():
+                assert sh.devices == mesh.row_devices(s)
+        return progs
+
     monkeypatch.setattr(cs, "run_sharded", recording)
+    monkeypatch.setattr(cs, "build_programs", checked)
     smoke = _smoke()
     out = smoke.clients_axis_pair(cfg, smoke.nvidia_smi_line(),
-                                  "clients axis gpu test", devices)
+                                  "clients axis gpu test", devices, one=one)
     launches, shards = out["one"][0], out["shards"]
     assert shards == len(seen[-1]) > 1 and min(launches.values()) > 0
     assert out["many"][0] == {
@@ -109,7 +131,8 @@ def _pair(monkeypatch, cfg, devices):
         for k, v in launches.items()}
     assert launches["int8_quantize"] == ROUNDS
     layers = get_config(cfg.model).num_layers
-    want = ROUNDS * cfg.num_clients * STEPS * layers
+    # under tp, once per head shard
+    want = ROUNDS * cfg.num_clients * STEPS * layers * cfg.tp
     assert launches["flash_bwd_dkv"] == launches["flash_bwd_dq"] == want
     if cfg.mode == "server":
         # no post-train tree leaves its shard: payload rows and stats
@@ -137,6 +160,24 @@ def test_shards_on_four_cards_equal_one_shard(monkeypatch, four_cards, case):
     seen = _pair(monkeypatch, cfg, four_cards)
     shards = 4 if cfg.num_clients == 4 else 2
     assert seen and all(d == four_cards[:shards] for d in seen)
+
+
+#: a tiny Llama LoRA engine at tp=2: 4 clients, 2 rows of 2 on 4 devices
+TP = dict(mode="server", num_clients=4, model="tiny-llama", lora_rank=2,
+          tp=2)
+
+
+@pytest.mark.gpu
+def test_tp_rows_on_one_card_equal_one_row(monkeypatch, cuda_device):
+    seen = _pair(monkeypatch, _cfg(**TP), [cuda_device] * 4,
+                 one=[cuda_device] * 2)
+    assert seen and all(d == [cuda_device] * 2 for d in seen)
+
+
+@pytest.mark.gpu
+def test_tp_rows_on_four_cards_equal_one_row(monkeypatch, four_cards):
+    seen = _pair(monkeypatch, _cfg(**TP), four_cards, one=four_cards[:2])
+    assert seen and all(d == [four_cards[0], four_cards[2]] for d in seen)
 
 
 @pytest.mark.gpu

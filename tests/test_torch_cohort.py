@@ -8,9 +8,16 @@ and the engine's registry-keyed state) against the JAX package.
   and the checkpoint state round-trips exactly.
 - The config's capability table for LoRA ranks and cohort mode is JAX's:
   every case JAX rejects the port rejects with JAX's message, every case
-  JAX accepts the port accepts; ``cohort_size`` on the port's one device
-  accepts 0 and the whole cohort and otherwise raises the JAX engine's
-  device-count message (for one device).
+  JAX accepts the port accepts; ``cohort_size`` pins the mesh to
+  ``sample_clients / cohort_size`` client shards, and the engine refuses a
+  pin its devices cannot meet with the JAX engine's message (on 8 devices
+  and on one); JAX's own pin test on the port's CPU devices (4 client
+  shards of 2; 2 shards of 2 x ``tp=2``).
+- The cohort mean is JAX's two-level mean over the client shards: on 2
+  shards of 2 every round's global is ``hierarchical_weighted_mean`` with
+  2 groups over the landed reconstruction, bit for bit, and the engine
+  stays within the tolerance below of JAX's engine on the same mesh
+  shape; on shards of one client the two-level mean is the flat one.
 - A tiny-bert cohort engine run (registry 10, cohort 4, ``int8+topk``
   with top-k 1.0 and nearest rounding, the ledger, 3 rounds, contiguous
   partitions, so each slot's batches come from its registry id in both
@@ -179,20 +186,55 @@ def test_cohort_size_on_one_device():
     from bcfl_tpu.fed.engine import FedEngine as JEngine
 
     base = dict(registry_size=64, sample_clients=16, model="tiny-bert",
-                seq_len=16, batch_size=4)
-    for ok in (0, 16):
-        assert FedConfig(**base, cohort_size=ok).cohort_size == ok
-    # JAX pins the mesh to sample_clients / cohort_size devices and
-    # refuses a pin it cannot meet; the port has one device
+                seq_len=16, batch_size=4, dataset="synthetic")
+    # the config takes any pin that divides the cohort, as JAX's does
+    for pin in (0, 1, 8, 16):
+        assert (FedConfig(**base, cohort_size=pin).cohort_size
+                == JCfg(**base, cohort_size=pin).cohort_size == pin)
+    assert FedEngine(FedConfig(**base, cohort_size=16),
+                     device="cpu").mesh.per_device == 16
+    # the engine pins the mesh to sample_clients / cohort_size client
+    # shards and refuses, in JAX's words, a pin its devices cannot meet:
+    # on JAX's 8 devices and the port's 8 CPU devices alike, and on one
+    n = len(jax.devices())
     with pytest.raises(ValueError) as jerr:
         JEngine(JCfg(**base, cohort_size=1))
-    n = len(jax.devices())
     with pytest.raises(ValueError) as terr:
-        FedConfig(**base, cohort_size=1)
-    assert str(terr.value) == str(jerr.value).replace(f"have {n}", "have 1")
+        FedEngine(FedConfig(**base, cohort_size=1), devices=["cpu"] * n)
+    assert str(terr.value) == str(jerr.value) == (
+        f"cohort_size 1 needs 16 devices for a 16-client cohort, have {n}")
     with pytest.raises(ValueError, match="cohort_size 8 needs 2 devices for "
                                          "a 16-client cohort, have 1"):
-        FedConfig(**base, cohort_size=8)
+        FedEngine(FedConfig(**base, cohort_size=8), device="cpu")
+
+
+def test_cohort_size_pins_per_device_stack():
+    """JAX's ``tests/test_cohort.py::test_cohort_size_pins_per_device_stack``
+    on the port's CPU devices: the pin gives the client shards, with an
+    inner tp axis each shard reserving tp devices."""
+    eng = FedEngine(_tiny_cohort(registry_size=64, sample_clients=8,
+                                 max_local_batches=2, cohort_size=2,
+                                 compression=CompressionConfig(kind="none"),
+                                 ledger=LedgerConfig(enabled=False)),
+                    devices=["cpu"] * 8)
+    # 8-client cohort / 2 per device = 4 client shards
+    assert eng.mesh.per_device == 2
+    assert eng.mesh.mesh.shape == {"clients": 4}
+    assert len(eng.local_train.bodies) == 4
+    res = eng.run()
+    for x in res.trainable.values():
+        assert torch.isfinite(x).all()
+    # 4-client cohort / 2 per device = 2 client shards x tp=2 = 4 devices,
+    # each shard on its own row
+    eng_tp = FedEngine(_tiny_cohort(registry_size=64, sample_clients=4,
+                                    cohort_size=2, tp=2, lora_rank=2,
+                                    num_rounds=1), devices=["cpu"] * 4)
+    assert eng_tp.mesh.per_device == 2
+    assert eng_tp.mesh.mesh.shape == {"clients": 2, "tp": 2}
+    assert len(eng_tp.local_train.bodies) == 2
+    res = eng_tp.run()
+    for x in res.trainable.values():
+        assert torch.isfinite(x).all()
 
 
 def _pair_configs(**kw):
@@ -216,17 +258,22 @@ def _pair_configs(**kw):
     return j, t
 
 
-def test_cohort_engine_matches_jax(monkeypatch):
+def _engine_pair(monkeypatch, devices, **kw):
+    """JAX's cohort engine and the port's on ``devices``, from JAX's
+    initial parameters, dropout off, both run; the port's batches checked
+    to be JAX's. Returns ``(JAX result, JAX engine, port engine, port
+    result, the per-leaf sum over rounds of the largest quantization
+    scale)``."""
     import bcfl_tpu.models as jmodels
     from bcfl_tpu.fed.engine import FedEngine as JEngine
     from bcfl_tpu_torch.fed import client_step as tcs
 
-    jcfg, tcfg = _pair_configs()
+    jcfg, tcfg = _pair_configs(**kw)
     build = jmodels.build
     monkeypatch.setattr(jmodels, "build",
                         lambda *a, **k: build(*a, dropout_rate=0.0, **k))
     jeng = JEngine(jcfg)
-    teng = FedEngine(tcfg, device="cpu")
+    teng = FedEngine(tcfg, devices=devices)
     teng.trainable0 = _flat(jeng.trainable0)
     monkeypatch.setattr(teng, "_generators", lambda rnd: [None] * 4)
     # the port's own batches (contiguous partitions by registry id) are
@@ -238,15 +285,23 @@ def test_cohort_engine_matches_jax(monkeypatch):
         for k, v in tb.items():
             np.testing.assert_array_equal(v.numpy(), np.asarray(jb[k]))
     steps = {}
-    encode = tcs.encode_deltas
+    encode, decode = tcs.encode_deltas, tcs.decode_recon
+
+    def add_steps(payload):
+        for p, parts in payload.items():
+            steps[p] = steps.get(p, 0.0) + float(parts["s"].max())
 
     def recording(*args):
         payload, recon, resid = encode(*args)
-        for p, parts in payload.items():
-            steps[p] = steps.get(p, 0.0) + float(parts["s"].max())
+        add_steps(payload)
         return payload, recon, resid
 
+    def decoding(comp, payload, *args):  # the shards encoded the payload
+        add_steps(payload)
+        return decode(comp, payload, *args)
+
     monkeypatch.setattr(tcs, "encode_deltas", recording)
+    monkeypatch.setattr(tcs, "decode_recon", decoding)
     jres, tres = jeng.run(), teng.run()
     assert len(tres.metrics.rounds) == 3
     for rj, rt in zip(jres.metrics.rounds, tres.metrics.rounds):
@@ -260,10 +315,64 @@ def test_cohort_engine_matches_jax(monkeypatch):
     tl, jl = tres.ledger.entries, jres.ledger.entries
     assert [(e.round, e.client) for e in tl] == [(e.round, e.client)
                                                  for e in jl]
+    return jres, jeng, teng, tres, steps
+
+
+def _assert_near_jax(jres, tres, steps):
     flat_j = _flat(jres.trainable)
     for p, x in flat_j.items():
         err = np.abs(tres.trainable[p].numpy() - x.numpy())
         assert err.max() <= 3 * 2 * LR * STEPS * 1.01 + steps[p], p
+
+
+def test_cohort_engine_matches_jax(monkeypatch):
+    jres, _, _, tres, steps = _engine_pair(monkeypatch, ["cpu"])
+    _assert_near_jax(jres, tres, steps)
+
+
+def test_cohort_mean_is_two_level_over_client_shards(monkeypatch):
+    """``cohort_size=2`` on 2 devices: 2 client shards of 2, as JAX's mesh
+    on 2 of its devices. Every round's global is the two-level mean with 2
+    groups over the reconstruction that landed, bit for bit, and the run
+    stays within the one-device tolerance of JAX's engine, which compiles
+    the same two-level mean."""
+    from bcfl_tpu_torch.parallel import (hierarchical_weighted_mean,
+                                         masked_weighted_mean)
+
+    calls = []
+    real = FedEngine.__init__
+
+    def tapped(self, *a, **k):
+        real(self, *a, **k)
+        agg = self.agg
+
+        def recorded(t, w, fb):
+            out = agg(t, w, fb)
+            calls.append((t, w, fb, out))
+            return out
+
+        self.agg = recorded
+
+    monkeypatch.setattr(FedEngine, "__init__", tapped)
+    jres, jeng, teng, tres, steps = _engine_pair(
+        monkeypatch, ["cpu"] * 2, cohort_size=2)
+    assert teng.mesh.mesh.shape == {"clients": 2} == dict(
+        jeng.mesh.mesh.shape)
+    assert teng.mesh.per_device == 2 and len(teng.local_train.bodies) == 2
+    assert len(calls) == 3
+    for t, w, fb, out in calls:
+        want = hierarchical_weighted_mean(t, w, 2, fallback=fb)
+        for p, x in want.items():
+            assert torch.equal(out[p].view(torch.int32),
+                               x.view(torch.int32)), p
+    for p, x in calls[-1][3].items():
+        assert torch.equal(tres.trainable[p], x), p
+    _assert_near_jax(jres, tres, steps)
+    # one client a shard: the two-level mean is the flat one, bit for bit
+    t, w, fb, _ = calls[0]
+    flat = masked_weighted_mean(t, w, fallback=fb)
+    for p, x in hierarchical_weighted_mean(t, w, 4, fallback=fb).items():
+        assert torch.equal(x.view(torch.int32), flat[p].view(torch.int32)), p
 
 
 def _tiny_cohort(**kw):
