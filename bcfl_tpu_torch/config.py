@@ -561,7 +561,6 @@ def capability_table(cfg: "FedConfig") -> Tuple[Tuple[str, bool, object], ...]:
 #: (field, is-unsupported predicate) — each raises "not ported yet"
 _NOT_PORTED = (
     ("local_epochs", lambda c: c.local_epochs != 1),
-    ("rounds_per_dispatch", lambda c: c.rounds_per_dispatch > 1),
 )
 
 
@@ -630,6 +629,14 @@ class FedConfig:
     cohort_size: int = 0
     local_epochs: int = 1
     max_local_batches: Optional[int] = None
+    # issue up to this many federated rounds as one chunk, with one
+    # read-back of the device at its end, when the host has nothing to do
+    # between them (sync server FedAvg or sync parallel serverless gossip,
+    # the ledger included: its fingerprints are compared on the device);
+    # anomaly filters, reputation, cohort sampling, the fault plan, a
+    # tamper hook and faithful mode keep the per-round path. Chunks never
+    # cross an eval or checkpoint boundary, so the observable cadence is
+    # unchanged
     rounds_per_dispatch: int = 1
     weighted_agg: bool = True  # example-weighted FedAvg
     # aggregation rule at every point that consumes the whole stacked

@@ -1,4 +1,5 @@
-"""Core helpers: device resolution, seeded generators, the fence."""
+"""Core helpers: device resolution, host-to-device copies, seeded
+generators, the fence."""
 
 from __future__ import annotations
 
@@ -18,3 +19,15 @@ def resolve_device(device=None) -> torch.device:
                 "device is available; pass device='cpu' (CLI: --device cpu) "
                 "to run the plain PyTorch versions on the CPU")
     return dev
+
+
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A CPU tensor on ``device`` without the host waiting for the card's
+    queue to drain (a plain copy from pageable memory synchronizes the
+    stream): on a card through pinned memory and a non-blocking copy,
+    whose pinned block is not reused before the copy has run; on the CPU
+    the tensor itself."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)

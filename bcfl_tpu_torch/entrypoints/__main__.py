@@ -76,9 +76,11 @@ CPU devices as the inner axis needs (``FedEngine``'s rule). Every row of
 that mesh trains: on four cards ``--tp 2`` runs two client shards of
 ``tp=2``, as JAX's mesh over ``jax.devices()`` does.
 ``--telemetry-dir``, ``--no-telemetry`` and ``--telemetry-sample`` set
-the event streams as JAX's do. ``--fused-tamper`` takes JAX's checks and
-messages; the port runs no fused dispatch, so a well-formed request
-fails at its round instead of passing vacuously. Any flag of the JAX
+the event streams as JAX's do. ``--rounds-per-dispatch`` fuses rounds
+into chunks read back once (:meth:`FedEngine._chunk_rounds`), and
+``--fused-tamper`` (JAX's checks and messages) corrupts a round of such a
+chunk; a request for a round that runs the per-round path fails at its
+round instead of passing vacuously. Any flag of the JAX
 command line that is not listed here is rejected as "not ported yet".
 """
 
@@ -107,7 +109,8 @@ _FIELD_FLAGS = (
     ("lora_rank", "lora_rank"), ("lora_ranks", "lora_ranks"),
     ("registry_size", "registry_size"),
     ("sample_clients", "sample_clients"), ("cohort_size", "cohort_size"),
-    ("tp", "tp"), ("sp", "sp"),
+    ("rounds_per_dispatch", "rounds_per_dispatch"), ("tp", "tp"),
+    ("sp", "sp"),
 )
 
 
@@ -190,6 +193,13 @@ def build_parser() -> argparse.ArgumentParser:
                     help="clients stacked per client shard: pins the "
                          "mesh to sample_clients/cohort_size client "
                          "shards; must divide the sampled cohort size")
+    ap.add_argument("--rounds-per-dispatch", type=int, default=None,
+                    help="fuse up to N federated rounds into one dispatch, "
+                         "read back once at its end (sync server FedAvg or "
+                         "parallel gossip; the ledger fuses too via "
+                         "device-side fingerprints — only anomaly filters, "
+                         "tamper hooks, and faithful mode fall back to "
+                         "per-round)")
     ap.add_argument("--sp", type=int, default=None,
                     help="sequence-parallel shards per client: 2-D "
                          "(clients, seq) mesh, ring attention over the seq "
@@ -369,8 +379,10 @@ def build_parser() -> argparse.ArgumentParser:
                     metavar="ROUND:CLIENT:SCALE",
                     help="inject a simulated transport corruption (additive "
                          "SCALE) into CLIENT's update in fused round ROUND "
-                         "(repeatable). Needs --ledger and a fused "
-                         "dispatch, which the port does not run: a "
+                         "(repeatable). The corrupted update fails ledger "
+                         "auth and is excluded from the aggregate — the "
+                         "BC-FL tamper-resistance demo. Needs --ledger and "
+                         "a fused dispatch (--rounds-per-dispatch > 1); a "
                          "request landing on a per-round-path round fails "
                          "loudly instead of being ignored")
     return ap

@@ -23,8 +23,8 @@ from bcfl_tpu_torch.fed.engine import FedEngine, RunResult
 def run(cfg: FedConfig, device=None, verbose: bool = True,
         resume: bool = False, fused_tamper=None, devices=None) -> RunResult:
     """``fused_tamper``: optional ``(round) -> [num_clients] scales or
-    None``, the engine's fused-round corruption shim (the port runs no
-    fused dispatch, so a round it names raises). ``devices``: the mesh's
+    None``, the engine's fused-round corruption shim (a round it names
+    must run in a fused chunk, or the run raises). ``devices``: the mesh's
     device list (``FedEngine``'s)."""
     engine = FedEngine(cfg, device=device, fused_tamper=fused_tamper,
                        devices=devices)
@@ -86,10 +86,12 @@ def round_line(r) -> str:
     cohort = f" cohort={r.cohort}" if r.cohort is not None else ""
     erank = (f" eff_rank={r.effective_rank:.3f}"
              if r.effective_rank is not None else "")
+    # a fused round's wall is its chunk's split evenly
+    chunk = f" (fused, chunk {r.wall_chunk_s:.2f}s)" if r.fused else ""
     return (f"round {r.round:3d}: train_loss={r.train_loss:.4f} "
             f"train_acc={r.train_acc:.4f}{acc}{anom}{rej}{drop}{part}"
             f"{churn}{rep}{deg}{cohort}{erank} "
-            f"ratio={r.compression_ratio:.2f} wall={r.wall_s:.2f}s")
+            f"ratio={r.compression_ratio:.2f} wall={r.wall_s:.2f}s{chunk}")
 
 
 def _print_round(r) -> None:

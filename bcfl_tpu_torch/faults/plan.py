@@ -822,8 +822,10 @@ class FaultInjector:
     - ``host_tamper``: ``(rnd, host_stacked) -> tree``, byte-level
       tampering of host trees; forces the full byte-hash ledger flow;
     - ``fused_tamper``: ``(rnd) -> [C] scales or None``, corruption of
-      fused multi-round dispatches. The port runs every round on the
-      per-round path, so a round it asks to corrupt raises in the engine.
+      fused multi-round dispatches (``rounds_per_dispatch > 1``): the
+      chunk's transport stage adds the scales after each client's
+      fingerprint is committed. A round it asks to corrupt that runs the
+      per-round path raises in the engine.
     """
 
     def __init__(self, plan: Optional[FaultPlan], num_clients: int,
@@ -893,3 +895,12 @@ class FaultInjector:
 
     def should_crash(self, rnd: int) -> bool:
         return self.plan.should_crash(rnd)
+
+    def blocks_fusion(self) -> bool:
+        """Any scheduled plan fault forces the per-round path: dropout,
+        churn and partition perturb the mask or the topology, stragglers
+        and crashes need the host's clock and loop between rounds, and the
+        plan's corruption (flaky bursts included) runs the per-round
+        transport stage. The ``fused_tamper`` shim does not block fusion:
+        the fused chunk is where it acts."""
+        return self.plan.enabled

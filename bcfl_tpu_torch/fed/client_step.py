@@ -3,7 +3,9 @@
 with ``loss_cls`` and ``loss_lm``, ``make_local_train``, and of the
 GSPMD builder ``train_clients``, ``local_updates_body``,
 ``server_body``/``server_body_comp``, ``gossip_body``/``gossip_body_comp``,
-``_mix_g``/``_mix_g_recv``, ``_compress_stage``, ``_recon``, the
+``_mix_g``/``_mix_g_recv``, ``_compress_stage``, ``_recon``, the fused
+multi-round programs ``server_rounds``/``gossip_rounds`` with their
+``_transport``, ``_fp_auth`` and ``_fp_auth_payload`` stages, the
 split-phase codec programs ``encode_deltas``/``encode_deltas_local``/
 ``encode_deltas_async``/``decode_recon``/``decode_delta``, and
 ``broadcast``, ``adopt``, ``collapse`` with the configured aggregator).
@@ -70,6 +72,7 @@ from torch import nn
 
 from bcfl_tpu_torch.compression import codecs as cc
 from bcfl_tpu_torch.core.mesh import ClientMesh
+from bcfl_tpu_torch.ledger import fingerprint as fp_lib
 from bcfl_tpu_torch.models import lora
 from bcfl_tpu_torch.models.convert import (leaf_specs, load_trainable,
                                            trainable_tree)
@@ -793,6 +796,206 @@ def gossip_round(local_train: Callable, comp: Optional[cc.CompressionConfig],
     return RoundOut(mixed, stats, resid, payload)
 
 
+# ------------------------------------------------- fused multi-round chunks
+
+
+def transport(new_t: Tree, c_row: Optional[torch.Tensor]) -> Tree:
+    """Simulated transport of a client-stacked update tree (``_transport``):
+    what reaches the aggregation is ``new_t + c_row[c]`` per client, in
+    each leaf's dtype. ``c_row`` None is a clean round: the same buffer,
+    not an identity add (``-0.0 + 0.0`` is ``+0.0``)."""
+    if c_row is None:
+        return new_t
+    return {p: x + _col(c_row, x) for p, x in new_t.items()}
+
+
+def _auth(fp_commit: torch.Tensor, fp_recv: torch.Tensor) -> torch.Tensor:
+    """``[C]`` 1.0 where every fingerprint lane arrived with the committed
+    bits, else 0.0: the comparison the host's chain makes on the digests
+    of these rows (JAX compares floats, which differs only on NaN and
+    signed zero lanes)."""
+    same = fp_recv.view(torch.int32) == fp_commit.view(torch.int32)
+    return same.all(dim=-1).to(torch.float32)
+
+
+def _fp_auth(tree: Tree, sent: Tree):
+    fp_commit = fp_lib.client_fingerprint(tree)
+    # the committed buffer IS the one that arrived on a clean round
+    fp_recv = (fp_commit if sent is tree
+               else fp_lib.client_fingerprint(sent))
+    return sent, fp_commit, fp_recv, _auth(fp_commit, fp_recv)
+
+
+def fp_auth(new_t: Tree, c_row: Optional[torch.Tensor]):
+    """``(sent, fp_commit, fp_recv, auth)`` (``_fp_auth``): each client's
+    update fingerprinted before and after :func:`transport`, compared on
+    the device; ``auth`` ``[C]`` gates the round's aggregation."""
+    return _fp_auth(new_t, transport(new_t, c_row))
+
+
+def fp_auth_payload(payload: dict, c_row: Optional[torch.Tensor]):
+    """The codec's twin of :func:`fp_auth` (``_fp_auth_payload``): the
+    fingerprints are of the PAYLOAD, the bytes on the wire, and transport
+    corrupts its float parts (:func:`cc.corrupt_payload`)."""
+    sent = payload if c_row is None else cc.corrupt_payload(payload, c_row)
+    return _fp_auth(payload, sent)
+
+
+@dataclasses.dataclass
+class RoundIn:
+    """One round of a fused chunk, made by the caller when the chunk
+    reaches it (a chunk never holds several rounds of batches):
+    ``weights`` the server's ``[C]`` aggregation weights or the gossip
+    mask, on the lead device; ``corrupt`` the round's ``[C]`` transport
+    scales there (None: a clean round; read only with fingerprints)."""
+
+    batches: Tree
+    weights: torch.Tensor
+    generators: List[Optional[torch.Generator]]
+    uniforms: Optional[cc.Uniforms] = None
+    corrupt: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
+class ChunkOut:
+    """A fused chunk's result, all on the device: nothing was read back."""
+
+    carry: Tree  # the global tree (server) or the stacked tree (gossip)
+    # each shard's error-feedback rows: the caller's list, updated in place
+    resid: Optional[List[Tree]]
+    stats: torch.Tensor  # [k, C, 3] per-client [loss*n, correct, n]
+    # with fingerprints: [k, C, K] before and after transport, [k, C] auth
+    fp_commit: Optional[torch.Tensor] = None
+    fp_recv: Optional[torch.Tensor] = None
+    auth: Optional[torch.Tensor] = None
+
+
+def _chunk_sender(local_train: Callable,
+                  comp: Optional[cc.CompressionConfig],
+                  resid: Optional[List[Tree]],
+                  uniforms: Optional[cc.Uniforms]) -> Optional[Sender]:
+    if comp is None or _shards(local_train) is None:
+        return None
+    return Sender(comp, list(resid), uniforms)
+
+
+def _chunk_wire(local_train: Callable, comp: Optional[cc.CompressionConfig],
+                new_t: Optional[Tree], ref_t: Tree, resid, rin: RoundIn,
+                rmask, sender: Optional[Sender], with_fp: bool,
+                check: Optional[Callable]):
+    """One fused round's wire, the engine's per-round exchange in the
+    same ops: ``(the tree the aggregation consumes, fps)``, ``fps``
+    ``(fp_commit, fp_recv, auth)`` or None. Under a codec the shards'
+    payload (or the one shard's encode) goes through ``check`` and the
+    transport, a transported payload is decoded where it arrived, and the
+    new residual rows replace ``resid``'s in place."""
+    fps = None
+    if comp is None:
+        if with_fp:
+            new_t, *fps = fp_auth(new_t, rin.corrupt)
+        return new_t, fps
+    if sender is None:
+        rows = (local_train.rows() if isinstance(local_train, Sharded)
+                else [(0, len(rin.generators), rin.weights.device)])
+        payload, rec, r = encode_deltas(
+            comp, new_t, ref_t, cat_rows(resid, rin.weights.device),
+            rin.uniforms, rmask)
+        # in place: no reference to the old rows outlives the round
+        resid[:] = split_rows(r, rows)
+    else:
+        payload, rec = sender.payload, None
+        resid[:] = sender.resid
+    if check is not None:
+        check(payload)
+    sent = payload
+    if with_fp:
+        sent, *fps = fp_auth_payload(payload, rin.corrupt)
+    if rec is None or sent is not payload:
+        # a corrupted wire yields a corrupted reconstruction, which auth
+        # has already excluded
+        like = (new_t if new_t is not None
+                else stacked_like(ref_t, len(rin.generators)))
+        rec = decode_recon(comp, sent, ref_t, like)
+    return rec, fps
+
+
+def _chunk_out(carry: Tree, resid, stats: list, fps: list) -> ChunkOut:
+    out = ChunkOut(carry, resid, torch.stack(stats))
+    if fps and fps[0] is not None:
+        out.fp_commit, out.fp_recv, out.auth = (
+            torch.stack(xs) for xs in zip(*fps))
+    return out
+
+
+def server_rounds(local_train: Callable,
+                  comp: Optional[cc.CompressionConfig], global_t: Tree,
+                  rounds, resid: Optional[List[Tree]] = None,
+                  agg: Optional[Callable] = None,
+                  rmask: Optional[torch.Tensor] = None,
+                  with_fp: bool = False,
+                  check: Optional[Callable] = None) -> ChunkOut:
+    """The fused server program (``_make_server_rounds``): one FedAvg
+    round per :class:`RoundIn` of ``rounds`` (any iterable, drawn one
+    round at a time), every round's work issued before anything is read
+    back. Each round: the clients train from the global, with a codec
+    their deltas are encoded (on a mesh of several shards, on each
+    shard's card; ``resid``, the list of each shard's rows there, is
+    updated in place round by round), with ``with_fp``
+    every update is fingerprinted before and after :func:`transport` and
+    the aggregate's weights are gated by the device's ``auth``, and
+    ``agg`` (default the masked weighted mean) aggregates what arrived.
+    ``check`` sees every round's payload. The rounds are the engine's
+    per-round rounds op for op, so the chunk's bits are theirs."""
+    stats, fps = [], []
+    for rin in rounds:
+        sender = _chunk_sender(local_train, comp, resid, rin.uniforms)
+        new_t, st = train_clients(local_train, global_t, rin.batches,
+                                  rin.generators, rmask, sender)
+        arrived, fp = _chunk_wire(local_train, comp, new_t, global_t, resid,
+                                  rin, rmask, sender, with_fp, check)
+        del new_t
+        w = rin.weights if fp is None else rin.weights * fp[2]
+        global_t = collapse(arrived, w, global_t, agg)
+        del arrived
+        stats.append(st)
+        fps.append(fp)
+    return _chunk_out(global_t, resid, stats, fps)
+
+
+def gossip_rounds(local_train: Callable,
+                  comp: Optional[cc.CompressionConfig], client_t: Tree,
+                  rounds, resid: Optional[List[Tree]] = None,
+                  agg: Optional[Callable] = None,
+                  rmask: Optional[torch.Tensor] = None,
+                  with_fp: bool = False, check: Optional[Callable] = None,
+                  alpha: float = 0.5, steps: int = 1) -> ChunkOut:
+    """The fused gossip program (``_make_gossip_rounds``): one serverless
+    round per :class:`RoundIn`, ``weights`` its mask. Each client trains
+    from its own row of the stacked tree, ships its update (the encoded
+    delta against its round-start row under a codec) through the same wire
+    as :func:`server_rounds`, and the peers mix what arrived, gated by
+    ``auth`` (``mix_recv``; :func:`mix` when the wire is the identity,
+    the same bits). Returns the stacked tree after the chunk as
+    ``carry``."""
+    stats, fps = [], []
+    for rin in rounds:
+        sender = _chunk_sender(local_train, comp, resid, rin.uniforms)
+        new_t, st = local_updates(local_train, client_t, rin.batches,
+                                  rin.generators, rmask, sender)
+        arrived, fp = _chunk_wire(local_train, comp, new_t, client_t, resid,
+                                  rin, rmask, sender, with_fp, check)
+        m = rin.weights if fp is None else rin.weights * fp[2]
+        if arrived is new_t:
+            client_t = mix(new_t, m, client_t, alpha, steps, agg)
+        else:
+            client_t = mix_recv(new_t, arrived, m, client_t, alpha, steps,
+                                agg)
+        del new_t, arrived
+        stats.append(st)
+        fps.append(fp)
+    return _chunk_out(client_t, resid, stats, fps)
+
+
 def _replica(model: nn.Module, devices: Sequence[torch.device],
              share: bool) -> nn.Module:
     """A copy of ``model``, the same weights, for a client shard whose
@@ -864,6 +1067,10 @@ class FedPrograms:
     eval_one: Sharded  # (trainable, batches) -> [loss*n, correct, n]
     # (client_t, batches, mask, generators, resid=None, uniforms=None)
     gossip_round: Callable
+    # the fused chunks: (carry, rounds, resid=None, agg=None, rmask=None,
+    # with_fp=False, check=None) -> ChunkOut
+    server_rounds: Callable
+    gossip_rounds: Callable
 
 
 def build_programs(model: nn.Module, mesh: ClientMesh,
@@ -919,4 +1126,8 @@ def build_programs(model: nn.Module, mesh: ClientMesh,
         eval_one=Sharded(evals, devices, per, traffic),
         gossip_round=functools.partial(gossip_round, local_train, comp,
                                        alpha=gossip_alpha,
-                                       steps=gossip_steps))
+                                       steps=gossip_steps),
+        server_rounds=functools.partial(server_rounds, local_train, comp),
+        gossip_rounds=functools.partial(gossip_rounds, local_train, comp,
+                                        alpha=gossip_alpha,
+                                        steps=gossip_steps))

@@ -48,8 +48,19 @@ axis holds the round's sampled cohort (``self.C``) of a registry of
 reputation and ledger identities follow the registry id; the
 error-feedback residual lives per registry client in an
 :class:`~bcfl_tpu_torch.fed.cohort.EFRegistry`, gathered before each
-round and scattered after it. The fused multi-round dispatch of the JAX
-engine is not ported (the config raises).
+round and scattered after it.
+
+The fused multi-round dispatch (``rounds_per_dispatch > 1``,
+:meth:`FedEngine._chunk_rounds`): where the host has nothing to do
+between rounds, a chunk of sync server or parallel gossip rounds is
+issued one round after another with no read-back of the device
+(:func:`~bcfl_tpu_torch.fed.client_step.server_rounds`,
+:func:`~bcfl_tpu_torch.fed.client_step.gossip_rounds`), the ledger's
+fingerprints taken before and after the transport stage and compared on
+the device, which gates the aggregation. The chunk's stats, fingerprints
+and auth then come back in one transfer; the records, the chain's commits
+and authentication, evaluation, checkpoint and telemetry follow, at the
+chunk's last round. A clean chunk's bits are the per-round rounds'.
 
 The clients axis: the engine's devices (:func:`_devices`: ``devices=`` as
 given, else the one device ``device`` names) carry the mesh
@@ -104,7 +115,7 @@ from bcfl_tpu_torch import telemetry
 from bcfl_tpu_torch.checkpoint import restore_latest, save_checkpoint
 from bcfl_tpu_torch.compression import codecs as cc
 from bcfl_tpu_torch.config import FedConfig
-from bcfl_tpu_torch.core import prng, resolve_device
+from bcfl_tpu_torch.core import prng, resolve_device, to_device
 from bcfl_tpu_torch.core.mesh import client_mesh, visible_devices
 from bcfl_tpu_torch.core.fence import fence
 from bcfl_tpu_torch.data import (
@@ -185,8 +196,13 @@ class ExchangeResult:
 
 
 def _to_device(tree: dict, device: torch.device) -> dict:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    return {k: to_device(torch.from_numpy(np.ascontiguousarray(v)), device)
             for k, v in tree.items()}
+
+
+def _host_vector(a, device: torch.device) -> torch.Tensor:
+    """A host vector as float32 on ``device`` (no wait for the card)."""
+    return to_device(torch.from_numpy(np.array(a, np.float32)), device)
 
 
 def _text(s: str) -> np.ndarray:
@@ -410,6 +426,7 @@ class FedEngine:
             gossip_alpha=cfg.topology.gossip_alpha,
             gossip_steps=cfg.topology.gossip_steps, task=cfg.task,
             compression=cfg.compression, adapters=self.adapters)
+        self.progs = progs
         self.local_train = progs.local_train
         self.eval_one = progs.eval_one
         # the device each stacked slot trains on (its dropout generator's):
@@ -576,8 +593,7 @@ class FedEngine:
         return int(self._raw_bytes_per_client)
 
     def _mask_tensor(self, mask: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(mask, np.float32),
-                               device=self.device)
+        return _host_vector(mask, self.device)
 
     def _weights(self, mask: np.ndarray, n_ex: np.ndarray) -> torch.Tensor:
         w = np.asarray(mask, np.float32) * (
@@ -585,10 +601,14 @@ class FedEngine:
         if not np.isfinite(w).all():
             raise ValueError(f"non-finite aggregation weights mask={mask!r} "
                              f"n_ex={n_ex!r}")
-        return torch.as_tensor(w, dtype=torch.float32, device=self.device)
+        return _host_vector(w, self.device)
 
-    def _stats_to_rec(self, rnd: int, stats: torch.Tensor) -> RoundRecord:
-        s = stats.double().cpu().numpy()  # [C, 3]; waits for the device
+    def _stats_to_rec(self, rnd: int, stats) -> RoundRecord:
+        """The round's record from its ``[C, 3]`` stats: a tensor (read
+        back here, waiting for the device) or a fused chunk's host rows."""
+        if isinstance(stats, torch.Tensor):
+            stats = stats.double().cpu()  # waits for the device
+        s = np.asarray(stats, np.float64)
         n = np.maximum(s[:, 2], 1)
         total = s.sum(0)
         raw = float(self._raw_bytes_per_client * self.C)
@@ -762,8 +782,7 @@ class FedEngine:
         return fp_lib.client_fingerprint(tree).cpu().numpy()
 
     def _scales_tensor(self, scales: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(scales, np.float32),
-                               device=self.device)
+        return _host_vector(scales, self.device)
 
     def _transport(self, stacked, scales):
         """Simulated transport of the stacked updates: the tree that
@@ -1085,6 +1104,211 @@ class FedEngine:
                 st["next_done"][c] = st["clock"] + st["duration"][c]
         return trainable, stacked, rec
 
+    # -------------------------------------------------- multi-round fast path
+
+    def _chunk_rounds(self, rnd: int) -> int:
+        """How many rounds starting at ``rnd`` fuse into one chunk.
+
+        Only where the host has nothing to do between rounds: sync server
+        FedAvg or sync parallel serverless gossip (not the faithful
+        host-sequential mode), no tamper hook, no fault plan, no
+        reputation (its state machine gates each next round), no cohort
+        sampling (each round a new cohort, its residual rows gathered and
+        scattered on the host) and no anomaly filter (the mask is all
+        ones). The ledger does not block fusion: the chunk commits every
+        client's fingerprint before a transport stage, fingerprints what
+        arrived after it, gates the aggregation by comparing the two on the
+        device, and the chain authenticates the received rows after the
+        chunk. A chunk never crosses an eval or checkpoint boundary, so
+        the observable cadence is the per-round path's."""
+        cfg = self.cfg
+        k = cfg.rounds_per_dispatch
+        if (k <= 1 or cfg.sync != "sync"
+                or (cfg.mode != "server" and cfg.faithful)
+                or self.faults.host_tamper is not None
+                or self.faults.blocks_fusion()
+                or self.reputation is not None
+                or self.sampling
+                or cfg.topology.anomaly_filter is not None):
+            return 1
+        k = min(k, cfg.num_rounds - rnd)
+        if cfg.eval_every:
+            k = min(k, cfg.eval_every - rnd % cfg.eval_every)
+        if cfg.checkpoint_dir and cfg.checkpoint_every:
+            k = min(k, cfg.checkpoint_every - rnd % cfg.checkpoint_every)
+        return max(k, 1)
+
+    def _chunk_corrupts(self, rnd: int, k: int) -> np.ndarray:
+        """``[k, C]`` transport-corruption scales of the chunk's rounds
+        from ``fused_tamper`` (zeros: clean)."""
+        corr = np.zeros((k, self.C), np.float32)
+        if self.faults.fused_tamper is not None:
+            for i in range(k):
+                row = self.faults.fused_tamper(rnd + i)
+                if row is not None:
+                    corr[i] = np.asarray(row, np.float32)
+        return corr
+
+    def _chunk_inputs(self, rnd: int, k: int):
+        """The chunk's :class:`~bcfl_tpu_torch.fed.client_step.RoundIn`,
+        one round at a time as the chunk reaches it: the round's batches,
+        generators and codec uniforms as the per-round path draws them,
+        the all-ones mask (as aggregation weights in server mode), and
+        the round's transport scales (None when clean)."""
+        ones = np.ones((self.C,), np.float32)
+        corrupts = self._chunk_corrupts(rnd, k)
+        for i in range(k):
+            r = rnd + i
+            batches, n_ex = self._round_batches(r)
+            weights = (self._weights(ones, n_ex) if self.cfg.mode == "server"
+                       else self._mask_tensor(ones))
+            yield cs.RoundIn(
+                batches, weights, self._generators(r), self._uniforms(r),
+                self._scales_tensor(corrupts[i]) if corrupts[i].any()
+                else None)
+
+    def _chunk_check(self, payload: dict) -> None:
+        """Every chunk round's payload: the byte accounting, and the first
+        one of the run fixes the ledger's payload structure digest."""
+        self._check_payload(payload)
+        if self.ledger is not None and "payload" not in self._struct_cache:
+            self._struct_cache["payload"] = fp_lib.struct_digest(
+                payload, self.cfg.ledger.use_native)
+
+    def _chunk_program(self, prog, carry, rnd: int, k: int) -> cs.ChunkOut:
+        with_fp = self.ledger is not None
+        if (with_fp and self._comp is None
+                and "stacked" not in self._struct_cache):
+            self._struct_cache["stacked"] = fp_lib.struct_digest(
+                cs.stacked_like(self.trainable0, self.C),
+                self.cfg.ledger.use_native)
+        # the chunk updates the residual rows' list in place, round by
+        # round, so no earlier round's rows stay alive in it
+        return prog(carry, self._chunk_inputs(rnd, k), self._ef_rows,
+                    agg=self.agg, rmask=self._rmask, with_fp=with_fp,
+                    check=self._chunk_check)
+
+    def _server_chunk(self, rnd: int, trainable, k: int):
+        """Rounds ``[rnd, rnd + k)`` of server FedAvg as one chunk
+        (``server_rounds``): the aggregation weights are ``n_ex`` with
+        ``weighted_agg``, else 1, times the device's auth."""
+        out = self._chunk_program(self.progs.server_rounds, trainable, rnd,
+                                  k)
+        return out.carry, out
+
+    def _serverless_chunk(self, rnd: int, stacked, prev_consensus, k: int):
+        """Gossip rounds ``[rnd, rnd + k)`` as one chunk
+        (``gossip_rounds``). The consensus view is collapsed only when the
+        chunk's end is observed (the run's last round, an eval round or a
+        checkpoint round); otherwise nothing would read it."""
+        cfg = self.cfg
+        out = self._chunk_program(self.progs.gossip_rounds, stacked, rnd, k)
+        last = rnd + k - 1
+        observed = (
+            last == cfg.num_rounds - 1
+            or (cfg.eval_every and (last + 1) % cfg.eval_every == 0)
+            or (cfg.checkpoint_dir and cfg.checkpoint_every
+                and (last + 1) % cfg.checkpoint_every == 0))
+        consensus = prev_consensus
+        if observed:
+            consensus = cs.collapse(
+                out.carry, self._mask_tensor(np.ones((self.C,), np.float32)),
+                prev_consensus, self.agg)
+        return out.carry, consensus, out
+
+    @staticmethod
+    def _read_chunk(out: cs.ChunkOut) -> Dict[str, np.ndarray]:
+        """The chunk's one read-back: its stats ``[k, C, 3]`` and, with the
+        ledger, the commit and received fingerprints ``[k, C, K]`` and the
+        device's auth ``[k, C]``, in one transfer (all float32)."""
+        parts = [out.stats]
+        if out.auth is not None:
+            parts += [out.fp_commit, out.fp_recv, out.auth[..., None]]
+        host = torch.cat(parts, dim=-1).cpu().numpy()  # waits for the device
+        rows = {"stats": host[..., :3]}
+        if out.auth is not None:
+            K = out.fp_commit.shape[-1]
+            rows.update(fp_commit=host[..., 3:3 + K],
+                        fp_recv=host[..., 3 + K:3 + 2 * K],
+                        auth=host[..., -1])
+        return rows
+
+    def _commit_chunk_fps(self, rnd: int, rows: Dict[str, np.ndarray],
+                          recs) -> None:
+        """The chunk's ledger flow: chain every round's commit
+        fingerprints (taken before the transport stage), then authenticate
+        the received ones against the chain. Under ``fused_tamper`` the two
+        differ for exactly the corrupted clients; the device's auth, which
+        already gated the aggregation, must be the chain's row for row."""
+        kind = "stacked" if self._comp is None else "payload"
+        with self.clock.phase("ledger"):
+            for i in range(len(recs)):
+                self._ledger_commit_rows(rnd + i, kind, rows["fp_commit"][i])
+            for i, rec in enumerate(recs):
+                auth = self._ledger_auth_rows(rnd + i, kind,
+                                              rows["fp_recv"][i])
+                if not np.array_equal(auth, rows["auth"][i]):
+                    raise RuntimeError(
+                        f"round {rnd + i}: the device's auth "
+                        f"{rows['auth'][i].tolist()} is not the chain's "
+                        f"{auth.tolist()}")
+                rec.auth = auth.tolist()
+                self._note_degraded(rec, auth)
+
+    def _annotate_chunk(self, recs, wall: float) -> None:
+        """The participation and information passing fields of fused
+        rounds (an all-ones mask by construction). The measured unit is
+        the chunk: ``wall_chunk_s`` its wall, ``wall_s`` an even split of
+        it, ``fused`` marking both as the chunk's."""
+        sync_t, async_t = self.graph.info_passing_time(
+            0.0, source=self.info_source, anomalies=(),
+            payload_bytes=self._comms_payload_bytes())
+        for rec in recs:
+            rec.mask = [1.0] * self.C
+            rec.anomalies = []
+            rec.info_passing_sync_s = sync_t
+            rec.info_passing_async_s = async_t
+            rec.fused = True
+            rec.wall_chunk_s = wall
+            rec.wall_s = wall / len(recs)
+
+    def _run_chunk(self, rnd: int, k: int, trainable, stacked, metrics,
+                   on_round):
+        """Rounds ``[rnd, rnd + k)`` as one chunk, then their records, the
+        ledger, eval and checkpoint at the chunk's last round, telemetry
+        and ``on_round``. The wall ends at the fence on the chunk's final
+        tree; the ledger's host work after it is not in it."""
+        t0 = time.perf_counter()
+        with self.clock.phase("round_program"):
+            if self.cfg.mode == "server":
+                trainable, out = self._server_chunk(rnd, trainable, k)
+            else:
+                stacked, trainable, out = self._serverless_chunk(
+                    rnd, stacked, trainable, k)
+            rows = self._read_chunk(out)
+            del out
+            fence(trainable)
+        wall = time.perf_counter() - t0
+        recs = [self._stats_to_rec(rnd + i, rows["stats"][i])
+                for i in range(k)]
+        if self.ledger is not None:
+            self._commit_chunk_fps(rnd, rows, recs)
+        self._annotate_chunk(recs, wall)
+        if self.adapters:
+            # only the chunk's final global is the host's to read
+            recs[-1].effective_rank = float(lora.effective_rank(trainable))
+        last = rnd + k - 1
+        self._maybe_eval(last, recs[-1], trainable, stacked)
+        metrics.rounds.extend(recs)
+        self._maybe_checkpoint(last, trainable, stacked)
+        for r in recs:
+            telemetry.emit("round", round=r.round, wall_s=r.wall_s,
+                           fused=True, degraded=r.degraded)
+        if on_round is not None:
+            for r in recs:
+                on_round(r)
+        return trainable, stacked
+
     # -------------------------------------------------------------- evaluate
 
     def _maybe_eval(self, rnd: int, rec: RoundRecord, trainable,
@@ -1221,17 +1445,25 @@ class FedEngine:
         # run restarts its simulated network clock
         async_state = (self._init_async_state() if cfg.sync == "async"
                        else None)
-        for rnd in range(start_round, cfg.num_rounds):
+        rnd = start_round
+        while rnd < cfg.num_rounds:
             if restored is None and self.faults.should_crash(rnd):
                 # the plan's host crash, before anything of round `rnd`
                 # runs; it models ONE failure, so a run that restored a
                 # checkpoint does not fire it again (a standing resume over
                 # an empty directory still crashes)
                 raise SimulatedCrash(rnd)
+            chunk = self._chunk_rounds(rnd)
+            if chunk > 1:
+                trainable, stacked = self._run_chunk(
+                    rnd, chunk, trainable, stacked, metrics, on_round)
+                rnd += chunk
+                continue
             if (self.faults.fused_tamper is not None
                     and self.faults.fused_tamper(rnd) is not None):
-                # the port runs every round on the per-round path, where a
-                # fused-dispatch corruption would be silently ignored
+                # the transport corruption exists only inside a fused
+                # chunk: on a per-round round it would be silently ignored
+                # and a verification would pass vacuously
                 raise ValueError(
                     f"fused_tamper requests corruption for round {rnd}, but "
                     "this round runs the per-round path (chunk=1: check "
@@ -1345,6 +1577,7 @@ class FedEngine:
                            partitioned=rec.partition is not None)
             if on_round is not None:
                 on_round(rec)
+            rnd += 1
         if self.adapters:
             # the model computes with the final global adapters
             lora.attach(self.model, trainable)

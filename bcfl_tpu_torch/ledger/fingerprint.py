@@ -37,6 +37,7 @@ import hashlib
 import numpy as np
 import torch
 
+from bcfl_tpu_torch.core import to_device
 from bcfl_tpu_torch.ledger.ledger import _sha256_chunks, dtype_str, flat_leaves
 
 K = 4  # fingerprint floats per client; 16 bytes of content evidence/entry
@@ -130,7 +131,8 @@ def projection(k: int = K, device=None) -> torch.Tensor:
         raise ValueError(f"the fingerprint projection is [256, {K}], "
                          f"got k={k}")
     raw = np.frombuffer(base64.b64decode(PROJECTION_B64), dtype="<f4")
-    return torch.from_numpy(raw.reshape(2 * LANES, K).copy()).to(device)
+    proj = torch.from_numpy(raw.reshape(2 * LANES, K).copy())
+    return proj if device is None else to_device(proj, device)
 
 
 def _leaf_phase(name: str) -> tuple:
@@ -146,20 +148,28 @@ def _leaf_phase(name: str) -> tuple:
 _FOLD_BATCH = 1 << 24
 
 
+def _phase(phases) -> torch.Tensor:
+    """``[M]`` float32 ``a*m + b`` of a batch's positions, from its
+    leaves' ``(a, b, m)``: host data, so it is computed on the host (built
+    on a card, its sizes would have to be read back) in the float32 ops
+    the card would run, which round alike on both."""
+    ms = torch.tensor([m for _, _, m in phases])
+    rep = lambda v: torch.repeat_interleave(  # noqa: E731
+        torch.tensor(v, dtype=torch.float32), ms)
+    starts = torch.cumsum(ms, 0) - ms
+    idx = (torch.arange(int(ms.sum())) - torch.repeat_interleave(starts, ms)
+           ).to(torch.float32)
+    return rep([a for a, _, _ in phases]) * idx + rep(
+        [b for _, b, _ in phases])
+
+
 def _fold(xs, phases, C: int, dev) -> torch.Tensor:
     """``[C, 2*LANES]`` fold of a batch of leaves: ``xs`` their ``[C, m*LANES]``
     rows (zero-padded), ``phases`` their ``(a, b, m)``. One product over
     the batch's concatenated positions; each position's weights are the
     per-leaf ``cos(a*m + b), sin(a*m + b)`` in float32, as in JAX."""
     x = torch.cat(xs, dim=1).to(torch.float32)  # the cast of mixed dtypes
-    ms = torch.tensor([m for _, _, m in phases], device=dev)
-    rep = lambda v: torch.repeat_interleave(  # noqa: E731
-        torch.tensor(v, dtype=torch.float32, device=dev), ms)
-    starts = torch.cumsum(ms, 0) - ms
-    idx = (torch.arange(int(ms.sum()), device=dev)
-           - torch.repeat_interleave(starts, ms)).to(torch.float32)
-    phase = rep([a for a, _, _ in phases]) * idx + rep(
-        [b for _, b, _ in phases])
+    phase = to_device(_phase(phases), dev)
     w = torch.stack([torch.cos(phase), torch.sin(phase)])  # [2, M]
     y = torch.tensordot(w, x.reshape(C, -1, LANES), dims=([1], [1]))
     return y.transpose(0, 1).reshape(C, 2 * LANES)

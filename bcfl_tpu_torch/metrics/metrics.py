@@ -4,8 +4,9 @@ the ported rounds fill (``ResourceMonitor``, ``RoundRecord``,
 overhead %, memory GB, latency in minutes), train loss and accuracy,
 per-client local accuracy, global loss and accuracy, the participation
 mask and anomalies, ledger authentication, async staleness and merge
-weights, the information passing times, round wall time, the
-bytes-on-wire accounting, and the ledger rollup.
+weights, the information passing times, round wall time (and a fused
+chunk's: ``fused``, ``wall_chunk_s``), the bytes-on-wire accounting, and
+the ledger rollup.
 
 ``ResourceMonitor`` reads the process's own counters without psutil (which
 the card's machine does not have): CPU time from ``os.times()`` and the
@@ -195,6 +196,12 @@ class RoundRecord:
     effective_rank: Optional[float] = None
     # host wall seconds of the round, ending after the device finished
     wall_s: float = 0.0
+    # True when the round ran inside a fused multi-round chunk: wall_s is
+    # then the chunk's wall split evenly over its rounds (an interpolation;
+    # the measured unit is wall_chunk_s) and the information passing
+    # times are the chunk's
+    fused: bool = False
+    wall_chunk_s: Optional[float] = None
 
 
 @dataclasses.dataclass

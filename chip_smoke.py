@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``bcfl_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # phases 1-4, paths (a)-(aa)
+    python3 chip_smoke.py              # phases 1-4, paths (a)-(ab)
     python3 chip_smoke.py --profile    # phases 1-4, then 5
 
 Phases, each of which raises (and the script exits non-zero) on failure:
@@ -196,7 +196,21 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    counts set to 0 just before and read just after: the global tree,
    every round's payload, the ledger head, the per-client stats and
    evaluation, and the launches of every kernel equal bit for bit; the
-   round walls and peak memory of both print. Then (m), the multi-process
+   round walls and peak memory of both print. Then (ab), the fused
+   multi-round dispatch (``rounds_per_dispatch``), each run with the
+   counts set to 0 just before and read just after: path (b)'s
+   configuration with the ledger, 4 rounds and evaluation every 2, in
+   chunks of 2 against the per-round run, both on ``cuda:0``: the global
+   tree, every round's payload, the ledger head, the per-client stats,
+   the records and evaluations bit for bit and every kernel launched as
+   often, per dtype; then path (c)'s configuration on ``CUT_LAYERS`` in
+   one chunk of 2 rounds with a ``fused_tamper`` on client 3 in round 1:
+   exactly that client fails authentication in that round, the chain
+   verifies, finite losses and parameters. It prints each chunk's
+   ``wall_chunk_s`` against the per-round run's walls of the same rounds,
+   the peaks, and the synchronizing CUDA calls inside a chunk's issue
+   (torch's sync debug mode, by source line) against those inside a
+   per-round round. Then (m), the multi-process
    runtime at full width: the ``server_noniid_medical`` preset
    (biobert-base, 40 labels, 10 clients; like every peer path up to (s),
    at biobert-base's width on ``CUT_LAYERS`` = 2 of its 12 layers, 37.5 M
@@ -350,6 +364,7 @@ each call.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import csv
 import dataclasses
@@ -1156,11 +1171,12 @@ def main_padding(dataset: str, cfg) -> tuple:
     return tuple(int(n) for n in mask.sum(1))
 
 
-def drive(cfg, smi, label, devices=None):
+def drive(cfg, smi, label, devices=None, fused_tamper=None):
     """One main path through ``run`` (on ``devices``, the mesh's device
-    list, when given) with the launch counts set to 0 just before it and
-    read just after; checks its losses, parameters and bytes on the wire.
-    Returns ``(result, launches, peak GB)``."""
+    list, when given; with ``fused_tamper`` as the engine's shim) with the
+    launch counts set to 0 just before it and read just after; checks its
+    losses, parameters and bytes on the wire. Returns ``(result,
+    launches, peak GB)``."""
     from bcfl_tpu_torch.compression import payload_nbytes
     from bcfl_tpu_torch.entrypoints import run
     from bcfl_tpu_torch.ops import registry
@@ -1169,7 +1185,8 @@ def drive(cfg, smi, label, devices=None):
     torch.cuda.reset_peak_memory_stats()
     registry.reset_launches()
     t0 = time.perf_counter()
-    result = run(cfg, device=None if devices else "cuda", devices=devices)
+    result = run(cfg, device=None if devices else "cuda", devices=devices,
+                 fused_tamper=fused_tamper)
     torch.cuda.synchronize()
     launches = registry.launch_counts()
     harvest_dtypes()
@@ -1180,7 +1197,9 @@ def drive(cfg, smi, label, devices=None):
     want = payload_nbytes(cfg.compression, result.trainable) * cfg.num_clients
     samples = cfg.num_clients * cfg.max_local_batches * cfg.batch_size
     for r in result.metrics.rounds:
-        print(f"{label} round {r.round}: wall {r.wall_s:.3f} s, "
+        chunk = (f" (fused: chunk {r.wall_chunk_s:.3f} s split evenly)"
+                 if r.fused else "")
+        print(f"{label} round {r.round}: wall {r.wall_s:.3f} s{chunk}, "
               f"{samples / r.wall_s:.1f} samples/s, compression ratio "
               f"{r.compression_ratio:.3f}, train_loss {r.train_loss:.5f}, "
               f"global_loss {r.global_loss}", flush=True)
@@ -4695,6 +4714,7 @@ def drive_tapped(cfg, smi, label, devices):
     ``eval_to_lead``). Returns ``(result, launches, payloads, stats,
     peaks, traffic, shards)``."""
     from bcfl_tpu_torch.fed.engine import FedEngine
+    from bcfl_tpu_torch.ops import registry
 
     payloads, client_stats, marks, shards = [], [], [], []
     check, to_rec = FedEngine._check_payload, FedEngine._stats_to_rec
@@ -4706,20 +4726,23 @@ def drive_tapped(cfg, smi, label, devices):
         return check(self, payload)
 
     def tap_stats(self, rnd, st):
-        # every mode lands its rows before its record reads the stats
-        client_stats.append(st.clone())
-        marks.append(dict(self.local_train.traffic))
+        # every mode lands its rows before its record reads the stats; a
+        # fused chunk hands over its rows read back
+        client_stats.append(st.clone() if isinstance(st, torch.Tensor)
+                            else torch.as_tensor(st).clone())
+        marks.append(("body", dict(self.local_train.traffic)))
         return to_rec(self, rnd, st)
 
     def tap_eval(self, rnd, *args):
         evaluate(self, rnd, *args)
-        marks.append(dict(self.local_train.traffic))
+        marks.append(("eval", dict(self.local_train.traffic)))
         shards[:] = [len(self.local_train.bodies)]
 
     cards = sorted({torch.device(d) for d in devices}, key=str)
     torch.cuda.init()  # the allocator's per-card stats exist from here
     for d in cards:
         torch.cuda.reset_peak_memory_stats(d)
+    start = {str(d): torch.cuda.memory_allocated(d) / 1e9 for d in cards}
     FedEngine._check_payload, FedEngine._stats_to_rec = tap_payload, tap_stats
     FedEngine._maybe_eval = tap_eval
     try:
@@ -4727,13 +4750,22 @@ def drive_tapped(cfg, smi, label, devices):
     finally:
         FedEngine._check_payload, FedEngine._stats_to_rec = check, to_rec
         FedEngine._maybe_eval = evaluate
+    # per kernel and dtype instance, this run's launches; what each card
+    # held when the run started (an earlier run's kept results)
+    result.launches_by = {op.name: dict(op.launches_by)
+                          for op in registry.kernel_ops()}
+    result.start_gb = start
     peaks = {str(d): torch.cuda.max_memory_allocated(d) / 1e9 for d in cards}
-    traffic, last = [], {"to_shards": 0, "to_lead": 0}
-    for body, after_eval in zip(marks[::2], marks[1::2]):
+    # one entry per evaluation point: a round, or a fused chunk (whose
+    # records are all built after it)
+    traffic, last, body = [], {"to_shards": 0, "to_lead": 0}, None
+    for kind, mark in marks:
+        if kind == "body":
+            body = mark
+            continue
         traffic.append({**{k: body[k] - last[k] for k in body},
-                        **{f"eval_{k}": after_eval[k] - body[k]
-                           for k in body}})
-        last = after_eval
+                        **{f"eval_{k}": mark[k] - body[k] for k in body}})
+        last = mark
     return (result, launches, payloads, client_stats, peaks, traffic,
             shards[0])
 
@@ -4756,13 +4788,14 @@ def kept_run(result, launches, payloads, client_stats, peaks, traffic):
     shard and the others)``; not the model (a 7B base twice would not fit
     the lead card)."""
     head = result.ledger.head if result.ledger is not None else None
-    return ((result.trainable, head, result.metrics.rounds, launches,
-             payloads, client_stats),
+    return ((result.trainable, head, result.metrics.rounds,
+             (launches, result.launches_by), payloads, client_stats),
             (launches, [r.wall_s for r in result.metrics.rounds], peaks,
              traffic))
 
 
-def clients_axis_pair(cfg, smi, label, devices, one=None, one_run=None):
+def clients_axis_pair(cfg, smi, label, devices, one=None, one_run=None,
+                      many_cfg=None):
     """``cfg`` on ``one`` (default ``[cuda:0]``: one client shard) and on
     ``devices`` (one shard per device the mesh takes, or per row of a 2-D
     mesh), each through ``run`` with the launch counts set to 0 just
@@ -4771,7 +4804,9 @@ def clients_axis_pair(cfg, smi, label, devices, one=None, one_run=None):
     bit; K1-K3 launched as often as on one shard, K4 and K5 (each shard
     encodes its own rows) exactly ``shards`` times as often. ``one_run``,
     when given, is the one-shard run's :func:`kept_run` from a path that
-    already ran that configuration on ``one``. Returns ``{"one": ...,
+    already ran that configuration on ``one``; ``many_cfg``, when given,
+    is the configuration of the run on ``devices`` (the same run but for
+    how it is dispatched). Returns ``{"one": ...,
     "many": ..., "shards": n, "template": ...}``, each run ``(launches,
     round walls, peaks, per-round bytes between the lead shard and the
     others)``, the template the trained tree's leaf shapes on the meta
@@ -4779,20 +4814,22 @@ def clients_axis_pair(cfg, smi, label, devices, one=None, one_run=None):
     out, runs = {}, {}
     if one_run is not None:
         runs["one"], out["one"] = one_run
-    todo = [("one", list(one or [torch.device("cuda", 0)])),
-            ("many", list(devices))]
-    for key, devs in todo[1 if one_run is not None else 0:]:
+    todo = [("one", list(one or [torch.device("cuda", 0)]), cfg),
+            ("many", list(devices), many_cfg or cfg)]
+    for key, devs, run_cfg in todo[1 if one_run is not None else 0:]:
         result, launches, payloads, st, peaks, traffic, shards = drive_tapped(
-            cfg, smi, f"{label} on {len(devs)} device(s)", devs)
+            run_cfg, smi, f"{label} on {len(devs)} device(s)", devs)
         runs[key], out[key] = kept_run(result, launches, payloads, st,
                                        peaks, traffic)
+        out[f"{key}_records"] = result.metrics.rounds
+        out[f"{key}_start_gb"] = result.start_gb
         out["shards"] = shards
         out["template"] = {p: torch.empty(x.shape, device="meta")
                            for p, x in result.trainable.items()}
         del result
         torch.cuda.empty_cache()
-    (t1, head1, rec1, n1, p1, s1) = runs["one"]
-    (tn, headn, recn, nn, pn, sn) = runs["many"]
+    (t1, head1, rec1, (n1, by1), p1, s1) = runs["one"]
+    (tn, headn, recn, (nn, byn), pn, sn) = runs["many"]
     bad = [p for p, x in t1.items() if not same_bits(tn[p], x)]
     if len(p1) != cfg.num_rounds or len(pn) != len(p1):
         bad.append(f"payload rounds {len(p1)} / {len(pn)}")
@@ -4803,15 +4840,23 @@ def clients_axis_pair(cfg, smi, label, devices, one=None, one_run=None):
             in enumerate(zip(s1, sn)) if not same_bits(b, a)]
     if head1 != headn:
         bad.append("ledger head")
+    fields = ("train_loss", "local_acc", "global_loss", "global_acc",
+              "bytes_on_wire", "auth", "mask")
+    if len(rec1) != len(recn):
+        bad.append(f"records {len(rec1)} / {len(recn)}")
     for a, b in zip(rec1, recn):
-        if (a.train_loss, a.local_acc, a.global_loss, a.bytes_on_wire) != (
-                b.train_loss, b.local_acc, b.global_loss, b.bytes_on_wire):
+        if any(getattr(a, f) != getattr(b, f) for f in fields):
             bad.append(f"round {a.round} record")
     want = {k: v * (out["shards"] if k in SHARD_CODEC_OPS else 1)
             for k, v in n1.items()}
     if nn != want:
         bad.append(f"launches {nn} against {want} (one shard's {n1}, K4 "
                    f"and K5 x {out['shards']} shards)")
+    flash_by = [{k: v for k, v in by.items() if k in FLASH_OPS}
+                for by in (by1, byn)]
+    if flash_by[0] != flash_by[1]:
+        bad.append(f"flash launches by dtype {flash_by[1]} against "
+                   f"{flash_by[0]}")
     if bad:
         raise RuntimeError(f"{label}: {len(devices)} devices differ from "
                            f"one: {bad[:8]}")
@@ -4911,6 +4956,152 @@ def phase_clients_axis(ck, stats, smi, dataset, medical):
     print_clients_axis(label, pair, smi)
     torch.cuda.empty_cache()
 
+
+
+# ---------------------------------------- the fused multi-round dispatch
+
+
+#: rounds a chunk of (ab) fuses
+FUSED_K = 2
+#: (ab)'s serverless leg: the client whose update transport corrupts, in
+#: which round of its one chunk
+FUSED_TAMPER = (3, 1)
+
+
+def fused_config(dataset: str, **kw):
+    """(ab)'s server leg: path (b)'s configuration with the ledger, 4
+    rounds, evaluation every 2 rounds."""
+    from bcfl_tpu_torch.config import LedgerConfig
+
+    base = dict(num_rounds=4, eval_every=2,
+                ledger=LedgerConfig(enabled=True))
+    base.update(kw)
+    return flash_config(dataset, **base)
+
+
+@contextlib.contextmanager
+def syncs_inside(counts: dict):
+    """While the ``FedEngine`` methods named in ``counts`` run, torch's
+    sync debug mode warns of every synchronizing CUDA call (a read-back,
+    a blocking copy to the card, a synchronize); each lands in
+    ``counts[method]`` under its source line. Other warnings pass."""
+    import warnings
+
+    from bcfl_tpu_torch.fed.engine import FedEngine
+
+    saved = {m: getattr(FedEngine, m) for m in counts}
+
+    def wrap(name, fn):
+        @functools.wraps(fn)
+        def counted(self, *args, **kwargs):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = fn(self, *args, **kwargs)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            for w in caught:
+                if "synchronizing" in str(w.message):
+                    site = f"{Path(w.filename).name}:{w.lineno}"
+                    counts[name][site] = counts[name].get(site, 0) + 1
+                else:
+                    warnings.warn_explicit(w.message, w.category,
+                                           w.filename, w.lineno)
+            return out
+        return counted
+
+    for name, fn in saved.items():
+        setattr(FedEngine, name, wrap(name, fn))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(FedEngine, name, fn)
+
+
+def print_syncs(label, counts, units, smi):
+    for name, sites in counts.items():
+        total = sum(sites.values())
+        print(f"{label}: {total} synchronizing CUDA calls inside "
+              f"FedEngine.{name} over {units[name]} ({smi}): "
+              f"{json.dumps(dict(sorted(sites.items())))}", flush=True)
+
+
+def phase_fused(stats, smi, dataset, medical):
+    """(ab): the fused multi-round dispatch. The server leg runs
+    :func:`fused_config` in chunks of ``FUSED_K`` against its per-round
+    run (both on ``cuda:0``, through :func:`clients_axis_pair`): bits,
+    payloads, ledger head, stats, records and launches per dtype equal;
+    each chunk's wall against the per-round walls of its rounds, the
+    peaks, and the synchronizing calls inside a chunk's issue against a
+    per-round round's. The serverless leg runs path (c)'s configuration on
+    ``CUT_LAYERS`` as one chunk of 2 rounds whose transport corrupts
+    ``FUSED_TAMPER``'s client in its round: exactly that client fails
+    authentication there, the chain verifies."""
+    import numpy as np
+
+    cuda0 = [torch.device("cuda", 0)]
+    cfg = fused_config(dataset)
+    label = "fused dispatch (ab) seq-512 flash"
+    syncs = {"_server_round": {}, "_server_chunk": {}}
+    with syncs_inside(syncs):
+        pair = clients_axis_pair(
+            cfg, smi, label, cuda0,
+            many_cfg=cfg.replace(rounds_per_dispatch=FUSED_K))
+    (n1, w1, pk1, _), (nk, _, pkk, _) = pair["one"], pair["many"]
+    for launches in (n1, nk):
+        count_launches(stats, launches)
+    fused = pair["many_records"]
+    if min(nk.values()) <= 0 or not all(r.fused for r in fused):
+        raise RuntimeError(f"{label}: a kernel never launched ({nk}) or a "
+                           "round ran outside a chunk")
+    chunks = [(r, r + FUSED_K) for r in range(0, cfg.num_rounds, FUSED_K)]
+    for a, b in chunks:
+        print(f"{label} rounds {a}-{b - 1}: chunk wall_chunk_s "
+              f"{fused[a].wall_chunk_s:.4f} s against the per-round walls "
+              f"{[round(w, 4) for w in w1[a:b]]} s (sum "
+              f"{sum(w1[a:b]):.4f} s) ({smi})", flush=True)
+    above = [pk["cuda:0"] - pair[f"{key}_start_gb"]["cuda:0"]
+             for pk, key in ((pk1, "one"), (pkk, "many"))]
+    print(f"{label}: peak GB per-round {pk1['cuda:0']:.3f}, fused "
+          f"{pkk['cuda:0']:.3f}; above what each run found allocated "
+          f"(the per-round run's kept results) {above[0]:.3f} and "
+          f"{above[1]:.3f} ({smi})", flush=True)
+    print_syncs(label, syncs, {"_server_round": f"{cfg.num_rounds} rounds",
+                               "_server_chunk": f"{len(chunks)} chunks"},
+                smi)
+    torch.cuda.empty_cache()
+    client, rnd = FUSED_TAMPER
+    cfg = gossip_config(medical, num_layers=CUT_LAYERS, eval_every=2,
+                        rounds_per_dispatch=2)
+    C = cfg.num_clients
+
+    def tamper(r):
+        if r != rnd:
+            return None
+        row = np.zeros((C,), np.float32)
+        row[client] = 1e6
+        return row
+
+    label = "fused dispatch (ab) serverless gossip, fused_tamper"
+    result, launches, peak = drive(cfg, smi, label, fused_tamper=tamper)
+    count_launches(stats, launches)
+    want = [[1.0] * C for _ in range(cfg.num_rounds)]
+    want[rnd][client] = 0.0
+    got = [r.auth for r in result.metrics.rounds]
+    if (got != want or result.ledger.verify_chain() != -1
+            or not all(r.fused for r in result.metrics.rounds)
+            or min(launches[n] for n in SHARD_CODEC_OPS) <= 0):
+        raise RuntimeError(f"{label}: auth {got} (want {want}), chain "
+                           f"{result.ledger.verify_chain()}, launches "
+                           f"{launches}")
+    walls = {r.wall_chunk_s for r in result.metrics.rounds}
+    print(f"{label}: client {client} failed authentication in round {rnd} "
+          f"only, chain verifies; chunk wall {sorted(walls)} s, peak "
+          f"{peak:.2f} GB ({smi})", flush=True)
+    del result
+    torch.cuda.empty_cache()
 
 
 # -------------------------------------------------------------- profile
@@ -5465,6 +5656,8 @@ def main(argv=None) -> int:
     done("paths (x)-(y)")
     phase_clients_axis(ck, stats, smi, dataset, medical)
     done("path (z)")
+    phase_fused(stats, smi, dataset, medical)
+    done("path (ab)")
     m_loss = phase_dist(ck, stats, smi, medical, c_walls)
     done("path (m)")
     phase_partition_kill(stats, smi, medical)

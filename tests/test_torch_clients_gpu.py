@@ -26,6 +26,10 @@ and, on a host with four or more cards, on ``[cuda:0, ..., cuda:3]``
 ``[cuda:0, cuda:1]``) bit for bit, every row's model split over its own
 row's cards.
 
+The fused dispatch (``rounds_per_dispatch``): server FedAvg in one chunk
+of both rounds on ``[cuda:0] * 4`` equals the per-round run on
+``[cuda:0]`` bit for bit.
+
 The tests marked ``gpu`` skip without a card. This file imports neither
 JAX nor the JAX package:
 
@@ -98,11 +102,12 @@ def _cfg(**kw):
     return FedConfig(**base)
 
 
-def _pair(monkeypatch, cfg, devices, one=None):
+def _pair(monkeypatch, cfg, devices, one=None, many_cfg=None):
     """``chip_smoke.clients_axis_pair`` (which raises on any difference)
     of ``devices`` against ``one`` (default ``[cuda:0]``) with the shard
     devices every sharded call ran on, the exact launch counts checked;
-    under ``tp`` every client shard's model is split over its own row."""
+    under ``tp`` every client shard's model is split over its own row.
+    ``many_cfg``: the configuration of the run on ``devices``."""
     seen = []
     run_sharded, build_programs = cs.run_sharded, cs.build_programs
 
@@ -123,7 +128,8 @@ def _pair(monkeypatch, cfg, devices, one=None):
     monkeypatch.setattr(cs, "build_programs", checked)
     smoke = _smoke()
     out = smoke.clients_axis_pair(cfg, smoke.nvidia_smi_line(),
-                                  "clients axis gpu test", devices, one=one)
+                                  "clients axis gpu test", devices, one=one,
+                                  many_cfg=many_cfg)
     launches, shards = out["one"][0], out["shards"]
     assert shards == len(seen[-1]) > 1 and min(launches.values()) > 0
     assert out["many"][0] == {
@@ -138,8 +144,10 @@ def _pair(monkeypatch, cfg, devices, one=None):
         # no post-train tree leaves its shard: payload rows and stats
         others = cfg.num_clients - cfg.num_clients // shards
         wire = payload_nbytes(cfg.compression, out["template"])
+        # a fused chunk's rounds count as one entry
+        per_entry = ROUNDS // len(out["many"][3])
         for moved in out["many"][3]:
-            assert moved["to_lead"] == others * (wire + 3 * 4)
+            assert moved["to_lead"] == others * (wire + 3 * 4) * per_entry
     return seen
 
 
@@ -160,6 +168,19 @@ def test_shards_on_four_cards_equal_one_shard(monkeypatch, four_cards, case):
     seen = _pair(monkeypatch, cfg, four_cards)
     shards = 4 if cfg.num_clients == 4 else 2
     assert seen and all(d == four_cards[:shards] for d in seen)
+
+
+@pytest.mark.gpu
+def test_fused_chunks_on_four_shards_equal_per_round_on_one(monkeypatch,
+                                                           cuda_device):
+    """The fused dispatch on the card: server FedAvg in one chunk of both
+    rounds on ``[cuda:0] * 4`` (each shard's codec stage and residual rows
+    on its card across the chunk) equals the per-round run on
+    ``[cuda:0]`` bit for bit, with the same launches."""
+    cfg = _cfg(**CASES["server-4-clients"], eval_every=ROUNDS)
+    seen = _pair(monkeypatch, cfg, [cuda_device] * 4,
+                 many_cfg=cfg.replace(rounds_per_dispatch=ROUNDS))
+    assert seen and all(d == [cuda_device] * 4 for d in seen)
 
 
 #: a tiny Llama LoRA engine at tp=2: 4 clients, 2 rows of 2 on 4 devices

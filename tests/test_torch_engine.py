@@ -98,7 +98,6 @@ NOT_PORTED = [
     # are refused earlier on dist, by the runtime's capability table)
     # raises at config time, naming the runtime
     ("runtime", dict(_DIST, local_epochs=2)),
-    ("rounds_per_dispatch", {"rounds_per_dispatch": 2}),
     ("local_epochs", {"local_epochs": 2}),
 ]
 
@@ -141,6 +140,8 @@ PORTED = [
     # construct them: tp over a LoRA base, sp with a divisible seq_len
     ("tp", {"tp": 2, "lora_rank": 2}),
     ("sp", {"sp": 2}),
+    # the fused multi-round dispatch
+    ("rounds_per_dispatch", {"rounds_per_dispatch": 2}),
 ]
 
 
@@ -241,11 +242,15 @@ def test_cli_runs_smoke_on_cpu_and_rejects_other_flags(capsys):
                      "--compress", "int8+topk"]) == 0
     out = capsys.readouterr().out
     assert "round   0:" in out and "compress=int8+topk" in out
-    for flags in (["--rounds-per-dispatch", "2"], ["--donate"]):
-        with pytest.raises(SystemExit) as e:
-            cli_main(["--device", "cpu"] + flags)
-        assert e.value.code == 2
+    with pytest.raises(SystemExit) as e:
+        cli_main(["--device", "cpu", "--donate"])
+    assert e.value.code == 2
     assert "not ported yet" in capsys.readouterr().err
+    # --rounds-per-dispatch is ported: JAX's flag, mapped to its field
+    from bcfl_tpu_torch.entrypoints.__main__ import build_config, build_parser
+
+    args = build_parser().parse_args(["--rounds-per-dispatch", "4"])
+    assert build_config(args).rounds_per_dispatch == 4
     # --tp is ported: the command line takes the engine's devices, which
     # refuse an inner axis larger than a one-device CPU list in JAX's words
     # (the command line itself runs --tp on as many CPU devices as it needs:

@@ -762,8 +762,9 @@ def test_cli_refuses_fused_tamper_misuse_as_jax(flags):
 
 def test_cli_fused_tamper_on_a_per_round_path_fails_loudly():
     """A well-formed request reaches the engine, whose per-round path
-    cannot honor it (the port runs no fused dispatch): it raises JAX's
-    error instead of running the demo vacuously."""
+    cannot honor it (without --rounds-per-dispatch every round runs the
+    per-round path): it raises JAX's error instead of running the demo
+    vacuously."""
     from bcfl_tpu_torch.entrypoints.__main__ import main
 
     with pytest.raises(ValueError, match="fused_tamper requests corruption "
