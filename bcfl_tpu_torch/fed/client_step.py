@@ -27,14 +27,27 @@ too, as JAX constrains ``_compress_stage``'s payload and residual to
 ``P('clients')`` (:class:`Sender`): the shard's post-train rows are
 stacked there, their deltas encoded, and the error-feedback residual rows
 stay there; only the payload rows land on the lead device (the first
-shard's), in client order, plus the post-train rows where they are the
-round's carried state (serverless, async, partitioned). Without a codec,
-or on one shard, every post-train tree lands in row ``c`` of the stacked
-``[C, ...]`` tree on the lead device. The receiver's side (transport,
-ledger, decode, the FedAvg mean, the ring gossip, the async merge)
-consumes the stack on the lead device, as the JAX stacked axis is
-consumed, so the bits are the one-shard run's. An exception in any shard
-is raised in the caller. Trees are ``{flax leaf path: tensor}`` dicts in
+shard's), in client order. Without a codec, or on one shard, every
+post-train tree lands in row ``c`` of the stacked ``[C, ...]`` tree on
+the lead device.
+
+The stacked per-client state of the serverless, async and partitioned
+rounds lives where JAX's ``P('clients')`` keeps it when it is a
+:class:`Stacked` (a mesh of more than one shard): each shard's rows on
+its own device from the broadcast to the end of the run. Its clients
+train from those rows, their post-train rows stay there, each shard
+decodes its own payload rows against its own round-start rows, and the
+ring gossip mixes each shard's rows with two halo rows copied from its
+ring neighbours' shards (:func:`gossip_mix_rows`). Only what one
+reduction over the client axis reads lands on the lead device, in client
+order (the consensus, the ``steps == 0`` aggregate and the robust rules,
+a partition component's aggregate, the async merge, the ledger's
+fingerprint of an uncompressed stack), and it is reduced there as the
+one-shard run reduces it, so the bits are the one-shard run's. Given a
+plain ``[C, ...]`` tree, every body runs as it did before the stack was
+kept on the shards: the tree's rows are staged to the shards and the
+post-train rows land. An exception in any shard is raised in the caller,
+its shard named. Trees are ``{flax leaf path: tensor}`` dicts in
 the JAX leaf order and layout
 (:func:`bcfl_tpu_torch.models.convert.trainable_tree`), so codec payloads
 match the JAX package's.
@@ -66,11 +79,13 @@ import dataclasses
 import functools
 from typing import Callable, Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from bcfl_tpu_torch.compression import codecs as cc
+from bcfl_tpu_torch.core.fence import fence
 from bcfl_tpu_torch.core.mesh import ClientMesh
 from bcfl_tpu_torch.ledger import fingerprint as fp_lib
 from bcfl_tpu_torch.models import lora
@@ -79,7 +94,7 @@ from bcfl_tpu_torch.models.convert import (leaf_specs, load_trainable,
 from bcfl_tpu_torch.parallel import (gossip_mix, gossip_mix_recv,
                                      masked_weighted_mean)
 from bcfl_tpu_torch.parallel import sp, tp_linear
-from bcfl_tpu_torch.parallel.collectives import _col
+from bcfl_tpu_torch.parallel.collectives import _col, gossip_step_mix
 
 Tree = Dict[str, torch.Tensor]
 
@@ -248,7 +263,13 @@ def make_eval_one(model: nn.Module, loss_fn: Callable,
 
 
 def _traffic() -> Dict[str, int]:
-    return {"to_shards": 0, "to_lead": 0}
+    return {"to_shards": 0, "to_lead": 0, "shard_to_shard": 0}
+
+
+def _on(dev: torch.device):
+    """``dev`` as the current card while work is issued for it."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
 
 
 def _nbytes(x) -> int:
@@ -287,12 +308,13 @@ class Sharded:
     directly it is shard 0's body, on the lead device (the faithful round,
     the global evaluation, the dist runtime's pieces).
 
-    ``traffic`` counts the bytes between the lead shard and the others
-    since it was made, as the round bodies move them (:meth:`stage`,
-    :meth:`land`): ``to_shards`` what the lead copies to shards 1 and up,
-    ``to_lead`` what lands from them on the lead. It counts shards, not
-    cards: on ``[cuda:0] * 4`` no byte crosses a card, and the count is
-    what would."""
+    ``traffic`` counts the bytes between shards since it was made, as the
+    round bodies move them (:meth:`stage`, :meth:`land`, :meth:`halo`):
+    ``to_shards`` what the lead copies to shards 1 and up, ``to_lead``
+    what lands from them on the lead, ``shard_to_shard`` the ring
+    gossip's halo rows, copied from one shard straight to another. It
+    counts shards, not cards: on ``[cuda:0] * 4`` no byte crosses a card,
+    and the count is what would."""
 
     bodies: List[Callable]
     devices: List[torch.device]
@@ -337,6 +359,30 @@ class Sharded:
             self.traffic["to_lead"] += _nbytes(x)
         return x.to(self.lead)
 
+    def land_tree(self, s: int, tree: Tree) -> Tree:
+        """Shard ``s``'s tree on the lead device, crossing as
+        :func:`_packed` buffers, counted (shard 0's passes as it is)."""
+        if not s:
+            return tree
+        xs = list(tree.values())
+        bufs = {dt: self.land(s, b) for dt, b in _packed(xs).items()}
+        return dict(zip(tree, _unpacked(bufs, xs)))
+
+    def halo(self, src: int, dst: int, tree: Tree) -> Tree:
+        """Shard ``src``'s tree copied straight to shard ``dst``'s device,
+        not through the lead, as :func:`_packed` buffers, counted in
+        ``shard_to_shard``."""
+        self.traffic["shard_to_shard"] += _nbytes(tree)
+        xs, dev = list(tree.values()), self.devices[dst]
+        try:
+            bufs = {dt: b.to(dev, non_blocking=True)
+                    for dt, b in _packed(xs).items()}
+        except Exception as err:
+            err.add_note(f"copying client shard {src}'s rows to client "
+                         f"shard {dst} on {dev}")
+            raise
+        return dict(zip(tree, _unpacked(bufs, xs)))
+
 
 def _shards(body) -> Optional[Sharded]:
     """``body`` as a :class:`Sharded` of more than one shard, else None
@@ -380,8 +426,7 @@ def run_sharded(sh: Sharded, inputs: Sequence[tuple],
               for c, args in enumerate(inputs)]
     outs = []
     for s, (body, dev) in enumerate(zip(sh.bodies, sh.devices)):
-        with (torch.cuda.device(dev) if dev.type == "cuda"
-              else contextlib.nullcontext()):
+        with _on(dev):
             try:
                 mine = [body(*args) for args in staged[s * per:(s + 1) * per]]
                 if after is not None:
@@ -403,15 +448,18 @@ class Sender:
     and of the round's ``uniforms`` draw (:func:`cc.row_uniforms`), and
     its ``resid`` rows. The round leaves ``payload``, every client's rows
     on the lead device in client order (each row's codes are the
-    one-stack encode's: K5 and K4 treat rows apart), and ``resid``, each
-    shard's new residual rows on its own device. Launches: K4 once and
-    K5 once per distinct leaf width, per shard."""
+    one-stack encode's: K5 and K4 treat rows apart), ``resid``, each
+    shard's new residual rows on its own device, and each shard's own
+    payload rows, still on its device (:meth:`own`). Launches: K4 once
+    and K5 once per distinct leaf width, per shard."""
 
     comp: cc.CompressionConfig
     #: per shard: its ``[per, ...]`` float32 residual rows, on its device
     resid: List[Tree]
     uniforms: Optional[cc.Uniforms] = None
     payload: Optional[dict] = None
+    #: per shard: what :meth:`pack` made of its payload, on its device
+    parts: Optional[list] = None
 
     @staticmethod
     def _flat(payload: dict) -> List[torch.Tensor]:
@@ -433,6 +481,16 @@ class Sender:
         flat = iter([torch.cat(xs) for xs in zip(*rows)])
         self.payload = {p: {k: next(flat) for k in part}
                         for p, part in parts[0].items()}
+        self.parts = parts
+
+    def own(self, s: int) -> dict:
+        """Shard ``s``'s payload rows as it encoded them, on its own
+        device: the rows of :attr:`payload` it sent, the same bits."""
+        if not s:
+            return self.parts[0]
+        flat = iter(_unpacked(self.parts[s], self._flat(self.parts[0])))
+        return {p: {k: next(flat) for k in part}
+                for p, part in self.parts[0].items()}
 
 
 def cat_rows(rows: List[Tree], device) -> Tree:
@@ -451,6 +509,242 @@ def split_rows(tree: Tree, rows: List[tuple]) -> List[Tree]:
             for a, b, d in rows]
 
 
+@dataclasses.dataclass(eq=False)
+class Stacked:
+    """The stacked ``[C, ...]`` per-client tree on a clients mesh of more
+    than one shard, kept where JAX's ``P('clients')`` keeps it: ``rows[s]``
+    is shard ``s``'s ``[per, ...]`` rows (clients ``[s * per, (s + 1) *
+    per)``), on its device. Every round body that takes a stack takes this
+    form as well as a plain ``[C, ...]`` tree; what one reduction over
+    the client axis reads lands through :meth:`gather`."""
+
+    sh: Sharded
+    rows: List[Tree]
+
+    @classmethod
+    def split(cls, sh: Sharded, tree: Tree) -> "Stacked":
+        """A ``[C, ...]`` tree on the lead device (a restored checkpoint's)
+        as each shard's rows on its device, in its dtypes; shard 0's rows
+        are copies, so the whole tree need not stay alive."""
+        rows = []
+        for s, (a, b, _) in enumerate(sh.rows()):
+            part = {p: x[a:b] for p, x in tree.items()}
+            rows.append({p: x.clone() for p, x in part.items()} if not s
+                        else sh.stage(s, part))
+        return cls(sh, rows)
+
+    @classmethod
+    def broadcast(cls, sh: Sharded, global_t: Tree) -> "Stacked":
+        """:func:`broadcast` on the shards: the global staged once per
+        shard, then expanded to the shard's rows there."""
+        packed, rows = {}, []
+        for s, dev in enumerate(sh.devices):
+            g = sh.stage(s, global_t, packed)
+            with _on(dev):
+                rows.append(broadcast(g, sh.per_device))
+        return cls(sh, rows)
+
+    @property
+    def num_clients(self) -> int:
+        return self.sh.per_device * len(self.rows)
+
+    def gather(self) -> Tree:
+        """The ``[C, ...]`` tree on the lead device in client order, each
+        shard's rows landed as :func:`_packed` buffers (counted). Each leaf
+        is laid out in memory as shard 0's rows are, which is how the one
+        stack of a one-shard run is: a sum over the client axis adds in an
+        order that follows the layout."""
+        out = {p: _rows_like(x, self.num_clients)
+               for p, x in self.rows[0].items()}
+        per = self.sh.per_device
+        for s, r in enumerate(self.rows):
+            for p, x in self.sh.land_tree(s, r).items():
+                out[p][s * per:(s + 1) * per].copy_(x)
+        return out
+
+    def row(self, c: int) -> Tree:
+        """Client ``c``'s row, on its shard's device."""
+        s, i = divmod(c, self.sh.per_device)
+        return {p: x[i] for p, x in self.rows[s].items()}
+
+    def like(self) -> Tree:
+        """``[C, ...]`` views of one row (no copy): the shapes and dtypes
+        of the whole stack, for a decode or a structure digest."""
+        return stacked_like({p: x[0] for p, x in self.rows[0].items()},
+                            self.num_clients)
+
+
+def _rows_like(x: torch.Tensor, n: int) -> torch.Tensor:
+    """An empty ``[n, ...]`` tensor like the rows ``x``: the client axis
+    outermost, the other dims in ``x``'s memory order."""
+    inner = sorted(range(1, x.dim()), key=lambda d: -x.stride(d))
+    out = torch.empty((n,) + tuple(x.shape[d] for d in inner),
+                      dtype=x.dtype, device=x.device)
+    return out.permute([0] + [1 + inner.index(d) for d in range(1, x.dim())])
+
+
+def gathered(stacked):
+    """A stack as a ``[C, ...]`` tree on the lead device: a
+    :class:`Stacked`'s rows landed in client order, a plain tree (or None)
+    as it is."""
+    return stacked.gather() if isinstance(stacked, Stacked) else stacked
+
+
+def shardwise(fn: Callable, *args) -> Stacked:
+    """``fn`` on every shard of the first :class:`Stacked` of ``args``,
+    issued under the shard's device, the results a new :class:`Stacked`.
+    Shard ``s`` gets each :class:`Stacked` argument's rows, a tree on the
+    lead device staged once per shard, a ``[C, ...]`` tensor on the lead
+    device its rows ``[a:b]`` staged, and anything else as it is. A
+    failure is raised with its shard named; nothing is regathered."""
+    sh = next(a.sh for a in args if isinstance(a, Stacked))
+    packed, out = {}, []
+    for s, (a, b, dev) in enumerate(sh.rows()):
+        def arg(x):
+            if isinstance(x, Stacked):
+                return x.rows[s]
+            if isinstance(x, dict):
+                return sh.stage(s, x, packed)
+            if isinstance(x, torch.Tensor):
+                return sh.stage(s, x[a:b])
+            return x
+
+        with _on(dev):
+            try:
+                out.append(fn(*[arg(x) for x in args]))
+            except Exception as err:
+                err.add_note(f"in client shard {s} on {dev}")
+                raise
+    return Stacked(sh, out)
+
+
+def client_stack(local_train: Callable, global_t: Tree,
+                 num_clients: int):
+    """The stacked per-client state every client starts from ``global_t``
+    with (:func:`broadcast`): on a mesh of more than one shard each
+    shard's rows on its device (:meth:`Stacked.broadcast`)."""
+    sh = _shards(local_train)
+    if sh is None:
+        return broadcast(global_t, num_clients)
+    return Stacked.broadcast(sh, global_t)
+
+
+def restack(local_train: Callable, tree: Tree):
+    """A ``[C, ...]`` tree on the lead device (a restored checkpoint's) in
+    the form the run keeps its stack in: on a mesh of more than one shard
+    split onto the shards (:meth:`Stacked.split`), else as it is."""
+    sh = _shards(local_train)
+    return tree if sh is None else Stacked.split(sh, tree)
+
+
+def keep_rows(out, start, keep: torch.Tensor):
+    """``start``'s rows where ``keep`` is set, ``out``'s elsewhere (on a
+    :class:`Stacked`, each shard's rows where they are)."""
+    if isinstance(out, Stacked):
+        return shardwise(keep_rows, out, start, keep)
+    return {p: torch.where(_col(keep, x) > 0, start[p], x)
+            for p, x in out.items()}
+
+
+def _difference(sent, base) -> Tree:
+    return {p: sent[p] - base[p] for p in sent}
+
+
+def arrived_deltas(comp: Optional[cc.CompressionConfig], sent, base,
+                   stacked) -> Tree:
+    """The async merge's ``[C, ...]`` deltas on the lead device: without a
+    codec each client's ``sent - base`` (a :class:`Stacked`'s taken on
+    its shards, then landed), with one the arrived payload decoded into
+    the stack's shapes."""
+    if comp is None:
+        if isinstance(sent, Stacked):
+            return shardwise(_difference, sent, base).gather()
+        return _difference(sent, base)
+    return decode_delta(comp, sent, stacked.like()
+                        if isinstance(stacked, Stacked) else stacked)
+
+
+def landed(new_t, sent, transported: Callable):
+    """``(new_t, sent)`` on the lead device, as the ledger's fingerprint
+    reads them. Its fold gives other bits on fewer rows, so a
+    :class:`Stacked` lands, and what arrived is ``transported`` (the
+    transport, elementwise: the shards' bits) redone on the landed rows;
+    a plain pair passes as it is."""
+    if not isinstance(new_t, Stacked):
+        return new_t, sent
+    seen = new_t.gather()
+    return seen, transported(seen)
+
+
+@dataclasses.dataclass(eq=False)
+class Deferred:
+    """A consensus view of a :class:`Stacked` not collapsed yet: the
+    aggregation rule over ``stack`` (a round's stacked state) with
+    ``weights``, not all zero (the host knew), and ``like``, the last
+    collapsed view, as the fallback: the rules read a fallback's values
+    beside positive weights only under RBLA, which runs in server mode,
+    where every view is collapsed before the next round, so ``like`` is
+    the eager run's fallback there; else it gives the result the eager
+    chain's memory layout. :func:`settle` lands the stack and collapses
+    it when something reads the view."""
+
+    stack: Stacked
+    weights: torch.Tensor
+    like: Tree
+
+
+def settle(view, agg: Optional[Callable] = None) -> Tree:
+    """A consensus view as a tree: a :class:`Deferred` collapsed now over
+    its landed stack, any other tree as it is."""
+    if not isinstance(view, Deferred):
+        return view
+    return collapse(view.stack, view.weights, view.like, agg)
+
+
+def _last_collapsed(view) -> Tree:
+    return view.like if isinstance(view, Deferred) else view
+
+
+def consensus(stacked, weights, w: torch.Tensor, prev,
+              agg: Optional[Callable] = None):
+    """The consensus view ``collapse(stacked, w, prev)`` of a round's
+    stacked state, ``weights`` being ``w`` on the host. A plain stack
+    collapses now. A :class:`Stacked` is not landed for it now: with
+    every weight 0 the rule returns its fallback's bits, so the view is
+    ``prev``'s; else a :class:`Deferred`, collapsed when read."""
+    if not isinstance(stacked, Stacked):
+        return collapse(stacked, w, settle(prev, agg), agg)
+    if not (np.asarray(weights) > 0).any():
+        return settle(prev, agg)
+    return Deferred(stacked, w, _last_collapsed(prev))
+
+
+def chunk_consensus(carry, ones: torch.Tensor, prev, observed: bool,
+                    agg: Optional[Callable] = None):
+    """The consensus view at a fused gossip chunk's end (every weight 1):
+    collapsed when the end is observed; else a plain stack's is not
+    computed (nothing reads it, ``prev`` stands) and a :class:`Stacked`'s
+    is deferred (an older view would keep its stack alive through the
+    chunk)."""
+    if observed:
+        return collapse(carry, ones, settle(prev, agg), agg)
+    if isinstance(carry, Stacked):
+        return Deferred(carry, ones, _last_collapsed(prev))
+    return prev
+
+
+def fence_rows(*trees) -> None:
+    """Block the host until the work on every device that ``trees`` lie on
+    is done: every shard's rows of a :class:`Stacked`, a plain tree's
+    device; a :class:`Deferred` view or None is nothing to wait for."""
+    for t in trees:
+        if isinstance(t, Stacked):
+            for rows in t.rows:
+                fence(rows)
+        elif t is not None and not isinstance(t, Deferred):
+            fence(t)
+
+
 def stacked_like(tree: Tree, num_clients: int) -> Tree:
     """``[C, ...]`` views of an unstacked tree (no copy): the shapes and
     dtypes a receiver decodes a payload into when no stack landed."""
@@ -461,12 +755,15 @@ def stacked_like(tree: Tree, num_clients: int) -> Tree:
 def _train_each(local_train: Callable, start_of: Callable, ref_of: Callable,
                 batches: Tree, generators: List[Optional[torch.Generator]],
                 like: Tree, rmask: Optional[torch.Tensor] = None,
-                sender: Optional[Sender] = None, state: bool = True):
+                sender: Optional[Sender] = None, state: bool = True,
+                keep: bool = False):
     """Every client trains from ``start_of(ref, i)``, ``ref`` being
     ``ref_of(a, b)`` (the reference of clients ``[a, b)``) and ``i`` the
     client's row in it. On a mesh of more than one shard each shard's
     reference and ``rmask`` rows are copied to its device once, before any
-    shard is issued, and its clients start from them."""
+    shard is issued, and its clients start from them; with ``keep`` the
+    references are a :class:`Stacked`'s rows, on their shards already, and
+    the post-train rows stay there too (a :class:`Stacked` is returned)."""
     C = batches["ids"].shape[0]
 
     def stacked():
@@ -495,10 +792,13 @@ def _train_each(local_train: Callable, start_of: Callable, ref_of: Callable,
             stats.append(s)
         return new_t, torch.stack(stats)
     rows = sh.rows()
-    # the global is packed once for every shard; the cache is keyed by
-    # id, so every shard's tree stays alive until all are staged
-    trees, packed = [ref_of(a, b) for a, b, _ in rows], {}
-    refs = [sh.stage(s, t, packed) for s, t in enumerate(trees)]
+    if keep:
+        refs = [ref_of(a, b) for a, b, _ in rows]
+    else:
+        # the global is packed once for every shard; the cache is keyed by
+        # id, so every shard's tree stays alive until all are staged
+        trees, packed = [ref_of(a, b) for a, b, _ in rows], {}
+        refs = [sh.stage(s, t, packed) for s, t in enumerate(trees)]
     masks = [None if rmask is None else sh.stage(s, rmask[a:b])
              for s, (a, b, _) in enumerate(rows)]
     per = sh.per_device
@@ -507,18 +807,24 @@ def _train_each(local_train: Callable, start_of: Callable, ref_of: Callable,
                generators[c]) for c in range(C)]
     stacks, parts = [], []
 
-    def send(s, mine):
+    def after(s, mine):
         a, b, _ = rows[s]
         stacks.append({p: torch.stack([t[p] for t, _ in mine])
                        for p in like})
-        payload, _, sender.resid[s] = compress_stage(
-            sender.comp, stacks[s], refs[s], sender.resid[s],
-            cc.row_uniforms(sender.uniforms, C, a, b), masks[s])
-        parts.append(sender.pack(s, payload))
+        if sender is not None:
+            payload, _, sender.resid[s] = compress_stage(
+                sender.comp, stacks[s], refs[s], sender.resid[s],
+                cc.row_uniforms(sender.uniforms, C, a, b), masks[s])
+            parts.append(sender.pack(s, payload))
 
-    outs = run_sharded(sh, inputs, None if sender is None else send)
+    outs = run_sharded(sh, inputs,
+                       after if sender is not None or keep else None)
     stats = torch.stack([sh.land(c // per, s)
                          for c, (_, s) in enumerate(outs)])
+    if keep:
+        if sender is not None:
+            sender.gather(sh, parts)
+        return Stacked(sh, stacks), stats
     if sender is None:
         new_t = stacked()
         for c, (t, _) in enumerate(outs):
@@ -535,12 +841,23 @@ def _train_each(local_train: Callable, start_of: Callable, ref_of: Callable,
     return new_t, stats
 
 
-def eval_clients(eval_one: Callable, tree_of: Callable, batches: Tree
-                 ) -> torch.Tensor:
-    """Each client's ``[loss*n, correct, n]`` of ``tree_of(c)`` on its own
-    ``batches[c]``, ``[C, 3]`` on the lead device; the clients of a
-    :class:`Sharded` ``eval_one`` on their shards' devices."""
+def eval_clients(eval_one: Callable, stacked, global_t: Tree,
+                 batches: Tree) -> torch.Tensor:
+    """Each client's ``[loss*n, correct, n]`` of its row of ``stacked``
+    (of ``global_t`` when ``stacked`` is None) on its own ``batches[c]``,
+    ``[C, 3]`` on the lead device; the clients of a :class:`Sharded`
+    ``eval_one`` on their shards' devices. A :class:`Stacked`'s rows are
+    on their shards already and nothing of them is staged."""
     C = batches["ids"].shape[0]
+    kept = isinstance(stacked, Stacked)
+    if kept:
+        tree_of = stacked.row
+    elif stacked is None:
+        def tree_of(c):
+            return global_t
+    else:
+        def tree_of(c):
+            return {p: x[c] for p, x in stacked.items()}
     rows = [(tree_of(c), {k: v[c] for k, v in batches.items()})
             for c in range(C)]
     sh = _shards(eval_one)
@@ -549,6 +866,8 @@ def eval_clients(eval_one: Callable, tree_of: Callable, batches: Tree
     per, staged, packed = sh.per_device, {}, {}
 
     def stage(c, tree):  # a tree several clients share, once a shard
+        if kept:
+            return tree
         key = (id(tree), c // per)  # every tree stays alive in ``rows``
         if key not in staged:
             staged[key] = sh.stage(c // per, tree, packed)
@@ -575,15 +894,25 @@ def train_clients(local_train: Callable, global_t: Tree, batches: Tree,
                        rmask, sender, state=False)
 
 
-def local_updates(local_train: Callable, client_t: Tree, batches: Tree,
+def local_updates(local_train: Callable, client_t, batches: Tree,
                   generators: List[Optional[torch.Generator]],
                   rmask: Optional[torch.Tensor] = None,
                   sender: Optional[Sender] = None):
     """Every client trains from its OWN row of the stacked ``client_t``
     (``local_updates_body``): ``-> (stacked [C, ...] trees, stats [C, 3])``.
     With a ``sender`` each shard encodes its deltas against its rows of
-    ``client_t`` on its own device; the post-train trees still land, the
-    round's carried state."""
+    ``client_t`` on its own device. A :class:`Stacked` ``client_t`` trains
+    each shard from its own rows where they are, and the post-train rows
+    stay there (a :class:`Stacked`); a plain tree's rows are staged to the
+    shards and the post-train trees land."""
+    if isinstance(client_t, Stacked):
+        per = client_t.sh.per_device
+        return _train_each(
+            local_train, lambda ref, i: {p: x[i] for p, x in ref.items()},
+            lambda a, b: client_t.rows[a // per],
+            batches, generators,
+            {p: x[0] for p, x in client_t.rows[0].items()}, rmask, sender,
+            keep=True)
     like = {p: x[0] for p, x in client_t.items()}
     return _train_each(local_train,
                        lambda ref, i: {p: x[i] for p, x in ref.items()},
@@ -665,50 +994,167 @@ def broadcast(global_t: Tree, num_clients: int) -> Tree:
             for p, x in global_t.items()}
 
 
-def adopt(client_t: Tree, global_t: Tree, pull: torch.Tensor) -> Tree:
+def adopt(client_t, global_t: Tree, pull: torch.Tensor):
     """Pull-masked clients adopt ``global_t``, everyone else keeps their
-    stacked row (``_adopt_pull``)."""
+    stacked row (``_adopt_pull``); on a :class:`Stacked`, each shard's
+    rows where they are, the global staged once per shard."""
+    if isinstance(client_t, Stacked):
+        return shardwise(adopt, client_t, global_t, pull)
     return {p: torch.where(_col(pull, x) > 0,
                            global_t[p].to(x.dtype).expand_as(x), x)
             for p, x in client_t.items()}
 
 
-def collapse(stacked: Tree, weights: torch.Tensor, fallback: Tree,
+def collapse(stacked, weights: torch.Tensor, fallback: Tree,
              agg: Optional[Callable] = None) -> Tree:
     """The aggregation rule over the client axis (``collapse``): ``agg``
     (:func:`bcfl_tpu_torch.parallel.make_aggregator`), the masked weighted
-    mean by default."""
-    return (agg or masked_weighted_mean)(stacked, weights, fallback)
+    mean by default, over the stack landed on the lead device in client
+    order (:func:`gathered`): one reduction, as on one shard."""
+    return (agg or masked_weighted_mean)(gathered(stacked), weights,
+                                         fallback)
 
 
-def exact_mean_spread(avg: Tree, new_t: Tree, mask: torch.Tensor) -> Tree:
+def exact_mean_spread(avg: Tree, new_t, mask: torch.Tensor):
     """Serverless exact-mean aggregation: every unmasked client adopts the
     (mask-weighted) average, masked clients keep their own state
     (``_exact_mean_spread``)."""
+    if isinstance(new_t, Stacked):
+        return shardwise(exact_mean_spread, avg, new_t, mask)
     return {p: torch.where(_col(mask, x) > 0, avg[p].expand_as(x), x)
             for p, x in new_t.items()}
 
 
-def mix(new_t: Tree, mask: torch.Tensor, fallback: Tree, alpha: float,
-        steps: int, agg: Optional[Callable] = None) -> Tree:
+def _spread_rows(self_t: Stacked, recv_t, mask: torch.Tensor, fallback,
+                 agg: Optional[Callable]) -> Stacked:
+    """``steps == 0`` on the shards: ``recv_t`` lands for the one
+    reduction, and the aggregate goes back once per shard for the spread.
+    The serverless rules read their fallback (the round-start stack) only
+    when every weight is 0, where the spread keeps every client's own
+    rows; but it sets the aggregate's memory layout, and so the spread's,
+    and a later sum over the client axis adds in an order that follows
+    the layout. The stack's first row, on the lead device, stands in for
+    it: the same layout. (RBLA, which reads its fallback beside positive
+    weights, runs in server mode only.)"""
+    if isinstance(fallback, Stacked):
+        fallback = {p: x[:1] for p, x in fallback.rows[0].items()}
+    return exact_mean_spread(collapse(recv_t, mask, fallback, agg), self_t,
+                             mask)
+
+
+def gossip_mix_rows(self_t: Stacked, recv_t: Stacked, mask: torch.Tensor,
+                    alpha: float, steps: int = 1) -> Stacked:
+    """:func:`~bcfl_tpu_torch.parallel.gossip_mix_recv` on the shards.
+    Each step every shard gets its two ring neighbours' rows of the
+    received (later: the mixed) stack, row ``a - 1`` and row ``b`` (mod
+    C) for its clients ``[a, b)``, copied straight from the shards that
+    hold them (:meth:`Sharded.halo`, all of a step's before any shard
+    mixes), then mixes its own rows, its masks its rows of the rolled
+    masks. The rule is elementwise over a row and its two neighbours, so
+    the bits are the one-stack mix's."""
+    sh, C = self_t.sh, self_t.num_clients
+    per, rows = sh.per_device, sh.rows()
+    # [C, 3]: each client's own, left and right neighbour's mask
+    masks = torch.stack([mask, torch.roll(mask, 1, dims=0),
+                         torch.roll(mask, -1, dims=0)], dim=1)
+    ms = [sh.stage(s, masks[a:b]) for s, (a, b, _) in enumerate(rows)]
+
+    def neighbour(c: int, s: int) -> Tree:
+        src, i = divmod(c % C, per)
+        return sh.halo(src, s, {p: x[i:i + 1]
+                                for p, x in recv_t.rows[src].items()})
+
+    for _ in range(steps):
+        halos = [(neighbour(a - 1, s), neighbour(b, s))
+                 for s, (a, b, _) in enumerate(rows)]
+        out = []
+        for s, (_, _, dev) in enumerate(rows):
+            (left, right), m, recv = halos[s], ms[s], recv_t.rows[s]
+            with _on(dev):
+                try:
+                    # leaf by leaf, so only one leaf's neighbour rows are
+                    # alive
+                    out.append({p: gossip_step_mix(
+                        x, torch.cat([left[p], recv[p][:-1]]),
+                        torch.cat([recv[p][1:], right[p]]),
+                        _col(m[:, 1], x), _col(m[:, 2], x),
+                        _col(m[:, 0], x), alpha)
+                        for p, x in self_t.rows[s].items()})
+                except Exception as err:
+                    err.add_note(f"in client shard {s} on {dev}")
+                    raise
+        del halos
+        self_t = recv_t = Stacked(sh, out)
+    return self_t
+
+
+def mix(new_t, mask: torch.Tensor, fallback, alpha: float,
+        steps: int, agg: Optional[Callable] = None):
     """The serverless mix (``_mix_g``): ``steps == 0`` spreads the exact
     masked aggregate (``agg``), otherwise ``steps`` rounds of ring gossip,
-    which keeps its pairwise mixing rule whatever the aggregator."""
+    which keeps its pairwise mixing rule whatever the aggregator. A
+    :class:`Stacked` mixes on its shards."""
+    if isinstance(new_t, Stacked):
+        return mix_recv(new_t, new_t, mask, fallback, alpha, steps, agg)
     if steps == 0:
         return exact_mean_spread(collapse(new_t, mask, fallback, agg), new_t,
                                  mask)
     return gossip_mix(new_t, mask, alpha, steps=steps)
 
 
-def mix_recv(self_t: Tree, recv_t: Tree, mask: torch.Tensor, fallback: Tree,
-             alpha: float, steps: int, agg: Optional[Callable] = None) -> Tree:
+def mix_recv(self_t, recv_t, mask: torch.Tensor, fallback,
+             alpha: float, steps: int, agg: Optional[Callable] = None):
     """The transport-aware mix (``_mix_g_recv``): neighbour and aggregate
     terms from ``recv_t`` (what arrived), each sender's self-term (and a
-    masked client's kept state) from its own ``self_t``."""
+    masked client's kept state) from its own ``self_t``. A
+    :class:`Stacked` mixes on its shards (:func:`gossip_mix_rows`; at
+    ``steps == 0`` the received rows land for the one reduction)."""
+    if isinstance(self_t, Stacked):
+        if steps == 0:
+            return _spread_rows(self_t, recv_t, mask, fallback, agg)
+        return gossip_mix_rows(self_t, recv_t, mask, alpha, steps=steps)
     if steps == 0:
         return exact_mean_spread(collapse(recv_t, mask, fallback, agg),
                                  self_t, mask)
     return gossip_mix_recv(self_t, recv_t, mask, alpha, steps=steps)
+
+
+def decode_rows(comp: cc.CompressionConfig, sender: Sender, sent: dict,
+                ref_t: Stacked, like_t: Stacked) -> Stacked:
+    """The reconstruction ``ref + decoded`` on the shards: each shard
+    decodes its rows of what arrived against its own round-start rows.
+    On a clean wire (``sent`` is the landed payload) those are the rows
+    it encoded (:meth:`Sender.own`); a transported payload's rows go back
+    to their shards as :func:`_packed` buffers."""
+    sh = ref_t.sh
+    if sent is sender.payload:
+        mine = [sender.own(s) for s in range(len(sh.devices))]
+    else:
+        flat = [(p, k, x) for p, parts in sent.items()
+                for k, x in parts.items()]
+        mine = []
+        for s, (a, b, _) in enumerate(sh.rows()):
+            rows = iter(sh.stage(s, {i: x[a:b] for i, (_, _, x)
+                                     in enumerate(flat)}).values())
+            part: dict = {}
+            for p, k, _ in flat:
+                part.setdefault(p, {})[k] = next(rows)
+            mine.append(part)
+    return shardwise(functools.partial(decode_recon, comp),
+                     Stacked(sh, mine), ref_t, like_t)
+
+
+def decode_arrived(comp: cc.CompressionConfig, sender: Optional[Sender],
+                   sent: dict, ref_t, like_t, num_clients: int):
+    """The reconstruction ``ref + decoded`` of the payload that arrived:
+    on the shards for a :class:`Stacked` ``ref_t`` (:func:`decode_rows`),
+    else on the lead device into ``like_t``'s shapes (``ref_t`` stacked
+    when no tree landed)."""
+    if isinstance(ref_t, Stacked):
+        return decode_rows(comp, sender, sent, ref_t, like_t)
+    like = (like_t if like_t is not None
+            else stacked_like(ref_t, num_clients))
+    return decode_recon(comp, sent, ref_t, like)
 
 
 # ------------------------------------------------------------ round bodies
@@ -766,7 +1212,7 @@ def server_round(local_train: Callable, comp: Optional[cc.CompressionConfig],
 
 
 def gossip_round(local_train: Callable, comp: Optional[cc.CompressionConfig],
-                 client_t: Tree, batches: Tree, mask: torch.Tensor,
+                 client_t, batches: Tree, mask: torch.Tensor,
                  generators: List[Optional[torch.Generator]],
                  resid: Optional[Tree] = None,
                  uniforms: Optional[cc.Uniforms] = None,
@@ -776,10 +1222,10 @@ def gossip_round(local_train: Callable, comp: Optional[cc.CompressionConfig],
     each peer ships its delta against its own round-start params; the
     neighbour terms come from the lossy reconstruction, each sender's
     self-term stays its honest post-train tree. ``global_t`` of the result
-    is the mixed ``[C, ...]`` stack. ``FedEngine`` runs the same steps
-    split around its ledger seam. On a clients mesh of more than one shard
-    each shard encodes its own rows (:class:`Sender`), as in
-    :func:`server_round`."""
+    is the mixed stack, in ``client_t``'s form (a :class:`Stacked` stays on
+    its shards). ``FedEngine`` runs the same steps split around its ledger
+    seam. On a clients mesh of more than one shard each shard encodes its
+    own rows (:class:`Sender`), as in :func:`server_round`."""
     sender = _round_sender(local_train, comp, resid, uniforms)
     new_t, stats = local_updates(local_train, client_t, batches, generators,
                                  sender=sender)
@@ -790,8 +1236,10 @@ def gossip_round(local_train: Callable, comp: Optional[cc.CompressionConfig],
                                             uniforms)
     else:
         payload = sender.payload
-        resid = cat_rows(sender.resid, next(iter(new_t.values())).device)
-        rec = decode_recon(comp, payload, client_t, new_t)
+        resid = cat_rows(sender.resid, _shards(local_train).lead)
+        rec = (decode_rows(comp, sender, payload, client_t, new_t)
+               if isinstance(new_t, Stacked)
+               else decode_recon(comp, payload, client_t, new_t))
     mixed = mix_recv(new_t, rec, mask, client_t, alpha, steps)
     return RoundOut(mixed, stats, resid, payload)
 
@@ -799,13 +1247,16 @@ def gossip_round(local_train: Callable, comp: Optional[cc.CompressionConfig],
 # ------------------------------------------------- fused multi-round chunks
 
 
-def transport(new_t: Tree, c_row: Optional[torch.Tensor]) -> Tree:
+def transport(new_t, c_row: Optional[torch.Tensor]):
     """Simulated transport of a client-stacked update tree (``_transport``):
     what reaches the aggregation is ``new_t + c_row[c]`` per client, in
-    each leaf's dtype. ``c_row`` None is a clean round: the same buffer,
-    not an identity add (``-0.0 + 0.0`` is ``+0.0``)."""
+    each leaf's dtype (a :class:`Stacked` on its shards). ``c_row`` None
+    is a clean round: the same buffer, not an identity add (``-0.0 +
+    0.0`` is ``+0.0``)."""
     if c_row is None:
         return new_t
+    if isinstance(new_t, Stacked):
+        return shardwise(transport, new_t, c_row)
     return {p: x + _col(c_row, x) for p, x in new_t.items()}
 
 
@@ -826,11 +1277,15 @@ def _fp_auth(tree: Tree, sent: Tree):
     return sent, fp_commit, fp_recv, _auth(fp_commit, fp_recv)
 
 
-def fp_auth(new_t: Tree, c_row: Optional[torch.Tensor]):
+def fp_auth(new_t, c_row: Optional[torch.Tensor]):
     """``(sent, fp_commit, fp_recv, auth)`` (``_fp_auth``): each client's
     update fingerprinted before and after :func:`transport`, compared on
-    the device; ``auth`` ``[C]`` gates the round's aggregation."""
-    return _fp_auth(new_t, transport(new_t, c_row))
+    the device; ``auth`` ``[C]`` gates the round's aggregation. A
+    :class:`Stacked` is fingerprinted landed (:func:`landed`)."""
+    sent = transport(new_t, c_row)
+    _, *fps = _fp_auth(*landed(new_t, sent,
+                               lambda t: transport(t, c_row)))
+    return (sent, *fps)
 
 
 def fp_auth_payload(payload: dict, c_row: Optional[torch.Tensor]):
@@ -913,9 +1368,8 @@ def _chunk_wire(local_train: Callable, comp: Optional[cc.CompressionConfig],
     if rec is None or sent is not payload:
         # a corrupted wire yields a corrupted reconstruction, which auth
         # has already excluded
-        like = (new_t if new_t is not None
-                else stacked_like(ref_t, len(rin.generators)))
-        rec = decode_recon(comp, sent, ref_t, like)
+        rec = decode_arrived(comp, sender, sent, ref_t, new_t,
+                             len(rin.generators))
     return rec, fps
 
 

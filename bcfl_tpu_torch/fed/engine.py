@@ -74,14 +74,23 @@ sender's side of every exchange runs there too
 (:class:`bcfl_tpu_torch.fed.client_step.Sender`, JAX's ``_compress_stage``
 under ``P('clients')``): each shard encodes its own deltas and keeps its
 error-feedback rows on its device between rounds, and only the payload
-rows cross to the lead device, the first shard's (with the post-train
-trees where they are the round's state: serverless, async,
-partitioned). Everything after the wire (transport, the ledger, the
-decode, the mean, the gossip mix, the async merge) runs on the lead
-device, so a run's bits are the one-shard run's (cohort mode's
-two-level mean aside). Without ``devices=``
-the engine stays on one card: spread over four H100s, the host-bound
-BERT rounds ran slower than on one (``scripts/clients_axis.py``).
+rows cross to the lead device, the first shard's. The stacked
+per-client state of the serverless, async and partitioned rounds stays on
+the shards (:class:`bcfl_tpu_torch.fed.client_step.Stacked`): each
+shard's rows on its device from the broadcast to the end of the run,
+trained, decoded, transported, mixed (with two halo rows a step from its
+ring neighbours' shards) and adopted where they are. What one reduction
+over the client axis reads lands on the lead device in client order and
+is reduced there as on one shard (the FedAvg mean, the consensus, the
+``steps == 0`` aggregate and the robust rules, a partition component's
+aggregate, the async merge, the ledger's fingerprint of an uncompressed
+stack), so a run's bits are the one-shard run's (cohort mode's
+two-level mean aside). The serverless consensus of such a stack is
+collapsed only when something reads it
+(:class:`~bcfl_tpu_torch.fed.client_step.Deferred`). Without
+``devices=`` the engine stays on one card: spread over four H100s, the
+host-bound BERT rounds ran slower than on one
+(``scripts/clients_axis.py``).
 
 Tensor and sequence parallelism (``tp``/``sp > 1``) run over the same
 device list: the mesh is built before the model (JAX's checks), and every
@@ -146,7 +155,6 @@ from bcfl_tpu_torch.models.convert import (leaf_specs, load_trainable,
 from bcfl_tpu_torch.models.hf_import import import_pretrained, load_into
 from bcfl_tpu_torch.parallel import (make_aggregator,
                                      rank_aware_weighted_mean, tp_linear)
-from bcfl_tpu_torch.parallel.collectives import _col
 from bcfl_tpu_torch.parallel.sp import ring_override
 from bcfl_tpu_torch.reputation import ReputationTracker
 from bcfl_tpu_torch.topology import (
@@ -172,6 +180,10 @@ class RunResult:
     ledger: Optional[Ledger] = None
     # the codec's error-feedback residual the run ended with (codec on)
     ef_residual: Optional[Dict[str, torch.Tensor]] = None
+    # the per-client stacked state the run ended with (serverless, async,
+    # partitioned; None otherwise): a [C, ...] tree on one client shard, a
+    # client_step.Stacked on several (client_step.gathered lands it)
+    stacked: object = None
 
 
 @dataclasses.dataclass
@@ -556,6 +568,21 @@ class FedEngine:
             return None
         return cs.Sender(self._comp, list(self._ef_rows), self._uniforms(rnd))
 
+    # ------------------------------------------------- the stacked state
+
+    def _resolved(self, trainable):
+        """A consensus view as a tree (:func:`cs.settle`)."""
+        return cs.settle(trainable, self.agg)
+
+    def _observed(self, rnd: int) -> bool:
+        """Whether anything reads round ``rnd``'s global or consensus view
+        after it: the run's last round, an evaluation or a checkpoint."""
+        cfg = self.cfg
+        return bool(rnd == cfg.num_rounds - 1
+                    or (cfg.eval_every and (rnd + 1) % cfg.eval_every == 0)
+                    or (cfg.checkpoint_dir and cfg.checkpoint_every
+                        and (rnd + 1) % cfg.checkpoint_every == 0))
+
     def _participation(self, rnd: int, components=None) -> Dict:
         if components is not None:
             # under a partition the filter sees each component's subgraph
@@ -731,10 +758,12 @@ class FedEngine:
             sent = self._transport(new_t, scales)
             auth = fp = None
             if self.ledger is not None:
+                seen, seen_sent = cs.landed(
+                    new_t, sent, lambda t: self._transport(t, scales))
                 if commit:
-                    auth = self._ledger_verify(rnd, new_t, sent)
+                    auth = self._ledger_verify(rnd, seen, seen_sent)
                 else:
-                    fp = self._fingerprint_rows("stacked", sent)
+                    fp = self._fingerprint_rows("stacked", seen_sent)
             return ExchangeResult(sent=sent, recon=sent, auth=auth, fp=fp,
                                   wire_kind="stacked")
         recon = None
@@ -756,12 +785,12 @@ class FedEngine:
         if scales is not None:
             sent = cc.corrupt_payload(payload, self._scales_tensor(scales))
         if mode != "async" and (recon is None or sent is not payload):
-            # the shards' payload is decoded where it arrived, and a
+            # the shards' payload is decoded where it arrived, each shard's
+            # rows of a stack kept on the shards on that shard, and a
             # corrupted wire yields a corrupted reconstruction: decode the
             # TRANSPORTED payload
-            like = (new_t if new_t is not None
-                    else cs.stacked_like(ref_t, self.C))
-            recon = cs.decode_recon(self._comp, sent, ref_t, like)
+            recon = cs.decode_arrived(self._comp, sender, sent, ref_t, new_t,
+                                      self.C)
         auth = fp = None
         if self.ledger is not None:
             if commit:
@@ -786,12 +815,11 @@ class FedEngine:
 
     def _transport(self, stacked, scales):
         """Simulated transport of the stacked updates: the tree that
-        arrives is ``stacked + scales[c]`` per client, the same buffer when
-        ``scales`` is None."""
+        arrives is ``stacked + scales[c]`` per client (each shard's rows
+        where they are), the same buffer when ``scales`` is None."""
         if scales is None:
             return stacked
-        s = self._scales_tensor(scales)
-        return {p: x + _col(s, x) for p, x in stacked.items()}
+        return cs.transport(stacked, self._scales_tensor(scales))
 
     # ----------------------------------------------------------- round bodies
 
@@ -850,7 +878,7 @@ class FedEngine:
             stacked = cs.mix(new_t, m, start, alpha, steps, self.agg)
         del new_t, ex, start
         # consensus view for eval and checkpoint (the masked aggregate)
-        consensus = cs.collapse(stacked, m, prev_consensus, self.agg)
+        consensus = cs.consensus(stacked, mask, m, prev_consensus, self.agg)
         rec = self._stats_to_rec(rnd, stats)
         if auth is not None:
             rec.auth = auth.tolist()
@@ -872,10 +900,13 @@ class FedEngine:
         cfg = self.cfg
         C = self.C
         batches, n_ex = self._round_batches(rnd)
+        # the fallback of the components' aggregates (the last span
+        # round's consensus)
+        trainable = self._resolved(trainable)
         if stacked is None:
             # span entry from server mode: every client starts the span
             # from the last whole global
-            stacked = cs.broadcast(trainable, C)
+            stacked = cs.client_stack(self.local_train, trainable, self.C)
         start = stacked
         sender = self._sender(rnd)
         stacked, stats = cs.local_updates(self.local_train, stacked, batches,
@@ -893,6 +924,8 @@ class FedEngine:
             np.asarray(n_ex, np.float32) if cfg.weighted_agg else 1.0)
         part_id = np.full((C,), -1, np.int64)
         out = stacked
+        # the components' aggregates read the received rows, landed once
+        landed = None
         for ci, comp in enumerate(comps):
             cm = np.zeros((C,), np.float32)
             cm[list(comp)] = 1.0
@@ -903,20 +936,20 @@ class FedEngine:
                 # keep the component's round-start model; serverless
                 # members keep their own post-train state
                 if cfg.mode == "server":
-                    keep = self._mask_tensor(cm)
-                    out = {p: torch.where(_col(keep, x) > 0, start[p], x)
-                           for p, x in out.items()}
+                    out = cs.keep_rows(out, start, self._mask_tensor(cm))
                 logger.warning(
                     "round %d: partition component %d fully eliminated — "
                     "keeping its previous model", rnd, ci)
                 continue
-            comp_agg = cs.collapse(agg_src, self._mask_tensor(wc), trainable,
+            if landed is None:
+                landed = cs.gathered(agg_src)
+            comp_agg = cs.collapse(landed, self._mask_tensor(wc), trainable,
                                    self.agg)
             pull = cm if cfg.mode == "server" else cm * (np.asarray(mask) > 0)
             out = cs.adopt(out, comp_agg, self._mask_tensor(pull))
-        del ex, agg_src
-        consensus = cs.collapse(out, self._mask_tensor(w), trainable,
-                                self.agg)
+        del ex, agg_src, landed
+        consensus = cs.consensus(out, w, self._mask_tensor(w), trainable,
+                                 self.agg)
         rec.partition = part_id.tolist()
         self._note_degraded(rec, mask)
         return consensus, out, rec
@@ -927,6 +960,7 @@ class FedEngine:
         starting point. Server mode resumes from it (the per-component view
         is dropped); serverless participants adopt it into their carried
         state."""
+        trainable = self._resolved(trainable)
         if self.cfg.mode == "server":
             return trainable, None
         pull = (np.asarray(mask) > 0).astype(np.float32)
@@ -1040,7 +1074,7 @@ class FedEngine:
         cfg = self.cfg
         K = cfg.async_buffer or self.C
         if stacked is None:
-            stacked = cs.broadcast(trainable, self.C)
+            stacked = cs.client_stack(self.local_train, trainable, self.C)
         base = stacked  # each client's round-start params (delta reference)
         batches, n_ex = self._round_batches(rnd)
         sender = self._sender(rnd)
@@ -1078,10 +1112,7 @@ class FedEngine:
         if cfg.weighted_agg:
             alpha = alpha * n_ex
         if arrived:
-            if self._comp is None:
-                deltas = {p: ex.sent[p] - base[p] for p in ex.sent}
-            else:
-                deltas = cs.decode_delta(self._comp, ex.sent, stacked)
+            deltas = cs.arrived_deltas(self._comp, ex.sent, base, stacked)
             del ex, base
             zero = {p: torch.zeros_like(x) for p, x in trainable.items()}
             # collapse normalizes by sum(alpha), which would cancel the
@@ -1201,19 +1232,10 @@ class FedEngine:
         (``gossip_rounds``). The consensus view is collapsed only when the
         chunk's end is observed (the run's last round, an eval round or a
         checkpoint round); otherwise nothing would read it."""
-        cfg = self.cfg
         out = self._chunk_program(self.progs.gossip_rounds, stacked, rnd, k)
-        last = rnd + k - 1
-        observed = (
-            last == cfg.num_rounds - 1
-            or (cfg.eval_every and (last + 1) % cfg.eval_every == 0)
-            or (cfg.checkpoint_dir and cfg.checkpoint_every
-                and (last + 1) % cfg.checkpoint_every == 0))
-        consensus = prev_consensus
-        if observed:
-            consensus = cs.collapse(
-                out.carry, self._mask_tensor(np.ones((self.C,), np.float32)),
-                prev_consensus, self.agg)
+        ones = self._mask_tensor(np.ones((self.C,), np.float32))
+        consensus = cs.chunk_consensus(out.carry, ones, prev_consensus,
+                                       self._observed(rnd + k - 1), self.agg)
         return out.carry, consensus, out
 
     @staticmethod
@@ -1287,17 +1309,19 @@ class FedEngine:
                     rnd, stacked, trainable, k)
             rows = self._read_chunk(out)
             del out
-            fence(trainable)
+            cs.fence_rows(trainable, stacked)
         wall = time.perf_counter() - t0
         recs = [self._stats_to_rec(rnd + i, rows["stats"][i])
                 for i in range(k)]
         if self.ledger is not None:
             self._commit_chunk_fps(rnd, rows, recs)
         self._annotate_chunk(recs, wall)
+        last = rnd + k - 1
+        if self.adapters or self._observed(last):
+            trainable = self._resolved(trainable)
         if self.adapters:
             # only the chunk's final global is the host's to read
             recs[-1].effective_rank = float(lora.effective_rank(trainable))
-        last = rnd + k - 1
         self._maybe_eval(last, recs[-1], trainable, stacked)
         metrics.rounds.extend(recs)
         self._maybe_checkpoint(last, trainable, stacked)
@@ -1332,13 +1356,7 @@ class FedEngine:
                                    max_batches=cfg.max_local_batches,
                                    split="test")
             tb = _to_device(tb, self.device)
-
-            def tree_of(c):
-                if stacked is None:
-                    return trainable
-                return {p: x[c] for p, x in stacked.items()}
-
-            local = cs.eval_clients(self.eval_one, tree_of,
+            local = cs.eval_clients(self.eval_one, stacked, trainable,
                                     tb).double().cpu().numpy()
             rec.local_acc = (local[:, 1] / np.maximum(local[:, 2], 1)).tolist()
 
@@ -1440,7 +1458,7 @@ class FedEngine:
             self._ef_rows = [cc.zero_residual(trainable, b - a, d)
                              for a, b, d in self.local_train.rows()]
         if cfg.mode == "serverless" and not cfg.faithful and stacked is None:
-            stacked = cs.broadcast(trainable, self.C)
+            stacked = cs.client_stack(self.local_train, trainable, self.C)
         # built after the restore, as in the JAX engine: a resumed async
         # run restarts its simulated network clock
         async_state = (self._init_async_state() if cfg.sync == "async"
@@ -1560,8 +1578,10 @@ class FedEngine:
                 payload_bytes=self._comms_payload_bytes(), restrict=restrict)
             rec.info_passing_sync_s = sync_t
             rec.info_passing_async_s = async_t
-            fence(trainable)
+            cs.fence_rows(trainable, stacked)
             rec.wall_s = time.perf_counter() - t0
+            if self.adapters or self._observed(rnd):
+                trainable = self._resolved(trainable)
             if self.adapters:
                 # the rank-collapse guard over the global adapters
                 rec.effective_rank = float(lora.effective_rank(trainable))
@@ -1578,6 +1598,7 @@ class FedEngine:
             if on_round is not None:
                 on_round(rec)
             rnd += 1
+        trainable = self._resolved(trainable)
         if self.adapters:
             # the model computes with the final global adapters
             lora.attach(self.model, trainable)
@@ -1602,7 +1623,7 @@ class FedEngine:
             metrics.reputation = self.reputation.summary()
         return RunResult(metrics=metrics, trainable=trainable,
                          model=self.model, ledger=self.ledger,
-                         ef_residual=self.ef_residual())
+                         ef_residual=self.ef_residual(), stacked=stacked)
 
     # ------------------------------------------------------ checkpoint/resume
 
@@ -1692,6 +1713,9 @@ class FedEngine:
         trainable = cast(state["trainable"])
         stacked = (cast(state["stacked"]) if state.get("stacked") is not None
                    else None)
+        if stacked is not None:
+            # the [C, ...] rows back onto however many shards this run has
+            stacked = cs.restack(self.local_train, stacked)
         if state.get("ef_residual") is not None and self._comp is not None:
             # the residual travels with the checkpoint: a compressed resume
             # re-injects exactly what the uninterrupted run would carry,
@@ -1716,7 +1740,9 @@ class FedEngine:
                 and (rnd + 1) % cfg.checkpoint_every == 0):
             return
         with self.clock.phase("checkpoint"):
-            state = {"trainable": trainable, "stacked": stacked,
+            state = {"trainable": self._resolved(trainable),
+                     # the [C, ...] bytes whatever the shards
+                     "stacked": cs.gathered(stacked),
                      # the error-feedback residual (None without a codec;
                      # cohort mode stores the registry's rows instead of
                      # the last cohort's gathered view)

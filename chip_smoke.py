@@ -191,12 +191,16 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    their plain versions at its calls. Then (z), the clients axis: path
    (b)'s configuration with the ledger on ``devices=[cuda:0] * 4`` (4
    client shards of 1, each with its own scratch model, on the one card),
-   then path (c) on ``[cuda:0] * 4`` (2 shards of 5), each
-   against the same configuration on ``[cuda:0]``, all four with the
-   counts set to 0 just before and read just after: the global tree,
-   every round's payload, the ledger head, the per-client stats and
-   evaluation, and the launches of every kernel equal bit for bit; the
-   round walls and peak memory of both print. Then (ab), the fused
+   then path (c) evaluated at its second round and path (d) at
+   ``CUT_LAYERS`` on ``[cuda:0] * 4`` (2 shards of 5, each keeping its
+   rows of the stacked state on its card), each against the same
+   configuration on ``[cuda:0]``, all six with the counts set to 0 just
+   before and read just after: the global tree or consensus, the final
+   stacked state gathered in client order, every round's payload, the
+   ledger head, the per-client stats and evaluation, and the launches of
+   every kernel equal bit for bit; the round walls, each card's peak
+   memory and each round's MB to card 0, from it and shard to shard
+   print. Then (ab), the fused
    multi-round dispatch (``rounds_per_dispatch``), each run with the
    counts set to 0 just before and read just after: path (b)'s
    configuration with the ledger, 4 rounds and evaluation every 2, in
@@ -4708,11 +4712,11 @@ def drive_tapped(cfg, smi, label, devices):
     """``drive`` on ``devices`` with every round's codec payload and
     per-client stats captured on the device (clones, so the round walls
     keep no host copy), the peak memory of every distinct card of
-    ``devices``, and each round's bytes between the lead client shard and
-    the others (``Sharded.traffic``, read after the round body and after
-    its evaluation: ``to_shards``, ``to_lead``, ``eval_to_shards``,
-    ``eval_to_lead``). Returns ``(result, launches, payloads, stats,
-    peaks, traffic, shards)``."""
+    ``devices``, and each round's bytes between the client shards
+    (``Sharded.traffic``, read after the round body and after its
+    consensus and evaluation: ``to_shards``, ``to_lead``,
+    ``shard_to_shard`` and their ``eval_`` twins). Returns ``(result,
+    launches, payloads, stats, peaks, traffic, shards)``."""
     from bcfl_tpu_torch.fed.engine import FedEngine
     from bcfl_tpu_torch.ops import registry
 
@@ -4758,12 +4762,12 @@ def drive_tapped(cfg, smi, label, devices):
     peaks = {str(d): torch.cuda.max_memory_allocated(d) / 1e9 for d in cards}
     # one entry per evaluation point: a round, or a fused chunk (whose
     # records are all built after it)
-    traffic, last, body = [], {"to_shards": 0, "to_lead": 0}, None
+    traffic, last, body = [], {}, None
     for kind, mark in marks:
         if kind == "body":
             body = mark
             continue
-        traffic.append({**{k: body[k] - last[k] for k in body},
+        traffic.append({**{k: body[k] - last.get(k, 0) for k in body},
                         **{f"eval_{k}": mark[k] - body[k] for k in body}})
         last = mark
     return (result, launches, payloads, client_stats, peaks, traffic,
@@ -4783,13 +4787,16 @@ SHARD_CODEC_OPS = ("int8_quantize", "topk_select")
 def kept_run(result, launches, payloads, client_stats, peaks, traffic):
     """What :func:`clients_axis_pair` keeps of one ``drive_tapped`` run:
     ``(compared, printed)``, the first ``(trainable, ledger head, round
-    records, launches, payloads, per-client stats)``, the second
-    ``(launches, round walls, peaks, per-round bytes between the lead
-    shard and the others)``; not the model (a 7B base twice would not fit
-    the lead card)."""
+    records, launches, payloads, per-client stats, the final stacked
+    state gathered in client order or None)``, the second ``(launches,
+    round walls, peaks, per-round bytes between the client shards)``; not
+    the model (a 7B base twice would not fit the lead card)."""
+    from bcfl_tpu_torch.fed import client_step as cs
+
     head = result.ledger.head if result.ledger is not None else None
     return ((result.trainable, head, result.metrics.rounds,
-             (launches, result.launches_by), payloads, client_stats),
+             (launches, result.launches_by), payloads, client_stats,
+             cs.gathered(result.stacked)),
             (launches, [r.wall_s for r in result.metrics.rounds], peaks,
              traffic))
 
@@ -4799,9 +4806,11 @@ def clients_axis_pair(cfg, smi, label, devices, one=None, one_run=None,
     """``cfg`` on ``one`` (default ``[cuda:0]``: one client shard) and on
     ``devices`` (one shard per device the mesh takes, or per row of a 2-D
     mesh), each through ``run`` with the launch counts set to 0 just
-    before it and read just after: the global tree, every round's payload
-    bytes, the ledger head, the per-client stats and evaluation bit for
-    bit; K1-K3 launched as often as on one shard, K4 and K5 (each shard
+    before it and read just after: the global tree (serverless: the
+    consensus), the final stacked state gathered in client order, every
+    round's payload bytes, the ledger head, the per-client stats and
+    evaluation bit for bit; K1-K3 launched as often as on one shard, K4
+    and K5 (each shard
     encodes its own rows) exactly ``shards`` times as often. ``one_run``,
     when given, is the one-shard run's :func:`kept_run` from a path that
     already ran that configuration on ``one``; ``many_cfg``, when given,
@@ -4828,9 +4837,14 @@ def clients_axis_pair(cfg, smi, label, devices, one=None, one_run=None,
                            for p, x in result.trainable.items()}
         del result
         torch.cuda.empty_cache()
-    (t1, head1, rec1, (n1, by1), p1, s1) = runs["one"]
-    (tn, headn, recn, (nn, byn), pn, sn) = runs["many"]
+    (t1, head1, rec1, (n1, by1), p1, s1, st1) = runs["one"]
+    (tn, headn, recn, (nn, byn), pn, sn, stn) = runs["many"]
     bad = [p for p, x in t1.items() if not same_bits(tn[p], x)]
+    if (st1 is None) != (stn is None):
+        bad.append("stacked state on one side only")
+    elif st1 is not None:
+        bad += [f"stacked {p}" for p, x in st1.items()
+                if not same_bits(stn[p], x)]
     if len(p1) != cfg.num_rounds or len(pn) != len(p1):
         bad.append(f"payload rounds {len(p1)} / {len(pn)}")
     for rnd, (a, b) in enumerate(zip(p1, pn)):
@@ -4867,18 +4881,25 @@ def print_clients_axis(label, pair, smi):
     (_, w1, pk1, _), (nn, wn, pkn, moved) = pair["one"], pair["many"]
     shards = pair["shards"]
     print(f"{label}: {shards} client shard(s) equal one shard bit for bit "
-          f"(global tree, payloads, ledger head, per-client stats, "
-          f"launches {nn}); round walls one shard "
+          f"(global tree or consensus, stacked state, payloads, ledger "
+          f"head, per-client stats, launches {nn}); round walls one shard "
           f"{[round(w, 4) for w in w1]} s, {shards} shards "
-          f"{[round(w, 4) for w in wn]} s; peak GB one shard "
-          f"{ {k: round(v, 2) for k, v in pk1.items()} }, {shards} shards "
-          f"{ {k: round(v, 2) for k, v in pkn.items()} }", flush=True)
+          f"{[round(w, 4) for w in wn]} s; peak GB per card one shard "
+          f"{ {k: round(v, 3) for k, v in pk1.items()} }, {shards} shards "
+          f"{ {k: round(v, 3) for k, v in pkn.items()} } ({smi})",
+          flush=True)
     for rnd, t in enumerate(moved):
-        print(f"{label} round {rnd}: MB between the lead shard and the "
-              f"others: the round to them {t['to_shards'] / 1e6:.3f}, to "
-              f"the lead {t['to_lead'] / 1e6:.3f}; its evaluation to them "
-              f"{t['eval_to_shards'] / 1e6:.3f}, to the lead "
-              f"{t['eval_to_lead'] / 1e6:.3f} ({smi})", flush=True)
+        to0 = t["to_lead"] + t["eval_to_lead"]
+        from0 = t["to_shards"] + t["eval_to_shards"]
+        across = t.get("shard_to_shard", 0) + t.get("eval_shard_to_shard", 0)
+        print(f"{label} round {rnd}: MB to card 0 {to0 / 1e6:.3f}, from "
+              f"card 0 {from0 / 1e6:.3f}, shard to shard "
+              f"{across / 1e6:.3f} (the round to card 0 "
+              f"{t['to_lead'] / 1e6:.3f}, from it "
+              f"{t['to_shards'] / 1e6:.3f}; its consensus and evaluation "
+              f"to card 0 {t['eval_to_lead'] / 1e6:.3f}, from it "
+              f"{t['eval_to_shards'] / 1e6:.3f}; shards, not cards) ({smi})",
+              flush=True)
 
 
 def codec_on_each_card(ck, template, comp, per, label):
@@ -4923,14 +4944,17 @@ def codec_on_each_card(ck, template, comp, per, label):
 def phase_clients_axis(ck, stats, smi, dataset, medical):
     """(z): the clients axis. Path (b)'s configuration with the ledger on
     ``[cuda:0] * 4`` (4 client shards of 1 sharing one card), then path
-    (c) (10 clients) on ``[cuda:0] * 4`` (2 shards of 5), each against the
-    same configuration on ``[cuda:0]``: global tree, payload bytes, ledger
-    head and per-client stats bit for bit, K1-K3 launched as on one shard
-    and K4, K5 once per shard (each shard encodes its own rows); the round
-    walls, the peaks and each round's bytes between the lead shard and the
-    others print. Each of the four runs is a main path run whose launches
-    count. Where more cards are visible, K4 and K5 on each of them are
-    held to their plain versions at (b)'s calls of one shard's rows."""
+    (c) (10 clients, evaluated at its second round) and path (d) (BC-FL
+    async, 10 clients, at ``CUT_LAYERS``) on ``[cuda:0] * 4`` (2 shards of
+    5, each keeping its rows of the stacked state), each against the same
+    configuration on ``[cuda:0]``: global tree or consensus, the final
+    stacked state, payload bytes, ledger head and per-client stats bit for
+    bit, K1-K3 launched as on one shard and K4, K5 once per shard (each
+    shard encodes its own rows); the round walls, the peaks per card and
+    each round's bytes to card 0, from it and shard to shard print. Each
+    of the six runs is a main path run whose launches count. Where more
+    cards are visible, K4 and K5 on each of them are held to their plain
+    versions at (b)'s calls of one shard's rows."""
     from bcfl_tpu_torch.config import LedgerConfig
 
     quad = [torch.device("cuda", 0)] * 4
@@ -4945,16 +4969,22 @@ def phase_clients_axis(ck, stats, smi, dataset, medical):
     print_clients_axis(label, pair, smi)
     codec_on_each_card(ck, pair["template"], cfg.compression, 1, label)
     torch.cuda.empty_cache()
-    cfg = gossip_config(medical)
-    label = "clients axis (z) serverless gossip"
-    pair = clients_axis_pair(cfg, smi, label, quad)
-    for key in ("one", "many"):
-        count_launches(stats, pair[key][0])
-        for name in SHARD_CODEC_OPS:
-            if pair[key][0][name] <= 0:
-                raise RuntimeError(f"{label}: {name} never launched")
-    print_clients_axis(label, pair, smi)
-    torch.cuda.empty_cache()
+    # round 0 nothing observes (the stack stays on the shards), round 1 is
+    # evaluated (the stack lands once, for the consensus)
+    legs = [(gossip_config(medical, eval_every=2),
+             "clients axis (z) serverless gossip"),
+            (async_config(num_layers=CUT_LAYERS),
+             "clients axis (z) bcfl async")]
+    for cfg, label in legs:
+        pair = clients_axis_pair(cfg, smi, label, quad)
+        for key in ("one", "many"):
+            count_launches(stats, pair[key][0])
+            for name in SHARD_CODEC_OPS:
+                if pair[key][0][name] <= 0:
+                    raise RuntimeError(f"{label}: {name} never launched")
+        print_clients_axis(label, pair, smi)
+        del pair
+        torch.cuda.empty_cache()
 
 
 

@@ -21,9 +21,12 @@ through ``bcfl_tpu_torch.entrypoints.run``:
 2. on ``[cuda:0]`` against ``[cuda:0, ..., cuda:N-1]`` for each ``N``
    of ``CARDS`` the host has (4 clients on 2 cards: 2 shards of 2; on
    4 cards: 4 shards of 1; with none, it says so and stops after 1),
-3. then path (c) (biobert-base, 10 clients, serverless gossip) on
-   ``[cuda:0]`` against the largest ``N`` cards (4 cards: 2 shards of 5),
-   and path (k)'s model (llama2-7b, LoRA rank 8, 4 of 64 clients a round)
+3. then path (c) (biobert-base, 10 clients, serverless gossip, evaluated
+   every second round) on ``[cuda:0]`` against the largest ``N`` cards
+   (4 cards: 2 shards of 5, each keeping its rows of the stacked state:
+   an unevaluated round moves payload rows and halo rows, an evaluated
+   one also lands the stack once for the consensus), and path (k)'s
+   model (llama2-7b, LoRA rank 8, 4 of 64 clients a round)
    with its cohort spread over them (4 cards: 4 shards of 1), the
    GPU-bound cell beside the host-bound BERT ones,
 4. then, with more than one card, K4 and K5 on every card but 0 held bit
@@ -39,10 +42,11 @@ through ``bcfl_tpu_torch.entrypoints.run``:
    one thread).
 
 Each pair must agree bit for bit (``chip_smoke.clients_axis_pair``: global
-tree, payload bytes, ledger head, per-client stats, K1-K3 launches equal
-and K4, K5 once per shard). It prints each run's round walls, the peak
-memory of every card it used, each round's bytes between the lead shard
-and the others (the round's and its evaluation's) and, per round, the
+tree or consensus, the final stacked state, payload bytes, ledger head,
+per-client stats, K1-K3 launches equal and K4, K5 once per shard). It
+prints each run's round walls, the peak memory of every card it used,
+each round's bytes to card 0, from it and shard to shard (the round's,
+and its consensus's and evaluation's) and, per round, the
 seconds of training with each shard's codec stage and landing
 (``train_clients`` or ``local_updates`` fenced with
 ``torch.cuda.synchronize()`` on every card: the fences cost a little and
@@ -302,7 +306,7 @@ def main() -> int:
         k = max(counts)
         cards = [torch.device("cuda", i) for i in range(k)]
         c_cfg = chip_smoke.gossip_config(chip_smoke.write_medical_docs(),
-                                         num_rounds=ROUNDS)
+                                         num_rounds=ROUNDS, eval_every=2)
         out[f"c_{k}_cards"], _ = pair(chip_smoke, c_cfg, smi,
                                       f"(c) on {k} cards", cards)
         # (k)'s model, its cohort spread over the cards (cohort_size 0)

@@ -266,10 +266,11 @@ def _jax_uniforms(key):
     return draw
 
 
-def _against_jax(monkeypatch, comp, rounds=2):
-    """The port's server FedAvg engine on 4 CPU devices (4 shards of 1)
-    beside JAX's on 4 virtual devices, from JAX's initial parameters and
-    batches, dropout off, the ledger on; stochastic rounding draws JAX's
+def _against_jax(monkeypatch, comp, rounds=2, mode="server"):
+    """The port's ``mode`` engine (default server FedAvg) on 4 CPU devices
+    (4 shards of 1) beside JAX's on 4 virtual devices, from JAX's initial
+    parameters and batches, dropout off, the ledger on; stochastic
+    rounding draws JAX's
     codec uniforms. Returns ``(JAX result, port result, the per-leaf sum
     over rounds of the largest quantization scale, the port's payloads,
     JAX's round-0 payload and post-train stack)``."""
@@ -279,7 +280,7 @@ def _against_jax(monkeypatch, comp, rounds=2):
     from bcfl_tpu.fed.engine import FedEngine as JEngine
 
     kw = dict(name="clients-axis", model="tiny-bert", dataset="synthetic",
-              num_labels=2, mode="server", num_clients=4,
+              num_labels=2, mode=mode, num_clients=4,
               num_rounds=rounds, seq_len=SEQ, batch_size=BATCH,
               max_local_batches=STEPS, vocab_size=512, eval_every=0,
               compute_dtype="float32")

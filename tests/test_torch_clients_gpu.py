@@ -4,8 +4,10 @@ A tiny bert-style engine run (tiny-bert, flash attention at every length,
 bf16 compute, ``int8+topk``, the ledger, 2 rounds) with its client shards
 on ``[cuda:0] * 4`` (four shards sharing one card) equals the same run on
 ``[cuda:0]`` bit for bit, as ``chip_smoke.py``'s path (z) holds it
-(``chip_smoke.clients_axis_pair``): the global (server) or stacked
-(serverless) tree, every round's payload, the ledger head, the per-client
+(``chip_smoke.clients_axis_pair``): the global (server) or consensus
+(serverless) tree, the stacked state each shard kept on its card,
+gathered in client order, every round's payload, the ledger head, the
+per-client
 stats and evaluation, K1-K3 launched as often and K4, K5 once per shard
 (each shard encodes its own rows); those launches are also counted
 exactly here (K4 once a round per shard, K2 and K3 rounds x clients x
@@ -14,7 +16,8 @@ of shards 1 and up land on the lead. Server FedAvg with 4 clients (4
 shards of 1) and serverless gossip with 10 clients (2 shards of 5). On a
 host with four or more cards (skipped below four), the same runs on
 ``[cuda:0, cuda:1, cuda:2, cuda:3]`` equal them too, each shard's clients
-and codec issued to its own card. On a host with two or more cards,
+and codec issued to its own card, and so does serverless gossip with 4
+clients at 2 ring steps (each card's halo rows copied from two others). On a host with two or more cards,
 K4 and K5 launched on card 1 equal their plain versions there, and the
 codec's uniforms drawn on card 1 equal card 0's.
 
@@ -45,7 +48,7 @@ import torch
 
 from bcfl_tpu_torch.compression import CompressionConfig, payload_nbytes
 from bcfl_tpu_torch.core import prng
-from bcfl_tpu_torch.config import FedConfig, LedgerConfig
+from bcfl_tpu_torch.config import FedConfig, LedgerConfig, TopologyConfig
 from bcfl_tpu_torch.fed import client_step as cs
 from bcfl_tpu_torch.models import get_config
 from bcfl_tpu_torch.ops import codec_kernels as ck
@@ -56,6 +59,14 @@ ROUNDS, STEPS = 2, 2
 CASES = {
     "server-4-clients": dict(mode="server", num_clients=4),
     "serverless-10-clients": dict(mode="serverless", num_clients=10),
+}
+#: across four cards also 4 gossip clients (4 shards of 1), 2 ring steps:
+#: every shard's two halo rows a step come from two other cards
+FOUR_CARD_CASES = {
+    **CASES,
+    "serverless-4-clients-steps-2": dict(
+        mode="serverless", num_clients=4,
+        topology=TopologyConfig(gossip_steps=2)),
 }
 
 
@@ -162,9 +173,10 @@ def test_four_shards_on_one_card_equal_one_shard(monkeypatch, cuda_device,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", list(CASES), ids=list(CASES))
+@pytest.mark.parametrize("case", list(FOUR_CARD_CASES),
+                         ids=list(FOUR_CARD_CASES))
 def test_shards_on_four_cards_equal_one_shard(monkeypatch, four_cards, case):
-    cfg = _cfg(**CASES[case])
+    cfg = _cfg(**FOUR_CARD_CASES[case])
     seen = _pair(monkeypatch, cfg, four_cards)
     shards = 4 if cfg.num_clients == 4 else 2
     assert seen and all(d == four_cards[:shards] for d in seen)
