@@ -368,8 +368,8 @@ def _plan(c) -> FaultPlan:
 # says whether the feature is requested, ``True`` means the runtime
 # supports it, and a string is the rejection reason raised at config time,
 # JAX's verbatim, on both runtimes.
-# JAX's "pod-spanning mesh" and "buffer donation" rows are left out: the
-# port's config has no such fields.
+# JAX's "buffer donation" row is left out: the port's config has no such
+# field (XLA's buffer donation has no counterpart).
 RUNTIME_CAPS: Tuple = (
     ("serverless gossip mode",
      lambda c: c.mode == "serverless",
@@ -406,6 +406,12 @@ RUNTIME_CAPS: Tuple = (
      {"local": True,
       "dist": "each peer builds a single-host client mesh; inner sp "
               "sharding across peers is not implemented"}),
+    ("pod-spanning mesh",
+     lambda c: c.pod,
+     {"local": True,
+      "dist": "runtime='dist' is its own multi-process deployment (one "
+              "process per peer group); pod=True is the single-program "
+              "jax.distributed path — pick one"}),
     ("fused multi-round dispatch",
      lambda c: c.rounds_per_dispatch > 1,
      {"local": True,
@@ -558,9 +564,37 @@ def capability_table(cfg: "FedConfig") -> Tuple[Tuple[str, bool, object], ...]:
                  for feature, active, verdicts in RUNTIME_CAPS)
 
 
-#: (field, is-unsupported predicate) — each raises "not ported yet"
+_PORTED = (
+    "bcfl_tpu_torch runs server FedAvg, serverless ring gossip and "
+    "buffered async with the anomaly filter, the ledger, the local fault "
+    "plan, robust aggregation, reputation, checkpoints, LoRA and cohort "
+    "sampling, and the multi-process runtime's leadered and gossip "
+    "dispatch (LoRA adapters and Llama included) with partitions, the "
+    "ledger fork and heal, peer checkpoints, crash/rejoin, the storage lane "
+    "and state sync, the robust merge, per-peer reputation and the "
+    "byzantine, wire, limp and resource lanes (see ROADMAP.md for the "
+    "port's queue)")
+#: what a pod (pod=True) runs so far
+_POD_PORTED = (
+    "under pod=True bcfl_tpu_torch runs per-round sync server FedAvg and "
+    "serverless gossip over the processes' client shards (see ROADMAP.md "
+    "for the port's queue)")
+
+#: (field, is-unsupported predicate, what runs) — each raises "not ported
+#: yet"; the pod=True rows are what the pod's processes do not split yet
 _NOT_PORTED = (
-    ("local_epochs", lambda c: c.local_epochs != 1),
+    ("local_epochs", lambda c: c.local_epochs != 1, _PORTED),
+    ("rounds_per_dispatch", lambda c: c.pod and c.rounds_per_dispatch > 1,
+     _POD_PORTED),
+    ("sync", lambda c: c.pod and c.sync == "async", _POD_PORTED),
+    ("faults.partition_groups",
+     lambda c: c.pod and bool(_plan(c).partition_groups), _POD_PORTED),
+    ("tp", lambda c: c.pod and c.tp > 1, _POD_PORTED),
+    ("sp", lambda c: c.pod and c.sp > 1, _POD_PORTED),
+    ("faithful", lambda c: c.pod and c.faithful, _POD_PORTED),
+    ("registry_size", lambda c: c.pod and c.registry_size > 0, _POD_PORTED),
+    ("checkpoint_every", lambda c: c.pod and c.checkpoint_every > 0,
+     _POD_PORTED),
 )
 
 
@@ -608,6 +642,10 @@ class FedConfig:
     # (clients, seq) mesh and rides exact ring attention over its inner
     # devices (bcfl_tpu_torch.parallel.sp)
     sp: int = 1
+    # build the mesh over every process of the pod (the group must be up
+    # first — core.mesh.distributed_init); devices are ordered hosts-major,
+    # each process training the client shards on its own devices
+    pod: bool = False
 
     # --- federated topology ---
     runtime: str = "local"
@@ -828,24 +866,14 @@ class FedConfig:
                 f"compress={self.compression.kind!r} is not implemented for "
                 "faithful (host-sequential) mode — it exchanges no update "
                 "trees to compress")
-        for field, unsupported in _NOT_PORTED:
+        for field, unsupported, ported in _NOT_PORTED:
             if unsupported(self):
                 value = self
                 for part in field.split("."):
                     value = getattr(value, part)
                 raise ValueError(
                     f"{field}={value!r} on runtime={self.runtime!r} is not "
-                    "ported yet: bcfl_tpu_torch runs server FedAvg, "
-                    "serverless ring gossip and buffered async with the "
-                    "anomaly filter, the ledger, the local fault plan, "
-                    "robust aggregation, reputation, checkpoints, LoRA and "
-                    "cohort sampling, and the multi-process runtime's "
-                    "leadered and gossip dispatch (LoRA adapters and Llama "
-                    "included) with partitions, the ledger fork and heal, "
-                    "peer checkpoints, crash/rejoin, the storage lane and "
-                    "state sync, the robust merge, per-peer reputation and "
-                    "the byzantine, wire, limp and resource lanes (see "
-                    "ROADMAP.md for the port's queue)")
+                    f"ported yet: {ported}")
 
     def _check_dist_lanes(self) -> None:
         """JAX's dist-only checks: the client split, the fault plan's peer
@@ -1016,6 +1044,18 @@ class FedConfig:
                 f"cohort_size {self.cohort_size} must divide the sampled "
                 f"cohort size {active} (it is the per-device stack of the "
                 "cohort mesh)")
+        if self.cohort_size and self.pod:
+            # the pin truncates the device list to exactly
+            # cohort/cohort_size shards; on a multi-host pod that can
+            # exclude another process's addressable devices, which
+            # fails at first dispatch with an opaque device-assignment
+            # error — reject here instead
+            raise ValueError(
+                "cohort_size is a single-host per-device-stack pin and "
+                "does not compose with pod=True (truncating the "
+                "hosts-major pod device list would strand other "
+                "processes' devices); leave cohort_size=0 and let "
+                "client_mesh lay the cohort over the full pod")
         if self.mode != "server":
             raise ValueError(
                 "registry sampling requires mode='server': serverless "

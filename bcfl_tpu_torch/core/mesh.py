@@ -1,7 +1,8 @@
-"""Device mesh with a ``clients`` axis and one inner axis: port of the part
-of ``bcfl_tpu/core/mesh.py`` that runs on one host (``CLIENT_AXIS``,
-``ClientMesh``, ``client_mesh``, ``fed_tp_mesh``, with JAX's checks and
-messages).
+"""Device mesh with a ``clients`` axis and one inner axis: port of
+``bcfl_tpu/core/mesh.py`` (``CLIENT_AXIS``, ``ClientMesh``,
+``client_mesh``, ``fed_tp_mesh``, ``distributed_init``, ``pod_devices``,
+``pod_client_mesh``, with JAX's checks and messages; the
+``NamedSharding`` helpers have no counterpart).
 
 The JAX package lays its clients and an inner ``tp`` or ``seq`` axis over a
 ``jax.sharding.Mesh``; the port keeps the same grid as a :class:`Mesh` of
@@ -21,17 +22,36 @@ proves the sharded arithmetic and gives no memory or speed gain. Without
 a list, :func:`client_mesh` takes the visible CUDA devices, as JAX takes
 ``jax.devices()``, and refuses, in JAX's words, an inner axis larger than
 their count.
+
+The pod (``bcfl_tpu/core/mesh.py``'s ``distributed_init``,
+``pod_devices``, ``pod_client_mesh``): :func:`distributed_init` joins P
+processes in a ``torch.distributed`` gloo group under JAX's
+``BCFL_COORDINATOR`` / ``BCFL_NUM_PROCESSES`` / ``BCFL_PROCESS_ID``
+contract, and :func:`pod_devices` gathers every process's own devices,
+process 0's first (JAX's hosts-major order), each a :class:`PodDevice`
+naming its process. A mesh over them keeps, per device, the process that
+owns it (:meth:`ClientMesh.shard_process`): a device of this process
+stands as itself, another process's as a ``meta`` device, which holds
+the shapes of what lives there and never its data. A process's own
+devices are what it sees: its visible CUDA devices (start each process
+of a multi-card host with its own ``CUDA_VISIBLE_DEVICES``, as each pod
+host sees only its own chips) or the list it is given.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 CLIENT_AXIS = "clients"
+#: seconds a pod's group waits on a process before its call raises
+POD_TIMEOUT_S = 600.0
 
 
 def _largest_divisor_leq(n: int, cap: int) -> int:
@@ -56,10 +76,18 @@ class Mesh:
     flat: Tuple[torch.device, ...]
     dims: Tuple[int, ...]
     axis_names: Tuple[str, ...]
+    #: the process that owns each device of ``flat`` (a pod's), or empty:
+    #: every device is this process's
+    owners: Tuple[int, ...] = ()
 
     @property
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.dims))
+
+    def owner(self, device_index: int) -> int:
+        """The process owning ``flat[device_index]``."""
+        return (self.owners[device_index] if self.owners
+                else process_index())
 
     def axis_devices(self, axis: str, at: Optional[Dict[str, int]] = None
                      ) -> List[torch.device]:
@@ -74,11 +102,13 @@ class Mesh:
         return list(grid[index].reshape(-1))
 
 
-def _mesh(devices: Sequence[torch.device], dims: Tuple[int, ...],
+def _mesh(devices: Sequence, dims: Tuple[int, ...],
           axis_names: Tuple[str, ...]) -> Mesh:
     n = int(np.prod(dims))
-    return Mesh(tuple(devices[:n]), tuple(int(d) for d in dims),
-                tuple(axis_names))
+    flat, owners = _local_view(devices[:n])
+    return Mesh(tuple(flat), tuple(int(d) for d in dims), tuple(axis_names),
+                tuple(owners) if any(
+                    isinstance(d, PodDevice) for d in devices) else ())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,6 +169,29 @@ class ClientMesh:
         entry of :attr:`train_devices`."""
         return self.train_devices[self.shard_of(client)]
 
+    def shard_process(self, shard: int) -> int:
+        """The process that owns client shard ``shard`` (its first
+        device's): the one that trains its clients."""
+        return self.mesh.owner(int(np.ravel_multi_index(
+            (shard,) + (0,) * (len(self.mesh.dims) - 1), self.mesh.dims)))
+
+    @property
+    def home_shard(self) -> int:
+        """This process's first client shard: where its model lives (0,
+        the lead's shard, off a pod)."""
+        return self.shard_processes.index(process_index())
+
+    @property
+    def home(self) -> torch.device:
+        """The device of :attr:`home_shard`."""
+        return self.client_devices[self.home_shard]
+
+    @property
+    def shard_processes(self) -> List[int]:
+        """The owning process of every client shard, in shard order."""
+        return [self.shard_process(s)
+                for s in range(self.mesh.shape[CLIENT_AXIS])]
+
     def shard_of(self, client: int) -> int:
         """The client shard holding stacked client ``client``: shard ``s``
         (a row of a 2-D mesh) holds clients ``[s * per_device, (s + 1) *
@@ -154,8 +207,8 @@ def fed_tp_mesh(client_shards: int, tp: int,
     """2-D ``(clients, tp)`` mesh: each client spans ``tp`` devices for
     megatron tensor parallelism, tp innermost. Used by
     :mod:`bcfl_tpu_torch.parallel.fed_tp`."""
-    devices = ([torch.device(d) for d in devices] if devices is not None
-               else visible_devices())
+    devices = (_devices_of(devices) if devices is not None
+               else pod_devices())
     need = client_shards * tp
     if len(devices) < need:
         raise ValueError(
@@ -170,7 +223,7 @@ def client_mesh(num_clients: int, devices: Optional[Sequence] = None,
     devices): the largest divisor of ``num_clients`` that fits the device
     count gives the client shards, each reserving ``tp`` (or ``sp``)
     devices on the inner axis."""
-    devices = ([torch.device(d) for d in devices] if devices is not None
+    devices = (_devices_of(devices) if devices is not None
                else visible_devices())
     if tp < 1 or sp < 1:
         raise ValueError(f"tp/sp must be >= 1, got tp={tp} sp={sp}")
@@ -185,12 +238,143 @@ def client_mesh(num_clients: int, devices: Optional[Sequence] = None,
                 f"{inner_axis}={inner_n} needs at least that many devices, "
                 f"have {len(devices)}")
         d = _largest_divisor_leq(num_clients, len(devices) // inner_n)
-        return ClientMesh(_mesh(devices, (d, inner_n),
+        mesh = ClientMesh(_mesh(devices, (d, inner_n),
                                 (CLIENT_AXIS, inner_axis)),
                           num_clients=num_clients,
                           per_device=num_clients // d, tp=tp, sp=sp)
+        _check_pod_shards(mesh, devices)
+        return mesh
     if not devices:
         raise ValueError("client_mesh needs at least one device, have 0")
     d = _largest_divisor_leq(num_clients, len(devices))
-    return ClientMesh(_mesh(devices, (d,), (CLIENT_AXIS,)),
+    mesh = ClientMesh(_mesh(devices, (d,), (CLIENT_AXIS,)),
                       num_clients=num_clients, per_device=num_clients // d)
+    _check_pod_shards(mesh, devices)
+    return mesh
+
+
+# ------------------------------------------------------------------ the pod
+
+
+@dataclasses.dataclass(frozen=True)
+class PodDevice:
+    """A device of a pod: ``device`` as its own ``process`` names it (JAX's
+    ``Device`` with its ``process_index``)."""
+
+    process: int
+    device: torch.device
+
+
+def _devices_of(devices: Sequence) -> list:
+    return [d if isinstance(d, PodDevice) else torch.device(d)
+            for d in devices]
+
+
+def _local_view(devices: Sequence) -> Tuple[list, list]:
+    """``devices`` as this process addresses them (another process's
+    :class:`PodDevice` as the ``meta`` device) and the process owning
+    each (a plain device is this process's)."""
+    me = process_index()
+    flat, owners = [], []
+    for d in devices:
+        if isinstance(d, PodDevice):
+            owners.append(d.process)
+            flat.append(d.device if d.process == me
+                        else torch.device("meta"))
+        else:
+            owners.append(me)
+            flat.append(torch.device(d))
+    return flat, owners
+
+
+def _check_pod_shards(mesh: ClientMesh, devices: Sequence) -> None:
+    """Every process of a pod must own a client shard: a process with none
+    would have no clients to train and nothing to hold its shapes."""
+    procs = {d.process for d in devices if isinstance(d, PodDevice)}
+    if len(procs) <= 1:
+        return
+    idle = sorted(procs - set(mesh.shard_processes))
+    if idle:
+        raise ValueError(
+            f"{mesh.num_clients} clients over the pod's {len(devices)} "
+            f"devices make {len(mesh.shard_processes)} client shards, and "
+            f"process(es) {idle} own none: give every process a client "
+            "shard (a client count the pod's device count divides)")
+
+
+def pod_active() -> bool:
+    """Whether this process is one of a pod of more than one process
+    (:func:`distributed_init` ran)."""
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1)
+
+
+def process_index() -> int:
+    """This process's index in the pod (JAX's ``process_index``; 0 alone)."""
+    return dist.get_rank() if pod_active() else 0
+
+
+def process_count() -> int:
+    """The pod's process count (JAX's ``process_count``; 1 alone)."""
+    return dist.get_world_size() if pod_active() else 1
+
+
+def distributed_init(coordinator_address: Optional[str] = None,
+                     num_processes: Optional[int] = None,
+                     process_id: Optional[int] = None) -> bool:
+    """Join a multi-process pod: ``torch.distributed``'s gloo group, as
+    JAX's ``jax.distributed.initialize``. Call it once per process before
+    building an engine, then build meshes from :func:`pod_devices`. The
+    parameters default to the ``BCFL_COORDINATOR`` (``host:port`` of
+    process 0) / ``BCFL_NUM_PROCESSES`` / ``BCFL_PROCESS_ID`` environment
+    variables; a single process (the common case) is a no-op returning
+    False. A call of the group that waits on another process longer than
+    :data:`POD_TIMEOUT_S` raises (a process that exits closes its connections, and
+    the calls waiting on it raise at once)."""
+    if num_processes is None:
+        num_processes = int(os.environ.get("BCFL_NUM_PROCESSES", "1"))
+    if num_processes <= 1:
+        return False
+    if process_id is None:
+        pid = os.environ.get("BCFL_PROCESS_ID")
+        if pid is None:
+            # defaulting to 0 would make EVERY host register as process 0 and
+            # hang the coordinator barrier with no useful error
+            raise ValueError(
+                "multi-process init needs a distinct process_id per host: "
+                "pass process_id= or set BCFL_PROCESS_ID")
+        process_id = int(pid)
+    address = coordinator_address or os.environ.get("BCFL_COORDINATOR")
+    if not address:
+        raise ValueError(
+            "multi-process init needs the coordinator's address (process "
+            "0's host:port): pass coordinator_address= or set "
+            "BCFL_COORDINATOR")
+    dist.init_process_group(
+        "gloo", init_method=address if "://" in address else f"tcp://{address}",
+        world_size=num_processes, rank=process_id,
+        timeout=datetime.timedelta(seconds=POD_TIMEOUT_S))
+    return True
+
+
+def pod_devices(local: Optional[Sequence] = None) -> list:
+    """Every device of the pod, hosts-major (process 0's first), each a
+    :class:`PodDevice`: each process's own devices, ``local`` (default its
+    visible CUDA devices), gathered from every process, so every process
+    calls it at once. A single process gets its own devices as they are,
+    as JAX's gives ``jax.devices()``."""
+    own = ([torch.device(d) for d in local] if local is not None
+           else visible_devices())
+    if not pod_active():
+        return own
+    names: list = [None] * process_count()
+    dist.all_gather_object(names, [str(d) for d in own])
+    return [PodDevice(p, torch.device(n))
+            for p, ns in enumerate(names) for n in ns]
+
+
+def pod_client_mesh(num_clients: int, tp: int = 1,
+                    local: Optional[Sequence] = None) -> ClientMesh:
+    """The clients mesh spanning every process of the pod (see
+    :func:`pod_devices`; ``local``: this process's devices)."""
+    return client_mesh(num_clients, devices=pod_devices(local), tp=tp)

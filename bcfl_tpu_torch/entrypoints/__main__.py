@@ -75,6 +75,11 @@ larger than their count in JAX's words, or with ``--device cpu`` as many
 CPU devices as the inner axis needs (``FedEngine``'s rule). Every row of
 that mesh trains: on four cards ``--tp 2`` runs two client shards of
 ``tp=2``, as JAX's mesh over ``jax.devices()`` does.
+``--pod`` spans the mesh over every process of a pod, as JAX's does; unlike
+JAX's CLI, which leaves ``jax.distributed`` to its caller, it joins the
+pod itself first (:func:`bcfl_tpu_torch.core.mesh.distributed_init`, the
+``BCFL_*`` environment): start one process per host (or per card, each
+with its own ``CUDA_VISIBLE_DEVICES``), process 0 prints the run.
 ``--telemetry-dir``, ``--no-telemetry`` and ``--telemetry-sample`` set
 the event streams as JAX's do. ``--rounds-per-dispatch`` fuses rounds
 into chunks read back once (:meth:`FedEngine._chunk_rounds`), and
@@ -207,6 +212,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--tp", type=int, default=None,
                     help="tensor-parallel shards per client (2-D clients x tp "
                          "mesh; requires --lora-rank > 0)")
+    ap.add_argument("--pod", action="store_true",
+                    help="span the mesh over every process of the pod: "
+                         "joins it first (core.mesh.distributed_init, the "
+                         "BCFL_COORDINATOR / BCFL_NUM_PROCESSES / "
+                         "BCFL_PROCESS_ID environment); each process trains "
+                         "the client shards on its own devices")
     ap.add_argument("--seq-len", type=int, default=None)
     ap.add_argument("--batch-size", type=int, default=None)
     ap.add_argument("--lr", type=float, default=None)
@@ -569,6 +580,8 @@ def build_config(args):
         overrides["remat"] = True
     if args.faithful:
         overrides["faithful"] = True
+    if args.pod:
+        overrides["pod"] = True
     if (args.compress is not None or args.compress_topk is not None
             or args.compress_chunk is not None or args.no_compress_ef):
         kind = (args.compress if args.compress is not None
@@ -753,6 +766,12 @@ def main(argv=None) -> int:
     if rest:
         ap.error(f"not ported yet (or unknown): {' '.join(rest)}")
     cfg = build_config(args)
+    if cfg.pod:
+        # the pod's group comes up before the engine gathers its devices
+        # (a single process: a no-op)
+        from bcfl_tpu_torch.core.mesh import distributed_init
+
+        distributed_init()
     fused_tamper = fused_tamper_schedule(cfg, args.fused_tamper)
     if cfg.runtime == "dist":
         if args.sweep or fused_tamper is not None or args.resume:

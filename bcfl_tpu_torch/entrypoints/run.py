@@ -17,6 +17,7 @@ import os
 from typing import Dict, List, Optional
 
 from bcfl_tpu_torch.config import FedConfig
+from bcfl_tpu_torch.core.mesh import process_index
 from bcfl_tpu_torch.fed.engine import FedEngine, RunResult
 
 
@@ -28,6 +29,8 @@ def run(cfg: FedConfig, device=None, verbose: bool = True,
     device list (``FedEngine``'s)."""
     engine = FedEngine(cfg, device=device, fused_tamper=fused_tamper,
                        devices=devices)
+    # a pod's process 0 speaks for it
+    verbose = verbose and process_index() == 0
     if verbose:
         shards = engine.local_train.devices
         print("\n".join(_header(cfg, ",".join(str(d) for d in shards))),
@@ -140,7 +143,8 @@ def run_sweep(cfg: FedConfig, client_counts: Optional[List[int]] = None,
     ``<checkpoint_dir>/c<n>`` and, with ``resume``, resumes from there.
     ``out_dir`` gets the latency, accuracy and memory figures by client
     count (matplotlib) and
-    ``<name>_sweep.json`` (:func:`sweep_record`); None records nothing."""
+    ``<name>_sweep.json`` (:func:`sweep_record`); None records nothing. A
+    pod's process 0 alone writes them."""
     from bcfl_tpu_torch.entrypoints.presets import SWEEP_CLIENTS
 
     out: Dict[int, RunResult] = {}
@@ -150,7 +154,7 @@ def run_sweep(cfg: FedConfig, client_counts: Optional[List[int]] = None,
         out[n] = run(cfg.replace(name=f"{cfg.name}_c{n}", num_clients=n,
                                  checkpoint_dir=ckpt),
                      device=device, verbose=verbose, resume=resume)
-    if out_dir:
+    if out_dir and process_index() == 0:
         from bcfl_tpu_torch.viz import sweep_report
 
         paths = sweep_report(out, out_dir, name=f"{cfg.name}_sweep")

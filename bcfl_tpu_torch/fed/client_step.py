@@ -86,14 +86,14 @@ from torch import nn
 
 from bcfl_tpu_torch.compression import codecs as cc
 from bcfl_tpu_torch.core.fence import fence
-from bcfl_tpu_torch.core.mesh import ClientMesh
+from bcfl_tpu_torch.core.mesh import ClientMesh, process_index
 from bcfl_tpu_torch.ledger import fingerprint as fp_lib
 from bcfl_tpu_torch.models import lora
 from bcfl_tpu_torch.models.convert import (leaf_specs, load_trainable,
                                            trainable_tree)
 from bcfl_tpu_torch.parallel import (gossip_mix, gossip_mix_recv,
                                      masked_weighted_mean)
-from bcfl_tpu_torch.parallel import sp, tp_linear
+from bcfl_tpu_torch.parallel import pod, sp, tp_linear
 from bcfl_tpu_torch.parallel.collectives import _col, gossip_step_mix
 
 Tree = Dict[str, torch.Tensor]
@@ -263,7 +263,8 @@ def make_eval_one(model: nn.Module, loss_fn: Callable,
 
 
 def _traffic() -> Dict[str, int]:
-    return {"to_shards": 0, "to_lead": 0, "shard_to_shard": 0}
+    return {"to_shards": 0, "to_lead": 0, "shard_to_shard": 0,
+            "process_sent": 0, "process_received": 0}
 
 
 def _on(dev: torch.device):
@@ -275,6 +276,8 @@ def _on(dev: torch.device):
 def _nbytes(x) -> int:
     if isinstance(x, dict):
         return sum(_nbytes(v) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return sum(_nbytes(v) for v in x)
     return x.numel() * x.element_size() if isinstance(x, torch.Tensor) else 0
 
 
@@ -314,12 +317,30 @@ class Sharded:
     what lands from them on the lead, ``shard_to_shard`` the ring
     gossip's halo rows, copied from one shard straight to another. It
     counts shards, not cards: on ``[cuda:0] * 4`` no byte crosses a card,
-    and the count is what would."""
+    and the count is what would. ``process_sent`` and
+    ``process_received`` count the bytes this process sent to and
+    received from the other processes of a pod, whatever moved them (0
+    off a pod).
+
+    On a pod (:mod:`bcfl_tpu_torch.parallel.pod`) ``owners[s]`` is the
+    process that owns shard ``s`` and ``process`` this one, and this class
+    alone decides what runs where. Only an owned shard's body runs here
+    (:meth:`owned_shards`); another process's shard lives on a ``meta``
+    device and its rows are :meth:`standin` tensors, which hold shapes and
+    no data. The lead is shard 0's process's: only there does work on the
+    lead device run (:meth:`on_lead`) and the host read it back
+    (:meth:`read`, its value sent to the others). A copy between two
+    processes' shards is a send and a receive through the host, issued by
+    both in the same order."""
 
     bodies: List[Callable]
     devices: List[torch.device]
     per_device: int
     traffic: Dict[str, int] = dataclasses.field(default_factory=_traffic)
+    #: the process owning each shard (default: all this process's)
+    owners: Optional[List[int]] = None
+    #: this process
+    process: int = 0
 
     def __call__(self, *args, **kwargs):
         return self.bodies[0](*args, **kwargs)
@@ -328,35 +349,192 @@ class Sharded:
     def lead(self) -> torch.device:
         return self.devices[0]
 
+    def owner(self, s: int) -> int:
+        """The process owning shard ``s``."""
+        return self.process if self.owners is None else self.owners[s]
+
+    def owns(self, s: int) -> bool:
+        """Whether shard ``s`` is this process's (its body runs here)."""
+        return self.owner(s) == self.process
+
+    def owned_shards(self) -> List[int]:
+        """The shards whose bodies run in this process, in shard order
+        (every shard off a pod)."""
+        return [s for s in range(len(self.devices)) if self.owns(s)]
+
+    def owned_clients(self) -> List[int]:
+        """The clients this process trains, in client order."""
+        per = self.per_device
+        return [c for s in self.owned_shards()
+                for c in range(s * per, (s + 1) * per)]
+
+    @property
+    def spans_processes(self) -> bool:
+        """Whether the shards belong to more than one process (a pod)."""
+        return self.owners is not None and len(set(self.owners)) > 1
+
+    @staticmethod
+    def standin(x):
+        """Meta stand-ins of a tensor, or of every tensor of a dict, list
+        or tuple (anything else as it is): their shapes, dtypes and
+        strides, no data. They stand for another process's rows."""
+        if isinstance(x, torch.Tensor):
+            return torch.empty_like(x, device="meta")
+        if isinstance(x, dict):
+            return {k: Sharded.standin(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(Sharded.standin(v) for v in x)
+        return x
+
+    def on_lead(self, fn: Callable, like):
+        """``fn()``, work on the lead device, where this process holds it
+        (every process off a pod); elsewhere stand-ins of ``like``."""
+        return fn() if self.owns(0) else self.standin(like)
+
+    def read(self, fn: Callable):
+        """``fn()``, a read-back of the lead device to the host, in every
+        process: on a pod it runs in the lead's process alone and its
+        value is sent to the others, so every host decision is the lead's
+        everywhere."""
+        if not self.spans_processes:
+            return fn()
+        return pod.decide(fn, self.owner(0))
+
+    def share(self, tree: Tree, device) -> Tree:
+        """The lead's ``tree`` on ``device`` in every process: the lead's
+        process keeps its own (as every process off a pod, where
+        ``device`` is the lead), another receives a copy (counted once
+        in the lead's ``process_sent``)."""
+        if not self.spans_processes:
+            return tree
+        xs = list(tree.values())
+        bufs = _packed(xs)
+        got = pod.broadcast(list(bufs.values()), self.owner(0))
+        self.traffic["process_sent" if self.owns(0)
+                     else "process_received"] += _nbytes(got)
+        if self.owns(0):
+            return tree
+        out = {dt: h.to(device) for dt, h in zip(bufs, got)}
+        return dict(zip(tree, _unpacked(out, xs)))
+
+    def fence(self, *trees) -> None:
+        """Block the host until the work on every device of this process
+        that ``trees`` lie on is done: a :class:`Stacked`'s rows on the
+        owned shards, a plain tree on the lead device where this process
+        holds it; a :class:`Deferred` view or None is nothing to wait
+        for."""
+        for t in trees:
+            if isinstance(t, Stacked):
+                for s in self.owned_shards():
+                    fence(t.rows[s])
+            elif (t is not None and not isinstance(t, Deferred)
+                  and self.owns(0)):
+                fence(t)
+
     def rows(self) -> List[tuple]:
         """``(first client, end, device)`` of every shard."""
         per = self.per_device
         return [(s * per, (s + 1) * per, d)
                 for s, d in enumerate(self.devices)]
 
-    def stage(self, s: int, x, packed: Optional[dict] = None):
+    def _send(self, bufs: List[torch.Tensor], dst: int) -> None:
+        pod.send(bufs, dst)
+        self.traffic["process_sent"] += _nbytes(bufs)
+
+    def _recv(self, like: List[torch.Tensor], src: int
+              ) -> List[torch.Tensor]:
+        """What process ``src`` sends with :meth:`_send`, in host memory,
+        shaped like ``like``."""
+        got = pod.recv(like, src)
+        self.traffic["process_received"] += _nbytes(got)
+        return got
+
+    def _move(self, src: int, dst: int, tree: Tree) -> Tree:
+        """Shard ``src``'s tree on shard ``dst``'s device as
+        :func:`_packed` buffers, uncounted in the shard tallies: a plain
+        copy when one process owns both (stand-ins when another one does),
+        a send or a receive when this process owns one end."""
+        xs, dev = list(tree.values()), self.devices[dst]
+        a, b = self.owner(src), self.owner(dst)
+        if a != b and self.process == a:
+            self._send(list(_packed(xs).values()), b)
+            return self.standin(tree)
+        if a != b and self.process == b:
+            like = _packed(self.standin(xs))
+            bufs = {dt: h.to(dev, non_blocking=True) for dt, h in
+                    zip(like, self._recv(list(like.values()), a))}
+            return dict(zip(tree, _unpacked(bufs, xs)))
+        try:
+            bufs = {dt: x.to(dev, non_blocking=True)
+                    for dt, x in _packed(xs).items()}
+        except Exception as err:
+            err.add_note(f"copying client shard {src}'s rows to client "
+                         f"shard {dst} on {dev}")
+            raise
+        return dict(zip(tree, _unpacked(bufs, xs)))
+
+    def stage(self, s: int, x, packed: Optional[dict] = None,
+              replicated: bool = False):
         """A tensor or tree on the lead device copied to shard ``s``'s
         device, counted (shard 0's passes as it is). A tree crosses as
         :func:`_packed` buffers, packed once for every shard it goes to
         when the caller passes a ``packed`` cache (keyed by the tree's id:
-        the caller keeps the tree alive)."""
+        the caller keeps the tree alive). On a pod, a shard of another
+        process than the lead's gets it through the host, sent once per
+        receiving process with a cache; ``replicated`` marks what every
+        process holds itself (inputs drawn from the seed: batches), copied
+        from this process's own and never sent."""
         if not s:
             return x
         self.traffic["to_shards"] += _nbytes(x)
         dev = self.devices[s]
+        xs = list(x.values()) if isinstance(x, dict) else [x]
+
+        def tree(out):
+            return dict(zip(x, out)) if isinstance(x, dict) else out[0]
+
+        packed = {} if packed is None else packed
+        a, b = self.owner(0), self.owner(s)
+        if not replicated and a != b and self.process in (a, b):
+            # once per receiving process, however many of its shards take it
+            key = ("pod", id(x), b)
+            if key not in packed and self.process == a:
+                self._send(list(_packed(xs).values()), b)
+                packed[key] = None
+            if key not in packed:
+                like = _packed(self.standin(xs))
+                packed[key] = dict(zip(like, self._recv(list(like.values()),
+                                                        a)))
+            if self.process == b:
+                bufs = {dt: h.to(dev, non_blocking=True)
+                        for dt, h in packed[key].items()}
+                return tree(_unpacked(bufs, xs))
+        if not self.owns(s):
+            # another process's shard: its stand-in, laid out as the copy
+            return tree([torch.empty(t.shape, dtype=t.dtype, device=dev)
+                         for t in xs])
         if not isinstance(x, dict):
             return x.to(dev, non_blocking=True)
-        packed = {} if packed is None else packed
         if id(x) not in packed:
             packed[id(x)] = _packed(list(x.values()))
-        bufs = {dt: b.to(dev, non_blocking=True)
-                for dt, b in packed[id(x)].items()}
+        bufs = {dt: h.to(dev, non_blocking=True)
+                for dt, h in packed[id(x)].items()}
         return dict(zip(x, _unpacked(bufs, list(x.values()))))
 
     def land(self, s: int, x: torch.Tensor) -> torch.Tensor:
-        """Shard ``s``'s output ``x`` on the lead device, counted."""
+        """Shard ``s``'s output ``x`` on the lead device, counted; on a
+        pod, through the host when shard ``s`` is another process's than
+        the lead's (a stand-in where the lead is another process's)."""
         if s:
             self.traffic["to_lead"] += _nbytes(x)
+        a, b = self.owner(s), self.owner(0)
+        if a != b and self.process == a:
+            self._send([x], b)
+            return self.standin(x)
+        if a != b and self.process == b:
+            host = self._recv([x], a)[0]
+            return torch.empty_like(x, device=self.lead).copy_(
+                host, non_blocking=True)
         return x.to(self.lead)
 
     def land_tree(self, s: int, tree: Tree) -> Tree:
@@ -373,15 +551,16 @@ class Sharded:
         not through the lead, as :func:`_packed` buffers, counted in
         ``shard_to_shard``."""
         self.traffic["shard_to_shard"] += _nbytes(tree)
-        xs, dev = list(tree.values()), self.devices[dst]
-        try:
-            bufs = {dt: b.to(dev, non_blocking=True)
-                    for dt, b in _packed(xs).items()}
-        except Exception as err:
-            err.add_note(f"copying client shard {src}'s rows to client "
-                         f"shard {dst} on {dev}")
-            raise
-        return dict(zip(tree, _unpacked(bufs, xs)))
+        return self._move(src, dst, tree)
+
+    def rows_on_lead(self, rows: List[Tree]) -> Optional[Tree]:
+        """Each shard's row tree (on its device) as one ``[C, ...]`` tree
+        on the lead device, in client order, uncounted in the shard
+        tallies; None in a process of a pod that does not hold the lead
+        (its rows cross to the lead's process)."""
+        rows = [r if self.owner(s) == self.owner(0) else self._move(s, 0, r)
+                for s, r in enumerate(rows)]
+        return cat_rows(rows, self.lead) if self.owns(0) else None
 
 
 def _shards(body) -> Optional[Sharded]:
@@ -409,7 +588,10 @@ def run_sharded(sh: Sharded, inputs: Sequence[tuple],
     caller lands them on the lead device after every shard is issued (a
     copy between cards issued earlier would hold a shard back behind the
     lead's queue). An exception in a body or in ``after`` is raised as it
-    is, its shard named in a note; the shards after it do not run."""
+    is, its shard named in a note; the shards after it do not run. On a
+    pod only this process's shards run (``after`` with them), and another
+    process's clients' outputs are stand-ins shaped like this process's
+    first shard's (every shard holds as many clients)."""
     per, copies = sh.per_device, {}
 
     def to(x, dev: torch.device):
@@ -424,8 +606,10 @@ def run_sharded(sh: Sharded, inputs: Sequence[tuple],
 
     staged = [tuple(to(a, sh.devices[c // per]) for a in args)
               for c, args in enumerate(inputs)]
-    outs = []
-    for s, (body, dev) in enumerate(zip(sh.bodies, sh.devices)):
+    owned = sh.owned_shards()
+    mine_of: list = [None] * len(sh.bodies)
+    for s in owned:
+        body, dev = sh.bodies[s], sh.devices[s]
         with _on(dev):
             try:
                 mine = [body(*args) for args in staged[s * per:(s + 1) * per]]
@@ -434,8 +618,9 @@ def run_sharded(sh: Sharded, inputs: Sequence[tuple],
             except Exception as err:
                 err.add_note(f"in client shard {s} on {dev}")
                 raise
-        outs += mine
-    return outs
+        mine_of[s] = mine
+    return [out for mine in mine_of for out in (
+        sh.standin(mine_of[owned[0]]) if mine is None else mine)]
 
 
 @dataclasses.dataclass(eq=False)
@@ -596,7 +781,10 @@ def shardwise(fn: Callable, *args) -> Stacked:
     Shard ``s`` gets each :class:`Stacked` argument's rows, a tree on the
     lead device staged once per shard, a ``[C, ...]`` tensor on the lead
     device its rows ``[a:b]`` staged, and anything else as it is. A
-    failure is raised with its shard named; nothing is regathered."""
+    failure is raised with its shard named; nothing is regathered. On a
+    pod ``fn`` runs on this process's shards, and another process's
+    result is a stand-in of this process's first one (its arguments still
+    cross)."""
     sh = next(a.sh for a in args if isinstance(a, Stacked))
     packed, out = {}, []
     for s, (a, b, dev) in enumerate(sh.rows()):
@@ -609,13 +797,18 @@ def shardwise(fn: Callable, *args) -> Stacked:
                 return sh.stage(s, x[a:b])
             return x
 
+        staged = [arg(x) for x in args]
+        if not sh.owns(s):
+            out.append(None)
+            continue
         with _on(dev):
             try:
-                out.append(fn(*[arg(x) for x in args]))
+                out.append(fn(*staged))
             except Exception as err:
                 err.add_note(f"in client shard {s} on {dev}")
                 raise
-    return Stacked(sh, out)
+    first = out[sh.owned_shards()[0]]
+    return Stacked(sh, [sh.standin(first) if r is None else r for r in out])
 
 
 def client_stack(local_train: Callable, global_t: Tree,
@@ -733,18 +926,6 @@ def chunk_consensus(carry, ones: torch.Tensor, prev, observed: bool,
     return prev
 
 
-def fence_rows(*trees) -> None:
-    """Block the host until the work on every device that ``trees`` lie on
-    is done: every shard's rows of a :class:`Stacked`, a plain tree's
-    device; a :class:`Deferred` view or None is nothing to wait for."""
-    for t in trees:
-        if isinstance(t, Stacked):
-            for rows in t.rows:
-                fence(rows)
-        elif t is not None and not isinstance(t, Deferred):
-            fence(t)
-
-
 def stacked_like(tree: Tree, num_clients: int) -> Tree:
     """``[C, ...]`` views of an unstacked tree (no copy): the shapes and
     dtypes a receiver decodes a payload into when no stack landed."""
@@ -803,22 +984,29 @@ def _train_each(local_train: Callable, start_of: Callable, ref_of: Callable,
              for s, (a, b, _) in enumerate(rows)]
     per = sh.per_device
     inputs = [(start(refs[c // per], masks[c // per], c % per),
-               sh.stage(c // per, {k: v[c] for k, v in batches.items()}),
+               sh.stage(c // per, {k: v[c] for k, v in batches.items()},
+                        replicated=True),
                generators[c]) for c in range(C)]
-    stacks, parts = [], []
+    stacks, parts, payloads = [None] * len(rows), [None] * len(rows), {}
 
     def after(s, mine):
         a, b, _ = rows[s]
-        stacks.append({p: torch.stack([t[p] for t, _ in mine])
-                       for p in like})
+        stacks[s] = {p: torch.stack([t[p] for t, _ in mine]) for p in like}
         if sender is not None:
-            payload, _, sender.resid[s] = compress_stage(
+            payloads[s], _, sender.resid[s] = compress_stage(
                 sender.comp, stacks[s], refs[s], sender.resid[s],
                 cc.row_uniforms(sender.uniforms, C, a, b), masks[s])
-            parts.append(sender.pack(s, payload))
+            parts[s] = sender.pack(s, payloads[s])
 
     outs = run_sharded(sh, inputs,
                        after if sender is not None or keep else None)
+    first = sh.owned_shards()[0]
+    for s in range(len(rows)):
+        # another process's shard of a pod: stand-ins of its rows
+        if stacks[s] is None and stacks[first] is not None:
+            stacks[s] = sh.standin(stacks[first])
+            if sender is not None:
+                parts[s] = sender.pack(s, sh.standin(payloads[first]))
     stats = torch.stack([sh.land(c // per, s)
                          for c, (_, s) in enumerate(outs)])
     if keep:
@@ -873,7 +1061,7 @@ def eval_clients(eval_one: Callable, stacked, global_t: Tree,
             staged[key] = sh.stage(c // per, tree, packed)
         return staged[key]
 
-    inputs = [(stage(c, t), sh.stage(c // per, b))
+    inputs = [(stage(c, t), sh.stage(c // per, b, replicated=True))
               for c, (t, b) in enumerate(rows)]
     return torch.stack([sh.land(c // per, s)
                         for c, s in enumerate(run_sharded(sh, inputs))])
@@ -1006,13 +1194,21 @@ def adopt(client_t, global_t: Tree, pull: torch.Tensor):
 
 
 def collapse(stacked, weights: torch.Tensor, fallback: Tree,
-             agg: Optional[Callable] = None) -> Tree:
+             agg: Optional[Callable] = None,
+             sh: Optional[Sharded] = None) -> Tree:
     """The aggregation rule over the client axis (``collapse``): ``agg``
     (:func:`bcfl_tpu_torch.parallel.make_aggregator`), the masked weighted
     mean by default, over the stack landed on the lead device in client
-    order (:func:`gathered`): one reduction, as on one shard."""
-    return (agg or masked_weighted_mean)(gathered(stacked), weights,
-                                         fallback)
+    order (:func:`gathered`): one reduction, as on one shard. On a pod
+    the lead's process reduces (:meth:`Sharded.on_lead` of ``sh``, or of
+    the :class:`Stacked`'s own)."""
+    landed = gathered(stacked)
+    reduce = functools.partial(agg or masked_weighted_mean, landed, weights,
+                               fallback)
+    sh = stacked.sh if isinstance(stacked, Stacked) else sh
+    if sh is None:
+        return reduce()
+    return sh.on_lead(reduce, {p: x[0] for p, x in landed.items()})
 
 
 def exact_mean_spread(avg: Tree, new_t, mask: torch.Tensor):
@@ -1069,6 +1265,10 @@ def gossip_mix_rows(self_t: Stacked, recv_t: Stacked, mask: torch.Tensor,
                  for s, (a, b, _) in enumerate(rows)]
         out = []
         for s, (_, _, dev) in enumerate(rows):
+            if not sh.owns(s):
+                # another process's shard of a pod: it mixes there
+                out.append(sh.standin(self_t.rows[s]))
+                continue
             (left, right), m, recv = halos[s], ms[s], recv_t.rows[s]
             with _on(dev):
                 try:
@@ -1543,7 +1743,9 @@ def build_programs(model: nn.Module, mesh: ClientMesh,
 
     Client shard 0 trains and evaluates on ``model``, which must be on
     ``mesh.client_devices[0]`` (under ``tp`` split over
-    ``mesh.row_devices(0)``, under ``sp`` on that row's ring). Each other
+    ``mesh.row_devices(0)``, under ``sp`` on that row's ring); on a pod,
+    this process's first shard does, and another process's shard gets a
+    ``meta`` copy that never runs. Each other
     shard ``s`` (1-D or 2-D) does so on its own scratch copy of ``model``
     (:func:`_replica`, the same weights) on ``mesh.client_devices[s]``:
     under ``tp`` split over ``mesh.row_devices(s)``, under ``sp`` with
@@ -1553,9 +1755,13 @@ def build_programs(model: nn.Module, mesh: ClientMesh,
     shares the lead's frozen base, never written; on other devices it owns
     its slices."""
     devices = mesh.train_devices
-    lead = [tp_linear.indexed(d) for d in mesh.row_devices(0)]
-    models = [model]
-    for s in range(1, len(devices)):
+    home = mesh.home_shard
+    lead = [tp_linear.indexed(d) for d in mesh.row_devices(home)]
+    models = []
+    for s in range(len(devices)):
+        if s == home:
+            models.append(model)
+            continue
         row = mesh.row_devices(s)
         rep = _replica(model, row, share=adapters and [
             tp_linear.indexed(d) for d in row] == lead)
@@ -1572,12 +1778,13 @@ def build_programs(model: nn.Module, mesh: ClientMesh,
         evals.append(make_eval_one(m, loss_fn, adapters=adapters))
     per = mesh.num_clients // len(devices)
     traffic = _traffic()  # the round's and the evaluation's, together
-    local_train = Sharded(trains, devices, per, traffic)
+    owners, me = mesh.shard_processes, process_index()
+    local_train = Sharded(trains, devices, per, traffic, owners, me)
     comp = (compression if compression is not None and compression.enabled
             else None)
     return FedPrograms(
         mesh=mesh, local_train=local_train,
-        eval_one=Sharded(evals, devices, per, traffic),
+        eval_one=Sharded(evals, devices, per, traffic, owners, me),
         gossip_round=functools.partial(gossip_round, local_train, comp,
                                        alpha=gossip_alpha,
                                        steps=gossip_steps),

@@ -105,6 +105,26 @@ shard's attention rides a ring over its row
 mode the FedAvg mean is JAX's two-level mean over the client shards
 (``hierarchical_weighted_mean``, as many groups as the clients axis has
 shards).
+
+The pod (``pod=True``, after
+:func:`bcfl_tpu_torch.core.mesh.distributed_init`): the mesh spans every
+process's devices (:func:`bcfl_tpu_torch.core.mesh.pod_devices`,
+hosts-major), every process runs this engine, and each trains only the
+client shards on its own devices. Each builds its shards' inputs
+(batches, generators, codec uniforms) from the seed itself; only rows
+cross between processes, through the host
+(:mod:`bcfl_tpu_torch.parallel.pod`): the global to each process's
+shards, payload rows and stats to the lead, halo rows between ring
+neighbours, what one reduction lands. The lead device is process 0's: it
+alone reduces, and in another process the lead is a ``meta`` device that
+holds the shapes of what process 0 computes. Every value the host reads
+back from the lead (the records' stats, the ledger's fingerprints, the
+evaluations) is process 0's, sent to every other process
+(:func:`bcfl_tpu_torch.parallel.pod.decide`), so every host decision is
+made alike everywhere and the processes issue the same crossings in the
+same order; the bits are the one-process run's over the same shards.
+Process 0 alone writes the telemetry stream; every process ends holding
+process 0's final global (and its own rows of a stack).
 """
 
 from __future__ import annotations
@@ -125,7 +145,8 @@ from bcfl_tpu_torch.checkpoint import restore_latest, save_checkpoint
 from bcfl_tpu_torch.compression import codecs as cc
 from bcfl_tpu_torch.config import FedConfig
 from bcfl_tpu_torch.core import prng, resolve_device, to_device
-from bcfl_tpu_torch.core.mesh import client_mesh, visible_devices
+from bcfl_tpu_torch.core.mesh import (client_mesh, pod_active, pod_devices,
+                                      process_index, visible_devices)
 from bcfl_tpu_torch.core.fence import fence
 from bcfl_tpu_torch.data import (
     Partitioner,
@@ -234,8 +255,19 @@ def _devices(cfg: FedConfig, device, devices) -> list:
     (the JAX package's virtual host devices). With an inner axis every
     row of the mesh over those devices trains, as JAX's mesh over
     ``jax.devices()`` does: four cards at ``tp=2`` are two client shards
-    (pass ``devices`` of one row to keep one)."""
+    (pass ``devices`` of one row to keep one). Under ``pod`` every
+    process's devices (``devices``, the one ``device`` names, or the
+    visible cards), gathered from every process: a call every process of
+    the pod makes at once."""
     inner = max(cfg.tp, cfg.sp)
+    if cfg.pod:
+        # this process's own devices (as given, the one ``device`` names,
+        # or every visible card), gathered from every process of the pod
+        if devices is None:
+            dev = resolve_device(device)
+            devices = ([dev] if dev.type == "cpu" or dev.index is not None
+                       else visible_devices())
+        return pod_devices([resolve_device(d) for d in devices])
     if devices is not None:
         devices = [resolve_device(d) for d in devices]
         if not devices:
@@ -277,10 +309,14 @@ class FedEngine:
         (``[cuda:0] * 4``): the shards then share it, which proves the
         sharded arithmetic and gives no memory or speed gain."""
         self.cfg = cfg
+        # a pod: every process runs this engine over the pod's devices
+        self._pod = cfg.pod and pod_active()
+        if self._pod and (tamper_hook is not None or fused_tamper is not None
+                          or client_ids is not None):
+            raise ValueError(
+                "pod=True takes neither the tamper_hook/fused_tamper shims "
+                "nor client_ids (a dist peer's slice)")
         devices = _devices(cfg, device, devices)
-        self.device = dev = devices[0]
-        if any(d.type == "cuda" for d in devices):
-            full_float32_matmuls()
         self._fixed_ids = None
         if client_ids is not None:
             if cfg.registry_size > 0 or cfg.reputation.enabled:
@@ -331,8 +367,6 @@ class FedEngine:
         rep = cfg.reputation
         self.reputation = (ReputationTracker(rep, self.R)
                            if rep is not None and rep.enabled else None)
-        # the random streams' identity, recorded in checkpoints
-        self._prng_name = prng.scheme_name(dev)
         # --- data: tokenize once ---
         self.dataset = load_dataset(cfg.dataset, num_labels=cfg.num_labels,
                                     text_col=cfg.text_col,
@@ -359,6 +393,14 @@ class FedEngine:
             devices = devices[:need]
         self.mesh = client_mesh(self.C, devices=devices, tp=cfg.tp,
                                 sp=cfg.sp)
+        # the lead device (another process's in a pod: a meta stand-in),
+        # and this process's first own device, where its model lives
+        self.device = self.mesh.client_devices[0]
+        self.home = home = self.mesh.home
+        if any(d.type == "cuda" for d in self.mesh.mesh.flat):
+            full_float32_matmuls()
+        # the random streams' identity, recorded in checkpoints
+        self._prng_name = prng.scheme_name(home)
         # --- model: built on the device, fresh init from the seed ---
         overrides = {}
         if cfg.use_flash is not None:
@@ -386,12 +428,12 @@ class FedEngine:
             model_cfg, variables = import_pretrained(
                 cfg.hf_checkpoint, num_labels=self.num_labels,
                 reinit_classifier=True)
-            with torch.device(dev):
+            with torch.device(home):
                 self.model = TextClassifier(
                     dataclasses.replace(model_cfg, **dtypes))
             load_into(self.model, variables["params"])
         else:
-            with torch.device(dev):
+            with torch.device(home):
                 depth = ({"num_layers": cfg.num_layers}
                          if cfg.num_layers else {})
                 self.model = build(cfg.model, num_labels=self.num_labels,
@@ -400,7 +442,7 @@ class FedEngine:
                                          else "classifier"),
                                    **depth, **dtypes)
             init_params(self.model,
-                        prng.generator(dev, cfg.seed, INIT_LANE))
+                        prng.generator(home, cfg.seed, INIT_LANE))
         # heterogeneous LoRA ranks: the [C, R] padding mask of the fleet
         self._rmask = None
         self.adapters = cfg.lora_rank > 0
@@ -475,7 +517,8 @@ class FedEngine:
         self.clock = StepClock()
         self.eval_batches = _to_device(
             central_eval_batches(self.cache, cfg.batch_size,
-                                 max_batches=cfg.max_eval_batches), dev)
+                                 max_batches=cfg.max_eval_batches),
+            self.device)
         self._static_batches = None  # the partition is round-static
 
     def _init_adapters(self):
@@ -484,7 +527,7 @@ class FedEngine:
         rank (its own generator), zero-padded to the maximum, and start
         from their RBLA mean (``b`` is zero everywhere, so it blends the
         per-rank-scaled ``a`` factors)."""
-        cfg, dev = self.cfg, self.device
+        cfg, dev = self.cfg, self.home
         targets = lora_targets(cfg.model)
         ranks = cfg.client_lora_ranks
         if ranks is not None and len(set(ranks)) > 1:
@@ -526,17 +569,24 @@ class FedEngine:
                                     ids if ids is not None else self.C,
                                     rnd, cfg.batch_size,
                                     max_batches=cfg.max_local_batches)
-        out = (_to_device(tree, self.device), np.asarray(n_ex))
+        # on this process's own device: every process of a pod draws them
+        out = (_to_device(tree, self.home), np.asarray(n_ex))
         if static:
             self._static_batches = out
         return out
 
     def _generators(self, rnd: int):
         # keyed by registry id in cohort mode, never by slot
+        # only for the clients this process trains (a pod's others: None)
         ids = self._cohort_ids(rnd)
-        return prng.client_round_generators(
-            self.cfg.seed, ids if ids is not None else self.C, rnd,
-            self._slot_devices)
+        ids = range(self.C) if ids is None else ids
+        own = self.local_train.owned_clients()
+        gens = [None] * self.C
+        for c, g in zip(own, prng.client_round_generators(
+                self.cfg.seed, [int(ids[c]) for c in own], rnd,
+                [self._slot_devices[c] for c in own])):
+            gens[c] = g
+        return gens
 
     def _uniforms(self, rnd: int) -> Optional[cc.Uniforms]:
         if self._comp is None or not self._comp.stochastic:
@@ -548,10 +598,11 @@ class FedEngine:
         """The codec's error-feedback residual as one ``[C, ...]`` float32
         tree on the lead device, in client order (None without a codec,
         and before the run sets it): each client shard's rows gathered
-        from its device."""
+        from its device. On a pod every process lands its rows, and only
+        the lead's process gets the tree (None elsewhere)."""
         if self._ef_rows is None:
             return None
-        return cs.cat_rows(self._ef_rows, self.device)
+        return self.local_train.rows_on_lead(self._ef_rows)
 
     def set_ef_residual(self, tree: Optional[Dict[str, torch.Tensor]]):
         """Adopt a ``[C, ...]`` residual (a restored checkpoint's, a dist
@@ -634,7 +685,8 @@ class FedEngine:
         """The round's record from its ``[C, 3]`` stats: a tensor (read
         back here, waiting for the device) or a fused chunk's host rows."""
         if isinstance(stats, torch.Tensor):
-            stats = stats.double().cpu()  # waits for the device
+            # waits for the device
+            stats = self.local_train.read(lambda: stats.double().cpu())
         s = np.asarray(stats, np.float64)
         n = np.maximum(s[:, 2], 1)
         total = s.sum(0)
@@ -721,7 +773,7 @@ class FedEngine:
         byte-hash flow."""
         # the device is still training: without the fence its time would
         # be billed to the ledger phase
-        fence(stacked if sent is None else sent)
+        self.local_train.fence(stacked if sent is None else sent)
         with self.clock.phase("ledger"):
             if self.faults.host_tamper is not None:
                 host = {p: x.cpu() for p, x in stacked.items()}
@@ -735,7 +787,8 @@ class FedEngine:
                 # the committed buffer IS the aggregated one: recomputing
                 # the fingerprint would give the same bits
                 return self._ledger_auth_rows(rnd, kind, fp)
-            fp_recv = fp_lib.client_fingerprint(sent).cpu().numpy()
+            fp_recv = self.local_train.read(
+                lambda: fp_lib.client_fingerprint(sent).cpu().numpy())
             return self._ledger_auth_rows(rnd, kind, fp_recv)
 
     def _exchange_updates(self, rnd: int, new_t, ref_t, scales,
@@ -804,11 +857,12 @@ class FedEngine:
         """The ``[C, K]`` fingerprint rows of a stacked tree of ``kind``,
         on the host; the first tree of a kind fixes its structure
         digest."""
-        fence(tree)
+        self.local_train.fence(tree)
         if kind not in self._struct_cache:
             self._struct_cache[kind] = fp_lib.struct_digest(
                 tree, self.cfg.ledger.use_native)
-        return fp_lib.client_fingerprint(tree).cpu().numpy()
+        return self.local_train.read(
+            lambda: fp_lib.client_fingerprint(tree).cpu().numpy())
 
     def _scales_tensor(self, scales: np.ndarray) -> torch.Tensor:
         return _host_vector(scales, self.device)
@@ -841,7 +895,7 @@ class FedEngine:
         if auth is not None:
             mask = mask * auth
         trainable = cs.collapse(ex.recon, self._weights(mask, n_ex),
-                                trainable, self.agg)
+                                trainable, self.agg, sh=self.local_train)
         del ex
         # the record reads the stats back: after the aggregate is queued
         rec = self._stats_to_rec(rnd, stats)
@@ -1309,7 +1363,7 @@ class FedEngine:
                     rnd, stacked, trainable, k)
             rows = self._read_chunk(out)
             del out
-            cs.fence_rows(trainable, stacked)
+            self.local_train.fence(trainable, stacked)
         wall = time.perf_counter() - t0
         recs = [self._stats_to_rec(rnd + i, rows["stats"][i])
                 for i in range(k)]
@@ -1321,7 +1375,7 @@ class FedEngine:
             trainable = self._resolved(trainable)
         if self.adapters:
             # only the chunk's final global is the host's to read
-            recs[-1].effective_rank = float(lora.effective_rank(trainable))
+            recs[-1].effective_rank = self._effective_rank(trainable)
         self._maybe_eval(last, recs[-1], trainable, stacked)
         metrics.rounds.extend(recs)
         self._maybe_checkpoint(last, trainable, stacked)
@@ -1335,6 +1389,9 @@ class FedEngine:
 
     # -------------------------------------------------------------- evaluate
 
+    def _effective_rank(self, trainable) -> float:
+        return self.local_train.read(lambda: float(lora.effective_rank(trainable)))
+
     def _maybe_eval(self, rnd: int, rec: RoundRecord, trainable,
                     stacked) -> None:
         cfg = self.cfg
@@ -1343,7 +1400,8 @@ class FedEngine:
         if not due:
             return
         with self.clock.phase("eval"):
-            s = self.eval_one(trainable, self.eval_batches).double().cpu()
+            s = self.local_train.read(lambda: self.eval_one(
+                trainable, self.eval_batches).double().cpu())
             rec.global_loss = float(s[0] / max(float(s[2]), 1.0))
             rec.global_acc = float(s[1] / max(float(s[2]), 1.0))
             # each client's local accuracy on its own test split: of its
@@ -1355,9 +1413,9 @@ class FedEngine:
                                    cfg.batch_size,
                                    max_batches=cfg.max_local_batches,
                                    split="test")
-            tb = _to_device(tb, self.device)
-            local = cs.eval_clients(self.eval_one, stacked, trainable,
-                                    tb).double().cpu().numpy()
+            tb = _to_device(tb, self.home)
+            local = cs.eval_clients(self.eval_one, stacked, trainable, tb)
+            local = self.local_train.read(lambda: local.double().cpu().numpy())
             rec.local_acc = (local[:, 1] / np.maximum(local[:, 2], 1)).tolist()
 
     # ------------------------------------------------------ reputation bridge
@@ -1419,8 +1477,14 @@ class FedEngine:
         rounds, ledger commits, reputation, checkpoints), closed with the
         run's status even when it crashes."""
         cfg = self.cfg
+        if self._pod and resume:
+            raise ValueError(
+                "resume=True under pod=True is not ported yet: the "
+                "error-feedback rows of other processes' shards would have "
+                "to be gathered")
         installed = None
-        if cfg.telemetry_dir and cfg.telemetry_dir != "off":
+        if (cfg.telemetry_dir and cfg.telemetry_dir != "off"
+                and process_index() == 0):
             installed = telemetry.install(telemetry.EventWriter(
                 os.path.join(cfg.telemetry_dir, "events_engine.jsonl"),
                 peer=None, run=cfg.name, sample=cfg.telemetry_sample))
@@ -1578,13 +1642,13 @@ class FedEngine:
                 payload_bytes=self._comms_payload_bytes(), restrict=restrict)
             rec.info_passing_sync_s = sync_t
             rec.info_passing_async_s = async_t
-            cs.fence_rows(trainable, stacked)
+            self.local_train.fence(trainable, stacked)
             rec.wall_s = time.perf_counter() - t0
             if self.adapters or self._observed(rnd):
                 trainable = self._resolved(trainable)
             if self.adapters:
                 # the rank-collapse guard over the global adapters
-                rec.effective_rank = float(lora.effective_rank(trainable))
+                rec.effective_rank = self._effective_rank(trainable)
             if self.reputation is not None:
                 # before eval and checkpoint, so the checkpointed tracker
                 # matches the uninterrupted run's at every boundary
@@ -1599,6 +1663,8 @@ class FedEngine:
                 on_round(rec)
             rnd += 1
         trainable = self._resolved(trainable)
+        # on a pod every process ends holding the lead's final global
+        trainable = self.local_train.share(trainable, self.home)
         if self.adapters:
             # the model computes with the final global adapters
             lora.attach(self.model, trainable)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``bcfl_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py              # phases 1-4, paths (a)-(ab)
+    python3 chip_smoke.py              # phases 1-4, paths (a)-(ac)
     python3 chip_smoke.py --profile    # phases 1-4, then 5
 
 Phases, each of which raises (and the script exits non-zero) on failure:
@@ -214,7 +214,20 @@ Phases, each of which raises (and the script exits non-zero) on failure:
    ``wall_chunk_s`` against the per-round run's walls of the same rounds,
    the peaks, and the synchronizing CUDA calls inside a chunk's issue
    (torch's sync debug mode, by source line) against those inside a
-   per-round round. Then (m), the multi-process
+   per-round round. Then (ac), the pod (``pod=True``): path (b)'s
+   configuration with the ledger on ``CUT_LAYERS``, 4 clients, 2 rounds,
+   as server FedAvg and as serverless gossip, each run by a pod of two
+   child processes on ``cuda:0`` (``scripts/pod_axis.py``'s child mode
+   under ``bcfl_tpu_torch.parallel.pod.launch``'s hard deadline), one
+   client shard of 2 each, the rows crossing between them through the
+   host, against one process on ``[cuda:0, cuda:0]``: the global or
+   consensus, every client's final row, every round's payload, the ledger
+   head, the per-client stats and evaluation and the kernel launches
+   (each child's counts set to 0 just before its run and read just
+   after, summed over the two) equal bit for bit; a child that fails
+   fails the phase. It prints the verdicts, process 0's round walls, the
+   MB process 0 sent and received each round and each child's launches.
+   Then (m), the multi-process
    runtime at full width: the ``server_noniid_medical`` preset
    (biobert-base, 40 labels, 10 clients; like every peer path up to (s),
    at biobert-base's width on ``CUT_LAYERS`` = 2 of its 12 layers, 37.5 M
@@ -362,7 +375,9 @@ repeated launches after a warm-up; the caches are warm. A call whose host
 wrapper takes longer than its kernel reads the wrapper's rate that way,
 so K4's round calls also print their kernel's device time under
 ``torch.profiler``, back to back and with the L2 cache flushed before
-each call.
+each call. Each kernel's record says in ``device_by`` how the device
+times printed for it were taken: ``profiler``, or ``events`` where three
+traces held no record of the kernel and CUDA events timed whole calls.
 """
 
 from __future__ import annotations
@@ -373,6 +388,7 @@ import copy
 import csv
 import dataclasses
 import functools
+import importlib.util
 import json
 import math
 import os
@@ -420,16 +436,19 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, kernel: str, flush: bool = False) -> float:
-    """Mean device time per launch of the kernels whose name holds
-    ``kernel`` over ``iters`` calls of ``fn`` (one launch each), under
-    ``torch.profiler`` (after one warm-up call): the kernel's own time,
-    where ``time_ms`` of a call whose host wrapper takes longer than its
-    kernel reads the wrapper's rate. The mean is over the launch records
-    the trace holds, which on an H100 host has now and then lacked some.
-    With ``flush``, a buffer four times the L2 cache is written before
-    every call, so no call reads what the one before left in L2 (the fill
-    is not counted)."""
+def device_ms(fn, iters: int, kernel: str, flush: bool = False) -> tuple:
+    """``(ms, by)``: the mean device time per launch of the kernels whose
+    name holds ``kernel`` over ``iters`` calls of ``fn`` (one launch
+    each), under ``torch.profiler`` (after one warm-up call; ``by`` is
+    ``"profiler"``): the kernel's own time, where ``time_ms`` of a call
+    whose host wrapper takes longer than its kernel reads the wrapper's
+    rate. The mean is over the launch records the trace holds, which on
+    an H100 host has now and then lacked some; after three traces without
+    a record of it, CUDA events time each whole call instead (``by`` is
+    ``"events"``: the call's time, its host wrapper included, and no
+    proof that a kernel of that name ran). With ``flush``, a buffer four times the L2 cache is written
+    before every call, so no call reads what the one before left in L2
+    (the fill is not counted)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -440,7 +459,9 @@ def device_ms(fn, iters: int, kernel: str, flush: bool = False) -> float:
     torch.cuda.synchronize()
     # the profiler's device trace has come back empty on an H100 host
     # now and then (a whole window without one kernel record); such a
-    # window is traced again, and three empty ones fail
+    # window is traced again, and after three empty ones the calls are
+    # timed with CUDA events instead (the call's time, its host wrapper
+    # included where that takes longer than the kernel)
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -457,10 +478,22 @@ def device_ms(fn, iters: int, kernel: str, flush: bool = False) -> float:
             if launches != iters:
                 print(f"device_ms: {launches} of {iters} launches of "
                       f"{kernel} in the trace", flush=True)
-            return total / 1e3 / launches
+            return total / 1e3 / launches, "profiler"
         print(f"device_ms: the profiler saw no device time of {kernel} "
               f"(window {attempt + 1} of 3)", flush=True)
-    raise RuntimeError(f"the profiler saw no device time of {kernel}")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    total = 0.0
+    for _ in range(iters):
+        if scrub is not None:
+            scrub.zero_()
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    print(f"device_ms: {kernel} timed by CUDA events over {iters} calls "
+          "instead", flush=True)
+    return total / iters, "events"
 
 
 def bound_ms(nbytes: float, ops: float,
@@ -541,6 +574,8 @@ class KernelStats:
         # paths, the largest |diff| of its comparisons, and its times at
         # the seq-512 and Llama paths' calls
         self.by_dtype = {}
+        # how each device time this run printed was taken (device_ms)
+        self.device_by = set()
 
     def compared(self, err: float, dtype=None):
         self.max_abs_err = max(self.max_abs_err or 0.0, err)
@@ -567,7 +602,8 @@ class KernelStats:
                "replaces": self.replaces, "launches": self.launches,
                "max_abs_err": self.max_abs_err, "ms": self.ms,
                "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
-               "bound_by": self.bound_by, "library_ms": self.library_ms}
+               "bound_by": self.bound_by, "library_ms": self.library_ms,
+               "device_by": sorted(self.device_by)}
         if self.by_dtype:
             rec["by_dtype"] = self.by_dtype
         return rec
@@ -633,10 +669,13 @@ def int8_case(ck, st, gen, shapes, stochastic, label, iters, device=False):
     if device:
         call = functools.partial(ck.INT8_QUANTIZE, gs, us,
                                  stochastic=stochastic)
-        t = device_ms(call, iters, "int8_quantize_kernel")
-        cold = device_ms(call, iters, "int8_quantize_kernel", flush=True)
-        dev = (f", device time {t:.4f} ms back to back, {cold:.4f} ms with "
-               f"L2 flushed before each call ({bnd / cold:.1%} of the bound)")
+        t, t_by = device_ms(call, iters, "int8_quantize_kernel")
+        cold, cold_by = device_ms(call, iters, "int8_quantize_kernel",
+                                  flush=True)
+        st.device_by |= {t_by, cold_by}
+        dev = (f", device time {t:.4f} ms back to back (by {t_by}), "
+               f"{cold:.4f} ms with L2 flushed before each call (by "
+               f"{cold_by}; {bnd / cold:.1%} of the bound)")
     print(f"int8_quantize {label} {grids} stochastic={int(stochastic)}: "
           f"kernel {ms:.4f} ms{dev}, plain {plain:.4f} ms, bound {bnd:.4f} "
           f"ms ({by}), {'identical' if same else 'DIFFERS'}", flush=True)
@@ -4286,18 +4325,21 @@ def path_tp(fk, stats, smi, dataset, llama_per, k_peak):
     shard_dev = flash_device_ms(fk, q, k, v, do, bias)
     full_dev = flash_device_ms(fk, *(torch.cat([x, x], dim=1)
                                      for x in (q, k, v, do)), bias)
-    for name, t in shard_dev.items():
-        print(f"{name} device time (torch.profiler, {LLAMA_ITERS} "
-              f"launches): head-shard call {t:.4f} ms, full-head call "
-              f"[8,32,512,512,128] {full_dev[name]:.4f} ms "
-              f"({t / full_dev[name]:.2f}x); {smi}", flush=True)
+    for name, (t, by) in shard_dev.items():
+        full, full_by = full_dev[name]
+        stats[name].device_by |= {by, full_by}
+        print(f"{name} device time ({LLAMA_ITERS} launches): head-shard "
+              f"call {t:.4f} ms (by {by}), full-head call "
+              f"[8,32,512,512,128] {full:.4f} ms (by {full_by}) "
+              f"({t / full:.2f}x); {smi}", flush=True)
     del q, k, v, do, bias
     torch.cuda.empty_cache()
     return one_row
 
 
 def flash_device_ms(fk, q, k, v, do, bias) -> dict:
-    """K1-K3's mean device time per call (bf16, causal) on these inputs."""
+    """K1-K3's mean device time per call (bf16, causal) on these inputs,
+    each with how it was taken (:func:`device_ms`)."""
     out, lse = fk.FLASH_FWD(q, k, v, bias, True)
     bwd = (q, k, v, bias, out, do, lse, True)
     calls = {"flash_fwd": lambda: fk.FLASH_FWD(q, k, v, bias, True),
@@ -5134,6 +5176,67 @@ def phase_fused(stats, smi, dataset, medical):
     torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- pod
+
+
+def load_pod_axis():
+    """``scripts/pod_axis.py`` as a module (the pod's child mode and its
+    comparison)."""
+    path = Path(__file__).resolve().parent / "scripts" / "pod_axis.py"
+    spec = importlib.util.spec_from_file_location("pod_axis", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_pod(stats, smi, dataset):
+    """(ac): the pod. Path (b)'s configuration with the ledger on
+    ``CUT_LAYERS``, as server FedAvg and serverless gossip, run by two
+    child processes on ``cuda:0`` (one client shard of 2 each) against
+    one process on ``[cuda:0, cuda:0]``, bit for bit; the children's
+    launches go to the kernels' counts."""
+    from bcfl_tpu_torch.config import LedgerConfig
+
+    pa = load_pod_axis()
+    legs = {mode: flash_config(dataset, name=f"chip-smoke-pod-{mode}",
+                               mode=mode, num_layers=CUT_LAYERS,
+                               ledger=LedgerConfig(enabled=True))
+            for mode in ("server", "serverless")}
+    t0 = time.perf_counter()
+    got = pa.run_pod([{"label": mode, "cfg": cfg, "device": "cuda"}
+                      for mode, cfg in legs.items()], 2,
+                     Path(__file__).resolve().parent / "build" / "chip_smoke"
+                     / "pod", env_of=lambda p: {"CUDA_VISIBLE_DEVICES": "0"})
+    pod_s = time.perf_counter() - t0
+    cuda0 = torch.device("cuda", 0)
+    for mode, cfg in legs.items():
+        label = f"pod (ac) {mode}"
+        recs = got[mode]
+        pod = pa.merged(recs)
+        one = pa.one_process(cfg, [cuda0, cuda0])
+        bad = pa.differences(one, pod)
+        if bad or min(pod["launches"].values()) <= 0:
+            raise RuntimeError(f"{label}: two processes differ from one "
+                               f"({bad}) or a kernel never launched "
+                               f"({pod['launches']})")
+        count_launches(stats, pod["launches"])
+        walls = [round(r["wall_s"], 4) for r in recs[0]["records"]]
+        sent = pa.per_round(recs[0]["traffic"], "process_sent")
+        received = pa.per_round(recs[0]["traffic"], "process_received")
+        print(f"{label}: 2 processes x 1 client shard on cuda:0 equal one "
+              f"process on [cuda:0, cuda:0] bit for bit (global, rows, "
+              f"payloads, ledger head, stats, records, launches); round "
+              f"walls {walls} s (process 0) against one process "
+              f"{[round(r['wall_s'], 4) for r in one['records']]} s; MB "
+              f"process 0 sent a round {[round(b / 1e6, 3) for b in sent]},"
+              f" received {[round(b / 1e6, 3) for b in received]}; "
+              f"launches {[r['launches'] for r in recs]} ({smi})",
+              flush=True)
+    print(f"pod (ac): the children's launch to exit {pod_s:.1f} s "
+          f"({smi})", flush=True)
+    torch.cuda.empty_cache()
+
+
 # -------------------------------------------------------------- profile
 
 
@@ -5688,6 +5791,8 @@ def main(argv=None) -> int:
     done("path (z)")
     phase_fused(stats, smi, dataset, medical)
     done("path (ab)")
+    phase_pod(stats, smi, dataset)
+    done("path (ac)")
     m_loss = phase_dist(ck, stats, smi, medical, c_walls)
     done("path (m)")
     phase_partition_kill(stats, smi, medical)

@@ -33,6 +33,14 @@ The fused dispatch (``rounds_per_dispatch``): server FedAvg in one chunk
 of both rounds on ``[cuda:0] * 4`` equals the per-round run on
 ``[cuda:0]`` bit for bit.
 
+The pod (``pod=True``, ``scripts/pod_axis.py``'s child mode): two
+processes on ``cuda:0``, one client shard of 2 each, equal one process on
+``[cuda:0] * 2`` bit for bit in server FedAvg and serverless gossip, the
+kernel launches summed over the processes those of the one; on a host
+with four or more cards, two processes of two cards each
+(``CUDA_VISIBLE_DEVICES`` ``0,1`` and ``2,3``) equal one process on
+``[cuda:0, ..., cuda:3]``.
+
 The tests marked ``gpu`` skip without a card. This file imports neither
 JAX nor the JAX package:
 
@@ -247,3 +255,47 @@ def test_uniforms_drawn_on_a_second_card_equal_card_0s(second_card):
         a = draw(i, shape, torch.device("cuda", 0))
         b = draw(i, shape, second_card)
         assert torch.equal(a, b.to(a.device)), shape
+
+
+def _pod_axis():
+    path = Path(__file__).resolve().parents[1] / "scripts" / "pod_axis.py"
+    spec = importlib.util.spec_from_file_location("pod_axis", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _pod_pair(tmp_path, legs, one_devices, env_of=None):
+    pa = _pod_axis()
+    if env_of is None:
+        # both processes on card 0, whatever the host has
+        def env_of(p):
+            return {"CUDA_VISIBLE_DEVICES": "0"}
+    # the one process first: it builds the kernels the children load
+    ones = {k: pa.one_process(c, one_devices) for k, c in legs.items()}
+    got = pa.run_pod([{"label": k, "cfg": c, "device": "cuda"}
+                      for k, c in legs.items()], 2, tmp_path / "pod",
+                     env_of=env_of, deadline_s=600.0)
+    for label, one in ones.items():
+        pod = pa.merged(got[label])
+        assert pa.differences(one, pod) == [], label
+        assert min(pod["launches"].values()) > 0, pod["launches"]
+        sent = [pa.per_round(r["traffic"], "process_sent")
+                for r in got[label]]
+        assert min(min(x) for x in sent) > 0, sent
+
+
+@pytest.mark.gpu
+def test_pod_of_two_processes_on_one_card_equals_one_process(tmp_path,
+                                                             cuda_device):
+    _pod_pair(tmp_path, {"server": _cfg(mode="server", num_clients=4),
+                         "gossip": _cfg(mode="serverless", num_clients=4)},
+              [cuda_device] * 2)
+
+
+@pytest.mark.gpu
+def test_pod_of_two_processes_on_four_cards_equals_one_process(tmp_path,
+                                                               four_cards):
+    _pod_pair(tmp_path, {"server": _cfg(mode="server", num_clients=4)},
+              four_cards,
+              env_of=lambda p: {"CUDA_VISIBLE_DEVICES": f"{2 * p},{2 * p + 1}"})

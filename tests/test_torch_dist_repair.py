@@ -17,7 +17,9 @@ step went wrong.
 A second run arms the in-process lanes instead: the seeded storage draw
 damages peer 1's own commits, and the leader tampers its first serve to a
 bootstrapping peer 2 (``sync_tamper``), which refuses it and adopts a
-clean transfer."""
+clean transfer. Its kill waits on the event it needs, peer 2's first
+committed checkpoint, with no window on the wall clock: a loaded host
+that starts peer 2 late delays the kill, it does not skip it."""
 
 import pytest
 
@@ -118,24 +120,29 @@ def test_seeded_storage_lane_and_tampered_serve(tmp_path):
     plan = FaultPlan(seed=4, storage_peers=(1,), storage_prob=1.0,
                      storage_classes=("payload_flip", "ledger"),
                      storage_rounds=(1,), sync_tamper=((0, 2),))
+    # peer 2 is killed at the harness's first check after its first
+    # committed checkpoint (period 0, no stop window) and restarted at once
     res = run_dist(_cfg(faults=plan), str(tmp_path / "run"),
                    deadline_s=460.0, device="cpu", threads=2,
-                   churn={"peer": 2, "cycles": 1, "period_s": 3.0,
-                          "downtime_s": 1.0, "stop_after_s": 150.0,
-                          "damage": ["delete"], "bootstrap": True})
-    assert res["ok"], (res["returncodes"], res["log_tails"])
+                   churn={"peer": 2, "cycles": 1, "period_s": 0.0,
+                          "downtime_s": 0.0, "damage": ["delete"],
+                          "bootstrap": True})
     evs = _events(res)
+    story = _timeline(res, evs)
+    assert res["ok"], (res["returncodes"], res["log_tails"], story)
+    assert res["churn"], f"the supervised kill never fired\n{story}"
     chaos = [e for e in evs if e["ev"] == "chaos" and e["lane"] == "storage"]
-    assert [e["peer"] for e in chaos] == [1]
-    assert chaos[0]["action"] == plan.storage_action(1, 1)["cls"]
+    assert [e["peer"] for e in chaos] == [1], story
+    assert chaos[0]["action"] == plan.storage_action(1, 1)["cls"], story
     serves = [e for e in evs if e["ev"] == "state.sync.serve"]
-    assert serves and serves[0]["to"] == 2 and serves[0]["tampered"]
+    assert serves and serves[0]["to"] == 2 and serves[0]["tampered"], story
     refusals = [e for e in evs if e["ev"] == "state.sync.refuse"]
-    assert [e["reason"] for e in refusals][:1] == ["digest_mismatch"]
+    assert [e["reason"] for e in refusals][:1] == ["digest_mismatch"], story
     verdicts = [e["ok"] for e in evs if e["ev"] == "state.sync.verify"]
-    assert verdicts[:2] == [False, True], verdicts
+    assert verdicts[:2] == [False, True], (verdicts, story)
     adopts = [e for e in evs if e["ev"] == "state.sync.adopt"]
-    assert [e["peer"] for e in adopts] == [2]
+    assert [e["peer"] for e in adopts] == [2], story
     col = collate(res["event_streams"])
-    assert col["ok"], col["violations"]
-    assert len({r["chain_head"] for r in res["reports"].values()}) == 1
+    assert col["ok"], (col["violations"], story)
+    assert len({r["chain_head"] for r in res["reports"].values()}) == 1, \
+        story

@@ -98,8 +98,8 @@ def test_runtime_caps_verdicts_equal_jax(name, over, runtime_):
             for f, a, v in jconfig.RUNTIME_CAPS}
     got = {f: (bool(a(_ns("port", runtime_, over))), v[runtime_])
            for f, a, v in tconfig.RUNTIME_CAPS}
-    # the port leaves out the rows of fields it does not have
-    assert set(want) - set(got) == {"pod-spanning mesh", "buffer donation"}
+    # the port leaves out the row of the field it does not have
+    assert set(want) - set(got) == {"buffer donation"}
     assert set(got) <= set(want)
     # no feature is deferred any more: every row's verdict is JAX's
     for f, (active, verdict) in got.items():
@@ -191,7 +191,7 @@ def test_deferred_dist_features_raise_not_ported_yet():
     assert ([(f, a, v) for f, a, v in tconfig.capability_table(llama["port"])]
             == [(f, a, v) for f, a, v in
                 jconfig.capability_table(llama["jax"])
-                if f not in ("pod-spanning mesh", "buffer donation")])
+                if f != "buffer donation"])
 
 
 def _dist_cfg(**kw):

@@ -361,8 +361,8 @@ def test_lora_configs_construct_or_refuse_and_rows_equal_jax(name, over,
         assert port == want
         return
     assert not isinstance(port, str), port
-    # the port leaves out the rows of fields it has not
-    assert set(want) - set(port) == {"pod-spanning mesh", "buffer donation"}
+    # the port leaves out the row of the field it has not
+    assert set(want) - set(port) == {"buffer donation"}
     for feature, row in port.items():
         assert row == want[feature], feature
 

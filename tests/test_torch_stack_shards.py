@@ -356,7 +356,9 @@ def test_an_unobserved_codec_round_moves_no_stack_row(steps):
     assert moved[1] == {
         "to_lead": others * (eng._wire_bytes_per_client + stats),
         "to_shards": others * (batch + masks),
-        "shard_to_shard": 2 * steps * shards * row}
+        "shard_to_shard": 2 * steps * shards * row,
+        # one process: nothing crosses a process boundary
+        "process_sent": 0, "process_received": 0}
     # round 0: the stack's broadcast, the global once per other shard
     assert moved[0]["to_shards"] - moved[1]["to_shards"] == (
         (shards - 1) * row)
@@ -383,7 +385,7 @@ def test_an_evaluated_round_lands_the_stack_once_and_stages_no_row():
         "to_lead": others * (row + 3 * 4),
         # the test batches only: each client's row is on its shard
         "to_shards": others * test_batch - (len(sh.bodies) - 1) * row,
-        "shard_to_shard": 0}
+        "shard_to_shard": 0, "process_sent": 0, "process_received": 0}
 
 
 # ------------------------------------------------------- lazy consensus
